@@ -1,0 +1,66 @@
+"""Global tunables (port of ``dlrover_tpu/common/config.py``).
+
+Only the ``Context`` knobs this slice reads are kept; each keeps its
+environment override ``DLROVER_TPU_<UPPER_NAME>``. The log level is read
+by ``common.log`` from ``DLROVER_TPU_LOG_LEVEL``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+
+
+class Context:
+    _instance = None
+    _lock = threading.Lock()
+
+    def __init__(self):
+        # guardrail: steps between non-finite loss/grad checks (0 = off)
+        self.check_finite_every_steps = 10
+        # train-step calls in flight before the oldest call's metrics
+        # are read on the host (0 = read right after each call)
+        self.train_window = 4
+        # optimizer steps per call; only 1 exists in this slice
+        self.steps_per_call = 1
+        # on a non-finite step: "halt" | "ignore" ("rollback" needs the
+        # checkpoint slice and is refused)
+        self.on_nonfinite = "halt"
+        # master switch for the metrics registry, events and spans
+        self.telemetry_enabled = True
+        # JSONL event sink ("" = in-memory ring only)
+        self.telemetry_events_file = ""
+        self._apply_env_overrides()
+
+    def _apply_env_overrides(self):
+        for name, val in vars(self).items():
+            if name.startswith("_"):
+                continue
+            env = os.environ.get("DLROVER_TPU_" + name.upper())
+            if env is None:
+                continue
+            try:
+                if isinstance(val, bool):
+                    setattr(self, name, env.lower() in ("1", "true", "yes"))
+                elif isinstance(val, int):
+                    setattr(self, name, int(env))
+                else:
+                    setattr(self, name, env)
+            except ValueError:
+                logging.getLogger("dlrover_tpu_torch").warning(
+                    "ignoring malformed env override DLROVER_TPU_%s=%r",
+                    name.upper(), env,
+                )
+
+    @classmethod
+    def singleton_instance(cls) -> "Context":
+        if cls._instance is None:
+            with cls._lock:
+                if cls._instance is None:
+                    cls._instance = cls()
+        return cls._instance
+
+
+def get_context() -> Context:
+    return Context.singleton_instance()

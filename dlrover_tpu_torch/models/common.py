@@ -1,0 +1,50 @@
+"""Shared building blocks for the model families (port of
+``dlrover_tpu/models/common.py``)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import torch
+
+
+def dense_init(generator: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype, scale=None) -> torch.Tensor:
+    """Fan-in-scaled normal initializer (scale defaults to
+    1/sqrt(fan_in), fan_in = second-to-last dim), drawn on the
+    generator's device."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                       device=generator.device) * scale
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """RMSNorm with f32 statistics; the normalised value is cast to x's
+    dtype BEFORE the multiply by the scale (cast to x's dtype too), the
+    reference's order, which bf16 parity depends on."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """Cast floating leaves of a nested dict to ``dtype`` (params stored
+    f32, computed bf16); other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def param_count(shapes: Dict) -> int:
+    """Total parameter count of a nested dict of shapes."""
+    if isinstance(shapes, dict):
+        return sum(param_count(v) for v in shapes.values())
+    return math.prod(shapes)

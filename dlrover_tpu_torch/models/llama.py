@@ -1,0 +1,330 @@
+"""Llama-family decoder, dense training path (port of
+``dlrover_tpu/models/llama.py``).
+
+Functional like the reference: ``init`` builds a nested dict of tensors
+with the reference's layout (stacked ``[L, ...]`` layer weights,
+``[in, out]`` kernels), so converting a reference parameter tree is a
+copy (``dlrover_tpu_torch.interop``) and the optimizer takes the tree's
+leaves. An ``nn.Module`` would re-key and split the stacked weights and
+buy nothing the trainer uses. ``apply`` runs the layers as a
+plain loop, each under the configured remat policy, with attention
+through the Hopper flash kernels (``use_flash``) or the reference
+attention.
+
+Numerics follow the reference: RMSNorm with f32 statistics, RoPE with
+f32 angles on rotated halves, GQA, SwiGLU, untied head; params stored in
+``param_dtype`` and cast to ``compute_dtype`` per layer; logits computed
+in the compute dtype and cast to f32.
+
+Not in this slice (they raise): MoE (ROADMAP A14), sequence parallelism
+(A13), packed ``segment_ids`` (A10), the low-precision FSDP wire (A14),
+pipelining (A15) and the serving functions (A16).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from dlrover_tpu_torch.models.common import (
+    cast_floats,
+    dense_init,
+    param_count as common_param_count,
+    rms_norm,
+)
+from dlrover_tpu_torch.models.losses import (
+    chunked_lm_head_loss,
+    masked_lm_loss,
+)
+from dlrover_tpu_torch.ops.attention_ref import mha_reference
+from dlrover_tpu_torch.ops.flash_attention import flash_attention_auto
+from dlrover_tpu_torch.ops.remat import apply_remat
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat_policy: str = "dots_saveable"
+    use_flash: bool = True  # the Hopper kernels; the reference otherwise
+    # kept for parity with the reference config; the CUDA kernels tile
+    # at fixed sizes (see ops.flash_attention)
+    flash_block_q: int = 512
+    flash_block_k: int = 1024
+    flash_block_q_bwd: int = 0
+    flash_block_k_bwd: int = 0
+    # later slices: a non-default value raises in apply
+    seq_axis: Optional[str] = None
+    num_experts: int = 0
+    fsdp_precision: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def llama2_7b(**overrides) -> LlamaConfig:
+    return replace(LlamaConfig(), **overrides)
+
+
+def llama3_8b(**overrides) -> LlamaConfig:
+    """Llama-3-8B shape: GQA 32/8, 128k vocab, theta 5e5."""
+    return replace(
+        LlamaConfig(vocab_size=128256, hidden_size=4096,
+                    intermediate_size=14336, num_layers=32,
+                    num_heads=32, num_kv_heads=8, max_seq_len=8192,
+                    rope_theta=500000.0),
+        **overrides,
+    )
+
+
+def llama_tiny(**overrides) -> LlamaConfig:
+    """Test-scale config."""
+    return replace(
+        LlamaConfig(
+            vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128,
+            compute_dtype=torch.float32, use_flash=False,
+        ),
+        **overrides,
+    )
+
+
+def _check_supported(c: LlamaConfig, segment_ids=None) -> None:
+    if c.num_experts > 0:
+        raise NotImplementedError("MoE layers are not ported yet "
+                                  "(ROADMAP A14)")
+    if c.seq_axis:
+        raise NotImplementedError("sequence parallelism (ring attention) "
+                                  "is not ported yet (ROADMAP A13)")
+    if segment_ids is not None:
+        raise NotImplementedError("packed documents (segment_ids) are not "
+                                  "ported yet (ROADMAP A10)")
+    if c.fsdp_precision not in ("", "bf16"):
+        raise NotImplementedError("the low-precision FSDP wire is not "
+                                  "ported yet (ROADMAP A14)")
+
+
+# -- init -------------------------------------------------------------------
+
+
+def param_shapes(config: LlamaConfig) -> Dict:
+    """The parameter tree's layout: nested dict of shapes."""
+    c = config
+    l, d, f = c.num_layers, c.hidden_size, c.intermediate_size
+    h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    return {
+        "embed_tokens": {"embedding": (c.vocab_size, d)},
+        "layers": {
+            "input_norm": {"scale": (l, d)},
+            "q_proj": {"kernel": (l, d, h * hd)},
+            "k_proj": {"kernel": (l, d, kv * hd)},
+            "v_proj": {"kernel": (l, d, kv * hd)},
+            "o_proj": {"kernel": (l, h * hd, d)},
+            "post_norm": {"scale": (l, d)},
+            "gate_proj": {"kernel": (l, d, f)},
+            "up_proj": {"kernel": (l, d, f)},
+            "down_proj": {"kernel": (l, f, d)},
+        },
+        "norm": {"scale": (d,)},
+        "lm_head": {"kernel": (d, c.vocab_size)},
+    }
+
+
+def init(generator: torch.Generator, config: LlamaConfig) -> Dict:
+    """Random parameters on the generator's device, reference layout and
+    initialisers (the numbers differ: torch and jax generators differ).
+    Norm scales start at one."""
+    _check_supported(config)
+    c, dt = config, config.param_dtype
+    shapes = param_shapes(c)
+    ones = {"input_norm", "post_norm"}
+    layers = {}
+    for name, leaf in shapes["layers"].items():
+        ((key, shape),) = leaf.items()
+        if name in ones:
+            layers[name] = {key: torch.ones(shape, dtype=dt,
+                                            device=generator.device)}
+        else:
+            scale = (1.0 / math.sqrt(c.intermediate_size)
+                     if name == "down_proj" else None)
+            layers[name] = {key: dense_init(generator, shape, dt, scale)}
+    embed = torch.randn(shapes["embed_tokens"]["embedding"],
+                        generator=generator, dtype=dt,
+                        device=generator.device) * 0.02
+    return {
+        "embed_tokens": {"embedding": embed},
+        "layers": layers,
+        "norm": {"scale": torch.ones(shapes["norm"]["scale"], dtype=dt,
+                                     device=generator.device)},
+        "lm_head": {"kernel": dense_init(
+            generator, shapes["lm_head"]["kernel"], dt)},
+    }
+
+
+def make_init_fn(config: LlamaConfig):
+    return functools.partial(init, config=config)
+
+
+# -- forward ----------------------------------------------------------------
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [B, S, H, Dh]; rotate the two halves, angles in f32."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    angles = positions[:, :, None].float() * freqs[None, None, :]
+    cos = torch.cos(angles)[:, :, None, :]  # [B, S, 1, half]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def _attention_block(x, layer, config: LlamaConfig, positions):
+    c = config
+    b, s, _ = x.shape
+    h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    q = (x @ layer["q_proj"]["kernel"]).view(b, s, h, hd)
+    k = (x @ layer["k_proj"]["kernel"]).view(b, s, kv, hd)
+    v = (x @ layer["v_proj"]["kernel"]).view(b, s, kv, hd)
+    q = _rope(q, positions, c.rope_theta)
+    k = _rope(k, positions, c.rope_theta)
+    # [B, H, S, Dh]; kv heads are not repeated, the kernels read the
+    # shared head of each query group
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if c.use_flash:
+        out = flash_attention_auto(
+            q, k, v, True, block_q=c.flash_block_q, block_k=c.flash_block_k,
+            block_q_bwd=c.flash_block_q_bwd,
+            block_k_bwd=c.flash_block_k_bwd,
+        )
+    else:
+        out = mha_reference(q, k, v, causal=True)
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    return out @ layer["o_proj"]["kernel"]
+
+
+def _ffn_block(x, layer):
+    gate = F.silu(x @ layer["gate_proj"]["kernel"])
+    up = x @ layer["up_proj"]["kernel"]
+    return (gate * up) @ layer["down_proj"]["kernel"]
+
+
+def _decoder_block(x, layer, config: LlamaConfig, positions):
+    """One layer: params may be stored f32; compute in the configured
+    dtype."""
+    c = config
+    layer = cast_floats(layer, c.compute_dtype)
+    attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
+    x = x + _attention_block(attn_in, layer, c, positions)
+    ffn_in = rms_norm(x, layer["post_norm"]["scale"], c.rms_eps)
+    return x + _ffn_block(ffn_in, layer)
+
+
+def apply_hidden(params: Dict, input_ids: torch.Tensor,
+                 config: LlamaConfig, rng: Any = None,
+                 segment_ids: Optional[torch.Tensor] = None):
+    """Returns (final hidden states [B, S, D] in the compute dtype,
+    moe_aux_loss scalar, zero for dense) — everything but the head.
+    ``rng`` is accepted for parity; the dense path draws nothing."""
+    del rng
+    c = config
+    _check_supported(c, segment_ids)
+    x = params["embed_tokens"]["embedding"][input_ids].to(c.compute_dtype)
+    b, s = input_ids.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    # one unbind per stacked leaf: its backward stacks the per-layer
+    # gradients once, instead of one full-size scatter per layer
+    per_layer = {name: {key: t.unbind(0) for key, t in leaf.items()}
+                 for name, leaf in params["layers"].items()}
+    block = apply_remat(
+        functools.partial(_decoder_block, config=c, positions=positions),
+        c.remat_policy,
+    )
+    for i in range(c.num_layers):
+        layer = {name: {key: ts[i] for key, ts in leaf.items()}
+                 for name, leaf in per_layer.items()}
+        x = block(x, layer)
+    x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
+    return x, torch.zeros((), device=x.device)
+
+
+def apply(params: Dict, input_ids: torch.Tensor, config: LlamaConfig,
+          rng: Any = None, segment_ids: Optional[torch.Tensor] = None):
+    """Returns (logits [B, S, V] in f32, moe_aux_loss scalar)."""
+    c = config
+    x, aux = apply_hidden(params, input_ids, config, rng, segment_ids)
+    logits = x @ params["lm_head"]["kernel"].to(c.compute_dtype)
+    return logits.float(), aux
+
+
+def _not_ported(name: str, item: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"llama.{name} is not ported yet "
+                                  f"(ROADMAP {item})")
+
+    fn.__name__ = name
+    return fn
+
+
+apply_pipelined = _not_ported("apply_pipelined", "A15")
+decode_step = _not_ported("decode_step", "A16")
+prefill_chunk = _not_ported("prefill_chunk", "A16")
+prefill_sequence = _not_ported("prefill_sequence", "A16")
+verify_step = _not_ported("verify_step", "A16")
+
+
+# -- training glue ----------------------------------------------------------
+
+
+def make_loss_fn(config: LlamaConfig, z_loss_weight: float = 0.0,
+                 head_chunk: int = 0):
+    """Causal-LM loss over batches {"input_ids", "labels"} (labels==-100
+    are masked). ``head_chunk`` > 0 fuses the head with the cross
+    entropy over sequence chunks so the f32 logits never exist whole."""
+
+    def loss_fn(params, batch, rng):
+        segment_ids = batch.get("segment_ids")
+        if head_chunk > 0:
+            hidden, _ = apply_hidden(params, batch["input_ids"], config,
+                                     rng, segment_ids=segment_ids)
+            loss = chunked_lm_head_loss(
+                hidden, params["lm_head"]["kernel"], batch["labels"],
+                chunk_size=head_chunk, z_loss_weight=z_loss_weight,
+            )
+        else:
+            logits, _ = apply(params, batch["input_ids"], config, rng,
+                              segment_ids=segment_ids)
+            loss = masked_lm_loss(logits, batch["labels"], z_loss_weight)
+        return loss, {}
+
+    return loss_fn
+
+
+def param_count(config: LlamaConfig) -> int:
+    return common_param_count(param_shapes(config))
+
+
+def flops_per_token(config: LlamaConfig) -> float:
+    """6N + attention flops approximation for MFU accounting."""
+    n = param_count(config)
+    attn = 12 * config.num_layers * config.hidden_size * config.max_seq_len
+    return 6.0 * n + attn

@@ -1,0 +1,349 @@
+"""Flash attention for Hopper: three hand-written CUDA kernels behind a
+``torch.autograd.Function``.
+
+Port of ``dlrover_tpu/ops/flash_attention.py`` (causal and non-causal
+GQA modes). The kernels, in ``dlrover_tpu_torch/csrc``:
+
+  flash_fwd      (B1) O and the per-row f32 logsumexp
+  flash_bwd_dkv  (B2) dK, dV summed over the GQA group, k tiles outer
+  flash_bwd_dq   (B3) dQ, q tiles outer
+
+Each has a wrapper here that launches it on a CUDA tensor (or raises:
+there is no fallback), a plain PyTorch version of the same function
+that the wrapper uses for a tensor on the CPU, and a launch counter,
+``<wrapper>.launches``, raised by one per kernel launch.
+
+``flash_attention_lse`` is differentiable in both outputs: the lse
+cotangent folds into the backward's ``delta = rowsum(dO * O) - dlse``,
+computed here in plain torch as the reference computes it outside its
+kernels.
+
+Layout follows the reference: q ``[B, H, S, D]``, k/v ``[B, H_kv, S, D]``,
+query head ``h`` reading KV head ``h // (H // H_kv)``.
+
+The TPU tiling rules (``_fit_block``, ``_check_mosaic_lane_block``) do
+not apply: the kernels mask ragged tails. Their tiles are fixed, 64x64
+for bf16 and 32x32 for f32; the ``block_*`` arguments are kept for API
+parity and do not change the result.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+# where each kernel lives and which TPU kernel it replaces
+KERNELS: Dict[str, Dict[str, str]] = {
+    "flash_fwd": {
+        "source": "dlrover_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:64",
+    },
+    "flash_bwd_dkv": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dkv.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:561",
+    },
+    "flash_bwd_dq": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dq.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:638",
+    },
+}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream
+_ARGTYPES = {
+    "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _group_size(q: torch.Tensor, k: torch.Tensor) -> int:
+    heads, kv_heads = q.shape[1], k.shape[1]
+    if heads % kv_heads:
+        raise ValueError(
+            f"num_heads {heads} not divisible by num_kv_heads {kv_heads}"
+        )
+    return heads // kv_heads
+
+
+# -- plain versions (the CPU path, and what the kernels are held to) --------
+
+
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """f32 scaled logits [B, H, Sq, Sk], masked with NEG_INF above the
+    diagonal when causal; GQA by repeating KV heads."""
+    k = k.repeat_interleave(_group_size(q, k), dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale: float):
+    """The forward kernel's function as one tile: (out, lse)."""
+    s = _scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    v_rep = v.repeat_interleave(_group_size(q, k), dim=1)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                       v_rep.float())
+    out = (acc / l_safe).to(q.dtype)
+    lse = (m + torch.log(l_safe)).squeeze(-1)
+    return out, lse
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale):
+    """Recomputed probabilities p = exp(s - lse) and
+    dS = p * (dO V^T - delta) * scale, both f32 [B, H, Sq, Sk]."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    v_rep = v.repeat_interleave(_group_size(q, k), dim=1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v_rep.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
+                        scale: float):
+    """The dKV kernel's function: (dk, dv), summed over each KV head's
+    group of query heads."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      dout.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    b, kv_heads, s_k, d = k.shape
+
+    def group_sum(t):
+        return t.view(b, kv_heads, -1, s_k, d).sum(dim=2)
+
+    return group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
+                       scale: float):
+    """The dQ kernel's function: dq."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    k_rep = k.repeat_interleave(_group_size(q, k), dim=1)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
+                      k_rep.float())
+    return dq.to(q.dtype)
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain path); False
+    when every one lies on one CUDA device (the kernel). Anything else
+    raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"flash attention operands on several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"flash attention has no kernel for {device}")
+    return False
+
+
+def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
+                  rows=()) -> None:
+    """Shapes the kernels index raw pointers by (and the plain versions
+    broadcast over): checked on every path."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: expected q [B,H,Sq,D] and k, v "
+                         f"[B,H_kv,Sk,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s_q, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch or head_dim")
+    _group_size(q, k)
+    if causal and k.shape[2] != s_q:
+        raise ValueError(f"{name}: causal attention requires s_q == s_k "
+                         f"(got {s_q} vs {k.shape[2]}); use causal=False "
+                         f"for cross attention")
+    if dout is not None and dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} is not q's "
+                         f"shape {tuple(q.shape)}")
+    for t in rows:
+        if t.shape != (b, h, s_q) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: lse/delta must be float32 "
+                             f"[{b}, {h}, {s_q}]")
+
+
+def _kernel_suffix(name: str, q, k, v, dout=None, rows=()) -> str:
+    """What the kernel itself takes; returns the dtype suffix of its C
+    entry point."""
+    d = q.shape[-1]
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        f"(bfloat16 or float32)")
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of 16 "
+                         f"in [16, 128]")
+    inputs = [t for t in (q, k, v, dout) if t is not None]
+    for t in inputs:
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
+    for t in (*inputs, *rows):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and "
+                             f"16-byte aligned")
+    return _SUFFIX[q.dtype]
+
+
+def _launch(name: str, suffix: str, device, *args) -> None:
+    from dlrover_tpu_torch.ops import kernel_build
+
+    lib = kernel_build.library(name)
+    fn = getattr(lib, f"dlr_{name}_{suffix}")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        err = getattr(lib, f"dlr_{name}_error")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        code = fn(*args, stream)
+    if code != 0:
+        msg = getattr(lib, f"dlr_{name}_error")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def _shape_args(q, k, causal, scale):
+    b, h, s_q, d = q.shape
+    return (b, h, k.shape[1], s_q, k.shape[2], d, ctypes.c_float(scale),
+            int(causal))
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float):
+    """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32)."""
+    _check_shapes("flash_fwd", q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return flash_fwd_plain(q, k, v, causal, scale)
+    suffix = _kernel_suffix("flash_fwd", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", suffix, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            *_shape_args(q, k, causal, scale))
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """B2: (dk, dv) in k's and v's shape and dtype."""
+    _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta))
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale)
+    suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", suffix, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k, causal, scale))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """B3: dq in q's shape and dtype."""
+    _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta))
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale)
+    suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta))
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", suffix, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *_shape_args(q, k, causal, scale))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+WRAPPERS = {"flash_fwd": flash_fwd, "flash_bwd_dkv": flash_bwd_dkv,
+            "flash_bwd_dq": flash_bwd_dq}
+PLAIN = {"flash_fwd": flash_fwd_plain, "flash_bwd_dkv": flash_bwd_dkv_plain,
+         "flash_bwd_dq": flash_bwd_dq_plain}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+# -- autograd ----------------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        # the lse cotangent enters as ds = p * (dp - (delta - dlse))
+        delta = ((dout.float() * out.float()).sum(dim=-1)
+                 - dlse.float()).contiguous()
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
+                               ctx.scale)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,  # [B, H_kv, S, D] (H_kv divides H)
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    *,
+    block_q: int = 512,
+    block_k: int = 1024,
+    block_q_bwd: int = 0,
+    block_k_bwd: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention returning ``(out, lse)``, ``lse[b,h,s]`` the row
+    logsumexp of the scaled, masked scores in f32. Differentiable in
+    both outputs. ``block_*`` are accepted for parity with the
+    reference and ignored (see the module docstring)."""
+    del block_q, block_k, block_q_bwd, block_k_bwd
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal), float(scale))
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None, **blocks) -> torch.Tensor:
+    """Memory-efficient attention; differentiable (the backward
+    recomputes probabilities from the saved logsumexp)."""
+    return flash_attention_lse(q, k, v, causal, scale, **blocks)[0]
+
+
+def flash_attention_auto(q, k, v, causal: bool = True,
+                         scale: Optional[float] = None,
+                         **blocks) -> torch.Tensor:
+    """The model's flash call site. The reference routes through a
+    ``shard_map`` wrapper under a multi-device mesh; this slice runs on
+    one device, so it is a local call."""
+    return flash_attention(q, k, v, causal, scale, **blocks)

@@ -1,0 +1,128 @@
+"""How a flash kernel's bf16 result is held to its plain version, and
+outputs of deliberately broken kernels that the rule must reject.
+
+The kernels and their plain versions round the same f32 values to bf16
+at different points (the forward rounds P against its running max, the
+plain version against the row's final max), so they differ by about a
+bf16 rounding of each output element. A bound on the largest error
+relative to the largest value is too loose for attention: the first
+causal rows set the largest values, and late rows are tens of times
+smaller.
+So each row (one ``D``-vector of one head and position) is held on its
+own: its error norm within ``ROW_RTOL`` of its own norm, plus
+``ROW_FLOOR`` of the tensor's RMS row norm for rows near zero.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from dlrover_tpu_torch.ops import flash_attention as fa
+
+ROW_RTOL = 1e-2
+ROW_FLOOR = 1e-3
+
+
+def row_errors(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
+    """``worst_row``: the largest ratio of a row's error norm to its
+    limit (at most 1 passes); ``norm_ratio``: ||got - ref|| / ||ref||
+    over the whole tensor; ``max_abs_err``."""
+    g, r = got.float(), ref.float()
+    err = torch.linalg.vector_norm(g - r, dim=-1)
+    norm = torch.linalg.vector_norm(r, dim=-1)
+    limit = ROW_RTOL * norm + ROW_FLOOR * norm.pow(2).mean().sqrt()
+    return {
+        "worst_row": (err / limit).max().item(),
+        "norm_ratio": (torch.linalg.vector_norm(g - r)
+                       / torch.linalg.vector_norm(r)).item(),
+        "max_abs_err": (g - r).abs().max().item(),
+    }
+
+
+def rows_close(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    worst = row_errors(got, ref)["worst_row"]
+    return worst == worst and worst <= 1.0  # NaN fails
+
+
+def _fwd_dropping(q, k, v, scale, drop):
+    """The forward with the (q, k) pairs in ``drop`` left out."""
+    s = fa._scores(q, k, False, scale).masked_fill(drop, fa.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    v_rep = v.repeat_interleave(fa._group_size(q, k), dim=1)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                       v_rep.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _fwd_no_rescale(q, k, v, causal, scale, tile):
+    """The online-softmax forward over k tiles with the accumulator's
+    rescale by exp(m_old - m_new) left out."""
+    s = fa._scores(q, k, causal, scale)
+    v_rep = v.repeat_interleave(fa._group_size(q, k), dim=1).float()
+    m = torch.full(s.shape[:-1] + (1,), fa.NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    for j in range(0, s.shape[-1], tile):
+        s_j = s[..., j:j + tile]
+        m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
+        p = torch.exp(s_j - m_new)
+        l = l * torch.exp(m - m_new) + p.sum(dim=-1, keepdim=True)
+        acc = acc + p.to(v.dtype).float() @ v_rep[..., j:j + tile, :]
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def _bwd_zeroing(q, k, v, dout, lse, delta, causal, scale, zero):
+    """(dk, dv, dq) with p and dS set to 0 where ``zero`` is true."""
+    p, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    p, ds = p.masked_fill(zero, 0.0), ds.masked_fill(zero, 0.0)
+    group = fa._group_size(q, k)
+    b, kv_heads, s_k, d = k.shape
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      dout.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
+                      k.repeat_interleave(group, dim=1).float())
+
+    def group_sum(t):
+        return t.view(b, kv_heads, group, s_k, d).sum(dim=2).to(k.dtype)
+
+    return group_sum(dk), group_sum(dv), dq.to(q.dtype)
+
+
+def planted_faults(q, k, v, dout, lse, delta, scale: float,
+                   tile: int = 64) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) for causal inputs: what a
+    kernel with that fault would return. Each must fail ``rows_close``
+    against the right answer."""
+    s_q, s_k = q.shape[2], k.shape[2]
+    rows = torch.arange(s_q, device=q.device)[:, None]
+    cols = torch.arange(s_k, device=q.device)[None, :]
+    above = cols > rows
+    # late rows are small beside the first ones: a fault there hides
+    # under a bound relative to the largest value
+    last_q_tile = rows >= s_q - tile
+    first_k_late = last_q_tile & (cols < tile)
+    faults = [
+        ("out", "k tile 0 skipped by the last q tile",
+         _fwd_dropping(q, k, v, scale, above | first_k_late)),
+        ("out", "causal mask one key too wide",
+         _fwd_dropping(q, k, v, scale, cols > rows + 1)),
+        ("out", "running-max rescale of the accumulator skipped",
+         _fwd_no_rescale(q, k, v, True, scale, tile)),
+    ]
+    bwd = (q, k, v, dout, lse, delta, True, scale)
+    dk, dv, _ = _bwd_zeroing(*bwd, last_q_tile)
+    faults += [("dk", "last q tile left out of dK", dk),
+               ("dv", "last q tile left out of dV", dv)]
+    group = fa._group_size(q, k)
+    last_head = (torch.arange(q.shape[1], device=q.device) % group
+                 == group - 1)[:, None, None]
+    dk, dv, _ = _bwd_zeroing(*bwd, last_head)
+    faults += [("dk", "one query head of each GQA group left out", dk),
+               ("dv", "one query head of each GQA group left out", dv)]
+    faults.append(("dq", "k tile 0 skipped by the last q tile",
+                   _bwd_zeroing(*bwd, first_k_late)[2]))
+    return faults

@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels of ``dlrover_tpu_torch/csrc``.
+
+Each ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+its own shared library with a plain C interface, loaded with ``ctypes``.
+Building happens at first use, from the sources in the checkout, into
+``csrc/_build/`` (git-ignored). A library's file name carries a digest
+of its sources and flags, so an edited kernel is rebuilt and a stale
+one is never loaded. ``build()`` starts one ``nvcc`` per missing source,
+all at once, and waits for them together.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+}
+HEADERS = ("flash_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, the toolkit's default
+    place, or the first on ``PATH``. Raises when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.access(path, os.X_OK):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the flash-attention kernels "
+            "are built from dlrover_tpu_torch/csrc at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (SOURCES[name],) + HEADERS:
+        digest.update((CSRC / fname).read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named library that is not built yet, one ``nvcc``
+    per source, all started together. Returns the seconds each build
+    took (0.0 for one found on disk). Raises with the compiler's output
+    when any build fails. ``nvcc``'s ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept in ``<library>.log``."""
+    names = list(names) if names is not None else list(SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    times = {n: 0.0 for n in names}
+    with open(BUILD_DIR / ".lock", "w") as lock_file:
+        # one build at a time across processes; the others find the
+        # finished libraries when they get the lock
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        todo = [n for n in names if not library_path(n).exists()]
+        if not todo:
+            return times
+        nvcc = nvcc_path()
+        procs = {}
+        t0 = time.monotonic()
+        for n in todo:
+            out = library_path(n)
+            tmp = out.with_suffix(".so.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+            procs[n] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        failures = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            times[n] = time.monotonic() - t0
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failures.append(f"--- {SOURCES[n]} (nvcc exit "
+                                f"{proc.returncode}) ---\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first when missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,178 @@
+"""``accelerate`` — from (init, loss, optimizer, strategy) to a train step
+on one device (port of ``dlrover_tpu/parallel/accelerate.py``).
+
+The reference jits a pure step over sharded state. PyTorch runs
+eagerly, so the step here is a Python function over a ``TrainState``
+whose parameters and optimizer moments are updated IN PLACE (the step
+returns the same state object): that keeps one copy of the model and
+its moments in device memory instead of two. Gradient accumulation
+(the fixed-global-batch elasticity lever) sums microbatch gradients,
+then divides by their count, as the reference's scan does.
+
+One device in this slice: the strategy's mesh must resolve to a single
+device. ``steps_per_call`` > 1 and a low-precision gradient wire come
+with later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.models.common import tree_leaves
+from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.parallel.strategy import Strategy
+
+logger = get_logger("parallel.accelerate")
+
+# loss_fn contract: (params, batch, rng) -> (scalar_loss, aux_dict)
+LossFn = Callable[[Any, Any, Any], Tuple[torch.Tensor, dict]]
+# optimizer contract: (list of parameter tensors) -> torch.optim.Optimizer,
+# e.g. functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.1)
+OptimizerFn = Callable[[list], torch.optim.Optimizer]
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: Dict  # nested dict of leaf tensors with requires_grad
+    opt_state: torch.optim.Optimizer  # holds the moments of ``params``
+
+
+@dataclass
+class AccelerateResult:
+    train_step: Callable  # (state, batch, rng) -> (state, metrics)
+    eval_step: Callable  # (state, batch) -> metrics
+    init_fn: Callable  # (seed) -> TrainState
+    device: torch.device
+    strategy: Strategy
+
+    def shard_batch(self, batch: Dict) -> Dict:
+        """Host batch (numpy arrays or tensors) -> tensors on the
+        device; on one device the global batch is the whole batch."""
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+
+def _rows(batch: Dict) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def accelerate(
+    init_fn: Callable[[torch.Generator], Dict],
+    loss_fn: LossFn,
+    optimizer: OptimizerFn,
+    example_batch: Dict,
+    strategy: Optional[Strategy] = None,
+    rng: int = 0,
+    device: DeviceLike = None,
+    steps_per_call: int = 1,
+    grad_precision: Optional[str] = None,
+) -> AccelerateResult:
+    """Build the training step.
+
+    Args:
+      init_fn: generator -> params tree (drawn on the generator's device,
+        or anywhere: leaves are moved to ``device``).
+      loss_fn: (params, batch, rng) -> (loss, aux dict).
+      optimizer: parameter list -> ``torch.optim.Optimizer``.
+      example_batch: host batch with the GLOBAL batch dimension.
+      strategy: remat/accum decisions; its mesh must fit one device.
+      rng: seed of the init generator.
+      device: default ``cuda`` (raises without one); tests pass "cpu".
+    """
+    device = resolve_device(device)
+    if max(1, int(steps_per_call)) > 1:
+        raise NotImplementedError("steps_per_call > 1 (the fused multi-step "
+                                  "call) is not ported yet")
+    if (grad_precision or "bf16") != "bf16":
+        raise NotImplementedError(
+            f"grad_precision {grad_precision!r}: only the exact gradient "
+            "path (bf16) is ported"
+        )
+    strategy = strategy or Strategy()
+    strategy.mesh.resolve(1)  # raises for a multi-device mesh
+    batch_rows = _rows(example_batch)
+    if strategy.global_batch_size and strategy.global_batch_size != batch_rows:
+        raise ValueError(
+            f"strategy.global_batch_size={strategy.global_batch_size} but "
+            f"the example batch has {batch_rows} rows"
+        )
+    accum = max(1, strategy.grad_accum_steps)
+    if batch_rows % accum:
+        raise ValueError(
+            f"grad_accum_steps={accum} does not divide the global batch of "
+            f"{batch_rows} rows"
+        )
+    strategy = dataclasses.replace(strategy, global_batch_size=batch_rows)
+    loss_fn = apply_remat(loss_fn, strategy.remat_policy or "none")
+
+    def make_state(seed: int = rng) -> TrainState:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+        def leaf(t):
+            t = t.detach().to(device)
+            return t.requires_grad_(t.is_floating_point())
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            return leaf(node)
+
+        params = walk(init_fn(gen))
+        return TrainState(step=0, params=params,
+                          opt_state=optimizer(tree_leaves(params)))
+
+    def train_step(state: TrainState, batch: Dict, step_rng=None):
+        leaves = [p for p in tree_leaves(state.params) if p.requires_grad]
+        for p in leaves:
+            p.grad = None
+        if accum == 1:
+            loss, aux = loss_fn(state.params, batch, step_rng)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            mbs = [{k: v.chunk(accum, dim=0)[i] for k, v in batch.items()}
+                   for i in range(accum)]
+            loss, auxes = torch.zeros((), device=device), []
+            for mb in mbs:
+                mb_loss, mb_aux = loss_fn(state.params, mb, step_rng)
+                mb_loss.backward()
+                loss = loss + mb_loss.detach()
+                auxes.append(mb_aux)
+            for p in leaves:
+                p.grad.div_(accum)
+            loss = loss / accum
+            aux = {k: torch.stack([torch.as_tensor(a[k]) for a in auxes]
+                                  ).mean(dim=0) for k in auxes[0]}
+        grads = [p.grad for p in leaves]
+        grad_norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        metrics = {
+            **aux,
+            "loss": loss,
+            "grad_norm": grad_norm,
+            # any non-finite gradient reaches the global norm
+            "finite": torch.isfinite(loss) & torch.isfinite(grad_norm),
+            "step": state.step + 1,
+        }
+        state.opt_state.step()
+        state.step += 1
+        return state, metrics
+
+    def eval_step(state: TrainState, batch: Dict):
+        with torch.no_grad():
+            loss, aux = loss_fn(state.params, batch, None)
+        return {"loss": loss, **aux}
+
+    logger.info("accelerate: device=%s accum=%d remat=%s", device, accum,
+                strategy.remat_policy or "none")
+    return AccelerateResult(
+        train_step=train_step, eval_step=eval_step, init_fn=make_state,
+        device=device, strategy=strategy,
+    )

@@ -1,0 +1,11 @@
+"""Observability for the port: metrics registry, event timeline and
+host spans (the part of ``dlrover_tpu.telemetry`` the trainer calls)."""
+
+from dlrover_tpu_torch.telemetry import names
+from dlrover_tpu_torch.telemetry.events import emit_event, recent_events
+from dlrover_tpu_torch.telemetry.metrics import get_registry
+from dlrover_tpu_torch.telemetry.names import EventKind, SpanName
+from dlrover_tpu_torch.telemetry.tracing import span
+
+__all__ = ["names", "EventKind", "SpanName", "emit_event", "recent_events",
+           "get_registry", "span"]

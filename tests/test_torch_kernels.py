@@ -1,0 +1,169 @@
+"""The flash-attention kernels against their plain versions.
+
+This file imports no JAX, so it also runs on a machine with a GPU and
+no JAX installed (``tests/conftest.py`` imports JAX; skip it there):
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+Tests marked ``cuda`` build the kernels with ``nvcc`` and skip without a
+card. The others check, on the CPU, what surrounds the kernels.
+"""
+
+import math
+import os
+
+import pytest
+import torch
+
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import flash_check, kernel_build
+from dlrover_tpu_torch.ops.attention_ref import mha_reference
+
+
+
+@pytest.fixture(autouse=True)
+def _one_cpu_thread():
+    """These shapes are tiny, and the suite's other workers run
+    timing-sensitive tests beside them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+def test_plain_versions_match_autograd_through_the_reference():
+    """The plain backward (dkv, dq with a dlse cotangent) against torch
+    autograd through ``mha_reference`` plus a logsumexp, on the CPU.
+    Both compute in f32 (the plain versions always do, as the kernels
+    accumulate), so the tolerance is a summation-order one: 1e-5."""
+    gen = torch.Generator().manual_seed(0)
+    b, h, hkv, s, d = 1, 4, 2, 24, 16
+    q, k, v = (torch.randn(shape, generator=gen, requires_grad=True)
+               for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    dout = torch.randn(b, h, s, d, generator=gen)
+    dlse = torch.randn(b, h, s, generator=gen)
+    scale = 1 / math.sqrt(d)
+    for causal in (True, False):
+        out = mha_reference(q, k, v, causal=causal)
+        logits = fa._scores(q, k, causal, scale)
+        lse_ref = torch.logsumexp(logits, dim=-1)
+        ref = torch.autograd.grad((out, lse_ref), (q, k, v), (dout, dlse))
+        out_p, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+        delta = (dout * out_p).sum(-1) - dlse
+        dk, dv = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                        scale)
+        dq = fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal,
+                                   scale)
+        for got, want in zip((dq, dk, dv), ref):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _bf16_case(seed=0, b=1, h=4, hkv=2, s=256, d=64):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                   for shape in ((b, h, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, h, s, d)))
+    return q, k, v, do, d ** -0.5
+
+
+def test_row_rule_passes_rounding_level_differences():
+    """``mha_reference`` normalises P before rounding it to bf16, the
+    plain forward after: a bf16 rounding apart, as kernel and plain
+    version are. The row rule (1% of each row's norm) lets that pass."""
+    q, k, v, _, scale = _bf16_case()
+    out, _ = fa.flash_fwd_plain(q, k, v, True, scale)
+    ref = mha_reference(q, k, v, causal=True, scale=scale)
+    errs = flash_check.row_errors(out, ref)
+    assert flash_check.rows_close(out, ref), errs
+    assert errs["worst_row"] < 0.5, errs
+
+
+def test_row_rule_rejects_planted_faults():
+    """Each planted kernel fault (a skipped k tile, a causal mask one
+    key too wide, a skipped rescale, a q tile or a GQA head left out of
+    the backward's sums) fails the rule that the kernels pass."""
+    q, k, v, do, scale = _bf16_case(seed=1)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    dk, dv = fa.flash_bwd_dkv_plain(*args)
+    right = {"out": out, "dk": dk, "dv": dv,
+             "dq": fa.flash_bwd_dq_plain(*args)}
+    faults = flash_check.planted_faults(q, k, v, do, lse, delta, scale)
+    assert len(faults) == 8
+    for name, fault, got in faults:
+        assert got.shape == right[name].shape, fault
+        assert not flash_check.rows_close(got, right[name]), (
+            name, fault, flash_check.row_errors(got, right[name]))
+
+
+def test_missing_compiler_raises(monkeypatch):
+    if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        pytest.skip("the toolkit is installed at its default place")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel_build.nvcc_path()
+
+
+def test_library_name_tracks_sources_and_flags(monkeypatch):
+    """A changed kernel or flag set gets a new library file: a stale
+    build is never loaded."""
+    first = kernel_build.library_path("flash_fwd")
+    assert first == kernel_build.library_path("flash_fwd")
+    assert first.parent == kernel_build.BUILD_DIR
+    monkeypatch.setattr(kernel_build, "NVCC_FLAGS",
+                        kernel_build.NVCC_FLAGS + ("-DX",))
+    assert kernel_build.library_path("flash_fwd") != first
+    assert kernel_build.library_path("flash_bwd_dq") != first
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain runs on the card)")
+    # f32 results are compared: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,tol", [
+    (torch.bfloat16, 1, 8, 2, 512, 128, True, 1e-3),
+    (torch.bfloat16, 1, 4, 1, 1000, 128, True, 1e-3),
+    (torch.float32, 2, 4, 2, 1000, 64, True, 1e-4),
+    (torch.float32, 2, 4, 2, 1000, 64, False, 1e-4),
+], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged"])
+def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
+                                     causal, tol):
+    """Each kernel against its plain version on the same card inputs:
+    f32 to 1e-4 absolute; bf16 outputs row by row (``flash_check``:
+    each row's error within 1% of its norm, plus 0.1% of the tensor's
+    RMS row norm); lse, always f32, to 1e-3 absolute."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * out_ref.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    pairs = [
+        (fa.flash_fwd(q, k, v, causal, scale), (out_ref, lse_ref)),
+        (fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*args)),
+        ((fa.flash_bwd_dq(*args),), (fa.flash_bwd_dq_plain(*args),)),
+    ]
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1,
+                                  "flash_bwd_dq": 1}
+    for got, ref in pairs:
+        for g, r in zip(got, ref):
+            if g.dtype == torch.bfloat16:
+                assert flash_check.rows_close(g, r), \
+                    flash_check.row_errors(g, r)
+            else:
+                assert (g.float() - r.float()).abs().max().item() <= tol

@@ -1,0 +1,371 @@
+"""Training with the port against the JAX package: one AdamW step against
+optax, a 5-step loss trajectory of TrainExecutor + ElasticTrainer against
+the JAX example's path, and the control plane the slice copies (mesh
+plan, strategy, configuration). Everything runs on the CPU in f32.
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from dlrover_tpu.models import llama as jax_llama
+from dlrover_tpu.parallel import mesh as jax_mesh
+from dlrover_tpu.parallel.strategy import Strategy as JaxStrategy
+from dlrover_tpu.trainer.conf import build_configuration as jax_conf
+from dlrover_tpu.trainer.elastic import ElasticTrainer as JaxTrainer
+from dlrover_tpu.trainer.executor import TrainExecutor as JaxExecutor
+from dlrover_tpu.trainer.executor import TrainHook as JaxHook
+from dlrover_tpu_torch import interop
+from dlrover_tpu_torch.examples import train_llama as example
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.parallel import mesh
+from dlrover_tpu_torch.parallel.accelerate import accelerate
+from dlrover_tpu_torch.parallel.strategy import DtypePolicy, Strategy
+from dlrover_tpu_torch.trainer.conf import Configuration, build_configuration
+from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+from dlrover_tpu_torch.trainer.executor import (
+    NonFiniteLossError,
+    TrainExecutor,
+    TrainHook,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _torch_settings():
+    """f32 results are compared: no TF32 in matmuls or convolutions. One
+    CPU thread: these shapes are tiny, and the suite's other workers
+    run timing-sensitive tests beside them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.get_num_threads())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved[:2]
+    torch.set_num_threads(saved[2])
+
+
+def _jax_example():
+    """The JAX package's example module (examples/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_llama", os.path.join(ROOT, "examples", "train_llama.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Losses:
+    def after_step(self, step, metrics):
+        self.losses.append(float(metrics["loss"]))
+
+
+class JaxRecorder(_Losses, JaxHook):
+    def __init__(self):
+        self.losses = []
+
+
+class Recorder(_Losses, TrainHook):
+    def __init__(self):
+        self.losses = []
+
+
+class TestAdamW:
+    def test_steps_match_optax(self):
+        """torch AdamW with the example's settings against
+        optax.adamw(3e-4, weight_decay=0.1), three steps so bias
+        correction moves: f32, 1e-7 absolute / 1e-6 relative."""
+        rs = np.random.RandomState(0)
+        p0 = [rs.randn(4, 5).astype(np.float32),
+              rs.randn(7).astype(np.float32)]
+        grads = [[rs.randn(*p.shape).astype(np.float32) for p in p0]
+                 for _ in range(3)]
+
+        tx = optax.adamw(3e-4, weight_decay=0.1)
+        jp = [jnp.asarray(p) for p in p0]
+        state = tx.init(jp)
+        for g in grads:
+            updates, state = tx.update([jnp.asarray(x) for x in g], state,
+                                       jp)
+            jp = optax.apply_updates(jp, updates)
+
+        tp = [torch.tensor(p, requires_grad=True) for p in p0]
+        opt = example.adamw()(tp)
+        for g in grads:
+            for p, x in zip(tp, g):
+                p.grad = torch.from_numpy(x)
+            opt.step()
+        for p, ref in zip(tp, jp):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref),
+                                       atol=1e-7, rtol=1e-6)
+
+
+class TestTrajectory:
+    def test_five_steps_match_the_jax_example(self):
+        """Same init (the JAX tree through interop), same token stream
+        (the examples' RandomState), same AdamW: the per-step losses of
+        both executors agree to 1e-4 relative (f32; Adam's normalised
+        update can lift last-bit gradient differences near zero)."""
+        batch, seq, steps = 4, 32, 5
+        jcfg = jax_llama.llama_tiny()
+        jbatches = _jax_example().synthetic_batches(jcfg.vocab_size, batch,
+                                                    seq)
+        jrec = JaxRecorder()
+        jtrainer = JaxTrainer(
+            jax_llama.make_init_fn(jcfg), jax_llama.make_loss_fn(jcfg),
+            optax.adamw(3e-4, weight_decay=0.1), next(jbatches()),
+            strategy=JaxStrategy(mesh=jax_mesh.single_device_plan(),
+                                 rule_set="llama", remat_policy=""),
+            devices=[jax.devices()[0]],
+        )
+        JaxExecutor(jtrainer, train_iter_fn=jbatches, hooks=[jrec],
+                    conf=jax_conf({"train_steps": steps,
+                                   "log_every_steps": 100})
+                    ).train_and_evaluate()
+
+        tree = jax.device_get(jax_llama.init(jax.random.PRNGKey(0), jcfg))
+        cfg, _ = example.preset_config("tiny")
+        batches = example.synthetic_batches(cfg.vocab_size, batch, seq)
+        rec = Recorder()
+        trainer = ElasticTrainer(
+            lambda gen: interop.params_from_numpy(tree, device="cpu"),
+            llama.make_loss_fn(cfg), example.adamw(), next(batches()),
+            strategy=Strategy(mesh=mesh.single_device_plan(),
+                              rule_set="llama", remat_policy=""),
+            device="cpu",
+        )
+        out = TrainExecutor(trainer, train_iter_fn=batches, hooks=[rec],
+                            conf=build_configuration({
+                                "train_steps": steps,
+                                "log_every_steps": 100})
+                            ).train_and_evaluate()
+        assert out["step"] == steps
+        assert len(rec.losses) == len(jrec.losses) == steps
+        np.testing.assert_allclose(rec.losses, jrec.losses, rtol=1e-4)
+
+    def test_grad_accumulation_keeps_the_step(self):
+        """Two microbatches sum then average their gradients: the same
+        step as one full batch up to f32 summation order (1e-6)."""
+        cfg = llama.llama_tiny()
+        ids = np.random.RandomState(0).randint(0, 256, size=(4, 17))
+        batch = {"input_ids": torch.from_numpy(ids[:, :-1]),
+                 "labels": torch.from_numpy(ids[:, 1:])}
+        results = []
+        for accum in (1, 2):
+            res = accelerate(
+                llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                example.adamw(), batch,
+                strategy=Strategy(grad_accum_steps=accum), device="cpu")
+            state = res.init_fn(0)
+            state, metrics = res.train_step(state, batch)
+            results.append((metrics, state))
+        (m1, s1), (m2, s2) = results
+        np.testing.assert_allclose(m1["loss"].item(), m2["loss"].item(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(m1["grad_norm"].item(),
+                                   m2["grad_norm"].item(), rtol=1e-5)
+        assert s1.step == s2.step == 1
+        emb1 = s1.params["embed_tokens"]["embedding"]
+        emb2 = s2.params["embed_tokens"]["embedding"]
+        torch.testing.assert_close(emb1, emb2, atol=1e-6, rtol=1e-6)
+
+    def test_eval_step(self):
+        cfg = llama.llama_tiny()
+        ids = np.random.RandomState(0).randint(0, 256, size=(2, 9))
+        batch = {"input_ids": torch.from_numpy(ids[:, :-1]),
+                 "labels": torch.from_numpy(ids[:, 1:])}
+        res = accelerate(llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                         example.adamw(), batch, device="cpu")
+        metrics = res.eval_step(res.init_fn(0), batch)
+        assert np.isfinite(metrics["loss"].item())
+        assert not metrics["loss"].requires_grad
+
+
+def _trainer(loss_fn, cfg=None):
+    cfg = cfg or llama.llama_tiny()
+    batches = example.synthetic_batches(cfg.vocab_size, 2, 8)
+    return ElasticTrainer(llama.make_init_fn(cfg), loss_fn, example.adamw(),
+                          next(batches()), device="cpu"), batches
+
+
+class TestExecutor:
+    def _nan_loss(self):
+        base = llama.make_loss_fn(llama.llama_tiny())
+
+        def loss_fn(params, batch, rng):
+            loss, aux = base(params, batch, rng)
+            return loss * float("nan"), aux
+
+        return loss_fn
+
+    @pytest.mark.parametrize("policy", ["halt", "rollback"])
+    def test_nonfinite_step_stops_the_run(self, policy):
+        """"halt" stops at the first non-finite step; "rollback" needs a
+        checkpoint, which this slice lacks, so the executor refuses it
+        before any step runs."""
+        trainer, batches = _trainer(self._nan_loss())
+        conf = Configuration({"train_steps": 3,
+                              "check_finite_every_steps": 1,
+                              "on_nonfinite": policy})
+        if policy == "rollback":
+            with pytest.raises(NotImplementedError, match="A8"):
+                TrainExecutor(trainer, batches, conf=conf)
+            return
+        executor = TrainExecutor(trainer, batches, conf=conf)
+        with pytest.raises(NonFiniteLossError):
+            executor.train_and_evaluate()
+
+    def test_ignore_policy_runs_on(self):
+        trainer, batches = _trainer(self._nan_loss())
+        out = TrainExecutor(trainer, batches, conf=Configuration({
+            "train_steps": 2, "check_finite_every_steps": 1,
+            "on_nonfinite": "ignore"})).train_and_evaluate()
+        assert out["step"] == 2
+
+    def test_eval_and_window(self):
+        trainer, batches = _trainer(
+            llama.make_loss_fn(llama.llama_tiny()))
+        evals = []
+
+        def eval_fn(state):
+            evals.append(state.step)
+            return trainer.accelerated.eval_step(
+                state, trainer.accelerated.shard_batch(next(batches())))
+
+        rec = Recorder()
+        out = TrainExecutor(trainer, batches, eval_fn=eval_fn, hooks=[rec],
+                            conf=Configuration({
+                                "train_steps": 4, "eval_every_steps": 2,
+                                "train_window": 2})).train_and_evaluate()
+        assert out["step"] == 4 and np.isfinite(out["loss"])
+        assert evals == [2, 4]
+        assert len(rec.losses) == 4
+
+    def test_emits_events_spans_and_counters(self):
+        from dlrover_tpu_torch.telemetry import get_registry, names, tracing
+        from dlrover_tpu_torch.telemetry.events import recent_events
+
+        steps_before = get_registry().get(names.TRAIN_STEPS)
+        steps_before = steps_before.value if steps_before else 0.0
+        trainer, batches = _trainer(llama.make_loss_fn(llama.llama_tiny()))
+        TrainExecutor(trainer, batches, conf=Configuration(
+            {"train_steps": 3})).train_and_evaluate()
+        kinds = [e["kind"] for e in recent_events()]
+        start = len(kinds) - 1 - kinds[::-1].index("train_start")
+        assert kinds[start:] == ["train_start", "compile_first_step",
+                                 "train_end"]
+        assert get_registry().get(names.TRAIN_STEPS).value == \
+            steps_before + 3
+        assert get_registry().get(names.STEP_TIME).count >= 3
+        dispatched = [s for s in tracing.snapshot()
+                      if s[0] == "step_dispatch"]
+        assert len(dispatched) >= 3
+
+    def test_checkpointing_waits_for_its_slice(self):
+        with pytest.raises(NotImplementedError, match="checkpoint"):
+            ElasticTrainer(None, None, None, {}, ckpt_dir="/nonexistent",
+                           device="cpu")
+
+
+class TestDevice:
+    def test_entry_points_default_to_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default is usable")
+        cfg = llama.llama_tiny()
+        batch = next(example.synthetic_batches(cfg.vocab_size, 2, 8)())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ElasticTrainer(llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                           example.adamw(), batch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            accelerate(llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                       example.adamw(), batch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            interop.params_from_numpy({"w": np.zeros(2, np.float32)})
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main(["--steps", "1"])
+
+    def test_multi_device_mesh_raises(self):
+        cfg = llama.llama_tiny()
+        batch = next(example.synthetic_batches(cfg.vocab_size, 2, 8)())
+        with pytest.raises(ValueError):
+            accelerate(llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                       example.adamw(), batch,
+                       strategy=Strategy(mesh=mesh.MeshPlan(data=1, fsdp=2)),
+                       device="cpu")
+
+
+class TestExample:
+    def test_runs_on_the_cpu(self):
+        out = example.main(["--preset", "tiny", "--steps", "3", "--batch",
+                            "2", "--seq", "16", "--device", "cpu"])
+        assert out["step"] == 3
+
+    def test_refuses_later_slices(self):
+        with pytest.raises(SystemExit):
+            example.main(["--ring", "2", "--device", "cpu"])
+
+    def test_same_tokens_as_the_jax_example(self):
+        ours = example.synthetic_batches(256, 2, 8, seed=3)()
+        theirs = _jax_example().synthetic_batches(256, 2, 8, seed=3)()
+        for _ in range(3):
+            a, b = next(ours), next(theirs)
+            np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
+            np.testing.assert_array_equal(a["labels"], b["labels"])
+
+
+class TestControlPlane:
+    @pytest.mark.parametrize("world", [1, 2, 4, 8, 6])
+    def test_mesh_plan_matches_the_reference(self, world):
+        for kw in ({"data": -1, "fsdp": 2}, {"data": -1}, {"fsdp": 4}):
+            ours, theirs = mesh.MeshPlan(**kw), jax_mesh.MeshPlan(**kw)
+            try:
+                ref = theirs.adjust_to_world(world).axis_sizes()
+            except ValueError:
+                with pytest.raises(ValueError):
+                    ours.adjust_to_world(world)
+                continue
+            assert ours.adjust_to_world(world).axis_sizes() == ref
+
+    def test_strategy_json_round_trip(self):
+        s = Strategy(mesh=mesh.MeshPlan(data=2, fsdp=4), rule_set="llama",
+                     remat_policy="full", dtypes=DtypePolicy(),
+                     grad_accum_steps=2, stage_depths=(1, 2),
+                     global_batch_size=8)
+        assert Strategy.from_json(s.to_json()) == s
+        # the JSON is the reference's: it loads there too
+        theirs = JaxStrategy.from_json(s.to_json())
+        assert theirs.to_json() == s.to_json()
+        assert s.adjust_to_world(4, prev_num_devices=8).grad_accum_steps \
+            == theirs.adjust_to_world(4, prev_num_devices=8).grad_accum_steps
+
+    def test_configuration_merges_like_the_reference(self):
+        class Base:
+            train_steps = 10
+            opt = {"lr": 1.0, "b": 2}
+
+        class Sub(Base):
+            opt = {"lr": 3.0}
+
+        sources = (Sub, {"log_every_steps": 5, "opt": {"c": 1}})
+        ours = build_configuration(*sources, overrides={"train_steps": 7})
+        theirs = jax_conf(*sources, overrides={"train_steps": 7})
+        assert ours.to_dict() == theirs.to_dict()
+        assert ours.opt.lr == 3.0 and ours.get("missing", 1) == 1
+
+
+def test_partial_optimizer_factory_builds_adamw():
+    opt = example.adamw()([torch.zeros(2, requires_grad=True)])
+    assert isinstance(opt, torch.optim.AdamW)
+    group = opt.param_groups[0]
+    assert (group["lr"], group["weight_decay"], group["eps"]) == \
+        (3e-4, 0.1, 1e-8)
+    assert isinstance(example.adamw(), functools.partial)
