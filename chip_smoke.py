@@ -6,12 +6,14 @@
 Phases, each of which fails the run (exit code 1) when it goes wrong:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build the flash-attention kernels from dlrover_tpu_torch/csrc with nvcc;
-  3. hold each kernel (B1 forward, B2 dK/dV, B3 dQ) against its plain
-     PyTorch version on the card: at the main path's shape (bf16, causal
-     GQA 32/8, S=4096, D=128) and on ragged f32 and bf16 GQA cases; and
-     show that the same rule rejects outputs with planted faults;
-  4. time each kernel, its plain version and PyTorch's
+  2. build every kernel from dlrover_tpu_torch/csrc with nvcc, one
+     process per source, all at once;
+  3. hold each flash kernel (B1 forward, B2 dK/dV, B3 dQ) against its
+     plain PyTorch version on the card: at the main path's shape (bf16,
+     causal GQA 32/8, S=4096, D=128) and on ragged f32 and bf16 GQA
+     cases; and show that the same rule rejects outputs with planted
+     faults;
+  4. time each flash kernel, its plain version and PyTorch's
      scaled_dot_product_attention (a yardstick the port never calls),
      beside the least time the card could take;
   5. train Llama-3-8B at full width (4 layers, batch 1, seq 4096) for a
@@ -20,7 +22,19 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      then profile a few more steps;
   6. one forward and backward of the same model with use_flash=True
      against the reference attention (use_flash=False): the loss and
-     every gradient.
+     every gradient;
+  7. the grouped-matmul kernels (B4 forward and dX, B5 dW) against their
+     plain versions at the MoE path's shape (llama2_7b+moe8: 4096 tokens
+     routed top-2 over 8 experts, D=4096, F=11008), on a skewed routing
+     and on a ragged f32 case; the planted faults an expert boundary
+     invites; one MoE layer's forward and backward with host syncs
+     forbidden; the kernels' times beside their bound, their plain
+     versions and torch._grouped_mm (a yardstick the port never calls);
+  8. train llama2_7b with 8 experts (top-2, dropless grouped dispatch)
+     at full width (2 layers, batch 1, seq 4096) for a few steps the
+     same way, counting the launches of all five kernels; profile;
+  9. one forward and backward of that model, grouped dispatch against
+     the capacity "gather" dispatch at a capacity nothing overflows.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -28,6 +42,7 @@ number the run measured to PATH.
 Needs one GPU; exits non-zero without one, or without the repository.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -42,6 +57,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 STEPS = 10
 LAYERS = 4
 SEQ = 4096
+MOE_LAYERS = 2  # llama2_7b+moe8 at 2 layers: 1.84 B params, ~30 GB of state
+MOE_EXPERTS, MOE_TOP_K, BLOCK_T = 8, 2, 128
 
 
 def fail(msg: str):
@@ -234,8 +251,245 @@ def kernel_times(fa, b, h, hkv, s, d):
                      "sdpa_fwd_bwd_ms": lib_fwd_bwd}
 
 
-def train_main_path(fa, llama, remat, card):
-    """Drive TrainExecutor + ElasticTrainer at full Llama-3-8B width."""
+def grouped_inputs(moe, t, d, f, e, seed, bias=None, dtype=None):
+    """Grouped-matmul operands as the MoE path makes them: ``t`` tokens
+    routed top-2 over ``e`` experts by a random router (``bias`` added to
+    the logits skews the routing), sorted by expert into tile-padded
+    rows. Returns (x [rows, d], w [e, d, f], dy [rows, f], the layout)."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    xt = rnd(t, d)
+    logits = (xt @ rnd(d, e, scale=d ** -0.5)).float()
+    if bias is not None:
+        logits = logits + torch.tensor(bias, device="cuda")
+    rounds, _, _ = moe._routing(logits, t, MOE_TOP_K, None, 0.0)
+    lay = moe.grouped_layout(rounds, t, e, BLOCK_T)
+    x = torch.cat([xt, xt.new_zeros((1, d))])[lay.row_token]
+    return x, rnd(e, d, f, scale=d ** -0.5), rnd(lay.rows, f), lay
+
+
+def group_sizes(lay, t, e):
+    """(tiles, real rows) per expert of a layout."""
+    import torch
+
+    te = lay.tile_expert.long()
+    real = (lay.row_token < t).view(-1, BLOCK_T).sum(dim=1)
+    tiles = torch.zeros(e, dtype=torch.long, device=te.device)
+    rows = torch.zeros_like(tiles)
+    tiles.index_add_(0, te, torch.ones_like(te))
+    rows.index_add_(0, te, real)
+    return tiles.tolist(), rows.tolist()
+
+
+def check_grouped(gm, x, w, dy, lay, label, f32_tol=1e-4):
+    """Each grouped kernel (B4 for y and dx, B5 for dw) against its plain
+    version on the same inputs; returns ({kernel: max abs error}, the
+    plain results). bf16 inputs: every output, B5's f32 one too, by the
+    row rule (``flash_check.rows_close``); f32 inputs: within
+    ``f32_tol`` absolute plus ``f32_tol`` relative, element by element."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    te, e = lay.tile_expert, w.shape[0]
+    right = {"y": gm.grouped_matmul_fwd_plain(x, w, te, BLOCK_T),
+             "dx": gm.grouped_matmul_fwd_plain(dy, w, te, BLOCK_T, True),
+             "dw": gm.grouped_matmul_dw_plain(x, dy, te, e, BLOCK_T)}
+    got = {"y": gm.grouped_matmul_fwd(x, w, te, BLOCK_T),
+           "dx": gm.grouped_matmul_fwd(dy, w, te, BLOCK_T,
+                                       transpose_w=True),
+           "dw": gm.grouped_matmul_dw(x, dy, te, e, BLOCK_T)}
+    torch.cuda.synchronize()
+    errs = {}
+    for name, kernel in (("y", "grouped_matmul_fwd"),
+                         ("dx", "grouped_matmul_fwd"),
+                         ("dw", "grouped_matmul_dw")):
+        g, r = got[name], right[name]
+        if x.dtype == torch.bfloat16:
+            es = flash_check.row_errors(g, r)
+            err, ok = es["max_abs_err"], flash_check.rows_close(g, r)
+            detail = (f"worst row {es['worst_row']:.3f} of its limit, "
+                      f"norm ratio {es['norm_ratio']:.3e}")
+        else:
+            err = (g - r).abs().max().item()
+            ok = bool(torch.allclose(g, r, atol=f32_tol, rtol=f32_tol))
+            detail = f"limit {f32_tol:.0e} abs + rel"
+        log(f"  {label} {name} {tuple(g.shape)}: max_abs_err={err:.3e} "
+            f"({detail}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{kernel} disagrees with its plain version on {name} "
+                 f"({label})")
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    return errs, right
+
+
+def check_grouped_faults(x, w, dy, lay, right):
+    """The rule that passed B4 and B5 must reject what they would return
+    with a fault at an expert boundary (``grouped_check``)."""
+    from dlrover_tpu_torch.ops import flash_check, grouped_check
+
+    results = []
+    for name, fault, got in grouped_check.planted_faults(
+            x, w, dy, lay.tile_expert, BLOCK_T):
+        e = flash_check.row_errors(got, right[name])
+        caught = not flash_check.rows_close(got, right[name])
+        log(f"  planted fault, {name}: {fault}: worst row "
+            f"{e['worst_row']:.1f} of its limit -> "
+            f"{'rejected' if caught else 'PASSED'}")
+        if not caught:
+            fail(f"the grouped kernel check lets a planted fault pass: "
+                 f"{fault}")
+        results.append({"output": name, "fault": fault, **e})
+        del got
+    return results
+
+
+def check_no_host_sync(moe, d, f, e):
+    """One MoE FFN at full width (grouped dispatch, top-2, 4096 tokens),
+    forward and backward, under ``torch.cuda.set_sync_debug_mode("error")``:
+    any operation that waits for the device raises."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def leaf(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * shape[-2] ** -0.5).to(torch.bfloat16).requires_grad_()
+
+    params = {"router": {"kernel": leaf(d, e)},
+              "experts": {"up": {"kernel": leaf(e, d, f)},
+                          "down": {"kernel": leaf(e, f, d)}}}
+    x = leaf(1, SEQ, d)
+    cfg = moe.MoEConfig(num_experts=e, top_k=MOE_TOP_K, dispatch="grouped")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux, _ = moe.moe_ffn(params, x, cfg, activation=F.silu)
+        (out.float().square().mean() + aux).backward()
+    except RuntimeError as exc:
+        fail(f"the grouped MoE path waits for the device: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  one MoE layer (grouped, 4096 tokens) forward and backward with "
+        "host syncs forbidden: none")
+
+
+def grouped_times(gm, x, w, dy, lay):
+    """B4 (y, dx) and B5 at the main path's shape: kernel, plain and
+    library times beside the least time the card could take. The library
+    yardstick is torch._grouped_mm over the groups' row offsets, where
+    this torch has it; the port never calls it."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    rows, d = x.shape
+    e, _, f = w.shape
+    te = lay.tile_expert
+    flops = 2 * rows * d * f
+    io, te_bytes = 2, te.numel() * 4
+    work = {  # (kernel, flops, bytes: inputs read once, outputs written once)
+        "y": ("grouped_matmul_fwd", flops,
+              (x.numel() + w.numel() + rows * f) * io + te_bytes),
+        "dx": ("grouped_matmul_fwd", flops,
+               (dy.numel() + w.numel() + rows * d) * io + te_bytes),
+        "dw": ("grouped_matmul_dw", flops,
+               (x.numel() + dy.numel()) * io + te_bytes + e * d * f * 4),
+    }
+    calls = {
+        "y": lambda fn: fn(x, w, te, BLOCK_T),
+        "dx": lambda fn: fn(dy, w, te, BLOCK_T, transpose_w=True),
+        "dw": lambda fn: fn(x, dy, te, e, BLOCK_T),
+    }
+    plain = {"y": gm.grouped_matmul_fwd_plain,
+             "dx": gm.grouped_matmul_fwd_plain,
+             "dw": gm.grouped_matmul_dw_plain}
+    offs = (torch.searchsorted(te, torch.arange(e, dtype=te.dtype,
+                                                device=te.device),
+                               right=True) * BLOCK_T).int()
+    library = {  # candidate calls, the first that runs and agrees wins
+        "y": [("w", lambda: torch._grouped_mm(x, w, offs=offs))],
+        "dx": [("w^T view", lambda: torch._grouped_mm(
+                    dy, w.transpose(1, 2), offs=offs))],
+        # B5's own output is f32; a bf16 one is the fallback
+        "dw": [("x^T view, f32 out", lambda: torch._grouped_mm(
+                    x.t(), dy, offs=offs, out_dtype=torch.float32)),
+               ("x^T view, bf16 out", lambda: torch._grouped_mm(
+                   x.t(), dy, offs=offs))],
+    }
+    ends = [0] + offs.tolist()
+
+    def loop(name):  # the per-expert loop of products, for information
+        for i in range(e):
+            a, b = ends[i], ends[i + 1]
+            if name == "y":
+                x[a:b] @ w[i]
+            elif name == "dx":
+                dy[a:b] @ w[i].t()
+            else:
+                x[a:b].t() @ dy[a:b]
+
+    results = {}
+    for name, (kernel, fl, nbytes) in work.items():
+        kernel_ms = time_ms(lambda: calls[name](gm.WRAPPERS[kernel]))
+        plain_ms = time_ms(lambda: calls[name](plain[name]), iters=5,
+                           warmup=1)
+        ref = calls[name](plain[name])
+        lib_ms, lib_call = None, "no single call"
+        if hasattr(torch, "_grouped_mm"):
+            for label, fn in library[name]:
+                try:
+                    out = fn()
+                    torch.cuda.synchronize()
+                except (RuntimeError, TypeError) as exc:
+                    log(f"  torch._grouped_mm ({label}) for {name}: "
+                        f"{str(exc).splitlines()[0][:160]}")
+                    continue
+                if not flash_check.rows_close(out, ref):
+                    log(f"  torch._grouped_mm ({label}) for {name} "
+                        f"disagrees: {flash_check.row_errors(out, ref)}")
+                    continue
+                lib_ms, lib_call = time_ms(fn), f"torch._grouped_mm ({label})"
+                break
+        loop_ms = None if lib_ms is not None else time_ms(lambda: loop(name))
+        del ref
+        t_ops = fl / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        results[name] = {
+            "kernel": kernel, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms, "library_call": lib_call,
+            "loop_ms": loop_ms, "gflop": fl / 1e9, "bytes": nbytes,
+            "tflops_achieved": fl / kernel_ms / 1e9,
+        }
+        r = results[name]
+        log(f"  {name} ({kernel}): {kernel_ms:.3f} ms "
+            f"({r['tflops_achieved']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"library {lib_call}"
+            + (f" {lib_ms:.3f} ms" if lib_ms is not None else
+               f" (per-expert matmul loop {loop_ms:.3f} ms)")
+            + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{fl / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    return results
+
+
+def train_main_path(llama, config, label, rule_set, kernels, expected,
+                    card, active_fpt=None):
+    """Drive TrainExecutor + ElasticTrainer on ``config`` for STEPS
+    steps. ``kernels``: the wrapper modules whose launch counters the
+    run resets just before and reads just after; their counts must equal
+    ``expected``. ``active_fpt``: the FLOPs per token the tokens really
+    cost, where the reference's formula counts more (MoE)."""
     import torch
 
     from dlrover_tpu_torch.common.config import get_context
@@ -249,7 +503,6 @@ def train_main_path(fa, llama, remat, card):
     from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
     from dlrover_tpu_torch.trainer.executor import TrainExecutor, TrainHook
 
-    config = llama.llama3_8b(num_layers=LAYERS, max_seq_len=SEQ)
     if not config.use_flash:
         fail("the main path must run with use_flash=True")
 
@@ -281,7 +534,7 @@ def train_main_path(fa, llama, remat, card):
     trainer = ElasticTrainer(
         llama.make_init_fn(config), llama.make_loss_fn(config), adamw(),
         next(batches()),
-        strategy=Strategy(mesh=single_device_plan(), rule_set="llama"),
+        strategy=Strategy(mesh=single_device_plan(), rule_set=rule_set),
         device="cuda",
     )
     window = get_context().train_window  # the default, as users run it
@@ -292,10 +545,13 @@ def train_main_path(fa, llama, remat, card):
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    for module in kernels:
+        module.reset_launch_counts()
     out = executor.train_and_evaluate()
     torch.cuda.synchronize()
-    counts = fa.launch_counts()
+    counts = {}
+    for module in kernels:
+        counts.update(module.launch_counts())
     peak = torch.cuda.max_memory_allocated()
     if out["step"] != STEPS or sorted(record.metrics) != list(
             range(1, STEPS + 1)):
@@ -308,10 +564,13 @@ def train_main_path(fa, llama, remat, card):
     for step, ms in enumerate(step_ms, start=1):
         metrics = record.metrics[step]
         loss = metrics["loss"]
+        load = metrics.get("moe_expert_load")
         log(f"  step {step}: loss={loss:.4f} grad_norm="
             f"{metrics['grad_norm']:.4f} {ms:.1f} ms "
             f"{tokens / ms * 1e3:.0f} tokens/s MFU "
-            f"{fpt * tokens / (ms / 1e3) / PEAK_BF16_FLOPS:.3f}")
+            f"{fpt * tokens / (ms / 1e3) / PEAK_BF16_FLOPS:.3f}"
+            + (f" expert load {[round(v, 4) for v in load]}"
+               if load is not None else ""))
         if not (math.isfinite(loss) and metrics["finite"]):
             fail(f"non-finite loss at step {step}")
     first = losses[0]
@@ -321,31 +580,33 @@ def train_main_path(fa, llama, remat, card):
     # steps 2..N-1: the first pays for first-call set-up, and the last
     # event waits for the host's drain of the window
     steady = record.events[1].elapsed_time(record.events[-2]) / (STEPS - 2)
-    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
-    expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
-                "flash_bwd_dkv": STEPS * LAYERS,
-                "flash_bwd_dq": STEPS * LAYERS}
+    mfu = fpt * tokens / (steady / 1e3) / PEAK_BF16_FLOPS
+    active_mfu = (active_fpt * tokens / (steady / 1e3) / PEAK_BF16_FLOPS
+                  if active_fpt else None)
     log(f"  launches {counts} (expected {expected}); train_window "
         f"{window}; steady step "
         f"{steady:.1f} ms, {tokens / steady * 1e3:.0f} tokens/s, MFU "
-        f"{fpt * tokens / (steady / 1e3) / PEAK_BF16_FLOPS:.4f} "
-        f"(flops/token {fpt:.4e}); peak memory {peak / 2**30:.2f} GiB; "
-        f"{card}")
+        f"{mfu:.4f} (flops/token {fpt:.4e})"
+        + (f", MFU by the active parameters {active_mfu:.4f} (flops/token "
+           f"{active_fpt:.4e})" if active_fpt else "")
+        + f"; peak memory {peak / 2**30:.2f} GiB; {card}")
     if counts != expected:
         fail(f"kernel launches {counts} on the main path, expected "
              f"{expected}")
     profile = profile_steps(trainer, executor.state, next(batches()))
     summary = {
-        "profile": profile,
-        "config": "llama3_8b(num_layers=4, max_seq_len=4096)",
+        "profile": profile, "config": label,
         "params": llama.param_count(config), "batch": 1, "seq": SEQ,
         "steps": STEPS, "train_window": window,
         "losses": losses,
         "step_ms": step_ms, "steady_step_ms": steady,
         "tokens_per_s": tokens / steady * 1e3,
-        "mfu": fpt * tokens / (steady / 1e3) / PEAK_BF16_FLOPS,
-        "flops_per_token": fpt, "peak_memory_bytes": peak,
+        "mfu": mfu, "flops_per_token": fpt,
+        "mfu_active": active_mfu, "active_flops_per_token": active_fpt,
+        "peak_memory_bytes": peak,
         "launches": counts, "expected_launches": expected,
+        "expert_load": [record.metrics[s].get("moe_expert_load")
+                        for s in range(1, STEPS + 1)],
     }
     del executor, trainer
     return summary
@@ -353,6 +614,7 @@ def train_main_path(fa, llama, remat, card):
 
 KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
     ("flash attention (B1-B3)", ("flash_fwd", "flash_bwd")),
+    ("grouped matmul (B4-B5)", ("grouped_fwd", "grouped_dw")),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "sm90_", "nvjet")),
     ("optimizer", ("multi_tensor", "adam")),
     ("softmax / loss", ("softmax", "nll", "log_softmax", "logsumexp")),
@@ -479,6 +741,13 @@ def device_gaps(prof, n):
 
 LOSS_GAP_LIMIT = 1e-4  # |flash loss - reference loss|
 GRAD_GAP_LIMIT = 5e-2  # ||g_flash - g_ref|| / ||g_ref|| over every leaf
+# grouped vs gather dispatch at a capacity nothing overflows. Observed
+# gap: exactly 0 (B4 and cuBLAS sum K in the same k16 order on the tensor
+# cores). The limits allow another summation order (a bf16 rounding here
+# and there) but not a wrong tile or route, which moves gradients by
+# about 1e-1
+MOE_LOSS_GAP_LIMIT = 1e-4
+MOE_GRAD_GAP_LIMIT = 1e-3
 
 
 def _named_leaves(tree, prefix=""):
@@ -489,15 +758,18 @@ def _named_leaves(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
-def cross_check(llama):
-    """One forward+backward at full width, flash kernels vs the reference
-    attention, same weights and batch: the loss and every gradient."""
+def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
+    """One forward+backward at full width of ``config`` changed as each
+    of ``variants`` says ((name, overrides) for the path under test,
+    then for its reference), same weights and batch: the loss and every
+    gradient. The path under test must launch ``kernels`` (wrapper
+    modules), and the reference none of them."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    config = llama.llama3_8b(num_layers=LAYERS, max_seq_len=SEQ)
+    (test, test_kw), (ref, ref_kw) = variants
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = llama.init(gen, config)
     named = list(_named_leaves(params))
@@ -507,14 +779,23 @@ def cross_check(llama):
                                            size=(1, SEQ + 1))
     batch = {"input_ids": torch.as_tensor(ids[:, :-1], device="cuda"),
              "labels": torch.as_tensor(ids[:, 1:], device="cuda")}
-    losses, grads = {}, {}
-    for use_flash in (True, False):
-        cfg = dataclasses.replace(config, use_flash=use_flash)
+    losses, grads, launched = {}, {}, {}
+    for is_test, overrides in ((True, test_kw), (False, ref_kw)):
+        cfg = dataclasses.replace(config, **overrides)
+        for module in kernels:
+            module.reset_launch_counts()
         loss, _ = llama.make_loss_fn(cfg)(params, batch, None)
-        grads[use_flash] = torch.autograd.grad(loss, [t for _, t in named])
-        losses[use_flash] = loss.item()
+        grads[is_test] = torch.autograd.grad(loss, [t for _, t in named])
+        losses[is_test] = loss.item()
+        launched[is_test] = sum(sum(m.launch_counts().values())
+                                for m in kernels)
         del loss
         torch.cuda.empty_cache()
+    log(f"  kernel launches: {test} {launched[True]}, {ref} "
+        f"{launched[False]}")
+    if not launched[True] or launched[False]:
+        fail(f"the cross-check does not compare the kernels' path with "
+             f"one without them: {launched}")
 
     def sq(t):
         return torch.linalg.vector_norm(t.float()).item() ** 2
@@ -530,17 +811,18 @@ def cross_check(llama):
     nf, nr = math.sqrt(flash2), math.sqrt(ref2)
     gap = math.sqrt(diff2 / ref2)
     worst = max(leaf_gap, key=leaf_gap.get)
-    log(f"  flash loss {lf:.6f} grad_norm {nf:.6f}; reference loss "
+    log(f"  {test} loss {lf:.6f} grad_norm {nf:.6f}; {ref} loss "
         f"{lr:.6f} grad_norm {nr:.6f}; loss gap {abs(lf - lr):.3e} "
-        f"(limit {LOSS_GAP_LIMIT:.0e}); gradient gap ||g_flash - g_ref|| "
-        f"/ ||g_ref|| {gap:.3e} (limit {GRAD_GAP_LIMIT:.0e}), worst leaf "
+        f"(limit {loss_limit:.0e}); gradient gap ||g_{test} - g_{ref}|| "
+        f"/ ||g_{ref}|| {gap:.3e} (limit {grad_limit:.0e}), worst leaf "
         f"{worst} {leaf_gap[worst]:.3e}")
     for name in sorted(leaf_gap):
         log(f"    gradient gap {name}: {leaf_gap[name]:.3e}")
-    if not (abs(lf - lr) <= LOSS_GAP_LIMIT and gap <= GRAD_GAP_LIMIT):
-        fail("flash and reference attention disagree at full width")
-    return {"flash_loss": lf, "flash_grad_norm": nf, "ref_loss": lr,
-            "ref_grad_norm": nr, "grad_gap": gap, "leaf_gap": leaf_gap}
+    if not (abs(lf - lr) <= loss_limit and gap <= grad_limit):
+        fail(f"{test} and {ref} disagree at full width")
+    return {"test": test, "ref": ref, "launches": launched, "test_loss": lf,
+            "test_grad_norm": nf, "ref_loss": lr, "ref_grad_norm": nr,
+            "loss_gap": abs(lf - lr), "grad_gap": gap, "leaf_gap": leaf_gap}
 
 
 def main():
@@ -560,7 +842,8 @@ def main():
     try:
         from dlrover_tpu_torch.models import llama
         from dlrover_tpu_torch.ops import flash_attention as fa
-        from dlrover_tpu_torch.ops import kernel_build, remat
+        from dlrover_tpu_torch.ops import grouped_matmul as gm
+        from dlrover_tpu_torch.ops import kernel_build, moe, remat
     except ImportError as e:
         fail(f"the dlrover_tpu_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -602,11 +885,97 @@ def main():
 
     log(f"main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
         f"{STEPS} steps:")
-    report["train"] = train_main_path(fa, llama, remat, card)
+    config = llama.llama3_8b(num_layers=LAYERS, max_seq_len=SEQ)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    flash_expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
+                      "flash_bwd_dkv": STEPS * LAYERS,
+                      "flash_bwd_dq": STEPS * LAYERS}
+    report["train"] = train_main_path(
+        llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
+        "llama", (fa,), flash_expected, card)
     torch.cuda.empty_cache()
 
     log("full-width cross-check (use_flash True vs False):")
-    report["cross_check"] = cross_check(llama)
+    report["cross_check"] = cross_check(
+        llama, config, (("flash", {"use_flash": True}),
+                        ("reference", {"use_flash": False})), (fa,),
+        LOSS_GAP_LIMIT, GRAD_GAP_LIMIT)
+    torch.cuda.empty_cache()
+
+    moe_config = llama.llama2_7b(
+        num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K, moe_dispatch="grouped",
+        num_layers=MOE_LAYERS, max_seq_len=SEQ)
+    d, f = moe_config.hidden_size, moe_config.intermediate_size
+    log(f"grouped-matmul kernels vs plain (llama2_7b+moe8 widths: {SEQ} "
+        f"tokens routed top-{MOE_TOP_K} over {MOE_EXPERTS} experts, "
+        f"D={d}, F={f}, block_t={BLOCK_T}):")
+    x, w, dy, lay = grouped_inputs(moe, SEQ, d, f, MOE_EXPERTS, 0)
+    tiles, real = group_sizes(lay, SEQ, MOE_EXPERTS)
+    log(f"  main: {lay.rows} rows ({SEQ * MOE_TOP_K} real); tiles per "
+        f"expert {tiles}, real rows per expert {real}")
+    g_errs, g_right = check_grouped(gm, x, w, dy, lay, "main")
+    log("the same check against planted faults, same inputs:")
+    report["grouped_planted_faults"] = check_grouped_faults(x, w, dy, lay,
+                                                            g_right)
+    del g_right
+    torch.cuda.empty_cache()
+    log(f"grouped-matmul kernel times (bf16, {lay.rows} rows of which "
+        f"{SEQ * MOE_TOP_K} real, D={d}, F={f}, E={MOE_EXPERTS}; {card}):")
+    g_times = grouped_times(gm, x, w, dy, lay)
+    report["grouped_kernel_times"] = g_times
+    report["grouped_main_groups"] = {"tiles": tiles, "real_rows": real,
+                                     "rows": lay.rows}
+    del x, w, dy, lay
+    torch.cuda.empty_cache()
+    # skewed: expert 0 wins most first choices and expert 3 is never
+    # chosen, so it owns only its sentinel tile (the last expert also
+    # owns the trailing pad tiles)
+    skew = [3.0] + [0.0] * (MOE_EXPERTS - 1)
+    skew[3] = -30.0
+    x, w, dy, lay = grouped_inputs(moe, SEQ, d, f, MOE_EXPERTS, 1, bias=skew)
+    tiles, real = group_sizes(lay, SEQ, MOE_EXPERTS)
+    log(f"  skewed: tiles per expert {tiles}, real rows per expert {real}")
+    if real[3] != 0 or tiles[3] != 1 or max(real) != real[0]:
+        fail(f"the skewed routing is not skewed: {tiles}, {real}")
+    check_grouped(gm, x, w, dy, lay, "skewed")
+    del x, w, dy, lay
+    x, w, dy, lay = grouped_inputs(moe, 300, 96, 200, 4, 2,
+                                   dtype=torch.float32)
+    check_grouped(gm, x, w, dy, lay, "ragged f32 (300 tokens, D=96, F=200, "
+                  "E=4)")
+    del x, w, dy, lay
+    check_no_host_sync(moe, d, f, MOE_EXPERTS)
+    torch.cuda.empty_cache()
+
+    moe_label = (f"llama2_7b(num_experts={MOE_EXPERTS}, moe_top_k="
+                 f"{MOE_TOP_K}, moe_dispatch='grouped', num_layers="
+                 f"{MOE_LAYERS}, max_seq_len={SEQ})")
+    log(f"MoE main path: {moe_label}, batch 1, seq {SEQ}, {STEPS} steps:")
+    recompute = 1 if remat.remat_enabled(moe_config.remat_policy) else 0
+    # per layer and step: B4 runs the up and down products forward, again
+    # in the backward's recompute, and once more each for dx; B5 once each
+    moe_expected = {
+        "flash_fwd": STEPS * MOE_LAYERS * (1 + recompute),
+        "flash_bwd_dkv": STEPS * MOE_LAYERS,
+        "flash_bwd_dq": STEPS * MOE_LAYERS,
+        "grouped_matmul_fwd": STEPS * MOE_LAYERS * (2 * (1 + recompute) + 2),
+        "grouped_matmul_dw": STEPS * MOE_LAYERS * 2,
+    }
+    # the reference's 6N counts every expert; a token runs MOE_TOP_K
+    idle = MOE_LAYERS * (MOE_EXPERTS - MOE_TOP_K) * 2 * d * f
+    active_fpt = llama.flops_per_token(moe_config) - 6.0 * idle
+    report["train_moe"] = train_main_path(
+        llama, moe_config, moe_label, "moe", (fa, gm), moe_expected, card,
+        active_fpt)
+    torch.cuda.empty_cache()
+
+    log("full-width cross-check (moe_dispatch grouped vs gather, "
+        "moe_capacity_factor=4.0: capacity = T, nothing drops):")
+    report["cross_check_moe"] = cross_check(
+        llama, dataclasses.replace(moe_config, moe_capacity_factor=4.0),
+        (("grouped", {"moe_dispatch": "grouped"}),
+         ("gather", {"moe_dispatch": "gather"})), (gm,),
+        MOE_LOSS_GAP_LIMIT, MOE_GRAD_GAP_LIMIT)
 
     kernels = []
     for name, meta in fa.KERNELS.items():
@@ -620,12 +989,30 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "verdict": "ok",
         })
+    for name, meta in gm.KERNELS.items():
+        # B4 is timed on y (the up-projection); its dx call does the same
+        # work and is reported beside it
+        t = g_times["y" if name == "grouped_matmul_fwd" else "dw"]
+        entry = {
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"],
+            "launches": report["train_moe"]["launches"][name],
+            "max_abs_err": g_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "verdict": "ok",
+        }
+        if name == "grouped_matmul_fwd":
+            dx = g_times["dx"]
+            entry.update({"dx_ms": dx["ms"], "dx_plain_ms": dx["plain_ms"],
+                          "dx_library_ms": dx["library_ms"]})
+        kernels.append(entry)
     report["kernels"] = kernels
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(report, f, indent=1, default=str)
+        with open(args.json, "w") as out:
+            json.dump(report, out, indent=1, default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

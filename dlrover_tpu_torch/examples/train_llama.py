@@ -8,8 +8,10 @@
     python -m dlrover_tpu_torch.examples.train_llama --preset tiny \\
         --steps 20 --device cpu
 
-This slice runs one device; ``--ckpt_dir``, ``--moe_experts``,
-``--ring`` and ``--pipe`` belong to later slices and are refused.
+``--moe_experts N`` makes every FFN a mixture of N experts, routed by
+the reference example's default ("gather", capacity-based). This slice
+runs one device; ``--ckpt_dir``, ``--ring`` and ``--pipe`` belong to
+later slices and are refused.
 """
 
 from __future__ import annotations
@@ -48,21 +50,23 @@ def adamw():
                              eps=1e-8, weight_decay=0.1)
 
 
-def preset_config(preset: str, layers: int = 0):
+def preset_config(preset: str, layers: int = 0, moe_experts: int = 0):
     """(config, default seq) of a preset. The tiny preset turns the
     flash path on: on the GPU it runs the kernels, on the CPU their
     plain versions."""
-    layer_kw = {"num_layers": layers} if layers else {}
+    kw = {"num_experts": moe_experts}
+    if layers:
+        kw["num_layers"] = layers
     if preset == "tiny":
-        return llama.llama_tiny(use_flash=True, **layer_kw), 128
+        return llama.llama_tiny(use_flash=True, **kw), 128
     if preset == "1b":
+        kw.setdefault("num_layers", 16)
         return llama.llama2_7b(
             hidden_size=2048, intermediate_size=5504,
             num_heads=16, num_kv_heads=16,
-            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-            num_layers=layers or 16,
+            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, **kw,
         ), 2048
-    return llama.llama2_7b(**layer_kw), 4096
+    return llama.llama2_7b(**kw), 4096
 
 
 def main(argv=None):
@@ -82,11 +86,12 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    for flag in ("ckpt_dir", "moe_experts", "ring", "pipe", "pipe_depths"):
+    for flag in ("ckpt_dir", "ring", "pipe", "pipe_depths"):
         if getattr(args, flag):
             p.error(f"--{flag} is not ported yet (see ROADMAP.md)")
 
-    config, default_seq = preset_config(args.preset, args.layers)
+    config, default_seq = preset_config(args.preset, args.layers,
+                                        args.moe_experts)
     seq = args.seq or default_seq
     batches = synthetic_batches(config.vocab_size, args.batch, seq)
     trainer = ElasticTrainer(
@@ -94,7 +99,8 @@ def main(argv=None):
         llama.make_loss_fn(config),
         adamw(),
         next(batches()),
-        strategy=Strategy(mesh=single_device_plan(), rule_set="llama",
+        strategy=Strategy(mesh=single_device_plan(),
+                          rule_set="moe" if args.moe_experts else "llama",
                           remat_policy=""),  # the model remats per layer
         device=args.device,
     )

@@ -1,4 +1,4 @@
-"""Llama-family decoder, dense training path (port of
+"""Llama-family decoder, training path, dense and MoE (port of
 ``dlrover_tpu/models/llama.py``).
 
 Functional like the reference: ``init`` builds a nested dict of tensors
@@ -9,16 +9,19 @@ leaves. An ``nn.Module`` would re-key and split the stacked weights and
 buy nothing the trainer uses. ``apply`` runs the layers as a
 plain loop, each under the configured remat policy, with attention
 through the Hopper flash kernels (``use_flash``) or the reference
-attention.
+attention. With ``num_experts`` > 0 the FFN is a mixture of experts
+(``ops.moe``); ``moe_dispatch="grouped"`` runs it dropless through the
+grouped-matmul kernels.
 
 Numerics follow the reference: RMSNorm with f32 statistics, RoPE with
 f32 angles on rotated halves, GQA, SwiGLU, untied head; params stored in
 ``param_dtype`` and cast to ``compute_dtype`` per layer; logits computed
 in the compute dtype and cast to f32.
 
-Not in this slice (they raise): MoE (ROADMAP A14), sequence parallelism
-(A13), packed ``segment_ids`` (A10), the low-precision FSDP wire (A14),
-pipelining (A15) and the serving functions (A16).
+Not in this slice (they raise): expert parallelism (``grouped_ep`` and its
+options, ROADMAP A14-EP), sequence parallelism (A13), packed ``segment_ids``
+(A10), the low-precision FSDP wire (A14), pipelining (A15) and the
+serving functions (A16).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +44,7 @@ from dlrover_tpu_torch.models.losses import (
     chunked_lm_head_loss,
     masked_lm_loss,
 )
+from dlrover_tpu_torch.ops import moe as moe_ops
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
 from dlrover_tpu_torch.ops.flash_attention import flash_attention_auto
 from dlrover_tpu_torch.ops.remat import apply_remat
@@ -67,9 +71,19 @@ class LlamaConfig:
     flash_block_k: int = 1024
     flash_block_q_bwd: int = 0
     flash_block_k_bwd: int = 0
+    # MoE (0 = dense). "gather" (capacity) | "einsum" (the oracle) |
+    # "grouped" (dropless, the grouped-matmul kernels); "grouped_ep" and
+    # the chunk/precision knobs belong to the expert-parallel slice
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_dispatch: str = "gather"
+    moe_ep_axes: Tuple[str, ...] = ("data", "fsdp")
+    moe_dispatch_chunks: int = 0
+    moe_precision: str = ""
     # later slices: a non-default value raises in apply
     seq_axis: Optional[str] = None
-    num_experts: int = 0
     fsdp_precision: str = ""
 
     @property
@@ -104,10 +118,18 @@ def llama_tiny(**overrides) -> LlamaConfig:
     )
 
 
+def _moe_config(c: LlamaConfig) -> moe_ops.MoEConfig:
+    return moe_ops.MoEConfig(
+        num_experts=c.num_experts, capacity_factor=c.moe_capacity_factor,
+        top_k=c.moe_top_k, dispatch=c.moe_dispatch,
+        ep_axes=tuple(c.moe_ep_axes), dispatch_chunks=c.moe_dispatch_chunks,
+        precision=c.moe_precision,
+    )
+
+
 def _check_supported(c: LlamaConfig, segment_ids=None) -> None:
     if c.num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP A14)")
+        moe_ops.check_dispatch(_moe_config(c))
     if c.seq_axis:
         raise NotImplementedError("sequence parallelism (ring attention) "
                                   "is not ported yet (ROADMAP A13)")
@@ -127,19 +149,26 @@ def param_shapes(config: LlamaConfig) -> Dict:
     c = config
     l, d, f = c.num_layers, c.hidden_size, c.intermediate_size
     h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    layers = {
+        "input_norm": {"scale": (l, d)},
+        "q_proj": {"kernel": (l, d, h * hd)},
+        "k_proj": {"kernel": (l, d, kv * hd)},
+        "v_proj": {"kernel": (l, d, kv * hd)},
+        "o_proj": {"kernel": (l, h * hd, d)},
+        "post_norm": {"scale": (l, d)},
+    }
+    if c.num_experts > 0:
+        e = c.num_experts
+        layers["router"] = {"kernel": (l, d, e)}
+        layers["experts"] = {"up": {"kernel": (l, e, d, f)},
+                             "down": {"kernel": (l, e, f, d)}}
+    else:
+        layers.update({"gate_proj": {"kernel": (l, d, f)},
+                       "up_proj": {"kernel": (l, d, f)},
+                       "down_proj": {"kernel": (l, f, d)}})
     return {
         "embed_tokens": {"embedding": (c.vocab_size, d)},
-        "layers": {
-            "input_norm": {"scale": (l, d)},
-            "q_proj": {"kernel": (l, d, h * hd)},
-            "k_proj": {"kernel": (l, d, kv * hd)},
-            "v_proj": {"kernel": (l, d, kv * hd)},
-            "o_proj": {"kernel": (l, h * hd, d)},
-            "post_norm": {"scale": (l, d)},
-            "gate_proj": {"kernel": (l, d, f)},
-            "up_proj": {"kernel": (l, d, f)},
-            "down_proj": {"kernel": (l, f, d)},
-        },
+        "layers": layers,
         "norm": {"scale": (d,)},
         "lm_head": {"kernel": (d, c.vocab_size)},
     }
@@ -152,17 +181,22 @@ def init(generator: torch.Generator, config: LlamaConfig) -> Dict:
     _check_supported(config)
     c, dt = config, config.param_dtype
     shapes = param_shapes(c)
-    ones = {"input_norm", "post_norm"}
-    layers = {}
-    for name, leaf in shapes["layers"].items():
-        ((key, shape),) = leaf.items()
-        if name in ones:
-            layers[name] = {key: torch.ones(shape, dtype=dt,
-                                            device=generator.device)}
-        else:
-            scale = (1.0 / math.sqrt(c.intermediate_size)
-                     if name == "down_proj" else None)
-            layers[name] = {key: dense_init(generator, shape, dt, scale)}
+    # the FFN's output projections start at 1/sqrt(F), the rest at
+    # 1/sqrt(fan_in); norm scales at one
+    down = 1.0 / math.sqrt(c.intermediate_size)
+
+    def layer_leaf(path, shape):
+        if path[-1] == "scale":
+            return torch.ones(shape, dtype=dt, device=generator.device)
+        scale = down if path[-2] in ("down_proj", "down") else None
+        return dense_init(generator, shape, dt, scale)
+
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return layer_leaf(path, node)
+
+    layers = walk(shapes["layers"])
     embed = torch.randn(shapes["embed_tokens"]["embedding"],
                         generator=generator, dtype=dt,
                         device=generator.device) * 0.02
@@ -222,30 +256,47 @@ def _attention_block(x, layer, config: LlamaConfig, positions):
     return out @ layer["o_proj"]["kernel"]
 
 
-def _ffn_block(x, layer):
+def _ffn_block(x, layer, config: LlamaConfig, rng=None):
+    """Returns (out, aux_loss, dropped_frac, expert_load): the MoE
+    load-balance signals, None for a dense layer."""
+    if config.num_experts > 0:
+        moe_params = {"router": layer["router"], "experts": layer["experts"]}
+        out, aux, metrics = moe_ops.moe_ffn(
+            moe_params, x, _moe_config(config), activation=F.silu, rng=rng)
+        return out, aux, metrics["dropped_frac"], metrics["expert_load"]
     gate = F.silu(x @ layer["gate_proj"]["kernel"])
     up = x @ layer["up_proj"]["kernel"]
-    return (gate * up) @ layer["down_proj"]["kernel"]
+    return (gate * up) @ layer["down_proj"]["kernel"], None, None, None
 
 
-def _decoder_block(x, layer, config: LlamaConfig, positions):
+def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None):
     """One layer: params may be stored f32; compute in the configured
-    dtype."""
+    dtype. Returns (x, aux_loss, dropped_frac, expert_load)."""
     c = config
     layer = cast_floats(layer, c.compute_dtype)
     attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
     x = x + _attention_block(attn_in, layer, c, positions)
     ffn_in = rms_norm(x, layer["post_norm"]["scale"], c.rms_eps)
-    return x + _ffn_block(ffn_in, layer)
+    out, *moe_stats = _ffn_block(ffn_in, layer, c, rng)
+    return (x + out, *moe_stats)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def apply_hidden(params: Dict, input_ids: torch.Tensor,
                  config: LlamaConfig, rng: Any = None,
-                 segment_ids: Optional[torch.Tensor] = None):
+                 segment_ids: Optional[torch.Tensor] = None,
+                 with_moe_metrics: bool = False):
     """Returns (final hidden states [B, S, D] in the compute dtype,
-    moe_aux_loss scalar, zero for dense) — everything but the head.
-    ``rng`` is accepted for parity; the dense path draws nothing."""
-    del rng
+    moe_aux_loss scalar summed over layers, zero for dense) — everything
+    but the head. With ``with_moe_metrics`` a third element is returned:
+    the layer-averaged {"moe_dropped_frac", "moe_expert_load" [E]}.
+    ``rng`` (a ``torch.Generator``) reaches the router, which draws from
+    it only under router jitter; the model sets none."""
     c = config
     _check_supported(c, segment_ids)
     x = params["embed_tokens"]["embedding"][input_ids].to(c.compute_dtype)
@@ -253,27 +304,41 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     positions = torch.arange(s, device=x.device).expand(b, s)
     # one unbind per stacked leaf: its backward stacks the per-layer
     # gradients once, instead of one full-size scatter per layer
-    per_layer = {name: {key: t.unbind(0) for key, t in leaf.items()}
-                 for name, leaf in params["layers"].items()}
+    per_layer = _tree_map(lambda t: t.unbind(0), params["layers"])
     block = apply_remat(
-        functools.partial(_decoder_block, config=c, positions=positions),
+        functools.partial(_decoder_block, config=c, positions=positions,
+                          rng=rng),
         c.remat_policy,
     )
+    stats = []
     for i in range(c.num_layers):
-        layer = {name: {key: ts[i] for key, ts in leaf.items()}
-                 for name, leaf in per_layer.items()}
-        x = block(x, layer)
+        x, *layer_stats = block(x, _tree_map(lambda ts: ts[i], per_layer))
+        stats.append(layer_stats)
     x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
-    return x, torch.zeros((), device=x.device)
+    zero = torch.zeros((), device=x.device)
+    if c.num_experts > 0:
+        aux, dropped, load = (torch.stack(t) for t in zip(*stats))
+        aux, metrics = aux.sum(), {"moe_dropped_frac": dropped.mean(),
+                                   "moe_expert_load": load.mean(dim=0)}
+    else:
+        aux, metrics = zero, {"moe_dropped_frac": zero,
+                              "moe_expert_load": torch.zeros(
+                                  (1,), device=x.device)}
+    if with_moe_metrics:
+        return x, aux, metrics
+    return x, aux
 
 
 def apply(params: Dict, input_ids: torch.Tensor, config: LlamaConfig,
-          rng: Any = None, segment_ids: Optional[torch.Tensor] = None):
-    """Returns (logits [B, S, V] in f32, moe_aux_loss scalar)."""
+          rng: Any = None, segment_ids: Optional[torch.Tensor] = None,
+          with_moe_metrics: bool = False):
+    """Returns (logits [B, S, V] in f32, moe_aux_loss scalar), plus the
+    load-balance metrics dict when ``with_moe_metrics``."""
     c = config
-    x, aux = apply_hidden(params, input_ids, config, rng, segment_ids)
-    logits = x @ params["lm_head"]["kernel"].to(c.compute_dtype)
-    return logits.float(), aux
+    out = apply_hidden(params, input_ids, config, rng, segment_ids,
+                       with_moe_metrics)
+    logits = out[0] @ params["lm_head"]["kernel"].to(c.compute_dtype)
+    return (logits.float(),) + tuple(out[1:])
 
 
 def _not_ported(name: str, item: str):
@@ -301,20 +366,28 @@ def make_loss_fn(config: LlamaConfig, z_loss_weight: float = 0.0,
     are masked). ``head_chunk`` > 0 fuses the head with the cross
     entropy over sequence chunks so the f32 logits never exist whole."""
 
+    moe = config.num_experts > 0
+
     def loss_fn(params, batch, rng):
         segment_ids = batch.get("segment_ids")
         if head_chunk > 0:
-            hidden, _ = apply_hidden(params, batch["input_ids"], config,
-                                     rng, segment_ids=segment_ids)
+            out = apply_hidden(params, batch["input_ids"], config, rng,
+                               segment_ids=segment_ids,
+                               with_moe_metrics=moe)
             loss = chunked_lm_head_loss(
-                hidden, params["lm_head"]["kernel"], batch["labels"],
+                out[0], params["lm_head"]["kernel"], batch["labels"],
                 chunk_size=head_chunk, z_loss_weight=z_loss_weight,
             )
         else:
-            logits, _ = apply(params, batch["input_ids"], config, rng,
-                              segment_ids=segment_ids)
-            loss = masked_lm_loss(logits, batch["labels"], z_loss_weight)
-        return loss, {}
+            out = apply(params, batch["input_ids"], config, rng,
+                        segment_ids=segment_ids, with_moe_metrics=moe)
+            loss = masked_lm_loss(out[0], batch["labels"], z_loss_weight)
+        if not moe:
+            return loss, {}
+        # the load-balance signals ride the step metrics
+        loss = loss + config.moe_aux_weight * out[1] / max(
+            1, config.num_layers)
+        return loss, dict(out[2])
 
     return loss_fn
 

@@ -35,6 +35,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from dlrover_tpu_torch.ops import kernel_build
+
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 # where each kernel lives and which TPU kernel it replaces
@@ -140,22 +142,6 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (the plain path); False
-    when every one lies on one CUDA device (the kernel). Anything else
-    raises."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"flash attention operands on several devices: "
-                         f"{sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
-        raise ValueError(f"flash attention has no kernel for {device}")
-    return False
-
-
 def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
                   rows=()) -> None:
     """Shapes the kernels index raw pointers by (and the plain versions
@@ -203,23 +189,6 @@ def _kernel_suffix(name: str, q, k, v, dout=None, rows=()) -> str:
     return _SUFFIX[q.dtype]
 
 
-def _launch(name: str, suffix: str, device, *args) -> None:
-    from dlrover_tpu_torch.ops import kernel_build
-
-    lib = kernel_build.library(name)
-    fn = getattr(lib, f"dlr_{name}_{suffix}")
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-        err = getattr(lib, f"dlr_{name}_error")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        code = fn(*args, stream)
-    if code != 0:
-        msg = getattr(lib, f"dlr_{name}_error")(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
-
-
 def _shape_args(q, k, causal, scale):
     b, h, s_q, d = q.shape
     return (b, h, k.shape[1], s_q, k.shape[2], d, ctypes.c_float(scale),
@@ -229,14 +198,15 @@ def _shape_args(q, k, causal, scale):
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32)."""
     _check_shapes("flash_fwd", q, k, v, causal)
-    if _on_cpu(q, k, v):
+    if kernel_build.on_cpu("flash attention", q, k, v):
         return flash_fwd_plain(q, k, v, causal, scale)
     suffix = _kernel_suffix("flash_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", suffix, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *_shape_args(q, k, causal, scale))
+    kernel_build.launch(
+        "flash_fwd", suffix, _ARGTYPES["flash_fwd"], q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_shape_args(q, k, causal, scale))
     flash_fwd.launches += 1
     return out, lse
 
@@ -244,13 +214,15 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """B2: (dk, dv) in k's and v's shape and dtype."""
     _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta))
-    if _on_cpu(q, k, v, dout, lse, delta):
+    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale)
     suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", suffix, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k, causal, scale))
+    kernel_build.launch(
+        "flash_bwd_dkv", suffix, _ARGTYPES["flash_bwd_dkv"], q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_shape_args(q, k, causal, scale))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -258,13 +230,15 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """B3: dq in q's shape and dtype."""
     _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta))
-    if _on_cpu(q, k, v, dout, lse, delta):
+    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale)
     suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta))
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", suffix, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), *_shape_args(q, k, causal, scale))
+    kernel_build.launch(
+        "flash_bwd_dq", suffix, _ARGTYPES["flash_bwd_dq"], q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_shape_args(q, k, causal, scale))
     flash_bwd_dq.launches += 1
     return dq
 

@@ -1,0 +1,60 @@
+"""Outputs of deliberately broken grouped-matmul kernels, which the row
+rule of ``ops.flash_check`` must reject on the inputs that the real
+kernels pass.
+
+The faults are the ones an expert boundary invites. B4 picks each row
+tile's weights from ``tile_expert``; an off-by-one reads the neighbouring
+expert's. The TPU's dw kernel initialises an expert's output block on
+the expert's first row tile and accumulates while the block stays
+resident; a port that gets the run of tiles wrong leaves the last one
+out or counts the first one twice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from dlrover_tpu_torch.ops.grouped_matmul import (
+    grouped_matmul_dw_plain,
+    grouped_matmul_fwd_plain,
+)
+
+
+def _boundary_tile(tile_expert: torch.Tensor) -> int:
+    """The first tile whose expert differs from the tile before it."""
+    te = tile_expert.tolist()
+    return next(i for i in range(1, len(te)) if te[i] != te[i - 1])
+
+
+def planted_faults(x, w, dy, tile_expert, block_t: int
+                   ) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) for ``y``, ``dx`` and ``dw``:
+    what a kernel with that fault would return. Each must fail
+    ``flash_check.rows_close`` against the right answer."""
+    i = _boundary_tile(tile_expert)
+    e = int(tile_expert[i])
+    wrong = tile_expert.clone()
+    wrong[i] = tile_expert[i - 1]
+    tiles = (tile_expert == e).nonzero().flatten().tolist()
+    first, last = tiles[0], tiles[-1]
+
+    def rows(tile):
+        return slice(tile * block_t, (tile + 1) * block_t)
+
+    x_dropped = x.clone()
+    x_dropped[rows(last)] = 0
+    twice = grouped_matmul_dw_plain(x, dy, tile_expert, w.shape[0], block_t)
+    twice[e] += x[rows(first)].float().t() @ dy[rows(first)].float()
+    where = f"tile {i} (expert {e}'s first)"
+    return [
+        ("y", f"{where} read with expert {int(wrong[i])}'s weights",
+         grouped_matmul_fwd_plain(x, w, wrong, block_t)),
+        ("dx", f"{where} read with expert {int(wrong[i])}'s weights",
+         grouped_matmul_fwd_plain(dy, w, wrong, block_t, transpose_w=True)),
+        ("dw", f"expert {e}'s last tile ({last}) left out",
+         grouped_matmul_dw_plain(x_dropped, dy, tile_expert, w.shape[0],
+                                 block_t)),
+        ("dw", f"expert {e}'s first tile ({first}) counted twice", twice),
+    ]

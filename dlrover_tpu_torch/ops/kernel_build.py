@@ -1,7 +1,11 @@
-"""Build and load the hand-written CUDA kernels of ``dlrover_tpu_torch/csrc``.
+"""Build, load and launch the hand-written CUDA kernels of
+``dlrover_tpu_torch/csrc``.
 
 Each ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, loaded with ``ctypes``.
+Every entry point ``dlr_<name>_<dtype>`` takes its pointers and sizes,
+then the stream, and returns 0 or the CUDA error of the launch, whose
+text ``dlr_<name>_error`` gives.
 Building happens at first use, from the sources in the checkout, into
 ``csrc/_build/`` (git-ignored). A library's file name carries a digest
 of its sources and flags, so an edited kernel is rebuilt and a stale
@@ -22,7 +26,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -30,8 +36,10 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
+    "grouped_matmul_fwd": "grouped_matmul_fwd.cu",
+    "grouped_matmul_dw": "grouped_matmul_dw.cu",
 }
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "grouped_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -54,8 +62,8 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the flash-attention kernels "
-            "are built from dlrover_tpu_torch/csrc at first use"
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built "
+            "from dlrover_tpu_torch/csrc at first use"
         )
     return found
 
@@ -117,3 +125,38 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def on_cpu(op: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain path); False
+    when every one lies on one CUDA device (the kernel). Anything else
+    raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{op} operands on several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{op} has no kernel for {device}")
+    return False
+
+
+def launch(name: str, suffix: str, argtypes: Sequence, device,
+           *args) -> None:
+    """Launch ``dlr_<name>_<suffix>`` (C signature ``argtypes``, the
+    stream last) on ``device``'s current stream; raises with CUDA's text
+    when the launch is refused."""
+    lib = library(name)
+    fn = getattr(lib, f"dlr_{name}_{suffix}")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        err = getattr(lib, f"dlr_{name}_error")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        code = fn(*args, stream)
+    if code != 0:
+        msg = getattr(lib, f"dlr_{name}_error")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")

@@ -1,4 +1,5 @@
-"""The flash-attention kernels against their plain versions.
+"""The flash-attention and grouped-matmul kernels against their plain
+versions.
 
 This file imports no JAX, so it also runs on a machine with a GPU and
 no JAX installed (``tests/conftest.py`` imports JAX; skip it there):
@@ -17,6 +18,8 @@ import torch
 
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import flash_check, kernel_build
+from dlrover_tpu_torch.ops import grouped_check
+from dlrover_tpu_torch.ops import grouped_matmul as gm
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
 
 
@@ -167,3 +170,85 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
                     flash_check.row_errors(g, r)
             else:
                 assert (g.float() - r.float()).abs().max().item() <= tol
+
+
+def _grouped_case(device, dtype, tiles, d, f, seed=0, bt=128):
+    """x [rows, d], w [E, d, f], tile_expert and dy [rows, f] for
+    ``tiles`` row tiles per expert (0: an expert that owns no tile)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    te = torch.repeat_interleave(torch.arange(len(tiles)),
+                                 torch.tensor(tiles)).int().to(device)
+    rows = te.numel() * bt
+    x = torch.randn(rows, d, generator=gen, device=device)
+    w = torch.randn(len(tiles), d, f, generator=gen, device=device) / d ** 0.5
+    dy = torch.randn(rows, f, generator=gen, device=device)
+    return x.to(dtype), w.to(dtype), te, dy.to(dtype), bt
+
+
+def test_grouped_row_rule_passes_rounding_and_rejects_planted_faults():
+    """On the CPU, bf16: the plain versions against bf16 products taken
+    another way (torch's bf16 matmul, a rounding apart) pass the row
+    rule; the outputs of kernels broken at an expert boundary (a tile
+    read with the neighbour's weights, an expert's last tile left out
+    of dw, its first counted twice) fail it."""
+    x, w, te, dy, bt = _grouped_case("cpu", torch.bfloat16, [2, 3, 1],
+                                     64, 96, bt=16)
+    rows = te.long().repeat_interleave(bt)
+    right = {
+        "y": gm.grouped_matmul_fwd_plain(x, w, te, bt),
+        "dx": gm.grouped_matmul_fwd_plain(dy, w, te, bt, transpose_w=True),
+        "dw": gm.grouped_matmul_dw_plain(x, dy, te, 3, bt),
+    }
+    other = {
+        "y": torch.cat([x[rows == e] @ w[e] for e in range(3)]),
+        "dx": torch.cat([dy[rows == e] @ w[e].t() for e in range(3)]),
+        "dw": torch.stack([(x[rows == e].t() @ dy[rows == e]).float()
+                           for e in range(3)]),
+    }
+    for name, ref in right.items():
+        assert flash_check.rows_close(other[name], ref), name
+    faults = grouped_check.planted_faults(x, w, dy, te, bt)
+    assert [name for name, _, _ in faults] == ["y", "dx", "dw", "dw"]
+    for name, fault, got in faults:
+        assert not flash_check.rows_close(got, right[name]), (
+            fault, flash_check.row_errors(got, right[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tiles,d,f", [
+    (torch.bfloat16, [3, 1, 4, 2], 512, 1024),
+    (torch.bfloat16, [2, 0, 3, 1], 256, 384),
+    (torch.float32, [1, 2, 1], 96, 200),
+], ids=["bf16", "bf16_empty_expert", "f32_ragged"])
+def test_grouped_kernels_match_plain_on_card(cuda_device, dtype, tiles, d,
+                                             f):
+    """B4 (y and dx, w read transposed in place) and B5 (dw) against
+    their plain versions: bf16 outputs, and B5's f32 output of bf16
+    inputs, row by row (``flash_check``); f32 inputs to 1e-4 absolute
+    plus 1e-4 relative. An expert that owns no tile gets an exact-zero
+    dw, written over memory the allocator hands back full of NaN."""
+    x, w, te, dy, bt = _grouped_case(cuda_device, dtype, tiles, d, f)
+    e = len(tiles)
+    gm.reset_launch_counts()
+    junk = torch.full((e, d, f), float("nan"), device=cuda_device)
+    del junk  # its block goes back to the caching allocator
+    dw = gm.grouped_matmul_dw(x, dy, te, e, bt)
+    pairs = [
+        (gm.grouped_matmul_fwd(x, w, te, bt),
+         gm.grouped_matmul_fwd_plain(x, w, te, bt)),
+        (gm.grouped_matmul_fwd(dy, w, te, bt, transpose_w=True),
+         gm.grouped_matmul_fwd_plain(dy, w, te, bt, transpose_w=True)),
+        (dw, gm.grouped_matmul_dw_plain(x, dy, te, e, bt)),
+    ]
+    torch.cuda.synchronize()
+    assert gm.launch_counts() == {"grouped_matmul_fwd": 2,
+                                  "grouped_matmul_dw": 1}
+    for got, ref in pairs:
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        if dtype == torch.bfloat16:
+            assert flash_check.rows_close(got, ref), \
+                flash_check.row_errors(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    for expert in (i for i, n in enumerate(tiles) if n == 0):
+        assert torch.count_nonzero(dw[expert]).item() == 0

@@ -261,7 +261,8 @@ class TestRemat:
 
 class TestLaterSlicesRaise:
     @pytest.mark.parametrize("override,item", [
-        ({"num_experts": 4}, "A14"), ({"seq_axis": "seq"}, "A13"),
+        ({"num_experts": 4, "moe_dispatch": "grouped_ep"}, "A14"),
+        ({"seq_axis": "seq"}, "A13"),
         ({"fsdp_precision": "fp8"}, "A14"),
     ])
     def test_config_options(self, override, item):
