@@ -34,12 +34,28 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      at full width (2 layers, batch 1, seq 4096) for a few steps the
      same way, counting the launches of all five kernels; profile;
   9. one forward and backward of that model, grouped dispatch against
-     the capacity "gather" dispatch at a capacity nothing overflows.
+     the capacity "gather" dispatch at a capacity nothing overflows;
+ 10. B6, the dequant-in-kernel grouped matmul of the expert-parallel fp8
+     wire, against its plain version and bit for bit against dequantize
+     + B4's f32 path, on the rows rank 0 of 4 receives (llama2_7b+moe8
+     widths, 4 x 1024 tokens top-2, 2 local experts), on a skewed
+     routing and a ragged case; its planted faults; its time beside its
+     bound and dequantize + a per-expert matmul loop;
+ 11. one full-width MoE layer over 4 ranks sharing the card (gloo),
+     forward and backward: the fp8 wire bitwise equal to fp8_qdq at 1
+     and 2 chunks; the unquantized wire against the one-rank grouped
+     dispatch;
+ 12. the expert-parallel main path: examples/train_llama.py on 4 ranks
+     (llama2_7b+moe8 x 2 layers, grouped_ep, fp8 wire, global batch
+     4 x 1024), five steps (rank 0's last under torch.profiler), every
+     rank's launches of all six kernels pinned.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
 number the run measured to PATH.
 Needs one GPU; exits non-zero without one, or without the repository.
+Phases 11 and 12 spawn their ranks (``trainer.run.run_local``) and stop
+them before the script goes on.
 """
 
 import dataclasses
@@ -59,6 +75,11 @@ LAYERS = 4
 SEQ = 4096
 MOE_LAYERS = 2  # llama2_7b+moe8 at 2 layers: 1.84 B params, ~30 GB of state
 MOE_EXPERTS, MOE_TOP_K, BLOCK_T = 8, 2, 128
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B6 is exact f32)
+# expert parallel: 4 ranks sharing the one card over gloo, 1024 tokens
+# each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
+EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
+EP_TIMEOUT = 600  # seconds a 4-rank phase may take
 
 
 def fail(msg: str):
@@ -614,7 +635,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
 
 KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
     ("flash attention (B1-B3)", ("flash_fwd", "flash_bwd")),
-    ("grouped matmul (B4-B5)", ("grouped_fwd", "grouped_dw")),
+    ("grouped matmul (B4-B6)", ("grouped_fwd", "grouped_dw")),
+    ("copies between host and device", ("memcpy",)),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "sm90_", "nvjet")),
     ("optimizer", ("multi_tensor", "adam")),
     ("softmax / loss", ("softmax", "nll", "log_softmax", "logsumexp")),
@@ -825,6 +847,480 @@ def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
             "loss_gap": abs(lf - lr), "grad_gap": gap, "leaf_gap": leaf_gap}
 
 
+def ep_received_rows(moe, quantize, d, f, seed, bias=None, tokens=EP_TOKENS,
+                     experts=MOE_EXPERTS, ranks=EP_RANKS):
+    """What rank 0 of a grouped_ep job hands B6: each of ``ranks``
+    sources routes its ``tokens`` tokens top-2 over ``experts`` experts
+    (a random router; ``bias`` added to the logits skews it) and sends
+    rank 0 the rows of its local experts, quantized; rank 0 sorts them
+    by local expert (``moe.regroup_layout``). Returns (values, scales,
+    w [el, d, f] f32 from bf16, the layout, real rows per local
+    expert)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    el, n = experts // ranks, tokens * MOE_TOP_K
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    router = rnd(d, experts, scale=d ** -0.5)
+    rows, counts = [], []
+    for _ in range(ranks):
+        xt = rnd(tokens, d)
+        logits = xt @ router
+        if bias is not None:
+            logits = logits + torch.tensor(bias, device="cuda")
+        rounds, _, _ = moe._routing(logits, tokens, MOE_TOP_K, None, 0.0)
+        lay = moe.send_layout(rounds, tokens, ranks, el)
+        x_send = torch.cat([xt, xt.new_zeros((1, d))])[lay.send_token]
+        rows.append(x_send.view(ranks, n, d)[0])
+        counts.append(lay.counts[0])
+    recv = torch.stack(counts)  # [sources, el]
+    v, s = quantize.quantize_block_scaled(torch.stack(rows))
+    rl = moe.regroup_layout(recv, 0, n, ranks, el, BLOCK_T)
+    v = torch.cat([v.view(-1, d), v.new_zeros((1, d))])[rl.row_src]
+    s = torch.cat([s.view(-1, s.shape[-1]),
+                   s.new_zeros((1, s.shape[-1]))])[rl.row_src]
+    w = rnd(el, d, f, scale=d ** -0.5).to(torch.bfloat16).float()
+    return v, s, w, rl, recv.sum(dim=0).tolist()
+
+
+def check_quant(gm, quantize, v, s, w, rl, label, f32_tol=1e-4):
+    """B6 against its plain version by the row rule (and within
+    ``f32_tol`` absolute plus relative, element by element), and bit for
+    bit against dequantize followed by B4's f32 path. Returns (max abs
+    error, the plain result)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    te = rl.tile_expert
+    right = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, BLOCK_T)
+    got = gm.grouped_matmul_fwd_quant(v, s, w, te, BLOCK_T)
+    b4 = gm.grouped_matmul_fwd(quantize.dequantize_block_scaled(v, s), w, te,
+                               BLOCK_T)
+    torch.cuda.synchronize()
+    es = flash_check.row_errors(got, right)
+    ok = flash_check.rows_close(got, right) and bool(
+        torch.allclose(got, right, atol=f32_tol, rtol=f32_tol))
+    bitwise = torch.equal(got, b4)
+    log(f"  {label} y {tuple(got.shape)}: max_abs_err="
+        f"{es['max_abs_err']:.3e} (worst row {es['worst_row']:.3f} of its "
+        f"limit, norm ratio {es['norm_ratio']:.3e}; limit {f32_tol:.0e} "
+        f"abs + rel) {'ok' if ok else 'MISMATCH'}; dequantize + B4 f32: "
+        f"{'bitwise equal' if bitwise else 'DIFFERENT'}")
+    if not ok:
+        fail(f"grouped_matmul_fwd_quant disagrees with its plain version "
+             f"({label})")
+    if not bitwise:
+        fail(f"grouped_matmul_fwd_quant is not bitwise dequantize + B4 f32 "
+             f"({label}): max diff {(got - b4).abs().max().item():.3e}")
+    del got, b4
+    return es["max_abs_err"], right
+
+
+def check_quant_faults(v, s, w, rl, right):
+    """The rule that passed B6 must reject a neighbour block's scale,
+    ignored scales and a tile read with the neighbour expert's weights
+    (``grouped_check.planted_quant_faults``)."""
+    from dlrover_tpu_torch.ops import flash_check, grouped_check
+
+    results = []
+    for name, fault, got in grouped_check.planted_quant_faults(
+            v, s, w, rl.tile_expert, BLOCK_T):
+        e = flash_check.row_errors(got, right)
+        caught = not flash_check.rows_close(got, right)
+        log(f"  planted fault, {name}: {fault}: worst row "
+            f"{e['worst_row']:.1f} of its limit -> "
+            f"{'rejected' if caught else 'PASSED'}")
+        if not caught:
+            fail(f"the B6 check lets a planted fault pass: {fault}")
+        results.append({"output": name, "fault": fault, **e})
+        del got
+    return results
+
+
+def quant_times(gm, quantize, v, s, w, rl):
+    """B6 at the main shape: kernel, plain, B4's f32 path on the
+    dequantized rows, and dequantize plus a per-expert torch.matmul loop
+    (TF32 off), beside the bound. No single PyTorch call computes this
+    function: torch._grouped_mm takes bf16, torch._scaled_grouped_mm
+    wants both operands in fp8."""
+    import torch
+
+    te = rl.tile_expert
+    rows, d = v.shape
+    el, _, f = w.shape
+    flops = 2 * rows * d * f
+    nbytes = (v.numel() + s.numel() * 4 + w.numel() * 4 + rows * f * 4
+              + te.numel() * 4)
+    ends = [0] + [int(x) for x in (torch.searchsorted(
+        te, torch.arange(el, dtype=te.dtype, device=te.device),
+        right=True) * BLOCK_T).tolist()]
+
+    def loop():
+        xd = quantize.dequantize_block_scaled(v, s)
+        for i in range(el):
+            xd[ends[i]:ends[i + 1]] @ w[i]
+
+    kernel_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant(v, s, w, te,
+                                                            BLOCK_T))
+    plain_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant_plain(
+        v, s, w, te, BLOCK_T), iters=5, warmup=1)
+    xd = quantize.dequantize_block_scaled(v, s)
+    b4_ms = time_ms(lambda: gm.grouped_matmul_fwd(xd, w, te, BLOCK_T),
+                    iters=5, warmup=1)
+    del xd
+    loop_ms = time_ms(loop, iters=5, warmup=1)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    r = {"ms": kernel_ms, "plain_ms": plain_ms, "b4_f32_ms": b4_ms,
+         "loop_ms": loop_ms, "library_ms": None,
+         "library_call": "none: torch._grouped_mm takes bf16 and "
+                         "torch._scaled_grouped_mm wants both operands in "
+                         "fp8",
+         "bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "bound_peak": "67 TFLOP/s f32 on the CUDA cores",
+         "gflop": flops / 1e9, "bytes": nbytes,
+         "tflops_achieved": flops / kernel_ms / 1e9}
+    log(f"  B6 (grouped_matmul_fwd_quant): {kernel_ms:.3f} ms "
+        f"({r['tflops_achieved']:.2f} TFLOP/s f32), plain {plain_ms:.3f} ms, "
+        f"B4 f32 on the dequantized rows {b4_ms:.3f} ms, dequantize + "
+        f"per-expert matmul loop {loop_ms:.3f} ms, library none, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']} at 67 TFLOP/s f32, "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    return r
+
+
+def _ep_join():
+    """Join the 4-rank gloo group on the one card (rank function side)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import bootstrap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worker = bootstrap.init_worker("gloo", "cuda:0")
+    return worker.process_id, worker.num_processes
+
+
+def ep_layer_rank(d, f, seed):
+    """One rank of phase 11: one full-width MoE layer, forward and
+    backward, experts sharded over the 4 ranks. (i) the fp8 wire against
+    fp8_qdq, bit for bit, at C = 1 and 2, in bf16 as the model computes;
+    (ii) the unquantized ("bf16") wire against the one-rank grouped
+    dispatch of all 4096 tokens, in f32 so that the differently shaped
+    router products cannot flip a routing tie. Loss: sum(out^2) / (T d)
+    + aux, the sum of the ranks' sum(out_r^2) / (T d) + aux / P."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import moe, ring
+    from dlrover_tpu_torch.parallel.mesh import ProcessMesh
+
+    rank, ranks = _ep_join()
+    e, el = MOE_EXPERTS, MOE_EXPERTS // ranks
+    t = ranks * EP_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = {"router": torch.randn(d, e, generator=gen, device="cuda")
+            * d ** -0.5,
+            "up": torch.randn(e, d, f, generator=gen, device="cuda")
+            * d ** -0.5,
+            "down": torch.randn(e, f, d, generator=gen, device="cuda")
+            * f ** -0.5}
+    x_all = torch.randn(t, d, generator=gen, device="cuda")
+    mine = slice(rank * EP_TOKENS, (rank + 1) * EP_TOKENS)
+    experts = slice(rank * el, (rank + 1) * el)
+    mesh = ProcessMesh.over("data")
+
+    def run(dtype, cfg, local=True):
+        leaves = {"router": full["router"],
+                  "up": full["up"][experts] if local else full["up"],
+                  "down": full["down"][experts] if local else full["down"]}
+        leaves = {k: v.to(dtype).detach().requires_grad_()
+                  for k, v in leaves.items()}
+        x = (x_all[mine] if local else x_all).to(dtype).requires_grad_()
+        params = {"router": {"kernel": leaves["router"]},
+                  "experts": {"up": {"kernel": leaves["up"]},
+                              "down": {"kernel": leaves["down"]}}}
+        out, aux, metrics = moe.moe_ffn(params, x[None], cfg,
+                                        activation=F.silu)
+        loss = out.float().square().sum() / (t * d) + (
+            aux / ranks if local else aux)
+        loss.backward()
+        grads = {k: v.grad for k, v in leaves.items()}
+        grads["x"] = x.grad
+        return loss.detach(), aux.detach(), out.detach(), grads, metrics
+
+    result = {"rank": rank, "fp8": {}}
+    for chunks in (1, 2):
+        runs = {}
+        for precision in ("fp8", "fp8_qdq"):
+            gm.reset_launch_counts()
+            cfg = moe.MoEConfig(num_experts=e, top_k=MOE_TOP_K,
+                                dispatch="grouped_ep", mesh=mesh,
+                                ep_axes=("data",), dispatch_chunks=chunks,
+                                precision=precision)
+            runs[precision] = run(torch.bfloat16, cfg)
+            torch.cuda.synchronize()
+            runs[precision] += (gm.launch_counts(),)
+        (lq, aq, oq, gq, mq, cq), (lr, ar, orf, gr, _, cr) = (
+            runs["fp8"], runs["fp8_qdq"])
+        same = {"loss": torch.equal(lq, lr), "aux": torch.equal(aq, ar),
+                "out": torch.equal(oq, orf)}
+        same.update({f"grad {k}": torch.equal(gq[k], gr[k]) for k in gq})
+        result["fp8"][chunks] = {
+            "bitwise": same, "dropped_frac": mq["dropped_frac"].item(),
+            "launches_fp8": cq, "launches_fp8_qdq": cr,
+            "loss": lq.item()}
+        del runs
+        torch.cuda.empty_cache()
+    # (ii) the unquantized wire over 4 ranks against the one-rank
+    # grouped dispatch of all tokens, f32
+    ep_cfg = moe.MoEConfig(num_experts=e, top_k=MOE_TOP_K,
+                           dispatch="grouped_ep", mesh=mesh,
+                           ep_axes=("data",), dispatch_chunks=1,
+                           precision="bf16")
+    l_ep, _, o_ep, g_ep, m_ep = run(torch.float32, ep_cfg)
+    ref_cfg = moe.MoEConfig(num_experts=e, top_k=MOE_TOP_K,
+                            dispatch="grouped")
+    l_ref, _, o_ref, g_ref, _ = run(torch.float32, ref_cfg, local=False)
+    loss_ep = ring.all_reduce_(l_ep.clone()).item()
+    router_ep = ring.all_reduce_(g_ep["router"].clone())
+    pairs = {"out": (o_ep[0], o_ref[0][mine]), "x": (g_ep["x"],
+                                                     g_ref["x"][mine]),
+             "up": (g_ep["up"], g_ref["up"][experts]),
+             "down": (g_ep["down"], g_ref["down"][experts])}
+    if rank == 0:
+        pairs["router"] = (router_ep, g_ref["router"])
+    sums = torch.zeros(2 * 5, device="cuda", dtype=torch.float64)
+    for i, key in enumerate(("out", "x", "up", "down", "router")):
+        if key in pairs:
+            a, b = pairs[key]
+            sums[2 * i] = (a.double() - b.double()).square().sum()
+            sums[2 * i + 1] = b.double().square().sum()
+    ring.all_reduce_(sums)
+    gaps = {key: (sums[2 * i] / sums[2 * i + 1]).sqrt().item()
+            for i, key in enumerate(("out", "x", "up", "down", "router"))}
+    grad = sums[2:].view(-1, 2).sum(dim=0)
+    result["bf16_vs_grouped"] = {
+        "loss_ep": loss_ep, "loss_ref": l_ref.item(),
+        "loss_gap": abs(loss_ep - l_ref.item()),
+        "grad_gap": (grad[0] / grad[1]).sqrt().item(), "gaps": gaps,
+        "dropped_frac": m_ep["dropped_frac"].item()}
+    dist.destroy_process_group()
+    return result
+
+
+def ep_train_rank(argv, profile_last):
+    """One rank of phase 12: ``examples/train_llama.py``'s entry point as
+    a launched job would run it; the launch counters and exchange
+    statistics are reset just before and read just after. With
+    ``profile_last`` rank 0's last step runs under torch.profiler: its
+    device time by kernel group (the other ranks' kernels share the
+    card and are not in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.examples import train_llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.trainer.executor import TrainHook
+
+    class Record(TrainHook):
+        """CUDA events and host clocks around each step of this rank;
+        with ``profile``, torch.profiler over the last step."""
+
+        def __init__(self, profile):
+            self.events, self.host, self.metrics = [], [], {}
+            self.profile, self.prof = profile, None
+
+        def _mark(self):
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+            self.host.append(time.perf_counter())
+
+        def before_step(self, step):
+            self._mark()
+            if self.profile and step == EP_STEPS:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+
+        def after_step(self, step, metrics):
+            self.metrics[step] = metrics
+
+        def end(self, executor):
+            self._mark()
+            if self.prof is not None:
+                torch.cuda.synchronize()
+                self.prof.__exit__(None, None, None)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # rank 0 only: the profiler's own cost stays off the other ranks
+    record = Record(profile_last
+                    and os.environ.get(NodeEnv.PROCESS_ID) == "0")
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    ring.reset_stats()
+    out = train_llama.main(argv, hooks=[record])
+    torch.cuda.synchronize()
+    counts = {**fa.launch_counts(), **gm.launch_counts()}
+    step_ms = [a.elapsed_time(b) for a, b in zip(record.events,
+                                                 record.events[1:])]
+    host_s = [b - a for a, b in zip(record.host, record.host[1:])]
+    groups = {}
+    if record.prof is not None:
+        for evt in record.prof.key_averages():
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(evt, "is_user_annotation", False)
+                    or "#" in evt.key):
+                continue
+            group = next((g for g, keys in KERNEL_GROUPS
+                          if any(k in evt.key.lower() for k in keys)),
+                         "other elementwise / copies")
+            groups[group] = groups.get(group, 0.0) + (
+                getattr(evt, "device_time_total", 0) or 0) / 1e3
+    return {"step": out["step"], "launches": counts, "step_ms": step_ms,
+            "host_step_s": host_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "exchange": ring.stats(), "metrics": record.metrics,
+            "profile_groups_ms": groups}
+
+
+def ep_phases(run_local, llama, moe_config, card):
+    """Phases 11 and 12, each over EP_RANKS spawned ranks on the card."""
+    d, f = moe_config.hidden_size, moe_config.intermediate_size
+    report = {}
+    log(f"one MoE layer at full width over {EP_RANKS} ranks sharing the "
+        f"card (gloo; {EP_TOKENS} tokens per rank, top-{MOE_TOP_K} over "
+        f"{MOE_EXPERTS} experts, {MOE_EXPERTS // EP_RANKS} per rank, D={d}, "
+        f"F={f}), forward and backward:")
+    t0 = time.monotonic()
+    ranks = run_local(ep_layer_rank, EP_RANKS, (d, f, 11), timeout=EP_TIMEOUT)
+    for r in ranks:
+        for chunks, res in r["fp8"].items():
+            bad = [k for k, ok in res["bitwise"].items() if not ok]
+            log(f"  rank {r['rank']} C={chunks}: fp8 wire vs fp8_qdq: "
+                + ("bitwise equal (loss, aux, output, every gradient)"
+                   if not bad else f"DIFFERENT in {bad}")
+                + f"; dropped_frac {res['dropped_frac']}; launches fp8 "
+                f"{res['launches_fp8']}, fp8_qdq {res['launches_fp8_qdq']}")
+            if bad:
+                fail(f"the fp8 wire differs from fp8_qdq on rank "
+                     f"{r['rank']} at C={chunks}: {bad}")
+            if res["dropped_frac"] != 0.0:
+                fail("grouped_ep dropped tokens")
+            if not (res["launches_fp8"]["grouped_matmul_fwd_quant"] > 0
+                    and res["launches_fp8_qdq"]["grouped_matmul_fwd_quant"]
+                    == 0):
+                fail("the fp8 wire did not go through B6 (or fp8_qdq did)")
+    cmp_ = ranks[0]["bf16_vs_grouped"]
+    log(f"  unquantized wire over {EP_RANKS} ranks vs the one-rank grouped "
+        f"dispatch (f32): loss {cmp_['loss_ep']:.9f} vs "
+        f"{cmp_['loss_ref']:.9f}, gap {cmp_['loss_gap']:.3e} (limit "
+        f"{MOE_LOSS_GAP_LIMIT:.0e}); gradient gap {cmp_['grad_gap']:.3e} "
+        f"(limit {MOE_GRAD_GAP_LIMIT:.0e}); per leaf "
+        + ", ".join(f"{k} {v:.3e}" for k, v in cmp_["gaps"].items()))
+    if not (cmp_["loss_gap"] <= MOE_LOSS_GAP_LIMIT
+            and cmp_["grad_gap"] <= MOE_GRAD_GAP_LIMIT
+            and cmp_["dropped_frac"] == 0.0):
+        fail("grouped_ep over 4 ranks disagrees with the one-rank grouped "
+             "dispatch")
+    log(f"  ({time.monotonic() - t0:.1f} s with the ranks' start-up)")
+    report["ep_layer"] = ranks
+
+    argv = ["--preset", "7b", "--layers", str(MOE_LAYERS), "--seq",
+            str(EP_TOKENS), "--batch", str(EP_RANKS), "--steps",
+            str(EP_STEPS), "--moe_experts", str(MOE_EXPERTS), "--moe_top_k",
+            str(MOE_TOP_K), "--moe_dispatch", "grouped_ep",
+            "--moe_precision", "fp8", "--dispatch_chunks", "1", "--device",
+            "cuda:0", "--backend", "gloo"]
+    log(f"expert-parallel main path: python -m dlrover_tpu_torch.examples."
+        f"train_llama {' '.join(argv)} on {EP_RANKS} ranks sharing the card "
+        f"(gloo: exchanges and gradient all-reduces go through host memory; "
+        f"the timings are four ranks on one card, not a multi-GPU result):")
+    t0 = time.monotonic()
+    ranks = run_local(ep_train_rank, EP_RANKS, (argv, True),
+                      timeout=EP_TIMEOUT)
+    per = EP_STEPS * MOE_LAYERS
+    expected = {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
+                "flash_bwd_dq": per, "grouped_matmul_fwd": 6 * per,
+                "grouped_matmul_dw": 2 * per,
+                "grouped_matmul_fwd_quant": 2 * per}
+    tokens = EP_RANKS * EP_TOKENS
+    for rank, r in enumerate(ranks):
+        steps = sorted(r["metrics"])
+        if r["step"] != EP_STEPS or steps != list(range(1, EP_STEPS + 1)):
+            fail(f"rank {rank} trained {r['step']} steps, expected "
+                 f"{EP_STEPS}")
+        for step in steps:
+            m = r["metrics"][step]
+            if not (math.isfinite(m["loss"]) and m["finite"]):
+                fail(f"non-finite loss at step {step} on rank {rank}")
+            if m["moe_dropped_frac"] != 0.0:
+                fail("grouped_ep dropped tokens")
+        exch = sum(v["seconds"] for k, v in r["exchange"].items()
+                   if k != "all_reduce")
+        red = r["exchange"].get("all_reduce", {}).get("seconds", 0.0)
+        wall = sum(r["host_step_s"])
+        r["exchange_share"] = exch / wall
+        r["all_reduce_share"] = red / wall
+        log(f"  rank {rank}: launches {r['launches']}; step ms (device "
+            f"clock) {[round(x, 1) for x in r['step_ms']]}; host s per step "
+            f"{[round(x, 3) for x in r['host_step_s']]}; peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; row and count exchanges "
+            f"{exch:.2f} s ({r['exchange_share']:.3f} of the steps' host "
+            f"time), gradient all-reduces {red:.2f} s "
+            f"({r['all_reduce_share']:.3f})")
+        if r["launches"] != expected:
+            fail(f"rank {rank} kernel launches {r['launches']} on the main "
+                 f"path, expected {expected}")
+    m0 = ranks[0]["metrics"]
+    losses = [m0[s]["loss"] for s in range(1, EP_STEPS + 1)]
+    if abs(losses[0] - math.log(llama.llama2_7b().vocab_size)) > 3.0:
+        fail(f"first loss {losses[0]:.3f} is far from ln(vocab)")
+    # steps 2..N-1: the first pays for first-call set-up, the last runs
+    # under rank 0's profiler
+    steady_s = statistics.mean(
+        max(r["host_step_s"][i] for r in ranks)
+        for i in range(1, EP_STEPS - 1))
+    peak_sum = sum(r["peak_bytes"] for r in ranks)
+    log(f"  losses {[round(x, 4) for x in losses]}; grad_norm "
+        f"{[round(m0[s]['grad_norm'], 4) for s in range(1, EP_STEPS + 1)]}; "
+        f"steady step (steps 2-{EP_STEPS - 1}, host clock, slowest rank) "
+        f"{steady_s * 1e3:.1f} ms, {tokens / steady_s:.0f} tokens/s; "
+        f"peak memory summed over ranks {peak_sum / 2**30:.2f} GiB "
+        f"({time.monotonic() - t0:.1f} s with start-up); {card}")
+    groups = ranks[0]["profile_groups_ms"]
+    prof_ms = ranks[0]["host_step_s"][-1] * 1e3
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("  profile of rank 0's last step: no device time recorded "
+            "(not measured)")
+    else:
+        log(f"  profile of rank 0's last step ({prof_ms:.1f} ms on the host "
+            f"clock, under the profiler): rank 0's kernels busy "
+            f"{busy:.1f} ms ({busy / prof_ms:.3f} of the step; the other "
+            f"ranks' kernels share the card)")
+        for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {group}: {ms:.1f} ms ({ms / busy:.3f})")
+    report["ep_train"] = {
+        "argv": argv, "ranks": ranks, "expected_launches": expected,
+        "losses": losses, "steady_step_s": steady_s,
+        "profiled_step_ms": prof_ms, "profile_busy_ms": busy,
+        "tokens_per_s": tokens / steady_s, "peak_bytes_sum": peak_sum}
+    return report
+
+
 def main():
     import argparse
 
@@ -843,7 +1339,8 @@ def main():
         from dlrover_tpu_torch.models import llama
         from dlrover_tpu_torch.ops import flash_attention as fa
         from dlrover_tpu_torch.ops import grouped_matmul as gm
-        from dlrover_tpu_torch.ops import kernel_build, moe, remat
+        from dlrover_tpu_torch.ops import kernel_build, moe, quantize, remat
+        from dlrover_tpu_torch.trainer.run import run_local
     except ImportError as e:
         fail(f"the dlrover_tpu_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -960,6 +1457,7 @@ def main():
         "flash_bwd_dq": STEPS * MOE_LAYERS,
         "grouped_matmul_fwd": STEPS * MOE_LAYERS * (2 * (1 + recompute) + 2),
         "grouped_matmul_dw": STEPS * MOE_LAYERS * 2,
+        "grouped_matmul_fwd_quant": 0,  # the expert-parallel fp8 wire's
     }
     # the reference's 6N counts every expert; a token runs MOE_TOP_K
     idle = MOE_LAYERS * (MOE_EXPERTS - MOE_TOP_K) * 2 * d * f
@@ -977,6 +1475,51 @@ def main():
          ("gather", {"moe_dispatch": "gather"})), (gm,),
         MOE_LOSS_GAP_LIMIT, MOE_GRAD_GAP_LIMIT)
 
+    torch.cuda.empty_cache()
+
+    el = MOE_EXPERTS // EP_RANKS
+    log(f"B6 vs plain (what rank 0 of {EP_RANKS} receives: {EP_RANKS} x "
+        f"{EP_TOKENS} tokens routed top-{MOE_TOP_K} over {MOE_EXPERTS} "
+        f"experts, its {el} local experts' rows quantized to e4m3 with f32 "
+        f"scales per 32 channels, D={d}, F={f}):")
+    v, s, w, rl, real = ep_received_rows(moe, quantize, d, f, 0)
+    tiles = torch.bincount(rl.tile_expert.long(), minlength=el).tolist()
+    log(f"  main: {rl.rows} rows ({sum(real)} real); tiles per local "
+        f"expert {tiles}, real rows per local expert {real}")
+    q_err, q_right = check_quant(gm, quantize, v, s, w, rl, "main")
+    log("the same check against planted faults, same inputs:")
+    report["quant_planted_faults"] = check_quant_faults(v, s, w, rl,
+                                                        q_right)
+    del q_right
+    torch.cuda.empty_cache()
+    log(f"B6 time ({rl.rows} rows of which {sum(real)} real, D={d}, F={f}, "
+        f"{el} local experts; {card}):")
+    q_times = quant_times(gm, quantize, v, s, w, rl)
+    report["quant_kernel_times"] = q_times
+    report["quant_main_groups"] = {"tiles": tiles, "real_rows": real,
+                                   "rows": rl.rows}
+    del v, s, w, rl
+    torch.cuda.empty_cache()
+    # skewed: local expert 1 wins most first choices and local expert 0
+    # is never chosen, so it owns only its sentinel tile (the last local
+    # expert also owns the trailing pad tiles)
+    skew = [-30.0, 3.0] + [0.0] * (MOE_EXPERTS - 2)
+    v, s, w, rl, real = ep_received_rows(moe, quantize, d, f, 1, bias=skew)
+    tiles = torch.bincount(rl.tile_expert.long(), minlength=el).tolist()
+    log(f"  skewed: tiles per local expert {tiles}, real rows per local "
+        f"expert {real}")
+    if real[0] != 0 or tiles[0] != 1:
+        fail(f"the skewed routing is not skewed: {tiles}, {real}")
+    check_quant(gm, quantize, v, s, w, rl, "skewed")
+    del v, s, w, rl
+    v, s, w, rl, _ = ep_received_rows(moe, quantize, 200, 96, 2, tokens=75)
+    check_quant(gm, quantize, v, s, w, rl, "ragged (75 tokens per source, "
+                "D=200: 25-channel scale blocks, F=96)")
+    del v, s, w, rl
+    torch.cuda.empty_cache()
+
+    report.update(ep_phases(run_local, llama, moe_config, card))
+
     kernels = []
     for name, meta in fa.KERNELS.items():
         t = times[name]
@@ -992,12 +1535,19 @@ def main():
     for name, meta in gm.KERNELS.items():
         # B4 is timed on y (the up-projection); its dx call does the same
         # work and is reported beside it
-        t = g_times["y" if name == "grouped_matmul_fwd" else "dw"]
+        t = (q_times if name == "grouped_matmul_fwd_quant" else
+             g_times["y" if name == "grouped_matmul_fwd" else "dw"])
+        # B6 runs on the expert-parallel main path: rank 0's launches
+        # there (every rank's equal the expected count)
+        launches = (report["ep_train"]["ranks"][0]["launches"][name]
+                    if name == "grouped_matmul_fwd_quant"
+                    else report["train_moe"]["launches"][name])
         entry = {
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": report["train_moe"]["launches"][name],
-            "max_abs_err": g_errs[name], "ms": t["ms"],
+            "launches": launches,
+            "max_abs_err": (q_err if name == "grouped_matmul_fwd_quant"
+                            else g_errs[name]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "verdict": "ok",
@@ -1006,6 +1556,9 @@ def main():
             dx = g_times["dx"]
             entry.update({"dx_ms": dx["ms"], "dx_plain_ms": dx["plain_ms"],
                           "dx_library_ms": dx["library_ms"]})
+        if name == "grouped_matmul_fwd_quant":
+            entry.update({"loop_ms": t["loop_ms"],
+                          "b4_f32_ms": t["b4_f32_ms"]})
         kernels.append(entry)
     report["kernels"] = kernels
     if args.json:

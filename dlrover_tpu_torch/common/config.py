@@ -31,6 +31,15 @@ class Context:
         self.telemetry_enabled = True
         # JSONL event sink ("" = in-memory ring only)
         self.telemetry_events_file = ""
+        # grouped_ep MoE: static chunks of the row exchange (1 = one
+        # all_to_all; C > 1 = the ring, C chunks); read by ops.moe when
+        # a config leaves it at 0
+        self.dispatch_chunks = 1
+        # grouped_ep MoE wire: "bf16" (the compute dtype), "fp8"
+        # (block-scaled e4m3 + f32 scales) or "fp8_qdq" (the bitwise
+        # reference: quantize -> dequantize, full-precision wire); read
+        # by ops.moe when a config leaves it empty
+        self.moe_precision = "bf16"
         self._apply_env_overrides()
 
     def _apply_env_overrides(self):

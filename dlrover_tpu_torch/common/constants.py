@@ -1,0 +1,20 @@
+"""The worker environment contract (port of the ``NodeEnv`` part of
+``dlrover_tpu/common/constants.py``).
+
+The launcher hands every training process its coordinates in these
+variables; ``trainer.bootstrap.init_worker`` reads them.
+"""
+
+from __future__ import annotations
+
+
+class NodeEnv:
+    """Env-var contract between the launcher and training processes."""
+
+    NODE_RANK = "DLROVER_TPU_NODE_RANK"
+    NODE_NUM = "DLROVER_TPU_NODE_NUM"
+    # handed to each training process at (re-)rendezvous
+    COORDINATOR_ADDR = "DLROVER_TPU_COORDINATOR_ADDR"
+    PROCESS_ID = "DLROVER_TPU_PROCESS_ID"
+    NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
+    RESTART_ROUND = "DLROVER_TPU_RESTART_ROUND"

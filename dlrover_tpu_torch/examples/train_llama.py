@@ -9,22 +9,44 @@
         --steps 20 --device cpu
 
 ``--moe_experts N`` makes every FFN a mixture of N experts, routed by
-the reference example's default ("gather", capacity-based). This slice
-runs one device; ``--ckpt_dir``, ``--ring`` and ``--pipe`` belong to
-later slices and are refused.
+the reference example's default ("gather", capacity-based) or by
+``--moe_dispatch`` (``--moe_top_k`` choices per token).
+
+Several ranks: under a launcher that sets the worker environment
+(``DLROVER_TPU_NUM_PROCESSES`` > 1, ``DLROVER_TPU_PROCESS_ID``,
+``DLROVER_TPU_COORDINATOR_ADDR``), each process joins the process group
+(``trainer.bootstrap.init_worker``, ``--backend``: NCCL by default on
+the GPU, one GPU per rank; gloo for ranks that share a GPU, or on the
+CPU) and the job runs data parallel over the ranks, ``--batch`` being
+the global batch. With ``--moe_dispatch grouped_ep`` the experts are
+sharded over the ranks (``rule_set="moe_ep"``); ``--moe_precision`` and
+``--dispatch_chunks`` set its wire::
+
+    # four ranks, each on its own GPU
+    python -m dlrover_tpu_torch.trainer.run --nproc 4 -- \
+        -m dlrover_tpu_torch.examples.train_llama --preset tiny \
+        --moe_experts 8 --moe_top_k 2 --moe_dispatch grouped_ep \
+        --moe_precision fp8
+
+``--ckpt_dir``, ``--ring`` and ``--pipe`` belong to later slices and are
+refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.models import llama
-from dlrover_tpu_torch.parallel.mesh import single_device_plan
+from dlrover_tpu_torch.parallel.mesh import MeshPlan, single_device_plan
 from dlrover_tpu_torch.parallel.strategy import Strategy
+from dlrover_tpu_torch.trainer import bootstrap
 from dlrover_tpu_torch.trainer.conf import build_configuration
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 from dlrover_tpu_torch.trainer.executor import TrainExecutor
@@ -50,11 +72,12 @@ def adamw():
                              eps=1e-8, weight_decay=0.1)
 
 
-def preset_config(preset: str, layers: int = 0, moe_experts: int = 0):
-    """(config, default seq) of a preset. The tiny preset turns the
-    flash path on: on the GPU it runs the kernels, on the CPU their
-    plain versions."""
-    kw = {"num_experts": moe_experts}
+def preset_config(preset: str, layers: int = 0, moe_experts: int = 0,
+                  **moe):
+    """(config, default seq) of a preset, ``moe`` holding LlamaConfig's
+    MoE fields. The tiny preset turns the flash path on: on the GPU it
+    runs the kernels, on the CPU their plain versions."""
+    kw = {"num_experts": moe_experts, **moe}
     if layers:
         kw["num_layers"] = layers
     if preset == "tiny":
@@ -69,52 +92,92 @@ def preset_config(preset: str, layers: int = 0, moe_experts: int = 0):
     return llama.llama2_7b(**kw), 4096
 
 
-def main(argv=None):
+def main(argv=None, hooks=()):
+    """Train as the flags say; ``hooks`` (``TrainHook``s) ride the
+    executor. Returns the executor's result."""
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default="tiny", choices=["tiny", "1b", "7b"])
     p.add_argument("--steps", type=int, default=50)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8,
+                   help="global batch rows (split over the ranks)")
     p.add_argument("--seq", type=int, default=0, help="0 = preset default")
     p.add_argument("--layers", type=int, default=0,
                    help="override the preset's layer count")
     p.add_argument("--ckpt_dir", default="")
     p.add_argument("--moe_experts", type=int, default=0)
+    p.add_argument("--moe_top_k", type=int, default=1)
+    p.add_argument("--moe_dispatch", default="gather",
+                   choices=["gather", "einsum", "grouped", "grouped_ep"])
+    p.add_argument("--moe_precision", default=None,
+                   choices=["bf16", "fp8", "fp8_qdq"],
+                   help="grouped_ep wire (default: the Context's)")
+    p.add_argument("--dispatch_chunks", type=int, default=None,
+                   help="grouped_ep row-exchange chunks (default: the "
+                        "Context's)")
     p.add_argument("--ring", type=int, default=0)
     p.add_argument("--pipe", type=int, default=0)
     p.add_argument("--pipe_virtual", type=int, default=1)
     p.add_argument("--pipe_depths", default="")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda)")
+                   help="torch device (default: cuda, cuda:<LOCAL_RANK> "
+                        "over several ranks)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend over several ranks "
+                        "(default: nccl on the GPU, gloo on the CPU)")
     args = p.parse_args(argv)
     for flag in ("ckpt_dir", "ring", "pipe", "pipe_depths"):
         if getattr(args, flag):
             p.error(f"--{flag} is not ported yet (see ROADMAP.md)")
 
-    config, default_seq = preset_config(args.preset, args.layers,
-                                        args.moe_experts)
+    world, rank, joined, device = 1, 0, False, args.device
+    if int(os.environ.get(NodeEnv.NUM_PROCESSES, "1")) > 1:
+        joined = not dist.is_initialized()
+        worker = (bootstrap.init_worker(args.backend, device) if joined
+                  else None)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if worker is not None:
+            device = worker.device
+    ep = args.moe_dispatch == "grouped_ep" and world > 1
+    config, default_seq = preset_config(
+        args.preset, args.layers, args.moe_experts,
+        moe_top_k=args.moe_top_k, moe_dispatch=args.moe_dispatch)
     seq = args.seq or default_seq
     batches = synthetic_batches(config.vocab_size, args.batch, seq)
+    if world > 1:
+        strategy = Strategy(mesh=MeshPlan(data=world, fsdp=1),
+                            rule_set="moe_ep" if ep else "llama",
+                            remat_policy="")
+    else:
+        strategy = Strategy(mesh=single_device_plan(),
+                            rule_set="moe" if args.moe_experts else "llama",
+                            remat_policy="")  # the model remats per layer
     trainer = ElasticTrainer(
-        llama.make_init_fn(config),
+        llama.make_init_fn(config, (rank, world) if ep else None),
         llama.make_loss_fn(config),
         adamw(),
         next(batches()),
-        strategy=Strategy(mesh=single_device_plan(),
-                          rule_set="moe" if args.moe_experts else "llama",
-                          remat_policy=""),  # the model remats per layer
-        device=args.device,
+        strategy=strategy,
+        device=device,
+        dispatch_chunks=args.dispatch_chunks,
+        moe_precision=args.moe_precision,
     )
     executor = TrainExecutor(
         trainer,
         train_iter_fn=batches,
+        hooks=list(hooks),
         conf=build_configuration({
             "train_steps": args.steps, "log_every_steps": 10,
         }),
     )
-    out = executor.train_and_evaluate()
-    print(f"finished at step {out['step']} "
-          f"({llama.param_count(config) / 1e6:.1f}M params, "
-          f"{trainer.device})")
+    try:
+        out = executor.train_and_evaluate()
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(f"finished at step {out['step']} "
+              f"({llama.param_count(config) / 1e6:.1f}M params, "
+              f"{trainer.device} x {world})")
     return out
 
 

@@ -11,17 +11,18 @@ plain loop, each under the configured remat policy, with attention
 through the Hopper flash kernels (``use_flash``) or the reference
 attention. With ``num_experts`` > 0 the FFN is a mixture of experts
 (``ops.moe``); ``moe_dispatch="grouped"`` runs it dropless through the
-grouped-matmul kernels.
+grouped-matmul kernels, and ``"grouped_ep"`` shards the experts over the
+ranks of the expert group: each rank's parameter tree then holds its
+own E/P experts (``init(..., expert_shard=(rank, P))``).
 
 Numerics follow the reference: RMSNorm with f32 statistics, RoPE with
 f32 angles on rotated halves, GQA, SwiGLU, untied head; params stored in
 ``param_dtype`` and cast to ``compute_dtype`` per layer; logits computed
 in the compute dtype and cast to f32.
 
-Not in this slice (they raise): expert parallelism (``grouped_ep`` and its
-options, ROADMAP A14-EP), sequence parallelism (A13), packed ``segment_ids``
-(A10), the low-precision FSDP wire (A14), pipelining (A15) and the
-serving functions (A16).
+Not in this slice (they raise): sequence parallelism (A13), packed
+``segment_ids`` (A10), the low-precision FSDP wire (A14), pipelining
+(A15) and the serving functions (A16).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -72,8 +75,9 @@ class LlamaConfig:
     flash_block_q_bwd: int = 0
     flash_block_k_bwd: int = 0
     # MoE (0 = dense). "gather" (capacity) | "einsum" (the oracle) |
-    # "grouped" (dropless, the grouped-matmul kernels); "grouped_ep" and
-    # the chunk/precision knobs belong to the expert-parallel slice
+    # "grouped" (dropless, the grouped-matmul kernels) | "grouped_ep"
+    # (dropless, experts sharded over the moe_ep_axes ranks; the row
+    # exchange's chunks and wire precision: 0 / "" = the Context's)
     num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -144,8 +148,25 @@ def _check_supported(c: LlamaConfig, segment_ids=None) -> None:
 # -- init -------------------------------------------------------------------
 
 
-def param_shapes(config: LlamaConfig) -> Dict:
-    """The parameter tree's layout: nested dict of shapes."""
+ExpertShard = Optional[Tuple[int, int]]  # (rank, ranks) of the experts
+
+
+def _local_experts(num_experts: int, expert_shard: ExpertShard) -> range:
+    """The expert indices a rank holds: [r E/P, (r+1) E/P)."""
+    if expert_shard is None:
+        return range(num_experts)
+    rank, ranks = expert_shard
+    if num_experts % ranks or not 0 <= rank < ranks:
+        raise ValueError(f"expert_shard {expert_shard}: {num_experts} "
+                         f"experts do not split over {ranks} ranks")
+    per = num_experts // ranks
+    return range(rank * per, (rank + 1) * per)
+
+
+def param_shapes(config: LlamaConfig,
+                 expert_shard: ExpertShard = None) -> Dict:
+    """The parameter tree's layout: nested dict of shapes (a rank's own
+    E/P experts with ``expert_shard=(rank, P)``)."""
     c = config
     l, d, f = c.num_layers, c.hidden_size, c.intermediate_size
     h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
@@ -159,9 +180,10 @@ def param_shapes(config: LlamaConfig) -> Dict:
     }
     if c.num_experts > 0:
         e = c.num_experts
+        el = len(_local_experts(e, expert_shard))
         layers["router"] = {"kernel": (l, d, e)}
-        layers["experts"] = {"up": {"kernel": (l, e, d, f)},
-                             "down": {"kernel": (l, e, f, d)}}
+        layers["experts"] = {"up": {"kernel": (l, el, d, f)},
+                             "down": {"kernel": (l, el, f, d)}}
     else:
         layers.update({"gate_proj": {"kernel": (l, d, f)},
                        "up_proj": {"kernel": (l, d, f)},
@@ -174,20 +196,48 @@ def param_shapes(config: LlamaConfig) -> Dict:
     }
 
 
-def init(generator: torch.Generator, config: LlamaConfig) -> Dict:
+def _expert_seed(base: int, leaf: str, layer: int, expert: int) -> int:
+    """The seed of one expert's weight block: a function of the init
+    seed and the block's place only, so every rank draws the same block
+    whichever experts it holds."""
+    return int(np.random.SeedSequence(
+        [base, 0 if leaf == "up" else 1, layer, expert]).generate_state(
+            2, np.uint64)[0] >> np.uint64(1))
+
+
+def init(generator: torch.Generator, config: LlamaConfig,
+         expert_shard: ExpertShard = None) -> Dict:
     """Random parameters on the generator's device, reference layout and
     initialisers (the numbers differ: torch and jax generators differ).
-    Norm scales start at one."""
+    Norm scales start at one.
+
+    Each expert's [D, F] block is drawn from its own generator, seeded
+    from the generator's initial seed and the block's (leaf, layer,
+    expert): with ``expert_shard=(rank, P)`` a rank draws only its own
+    E/P experts, and they equal those experts of the one-rank model
+    from the same seed."""
     _check_supported(config)
     c, dt = config, config.param_dtype
-    shapes = param_shapes(c)
+    shapes = param_shapes(c, expert_shard)
     # the FFN's output projections start at 1/sqrt(F), the rest at
     # 1/sqrt(fan_in); norm scales at one
     down = 1.0 / math.sqrt(c.intermediate_size)
+    base = generator.initial_seed()
+
+    def experts(leaf, shape):
+        scale = down if leaf == "down" else None
+        blocks = [[dense_init(torch.Generator(generator.device).manual_seed(
+                      _expert_seed(base, leaf, layer, expert)),
+                              shape[2:], dt, scale)
+                   for expert in _local_experts(c.num_experts, expert_shard)]
+                  for layer in range(shape[0])]
+        return torch.stack([torch.stack(b) for b in blocks])
 
     def layer_leaf(path, shape):
         if path[-1] == "scale":
             return torch.ones(shape, dtype=dt, device=generator.device)
+        if len(path) == 3 and path[0] == "experts":
+            return experts(path[1], shape)
         scale = down if path[-2] in ("down_proj", "down") else None
         return dense_init(generator, shape, dt, scale)
 
@@ -210,8 +260,8 @@ def init(generator: torch.Generator, config: LlamaConfig) -> Dict:
     }
 
 
-def make_init_fn(config: LlamaConfig):
-    return functools.partial(init, config=config)
+def make_init_fn(config: LlamaConfig, expert_shard: ExpertShard = None):
+    return functools.partial(init, config=config, expert_shard=expert_shard)
 
 
 # -- forward ----------------------------------------------------------------

@@ -7,7 +7,9 @@ tile's weights from ``tile_expert``; an off-by-one reads the neighbouring
 expert's. The TPU's dw kernel initialises an expert's output block on
 the expert's first row tile and accumulates while the block stays
 resident; a port that gets the run of tiles wrong leaves the last one
-out or counts the first one twice.
+out or counts the first one twice. B6 adds its scales: a loader that
+indexes the scale blocks off by one, or skips the multiply, and it
+shares B4's expert boundary.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from dlrover_tpu_torch.ops.grouped_matmul import (
     grouped_matmul_dw_plain,
     grouped_matmul_fwd_plain,
+    grouped_matmul_fwd_quant_plain,
 )
 
 
@@ -57,4 +60,23 @@ def planted_faults(x, w, dy, tile_expert, block_t: int
          grouped_matmul_dw_plain(x_dropped, dy, tile_expert, w.shape[0],
                                  block_t)),
         ("dw", f"expert {e}'s first tile ({first}) counted twice", twice),
+    ]
+
+
+def planted_quant_faults(values, scales, w, tile_expert, block_t: int
+                         ) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) of B6's y: each must fail
+    ``flash_check.rows_close`` against the right answer."""
+    i = _boundary_tile(tile_expert)
+    wrong = tile_expert.clone()
+    wrong[i] = tile_expert[i - 1]
+    return [
+        ("y", "each channel block read with its neighbour's scale",
+         grouped_matmul_fwd_quant_plain(values, scales.roll(1, dims=-1), w,
+                                        tile_expert, block_t)),
+        ("y", "the scales ignored (values read as they are)",
+         grouped_matmul_fwd_quant_plain(values, torch.ones_like(scales), w,
+                                        tile_expert, block_t)),
+        ("y", f"tile {i} read with expert {int(wrong[i])}'s weights",
+         grouped_matmul_fwd_quant_plain(values, scales, w, wrong, block_t)),
     ]

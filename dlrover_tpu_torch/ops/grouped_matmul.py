@@ -1,7 +1,7 @@
 """Grouped matmul for Hopper: the dropless-MoE expert compute, two
 hand-written CUDA kernels behind a ``torch.autograd.Function``.
 
-Port of ``dlrover_tpu/ops/grouped_matmul.py`` (the unquantised path).
+Port of ``dlrover_tpu/ops/grouped_matmul.py``.
 ``y[i] = x[i] @ w[tile_expert[i // block_t]]``: rows are sorted by
 expert and every expert's group is padded to whole row tiles, so each
 tile of ``block_t`` rows belongs to one expert. The kernels, in
@@ -10,6 +10,11 @@ tile of ``block_t`` rows belongs to one expert. The kernels, in
   grouped_matmul_fwd  (B4) y = x @ w[e] per row tile, and, reading w
                       transposed in place, dx = dy @ w[e]^T
   grouped_matmul_dw   (B5) dw[e] = sum over e's row tiles of x^T dy, f32
+  grouped_matmul_fwd_quant
+                      (B6) y = dequant(values, scales) @ w[e], f32: the
+                      fp8 rows of the expert-parallel wire, dequantized
+                      in the kernel, bitwise equal to dequantizing
+                      first and running B4's f32 path
 
 Each has a wrapper here that launches it on a CUDA tensor (or raises:
 there is no fallback), a plain PyTorch version that the wrapper uses for
@@ -19,8 +24,6 @@ The TPU tiling rule (``_pick_block``) does not apply: the kernels mask
 ragged D and F edges. ``block_f`` is kept for API parity and does not
 change the result; ``block_t`` is the grouping contract and must be a
 multiple of the kernels' 128-row tile on the card.
-
-The quantised-LHS kernel (B6) belongs to the expert-parallel slice.
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ from typing import Dict
 import torch
 
 from dlrover_tpu_torch.ops import kernel_build
+from dlrover_tpu_torch.ops.quantize import (
+    WIRE_DTYPE,
+    dequantize_block_scaled,
+)
 
 # where each kernel lives and which TPU kernel it replaces
 KERNELS: Dict[str, Dict[str, str]] = {
@@ -41,6 +48,10 @@ KERNELS: Dict[str, Dict[str, str]] = {
     "grouped_matmul_dw": {
         "source": "dlrover_tpu_torch/csrc/grouped_matmul_dw.cu",
         "replaces": "dlrover_tpu/ops/grouped_matmul.py:70",
+    },
+    "grouped_matmul_fwd_quant": {
+        "source": "dlrover_tpu_torch/csrc/grouped_matmul_fwd_quant.cu",
+        "replaces": "dlrover_tpu/ops/grouped_matmul.py:90",
     },
 }
 
@@ -53,6 +64,9 @@ _ARGTYPES = {
     "grouped_matmul_fwd": [_P] * 4 + [_I] * 6 + [_P],
     # rows, D, F, E, num_tiles, block_t
     "grouped_matmul_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # values, scales, w, tile_expert, y, then rows, D, F, E, the scale
+    # blocks per row, block_t
+    "grouped_matmul_fwd_quant": [_P] * 5 + [_I] * 6 + [_P],
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -90,6 +104,13 @@ def grouped_matmul_dw_plain(x, dy, tile_expert, num_experts: int,
         sel = rows == e
         dw[e] = x[sel].float().t() @ dy[sel].float()
     return dw
+
+
+def grouped_matmul_fwd_quant_plain(values, scales, w, tile_expert,
+                                   block_t: int):
+    """B6's function: dequantize, then B4's plain product, f32 out."""
+    return grouped_matmul_fwd_plain(dequantize_block_scaled(values, scales),
+                                    w.float(), tile_expert, block_t)
 
 
 # -- kernel wrappers ---------------------------------------------------------
@@ -181,12 +202,59 @@ def grouped_matmul_dw(x, dy, tile_expert, num_experts: int,
     return dw
 
 
+def grouped_matmul_fwd_quant(values, scales, w, tile_expert,
+                             block_t: int = 128):
+    """B6: ``[Tp, F]`` f32 from e4m3 ``values`` [Tp, D], f32 ``scales``
+    [Tp, D / qb] and f32 ``w`` [E, D, F] (a bf16 w is the caller's to
+    promote, as the reference's dot does)."""
+    e, d, f = w.shape
+    _check_shapes("grouped_matmul_fwd_quant", values, w, tile_expert,
+                  block_t, d)
+    nb = scales.shape[-1]
+    if values.dtype != WIRE_DTYPE or scales.dtype != torch.float32:
+        raise TypeError(f"grouped_matmul_fwd_quant: values must be "
+                        f"{WIRE_DTYPE} and scales float32, got "
+                        f"{values.dtype} and {scales.dtype}")
+    if scales.shape != (values.shape[0], nb) or nb == 0 or d % nb:
+        raise ValueError(f"grouped_matmul_fwd_quant: scales "
+                         f"{tuple(scales.shape)} are not whole blocks of "
+                         f"values {tuple(values.shape)}")
+    if kernel_build.on_cpu("grouped matmul", values, scales, w,
+                           tile_expert):
+        return grouped_matmul_fwd_quant_plain(values, scales, w,
+                                              tile_expert, block_t)
+    _kernel_suffix("grouped_matmul_fwd_quant", tile_expert, block_t, w)
+    for t in (values, scales):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("grouped_matmul_fwd_quant: operands must be "
+                             "contiguous and 16-byte aligned")
+    if d % 8:
+        raise ValueError(f"grouped_matmul_fwd_quant: D={d} must be a "
+                         f"multiple of 8 (8-byte fp8 loads)")
+    if w.dtype != torch.float32:
+        raise TypeError(f"grouped_matmul_fwd_quant: w must be float32, "
+                        f"got {w.dtype}")
+    y = torch.empty((values.shape[0], f), dtype=torch.float32,
+                    device=values.device)
+    kernel_build.launch(
+        "grouped_matmul_fwd_quant", "f32",
+        _ARGTYPES["grouped_matmul_fwd_quant"], values.device,
+        values.data_ptr(), scales.data_ptr(), w.data_ptr(),
+        tile_expert.data_ptr(), y.data_ptr(), values.shape[0], d, f, e, nb,
+        block_t)
+    grouped_matmul_fwd_quant.launches += 1
+    return y
+
+
 grouped_matmul_fwd.launches = 0
 grouped_matmul_dw.launches = 0
+grouped_matmul_fwd_quant.launches = 0
 WRAPPERS = {"grouped_matmul_fwd": grouped_matmul_fwd,
-            "grouped_matmul_dw": grouped_matmul_dw}
+            "grouped_matmul_dw": grouped_matmul_dw,
+            "grouped_matmul_fwd_quant": grouped_matmul_fwd_quant}
 PLAIN = {"grouped_matmul_fwd": grouped_matmul_fwd_plain,
-         "grouped_matmul_dw": grouped_matmul_dw_plain}
+         "grouped_matmul_dw": grouped_matmul_dw_plain,
+         "grouped_matmul_fwd_quant": grouped_matmul_fwd_quant_plain}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -270,3 +338,46 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_tile_expert(tile_expert, w.shape[0])
     return _GroupedMatmul.apply(x.contiguous(), w.contiguous(),
                                 tile_expert.contiguous(), int(block_t))
+
+
+class _GroupedMatmulQuantized(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, scales, w, tile_expert, block_t: int):
+        ctx.save_for_backward(values, scales, tile_expert)
+        ctx.block_t, ctx.num_experts = block_t, w.shape[0]
+        return grouped_matmul_fwd_quant(values, scales, w, tile_expert,
+                                        block_t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        values, scales, tile_expert = ctx.saved_tensors
+        dw = None
+        if ctx.needs_input_grad[2]:
+            # B5 over the dequantized rows, as the reference's _gmq_bwd
+            x_deq = dequantize_block_scaled(values, scales)
+            dw = grouped_matmul_dw(x_deq, dy.float().contiguous(),
+                                   tile_expert, ctx.num_experts,
+                                   ctx.block_t)
+        # values and scales get zero (None): the rows arrived over the
+        # wire already quantized, and the caller's wire boundary carries
+        # the activation gradient
+        return None, None, dw, None, None
+
+
+def grouped_matmul_quantized(values: torch.Tensor, scales: torch.Tensor,
+                             w: torch.Tensor, tile_expert: torch.Tensor,
+                             block_t: int = 128,
+                             block_f: int = 512) -> torch.Tensor:
+    """``grouped_matmul`` over a block-scaled fp8 LHS, dequantized in the
+    kernel (B6): ``y[i] = dequant(values[i], scales[i]) @
+    w[tile_expert[i // block_t]]``, f32 out. ``w`` must be f32.
+
+    Bitwise equal to ``grouped_matmul(dequantize_block_scaled(values,
+    scales), w, ...)``. Differentiable in ``w`` only: dw through B5 on
+    the dequantized rows; ``values`` and ``scales`` get zeros.
+    """
+    del block_f
+    _check_tile_expert(tile_expert, w.shape[0])
+    return _GroupedMatmulQuantized.apply(
+        values.contiguous(), scales.contiguous(), w.contiguous(),
+        tile_expert.contiguous(), int(block_t))

@@ -38,6 +38,7 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "grouped_matmul_fwd": "grouped_matmul_fwd.cu",
     "grouped_matmul_dw": "grouped_matmul_dw.cu",
+    "grouped_matmul_fwd_quant": "grouped_matmul_fwd_quant.cu",
 }
 HEADERS = ("flash_common.cuh", "grouped_common.cuh")
 NVCC_FLAGS = (

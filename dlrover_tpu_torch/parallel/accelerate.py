@@ -1,5 +1,5 @@
 """``accelerate`` — from (init, loss, optimizer, strategy) to a train step
-on one device (port of ``dlrover_tpu/parallel/accelerate.py``).
+(port of ``dlrover_tpu/parallel/accelerate.py``).
 
 The reference jits a pure step over sharded state. PyTorch runs
 eagerly, so the step here is a Python function over a ``TrainState``
@@ -9,9 +9,22 @@ its moments in device memory instead of two. Gradient accumulation
 (the fixed-global-batch elasticity lever) sums microbatch gradients,
 then divides by their count, as the reference's scan does.
 
-One device in this slice: the strategy's mesh must resolve to a single
-device. ``steps_per_call`` > 1 and a low-precision gradient wire come
-with later slices and raise here.
+Several ranks (``torch.distributed`` initialised, e.g. by
+``trainer.bootstrap.init_worker``): the strategy's mesh is built over
+them (``MeshPlan.build``; data parallel, ``fsdp == 1``, in this slice)
+and set as the ambient mesh around every step, where the MoE finds its
+expert group. Each rank takes its contiguous block of the global
+batch's rows, as the reference shards dim 0 over "data". After the
+backward, a replicated leaf's gradient is all-reduced as a mean; a
+sharded leaf (``strategy.is_sharded``: the experts under "moe_ep") has
+already received every rank's contribution through the dispatch's
+reverse exchange and is divided by the rank count. Each rank's loss is
+the mean over its own rows; the reported loss is the mean of the ranks'
+(the global mean when every rank has as many labelled tokens), and the
+gradient norm and finite check are global.
+
+``steps_per_call`` > 1 and a low-precision gradient wire come with
+later slices and raise here.
 """
 
 from __future__ import annotations
@@ -21,12 +34,16 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.models.common import tree_leaves
+from dlrover_tpu_torch.ops import ring
 from dlrover_tpu_torch.ops.remat import apply_remat
-from dlrover_tpu_torch.parallel.strategy import Strategy
+from dlrover_tpu_torch.ops.shard_compat import ambient_mesh
+from dlrover_tpu_torch.parallel.mesh import ProcessMesh
+from dlrover_tpu_torch.parallel.strategy import Strategy, is_sharded
 
 logger = get_logger("parallel.accelerate")
 
@@ -51,16 +68,30 @@ class AccelerateResult:
     init_fn: Callable  # (seed) -> TrainState
     device: torch.device
     strategy: Strategy
+    mesh: ProcessMesh
+    rank: int = 0
+    world: int = 1
 
     def shard_batch(self, batch: Dict) -> Dict:
-        """Host batch (numpy arrays or tensors) -> tensors on the
-        device; on one device the global batch is the whole batch."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+        """Global host batch (numpy arrays or tensors) -> this rank's
+        contiguous block of its rows, as tensors on the device."""
+        rows = _rows(batch) // self.world
+        lo = self.rank * rows
+        return {k: torch.as_tensor(v)[lo:lo + rows].to(
+                    self.device, non_blocking=True)
                 for k, v in batch.items()}
 
 
 def _rows(batch: Dict) -> int:
     return next(iter(batch.values())).shape[0]
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) pairs in ``tree_leaves``' sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
 
 
 def accelerate(
@@ -82,7 +113,8 @@ def accelerate(
       loss_fn: (params, batch, rng) -> (loss, aux dict).
       optimizer: parameter list -> ``torch.optim.Optimizer``.
       example_batch: host batch with the GLOBAL batch dimension.
-      strategy: remat/accum decisions; its mesh must fit one device.
+      strategy: mesh/rules/remat/accum decisions; the mesh must fit the
+        ranks of ``torch.distributed`` (one when it is not initialised).
       rng: seed of the init generator.
       device: default ``cuda`` (raises without one); tests pass "cpu".
     """
@@ -96,18 +128,24 @@ def accelerate(
             "path (bf16) is ported"
         )
     strategy = strategy or Strategy()
-    strategy.mesh.resolve(1)  # raises for a multi-device mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    mesh = strategy.mesh.build(world)
+    group = mesh.group(("data", "fsdp"))
     batch_rows = _rows(example_batch)
     if strategy.global_batch_size and strategy.global_batch_size != batch_rows:
         raise ValueError(
             f"strategy.global_batch_size={strategy.global_batch_size} but "
             f"the example batch has {batch_rows} rows"
         )
+    if batch_rows % world:
+        raise ValueError(f"{world} ranks do not split the global batch of "
+                         f"{batch_rows} rows")
     accum = max(1, strategy.grad_accum_steps)
-    if batch_rows % accum:
+    if (batch_rows // world) % accum:
         raise ValueError(
-            f"grad_accum_steps={accum} does not divide the global batch of "
-            f"{batch_rows} rows"
+            f"grad_accum_steps={accum} does not divide the "
+            f"{batch_rows // world} rows of each of {world} ranks"
         )
     strategy = dataclasses.replace(strategy, global_batch_size=batch_rows)
     loss_fn = apply_remat(loss_fn, strategy.remat_policy or "none")
@@ -128,9 +166,27 @@ def accelerate(
         return TrainState(step=0, params=params,
                           opt_state=optimizer(tree_leaves(params)))
 
+    def reduce_grads(named):
+        """The global gradient on every rank, and its norm."""
+        shard_sq = torch.zeros((), device=device)
+        rep_sq = torch.zeros((), device=device)
+        for path, p in named:
+            if is_sharded(strategy.rule_set, path):
+                p.grad.div_(world)
+                shard_sq = shard_sq + p.grad.float().square().sum()
+            else:
+                ring.all_reduce_(p.grad, group).div_(world)
+                rep_sq = rep_sq + p.grad.float().square().sum()
+        return torch.sqrt(rep_sq + ring.all_reduce_(shard_sq, group))
+
     def train_step(state: TrainState, batch: Dict, step_rng=None):
-        leaves = [p for p in tree_leaves(state.params) if p.requires_grad]
-        for p in leaves:
+        with ambient_mesh(mesh):
+            return _train_step(state, batch, step_rng)
+
+    def _train_step(state: TrainState, batch: Dict, step_rng=None):
+        named = [(path, p) for path, p in _named_leaves(state.params)
+                 if p.requires_grad]
+        for _, p in named:
             p.grad = None
         if accum == 1:
             loss, aux = loss_fn(state.params, batch, step_rng)
@@ -145,14 +201,18 @@ def accelerate(
                 mb_loss.backward()
                 loss = loss + mb_loss.detach()
                 auxes.append(mb_aux)
-            for p in leaves:
+            for _, p in named:
                 p.grad.div_(accum)
             loss = loss / accum
             aux = {k: torch.stack([torch.as_tensor(a[k]) for a in auxes]
                                   ).mean(dim=0) for k in auxes[0]}
-        grads = [p.grad for p in leaves]
-        grad_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        if world > 1:
+            grad_norm = reduce_grads(named)
+            loss = ring.all_reduce_(loss.clone(), group) / world
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(p.grad.float())
+                 for _, p in named]))
         metrics = {
             **aux,
             "loss": loss,
@@ -166,13 +226,17 @@ def accelerate(
         return state, metrics
 
     def eval_step(state: TrainState, batch: Dict):
-        with torch.no_grad():
+        with torch.no_grad(), ambient_mesh(mesh):
             loss, aux = loss_fn(state.params, batch, None)
+            if world > 1:
+                loss = ring.all_reduce_(loss.clone(), group) / world
         return {"loss": loss, **aux}
 
-    logger.info("accelerate: device=%s accum=%d remat=%s", device, accum,
-                strategy.remat_policy or "none")
+    if rank == 0:
+        logger.info("accelerate: device=%s ranks=%d rules=%s accum=%d "
+                    "remat=%s", device, world, strategy.rule_set, accum,
+                    strategy.remat_policy or "none")
     return AccelerateResult(
         train_step=train_step, eval_step=eval_step, init_fn=make_state,
-        device=device, strategy=strategy,
+        device=device, strategy=strategy, mesh=mesh, rank=rank, world=world,
     )

@@ -1,8 +1,12 @@
 """Device-mesh planning (port of ``dlrover_tpu/parallel/mesh.py``).
 
 ``MeshPlan`` keeps the reference's axis names and its refit arithmetic.
-This slice runs on one device; the ``DeviceMesh`` a plan builds for
-FSDP over several GPUs comes with that slice.
+``MeshPlan.build`` turns a plan into a ``ProcessMesh``: the process
+group of each axis of size > 1 over the ranks of ``torch.distributed``,
+where the reference builds a ``jax.sharding.Mesh`` over devices. This
+slice builds data-parallel meshes (``data x fsdp = world`` with
+``fsdp == 1``); FSDP (``fsdp > 1``, ROADMAP A6/A7) and the model-parallel
+axes raise.
 
 Axis convention (outer -> inner): "pipe", "data", "fsdp", "seq",
 "tensor".
@@ -11,10 +15,11 @@ Axis convention (outer -> inner): "pipe", "data", "fsdp", "seq",
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 MESH_AXES = ("pipe", "data", "fsdp", "seq", "tensor")
 
@@ -75,6 +80,60 @@ class MeshPlan:
     @property
     def dp_degree(self) -> int:
         return max(1, self.data) * max(1, self.fsdp)
+
+    def build(self, world: Optional[int] = None) -> "ProcessMesh":
+        """The process mesh of this plan over the ``world`` ranks of the
+        default process group (default: its size, 1 when there is none).
+        """
+        if world is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+        plan = self.resolve(world)
+        if plan.fsdp > 1:
+            raise NotImplementedError(
+                f"fsdp={plan.fsdp}: sharded parameters (FSDP) are not "
+                f"ported yet (ROADMAP A6/A7); use MeshPlan(data={world}, "
+                f"fsdp=1)")
+        for axis in ("pipe", "seq", "tensor"):
+            if getattr(plan, axis) > 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis!r} of size {getattr(plan, axis)} is "
+                    f"not ported yet (ROADMAP)")
+        groups = {}
+        if plan.data > 1:
+            # data x fsdp = world with fsdp == 1: the data axis spans
+            # every rank, in rank order
+            groups["data"] = dist.group.WORLD
+        sizes = plan.axis_sizes()
+        return ProcessMesh(axis_names=MESH_AXES,
+                           axis_sizes=tuple(sizes[a] for a in MESH_AXES),
+                           groups=groups)
+
+
+@dataclass
+class ProcessMesh:
+    """Axis names and sizes (``jax.sharding.Mesh``'s two attributes the
+    port reads), and the process group of each axis of size > 1."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    groups: Dict[str, object] = field(default_factory=dict)
+
+    @classmethod
+    def over(cls, axis: str, group=None) -> "ProcessMesh":
+        """A one-axis mesh over ``group`` (default: every rank)."""
+        group = group or dist.group.WORLD
+        return cls((axis,), (dist.get_world_size(group),), {axis: group})
+
+    def group(self, axes: Sequence[str]):
+        """The process group spanning ``axes`` (None when they all have
+        size 1). Only one of them may be larger than 1 in this slice."""
+        sizes = dict(zip(self.axis_names, self.axis_sizes))
+        big = [a for a in axes if sizes[a] > 1]
+        if len(big) > 1:
+            raise NotImplementedError(
+                f"a group over several axes of size > 1 {big} comes with "
+                f"FSDP (ROADMAP A6/A7)")
+        return self.groups[big[0]] if big else None
 
 
 def topology_key(devices: Sequence[torch.device]) -> str:

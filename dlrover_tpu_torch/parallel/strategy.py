@@ -1,18 +1,34 @@
 """The acceleration strategy object (port of
 ``dlrover_tpu/parallel/strategy.py``): mesh, rules, remat and dtypes,
 plus ``grad_accum_steps``, the lever that keeps the global batch fixed
-when the world shrinks. ``rule_set`` is kept as a name: the sharding
-rules it selects arrive with FSDP.
+when the world shrinks.
+
+``rule_set`` names the sharding rules. On the data-parallel meshes of
+this slice (``fsdp == 1``) every rule set replicates every leaf, as the
+reference's rules do with no fsdp or tensor axis to shard over, except
+``"moe_ep"``: its expert leaves (``experts/{up,down}/kernel``, the
+reference's ``moe_ep_rules``) are sharded over the expert group, each
+rank holding its own E/P experts. The FSDP rules arrive with A6/A7.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from dlrover_tpu_torch.parallel.mesh import MeshPlan
+
+# the leaves "moe_ep" shards over the expert group
+_EXPERT_LEAF = re.compile(r"experts/(up|down)/kernel$")
+
+
+def is_sharded(rule_set: str, path: str) -> bool:
+    """Whether the leaf at ``path`` ("a/b/c") holds only this rank's
+    part under ``rule_set``; every other leaf is replicated."""
+    return rule_set == "moe_ep" and bool(_EXPERT_LEAF.search(path))
 
 
 @dataclass

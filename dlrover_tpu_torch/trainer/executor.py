@@ -5,8 +5,8 @@ This slice ports the step loop with its dispatch window (up to
 ``train_window`` steps in flight before the oldest one's metrics are
 read on the host, so the host does not wait on the device every step),
 ``log_every_steps``, evaluation, hooks, and the non-finite guardrail
-with its policies. Master hooks, preemption, failover, live reshard and
-retune come with later slices.
+with its policies. Over several ranks only rank 0 logs. Master hooks,
+preemption, failover, live reshard and retune come with later slices.
 """
 
 from __future__ import annotations
@@ -189,7 +189,8 @@ class TrainExecutor:
         if (self._check_finite_every and s % self._check_finite_every == 0
                 and not self._step_is_finite(host)):
             self._handle_nonfinite(s, host)
-        if self._log_every and s % self._log_every == 0:
+        if (self._log_every and s % self._log_every == 0
+                and self._trainer.is_chief):
             dt = now - self._last_log
             self._last_log = now
             logger.info("step %d loss=%.4f (%.2f steps/s)", s,
@@ -240,7 +241,8 @@ class TrainExecutor:
             self.eval_metrics = {k: _to_host(v) for k, v in
                                  self._eval_fn(self.state).items()}
         self._h_eval.observe(time.monotonic() - t0)
-        logger.info("eval @%d: %s", step, self.eval_metrics)
+        if self._trainer.is_chief:
+            logger.info("eval @%d: %s", step, self.eval_metrics)
         for hook in self._hooks:
             hook.after_evaluate(step, self.eval_metrics)
 

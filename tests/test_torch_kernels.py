@@ -1,5 +1,5 @@
-"""The flash-attention and grouped-matmul kernels against their plain
-versions.
+"""The flash-attention and grouped-matmul kernels (B1-B6) against their
+plain versions.
 
 This file imports no JAX, so it also runs on a machine with a GPU and
 no JAX installed (``tests/conftest.py`` imports JAX; skip it there):
@@ -20,6 +20,7 @@ from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import flash_check, kernel_build
 from dlrover_tpu_torch.ops import grouped_check
 from dlrover_tpu_torch.ops import grouped_matmul as gm
+from dlrover_tpu_torch.ops import quantize
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
 
 
@@ -242,7 +243,8 @@ def test_grouped_kernels_match_plain_on_card(cuda_device, dtype, tiles, d,
     ]
     torch.cuda.synchronize()
     assert gm.launch_counts() == {"grouped_matmul_fwd": 2,
-                                  "grouped_matmul_dw": 1}
+                                  "grouped_matmul_dw": 1,
+                                  "grouped_matmul_fwd_quant": 0}
     for got, ref in pairs:
         assert got.shape == ref.shape and got.dtype == ref.dtype
         if dtype == torch.bfloat16:
@@ -252,3 +254,52 @@ def test_grouped_kernels_match_plain_on_card(cuda_device, dtype, tiles, d,
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     for expert in (i for i, n in enumerate(tiles) if n == 0):
         assert torch.count_nonzero(dw[expert]).item() == 0
+
+
+def test_quant_row_rule_rejects_planted_faults():
+    """On the CPU: B6's plain output passes the row rule against the
+    dequantize-then-matmul product taken another way, and a neighbour
+    block's scale, ignored scales or a tile read with the neighbour
+    expert's weights fail it."""
+    x, w, te, _, bt = _grouped_case("cpu", torch.float32, [2, 3, 1], 64, 96,
+                                    bt=16)
+    v, s = quantize.quantize_block_scaled(x)
+    right = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, bt)
+    xd = quantize.dequantize_block_scaled(v, s)
+    rows = te.long().repeat_interleave(bt)
+    other = torch.cat([xd[rows == e] @ w[e] for e in range(3)])
+    assert flash_check.rows_close(other, right)
+    faults = grouped_check.planted_quant_faults(v, s, w, te, bt)
+    assert len(faults) == 3
+    for name, fault, got in faults:
+        assert got.shape == right.shape, fault
+        assert not flash_check.rows_close(got, right), (
+            fault, flash_check.row_errors(got, right))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,d,f", [
+    ([1, 2, 1], 96, 200),
+    ([2, 0, 3], 256, 384),
+    ([1, 2, 1], 200, 96),
+], ids=["ragged", "empty_expert", "scale_block_25"])
+def test_quant_kernel_matches_plain_on_card(cuda_device, tiles, d, f):
+    """B6 against its plain version (f32, 1e-4 absolute plus relative),
+    and bit for bit against dequantize followed by B4's f32 path: the
+    contract the reference pins inside itself. D=200 has 25-channel
+    scale blocks, which straddle the kernel's eight-byte loads, and a
+    half-filled last k tile."""
+    x, w, te, _, bt = _grouped_case(cuda_device, torch.float32, tiles, d, f)
+    v, s = quantize.quantize_block_scaled(x * 3)
+    gm.reset_launch_counts()
+    y = gm.grouped_matmul_fwd_quant(v, s, w, te, bt)
+    ref = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, bt)
+    b4 = gm.grouped_matmul_fwd(quantize.dequantize_block_scaled(v, s), w, te,
+                               bt)
+    torch.cuda.synchronize()
+    assert gm.launch_counts() == {"grouped_matmul_fwd": 1,
+                                  "grouped_matmul_dw": 0,
+                                  "grouped_matmul_fwd_quant": 1}
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    torch.testing.assert_close(y, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, b4)

@@ -261,7 +261,10 @@ class TestRemat:
 
 class TestLaterSlicesRaise:
     @pytest.mark.parametrize("override,item", [
-        ({"num_experts": 4, "moe_dispatch": "grouped_ep"}, "A14"),
+        # grouped_ep runs (tests/test_torch_ep.py); its pairing with the
+        # fp8 FSDP wire does not yet
+        ({"num_experts": 4, "moe_dispatch": "grouped_ep",
+          "fsdp_precision": "fp8"}, "A14"),
         ({"seq_axis": "seq"}, "A13"),
         ({"fsdp_precision": "fp8"}, "A14"),
     ])

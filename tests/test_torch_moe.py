@@ -338,16 +338,30 @@ class TestMoeFfn:
         assert lay.tile_expert.tolist() == [0] * 6 + [1, 2, 3] + [3]
 
     def test_expert_parallel_options_raise(self):
+        """What still raises: an unknown dispatch or wire precision, and
+        an expert group built over FSDP (A6/A7). With no expert group
+        of size > 1, grouped_ep and its options run the one-rank
+        grouped path, as the reference does."""
         params, x, _ = _moe_inputs()
         tparams = interop.params_from_numpy(params, device="cpu")
-        for kw in ({"dispatch": "grouped_ep"}, {"dispatch_chunks": 2},
-                   {"precision": "fp8"}):
-            cfg = moe.MoEConfig(num_experts=4, **kw)
-            with pytest.raises(NotImplementedError, match="expert-parallel"):
-                moe.moe_ffn(tparams, torch.from_numpy(x), cfg)
+        with pytest.raises(ValueError, match="unknown MoE precision"):
+            moe.moe_ffn(tparams, torch.from_numpy(x),
+                        moe.MoEConfig(num_experts=4, dispatch="grouped_ep",
+                                      precision="int3"))
         with pytest.raises(ValueError, match="unknown MoE dispatch"):
             moe.moe_ffn(tparams, torch.from_numpy(x),
                         moe.MoEConfig(num_experts=4, dispatch="groupd"))
+        with pytest.raises(NotImplementedError, match="A6/A7"):
+            mesh.MeshPlan(data=2, fsdp=2).build(4)
+        want = moe.moe_ffn(tparams, torch.from_numpy(x),
+                           moe.MoEConfig(num_experts=4, dispatch="grouped"))
+        for kw in ({"dispatch": "grouped_ep"},
+                   {"dispatch": "grouped_ep", "dispatch_chunks": 2,
+                    "precision": "fp8"}):
+            got = moe.moe_ffn(tparams, torch.from_numpy(x),
+                              moe.MoEConfig(num_experts=4, **kw))
+            torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
+            torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)
 
 
 def _jax_params(cfg, seed=0):
