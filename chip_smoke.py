@@ -10,19 +10,25 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      process per source, all at once;
   3. hold each flash kernel (B1 forward, B2 dK/dV, B3 dQ) against its
      plain PyTorch version on the card: at the main path's shape (bf16,
-     causal GQA 32/8, S=4096, D=128) and on ragged f32 and bf16 GQA
-     cases; and show that the same rule rejects outputs with planted
-     faults;
+     causal GQA 32/8, S=4096, D=128), on ragged f32 and bf16 GQA cases,
+     and on the edges of B1's bf16 tiles (D=64, D=80 padded to 128, D=16,
+     32 and 48 below the 64-wide tile, a ragged q tile beside a head
+     boundary, cross attention, S=129); and show that the same rule
+     rejects outputs with planted faults;
   4. time each flash kernel, its plain version and PyTorch's
      scaled_dot_product_attention (a yardstick the port never calls),
-     beside the least time the card could take;
+     beside the least time the card could take (B1 also as a share of
+     that bound and a ratio to SDPA's forward);
   5. train Llama-3-8B at full width (4 layers, batch 1, seq 4096) for a
      few steps through TrainExecutor + ElasticTrainer with the flash
      kernels and the default dispatch window, counting their launches;
-     then profile a few more steps;
+     then profile a few more steps (B1's device time per step among
+     them);
   6. one forward and backward of the same model with use_flash=True
-     against the reference attention (use_flash=False): the loss and
-     every gradient;
+     against the reference attention (use_flash=False): every gradient
+     on one batch; then the loss of each path, and of forwards with
+     planted faults, against an exact (f32) attention's over 64 batches:
+     the sound paths within the limits, the faulty ones beyond them;
   7. the grouped-matmul kernels (B4 forward and dX, B5 dW) against their
      plain versions at the MoE path's shape (llama2_7b+moe8: 4096 tokens
      routed top-2 over 8 experts, D=4096, F=11008), on a skewed routing
@@ -58,6 +64,7 @@ Phases 11 and 12 spawn their ranks (``trainer.run.run_local``) and stop
 them before the script goes on.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -80,6 +87,11 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B6 is exact f32)
 # each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
 EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
 EP_TIMEOUT = 600  # seconds a 4-rank phase may take
+B1_WAS_MS = 2.714  # B1 at the main shape with WMMA, before wgmma (PERF.md)
+B1_DESIGN = ("stage B: wgmma m64n128k16 for S and P.V with S, P and O in "
+             "registers, two consumer warpgroups over 128 q rows, a "
+             "producer warp keeping TMA loads of 128-key K/V tiles in a "
+             "2-stage mbarrier ring, online softmax in 64-key steps")
 
 
 def fail(msg: str):
@@ -118,20 +130,22 @@ def time_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
-def attention_inputs(b, h, hkv, s, d, dtype, seed):
+def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
+    """q, k, v, dO; k and v have ``sk`` rows (default ``s``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sk = s if sk is None else sk
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    return rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+    return rnd(b, h, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
         rnd(b, h, s, d)
 
 
-def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol):
+def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
     """Run each kernel and its plain version on the same inputs; return
     ({kernel: max abs error}, the inputs and the plain results). A bf16
     output is held row by row (``flash_check.rows_close``: each row's
@@ -142,7 +156,7 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol):
 
     from dlrover_tpu_torch.ops import flash_check
 
-    q, k, v, do = attention_inputs(b, h, hkv, s, d, dtype, seed)
+    q, k, v, do = attention_inputs(b, h, hkv, s, d, dtype, seed, sk)
     scale = 1.0 / math.sqrt(d)
     out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
     out, lse = fa.flash_fwd(q, k, v, causal, scale)
@@ -155,7 +169,9 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol):
     dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
     torch.cuda.synchronize()
     errs = {}
-    label = f"{dtype} B={b} H={h}/{hkv} S={s} D={d} causal={causal}"
+    label = (f"{dtype} B={b} H={h}/{hkv} S={s}"
+             + (f"/{sk}" if sk is not None else "")
+             + f" D={d} causal={causal}")
     for kernel, name, got, ref in (
         ("flash_fwd", "out", out, out_ref),
         ("flash_fwd", "lse", lse, lse_ref),
@@ -262,10 +278,16 @@ def kernel_times(fa, b, h, hkv, s, d):
             "tflops_achieved": flops / kernel_ms / 1e9,
         }
         r = results[name]
+        r["bound_share"] = r["bound_ms"] / kernel_ms
+        r["library_ratio"] = kernel_ms / r["library_ms"]
         log(f"  {name}: {kernel_ms:.3f} ms ({r['tflops_achieved']:.1f} "
             f"TFLOP/s), plain {plain_ms:.3f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}, {flops / 1e9:.1f} GFLOP)")
+            f"({r['bound_by']}, {flops / 1e9:.1f} GFLOP)"
+            + (f"; {r['bound_share']:.3f} of the bound, "
+               f"{r['library_ratio']:.2f}x SDPA's forward (was "
+               f"{B1_WAS_MS} ms: the WMMA design)"
+               if name == "flash_fwd" else ""))
     log(f"  sdpa yardstick: fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms, "
         f"fwd+bwd {lib_fwd_bwd:.3f} ms")
     return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
@@ -667,6 +689,7 @@ def profile_steps(trainer, state, batch, n=3):
                              ProfilerActivity.CUDA]) as prof:
         span_ms = run()
     groups, top, host = {}, [], []
+    b1_ms, b1_launches = 0.0, 0.0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CPU:
             host.append((evt.self_cpu_time_total / 1e3 / n, evt.count / n,
@@ -685,6 +708,9 @@ def profile_steps(trainer, state, batch, n=3):
                      "other elementwise / copies")
         groups[group] = groups.get(group, 0.0) + us / 1e3 / n
         top.append((us / 1e3 / n, evt.count / n, name))
+        if "flash_fwd" in name:
+            b1_ms += us / 1e3 / n
+            b1_launches += evt.count / n
     busy = sum(groups.values())
     step_ms, plain_step_ms = span_ms / n, plain_ms / n
     if busy == 0.0:
@@ -699,6 +725,8 @@ def profile_steps(trainer, state, batch, n=3):
         f"(idle share against it {1 - busy / plain_step_ms:.4f})")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group}: {ms:.1f} ms ({ms / busy:.3f})")
+    log(f"    B1 (flash_fwd): {b1_ms:.2f} ms per step over {b1_launches:g} "
+        f"launches ({b1_ms / busy:.3f} of the busy time)")
     top.sort(reverse=True)
     for ms, count, name in top[:12]:
         log(f"    top kernel {ms:.2f} ms x{count:g}: {name[:90]}")
@@ -713,6 +741,7 @@ def profile_steps(trainer, state, batch, n=3):
     return {"device_ms": busy, "step_ms": step_ms,
             "unprofiled_step_ms": plain_step_ms, "idle_share": idle,
             "groups_ms": groups,
+            "b1_ms": b1_ms, "b1_launches": b1_launches,
             "top": [(ms, count, name[:200]) for ms, count, name in top[:15]],
             "host_top": [(ms, count, name[:200])
                          for ms, count, name in host[:15]],
@@ -761,7 +790,10 @@ def device_gaps(prof, n):
             "largest": [(g, b[:120], a[:120]) for g, b, a in largest[:10]]}
 
 
-LOSS_GAP_LIMIT = 1e-4  # |flash loss - reference loss|
+# Phase 6 holds the gradients of the flash path against the reference's
+# on one batch. Its loss is held by loss_check: one batch's flash and
+# reference losses differ by more bf16 noise than the 1e-4 this check
+# once allowed (PERF.md, section 6)
 GRAD_GAP_LIMIT = 5e-2  # ||g_flash - g_ref|| / ||g_ref|| over every leaf
 # grouped vs gather dispatch at a capacity nothing overflows. Observed
 # gap: exactly 0 (B4 and cuBLAS sum K in the same k16 order on the tensor
@@ -780,15 +812,26 @@ def _named_leaves(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
+def token_batch(config, seed):
+    """One batch of ``SEQ`` tokens from ``RandomState(seed)``."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(seed).randint(0, config.vocab_size,
+                                              size=(1, SEQ + 1))
+    return {"input_ids": torch.as_tensor(ids[:, :-1], device="cuda"),
+            "labels": torch.as_tensor(ids[:, 1:], device="cuda")}
+
+
 def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
     """One forward+backward at full width of ``config`` changed as each
     of ``variants`` says ((name, overrides) for the path under test,
     then for its reference), same weights and batch: the loss and every
     gradient. The path under test must launch ``kernels`` (wrapper
-    modules), and the reference none of them."""
+    modules), and the reference none of them. ``loss_limit`` None: the
+    loss is logged and held elsewhere."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     (test, test_kw), (ref, ref_kw) = variants
@@ -797,10 +840,7 @@ def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
     named = list(_named_leaves(params))
     for _, t in named:
         t.requires_grad_()
-    ids = np.random.RandomState(1).randint(0, config.vocab_size,
-                                           size=(1, SEQ + 1))
-    batch = {"input_ids": torch.as_tensor(ids[:, :-1], device="cuda"),
-             "labels": torch.as_tensor(ids[:, 1:], device="cuda")}
+    batch = token_batch(config, 1)
     losses, grads, launched = {}, {}, {}
     for is_test, overrides in ((True, test_kw), (False, ref_kw)):
         cfg = dataclasses.replace(config, **overrides)
@@ -835,16 +875,175 @@ def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
     worst = max(leaf_gap, key=leaf_gap.get)
     log(f"  {test} loss {lf:.6f} grad_norm {nf:.6f}; {ref} loss "
         f"{lr:.6f} grad_norm {nr:.6f}; loss gap {abs(lf - lr):.3e} "
-        f"(limit {loss_limit:.0e}); gradient gap ||g_{test} - g_{ref}|| "
+        + (f"(limit {loss_limit:.0e})" if loss_limit is not None
+           else "(held by the loss check below)")
+        + f"; gradient gap ||g_{test} - g_{ref}|| "
         f"/ ||g_{ref}|| {gap:.3e} (limit {grad_limit:.0e}), worst leaf "
         f"{worst} {leaf_gap[worst]:.3e}")
     for name in sorted(leaf_gap):
         log(f"    gradient gap {name}: {leaf_gap[name]:.3e}")
-    if not (abs(lf - lr) <= loss_limit and gap <= grad_limit):
+    loss_ok = loss_limit is None or abs(lf - lr) <= loss_limit
+    if not (loss_ok and gap <= grad_limit):
         fail(f"{test} and {ref} disagree at full width")
     return {"test": test, "ref": ref, "launches": launched, "test_loss": lf,
             "test_grad_norm": nf, "ref_loss": lr, "ref_grad_norm": nr,
             "loss_gap": abs(lf - lr), "grad_gap": gap, "leaf_gap": leaf_gap}
+
+
+# The dense loss check. Each path's loss is held, batch by batch, against
+# the loss of an exact attention (the reference's, with P and P.V in f32
+# and the output rounded to bf16 once) over LOSS_BATCHES token batches of
+# the same weights: the mean of a path's gaps measures a bias, their root
+# mean square the noise it adds. bf16 rounding in the rest of the model
+# sets a floor of ~2e-4 under the rms of every path. The sound paths (the
+# flash kernels, the reference, the plain forward) must keep both within
+# the limits; the controls must exceed one. Each limit lies between the
+# sound paths' largest reading and a control's (PERF.md, section 6)
+LOSS_BATCHES = 64
+LOSS_BIAS_LIMIT = 1e-4  # |mean(L_path - L_exact)|
+LOSS_RMS_LIMIT = 2.8e-4  # sqrt(mean((L_path - L_exact)^2))
+
+
+def exact_attention(q, k, v, causal=True, scale=None, bias=None):
+    """The reference attention with P and P.V in f32, its output rounded
+    to the inputs' dtype once, at the end."""
+    from dlrover_tpu_torch.ops.attention_ref import mha_reference
+
+    return mha_reference(q.float(), k.float(), v.float(), causal, scale,
+                         bias).to(q.dtype)
+
+
+def round_bits(bits):
+    """f32 p >= 0 -> p rounded to nearest at ``bits`` significant bits
+    (bf16 keeps 8)."""
+    import torch
+
+    drop = 24 - bits
+
+    def rnd(p):
+        x = p.view(torch.int32)
+        return ((x + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
+    return rnd
+
+
+def truncate_bf16(p):
+    """f32 p >= 0 rounded toward zero to bf16."""
+    import torch
+
+    return (p.view(torch.int32) & -(1 << 16)).view(torch.float32)
+
+
+def faulty_fwd(fa, round_p=None, extra_keys=0):
+    """``flash_fwd_plain`` with P rounded by ``round_p`` (f32 -> f32; bf16
+    when None) before P.V, and the causal mask ``extra_keys`` keys too
+    wide: what a forward kernel with those faults returns."""
+    import torch
+
+    def fwd(q, k, v, causal, scale):
+        s = fa._scores(q, k, False, scale)
+        if causal:
+            rows = torch.arange(s.shape[-2], device=q.device)[:, None]
+            cols = torch.arange(s.shape[-1], device=q.device)[None, :]
+            s = s.masked_fill(cols > rows + extra_keys, fa.NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p.to(v.dtype).float() if round_p is None else round_p(p)
+        v_rep = v.repeat_interleave(fa._group_size(q, k), dim=1).float()
+        out = torch.matmul(p, v_rep) / l
+        return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    return fwd
+
+
+def loss_controls(fa):
+    """(name, forward, verdict) put in the kernel's place: the forwards
+    the loss check must reject, and faults it is known not to see,
+    reported beside them."""
+    return [("P rounded to 5 significant bits",
+             faulty_fwd(fa, round_p=round_bits(5)), "control"),
+            ("causal mask one key too wide",
+             faulty_fwd(fa, extra_keys=1), "control"),
+            ("P truncated to bf16", faulty_fwd(fa, round_p=truncate_bf16),
+             "reading"),
+            ("P rounded to 6 significant bits",
+             faulty_fwd(fa, round_p=round_bits(6)), "reading")]
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` is ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def loss_check(llama, config, fa, controls, batches=LOSS_BATCHES,
+               bias_limit=LOSS_BIAS_LIMIT, rms_limit=LOSS_RMS_LIMIT):
+    """The losses of the flash, reference and plain-forward paths and of
+    ``controls`` (``loss_controls``) against the exact attention's, over
+    ``batches`` token batches at full width of ``config``; see
+    LOSS_BATCHES. Fails unless every sound path passes, every control
+    fails and the flash path launched B1 in every layer of every batch."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = llama.init(gen, config)
+    flash_cfg = dataclasses.replace(config, use_flash=True)
+    ref_cfg = dataclasses.replace(config, use_flash=False)
+    paths = [("flash", flash_cfg, None, "sound"),
+             ("reference", ref_cfg, None, "sound"),
+             ("plain forward", flash_cfg, fa.flash_fwd_plain, "sound")]
+    paths += [(name, flash_cfg, fwd, verdict)
+              for name, fwd, verdict in controls]
+    gaps = {name: [] for name, *_ in paths}
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        for seed in range(1, batches + 1):
+            batch = token_batch(config, seed)
+            with swapped(llama, "mha_reference", exact_attention):
+                exact = llama.make_loss_fn(ref_cfg)(params, batch,
+                                                    None)[0].item()
+            for name, cfg, fwd, _ in paths:
+                with (swapped(fa, "flash_fwd", fwd) if fwd is not None
+                      else contextlib.nullcontext()):
+                    loss = llama.make_loss_fn(cfg)(params, batch,
+                                                   None)[0].item()
+                gaps[name].append(loss - exact)
+    launches = fa.launch_counts()["flash_fwd"]
+    expected = batches * config.num_layers
+    log(f"  B1 launches {launches} (expected {expected}: the flash path's "
+        f"layers over {batches} batches)")
+    if launches != expected:
+        fail(f"the loss check's flash path launched B1 {launches} times, "
+             f"not {expected}")
+    fr = [a - b for a, b in zip(gaps["flash"], gaps["reference"])]
+    log(f"  flash - reference per batch: first {fr[0]:+.3e}, min "
+        f"{min(fr):+.3e}, max {max(fr):+.3e}")
+    log(f"  L_path - L_exact over {batches} batches (limits: |mean| "
+        f"{bias_limit:.1e}, rms {rms_limit:.1e}):")
+    report, wrong = {}, []
+    for name, _, _, verdict in paths:
+        g = gaps[name]
+        mean = statistics.mean(g)
+        stderr = statistics.stdev(g) / math.sqrt(len(g))
+        rms = math.sqrt(statistics.mean(x * x for x in g))
+        passes = abs(mean) <= bias_limit and rms <= rms_limit
+        log(f"    {verdict} {name}: mean {mean:+.3e} (standard error "
+            f"{stderr:.2e}), rms {rms:.3e}, max |gap| "
+            f"{max(abs(x) for x in g):.3e}: "
+            f"{'passes' if passes else 'fails'}")
+        if verdict != "reading" and passes != (verdict == "sound"):
+            wrong.append(name)
+        report[name] = {"verdict": verdict, "mean": mean, "stderr": stderr,
+                        "rms": rms, "gaps": g, "passes": passes}
+    if wrong:
+        fail(f"the loss check misjudges {wrong}")
+    return report
 
 
 def ep_received_rows(moe, quantize, d, f, seed, bias=None, tokens=EP_TOKENS,
@@ -1373,6 +1572,20 @@ def main():
     for causal in (True, False):
         check_kernels(fa, 2, 4, 2, 1000, 64, torch.float32, causal, 1, 1e-4)
     check_kernels(fa, 1, 4, 1, 1000, 128, torch.bfloat16, True, 2, 1e-3)
+    # the edges of B1's bf16 tiles: 64-wide head tile, a head dim padded
+    # to 128, a ragged q tile beside a head boundary, cross attention, one
+    # row past a tile
+    check_kernels(fa, 1, 4, 2, 1000, 64, torch.bfloat16, False, 3, 1e-3)
+    check_kernels(fa, 1, 4, 2, 1000, 80, torch.bfloat16, True, 4, 1e-3)
+    check_kernels(fa, 2, 8, 2, 1000, 128, torch.bfloat16, True, 5, 1e-3)
+    check_kernels(fa, 1, 4, 2, 300, 128, torch.bfloat16, False, 6, 1e-3,
+                  sk=1000)
+    check_kernels(fa, 1, 4, 2, 129, 128, torch.bfloat16, True, 7, 1e-3)
+    # head dims below the 64-wide tile (the tiny preset's 16), zero-filled
+    # past D
+    check_kernels(fa, 1, 4, 2, 1000, 16, torch.bfloat16, True, 8, 1e-3)
+    check_kernels(fa, 1, 4, 2, 1000, 32, torch.bfloat16, False, 9, 1e-3)
+    check_kernels(fa, 2, 4, 2, 300, 48, torch.bfloat16, True, 10, 1e-3)
     torch.cuda.empty_cache()
 
     log(f"kernel times (bf16, B=1 H=32/8 S={SEQ} D=128, causal; {card}):")
@@ -1396,7 +1609,10 @@ def main():
     report["cross_check"] = cross_check(
         llama, config, (("flash", {"use_flash": True}),
                         ("reference", {"use_flash": False})), (fa,),
-        LOSS_GAP_LIMIT, GRAD_GAP_LIMIT)
+        None, GRAD_GAP_LIMIT)
+    torch.cuda.empty_cache()
+    log(f"full-width loss check against an exact attention ({card}):")
+    report["loss_check"] = loss_check(llama, config, fa, loss_controls(fa))
     torch.cuda.empty_cache()
 
     moe_config = llama.llama2_7b(
@@ -1532,6 +1748,8 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "verdict": "ok",
         })
+        if name == "flash_fwd":
+            kernels[-1]["design"] = B1_DESIGN
     for name, meta in gm.KERNELS.items():
         # B4 is timed on y (the up-projection); its dx call does the same
         # work and is reported beside it

@@ -11,20 +11,41 @@
 // about 84 MB of input and output, i.e. ~1600 FLOP per byte, far above
 // the card's ~295 FLOP/byte ridge: 0.139 ms at 989 TFLOP/s.
 //
-// Design: one block per (q tile, head, batch). The Pallas grid walks the
-// k tiles in order on one core and carries m/l/acc in VMEM scratch;
-// here that sequential dimension is a loop inside the block, with the
-// running state in registers (m, l: one row per 4 or 8 threads) and
-// shared memory (the f32 accumulator). The products use the tensor
-// cores through WMMA; q tiles with the most causal work are scheduled
-// first (blockIdx.x runs from the last tile down).
+// bf16 design (flash_fwd_bf16_kernel): one block per (128-row q tile,
+// head, batch), 384 threads, one block an SM, the q tiles with the most
+// causal work first. One producer warp keeps TMA loads of 128-key K and V
+// tiles in flight through a 2-stage shared-memory ring (mbarriers for
+// full and empty stages; 3-D tensor maps, so a ragged tile reads zeros,
+// never the next head's rows); Q is loaded once and stays. Two consumer
+// warpgroups own 64 q rows each and hold S, P and O in registers
+// (setmaxnreg gives them 240 registers a thread, the producer 24). Both
+// products are wgmma: S = Q K^T (m64n128k16, Q and K from 128-byte-
+// swizzled shared memory) and O += P V (P rounded to bf16 in registers
+// and fed as the A operand; V read in place, MN-major, through the
+// transpose bit). The online softmax works in base 2 on the accumulator
+// layout (a row spans a quad of lanes), masks only the tiles that cross
+// the diagonal or the ragged end, and advances in 64-key steps: the
+// first half's P V runs on the tensor cores while the second half's max
+// and exponentials are computed. (A 128-key step moved the full-width
+// loss above the reference path's; PERF.md has the runs.) Head dims up
+// to 64 run on a 64-wide head tile, the others on a 128-wide one;
+// columns past D read as zeros, which change neither S nor the stored
+// part of O.
+//
+// f32 (the parity path, flash_fwd_f32_kernel): 32x32 tiles staged in
+// shared memory, scalar FMA products (flash_common.cuh).
+
+#include <cudaTypedefs.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dlr {
 
-template <typename T>
+// -- f32 ---------------------------------------------------------------------
+
 size_t fwd_smem_bytes(int D) {
+  using T = float;
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   const int ldt = D + PAD;
   return round128(sizeof(T) * BQ * ldt)        // Q
@@ -34,12 +55,13 @@ size_t fwd_smem_bytes(int D) {
          + round128(sizeof(float) * BQ * (D + kFPad));  // O accumulator
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     int D, float scale, int causal) {
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int H, int Hkv, int Sq,
+                         int Sk, int D, float scale, int causal) {
+  using T = float;
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int LANES = kThreads / BQ;  // threads sharing one row
   constexpr int COLS = BK / LANES;      // S columns per thread
@@ -119,33 +141,353 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, void* stream) {
-  const dim3 grid((Sq + Tile<T>::BQ - 1) / Tile<T>::BQ, H, B);
-  return launch(flash_fwd_kernel<T>, grid, fwd_smem_bytes<T>(D), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv,
-                Sq, Sk, D, scale, causal);
+// -- bf16 --------------------------------------------------------------------
+
+namespace fwd {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;  // q rows a block: two consumer warpgroups of 64
+constexpr int BK = 128;  // keys a K/V tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory at head-dim tile DP (64 or 128): Q, then kStages x (K,
+// V), each tile DP / 64 SW128 column blocks of its rows x 128 bytes (one
+// TMA box each), then the mbarriers.
+template <int DP>
+struct Layout {
+  static constexpr uint32_t kQ = BQ * DP * 2;
+  static constexpr uint32_t kKV = BK * DP * 2;  // one K or one V tile
+  static constexpr uint32_t kBars = kQ + 2 * kStages * kKV;
+  static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+};
+
+// The mbarriers: Q arrived; K, V of a stage arrived; a stage released by
+// both consumer warpgroups.
+struct Bars {
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+// One step of the online softmax over S columns [64 HALF, 64 HALF + 64)
+// of this thread's two rows: the running max m (base 2), this thread's
+// share l of the row sum, the factors a that rescale what came before,
+// and p = exp2(s scale_log2 - m) written over s.
+template <int HALF>
+__device__ __forceinline__ void softmax_step(float (&sacc)[64], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& a0, float& a1,
+                                             float scale_log2) {
+  constexpr int C0 = 8 * HALF;  // first 8-column chunk
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int c = C0; c < C0 + 8; ++c) {
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * c], sacc[4 * c + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * c + 2], sacc[4 * c + 3]));
+  }
+#pragma unroll
+  for (int lane = 1; lane <= 2; lane <<= 1) {  // the row's quad
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, lane));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, lane));
+  }
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  // a row with every column masked so far keeps m at -inf; clamp the
+  // subtrahend so exp2 sees a finite argument (its l stays 0)
+  const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
+  const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
+  a0 = hop::ex2(m0 - ms0);
+  a1 = hop::ex2(m1 - ms1);
+  m0 = mn0;
+  m1 = mn1;
+  float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+  for (int c = C0; c < C0 + 8; ++c) {
+    sacc[4 * c] = hop::ex2(fmaf(sacc[4 * c], scale_log2, -ms0));
+    sacc[4 * c + 1] = hop::ex2(fmaf(sacc[4 * c + 1], scale_log2, -ms0));
+    sacc[4 * c + 2] = hop::ex2(fmaf(sacc[4 * c + 2], scale_log2, -ms1));
+    sacc[4 * c + 3] = hop::ex2(fmaf(sacc[4 * c + 3], scale_log2, -ms1));
+    r0 += sacc[4 * c] + sacc[4 * c + 1];
+    r1 += sacc[4 * c + 2] + sacc[4 * c + 3];
+  }
+  l0 = l0 * a0 + r0;
+  l1 = l1 * a1 + r1;
 }
 
+// O rows *= a (first row a0, second a1).
+template <int N>
+__device__ __forceinline__ void rescale(float (&oacc)[N], float a0,
+                                        float a1) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    oacc[4 * c] *= a0;
+    oacc[4 * c + 1] *= a0;
+    oacc[4 * c + 2] *= a1;
+    oacc[4 * c + 3] *= a1;
+  }
+}
+
+// Issue O += P V over keys [64 HALF, 64 HALF + 64) of the tile: P (bf16)
+// from registers, V [keys][DP] read MN-major through the transpose bit.
+template <int DP, int HALF>
+__device__ __forceinline__ void pv(float (&oacc)[DP / 2],
+                                   const uint32_t (&pa)[8][4], uint32_t sV) {
+  hop::wgmma_fence();
+  hop::fence_regs(oacc);
+#pragma unroll
+  for (int kk = 4 * HALF; kk < 4 * HALF + 4; ++kk) {
+    const uint64_t dv = hop::desc_sw128(sV + kk * 16 * 128, BK * 128, 1024);
+    if constexpr (DP == 128) {
+      hop::wgmma_rs_m64n128k16<1>(oacc, pa[kk], dv, 1);
+    } else {
+      hop::wgmma_rs_m64n64k16<1>(oacc, pa[kk], dv, 1);
+    }
+  }
+  hop::wgmma_commit();
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int H, int Hkv, int Sq, int Sk, int D,
+                          float scale_log2, int causal) {
+  using L = Layout<DP>;
+  constexpr int NO = DP / 2;  // O accumulator registers a thread
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // every head's last q tile first: the heaviest causal blocks lead
+  const int i = nqt - 1 - blockIdx.x / H;
+  const int h = blockIdx.x % H, b = blockIdx.y;
+  int nkt = (Sk + BK - 1) / BK;
+  if (causal) nkt = min(nkt, i + 1);  // BQ == BK: tiles 0..i
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = hop::smem_u32(base);
+  auto sK = [&](int s) { return sQ + L::kQ + s * 2 * L::kKV; };
+  auto sV = [&](int s) { return sK(s) + L::kKV; };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.k_full[s], 1);
+      hop::mbar_init(&bar.v_full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread keeps the TMA loads of the ring in flight
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      const int hk = h / (H / Hkv);
+      hop::mbar_arrive_expect_tx(&bar.q_full, L::kQ);
+      for (int c = 0; c < DP / 64; ++c) {
+        hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64, i * BQ,
+                         b * H + h);
+      }
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % kStages;
+        // the stage's previous tile, j - kStages, is released
+        if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s], c * 64,
+                           j * BK, b * Hkv + hk);
+        }
+        hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s], c * 64,
+                           j * BK, b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile
+  hop::regs_alloc<240>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int quad = t % 4;
+  const int row0 = i * BQ + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int row1 = row0 + 8;
+  const uint32_t sQw = sQ + wg * 64 * 128;
+
+  float oacc[NO];
+#pragma unroll
+  for (int x = 0; x < NO; ++x) oacc[x] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
+
+  hop::mbar_wait(&bar.q_full, 0);
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j % kStages, phase = (j / kStages) & 1;
+
+    // S = Q K^T over DP / 16 k16 steps
+    float sacc[64];
+    hop::mbar_wait(&bar.k_full[s], phase);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      // BQ == BK: Q and K column blocks have the same stride
+      const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      hop::wgmma_ss_m64n128k16<0>(
+          sacc, hop::desc_sw128(sQw + off, 16, 1024),
+          hop::desc_sw128(sK(s) + off, 16, 1024), kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sacc);
+    // mask the tiles that cross the ragged end or this warpgroup's
+    // diagonal
+    if ((j + 1) * BK > Sk ||
+        (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) {
+        const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
+        const int row = (x & 2) ? row1 : row0;
+        if (col >= Sk || (causal && col > row)) sacc[x] = -INFINITY;
+      }
+    }
+
+    // the softmax state advances every 64 keys, two steps a tile: P of
+    // the first half goes to the tensor cores while the second half's
+    // max and exponentials are computed
+    float a0, a1;
+    uint32_t pa[8][4];
+    softmax_step<0>(sacc, m0, m1, l0, l1, a0, a1, scale_log2);
+    rescale<NO>(oacc, a0, a1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::acc_to_a(sacc, kk, pa[kk]);
+    hop::mbar_wait(&bar.v_full[s], phase);
+    pv<DP, 0>(oacc, pa, sV(s));
+    softmax_step<1>(sacc, m0, m1, l0, l1, a0, a1, scale_log2);
+#pragma unroll
+    for (int kk = 4; kk < 8; ++kk) hop::acc_to_a(sacc, kk, pa[kk]);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(oacc);
+    rescale<NO>(oacc, a0, a1);
+    pv<DP, 1>(oacc, pa, sV(s));
+    hop::wgmma_wait<0>();
+    hop::fence_regs(oacc);
+    hop::mbar_arrive(&bar.empty[s]);  // this thread is done with stage s
+  }
+
+#pragma unroll
+  for (int lane = 1; lane <= 2; lane <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, lane);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, lane);
+  }
+  const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+  const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+  const size_t head_row = ((size_t)b * H + h) * Sq;
+#pragma unroll
+  for (int c = 0; c < NO / 4; ++c) {
+    const int col = 8 * c + 2 * quad;
+    if (col < D) {
+      if (row0 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + (head_row + row0) * D + col) =
+            __floats2bfloat162_rn(oacc[4 * c] * inv0, oacc[4 * c + 1] * inv0);
+      }
+      if (row1 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + (head_row + row1) * D + col) =
+            __floats2bfloat162_rn(oacc[4 * c + 2] * inv1,
+                                  oacc[4 * c + 3] * inv1);
+      }
+    }
+  }
+  if (quad == 0) {  // lse in natural-log units, as the backward reads it
+    if (row0 < Sq) lse[head_row + row0] = m0 * kLn2 + logf(ls0);
+    if (row1 < Sq) lse[head_row + row1] = m1 * kLn2 + logf(ls1);
+  }
+}
+
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs
+// no link against libcuda; nullptr when the installed CUDA lacks it.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over [heads, rows, D] bf16 (D innermost), box {64, rows_box,
+// 1}, 128-byte swizzle; reads outside the tensor return zeros, so a
+// ragged tile never sees the next head's rows.
+bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int rows,
+                int D, int rows_box) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)D * 2 * rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows_box, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  auto encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                float scale, int causal, void* stream) {
+  // the row max is taken on unscaled scores: it needs scale > 0
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B * H, Sq, D, BQ) ||
+      !tensor_map(&tk, k, B * Hkv, Sk, D, BK) ||
+      !tensor_map(&tv, v, B * Hkv, Sk, D, BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Sq + BQ - 1) / BQ * H, B);
+  return hop::launch(flash_fwd_bf16_kernel<DP>, grid, kThreads,
+                     Layout<DP>::kSmem, stream, tq, tk, tv,
+                     static_cast<bf16*>(o), lse, H, Hkv, Sq, Sk, D,
+                     scale * kLog2e, causal);
+}
+
+}  // namespace fwd
 }  // namespace dlr
 
 extern "C" int dlr_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, void* o, float* lse, int B,
                                   int H, int Hkv, int Sq, int Sk, int D,
                                   float scale, int causal, void* stream) {
-  return dlr::launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
-                                        D, scale, causal, stream);
+  return D <= 64 ? dlr::fwd::launch_bf16<64>(q, k, v, o, lse, B, H, Hkv, Sq,
+                                             Sk, D, scale, causal, stream)
+                 : dlr::fwd::launch_bf16<128>(q, k, v, o, lse, B, H, Hkv, Sq,
+                                              Sk, D, scale, causal, stream);
 }
 
 extern "C" int dlr_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, float* lse, int B, int H, int Hkv,
                                  int Sq, int Sk, int D, float scale,
                                  int causal, void* stream) {
-  return dlr::launch_fwd<float>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
-                                scale, causal, stream);
+  const dim3 grid((Sq + dlr::Tile<float>::BQ - 1) / dlr::Tile<float>::BQ, H,
+                  B);
+  return dlr::launch(dlr::flash_fwd_f32_kernel, grid, dlr::fwd_smem_bytes(D),
+                     stream, static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     lse, H, Hkv, Sq, Sk, D, scale, causal);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_fwd_error)

@@ -22,9 +22,12 @@ Layout follows the reference: q ``[B, H, S, D]``, k/v ``[B, H_kv, S, D]``,
 query head ``h`` reading KV head ``h // (H // H_kv)``.
 
 The TPU tiling rules (``_fit_block``, ``_check_mosaic_lane_block``) do
-not apply: the kernels mask ragged tails. Their tiles are fixed, 64x64
-for bf16 and 32x32 for f32; the ``block_*`` arguments are kept for API
-parity and do not change the result.
+not apply: the kernels mask ragged tails, and their tiles are fixed. The
+bf16 forward is a Hopper wgmma kernel over 128x128 tiles (a 64- or
+128-wide head tile, columns past ``head_dim`` read as zeros); the bf16
+backward kernels run WMMA over 64x64 tiles; every f32 kernel (the parity
+path) runs scalar FMA over 32x32 tiles. The ``block_*`` arguments are
+kept for API parity and do not change the result.
 """
 
 from __future__ import annotations

@@ -40,7 +40,7 @@ SOURCES = {
     "grouped_matmul_dw": "grouped_matmul_dw.cu",
     "grouped_matmul_fwd_quant": "grouped_matmul_fwd_quant.cu",
 }
-HEADERS = ("flash_common.cuh", "grouped_common.cuh")
+HEADERS = ("flash_common.cuh", "grouped_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

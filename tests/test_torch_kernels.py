@@ -132,24 +132,39 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,tol", [
-    (torch.bfloat16, 1, 8, 2, 512, 128, True, 1e-3),
-    (torch.bfloat16, 1, 4, 1, 1000, 128, True, 1e-3),
-    (torch.float32, 2, 4, 2, 1000, 64, True, 1e-4),
-    (torch.float32, 2, 4, 2, 1000, 64, False, 1e-4),
-], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged"])
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,tol,sk", [
+    (torch.bfloat16, 1, 8, 2, 512, 128, True, 1e-3, None),
+    (torch.bfloat16, 1, 4, 1, 1000, 128, True, 1e-3, None),
+    (torch.float32, 2, 4, 2, 1000, 64, True, 1e-4, None),
+    (torch.float32, 2, 4, 2, 1000, 64, False, 1e-4, None),
+    # the edges of B1's bf16 tiles
+    (torch.bfloat16, 1, 4, 2, 1000, 64, False, 1e-3, None),
+    (torch.bfloat16, 1, 4, 2, 1000, 80, True, 1e-3, None),
+    (torch.bfloat16, 2, 8, 2, 1000, 128, True, 1e-3, None),
+    (torch.bfloat16, 1, 4, 2, 300, 128, False, 1e-3, 1000),
+    (torch.bfloat16, 1, 4, 2, 129, 128, True, 1e-3, None),
+    # head dims below the 64-wide tile, zero-filled past D
+    (torch.bfloat16, 1, 4, 2, 1000, 16, True, 1e-3, None),
+    (torch.bfloat16, 1, 4, 2, 1000, 32, False, 1e-3, None),
+    (torch.bfloat16, 2, 4, 2, 300, 48, True, 1e-3, None),
+], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged",
+        "bf16_d64", "bf16_d80_padded", "bf16_batch2_ragged_q",
+        "bf16_cross", "bf16_one_past_tile", "bf16_d16", "bf16_d32",
+        "bf16_d48"])
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
-                                     causal, tol):
+                                     causal, tol, sk):
     """Each kernel against its plain version on the same card inputs:
     f32 to 1e-4 absolute; bf16 outputs row by row (``flash_check``:
     each row's error within 1% of its norm, plus 0.1% of the tensor's
-    RMS row norm); lse, always f32, to 1e-3 absolute."""
+    RMS row norm); lse, always f32, to 1e-3 absolute. ``sk``: the key
+    length of a cross-attention case (default ``s``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
+    sk = s if sk is None else sk
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
 
-    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
         rnd(b, h, s, d)
     scale = d ** -0.5
     fa.reset_launch_counts()
