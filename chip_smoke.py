@@ -13,17 +13,23 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      causal GQA 32/8, S=4096, D=128), on ragged f32 and bf16 GQA cases,
      and on the edges of B1's bf16 tiles (D=64, D=80 padded to 128, D=16,
      32 and 48 below the 64-wide tile, a ragged q tile beside a head
-     boundary, cross attention, S=129); and show that the same rule
-     rejects outputs with planted faults;
-  4. time each flash kernel, its plain version and PyTorch's
-     scaled_dot_product_attention (a yardstick the port never calls),
-     beside the least time the card could take (B1 also as a share of
-     that bound and a ratio to SDPA's forward);
+     boundary, cross attention, S=129, and B2's GQA groups of 1 and 8),
+     at the MoE path's 32/32 heads (S=4096, and an expert-parallel
+     rank's 1024), and at S=8192 and 16384 (group 4), every bf16 output
+     row by row and by its bias (the signed error projected on the plain
+     output); and show that the row rule rejects outputs with planted
+     faults and the bias rule outputs with P, P^T or dS^T truncated to
+     bf16;
+  4. time each flash kernel (median of 10 device samples), its plain
+     version and PyTorch's scaled_dot_product_attention (a yardstick the
+     port never calls), beside the least time the card could take, as a
+     share of that bound and a ratio to SDPA's forward or backward: at
+     the main path's 32/8 heads and at the MoE cell's 32/32;
   5. train Llama-3-8B at full width (4 layers, batch 1, seq 4096) for a
      few steps through TrainExecutor + ElasticTrainer with the flash
      kernels and the default dispatch window, counting their launches;
-     then profile a few more steps (B1's device time per step among
-     them);
+     then profile a few more steps (each flash kernel's device time per
+     step among them);
   6. one forward and backward of the same model with use_flash=True
      against the reference attention (use_flash=False): every gradient
      on one batch; then the loss of each path, and of forwards with
@@ -87,11 +93,17 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B6 is exact f32)
 # each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
 EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
 EP_TIMEOUT = 600  # seconds a 4-rank phase may take
-B1_WAS_MS = 2.714  # B1 at the main shape with WMMA, before wgmma (PERF.md)
 B1_DESIGN = ("stage B: wgmma m64n128k16 for S and P.V with S, P and O in "
              "registers, two consumer warpgroups over 128 q rows, a "
              "producer warp keeping TMA loads of 128-key K/V tiles in a "
              "2-stage mbarrier ring, online softmax in 64-key steps")
+B2_DESIGN = ("stage C: transposed scores, wgmma m64n64k16 for S^T = K Q^T "
+             "and dP^T = V dO^T (dP^T issued before P^T's exponentials), "
+             "RS m64n128k16 for dV += P^T dO and dK += dS^T Q with P^T and "
+             "dS^T as register A fragments, dK and dV in registers, two "
+             "consumer warpgroups over 128 keys, a producer warp keeping "
+             "TMA loads of Q, dO, lse and delta in a 2-stage mbarrier "
+             "ring, setmaxnreg 240/24")
 
 
 def fail(msg: str):
@@ -111,23 +123,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of ``fn`` over ``iters`` calls, each between
-    two CUDA events."""
+def time_samples(fn, iters=10, warmup=2):
+    """Milliseconds of each of ``iters`` calls of ``fn``, each between two
+    CUDA events and queued behind the call before it, so that a sample is
+    the device's time and not the host's launch gap."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    events = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def time_ms(fn, iters=10, warmup=2):
+    """Median of ``time_samples``."""
+    return statistics.median(time_samples(fn, iters, warmup))
 
 
 def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
@@ -148,10 +166,12 @@ def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
 def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
     """Run each kernel and its plain version on the same inputs; return
     ({kernel: max abs error}, the inputs and the plain results). A bf16
-    output is held row by row (``flash_check.rows_close``: each row's
-    error within 1% of its norm, plus 0.1% of the tensor's RMS row
-    norm); an f32 output (every output of an f32 case, and lse) to
-    ``tol`` absolute."""
+    output is held row by row
+    (``flash_check.rows_close``: each row's error within 1% of its norm,
+    plus 0.1% of the tensor's RMS row norm) and by its bias
+    (``flash_check.bias_close``: the signed error projected on the plain
+    output within ``BIAS_LIMIT``); an f32 output (every output of an f32
+    case, and lse) to ``tol`` absolute."""
     import torch
 
     from dlrover_tpu_torch.ops import flash_check
@@ -181,9 +201,13 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
     ):
         if got.dtype == torch.bfloat16:
             e = flash_check.row_errors(got, ref)
-            err, ok = e["max_abs_err"], flash_check.rows_close(got, ref)
+            bias = flash_check.bias(got, ref)
+            err = e["max_abs_err"]
+            ok = (flash_check.rows_close(got, ref)
+                  and flash_check.bias_close(got, ref))
             detail = (f"worst row {e['worst_row']:.3f} of its limit, "
-                      f"norm ratio {e['norm_ratio']:.3e}")
+                      f"norm ratio {e['norm_ratio']:.3e}, bias {bias:+.3e} "
+                      f"(limit {flash_check.BIAS_LIMIT:.0e})")
         else:
             err = (got.float() - ref.float()).abs().max().item()
             ok = math.isfinite(err) and err <= tol
@@ -202,7 +226,9 @@ def check_planted_faults(inputs, right):
     """The rule that passed the kernels must reject what a kernel with
     a planted fault would return (``flash_check.planted_faults``), on
     the same inputs. Also says whether the looser rule it replaced (max
-    error within 2e-2 of the largest value) would have caught each."""
+    error within 2e-2 of the largest value) would have caught each. The
+    bias rule must reject the truncation controls
+    (``flash_check.bias_controls``); says whether the row rule would."""
     from dlrover_tpu_torch.ops import flash_check
 
     results = []
@@ -221,12 +247,29 @@ def check_planted_faults(inputs, right):
         results.append({"output": name, "fault": fault, **e,
                         "max_abs_rule_passes": loose})
         del got
+    q, k, v, do, lse, delta, scale = inputs
+    for name, fault, got in flash_check.bias_controls(q, k, v, do, lse,
+                                                      delta, True, scale):
+        ref = right[name]
+        bias = flash_check.bias(got, ref)
+        caught = not flash_check.bias_close(got, ref)
+        rows_pass = flash_check.rows_close(got, ref)
+        log(f"  bias control, {name}: {fault}: bias {bias:+.3e} (limit "
+            f"{flash_check.BIAS_LIMIT:.0e}) -> "
+            f"{'rejected' if caught else 'PASSED'} (row rule: "
+            f"{'passes it' if rows_pass else 'rejects it'})")
+        if not caught:
+            fail(f"the bias rule lets a control pass: {fault}")
+        results.append({"output": name, "fault": fault, "bias": bias,
+                        "row_rule_passes": rows_pass})
+        del got
     return results
 
 
 def kernel_times(fa, b, h, hkv, s, d):
-    """Per kernel: its time, its plain version's, the library's and the
-    least time the card could take, at the main path's shape."""
+    """Per kernel, on causal bf16 inputs of this shape: its time (median
+    of 10 samples, and the samples), its plain version's, the library's
+    and the least time the card could take."""
     import torch
     import torch.nn.functional as F
 
@@ -265,12 +308,13 @@ def kernel_times(fa, b, h, hkv, s, d):
     del lib_out
     results = {}
     for name, (flops, nbytes) in work.items():
-        kernel_ms = time_ms(lambda: calls[name](fa.WRAPPERS[name]))
+        samples = time_samples(lambda: calls[name](fa.WRAPPERS[name]))
+        kernel_ms = statistics.median(samples)
         plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name]), iters=5,
                            warmup=1)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         results[name] = {
-            "ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": kernel_ms, "samples_ms": samples, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
@@ -280,14 +324,13 @@ def kernel_times(fa, b, h, hkv, s, d):
         r = results[name]
         r["bound_share"] = r["bound_ms"] / kernel_ms
         r["library_ratio"] = kernel_ms / r["library_ms"]
-        log(f"  {name}: {kernel_ms:.3f} ms ({r['tflops_achieved']:.1f} "
-            f"TFLOP/s), plain {plain_ms:.3f} ms, library "
-            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}, {flops / 1e9:.1f} GFLOP)"
-            + (f"; {r['bound_share']:.3f} of the bound, "
-               f"{r['library_ratio']:.2f}x SDPA's forward (was "
-               f"{B1_WAS_MS} ms: the WMMA design)"
-               if name == "flash_fwd" else ""))
+        log(f"  {name}: {kernel_ms:.3f} ms (samples {min(samples):.3f}-"
+            f"{max(samples):.3f}, {r['tflops_achieved']:.1f} TFLOP/s), "
+            f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}, {flops / 1e9:.1f} GFLOP): "
+            f"{r['bound_share']:.3f} of the bound, {r['library_ratio']:.2f}x "
+            f"SDPA's {'forward' if name == 'flash_fwd' else 'backward'} "
+            f"({r['library_ms']:.3f} ms)")
     log(f"  sdpa yardstick: fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms, "
         f"fwd+bwd {lib_fwd_bwd:.3f} ms")
     return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
@@ -665,6 +708,10 @@ KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
 )
 
 
+FLASH_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2",
+                 "flash_bwd_dq": "B3"}  # a substring of each kernel's name
+
+
 def profile_steps(trainer, state, batch, n=3):
     """``n`` more training steps dispatched back to back (as the
     dispatch window lets them run), once under torch.profiler and once
@@ -689,7 +736,7 @@ def profile_steps(trainer, state, batch, n=3):
                              ProfilerActivity.CUDA]) as prof:
         span_ms = run()
     groups, top, host = {}, [], []
-    b1_ms, b1_launches = 0.0, 0.0
+    flash = {name: [0.0, 0.0] for name in FLASH_KERNELS}  # ms, launches
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CPU:
             host.append((evt.self_cpu_time_total / 1e3 / n, evt.count / n,
@@ -708,9 +755,10 @@ def profile_steps(trainer, state, batch, n=3):
                      "other elementwise / copies")
         groups[group] = groups.get(group, 0.0) + us / 1e3 / n
         top.append((us / 1e3 / n, evt.count / n, name))
-        if "flash_fwd" in name:
-            b1_ms += us / 1e3 / n
-            b1_launches += evt.count / n
+        for kernel in FLASH_KERNELS:
+            if kernel in name:
+                flash[kernel][0] += us / 1e3 / n
+                flash[kernel][1] += evt.count / n
     busy = sum(groups.values())
     step_ms, plain_step_ms = span_ms / n, plain_ms / n
     if busy == 0.0:
@@ -725,8 +773,9 @@ def profile_steps(trainer, state, batch, n=3):
         f"(idle share against it {1 - busy / plain_step_ms:.4f})")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group}: {ms:.1f} ms ({ms / busy:.3f})")
-    log(f"    B1 (flash_fwd): {b1_ms:.2f} ms per step over {b1_launches:g} "
-        f"launches ({b1_ms / busy:.3f} of the busy time)")
+    for kernel, (ms, launches) in flash.items():
+        log(f"    {FLASH_KERNELS[kernel]} ({kernel}): {ms:.2f} ms per step "
+            f"over {launches:g} launches ({ms / busy:.3f} of the busy time)")
     top.sort(reverse=True)
     for ms, count, name in top[:12]:
         log(f"    top kernel {ms:.2f} ms x{count:g}: {name[:90]}")
@@ -741,7 +790,8 @@ def profile_steps(trainer, state, batch, n=3):
     return {"device_ms": busy, "step_ms": step_ms,
             "unprofiled_step_ms": plain_step_ms, "idle_share": idle,
             "groups_ms": groups,
-            "b1_ms": b1_ms, "b1_launches": b1_launches,
+            "flash_ms": {k: ms for k, (ms, _) in flash.items()},
+            "flash_launches": {k: c for k, (_, c) in flash.items()},
             "top": [(ms, count, name[:200]) for ms, count, name in top[:15]],
             "host_top": [(ms, count, name[:200])
                          for ms, count, name in host[:15]],
@@ -926,13 +976,6 @@ def round_bits(bits):
     return rnd
 
 
-def truncate_bf16(p):
-    """f32 p >= 0 rounded toward zero to bf16."""
-    import torch
-
-    return (p.view(torch.int32) & -(1 << 16)).view(torch.float32)
-
-
 def faulty_fwd(fa, round_p=None, extra_keys=0):
     """``flash_fwd_plain`` with P rounded by ``round_p`` (f32 -> f32; bf16
     when None) before P.V, and the causal mask ``extra_keys`` keys too
@@ -959,6 +1002,8 @@ def loss_controls(fa):
     """(name, forward, verdict) put in the kernel's place: the forwards
     the loss check must reject, and faults it is known not to see,
     reported beside them."""
+    from dlrover_tpu_torch.ops.flash_check import truncate_bf16
+
     return [("P rounded to 5 significant bits",
              faulty_fwd(fa, round_p=round_bits(5)), "control"),
             ("causal mask one key too wide",
@@ -1586,11 +1631,32 @@ def main():
     check_kernels(fa, 1, 4, 2, 1000, 16, torch.bfloat16, True, 8, 1e-3)
     check_kernels(fa, 1, 4, 2, 1000, 32, torch.bfloat16, False, 9, 1e-3)
     check_kernels(fa, 2, 4, 2, 300, 48, torch.bfloat16, True, 10, 1e-3)
+    # B2's edges: group 1 (the MoE cell's heads), group 8, and batch 2 on
+    # the 64-wide head tile without the causal mask
+    check_kernels(fa, 1, 4, 4, 1000, 128, torch.bfloat16, True, 12, 1e-3)
+    check_kernels(fa, 1, 8, 1, 1000, 128, torch.bfloat16, True, 13, 1e-3)
+    check_kernels(fa, 2, 4, 2, 1000, 64, torch.bfloat16, False, 14, 1e-3)
+    # the MoE path's own shapes (group 1 at 32/32 heads): one card's
+    # sequence, and an expert-parallel rank's
+    check_kernels(fa, 1, 32, 32, SEQ, 128, torch.bfloat16, True, 15, 1e-3)
     torch.cuda.empty_cache()
+    check_kernels(fa, 1, 32, 32, EP_TOKENS, 128, torch.bfloat16, True, 16,
+                  1e-3)
+    # the bias of sound kernels grows with the terms each output sums:
+    # read it at group 4 (the main shape's) past the main sequence
+    for seq, seed in ((2 * SEQ, 17), (4 * SEQ, 18)):
+        check_kernels(fa, 1, 4, 1, seq, 128, torch.bfloat16, True, seed,
+                      1e-3)
+        torch.cuda.empty_cache()
 
     log(f"kernel times (bf16, B=1 H=32/8 S={SEQ} D=128, causal; {card}):")
     times, sdpa = kernel_times(fa, 1, 32, 8, SEQ, 128)
     report["kernel_times"], report["sdpa"] = times, sdpa
+    torch.cuda.empty_cache()
+    log(f"kernel times at the MoE cell's heads (bf16, B=1 H=32/32 "
+        f"S={SEQ} D=128, causal; {card}):")
+    report["kernel_times_moe_heads"], report["sdpa_moe_heads"] = \
+        kernel_times(fa, 1, 32, 32, SEQ, 128)
     torch.cuda.empty_cache()
 
     log(f"main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
@@ -1748,8 +1814,10 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "verdict": "ok",
         })
-        if name == "flash_fwd":
-            kernels[-1]["design"] = B1_DESIGN
+        design = {"flash_fwd": B1_DESIGN,
+                  "flash_bwd_dkv": B2_DESIGN}.get(name)
+        if design:
+            kernels[-1]["design"] = design
     for name, meta in gm.KERNELS.items():
         # B4 is timed on y (the up-projection); its dx call does the same
         # work and is reported beside it

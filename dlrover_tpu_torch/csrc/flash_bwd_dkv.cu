@@ -11,16 +11,43 @@
 // 275 GFLOP at the main path's shape (H=32, H_kv=8, S=4096, D=128, bf16,
 // causal), 0.278 ms at 989 TFLOP/s.
 //
-// Design: one block per (k tile, KV head, batch). The TPU grid
-// (b, h_kv, j, g, i) keeps dK/dV in VMEM scratch while its two innermost
-// dimensions run in order; CUDA blocks run in no order, so both of those
-// dimensions become loops inside the block. Each dK/dV tile then has a
-// single writer, accumulated in f32 shared memory, with no atomics and
-// no second pass. The probability and dS tiles are written in the input
-// type over the f32 S/dP tiles they come from (after a barrier), which
-// keeps the f32 path inside the shared-memory limit.
+// The TPU grid (b, h_kv, j, g, i) keeps dK/dV in VMEM scratch while its
+// two innermost dimensions run in order; CUDA blocks run in no order, so
+// both of those dimensions become loops inside the block, and each dK/dV
+// tile has a single writer: no atomics and no second pass.
+//
+// bf16 design (flash_bwd_dkv_bf16_kernel, on hopper_common.cuh): one
+// block per (128-key tile, KV head, batch), 384 threads, one block an
+// SM, the key tiles with the most causal work issued first (the heaviest
+// block's steps equal the average load of an SM at the main shape). The
+// scores are computed transposed, keys as the wgmma M dimension: two
+// consumer warpgroups own 64 key rows each, with their K and V loaded
+// once by TMA into 128-byte-swizzled shared memory, and dK, dV
+// accumulating in registers for the whole block (setmaxnreg gives the
+// consumers 240 registers a thread, the producer 24). Per 64-row q tile
+// of the loop over (query head, q tile):
+//   S^T = K Q^T, dP^T = V dO^T   wgmma SS m64n64k16, K-major operands;
+//         dP^T is issued before P^T's exponentials and runs beside them;
+//   P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta)
+//         scale, in registers, lse and delta per column (a column is a
+//         q row); only tiles crossing the diagonal or a ragged end mask,
+//         and a warpgroup whose keys the q tile cannot see skips it;
+//   dV += P^T dO, dK += dS^T Q   wgmma RS m64n{DP}k16: P^T and dS^T
+//         rounded to bf16 in the accumulator layout are the A fragments
+//         as they stand, dO and Q are read MN-major (transpose bit).
+// A producer warp keeps TMA loads of Q, dO, lse and delta (3-D maps for
+// the tiles, 1-D for the rows) in flight through a 2-stage mbarrier
+// ring. Head dims up to 64 run on a 64-wide head tile, the others on a
+// 128-wide one; columns past D read as zeros, which change none of the
+// four products' stored parts.
+//
+// f32 (the parity path, flash_bwd_dkv_kernel<float>): 32x32 tiles staged
+// in shared memory, scalar FMA products (flash_common.cuh); the probability
+// and dS tiles are written over the f32 S/dP tiles they come from (after
+// a barrier), which keeps it inside the shared-memory limit.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dlr {
 
@@ -137,6 +164,310 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                 Sk, D, scale, causal);
 }
 
+
+// -- bf16 --------------------------------------------------------------------
+
+namespace dkv {
+
+using bf16 = __nv_bfloat16;
+constexpr int BK = 128;  // keys a block: two consumer warpgroups of 64
+constexpr int BQ = 64;   // q rows a step
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory at head-dim tile DP (64 or 128): K and V (DP / 64 SW128
+// column blocks of BK rows each), kStages x (Q, dO) tiles (DP / 64
+// column blocks of BQ rows), kStages x (lse, delta) rows, the mbarriers.
+// A row box starts at the 16-byte boundary at or before the tile's first
+// row (TMA's alignment), so it holds BQ + 4 values.
+constexpr int kRowBox = BQ + 4;
+template <int DP>
+struct Layout {
+  static constexpr uint32_t kKV = BK * DP * 2;  // K or V
+  static constexpr uint32_t kQ = BQ * DP * 2;   // one Q or dO tile
+  static constexpr uint32_t kRow = 384;  // one lse or delta box, aligned
+  static constexpr uint32_t kStage0 = 2 * kKV;
+  static constexpr uint32_t kRows = kStage0 + kStages * 2 * kQ;
+  static constexpr uint32_t kBars = kRows + kStages * 2 * kRow;
+  static constexpr uint32_t kStageTx = 2 * kQ + 2 * kRowBox * 4;
+  static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+};
+
+// The mbarriers: K and V arrived; a stage's Q, dO, lse and delta
+// arrived; a stage released by both consumer warpgroups.
+struct Bars {
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][N]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hop::fence_regs(a[kk]);
+}
+
+// Issue acc = A B^T over DP / 16 k16 steps: A this warpgroup's 64 rows
+// of a BK-row tile (K or V), B a BQ-row tile (Q or dO), both K-major.
+template <int DP>
+__device__ __forceinline__ void scores(float (&acc)[32], uint32_t sA,
+                                       uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t a = (kk / 4) * BK * 128 + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+    hop::wgmma_ss_m64n64k16<0>(acc, hop::desc_sw128(sA + a, 16, 1024),
+                               hop::desc_sw128(sB + b, 16, 1024), kk > 0);
+  }
+}
+
+// Issue acc += A B over the tile's 64 q rows: A in bf16 from registers
+// (four k16 fragments), B a [BQ][DP] tile (dO or Q) read MN-major.
+template <int DP>
+__device__ __forceinline__ void grads(float (&acc)[DP / 2],
+                                      const uint32_t (&a)[4][4],
+                                      uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = hop::desc_sw128(sB + kk * 16 * 128, BQ * 128, 1024);
+    if constexpr (DP == 128) {
+      hop::wgmma_rs_m64n128k16<1>(acc, a[kk], b, 1);
+    } else {
+      hop::wgmma_rs_m64n64k16<1>(acc, a[kk], b, 1);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tlse,
+                              const __grid_constant__ CUtensorMap tdelta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int B, int H, int Hkv, int Sq, int Sk, int D,
+                              float scale, float scale_log2, int causal) {
+  using L = Layout<DP>;
+  constexpr int NA = DP / 2;  // dK or dV accumulator registers a thread
+  // every head's first key tiles (the most causal work) first
+  const int j = blockIdx.x / (B * Hkv), bh = blockIdx.x % (B * Hkv);
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int group = H / Hkv;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // q tiles strictly above this key tile's diagonal see none of its keys
+  const int i0 = causal ? j * BK / BQ : 0;
+  const int per_head = max(nqt - i0, 0);
+  const int steps = group * per_head;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = hop::smem_u32(base), sV = sK + L::kKV;
+  auto sQ = [&](int s) { return sK + L::kStage0 + s * 2 * L::kQ; };
+  auto sdO = [&](int s) { return sQ(s) + L::kQ; };
+  auto sLse = [&](int s) {
+    return reinterpret_cast<const float*>(base + L::kRows + s * 2 * L::kRow);
+  };
+  auto sDelta = [&](int s) { return sLse(s) + L::kRow / 4; };
+  // the first row of step t's q tile in the [B H Sq] rows of lse, delta
+  auto first_row = [&](int t) {
+    return (b * H + hk * group + t / per_head) * Sq +
+           (i0 + t % per_head) * BQ;
+  };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&bar.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread loads K and V once, then keeps the ring full
+    // with step t's Q and dO tiles and lse and delta rows
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      hop::mbar_arrive_expect_tx(&bar.kv_full, 2 * L::kKV);
+      for (int c = 0; c < DP / 64; ++c) {
+        hop::tma_load_3d(sK + c * BK * 128, &tk, &bar.kv_full, c * 64,
+                         j * BK, bh);
+        hop::tma_load_3d(sV + c * BK * 128, &tv, &bar.kv_full, c * 64,
+                         j * BK, bh);
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % kStages;
+        const int h = hk * group + t / per_head, i = i0 + t % per_head;
+        // the stage's previous tile, t - kStages, is released
+        if (t >= kStages) hop::mbar_wait(&bar.empty[s], (t / kStages - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.full[s], L::kStageTx);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sQ(s) + c * BQ * 128, &tq, &bar.full[s], c * 64,
+                           i * BQ, b * H + h);
+          hop::tma_load_3d(sdO(s) + c * BQ * 128, &tdo, &bar.full[s], c * 64,
+                           i * BQ, b * H + h);
+        }
+        // 1-D rows: a ragged tile reads the next head's values (masked)
+        // or, past the end, zeros
+        const int row = first_row(t) & ~3;
+        hop::tma_load_1d(hop::smem_u32(sLse(s)), &tlse, &bar.full[s], row);
+        hop::tma_load_1d(hop::smem_u32(sDelta(s)), &tdelta, &bar.full[s],
+                         row);
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  // consumers: warpgroup wg owns key rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int quad = t128 % 4;
+  const int k_lo = j * BK + wg * 64;
+  const int kr0 = k_lo + (t128 / 32) * 16 + (t128 % 32) / 4;
+  const int kr1 = kr0 + 8;
+  const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
+
+  float dkacc[NA], dvacc[NA];
+#pragma unroll
+  for (int x = 0; x < NA; ++x) dkacc[x] = dvacc[x] = 0.f;
+
+  hop::mbar_wait(&bar.kv_full, 0);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % kStages, phase = (t / kStages) & 1;
+    const int q_lo = (i0 + t % per_head) * BQ;
+    hop::mbar_wait(&bar.full[s], phase);
+    // keys all past Sk, or all above this q tile's diagonal: nothing to add
+    if (k_lo >= Sk || (causal && k_lo > q_lo + BQ - 1)) {
+      hop::mbar_arrive(&bar.empty[s]);
+      continue;
+    }
+
+    // S^T = K Q^T, then dP^T = V dO^T: the tensor cores work on dP^T
+    // while P^T's exponentials are computed
+    float sacc[32], dpacc[32];
+    hop::wgmma_fence();
+    scores<DP>(sacc, sKw, sQ(s));
+    hop::wgmma_commit();
+    scores<DP>(dpacc, sVw, sdO(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();
+    hop::fence_regs(sacc);
+
+    // P^T, over S^T's registers; a column is the q row
+    // q_lo + 8 c + 2 quad + (x & 1), a row the key kr0 or kr1
+    const bool mask = (causal && k_lo + 63 > q_lo) || q_lo + BQ > Sq ||
+                      k_lo + 64 > Sk;
+    const int off = first_row(t) & 3;  // the tile's first row in the box
+    const float* lse = sLse(s) + off + 2 * quad;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float l0 = lse[8 * c] * kLog2e, l1 = lse[8 * c + 1] * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * c + e;
+        float p = hop::ex2(fmaf(sacc[x], scale_log2, (e & 1) ? -l1 : -l0));
+        if (mask) {
+          const int qc = q_lo + 8 * c + 2 * quad + (e & 1);
+          const int kr = (e & 2) ? kr1 : kr0;
+          if (kr >= Sk || qc >= Sq || (causal && kr > qc)) p = 0.f;
+        }
+        sacc[x] = p;
+      }
+    }
+
+    // dV += P^T dO: P^T in bf16 from registers, dO [q][DP] MN-major
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::acc_to_a(sacc, kk, pa[kk]);
+    hop::wgmma_fence();
+    hop::fence_regs(dvacc);
+    grads<DP>(dvacc, pa, sdO(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();  // dP^T is done; dV may still run
+    hop::fence_regs(dpacc);
+
+    // dS^T = P^T (dP^T - delta) scale, over dP^T's registers
+    const float* delta = sDelta(s) + off + 2 * quad;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float d0 = delta[8 * c], d1 = delta[8 * c + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * c + e;
+        dpacc[x] = sacc[x] * (dpacc[x] - ((e & 1) ? d1 : d0)) * scale;
+      }
+    }
+
+    // dK += dS^T Q: Q [q][DP] MN-major
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::acc_to_a(dpacc, kk, da[kk]);
+    hop::wgmma_fence();
+    hop::fence_regs(dkacc);
+    grads<DP>(dkacc, da, sQ(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dvacc);
+    hop::fence_regs(dkacc);
+    fence_frags(pa);
+    fence_frags(da);
+    hop::mbar_arrive(&bar.empty[s]);  // this thread is done with stage s
+  }
+
+  // dK, dV in bf16 straight from the accumulators
+  const size_t head_row = (size_t)bh * Sk;
+#pragma unroll
+  for (int c = 0; c < NA / 4; ++c) {
+    const int col = 8 * c + 2 * quad;
+    if (col < D) {
+      if (kr0 < Sk) {
+        const size_t at = (head_row + kr0) * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * c], dkacc[4 * c + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * c], dvacc[4 * c + 1]);
+      }
+      if (kr1 < Sk) {
+        const size_t at = (head_row + kr1) * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * c + 2], dkacc[4 * c + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * c + 2], dvacc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
+                int D, float scale, int causal, void* stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const size_t rows = (size_t)B * H * Sq;
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tdo, static_cast<const bf16*>(dout), B * H, Sq, D,
+                       BQ) ||
+      !hop::tensor_map_1d(&tlse, lse, rows, kRowBox) ||
+      !hop::tensor_map_1d(&tdelta, delta, rows, kRowBox)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Sk + BK - 1) / BK * B * Hkv);
+  return hop::launch(flash_bwd_dkv_bf16_kernel<DP>, grid, kThreads,
+                     Layout<DP>::kSmem, stream, tq, tk, tv, tdo, tlse, tdelta,
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H,
+                     Hkv, Sq, Sk, D, scale, scale * kLog2e, causal);
+}
+
+}  // namespace dkv
 }  // namespace dlr
 
 extern "C" int dlr_flash_bwd_dkv_bf16(const void* q, const void* k,
@@ -145,9 +476,13 @@ extern "C" int dlr_flash_bwd_dkv_bf16(const void* q, const void* k,
                                       void* dk, void* dv, int B, int H,
                                       int Hkv, int Sq, int Sk, int D,
                                       float scale, int causal, void* stream) {
-  return dlr::launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        H, Hkv, Sq, Sk, D, scale, causal,
-                                        stream);
+  return D <= 64
+             ? dlr::dkv::launch_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B,
+                                         H, Hkv, Sq, Sk, D, scale, causal,
+                                         stream)
+             : dlr::dkv::launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv,
+                                          B, H, Hkv, Sq, Sk, D, scale, causal,
+                                          stream);
 }
 
 extern "C" int dlr_flash_bwd_dkv_f32(const void* q, const void* k,

@@ -1,7 +1,7 @@
-// Shared building blocks of the WMMA flash-attention kernels: the
-// backward kernels (flash_bwd_dkv.cu, flash_bwd_dq.cu) at both dtypes and
-// the forward's f32 parity path (flash_fwd.cu). The bf16 forward is a
-// wgmma kernel built on hopper_common.cuh instead.
+// Shared building blocks of the WMMA flash-attention kernels: the dQ
+// kernel (flash_bwd_dq.cu) at both dtypes and the f32 parity paths of
+// the forward (flash_fwd.cu) and of dK/dV (flash_bwd_dkv.cu). The bf16
+// forward and dK/dV are wgmma kernels built on hopper_common.cuh instead.
 //
 // Layout: q/o/dq [B, H, Sq, D], k/v/dk/dv [B, H_kv, Sk, D], lse/delta
 // [B, H, Sq] f32, all contiguous. Query head h reads KV head
@@ -12,9 +12,9 @@
 // inputs, and as scalar f32 FMA for f32 inputs (the parity path). Every
 // accumulator lives in shared memory as f32, so a fragment is loaded,
 // updated and stored back once per product. That keeps the kernels
-// simple and the arithmetic easy to follow; the forward's wgmma design
-// (register-resident accumulators, an asynchronous K/V ring) is the
-// model for redoing the backward.
+// simple and the arithmetic easy to follow; the wgmma designs of the
+// forward and dK/dV (register-resident accumulators, asynchronous TMA
+// rings) are the model for redoing dQ.
 //
 // Ragged tails: a tile row past the end of the sequence is loaded as
 // zeros and masked out of every softmax and gradient, so no sequence
@@ -36,8 +36,8 @@ constexpr int kThreads = 256;  // 8 warps per block
 constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, as the TPU kernels
 constexpr int kFPad = 4;  // f32 row padding (elements): keeps WMMA ldm legal
 
-// Tile shape per element type. bf16 tiles (the backward's WMMA path) are
-// 64x64; f32 tiles are 32x32 so the dKV kernel's eight f32 buffers fit in the
+// Tile shape per element type. bf16 tiles (dQ's WMMA path) are 64x64;
+// f32 tiles are 32x32 so the dKV kernel's eight f32 buffers fit in the
 // 227 KB a block may use.
 template <typename T>
 struct Tile;

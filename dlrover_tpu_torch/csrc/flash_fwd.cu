@@ -35,8 +35,6 @@
 // f32 (the parity path, flash_fwd_f32_kernel): 32x32 tiles staged in
 // shared memory, scalar FMA products (flash_common.cuh).
 
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -409,42 +407,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-
-// cuTensorMapEncodeTiled, reached through the runtime so the library needs
-// no link against libcuda; nullptr when the installed CUDA lacks it.
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map over [heads, rows, D] bf16 (D innermost), box {64, rows_box,
-// 1}, 128-byte swizzle; reads outside the tensor return zeros, so a
-// ragged tile never sees the next head's rows.
-bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int rows,
-                int D, int rows_box) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)D * 2 * rows};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows_box, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  auto encode = encode_tiled();
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
@@ -452,9 +414,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   // the row max is taken on unscaled scores: it needs scale > 0
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B * H, Sq, D, BQ) ||
-      !tensor_map(&tk, k, B * Hkv, Sk, D, BK) ||
-      !tensor_map(&tv, v, B * Hkv, Sk, D, BK)) {
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptors, mbarriers, TMA
-// tensor loads, register rebalancing, and a launcher that takes its own
-// thread count. Used by flash_fwd.cu (B1).
+// tensor loads, register rebalancing, a launcher that takes its own
+// thread count, and the host's tensor-map encoders. Used by flash_fwd.cu
+// (B1) and the bf16 path of flash_bwd_dkv.cu (B2).
 //
 // Shared-memory operand layout ("SW128"): a tile with a 128-byte inner
 // extent (64 bf16) stored row after row, 128 bytes a row, with the eight
@@ -24,6 +25,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,6 +72,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+// The same for A fragments in registers, which an RS wgmma reads until
+// its wait: fenced after the wait, they stay live (and unchanged) until
+// then.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory.
 template <int TRANS_B>
@@ -105,6 +115,31 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31},\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
 }
 
@@ -255,6 +290,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// TMA: the box at coordinate c0 of a 1-D tensor map into shared memory
+// at dst; completion counts its bytes on `bar`. Elements past the end
+// arrive as zeros.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // -- warp specialisation ----------------------------------------------------
 
 template <int REGS>
@@ -279,6 +327,74 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream,
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so a library needs
+// no link against libcuda; nullptr when the installed CUDA lacks it.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <typename T>
+struct TmaType;
+template <>
+struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+// A 3-D map over [heads, rows, cols] of T (cols innermost), box {128
+// bytes of cols, rows_box, 1}, 128-byte swizzle (an SW128 column block a
+// box); reads outside the tensor return zeros, so a ragged tile never
+// sees the next head's rows, and columns past `cols` read as zeros.
+template <typename T>
+inline bool tensor_map(CUtensorMap* map, const T* ptr, int heads, int rows,
+                       int cols, int rows_box) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(T),
+                                 (cuuint64_t)cols * sizeof(T) * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / sizeof(T)),
+                             (cuuint32_t)rows_box, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  auto encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, TmaType<T>::value, 3, const_cast<T*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-D map over n values of T, box `box` values (box * sizeof(T) a
+// multiple of 16), no swizzle; a box past the end reads zeros there.
+template <typename T>
+inline bool tensor_map_1d(CUtensorMap* map, const T* ptr, size_t n,
+                          int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has none
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  auto encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, TmaType<T>::value, 1, const_cast<T*>(ptr), dims,
+                strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hop

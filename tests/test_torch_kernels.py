@@ -100,6 +100,52 @@ def test_row_rule_rejects_planted_faults():
             name, fault, flash_check.row_errors(got, right[name]))
 
 
+def test_bias_rule_passes_rounding_and_rejects_truncation():
+    """The whole-tensor bias rule (the signed error projected on the
+    reference within 5e-4) passes what rounding to nearest leaves: the
+    reference's forward against the plain one, and dK/dV from f32 P and
+    dS against the plain versions, which round them to bf16. It rejects
+    the controls that truncate P, P^T or dS^T to bf16 instead (about
+    -0.1 % to -0.3 %), which the row rule lets through."""
+    q, k, v, do, scale = _bf16_case(seed=1)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    dk, dv = fa.flash_bwd_dkv_plain(*args)
+    right = {"out": out, "dk": dk, "dv": dv}
+    p, ds = fa._probs_and_ds(*args)
+    b, hkv, s, d = k.shape
+
+    def group_sum(t):
+        return t.view(b, hkv, -1, s, d).sum(dim=2).to(k.dtype)
+
+    sound = {
+        "out": mha_reference(q, k, v, causal=True, scale=scale),
+        "dv": group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do.float())),
+        "dk": group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float())),
+    }
+    for name, got in sound.items():
+        assert flash_check.bias_close(got, right[name]), (
+            name, flash_check.bias(got, right[name]))
+        assert flash_check.rows_close(got, right[name]), name
+    controls = flash_check.bias_controls(*args)
+    assert [name for name, _, _ in controls] == ["out", "dv", "dk"]
+    for name, fault, got in controls:
+        assert got.shape == right[name].shape, fault
+        assert not flash_check.bias_close(got, right[name]), (
+            fault, flash_check.bias(got, right[name]))
+
+
+def test_truncate_bf16_rounds_toward_zero():
+    x = torch.tensor([1.0 + 2 ** -8 + 2 ** -9, -(1.0 + 2 ** -8 + 2 ** -9),
+                      3.0, 0.0])
+    t = flash_check.truncate_bf16(x)
+    assert t.dtype == torch.float32
+    assert t.tolist() == [1.0, -1.0, 3.0, 0.0]
+    assert x.to(torch.bfloat16).float().tolist()[:2] == [1.0078125,
+                                                         -1.0078125]
+
+
 def test_missing_compiler_raises(monkeypatch):
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("the toolkit is installed at its default place")
@@ -147,17 +193,26 @@ def cuda_device():
     (torch.bfloat16, 1, 4, 2, 1000, 16, True, 1e-3, None),
     (torch.bfloat16, 1, 4, 2, 1000, 32, False, 1e-3, None),
     (torch.bfloat16, 2, 4, 2, 300, 48, True, 1e-3, None),
+    # B2's edges: group 1 (the MoE cell's heads), group 8, and batch 2
+    # on the 64-wide head tile without the causal mask
+    (torch.bfloat16, 1, 4, 4, 1000, 128, True, 1e-3, None),
+    (torch.bfloat16, 1, 8, 1, 1000, 128, True, 1e-3, None),
+    (torch.bfloat16, 2, 4, 2, 1000, 64, False, 1e-3, None),
+    # an expert-parallel rank's attention in the MoE cell (32/32 heads)
+    (torch.bfloat16, 1, 32, 32, 1024, 128, True, 1e-3, None),
 ], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged",
         "bf16_d64", "bf16_d80_padded", "bf16_batch2_ragged_q",
         "bf16_cross", "bf16_one_past_tile", "bf16_d16", "bf16_d32",
-        "bf16_d48"])
+        "bf16_d48", "bf16_group1", "bf16_group8", "bf16_batch2_d64",
+        "bf16_moe_heads"])
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
                                      causal, tol, sk):
     """Each kernel against its plain version on the same card inputs:
     f32 to 1e-4 absolute; bf16 outputs row by row (``flash_check``:
     each row's error within 1% of its norm, plus 0.1% of the tensor's
-    RMS row norm); lse, always f32, to 1e-3 absolute. ``sk``: the key
-    length of a cross-attention case (default ``s``)."""
+    RMS row norm) and by their bias (the signed error projected on the
+    plain output within 5e-4); lse, always f32, to 1e-3 absolute.
+    ``sk``: the key length of a cross-attention case (default ``s``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     sk = s if sk is None else sk
 
@@ -184,6 +239,7 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
             if g.dtype == torch.bfloat16:
                 assert flash_check.rows_close(g, r), \
                     flash_check.row_errors(g, r)
+                assert flash_check.bias_close(g, r), flash_check.bias(g, r)
             else:
                 assert (g.float() - r.float()).abs().max().item() <= tol
 
