@@ -13,13 +13,14 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      causal GQA 32/8, S=4096, D=128), on ragged f32 and bf16 GQA cases,
      and on the edges of B1's bf16 tiles (D=64, D=80 padded to 128, D=16,
      32 and 48 below the 64-wide tile, a ragged q tile beside a head
-     boundary, cross attention, S=129, and B2's GQA groups of 1 and 8),
+     boundary, cross attention, S=129, B2's GQA groups of 1 and 8, and
+     B3's q tile of 40 rows),
      at the MoE path's 32/32 heads (S=4096, and an expert-parallel
      rank's 1024), and at S=8192 and 16384 (group 4), every bf16 output
      row by row and by its bias (the signed error projected on the plain
      output); and show that the row rule rejects outputs with planted
-     faults and the bias rule outputs with P, P^T or dS^T truncated to
-     bf16;
+     faults and the bias rule outputs with P, P^T, dS^T or dS truncated
+     to bf16;
   4. time each flash kernel (median of 10 device samples), its plain
      version and PyTorch's scaled_dot_product_attention (a yardstick the
      port never calls), beside the least time the card could take, as a
@@ -104,6 +105,12 @@ B2_DESIGN = ("stage C: transposed scores, wgmma m64n64k16 for S^T = K Q^T "
              "consumer warpgroups over 128 keys, a producer warp keeping "
              "TMA loads of Q, dO, lse and delta in a 2-stage mbarrier "
              "ring, setmaxnreg 240/24")
+B3_DESIGN = ("stage C: BK=128, wgmma m64n128k16 for S = Q K^T and dP = dO "
+             "V^T (dP issued before P's exponentials), RS m64n128k16 for dQ "
+             "+= dS K with dS as register A fragments and K read MN-major, "
+             "dQ in registers, two consumer warpgroups over 128 q rows, a "
+             "producer warp keeping TMA loads of 128-key K/V tiles in a "
+             "2-stage mbarrier ring, setmaxnreg 240/24")
 
 
 def fail(msg: str):
@@ -1604,7 +1611,8 @@ def main():
     for name in kernel_build.SOURCES:
         logfile = kernel_build.library_path(name).with_suffix(".log")
         for line in logfile.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            # C7515/C7518: ptxas serialized the kernel's wgmma
+            if any(key in line for key in ("registers", "spill", "C75")):
                 log(f"  ptxas {name}: {line.strip()}")
     report["build_s"] = build_s
 
@@ -1636,6 +1644,9 @@ def main():
     check_kernels(fa, 1, 4, 4, 1000, 128, torch.bfloat16, True, 12, 1e-3)
     check_kernels(fa, 1, 8, 1, 1000, 128, torch.bfloat16, True, 13, 1e-3)
     check_kernels(fa, 2, 4, 2, 1000, 64, torch.bfloat16, False, 14, 1e-3)
+    # B3's edge: a q tile shorter than one warpgroup's 64 rows (the
+    # second warpgroup has none)
+    check_kernels(fa, 1, 4, 2, 40, 128, torch.bfloat16, True, 19, 1e-3)
     # the MoE path's own shapes (group 1 at 32/32 heads): one card's
     # sequence, and an expert-parallel rank's
     check_kernels(fa, 1, 32, 32, SEQ, 128, torch.bfloat16, True, 15, 1e-3)
@@ -1814,10 +1825,9 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "verdict": "ok",
         })
-        design = {"flash_fwd": B1_DESIGN,
-                  "flash_bwd_dkv": B2_DESIGN}.get(name)
-        if design:
-            kernels[-1]["design"] = design
+        kernels[-1]["design"] = {"flash_fwd": B1_DESIGN,
+                                 "flash_bwd_dkv": B2_DESIGN,
+                                 "flash_bwd_dq": B3_DESIGN}[name]
     for name, meta in gm.KERNELS.items():
         # B4 is timed on y (the up-projection); its dx call does the same
         # work and is reported beside it

@@ -5,18 +5,51 @@
 // logsumexp as in the dKV kernel,
 //   dS = p * (dO V^T - delta) * scale,   dQ += dS K,
 // over the k tiles at or left of the diagonal, reading the group's
-// shared KV head.
+// shared KV head. delta = rowsum(dO * O) - dlse comes in precomputed.
 //
 // Bound on the H100: operations. Three products per visible (q, k)
 // pair: 206 GFLOP at the main path's shape (H=32, H_kv=8, S=4096,
-// D=128, bf16, causal), 0.208 ms at 989 TFLOP/s.
+// D=128, bf16, causal), 0.209 ms at 989 TFLOP/s.
 //
-// Design: one block per (q tile, head, batch), looping over k tiles
-// (the TPU grid's sequential innermost dimension) with dQ accumulated
-// in f32 shared memory; every dQ tile has a single writer. The heaviest
-// causal q tiles are scheduled first.
+// The TPU grid (b, h, i, j) keeps dQ in VMEM scratch while its
+// innermost k-tile dimension runs in order; here that dimension is a
+// loop inside the block, and each dQ tile has a single writer: no
+// atomics and no second pass.
+//
+// bf16 design (flash_bwd_dq_bf16_kernel, on hopper_common.cuh): one
+// block per (128-row q tile, head, batch), 384 threads, one block an
+// SM, the q tiles with the most causal work first. Two consumer
+// warpgroups own 64 q rows each: Q and dO are loaded once by TMA into
+// 128-byte-swizzled shared memory and stay, lse and delta are read once
+// into registers (a row is a row here, as in the forward), and dQ
+// accumulates in registers for the whole block (setmaxnreg gives the
+// consumers 240 registers a thread, the producer 24). A producer warp
+// keeps TMA loads of 128-key K and V tiles in flight through a 2-stage
+// mbarrier ring (3-D tensor maps, so a ragged tile reads zeros, never
+// the next head's rows). Per k tile:
+//   S = Q K^T, dP = dO V^T   wgmma SS m64n128k16, K-major operands; dP
+//         is issued before P's exponentials and runs beside them;
+//   P = exp2(S scale log2e - lse log2e), dS = P (dP - delta) scale, in
+//         registers; only tiles crossing the diagonal or the ragged end
+//         of the keys mask, and a warpgroup whose rows see none of the
+//         tile's keys skips it;
+//   dQ += dS K   wgmma RS m64n{DP}k16: dS rounded to bf16 in the
+//         accumulator layout is the A fragment as it stands, and K, the
+//         tile S read K-major, is read MN-major (transpose bit).
+// (64-key tiles, whose m64n64 SS products read as many shared-memory
+// bytes per flop as the tensor cores can take, were slower, and so was
+// leaving one tile's dQ product in flight under the next tile's S:
+// PERF.md has the runs.)
+// Head dims up to 64 run on a 64-wide head tile, the others on a
+// 128-wide one; columns past D read as zeros, which change none of the
+// three products' stored parts. Rows past Sq read zeros and are never
+// stored.
+//
+// f32 (the parity path, flash_bwd_dq_kernel<float>): 32x32 tiles staged
+// in shared memory, scalar FMA products (flash_common.cuh).
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dlr {
 
@@ -123,6 +156,261 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                 delta, static_cast<T*>(dq), H, Hkv, Sq, Sk, D, scale, causal);
 }
 
+// -- bf16 --------------------------------------------------------------------
+
+namespace dq {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;  // q rows a block: two consumer warpgroups of 64
+constexpr int BK = 128;  // keys a K/V tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory at head-dim tile DP (64 or 128): Q and dO (DP / 64
+// SW128 column blocks of BQ rows each), kStages x (K, V) tiles (DP / 64
+// column blocks of BK rows), then the mbarriers.
+template <int DP>
+struct Layout {
+  static constexpr uint32_t kQ = BQ * DP * 2;   // Q or dO
+  static constexpr uint32_t kKV = BK * DP * 2;  // one K or one V tile
+  static constexpr uint32_t kStage0 = 2 * kQ;
+  static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKV;
+  static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+};
+
+// The mbarriers: Q and dO arrived; K, V of a stage arrived; a stage
+// released by both consumer warpgroups.
+struct Bars {
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+// Issue acc = A B^T over DP / 16 k16 steps: A this warpgroup's 64 rows
+// of the BQ-row Q or dO tile, B the BK-row K or V tile, both K-major.
+template <int DP>
+__device__ __forceinline__ void scores(float (&acc)[BK / 2], uint32_t sA,
+                                       uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t a = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * BK * 128 + (kk % 4) * 32;
+    hop::wgmma_ss_m64n128k16<0>(acc, hop::desc_sw128(sA + a, 16, 1024),
+                                hop::desc_sw128(sB + b, 16, 1024), kk > 0);
+  }
+}
+
+// Issue dQ += dS K over the tile's BK keys: dS in bf16 from registers
+// (BK / 16 k16 fragments), K [BK][DP] read MN-major.
+template <int DP>
+__device__ __forceinline__ void dq_update(float (&acc)[DP / 2],
+                                          const uint32_t (&a)[BK / 16][4],
+                                          uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t b = hop::desc_sw128(sK + kk * 16 * 128, BK * 128, 1024);
+    if constexpr (DP == 128) {
+      hop::wgmma_rs_m64n128k16<1>(acc, a[kk], b, 1);
+    } else {
+      hop::wgmma_rs_m64n64k16<1>(acc, a[kk], b, 1);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int H, int Hkv, int Sq,
+                             int Sk, int D, float scale, float scale_log2,
+                             int causal) {
+  using L = Layout<DP>;
+  constexpr int NA = DP / 2;  // dQ accumulator registers a thread
+  constexpr int NS = BK / 2;  // S or dP accumulator registers a thread
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // every head's last q tile first: the heaviest causal blocks lead
+  const int i = nqt - 1 - blockIdx.x / H;
+  const int h = blockIdx.x % H, b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  int nkt = (Sk + BK - 1) / BK;
+  if (causal) nkt = min(nkt, (i * BQ + BQ - 1) / BK + 1);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = hop::smem_u32(base), sdO = sQ + L::kQ;
+  auto sK = [&](int s) { return sQ + L::kStage0 + s * 2 * L::kKV; };
+  auto sV = [&](int s) { return sK(s) + L::kKV; };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.k_full[s], 1);
+      hop::mbar_init(&bar.v_full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread loads Q and dO once, then keeps the ring full
+    // with the K and V tiles of KV head hk
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      hop::mbar_arrive_expect_tx(&bar.q_full, 2 * L::kQ);
+      for (int c = 0; c < DP / 64; ++c) {
+        hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64,
+                         i * BQ, b * H + h);
+        hop::tma_load_3d(sdO + c * BQ * 128, &tdo, &bar.q_full, c * 64,
+                         i * BQ, b * H + h);
+      }
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % kStages;
+        // the stage's previous tile, j - kStages, is released
+        if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s], c * 64,
+                           j * BK, b * Hkv + hk);
+        }
+        hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s], c * 64,
+                           j * BK, b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  // consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int quad = t % 4;
+  const int q_lo = i * BQ + wg * 64;
+  const int row0 = q_lo + (t / 32) * 16 + (t % 32) / 4;
+  const int row1 = row0 + 8;
+  const uint32_t sQw = sQ + wg * 64 * 128, sdOw = sdO + wg * 64 * 128;
+  // lse (base 2) and delta of this thread's two rows; rows past Sq read
+  // zeros there and are never stored
+  const size_t head_row = ((size_t)b * H + h) * Sq;
+  const float lse0 = row0 < Sq ? lse[head_row + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < Sq ? lse[head_row + row1] * kLog2e : 0.f;
+  const float delta0 = row0 < Sq ? delta[head_row + row0] : 0.f;
+  const float delta1 = row1 < Sq ? delta[head_row + row1] : 0.f;
+
+  float dqacc[NA];
+#pragma unroll
+  for (int x = 0; x < NA; ++x) dqacc[x] = 0.f;
+
+  hop::mbar_wait(&bar.q_full, 0);
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j % kStages, phase = (j / kStages) & 1;
+    const int k_lo = j * BK;
+    hop::mbar_wait(&bar.k_full[s], phase);
+    // no rows, or every key of the tile above this warpgroup's rows:
+    // nothing to add
+    if (q_lo >= Sq || (causal && k_lo > q_lo + 63)) {
+      hop::mbar_wait(&bar.v_full[s], phase);
+      hop::mbar_arrive(&bar.empty[s]);
+      continue;
+    }
+
+    // S = Q K^T, then dP = dO V^T: the tensor cores work on dP while
+    // P's exponentials are computed
+    float sacc[NS], dpacc[NS];
+    hop::wgmma_fence();
+    scores<DP>(sacc, sQw, sK(s));
+    hop::wgmma_commit();
+    hop::mbar_wait(&bar.v_full[s], phase);
+    hop::wgmma_fence();
+    scores<DP>(dpacc, sdOw, sV(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();
+    hop::fence_regs(sacc);
+
+    // P over S's registers: x = 4 c + e is row (e & 2 ? row1 : row0),
+    // key k_lo + 8 c + 2 quad + (e & 1)
+    const bool mask = (causal && k_lo + BK - 1 > q_lo) || k_lo + BK > Sk;
+#pragma unroll
+    for (int x = 0; x < NS; ++x) {
+      float p = hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? -lse1 : -lse0));
+      if (mask) {
+        const int kr = k_lo + 8 * (x / 4) + 2 * quad + (x & 1);
+        const int qr = (x & 2) ? row1 : row0;
+        if (kr >= Sk || (causal && kr > qr)) p = 0.f;
+      }
+      sacc[x] = p;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dpacc);
+
+    // dS = P (dP - delta) scale, rounded to bf16 A fragments
+#pragma unroll
+    for (int x = 0; x < NS; ++x) {
+      dpacc[x] = sacc[x] * (dpacc[x] - ((x & 2) ? delta1 : delta0)) * scale;
+    }
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::acc_to_a(dpacc, kk, da[kk]);
+
+    // dQ += dS K
+    hop::wgmma_fence();
+    hop::fence_regs(dqacc);
+    dq_update<DP>(dqacc, da, sK(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dqacc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::fence_regs(da[kk]);
+    hop::mbar_arrive(&bar.empty[s]);  // this thread is done with stage s
+  }
+
+  // dQ in bf16 straight from the accumulator
+#pragma unroll
+  for (int c = 0; c < NA / 4; ++c) {
+    const int col = 8 * c + 2 * quad;
+    if (col < D) {
+      if (row0 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + (head_row + row0) * D + col) =
+            __floats2bfloat162_rn(dqacc[4 * c], dqacc[4 * c + 1]);
+      }
+      if (row1 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + (head_row + row1) * D + col) =
+            __floats2bfloat162_rn(dqacc[4 * c + 2], dqacc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                void* dq, int B, int H, int Hkv, int Sq, int Sk, int D,
+                float scale, int causal, void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tdo, static_cast<const bf16*>(dout), B * H, Sq, D,
+                       BQ)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Sq + BQ - 1) / BQ * H, B);
+  return hop::launch(flash_bwd_dq_bf16_kernel<DP>, grid, kThreads,
+                     Layout<DP>::kSmem, stream, tq, tk, tv, tdo, lse, delta,
+                     static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, scale,
+                     scale * kLog2e, causal);
+}
+
+}  // namespace dq
 }  // namespace dlr
 
 extern "C" int dlr_flash_bwd_dq_bf16(const void* q, const void* k,
@@ -131,8 +419,12 @@ extern "C" int dlr_flash_bwd_dq_bf16(const void* q, const void* k,
                                      void* dq, int B, int H, int Hkv, int Sq,
                                      int Sk, int D, float scale, int causal,
                                      void* stream) {
-  return dlr::launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H,
-                                       Hkv, Sq, Sk, D, scale, causal, stream);
+  return D <= 64 ? dlr::dq::launch_bf16<64>(q, k, v, dout, lse, delta, dq, B,
+                                            H, Hkv, Sq, Sk, D, scale, causal,
+                                            stream)
+                 : dlr::dq::launch_bf16<128>(q, k, v, dout, lse, delta, dq,
+                                             B, H, Hkv, Sq, Sk, D, scale,
+                                             causal, stream);
 }
 
 extern "C" int dlr_flash_bwd_dq_f32(const void* q, const void* k,

@@ -1,20 +1,17 @@
-// Shared building blocks of the WMMA flash-attention kernels: the dQ
-// kernel (flash_bwd_dq.cu) at both dtypes and the f32 parity paths of
-// the forward (flash_fwd.cu) and of dK/dV (flash_bwd_dkv.cu). The bf16
-// forward and dK/dV are wgmma kernels built on hopper_common.cuh instead.
+// Shared building blocks of the f32 flash-attention kernels, the parity
+// paths of the forward (flash_fwd.cu), dK/dV (flash_bwd_dkv.cu) and dQ
+// (flash_bwd_dq.cu). The bf16 paths of all three are wgmma kernels built
+// on hopper_common.cuh instead. The grouped-matmul kernels
+// (grouped_common.cuh) use its launcher, shared-memory carving and
+// conversions too.
 //
 // Layout: q/o/dq [B, H, Sq, D], k/v/dk/dv [B, H_kv, Sk, D], lse/delta
 // [B, H, Sq] f32, all contiguous. Query head h reads KV head
 // h / (H / H_kv).
 //
-// Tiles are staged in shared memory. Products run on the tensor cores
-// through WMMA (16x16x16 bf16 fragments, f32 accumulators) for bf16
-// inputs, and as scalar f32 FMA for f32 inputs (the parity path). Every
-// accumulator lives in shared memory as f32, so a fragment is loaded,
-// updated and stored back once per product. That keeps the kernels
-// simple and the arithmetic easy to follow; the wgmma designs of the
-// forward and dK/dV (register-resident accumulators, asynchronous TMA
-// rings) are the model for redoing dQ.
+// Tiles are staged in shared memory, and products run as scalar f32 FMA
+// with every accumulator in shared memory. That keeps the parity path
+// simple and its arithmetic easy to follow.
 //
 // Ragged tails: a tile row past the end of the sequence is loaded as
 // zeros and masked out of every softmax and gradient, so no sequence
@@ -24,27 +21,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 namespace dlr {
 
 constexpr int kThreads = 256;  // 8 warps per block
 constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, as the TPU kernels
-constexpr int kFPad = 4;  // f32 row padding (elements): keeps WMMA ldm legal
+constexpr int kFPad = 4;  // f32 row padding (elements)
 
-// Tile shape per element type. bf16 tiles (dQ's WMMA path) are 64x64;
-// f32 tiles are 32x32 so the dKV kernel's eight f32 buffers fit in the
-// 227 KB a block may use.
+// Tile shape per element type: 32x32 f32 tiles, so the dKV kernel's eight
+// f32 buffers fit in the 227 KB a block may use.
 template <typename T>
 struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BQ = 64, BK = 64, PAD = 8;
-};
 template <>
 struct Tile<float> {
   static constexpr int BQ = 32, BK = 32, PAD = 4;
@@ -66,10 +56,6 @@ struct SmemCarve {
   }
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -113,40 +99,7 @@ __device__ inline void load_rows(float* dst, const float* src, int valid,
 
 // C[M][N] (f32, shared, ldc) = (acc ? C : 0) + op(A) op(B), where
 // op(A) is [M][K] (stored [K][M] when TA) and op(B) is [K][N] (stored
-// [N][K] when TB). M, N, K are multiples of 16. bf16: WMMA fragments
-// spread over the block's warps.
-template <bool TA, bool TB>
-__device__ void tile_mma(const __nv_bfloat16* A, int lda,
-                         const __nv_bfloat16* B, int ldb, float* C, int ldc,
-                         int M, int N, int K, bool acc) {
-  using namespace nvcuda;
-  using LA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
-  using LB = std::conditional_t<TB, wmma::col_major, wmma::row_major>;
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += nwarps) {
-    const int mi = (t / tn) * 16, ni = (t % tn) * 16;
-    float* c_ptr = C + mi * ldc + ni;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (acc) {
-      wmma::load_matrix_sync(c, c_ptr, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(c, 0.f);
-    }
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-      wmma::load_matrix_sync(a, TA ? A + kk * lda + mi : A + mi * lda + kk,
-                             lda);
-      wmma::load_matrix_sync(b, TB ? B + ni * ldb + kk : B + kk * ldb + ni,
-                             ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(c_ptr, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// f32: one output element per thread at a time, scalar FMA.
+// [N][K] when TB): one output element per thread at a time, scalar FMA.
 template <bool TA, bool TB>
 __device__ void tile_mma(const float* A, int lda, const float* B, int ldb,
                          float* C, int ldc, int M, int N, int K, bool acc) {

@@ -28,6 +28,10 @@
 
 #pragma once
 
+#include <mma.h>
+
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace dlr {

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptors, mbarriers, TMA
 // tensor loads, register rebalancing, a launcher that takes its own
-// thread count, and the host's tensor-map encoders. Used by flash_fwd.cu
-// (B1) and the bf16 path of flash_bwd_dkv.cu (B2).
+// thread count, and the host's tensor-map encoders. Used by the bf16
+// paths of flash_fwd.cu (B1), flash_bwd_dkv.cu (B2) and flash_bwd_dq.cu
+// (B3).
 //
 // Shared-memory operand layout ("SW128"): a tile with a 128-byte inner
 // extent (64 bf16) stored row after row, 128 bytes a row, with the eight

@@ -26,10 +26,10 @@ not apply: the kernels mask ragged tails, and their tiles are fixed. The
 bf16 forward is a Hopper wgmma kernel over 128x128 tiles (a 64- or
 128-wide head tile, columns past ``head_dim`` read as zeros); the bf16
 dK/dV kernel is one too, over 128-key tiles that step through 64-row q
-tiles with the scores transposed; the bf16 dQ kernel runs WMMA over
-64x64 tiles; every f32 kernel (the parity path) runs scalar FMA over
-32x32 tiles. The ``block_*`` arguments are kept for API parity and do
-not change the result.
+tiles with the scores transposed; so is the bf16 dQ kernel, over 128-row
+q tiles that step through 128-key K/V tiles; every f32 kernel (the
+parity path) runs scalar FMA over 32x32 tiles. The ``block_*``
+arguments are kept for API parity and do not change the result.
 """
 
 from __future__ import annotations

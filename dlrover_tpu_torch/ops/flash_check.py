@@ -78,10 +78,10 @@ def truncate_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def bias_controls(q, k, v, dout, lse, delta, causal: bool, scale: float
                   ) -> List[Tuple[str, str, torch.Tensor]]:
-    """(output name, fault, faulty output): the forward with P, and the
-    dK/dV kernel with P^T or dS^T, truncated to bf16 where the kernels
-    round to nearest. Each must fail ``bias_close`` against the right
-    answer."""
+    """(output name, fault, faulty output): the forward with P, the
+    dK/dV kernel with P^T or dS^T, and the dQ kernel with dS, truncated
+    to bf16 where the kernels round to nearest. Each must fail
+    ``bias_close`` against the right answer."""
     s = fa._scores(q, k, causal, scale)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     group = fa._group_size(q, k)
@@ -96,9 +96,12 @@ def bias_controls(q, k, v, dout, lse, delta, causal: bool, scale: float
 
     dv = torch.einsum("bhqk,bhqd->bhkd", truncate_bf16(p), dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", truncate_bf16(ds), q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", truncate_bf16(ds),
+                      k.repeat_interleave(group, dim=1).float())
     return [("out", "P truncated to bf16", out),
             ("dv", "P^T truncated to bf16", group_sum(dv)),
-            ("dk", "dS^T truncated to bf16", group_sum(dk))]
+            ("dk", "dS^T truncated to bf16", group_sum(dk)),
+            ("dq", "dS truncated to bf16", dq.to(q.dtype))]
 
 
 def _fwd_dropping(q, k, v, scale, drop):
@@ -178,6 +181,9 @@ def planted_faults(q, k, v, dout, lse, delta, scale: float,
     dk, dv, _ = _bwd_zeroing(*bwd, last_head)
     faults += [("dk", "one query head of each GQA group left out", dk),
                ("dv", "one query head of each GQA group left out", dv)]
-    faults.append(("dq", "k tile 0 skipped by the last q tile",
-                   _bwd_zeroing(*bwd, first_k_late)[2]))
+    faults += [("dq", "k tile 0 skipped by the last q tile",
+                _bwd_zeroing(*bwd, first_k_late)[2]),
+               ("dq", "causal mask one key too wide",
+                _bwd_zeroing(q, k, v, dout, lse, delta, False, scale,
+                             cols > rows + 1)[2])]
     return faults

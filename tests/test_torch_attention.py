@@ -98,6 +98,10 @@ FLASH_CASES = {
     "non_causal": (1, 2, 2, 64, 32, False, 64),
     "gqa_4_2": (2, 4, 2, 64, 16, True, 64),
     "gqa_multi_block": (1, 4, 2, 128, 32, True, 32),
+    # B3's edges on the card: a sequence shorter than one 64-row
+    # warpgroup tile, and a GQA group of 8
+    "short_seq": (1, 4, 2, 40, 32, True, 40),
+    "gqa_8_1_multi_block": (1, 8, 1, 64, 16, True, 32),
 }
 
 

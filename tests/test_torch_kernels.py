@@ -83,8 +83,9 @@ def test_row_rule_passes_rounding_level_differences():
 
 def test_row_rule_rejects_planted_faults():
     """Each planted kernel fault (a skipped k tile, a causal mask one
-    key too wide, a skipped rescale, a q tile or a GQA head left out of
-    the backward's sums) fails the rule that the kernels pass."""
+    key too wide in the forward and in dQ, a skipped rescale, a q tile
+    or a GQA head left out of the backward's sums) fails the rule that
+    the kernels pass."""
     q, k, v, do, scale = _bf16_case(seed=1)
     out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = (do.float() * out.float()).sum(-1)
@@ -93,7 +94,9 @@ def test_row_rule_rejects_planted_faults():
     right = {"out": out, "dk": dk, "dv": dv,
              "dq": fa.flash_bwd_dq_plain(*args)}
     faults = flash_check.planted_faults(q, k, v, do, lse, delta, scale)
-    assert len(faults) == 8
+    assert len(faults) == 9
+    assert ("dq", "causal mask one key too wide") in [
+        (name, fault) for name, fault, _ in faults]
     for name, fault, got in faults:
         assert got.shape == right[name].shape, fault
         assert not flash_check.rows_close(got, right[name]), (
@@ -103,18 +106,20 @@ def test_row_rule_rejects_planted_faults():
 def test_bias_rule_passes_rounding_and_rejects_truncation():
     """The whole-tensor bias rule (the signed error projected on the
     reference within 5e-4) passes what rounding to nearest leaves: the
-    reference's forward against the plain one, and dK/dV from f32 P and
-    dS against the plain versions, which round them to bf16. It rejects
-    the controls that truncate P, P^T or dS^T to bf16 instead (about
-    -0.1 % to -0.3 %), which the row rule lets through."""
+    reference's forward against the plain one, and dK/dV and dQ from
+    f32 P and dS against the plain versions, which round them to bf16.
+    It rejects the controls that truncate P, P^T, dS^T or dS to bf16
+    instead (about -0.1 % to -0.3 %), which the row rule lets through."""
     q, k, v, do, scale = _bf16_case(seed=1)
     out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True, scale)
     dk, dv = fa.flash_bwd_dkv_plain(*args)
-    right = {"out": out, "dk": dk, "dv": dv}
+    right = {"out": out, "dk": dk, "dv": dv,
+             "dq": fa.flash_bwd_dq_plain(*args)}
     p, ds = fa._probs_and_ds(*args)
     b, hkv, s, d = k.shape
+    h = q.shape[1]
 
     def group_sum(t):
         return t.view(b, hkv, -1, s, d).sum(dim=2).to(k.dtype)
@@ -123,17 +128,50 @@ def test_bias_rule_passes_rounding_and_rejects_truncation():
         "out": mha_reference(q, k, v, causal=True, scale=scale),
         "dv": group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do.float())),
         "dk": group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float())),
+        "dq": torch.einsum("bhqk,bhkd->bhqd", ds, k.repeat_interleave(
+            h // hkv, dim=1).float()).to(q.dtype),
     }
     for name, got in sound.items():
         assert flash_check.bias_close(got, right[name]), (
             name, flash_check.bias(got, right[name]))
         assert flash_check.rows_close(got, right[name]), name
     controls = flash_check.bias_controls(*args)
-    assert [name for name, _, _ in controls] == ["out", "dv", "dk"]
+    assert [name for name, _, _ in controls] == ["out", "dv", "dk", "dq"]
     for name, fault, got in controls:
         assert got.shape == right[name].shape, fault
         assert not flash_check.bias_close(got, right[name]), (
             fault, flash_check.bias(got, right[name]))
+
+
+@pytest.mark.parametrize("s", [40, 129])
+def test_dq_checks_hold_at_short_sequences(s):
+    """At the short sequences B3 is checked at on the card (a q tile
+    shorter than one warpgroup's 64 rows, one row past a tile), dQ from
+    f32 dS passes both rules against the plain version, which rounds dS
+    to bf16; dS truncated to bf16 fails the bias rule, and a causal
+    mask one key too wide fails the row rule."""
+    q, k, v, do, scale = _bf16_case(seed=2, s=s)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    right = fa.flash_bwd_dq_plain(*args)
+    _, ds = fa._probs_and_ds(*args)
+    group = q.shape[1] // k.shape[1]
+    sound = torch.einsum("bhqk,bhkd->bhqd", ds, k.repeat_interleave(
+        group, dim=1).float()).to(q.dtype)
+    assert flash_check.rows_close(sound, right)
+    assert flash_check.bias_close(sound, right), flash_check.bias(sound,
+                                                                  right)
+    control = {fault: got for name, fault, got in
+               flash_check.bias_controls(*args) if name == "dq"}
+    got = control["dS truncated to bf16"]
+    assert not flash_check.bias_close(got, right), flash_check.bias(got,
+                                                                    right)
+    faults = {fault: got for name, fault, got in
+              flash_check.planted_faults(q, k, v, do, lse, delta, scale)
+              if name == "dq"}
+    got = faults["causal mask one key too wide"]
+    assert not flash_check.rows_close(got, right)
 
 
 def test_truncate_bf16_rounds_toward_zero():
@@ -200,11 +238,14 @@ def cuda_device():
     (torch.bfloat16, 2, 4, 2, 1000, 64, False, 1e-3, None),
     # an expert-parallel rank's attention in the MoE cell (32/32 heads)
     (torch.bfloat16, 1, 32, 32, 1024, 128, True, 1e-3, None),
+    # B3's edge: a q tile shorter than one warpgroup's 64 rows, so the
+    # second warpgroup has none
+    (torch.bfloat16, 1, 4, 2, 40, 128, True, 1e-3, None),
 ], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged",
         "bf16_d64", "bf16_d80_padded", "bf16_batch2_ragged_q",
         "bf16_cross", "bf16_one_past_tile", "bf16_d16", "bf16_d32",
         "bf16_d48", "bf16_group1", "bf16_group8", "bf16_batch2_d64",
-        "bf16_moe_heads"])
+        "bf16_moe_heads", "bf16_short_q_tile"])
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
                                      causal, tol, sk):
     """Each kernel against its plain version on the same card inputs:
