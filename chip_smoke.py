@@ -39,10 +39,12 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
   7. the grouped-matmul kernels (B4 forward and dX, B5 dW) against their
      plain versions at the MoE path's shape (llama2_7b+moe8: 4096 tokens
      routed top-2 over 8 experts, D=4096, F=11008), on a skewed routing
-     and on a ragged f32 case; the planted faults an expert boundary
-     invites; one MoE layer's forward and backward with host syncs
-     forbidden; the kernels' times beside their bound, their plain
-     versions and torch._grouped_mm (a yardstick the port never calls);
+     and on a ragged f32 case, every bf16 output row by row and by its
+     bias; the planted faults an expert boundary invites, and truncation
+     controls the bias rule must reject; one MoE layer's forward and
+     backward with host syncs forbidden; the kernels' times at the up
+     and the down projection beside their bound, their plain versions
+     and torch._grouped_mm (a yardstick the port never calls);
   8. train llama2_7b with 8 experts (top-2, dropless grouped dispatch)
      at full width (2 layers, batch 1, seq 4096) for a few steps the
      same way, counting the launches of all five kernels; profile;
@@ -111,6 +113,18 @@ B3_DESIGN = ("stage C: BK=128, wgmma m64n128k16 for S = Q K^T and dP = dO "
              "dQ in registers, two consumer warpgroups over 128 q rows, a "
              "producer warp keeping TMA loads of 128-key K/V tiles in a "
              "2-stage mbarrier ring, setmaxnreg 240/24")
+B4_DESIGN = ("wgmma SS m64n256k16 from TMA-loaded 128-byte-swizzled shared "
+             "memory (x K-major; w[e] MN-major for y, K-major for dx, read "
+             "in place), 128x256x64 tiles, a producer warp keeping a "
+             "4-stage mbarrier ring, two consumer warpgroups of 64 rows, "
+             "setmaxnreg 240/24, a persistent grid (one block an SM) in "
+             "groups of 8 row tiles, each warp's output staged through two "
+             "swizzled 2 KB boxes and written by TMA stores")
+B5_DESIGN = ("B4's persistent wgmma loop with x^T and dy both MN-major, "
+             "128 (D) x 256 (F) tiles expert by expert, each reducing its "
+             "expert's rows found by binary search (no atomics), the f32 "
+             "tile written by TMA stores from shared memory while the "
+             "producer loads the next tile's stages")
 
 
 def fail(msg: str):
@@ -255,8 +269,19 @@ def check_planted_faults(inputs, right):
                         "max_abs_rule_passes": loose})
         del got
     q, k, v, do, lse, delta, scale = inputs
-    for name, fault, got in flash_check.bias_controls(q, k, v, do, lse,
-                                                      delta, True, scale):
+    return results + check_bias_controls(
+        flash_check.bias_controls(q, k, v, do, lse, delta, True, scale),
+        right)
+
+
+def check_bias_controls(controls, right):
+    """The bias rule must reject each truncation control (output name,
+    fault, faulty output) against the right output of that name; says
+    whether the row rule would."""
+    from dlrover_tpu_torch.ops import flash_check
+
+    results = []
+    for name, fault, got in controls:
         ref = right[name]
         bias = flash_check.bias(got, ref)
         caught = not flash_check.bias_close(got, ref)
@@ -385,8 +410,9 @@ def check_grouped(gm, x, w, dy, lay, label, f32_tol=1e-4):
     """Each grouped kernel (B4 for y and dx, B5 for dw) against its plain
     version on the same inputs; returns ({kernel: max abs error}, the
     plain results). bf16 inputs: every output, B5's f32 one too, by the
-    row rule (``flash_check.rows_close``); f32 inputs: within
-    ``f32_tol`` absolute plus ``f32_tol`` relative, element by element."""
+    row rule (``flash_check.rows_close``) and by its bias
+    (``flash_check.bias_close``); f32 inputs: within ``f32_tol`` absolute
+    plus ``f32_tol`` relative, element by element."""
     import torch
 
     from dlrover_tpu_torch.ops import flash_check
@@ -407,9 +433,12 @@ def check_grouped(gm, x, w, dy, lay, label, f32_tol=1e-4):
         g, r = got[name], right[name]
         if x.dtype == torch.bfloat16:
             es = flash_check.row_errors(g, r)
-            err, ok = es["max_abs_err"], flash_check.rows_close(g, r)
+            err = es["max_abs_err"]
+            ok = flash_check.rows_close(g, r) and flash_check.bias_close(g, r)
             detail = (f"worst row {es['worst_row']:.3f} of its limit, "
-                      f"norm ratio {es['norm_ratio']:.3e}")
+                      f"norm ratio {es['norm_ratio']:.3e}, bias "
+                      f"{flash_check.bias(g, r):+.3e} (limit "
+                      f"{flash_check.BIAS_LIMIT:.0e})")
         else:
             err = (g - r).abs().max().item()
             ok = bool(torch.allclose(g, r, atol=f32_tol, rtol=f32_tol))
@@ -424,8 +453,10 @@ def check_grouped(gm, x, w, dy, lay, label, f32_tol=1e-4):
 
 
 def check_grouped_faults(x, w, dy, lay, right):
-    """The rule that passed B4 and B5 must reject what they would return
-    with a fault at an expert boundary (``grouped_check``)."""
+    """The row rule that passed B4 and B5 must reject what they would
+    return with a fault at an expert boundary, and the bias rule the
+    truncation controls (``grouped_check``); says whether the row rule
+    would reject the controls."""
     from dlrover_tpu_torch.ops import flash_check, grouped_check
 
     results = []
@@ -441,7 +472,9 @@ def check_grouped_faults(x, w, dy, lay, right):
                  f"{fault}")
         results.append({"output": name, "fault": fault, **e})
         del got
-    return results
+    return results + check_bias_controls(
+        grouped_check.truncation_controls(x, w, dy, lay.tile_expert,
+                                          BLOCK_T), right)
 
 
 def check_no_host_sync(moe, d, f, e):
@@ -477,10 +510,13 @@ def check_no_host_sync(moe, d, f, e):
 
 
 def grouped_times(gm, x, w, dy, lay):
-    """B4 (y, dx) and B5 at the main path's shape: kernel, plain and
-    library times beside the least time the card could take. The library
-    yardstick is torch._grouped_mm over the groups' row offsets, where
-    this torch has it; the port never calls it."""
+    """B4 (y, dx) and B5 at one of the main path's shapes (the up
+    projection: x [rows, D], w [E, D, F], dy [rows, F]; the down
+    projection: the same call with h [rows, F], w [E, F, D] and dy
+    [rows, D]): kernel, plain and library times beside the least time
+    the card could take. The library yardstick is torch._grouped_mm over
+    the groups' row offsets, where this torch has it; the port never
+    calls it."""
     import torch
 
     from dlrover_tpu_torch.ops import flash_check
@@ -853,10 +889,10 @@ def device_gaps(prof, n):
 # once allowed (PERF.md, section 6)
 GRAD_GAP_LIMIT = 5e-2  # ||g_flash - g_ref|| / ||g_ref|| over every leaf
 # grouped vs gather dispatch at a capacity nothing overflows. Observed
-# gap: exactly 0 (B4 and cuBLAS sum K in the same k16 order on the tensor
-# cores). The limits allow another summation order (a bf16 rounding here
-# and there) but not a wrong tile or route, which moves gradients by
-# about 1e-1
+# gap: exactly 0, with B4's WMMA loop and again with its wgmma loop (both
+# sum K in cuBLAS's k16 order on the tensor cores). The limits allow
+# another summation order (a bf16 rounding here and there) but not a
+# wrong tile or route, which moves gradients by about 1e-1
 MOE_LOSS_GAP_LIMIT = 1e-4
 MOE_GRAD_GAP_LIMIT = 1e-3
 
@@ -1711,11 +1747,21 @@ def main():
     torch.cuda.empty_cache()
     log(f"grouped-matmul kernel times (bf16, {lay.rows} rows of which "
         f"{SEQ * MOE_TOP_K} real, D={d}, F={f}, E={MOE_EXPERTS}; {card}):")
+    log("  up projection (x [rows, D] @ w [E, D, F]):")
     g_times = grouped_times(gm, x, w, dy, lay)
-    report["grouped_kernel_times"] = g_times
+    del w
+    torch.cuda.empty_cache()
+    # the down projection: h [rows, F] @ w [E, F, D], so y reads w
+    # K-major in K = F, and dx and dw swap the roles of the two widths
+    w_down = (torch.randn((MOE_EXPERTS, f, d), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(5)) * f ** -0.5).to(torch.bfloat16)
+    log("  down projection (h [rows, F] @ w [E, F, D]):")
+    g_times_down = grouped_times(gm, dy, w_down, x, lay)
+    report["grouped_kernel_times"] = {"up": g_times, "down": g_times_down}
     report["grouped_main_groups"] = {"tiles": tiles, "real_rows": real,
                                      "rows": lay.rows}
-    del x, w, dy, lay
+    del x, w_down, dy, lay
     torch.cuda.empty_cache()
     # skewed: expert 0 wins most first choices and expert 3 is never
     # chosen, so it owns only its sentinel tile (the last expert also
@@ -1829,8 +1875,8 @@ def main():
                                  "flash_bwd_dkv": B2_DESIGN,
                                  "flash_bwd_dq": B3_DESIGN}[name]
     for name, meta in gm.KERNELS.items():
-        # B4 is timed on y (the up-projection); its dx call does the same
-        # work and is reported beside it
+        # B4 and B5 are timed at the up projection; the up projection's
+        # dx and the down projection's calls are reported beside it
         t = (q_times if name == "grouped_matmul_fwd_quant" else
              g_times["y" if name == "grouped_matmul_fwd" else "dw"])
         # B6 runs on the expert-parallel main path: rank 0's launches
@@ -1849,9 +1895,22 @@ def main():
             "verdict": "ok",
         }
         if name == "grouped_matmul_fwd":
-            dx = g_times["dx"]
-            entry.update({"dx_ms": dx["ms"], "dx_plain_ms": dx["plain_ms"],
-                          "dx_library_ms": dx["library_ms"]})
+            # the up projection's dx and the down projection's y and dx
+            for key, tm in (("dx", g_times["dx"]),
+                            ("down_y", g_times_down["y"]),
+                            ("down_dx", g_times_down["dx"])):
+                entry.update({f"{key}_ms": tm["ms"],
+                              f"{key}_plain_ms": tm["plain_ms"],
+                              f"{key}_bound_ms": tm["bound_ms"],
+                              f"{key}_library_ms": tm["library_ms"]})
+            entry["design"] = B4_DESIGN
+        if name == "grouped_matmul_dw":
+            tm = g_times_down["dw"]
+            entry.update({"down_ms": tm["ms"],
+                          "down_plain_ms": tm["plain_ms"],
+                          "down_bound_ms": tm["bound_ms"],
+                          "down_library_ms": tm["library_ms"],
+                          "design": B5_DESIGN})
         if name == "grouped_matmul_fwd_quant":
             entry.update({"loop_ms": t["loop_ms"],
                           "b4_f32_ms": t["b4_f32_ms"]})

@@ -1,6 +1,6 @@
 """Outputs of deliberately broken grouped-matmul kernels, which the row
 rule of ``ops.flash_check`` must reject on the inputs that the real
-kernels pass.
+kernels pass, and truncation controls, which its bias rule must reject.
 
 The faults are the ones an expert boundary invites. B4 picks each row
 tile's weights from ``tile_expert``; an off-by-one reads the neighbouring
@@ -10,6 +10,11 @@ resident; a port that gets the run of tiles wrong leaves the last one
 out or counts the first one twice. B6 adds its scales: a loader that
 indexes the scale blocks off by one, or skips the multiply, and it
 shares B4's expert boundary.
+
+A kernel that truncates to bf16 where it should round to nearest, or
+keeps a partial sum in bf16, moves every output by a fraction of a bf16
+step, always toward zero: the row rule lets that through, the bias rule
+(``flash_check.bias_close``) must not.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import List, Tuple
 
 import torch
 
+from dlrover_tpu_torch.ops.flash_check import truncate_bf16
 from dlrover_tpu_torch.ops.grouped_matmul import (
     grouped_matmul_dw_plain,
     grouped_matmul_fwd_plain,
@@ -61,6 +67,25 @@ def planted_faults(x, w, dy, tile_expert, block_t: int
                                  block_t)),
         ("dw", f"expert {e}'s first tile ({first}) counted twice", twice),
     ]
+
+
+def truncation_controls(x, w, dy, tile_expert, block_t: int
+                        ) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) for bf16 ``y`` and ``dw``: y
+    rounded toward zero to bf16 instead of to nearest, and dw with each
+    row tile's partial product x_tile^T dy_tile truncated to bf16 before
+    it is added. Each must pass ``flash_check.rows_close`` and fail
+    ``flash_check.bias_close`` against the right answer."""
+    y = truncate_bf16(grouped_matmul_fwd_plain(x.float(), w.float(),
+                                               tile_expert, block_t))
+    dw = torch.zeros((w.shape[0], x.shape[1], dy.shape[1]),
+                     dtype=torch.float32, device=x.device)
+    for tile, e in enumerate(tile_expert.tolist()):
+        rows = slice(tile * block_t, (tile + 1) * block_t)
+        dw[e] += truncate_bf16(x[rows].float().t() @ dy[rows].float())
+    return [("y", "y rounded toward zero to bf16", y.to(x.dtype)),
+            ("dw", f"each {block_t}-row tile's partial product truncated "
+                   f"to bf16", dw)]
 
 
 def planted_quant_faults(values, scales, w, tile_expert, block_t: int

@@ -327,19 +327,61 @@ def test_grouped_row_rule_passes_rounding_and_rejects_planted_faults():
             fault, flash_check.row_errors(got, right[name]))
 
 
+def test_grouped_bias_rule_passes_rounding_and_rejects_truncation():
+    """On the CPU, bf16: the plain versions against bf16 products taken
+    another way pass the bias rule as well as the row rule; the
+    truncation controls (y rounded toward zero to bf16, dw with each row
+    tile's partial product truncated to bf16) pass the row rule and fail
+    the bias rule."""
+    x, w, te, dy, bt = _grouped_case("cpu", torch.bfloat16, [2, 3, 1],
+                                     64, 96, bt=16)
+    rows = te.long().repeat_interleave(bt)
+    right = {
+        "y": gm.grouped_matmul_fwd_plain(x, w, te, bt),
+        "dx": gm.grouped_matmul_fwd_plain(dy, w, te, bt, transpose_w=True),
+        "dw": gm.grouped_matmul_dw_plain(x, dy, te, 3, bt),
+    }
+    other = {
+        "y": torch.cat([x[rows == e] @ w[e] for e in range(3)]),
+        "dx": torch.cat([dy[rows == e] @ w[e].t() for e in range(3)]),
+        "dw": torch.stack([(x[rows == e].t() @ dy[rows == e]).float()
+                           for e in range(3)]),
+    }
+    for name, ref in right.items():
+        assert flash_check.bias_close(other[name], ref), (
+            name, flash_check.bias(other[name], ref))
+    controls = grouped_check.truncation_controls(x, w, dy, te, bt)
+    assert [name for name, _, _ in controls] == ["y", "dw"]
+    for name, fault, got in controls:
+        ref = right[name]
+        assert got.shape == ref.shape and got.dtype == ref.dtype, fault
+        assert flash_check.rows_close(got, ref), (
+            fault, flash_check.row_errors(got, ref))
+        assert not flash_check.bias_close(got, ref), (
+            fault, flash_check.bias(got, ref))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tiles,d,f", [
     (torch.bfloat16, [3, 1, 4, 2], 512, 1024),
     (torch.bfloat16, [2, 0, 3, 1], 256, 384),
+    (torch.bfloat16, [2, 1, 3], 200, 1000),
+    (torch.bfloat16, [1], 256, 512),
+    (torch.bfloat16, [0, 12, 0, 1], 192, 320),
     (torch.float32, [1, 2, 1], 96, 200),
-], ids=["bf16", "bf16_empty_expert", "f32_ragged"])
+], ids=["bf16", "bf16_empty_expert", "bf16_ragged", "bf16_one_tile",
+        "bf16_long_expert", "f32_ragged"])
 def test_grouped_kernels_match_plain_on_card(cuda_device, dtype, tiles, d,
                                              f):
     """B4 (y and dx, w read transposed in place) and B5 (dw) against
     their plain versions: bf16 outputs, and B5's f32 output of bf16
-    inputs, row by row (``flash_check``); f32 inputs to 1e-4 absolute
-    plus 1e-4 relative. An expert that owns no tile gets an exact-zero
-    dw, written over memory the allocator hands back full of NaN."""
+    inputs, row by row and by their bias (``flash_check``); f32 inputs to
+    1e-4 absolute plus 1e-4 relative. The bf16 cases reach the edges of
+    the kernels' 128 x 256 x 64 tiles: D and F not multiples of 64 (a K
+    tail and ragged M and N), a single row tile in all, and one expert
+    with 12 tiles beside empty ones. An expert that owns no tile gets an
+    exact-zero dw, written over memory the allocator hands back full of
+    NaN."""
     x, w, te, dy, bt = _grouped_case(cuda_device, dtype, tiles, d, f)
     e = len(tiles)
     gm.reset_launch_counts()
@@ -362,6 +404,8 @@ def test_grouped_kernels_match_plain_on_card(cuda_device, dtype, tiles, d,
         if dtype == torch.bfloat16:
             assert flash_check.rows_close(got, ref), \
                 flash_check.row_errors(got, ref)
+            assert flash_check.bias_close(got, ref), \
+                flash_check.bias(got, ref)
         else:
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     for expert in (i for i, n in enumerate(tiles) if n == 0):
