@@ -63,7 +63,23 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
  12. the expert-parallel main path: examples/train_llama.py on 4 ranks
      (llama2_7b+moe8 x 2 layers, grouped_ep, fp8 wire, global batch
      4 x 1024), five steps (rank 0's last under torch.profiler), every
-     rank's launches of all six kernels pinned.
+     rank's launches of all six kernels pinned;
+ 13. packed documents (segment ids): B1-B3 in their segment-id mode
+     against their plain versions at the main shape, row by row and by
+     the bias rule, on the packed training layout, on documents of 512
+     tokens (boundaries on tile edges) and of 700 (inside tiles), on a
+     row with a -1 pad tail, on a pair-form case whose rows partly see no
+     key, and in f32 on a ragged case; planted controls (a segment mask
+     shifted by one key, ids ignored) the row rule must reject; each
+     segmented kernel's time beside the same kernel unsegmented, its
+     bound over the causal pairs and over the within-document pairs,
+     SDPA with the block-diagonal causal mask and a varlen flash call
+     (yardsticks the port never calls); Llama-3-8B x4 layers trained on
+     packed rows (log-uniform document lengths over 64-4096 tokens,
+     packed greedily as the reference's text reader packs them) with
+     the segmented launches pinned, then profiled; one batch's gradients
+     against the reference path with the segment bias, and the loss of
+     each path against an exact attention's over 64 packed batches.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -96,6 +112,8 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B6 is exact f32)
 # each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
 EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
 EP_TIMEOUT = 600  # seconds a 4-rank phase may take
+# packed documents: lengths log-uniform over [DOC_MIN, DOC_MAX] tokens
+DOC_MIN, DOC_MAX, PACK_SEED = 64, 4096, 0
 B1_DESIGN = ("stage B: wgmma m64n128k16 for S and P.V with S, P and O in "
              "registers, two consumer warpgroups over 128 q rows, a "
              "producer warp keeping TMA loads of 128-key K/V tiles in a "
@@ -125,6 +143,16 @@ B5_DESIGN = ("B4's persistent wgmma loop with x^T and dy both MN-major, "
              "expert's rows found by binary search (no atomics), the f32 "
              "tile written by TMA stores from shared memory while the "
              "producer loads the next tile's stages")
+SEG_DESIGN = {  # the segment-id instantiations of B1-B3
+    name: (f"{base}'s kernel; one producer warp stages the segment ids of "
+           "the block and of each ring stage in shared memory with 'these "
+           "64 are one value' flags (one more mbarrier a stage); from them "
+           "a consumer warpgroup masks a tile not at all by segment, whole "
+           "(-inf scores or exponent offsets), or, where ids change inside "
+           "it, by a warp-uniform pass apart from the unsegmented mask")
+    for name, base in (("flash_fwd_seg", "B1"), ("flash_bwd_dkv_seg", "B2"),
+                       ("flash_bwd_dq_seg", "B3"))
+}
 
 
 def fail(msg: str):
@@ -184,10 +212,12 @@ def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
         rnd(b, h, s, d)
 
 
-def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
+def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None,
+                  seg=None, label=""):
     """Run each kernel and its plain version on the same inputs; return
-    ({kernel: max abs error}, the inputs and the plain results). A bf16
-    output is held row by row
+    ({kernel: max abs error}, the inputs and the plain results). ``seg``:
+    (seg_q, seg_k) int32 on the card, the segment-id mode (its kernels
+    named ``<kernel>_seg``). A bf16 output is held row by row
     (``flash_check.rows_close``: each row's error within 1% of its norm,
     plus 0.1% of the tensor's RMS row norm) and by its bias
     (``flash_check.bias_close``: the signed error projected on the plain
@@ -199,20 +229,23 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
 
     q, k, v, do = attention_inputs(b, h, hkv, s, d, dtype, seed, sk)
     scale = 1.0 / math.sqrt(d)
-    out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
-    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    ids = {} if seg is None else {"seg_q": seg[0], "seg_k": seg[1]}
+    out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale, **ids)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, **ids)
     delta = (do.float() * out_ref.float()).sum(-1).contiguous()
     dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
-                                            causal, scale)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+                                            causal, scale, **ids)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale,
+                              **ids)
     dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
-                                   scale)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
+                                   scale, **ids)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale, **ids)
     torch.cuda.synchronize()
     errs = {}
     label = (f"{dtype} B={b} H={h}/{hkv} S={s}"
              + (f"/{sk}" if sk is not None else "")
-             + f" D={d} causal={causal}")
+             + f" D={d} causal={causal}" + (f" {label}" if label else ""))
+    suffix = "_seg" if seg is not None else ""
     for kernel, name, got, ref in (
         ("flash_fwd", "out", out, out_ref),
         ("flash_fwd", "lse", lse, lse_ref),
@@ -236,9 +269,9 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None):
         log(f"  {label} {name}: max_abs_err={err:.3e} ({detail}) "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"{kernel} disagrees with its plain version on {name} "
-                 f"({label})")
-        errs[kernel] = max(errs.get(kernel, 0.0), err)
+            fail(f"{kernel}{suffix} disagrees with its plain version on "
+                 f"{name} ({label})")
+        errs[kernel + suffix] = max(errs.get(kernel + suffix, 0.0), err)
     right = {"out": out_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
     return errs, (q, k, v, do, lse_ref, delta, scale), right
 
@@ -613,12 +646,14 @@ def grouped_times(gm, x, w, dy, lay):
 
 
 def train_main_path(llama, config, label, rule_set, kernels, expected,
-                    card, active_fpt=None):
+                    card, active_fpt=None, batches=None):
     """Drive TrainExecutor + ElasticTrainer on ``config`` for STEPS
     steps. ``kernels``: the wrapper modules whose launch counters the
     run resets just before and reads just after; their counts must equal
     ``expected``. ``active_fpt``: the FLOPs per token the tokens really
-    cost, where the reference's formula counts more (MoE)."""
+    cost, where the reference's formula counts more (MoE). ``batches``:
+    a callable returning an iterator of host batches (the example's
+    synthetic token stream by default)."""
     import torch
 
     from dlrover_tpu_torch.common.config import get_context
@@ -659,7 +694,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
             self._mark()
 
     record = Record()
-    batches = synthetic_batches(config.vocab_size, 1, SEQ)
+    if batches is None:
+        batches = synthetic_batches(config.vocab_size, 1, SEQ)
     trainer = ElasticTrainer(
         llama.make_init_fn(config), llama.make_loss_fn(config), adamw(),
         next(batches()),
@@ -753,6 +789,8 @@ KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
 
 FLASH_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2",
                  "flash_bwd_dq": "B3"}  # a substring of each kernel's name
+# the segment-id kernels, which no unpacked path launches
+NO_SEG = {f"{name}_seg": 0 for name in FLASH_KERNELS}
 
 
 def profile_steps(trainer, state, batch, n=3):
@@ -916,13 +954,15 @@ def token_batch(config, seed):
             "labels": torch.as_tensor(ids[:, 1:], device="cuda")}
 
 
-def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
+def cross_check(llama, config, variants, kernels, loss_limit, grad_limit,
+                batch=None):
     """One forward+backward at full width of ``config`` changed as each
     of ``variants`` says ((name, overrides) for the path under test,
-    then for its reference), same weights and batch: the loss and every
-    gradient. The path under test must launch ``kernels`` (wrapper
-    modules), and the reference none of them. ``loss_limit`` None: the
-    loss is logged and held elsewhere."""
+    then for its reference), same weights and ``batch`` (default
+    ``token_batch(config, 1)``): the loss and every gradient. The path
+    under test must launch ``kernels`` (wrapper modules), and the
+    reference none of them. ``loss_limit`` None: the loss is logged and
+    held elsewhere."""
     import dataclasses
 
     import torch
@@ -933,7 +973,7 @@ def cross_check(llama, config, variants, kernels, loss_limit, grad_limit):
     named = list(_named_leaves(params))
     for _, t in named:
         t.requires_grad_()
-    batch = token_batch(config, 1)
+    batch = token_batch(config, 1) if batch is None else batch
     losses, grads, launched = {}, {}, {}
     for is_test, overrides in ((True, test_kw), (False, ref_kw)):
         cfg = dataclasses.replace(config, **overrides)
@@ -1019,14 +1059,16 @@ def round_bits(bits):
     return rnd
 
 
-def faulty_fwd(fa, round_p=None, extra_keys=0):
+def faulty_fwd(fa, round_p=None, extra_keys=0, ignore_ids=False):
     """``flash_fwd_plain`` with P rounded by ``round_p`` (f32 -> f32; bf16
-    when None) before P.V, and the causal mask ``extra_keys`` keys too
-    wide: what a forward kernel with those faults returns."""
+    when None) before P.V, the causal mask ``extra_keys`` keys too wide,
+    and (``ignore_ids``) segment ids ignored: what a forward kernel with
+    those faults returns."""
     import torch
 
-    def fwd(q, k, v, causal, scale):
-        s = fa._scores(q, k, False, scale)
+    def fwd(q, k, v, causal, scale, seg_q=None, seg_k=None):
+        ids = (None, None) if ignore_ids else (seg_q, seg_k)
+        s = fa._scores(q, k, False, scale, *ids)
         if causal:
             rows = torch.arange(s.shape[-2], device=q.device)[:, None]
             cols = torch.arange(s.shape[-1], device=q.device)[None, :]
@@ -1069,12 +1111,14 @@ def swapped(module, name, value):
 
 
 def loss_check(llama, config, fa, controls, batches=LOSS_BATCHES,
-               bias_limit=LOSS_BIAS_LIMIT, rms_limit=LOSS_RMS_LIMIT):
+               bias_limit=LOSS_BIAS_LIMIT, rms_limit=LOSS_RMS_LIMIT,
+               batch_fn=token_batch, b1="flash_fwd"):
     """The losses of the flash, reference and plain-forward paths and of
     ``controls`` (``loss_controls``) against the exact attention's, over
-    ``batches`` token batches at full width of ``config``; see
-    LOSS_BATCHES. Fails unless every sound path passes, every control
-    fails and the flash path launched B1 in every layer of every batch."""
+    ``batches`` batches (``batch_fn(config, seed)``) at full width of
+    ``config``; see LOSS_BATCHES. Fails unless every sound path passes,
+    every control fails and the flash path launched B1 (counted as
+    ``b1``) in every layer of every batch."""
     import dataclasses
 
     import torch
@@ -1092,8 +1136,11 @@ def loss_check(llama, config, fa, controls, batches=LOSS_BATCHES,
     fa.reset_launch_counts()
     with torch.no_grad():
         for seed in range(1, batches + 1):
-            batch = token_batch(config, seed)
-            with swapped(llama, "mha_reference", exact_attention):
+            batch = batch_fn(config, seed)
+            # the packed reference path reaches mha_reference through
+            # ops.flash_attention.segmented_attention
+            with swapped(llama, "mha_reference", exact_attention), \
+                    swapped(fa, "mha_reference", exact_attention):
                 exact = llama.make_loss_fn(ref_cfg)(params, batch,
                                                     None)[0].item()
             for name, cfg, fwd, _ in paths:
@@ -1102,7 +1149,7 @@ def loss_check(llama, config, fa, controls, batches=LOSS_BATCHES,
                     loss = llama.make_loss_fn(cfg)(params, batch,
                                                    None)[0].item()
                 gaps[name].append(loss - exact)
-    launches = fa.launch_counts()["flash_fwd"]
+    launches = fa.launch_counts()[b1]
     expected = batches * config.num_layers
     log(f"  B1 launches {launches} (expected {expected}: the flash path's "
         f"layers over {batches} batches)")
@@ -1540,7 +1587,7 @@ def ep_phases(run_local, llama, moe_config, card):
                       timeout=EP_TIMEOUT)
     per = EP_STEPS * MOE_LAYERS
     expected = {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
-                "flash_bwd_dq": per, "grouped_matmul_fwd": 6 * per,
+                "flash_bwd_dq": per, **NO_SEG, "grouped_matmul_fwd": 6 * per,
                 "grouped_matmul_dw": 2 * per,
                 "grouped_matmul_fwd_quant": 2 * per}
     tokens = EP_RANKS * EP_TOKENS
@@ -1606,6 +1653,423 @@ def ep_phases(run_local, llama, moe_config, card):
         "profiled_step_ms": prof_ms, "profile_busy_ms": busy,
         "tokens_per_s": tokens / steady_s, "peak_bytes_sum": peak_sum}
     return report
+
+
+# -- phase 13: packed documents ----------------------------------------------
+
+
+def packed_segment_rows(seq, seed):
+    """Segment-id rows of ``seq`` tokens, one after another: document
+    lengths drawn log-uniform over [DOC_MIN, DOC_MAX] from
+    ``RandomState(seed)``, packed greedily by the rule of the reference's
+    text reader (``_pack_records``): a document that does not fit the
+    row's remainder is split, and each piece gets a fresh id."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    next_id, left = 0, 0
+    while True:
+        row = np.empty(seq, np.int32)
+        at = 0
+        while at < seq:
+            if left == 0:
+                left = int(round(math.exp(rs.uniform(math.log(DOC_MIN),
+                                                     math.log(DOC_MAX)))))
+            take = min(left, seq - at)
+            row[at:at + take] = next_id
+            next_id, at, left = next_id + 1, at + take, left - take
+        yield row
+
+
+def packed_labels(labels, seg):
+    """Next-token labels within a document only (the reference's
+    ``_finish_row``): -100 across each boundary, on pads and at the
+    row's end."""
+    labels = labels.copy()
+    labels[:, :-1][seg[:, :-1] != seg[:, 1:]] = -100
+    labels[:, -1] = -100
+    labels[seg == -1] = -100
+    return labels
+
+
+def packed_batches(vocab, seed=PACK_SEED):
+    """The example's token stream (batch 1, SEQ tokens), each row's
+    segment ids from ``packed_segment_rows``: a callable returning an
+    iterator of host batches, as ``train_main_path`` takes them."""
+    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
+
+    def gen():
+        rows = packed_segment_rows(SEQ, seed)
+        for batch in synthetic_batches(vocab, 1, SEQ, seed)():
+            seg = next(rows)[None]
+            yield {"input_ids": batch["input_ids"], "segment_ids": seg,
+                   "labels": packed_labels(batch["labels"], seg)}
+    return gen
+
+
+def packed_batch(config, seed):
+    """One packed batch on the card: ``token_batch``'s tokens and the
+    first row of ``packed_segment_rows(SEQ, seed)``."""
+    import torch
+
+    batch = token_batch(config, seed)
+    seg = next(packed_segment_rows(SEQ, seed))[None]
+    labels = packed_labels(batch["labels"].cpu().numpy(), seg)
+    return {"input_ids": batch["input_ids"],
+            "segment_ids": torch.as_tensor(seg, device="cuda"),
+            "labels": torch.as_tensor(labels, device="cuda")}
+
+
+def segment_lengths(row):
+    """The lengths of a row's runs of equal ids (its documents)."""
+    import numpy as np
+
+    cuts = np.flatnonzero(np.diff(row)) + 1
+    return np.diff(np.r_[0, cuts, len(row)])
+
+
+def whole_masked_tiles(row, q_rows, keys) -> float:
+    """The share of the causal (``q_rows`` x ``keys``) tiles of a row
+    whose rows hold one id and keys another: tiles the segmented kernels
+    visit (they skip by the diagonal only) and mask whole."""
+    s, whole, visited = len(row), 0, 0
+    for i in range(0, s, q_rows):
+        q = row[i:i + q_rows]
+        for j in range(0, min(s, i + q_rows), keys):
+            k = row[j:j + keys]
+            visited += 1
+            whole += bool((q == q[0]).all() and (k == k[0]).all()
+                          and q[0] != k[0])
+    return whole / visited
+
+
+def document_pairs(row) -> int:
+    """The causal (q, k) pairs of a row whose tokens share a document."""
+    n = segment_lengths(row).astype("int64")
+    return int((n * (n + 1) // 2).sum())
+
+
+def check_segment_faults(inputs, ids, right):
+    """The row rule must reject every output of kernels whose segment
+    mask is shifted by one key or which ignore the ids
+    (``flash_check.segment_faults``), on the inputs of the check that
+    passed."""
+    from dlrover_tpu_torch.ops import flash_check
+
+    q, k, v, do, lse, delta, scale = inputs
+    results = []
+    for name, fault, got in flash_check.segment_faults(
+            q, k, v, do, lse, delta, scale, ids, ids):
+        e = flash_check.row_errors(got, right[name])
+        caught = not flash_check.rows_close(got, right[name])
+        log(f"  planted fault, {name}: {fault}: worst row "
+            f"{e['worst_row']:.1f} of its limit, max_abs_err "
+            f"{e['max_abs_err']:.3e} -> {'rejected' if caught else 'PASSED'}")
+        if not caught:
+            fail(f"the kernel check lets a planted segment fault pass: "
+                 f"{fault} ({name})")
+        results.append({"output": name, "fault": fault, **e})
+    return results
+
+
+def packed_kernel_checks(fa):
+    """Phase 13 (a): B1-B3 in segment-id mode against their plain
+    versions; returns ({kernel: max abs error at the main shape}, the
+    planted faults' readings)."""
+    import numpy as np
+    import torch
+
+    train_row = next(packed_segment_rows(SEQ, PACK_SEED))
+    pad_row = train_row.copy()
+    pad_row[-333:] = -1  # pads after higher ids, as the text reader's
+    ar = np.arange(SEQ, dtype=np.int32)
+
+    def dev(*rows):
+        return torch.as_tensor(np.stack(rows).astype(np.int32),
+                               device="cuda")
+
+    errs, faults = {}, None
+    for n, (name, row) in enumerate((
+            ("packed training row", train_row),
+            ("documents of 512 tokens", ar // 512),
+            ("documents of 700 tokens", ar // 700),
+            ("a -1 pad tail", pad_row))):
+        ids = dev(row)
+        e, inputs, right = check_kernels(
+            fa, 1, 32, 8, SEQ, 128, torch.bfloat16, True, 30 + n, 1e-3,
+            seg=(ids, ids), label=f"segments: {name}")
+        for kernel, err in e.items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if n == 0:
+            log("the same check against planted segment faults, same "
+                "inputs:")
+            faults = check_segment_faults(inputs, ids, right)
+        del inputs, right
+        torch.cuda.empty_cache()
+    # the pair form: kv-side ids of 700-token documents with every odd id
+    # dropped, so the odd documents' rows see no key (out 0, lse NEG_INF,
+    # held by the same comparison)
+    seg_q = dev(ar // 700)
+    seg_k = torch.where(seg_q % 2 == 1, seg_q + 1_000_000, seg_q)
+    log(f"  pair form: {int((seg_q % 2 == 1).sum()) * 32} of "
+        f"{SEQ * 32} rows see no key")
+    check_kernels(fa, 1, 32, 8, SEQ, 128, torch.bfloat16, False, 40, 1e-3,
+                  seg=(seg_q, seg_k),
+                  label="pair form, odd ids missing on the kv side")
+    torch.cuda.empty_cache()
+    ragged = np.arange(300) // 70
+    ragged[-25:] = -1
+    ids = dev(ragged, np.arange(300) // 45 + 10)
+    check_kernels(fa, 2, 4, 2, 300, 64, torch.float32, True, 41, 1e-4,
+                  seg=(ids, ids), label="ragged, a pad tail")
+    return errs, faults
+
+
+def sdpa_backend(q, k, v, mask):
+    """The backend SDPA picks for these inputs (``torch._fused_sdp_choice``
+    named by ``torch.nn.attention.SDPBackend``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    names = {m.value: name for name, m in SDPBackend.__members__.items()}
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, enable_gqa=True)
+    return names.get(choice, str(choice))
+
+
+def varlen_yardstick(q, k, v, do, row, out):
+    """A varlen flash call over the row's cumulative document lengths
+    (``torch.nn.attention.varlen``, where this torch has it): its forward
+    and backward times, and whether its output passes the row rule
+    against B1's. None and the reason where it cannot run."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        return None, f"torch {torch.__version__} has no varlen_attn"
+    params = inspect.signature(varlen_attn).parameters
+    lengths = segment_lengths(row)
+    cu = torch.as_tensor(np.r_[0, np.cumsum(lengths)], dtype=torch.int32,
+                         device="cuda")
+    longest = int(lengths.max())
+    qt, kt, vt, dot = (t[0].transpose(0, 1).contiguous()
+                       for t in (q, k, v, do))  # [S, heads, D]
+    kw = {}
+    if "window_size" in params:
+        kw["window_size"] = (-1, 0)
+    elif "is_causal" in params:
+        kw["is_causal"] = True
+    else:
+        return None, "varlen_attn takes no causal option"
+    note = "enable_gqa"
+    if "enable_gqa" in params:
+        kw["enable_gqa"] = True
+    else:  # not the kernels' inputs: KV heads repeated first
+        group = q.shape[1] // k.shape[1]
+        kt, vt = (t.repeat_interleave(group, dim=1) for t in (kt, vt))
+        note = "KV heads repeated beforehand"
+    try:
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        fwd_ms = time_ms(lambda: varlen_attn(qt, kt, vt, cu, cu, longest,
+                                             longest, **kw))
+        lout = varlen_attn(ql, kl, vl, cu, cu, longest, longest, **kw)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lout, (ql, kl, vl), dot, retain_graph=True))
+        agrees = flash_check.rows_close(
+            lout.detach().transpose(0, 1)[None], out)
+    except Exception as e:  # noqa: BLE001 - a yardstick, reported
+        return None, f"varlen_attn failed: {type(e).__name__}: {e}"[:300]
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "gqa": note,
+            "rows_close_to_b1": agrees}, None
+
+
+def segmented_kernel_times(fa, row):
+    """Phase 13 (b): each segmented kernel at the main shape on the
+    packed row ``row``: its time (median of 10 device samples), the same
+    kernel unsegmented, its plain version, its bound over the causal
+    pairs and over the within-document pairs, and the yardsticks."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    b, h, hkv, s, d = 1, 32, 8, SEQ, 128
+    q, k, v, do = attention_inputs(b, h, hkv, s, d, torch.bfloat16, 7)
+    scale = 1.0 / math.sqrt(d)
+    ids = torch.as_tensor(row[None], device="cuda")
+    seg = {"seg_q": ids, "seg_k": ids}
+    out, lse = fa.flash_fwd(q, k, v, True, scale, **seg)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    pairs = {"causal": s * (s + 1) // 2, "document": document_pairs(row)}
+    io = 2
+    qb, kb = b * h * s * d * io, b * hkv * s * d * io
+    rows, idb = b * h * s * 4, 2 * b * s * 4
+    work = {  # (flops per pair and head, bytes read once and written once)
+        "flash_fwd": (4 * d, qb + 2 * kb + qb + rows + idb),
+        "flash_bwd_dkv": (8 * d, 2 * qb + 2 * kb + 2 * rows + 2 * kb + idb),
+        "flash_bwd_dq": (6 * d, 2 * qb + 2 * kb + 2 * rows + qb + idb),
+    }
+    calls = {
+        "flash_fwd": lambda f, **kw: f(q, k, v, True, scale, **kw),
+        "flash_bwd_dkv": lambda f, **kw: f(q, k, v, do, lse, delta, True,
+                                           scale, **kw),
+        "flash_bwd_dq": lambda f, **kw: f(q, k, v, do, lse, delta, True,
+                                          scale, **kw),
+    }
+    # the yardstick: SDPA with the block-diagonal causal boolean mask
+    mask = ((ids[:, None, :, None] == ids[:, None, None, :])
+            & torch.ones(s, s, dtype=torch.bool, device="cuda").tril())
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask,
+                                              enable_gqa=True)
+
+    backend = sdpa_backend(q, k, v, mask)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True))
+    del lib_out
+    varlen, why = varlen_yardstick(q, k, v, do, row, out)
+    log(f"  the row: {len(segment_lengths(row))} documents, "
+        f"{pairs['document']} of {pairs['causal']} causal pairs within a "
+        f"document ({pairs['document'] / pairs['causal']:.3f})")
+    log(f"  SDPA with the block-diagonal causal mask (enable_gqa): fwd "
+        f"{lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms; backend {backend}")
+    if varlen is None:
+        log(f"  varlen flash: not measured ({why})")
+    else:
+        log(f"  varlen flash ({varlen['gqa']}): fwd {varlen['fwd_ms']:.3f} "
+            f"ms, bwd {varlen['bwd_ms']:.3f} ms; its output passes the "
+            f"row rule against B1's: {varlen['rows_close_to_b1']}")
+    results = {}
+    for name, (per_pair, nbytes) in work.items():
+        samples = time_samples(lambda: calls[name](fa.WRAPPERS[name],
+                                                   **seg))
+        kernel_ms = statistics.median(samples)
+        dense_ms = time_ms(lambda: calls[name](fa.WRAPPERS[name]))
+        plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name], **seg),
+                           iters=5, warmup=1)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bounds = {key: max(b * h * per_pair * n / PEAK_BF16_FLOPS * 1e3,
+                           t_bytes) for key, n in pairs.items()}
+        t_ops = b * h * per_pair * pairs["document"] / PEAK_BF16_FLOPS * 1e3
+        r = results[name] = {
+            "ms": kernel_ms, "samples_ms": samples,
+            "unsegmented_ms": dense_ms, "plain_ms": plain_ms,
+            # what this row's data needs: the within-document pairs
+            "bound_ms": bounds["document"],
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_causal_ms": bounds["causal"],
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "varlen_ms": (None if varlen is None else
+                          varlen["fwd_ms" if name == "flash_fwd"
+                                 else "bwd_ms"]),
+        }
+        log(f"  {name} segmented: {kernel_ms:.3f} ms (samples "
+            f"{min(samples):.3f}-{max(samples):.3f}), unsegmented "
+            f"{dense_ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{r['bound_ms']:.3f} ms over the within-document pairs "
+            f"({r['bound_ms'] / kernel_ms:.3f} of it), "
+            f"{r['bound_causal_ms']:.3f} ms over the causal pairs "
+            f"({r['bound_causal_ms'] / kernel_ms:.3f}); "
+            f"{kernel_ms / r['library_ms']:.2f}x SDPA's masked "
+            f"{'forward' if name == 'flash_fwd' else 'backward'}")
+    # the same kernels on other layouts: what the segment machinery costs
+    # where no tile needs an element mask (one document; documents on
+    # tile edges), and where some do
+    ar = np.arange(s, dtype=np.int32)
+    layout_ms = {}
+    for name, lay in (("one document", np.zeros(s, np.int32)),
+                      ("documents of 512", ar // 512),
+                      ("documents of 700", ar // 700),
+                      ("the packed row", row)):
+        lids = torch.as_tensor(lay[None], device="cuda")
+        layout_ms[name] = {k: time_ms(lambda: calls[k](
+            fa.WRAPPERS[k], seg_q=lids, seg_k=lids)) for k in work}
+        log(f"  segmented on {name}: "
+            + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
+                        layout_ms[name].items()))
+    return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                     "sdpa_backend": backend, "varlen": varlen,
+                     "varlen_note": why, "pairs": pairs,
+                     "layout_ms": layout_ms}
+
+
+def packed_phases(llama, fa, remat, config, card):
+    """Phase 13: packed documents through the segment-id mode of B1-B3."""
+    import numpy as np
+    import torch
+
+    report = {}
+    log("packed documents: B1-B3 in segment-id mode vs plain (bf16, B=1 "
+        f"H=32/8 S={SEQ} D=128, causal, unless said):")
+    errs, report["planted_segment_faults"] = packed_kernel_checks(fa)
+    torch.cuda.empty_cache()
+    rows = packed_segment_rows(SEQ, PACK_SEED)
+    train_rows = [next(rows) for _ in range(STEPS)]
+    shares = [document_pairs(r) / (SEQ * (SEQ + 1) // 2) for r in train_rows]
+    docs = [len(segment_lengths(r)) for r in train_rows]
+    # B1 and B3 mask a warpgroup's 64 rows against 128 keys, B2 a
+    # warpgroup's 64 keys against 64 rows
+    whole = {"B1_B3": [whole_masked_tiles(r, 64, 128) for r in train_rows],
+             "B2": [whole_masked_tiles(r, 64, 64) for r in train_rows]}
+    report["packing"] = {"documents_per_row": docs,
+                         "within_document_share": shares,
+                         "whole_masked_tile_share": whole}
+    log(f"  packed rows: documents {docs}; within-document share of the "
+        f"causal pairs {[round(x, 3) for x in shares]}; causal tiles masked "
+        f"whole, B1/B3 {[round(x, 3) for x in whole['B1_B3']]}, B2 "
+        f"{[round(x, 3) for x in whole['B2']]}")
+    log(f"segmented kernel times on the first packed row ({card}):")
+    times, yard = segmented_kernel_times(fa, train_rows[0])
+    report["segmented_kernel_times"], report["segmented_yardsticks"] = \
+        times, yard
+    torch.cuda.empty_cache()
+
+    log(f"packed main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
+        f"{STEPS} steps of packed rows ({DOC_MIN}-{DOC_MAX} token documents, "
+        f"log-uniform; {np.mean(docs):.1f} segments a row, "
+        f"{np.mean(shares):.3f} of the causal pairs within a document):")
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    expected = {**{name: 0 for name in FLASH_KERNELS},
+                "flash_fwd_seg": STEPS * LAYERS * (1 + recompute),
+                "flash_bwd_dkv_seg": STEPS * LAYERS,
+                "flash_bwd_dq_seg": STEPS * LAYERS}
+    report["train_packed"] = train_main_path(
+        llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ}) "
+        f"on packed rows", "llama", (fa,), expected, card,
+        batches=packed_batches(config.vocab_size))
+    log("  (MFU by llama.flops_per_token, which counts attention over the "
+        "whole sequence: the tokens of a packed row attend within their "
+        "documents only)")
+    torch.cuda.empty_cache()
+
+    log("full-width cross-check on a packed batch (use_flash True vs "
+        "False, the reference with the segment bias):")
+    report["cross_check_packed"] = cross_check(
+        llama, config, (("flash", {"use_flash": True}),
+                        ("reference", {"use_flash": False})), (fa,),
+        None, GRAD_GAP_LIMIT, batch=packed_batch(config, 1))
+    torch.cuda.empty_cache()
+    log(f"full-width loss check on packed batches against an exact "
+        f"attention with the block-diagonal bias ({card}):")
+    controls = [("segment ids ignored", faulty_fwd(fa, ignore_ids=True),
+                 "control"),
+                ("causal mask one key too wide", faulty_fwd(fa, extra_keys=1),
+                 "control"),
+                ("P rounded to 5 significant bits",
+                 faulty_fwd(fa, round_p=round_bits(5)), "reading")]
+    report["loss_check_packed"] = loss_check(
+        llama, config, fa, controls, batch_fn=packed_batch,
+        b1="flash_fwd_seg")
+    torch.cuda.empty_cache()
+    return report, errs, times
 
 
 def main():
@@ -1712,7 +2176,7 @@ def main():
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
     flash_expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
                       "flash_bwd_dkv": STEPS * LAYERS,
-                      "flash_bwd_dq": STEPS * LAYERS}
+                      "flash_bwd_dq": STEPS * LAYERS, **NO_SEG}
     report["train"] = train_main_path(
         llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
         "llama", (fa,), flash_expected, card)
@@ -1793,7 +2257,7 @@ def main():
     moe_expected = {
         "flash_fwd": STEPS * MOE_LAYERS * (1 + recompute),
         "flash_bwd_dkv": STEPS * MOE_LAYERS,
-        "flash_bwd_dq": STEPS * MOE_LAYERS,
+        "flash_bwd_dq": STEPS * MOE_LAYERS, **NO_SEG,
         "grouped_matmul_fwd": STEPS * MOE_LAYERS * (2 * (1 + recompute) + 2),
         "grouped_matmul_dw": STEPS * MOE_LAYERS * 2,
         "grouped_matmul_fwd_quant": 0,  # the expert-parallel fp8 wire's
@@ -1858,10 +2322,15 @@ def main():
     torch.cuda.empty_cache()
 
     report.update(ep_phases(run_local, llama, moe_config, card))
+    torch.cuda.empty_cache()
+
+    packed, seg_errs, seg_times = packed_phases(llama, fa, remat, config,
+                                                card)
+    report.update(packed)
 
     kernels = []
-    for name, meta in fa.KERNELS.items():
-        t = times[name]
+    for name in FLASH_KERNELS:
+        meta, t = fa.KERNELS[name], times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
@@ -1915,6 +2384,19 @@ def main():
             entry.update({"loop_ms": t["loop_ms"],
                           "b4_f32_ms": t["b4_f32_ms"]})
         kernels.append(entry)
+    for name in FLASH_KERNELS:
+        seg, t = f"{name}_seg", seg_times[name]
+        kernels.append({
+            "name": seg, "route": "cuda", "source": fa.KERNELS[seg]["source"],
+            "replaces": fa.KERNELS[seg]["replaces"],
+            "launches": report["train_packed"]["launches"][seg],
+            "max_abs_err": seg_errs[seg], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "verdict": "ok", "bound_causal_ms": t["bound_causal_ms"],
+            "unsegmented_ms": t["unsegmented_ms"],
+            "varlen_ms": t["varlen_ms"], "design": SEG_DESIGN[seg],
+        })
     report["kernels"] = kernels
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

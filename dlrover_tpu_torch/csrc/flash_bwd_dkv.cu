@@ -45,6 +45,24 @@
 // in shared memory, scalar FMA products (flash_common.cuh); the probability
 // and dS tiles are written over the f32 S/dP tiles they come from (after
 // a barrier), which keeps it inside the shared-memory limit.
+//
+// Segment-id mode (packed documents; the reference's _recompute_p with
+// seg_q and seg_k, flash_attention.py:550-557): a separate instantiation
+// of each kernel (SEG = true, entry points dlr_flash_bwd_dkv_seg_*) takes
+// int32 ids seg_q [B, Sq] and seg_k [B, Sk] and sets p = 0 where a q
+// row's id differs from the key's, on top of the causal mask; the SEG =
+// false kernels are unchanged. With the scores transposed, seg_k indexes
+// the accumulator's rows and seg_q its columns. As in B1 (flash_fwd.cu),
+// one producer warp stages the ids in shared memory with per-64 "one
+// value" flags, the block's 128 k ids once and each step's 64 q ids
+// beside its tiles, and a consumer warpgroup masks a step whole (every
+// p = exp2(-inf) through the lse it subtracts), not at all by segment,
+// or, where ids change inside it, by a warp-uniform pass that sets S^T
+// to -inf apart from the unsegmented mask. Any tile can hold a document
+// boundary, and ids need not be sorted. The f32 kernel stages the ids
+// beside its tiles. A row that saw no key has lse = NEG_INF from the
+// forward; the lse is clamped to 0 first, as the reference does, so
+// every p of that row stays exactly 0.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -52,24 +70,28 @@
 namespace dlr {
 
 template <typename T>
-size_t dkv_smem_bytes(int D) {
+size_t dkv_smem_bytes(int D, bool seg) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   const int ldt = D + PAD;
   return 2 * round128(sizeof(T) * BK * ldt)                 // K, V
          + 2 * round128(sizeof(T) * BQ * ldt)               // Q, dO
          + 2 * round128(sizeof(float) * BQ * (BK + kFPad))  // S|P, dP|dS
          + 2 * round128(sizeof(float) * BK * (D + kFPad))   // dK, dV acc
-         + 2 * round128(sizeof(float) * BQ);                // lse, delta
+         + 2 * round128(sizeof(float) * BQ)                 // lse, delta
+         + (seg ? round128(sizeof(int) * BK) + round128(sizeof(int) * BQ)
+                : 0);  // segment ids of the keys and of the q tile
 }
 
-template <typename T>
+template <typename T, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
-                         int D, float scale, int causal) {
+                         int D, float scale, int causal,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int ELEMS = BQ * BK / kThreads;  // S elements per thread
   const int ldt = D + PAD, lds = BK + kFPad, ldp = BK + PAD, lda = D + kFPad;
@@ -89,6 +111,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sdV = carve.take<float>(BK * lda);
   float* sLse = carve.take<float>(BQ);
   float* sDelta = carve.take<float>(BQ);
+  int* sSegK = SEG ? carve.take<int>(BK) : nullptr;
+  int* sSegQ = SEG ? carve.take<int>(BQ) : nullptr;
   // P and dS in the input type, over the f32 tiles they are made from
   T* sP = reinterpret_cast<T*>(sS);
   T* sdS = reinterpret_cast<T*>(sdP);
@@ -99,6 +123,11 @@ __global__ void __launch_bounds__(kThreads)
   load_tile(sV, ldt, v + kv_row0 * D, kvalid, BK, D);
   zero_f32(sdK, lda, BK, D);
   zero_f32(sdV, lda, BK, D);
+  if constexpr (SEG) {
+    for (int t = threadIdx.x; t < BK; t += blockDim.x) {
+      sSegK[t] = t < kvalid ? seg_k[(size_t)b * Sk + j * BK + t] : 0;
+    }
+  }
 
   const int nqt = (Sq + BQ - 1) / BQ;
   // q tiles strictly above this k tile's diagonal see none of its keys
@@ -114,6 +143,11 @@ __global__ void __launch_bounds__(kThreads)
       load_tile(sdO, ldt, dout + q_row0 * D, qvalid, BQ, D);
       load_rows(sLse, lse + q_row0, qvalid, BQ);
       load_rows(sDelta, delta + q_row0, qvalid, BQ);
+      if constexpr (SEG) {
+        for (int t = threadIdx.x; t < BQ; t += blockDim.x) {
+          sSegQ[t] = t < qvalid ? seg_q[(size_t)b * Sq + i * BQ + t] : 0;
+        }
+      }
       __syncthreads();
       tile_mma<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);
       tile_mma<false, true>(sdO, ldt, sV, ldt, sdP, lds, BQ, BK, D, false);
@@ -125,8 +159,12 @@ __global__ void __launch_bounds__(kThreads)
         const int idx = threadIdx.x + e * kThreads;
         const int r = idx / BK, c = idx % BK;
         const int row = i * BQ + r, col = j * BK + c;
-        const bool ok = row < Sq && col < Sk && (!causal || col <= row);
-        p[e] = ok ? expf(sS[r * lds + c] * scale - sLse[r]) : 0.f;
+        const bool ok = row < Sq && col < Sk && (!causal || col <= row) &&
+                        (!SEG || sSegQ[r] == sSegK[c]);
+        // segment-id mode: a row that saw no key has lse NEG_INF
+        const float l =
+            SEG && sLse[r] <= kNegInf * 0.5f ? 0.f : sLse[r];
+        p[e] = ok ? expf(sS[r * lds + c] * scale - l) : 0.f;
         ds[e] = p[e] * (sdP[r * lds + c] - sDelta[r]) * scale;
       }
       __syncthreads();  // every f32 S/dP read lands before the overwrite
@@ -151,17 +189,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool SEG>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-               int causal, void* stream) {
+               int causal, void* stream, const int* seg_q = nullptr,
+               const int* seg_k = nullptr) {
   const dim3 grid((Sk + Tile<T>::BK - 1) / Tile<T>::BK, Hkv, B);
-  return launch(flash_bwd_dkv_kernel<T>, grid, dkv_smem_bytes<T>(D), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq,
-                Sk, D, scale, causal);
+  return launch(flash_bwd_dkv_kernel<T, SEG>, grid,
+                dkv_smem_bytes<T>(D, SEG), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+                static_cast<T*>(dv), H, Hkv, Sq, Sk, D, scale, causal, seg_q,
+                seg_k);
 }
 
 
@@ -193,12 +233,19 @@ struct Layout {
   static constexpr uint32_t kBars = kRows + kStages * 2 * kRow;
   static constexpr uint32_t kStageTx = 2 * kQ + 2 * kRowBox * 4;
   static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+  // segment-id mode, after the mbarriers: the block's k ids and their
+  // flags (hop::seg_publish), then a stage's q ids and flags each
+  static constexpr uint32_t kIds = kBars + 128;
+  static constexpr int kKIds = BK + 8, kQIds = BQ + 8;  // ints
+  static constexpr size_t kIdBytes = (kKIds + kStages * kQIds) * 4;
 };
 
 // The mbarriers: K and V arrived; a stage's Q, dO, lse and delta
-// arrived; a stage released by both consumer warpgroups.
+// arrived; a stage released by both consumer warpgroups; (segment-id
+// mode) a stage's q ids written.
 struct Bars {
   uint64_t kv_full, full[kStages], empty[kStages];
+  uint64_t ids_full[kStages];
 };
 
 template <int N>
@@ -238,7 +285,7 @@ __device__ __forceinline__ void grads(float (&acc)[DP / 2],
   }
 }
 
-template <int DP>
+template <int DP, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -248,7 +295,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const __grid_constant__ CUtensorMap tdelta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int B, int H, int Hkv, int Sq, int Sk, int D,
-                              float scale, float scale_log2, int causal) {
+                              float scale, float scale_log2, int causal,
+                              const int* __restrict__ seg_q,
+                              const int* __restrict__ seg_k) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dK or dV accumulator registers a thread
   // every head's first key tiles (the most causal work) first
@@ -277,11 +326,15 @@ __global__ void __launch_bounds__(kThreads, 1)
            (i0 + t % per_head) * BQ;
   };
   Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  // segment-id mode: the k ids and flags, then stage s's q ids and flags
+  int* sid = reinterpret_cast<int*>(base + L::kIds);
+  auto qids = [&](int s) { return sid + L::kKIds + s * L::kQIds; };
   if (threadIdx.x == 0) {
     hop::mbar_init(&bar.kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&bar.full[s], 1);
       hop::mbar_init(&bar.empty[s], kConsumers);
+      if constexpr (SEG) hop::mbar_init(&bar.ids_full[s], 32);
     }
     hop::mbar_fence_init();
   }
@@ -289,34 +342,56 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread loads K and V once, then keeps the ring full
-    // with step t's Q and dO tiles and lse and delta rows
+    // with step t's Q and dO tiles and lse and delta rows; in segment-id
+    // mode its warp writes the ids
     hop::regs_dealloc<24>();
-    if (threadIdx.x == kConsumers) {
-      hop::mbar_arrive_expect_tx(&bar.kv_full, 2 * L::kKV);
-      for (int c = 0; c < DP / 64; ++c) {
-        hop::tma_load_3d(sK + c * BK * 128, &tk, &bar.kv_full, c * 64,
-                         j * BK, bh);
-        hop::tma_load_3d(sV + c * BK * 128, &tv, &bar.kv_full, c * 64,
-                         j * BK, bh);
+    const int pt = threadIdx.x - kConsumers;
+    if constexpr (SEG) {  // announced with step 0's q ids; a key past
+      // Sk (masked) takes the last key's id
+      if (pt < 32) {
+        int v[BK / 32];
+        hop::seg_load(v, seg_k + (size_t)b * Sk, j * BK, Sk - 1, pt);
+        hop::seg_publish(sid, sid + BK, pt, v);
+      }
+    }
+    if (SEG ? pt < 32 : pt == 0) {
+      if (pt == 0) {
+        hop::mbar_arrive_expect_tx(&bar.kv_full, 2 * L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sK + c * BK * 128, &tk, &bar.kv_full, c * 64,
+                           j * BK, bh);
+          hop::tma_load_3d(sV + c * BK * 128, &tv, &bar.kv_full, c * 64,
+                           j * BK, bh);
+        }
       }
       for (int t = 0; t < steps; ++t) {
         const int s = t % kStages;
         const int h = hk * group + t / per_head, i = i0 + t % per_head;
+        int v[BQ / 32];  // segment-id mode: the step's q ids
+        if constexpr (SEG) {
+          hop::seg_load(v, seg_q + (size_t)b * Sq, i * BQ, Sq - 1, pt);
+        }
         // the stage's previous tile, t - kStages, is released
         if (t >= kStages) hop::mbar_wait(&bar.empty[s], (t / kStages - 1) & 1);
-        hop::mbar_arrive_expect_tx(&bar.full[s], L::kStageTx);
-        for (int c = 0; c < DP / 64; ++c) {
-          hop::tma_load_3d(sQ(s) + c * BQ * 128, &tq, &bar.full[s], c * 64,
-                           i * BQ, b * H + h);
-          hop::tma_load_3d(sdO(s) + c * BQ * 128, &tdo, &bar.full[s], c * 64,
-                           i * BQ, b * H + h);
+        if (pt == 0) {
+          hop::mbar_arrive_expect_tx(&bar.full[s], L::kStageTx);
+          for (int c = 0; c < DP / 64; ++c) {
+            hop::tma_load_3d(sQ(s) + c * BQ * 128, &tq, &bar.full[s], c * 64,
+                             i * BQ, b * H + h);
+            hop::tma_load_3d(sdO(s) + c * BQ * 128, &tdo, &bar.full[s],
+                             c * 64, i * BQ, b * H + h);
+          }
+          // 1-D rows: a ragged tile reads the next head's values (masked)
+          // or, past the end, zeros
+          const int row = first_row(t) & ~3;
+          hop::tma_load_1d(hop::smem_u32(sLse(s)), &tlse, &bar.full[s], row);
+          hop::tma_load_1d(hop::smem_u32(sDelta(s)), &tdelta, &bar.full[s],
+                           row);
         }
-        // 1-D rows: a ragged tile reads the next head's values (masked)
-        // or, past the end, zeros
-        const int row = first_row(t) & ~3;
-        hop::tma_load_1d(hop::smem_u32(sLse(s)), &tlse, &bar.full[s], row);
-        hop::tma_load_1d(hop::smem_u32(sDelta(s)), &tdelta, &bar.full[s],
-                         row);
+        if constexpr (SEG) {  // a row past Sq took the last row's id
+          hop::seg_publish(qids(s), qids(s) + BQ, pt, v);
+          hop::mbar_arrive(&bar.ids_full[s]);
+        }
       }
     }
     return;
@@ -346,6 +421,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       continue;
     }
 
+    // segment-id mode: how this warpgroup's keys and the step's q rows
+    // mask (hop::SegMode), read before the products, while their
+    // accumulators are not yet live
+    int seg = hop::kSegNone;
+    if constexpr (SEG) {
+      hop::mbar_wait(&bar.ids_full[s], phase);
+      seg = hop::seg_mode(qids(s) + BQ, 0, 2, sid + BK, wg, 1);
+    }
+
     // S^T = K Q^T, then dP^T = V dO^T: the tensor cores work on dP^T
     // while P^T's exponentials are computed
     float sacc[32], dpacc[32];
@@ -357,6 +441,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     hop::wgmma_wait<1>();
     hop::fence_regs(sacc);
 
+    // segment-id mode: scores where ids differ masked to -inf, in a
+    // warp-uniform branch apart from the unsegmented mask below
+    if (seg == hop::kSegById) {
+      const int* qid = qids(s);
+      const int kid0 = sid[kr0 - j * BK], kid1 = sid[kr1 - j * BK];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int qc = 8 * (x / 4) + 2 * quad + (x & 1);
+        if (qid[qc] != ((x & 2) ? kid1 : kid0)) sacc[x] = -INFINITY;
+      }
+    }
+
     // P^T, over S^T's registers; a column is the q row
     // q_lo + 8 c + 2 quad + (x & 1), a row the key kr0 or kr1
     const bool mask = (causal && k_lo + 63 > q_lo) || q_lo + BQ > Sq ||
@@ -365,7 +461,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* lse = sLse(s) + off + 2 * quad;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float l0 = lse[8 * c] * kLog2e, l1 = lse[8 * c + 1] * kLog2e;
+      float l0 = lse[8 * c], l1 = lse[8 * c + 1];
+      if constexpr (SEG) {  // a row that saw no key has lse NEG_INF
+        if (l0 <= kNegInf * 0.5f) l0 = 0.f;
+        if (l1 <= kNegInf * 0.5f) l1 = 0.f;
+      }
+      l0 *= kLog2e;
+      l1 *= kLog2e;
+      if (seg == hop::kSegAll) l0 = l1 = INFINITY;  // every p = exp2(-inf)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int x = 4 * c + e;
@@ -442,11 +545,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP>
+template <int DP, bool SEG>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                int D, float scale, int causal, void* stream) {
+                int D, float scale, int causal, void* stream,
+                const int* seg_q = nullptr, const int* seg_k = nullptr) {
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
   const size_t rows = (size_t)B * H * Sq;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
@@ -461,10 +565,12 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sk + BK - 1) / BK * B * Hkv);
-  return hop::launch(flash_bwd_dkv_bf16_kernel<DP>, grid, kThreads,
-                     Layout<DP>::kSmem, stream, tq, tk, tv, tdo, tlse, tdelta,
+  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  return hop::launch(flash_bwd_dkv_bf16_kernel<DP, SEG>, grid, kThreads,
+                     smem, stream, tq, tk, tv, tdo, tlse, tdelta,
                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H,
-                     Hkv, Sq, Sk, D, scale, scale * kLog2e, causal);
+                     Hkv, Sq, Sk, D, scale, scale * kLog2e, causal, seg_q,
+                     seg_k);
 }
 
 }  // namespace dkv
@@ -477,12 +583,12 @@ extern "C" int dlr_flash_bwd_dkv_bf16(const void* q, const void* k,
                                       int Hkv, int Sq, int Sk, int D,
                                       float scale, int causal, void* stream) {
   return D <= 64
-             ? dlr::dkv::launch_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B,
-                                         H, Hkv, Sq, Sk, D, scale, causal,
-                                         stream)
-             : dlr::dkv::launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv,
-                                          B, H, Hkv, Sq, Sk, D, scale, causal,
-                                          stream);
+             ? dlr::dkv::launch_bf16<64, false>(q, k, v, dout, lse, delta,
+                                                dk, dv, B, H, Hkv, Sq, Sk, D,
+                                                scale, causal, stream)
+             : dlr::dkv::launch_bf16<128, false>(q, k, v, dout, lse, delta,
+                                                 dk, dv, B, H, Hkv, Sq, Sk, D,
+                                                 scale, causal, stream);
 }
 
 extern "C" int dlr_flash_bwd_dkv_f32(const void* q, const void* k,
@@ -491,8 +597,35 @@ extern "C" int dlr_flash_bwd_dkv_f32(const void* q, const void* k,
                                      void* dk, void* dv, int B, int H,
                                      int Hkv, int Sq, int Sk, int D,
                                      float scale, int causal, void* stream) {
-  return dlr::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
-                                Sq, Sk, D, scale, causal, stream);
+  return dlr::launch_dkv<float, false>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       H, Hkv, Sq, Sk, D, scale, causal,
+                                       stream);
+}
+
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+extern "C" int dlr_flash_bwd_dkv_seg_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const int* seg_q, const int* seg_k, int B, int H, int Hkv, int Sq,
+    int Sk, int D, float scale, int causal, void* stream) {
+  return D <= 64
+             ? dlr::dkv::launch_bf16<64, true>(q, k, v, dout, lse, delta, dk,
+                                               dv, B, H, Hkv, Sq, Sk, D, scale,
+                                               causal, stream, seg_q, seg_k)
+             : dlr::dkv::launch_bf16<128, true>(q, k, v, dout, lse, delta, dk,
+                                                dv, B, H, Hkv, Sq, Sk, D,
+                                                scale, causal, stream, seg_q,
+                                                seg_k);
+}
+
+extern "C" int dlr_flash_bwd_dkv_seg_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const int* seg_q, const int* seg_k, int B, int H, int Hkv, int Sq,
+    int Sk, int D, float scale, int causal, void* stream) {
+  return dlr::launch_dkv<float, true>(q, k, v, dout, lse, delta, dk, dv, B,
+                                      H, Hkv, Sq, Sk, D, scale, causal, stream,
+                                      seg_q, seg_k);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_bwd_dkv_error)

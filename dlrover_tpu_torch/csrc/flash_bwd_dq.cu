@@ -47,6 +47,22 @@
 //
 // f32 (the parity path, flash_bwd_dq_kernel<float>): 32x32 tiles staged
 // in shared memory, scalar FMA products (flash_common.cuh).
+//
+// Segment-id mode (packed documents; the reference's _recompute_p with
+// seg_q and seg_k, flash_attention.py:550-557): a separate instantiation
+// of each kernel (SEG = true, entry points dlr_flash_bwd_dq_seg_*) takes
+// int32 ids seg_q [B, Sq] and seg_k [B, Sk] and sets p = 0 where a q
+// row's id differs from the key's, on top of the causal mask; the SEG =
+// false kernels are unchanged. As in B1 (flash_fwd.cu), one producer
+// warp stages the block's q ids and each K/V tile's k ids in shared
+// memory with per-64 "one value" flags, and a consumer warpgroup masks a
+// tile whole (every p = exp2(-inf) through the lse it subtracts), not at
+// all by segment, or, where ids change inside it, by a warp-uniform pass
+// that sets S to -inf apart from the unsegmented mask. Any tile can hold
+// a document boundary, and ids need not be sorted. The f32 kernel stages
+// the ids beside its tiles. A row that saw no key has lse = NEG_INF from
+// the forward; the lse is clamped to 0 first, as the reference does, so
+// every p of that row stays exactly 0.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -54,24 +70,27 @@
 namespace dlr {
 
 template <typename T>
-size_t dq_smem_bytes(int D) {
+size_t dq_smem_bytes(int D, bool seg) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   const int ldt = D + PAD;
   return 2 * round128(sizeof(T) * BQ * ldt)                 // Q, dO
          + 2 * round128(sizeof(T) * BK * ldt)               // K, V
          + 2 * round128(sizeof(float) * BQ * (BK + kFPad))  // S, dP|dS
          + round128(sizeof(float) * BQ * (D + kFPad))       // dQ acc
-         + 2 * round128(sizeof(float) * BQ);                // lse, delta
+         + 2 * round128(sizeof(float) * BQ)                 // lse, delta
+         + (seg ? round128(sizeof(int) * BQ) + round128(sizeof(int) * BK)
+                : 0);  // segment ids of the rows and of the K/V tile
 }
 
-template <typename T>
+template <typename T, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Hkv, int Sq, int Sk, int D, float scale,
-                        int causal) {
+                        int causal, const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_k) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int ELEMS = BQ * BK / kThreads;
   const int ldt = D + PAD, lds = BK + kFPad, ldp = BK + PAD, lda = D + kFPad;
@@ -92,6 +111,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sdQ = carve.take<float>(BQ * lda);
   float* sLse = carve.take<float>(BQ);
   float* sDelta = carve.take<float>(BQ);
+  int* sSegQ = SEG ? carve.take<int>(BQ) : nullptr;
+  int* sSegK = SEG ? carve.take<int>(BK) : nullptr;
   T* sdS = reinterpret_cast<T*>(sdP);
 
   const size_t q_row0 = ((size_t)b * H + h) * Sq + (size_t)i * BQ;
@@ -101,6 +122,11 @@ __global__ void __launch_bounds__(kThreads)
   load_rows(sLse, lse + q_row0, qvalid, BQ);
   load_rows(sDelta, delta + q_row0, qvalid, BQ);
   zero_f32(sdQ, lda, BQ, D);
+  if constexpr (SEG) {
+    for (int t = threadIdx.x; t < BQ; t += blockDim.x) {
+      sSegQ[t] = t < qvalid ? seg_q[(size_t)b * Sq + i * BQ + t] : 0;
+    }
+  }
 
   const T* k_head = k + ((size_t)b * Hkv + hk) * Sk * D;
   const T* v_head = v + ((size_t)b * Hkv + hk) * Sk * D;
@@ -112,6 +138,11 @@ __global__ void __launch_bounds__(kThreads)
     const int kvalid = min(BK, Sk - j * BK);
     load_tile(sK, ldt, k_head + (size_t)j * BK * D, kvalid, BK, D);
     load_tile(sV, ldt, v_head + (size_t)j * BK * D, kvalid, BK, D);
+    if constexpr (SEG) {
+      for (int t = threadIdx.x; t < BK; t += blockDim.x) {
+        sSegK[t] = t < kvalid ? seg_k[(size_t)b * Sk + j * BK + t] : 0;
+      }
+    }
     __syncthreads();
     tile_mma<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);
     tile_mma<false, true>(sdO, ldt, sV, ldt, sdP, lds, BQ, BK, D, false);
@@ -123,8 +154,11 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = threadIdx.x + e * kThreads;
       const int r = idx / BK, c = idx % BK;
       const int row = i * BQ + r, col = j * BK + c;
-      const bool ok = row < Sq && col < Sk && (!causal || col <= row);
-      const float p = ok ? expf(sS[r * lds + c] * scale - sLse[r]) : 0.f;
+      const bool ok = row < Sq && col < Sk && (!causal || col <= row) &&
+                      (!SEG || sSegQ[r] == sSegK[c]);
+      // segment-id mode: a row that saw no key has lse NEG_INF
+      const float l = SEG && sLse[r] <= kNegInf * 0.5f ? 0.f : sLse[r];
+      const float p = ok ? expf(sS[r * lds + c] * scale - l) : 0.f;
       ds[e] = p * (sdP[r * lds + c] - sDelta[r]) * scale;
     }
     __syncthreads();
@@ -144,16 +178,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool SEG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
               int Hkv, int Sq, int Sk, int D, float scale, int causal,
-              void* stream) {
+              void* stream, const int* seg_q = nullptr,
+              const int* seg_k = nullptr) {
   const dim3 grid((Sq + Tile<T>::BQ - 1) / Tile<T>::BQ, H, B);
-  return launch(flash_bwd_dq_kernel<T>, grid, dq_smem_bytes<T>(D), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch(flash_bwd_dq_kernel<T, SEG>, grid, dq_smem_bytes<T>(D, SEG),
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                delta, static_cast<T*>(dq), H, Hkv, Sq, Sk, D, scale, causal);
+                delta, static_cast<T*>(dq), H, Hkv, Sq, Sk, D, scale, causal,
+                seg_q, seg_k);
 }
 
 // -- bf16 --------------------------------------------------------------------
@@ -178,12 +214,19 @@ struct Layout {
   static constexpr uint32_t kStage0 = 2 * kQ;
   static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKV;
   static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+  // segment-id mode, after the mbarriers: the block's q ids and their
+  // flags (hop::seg_publish), then a stage's k ids and flags each
+  static constexpr uint32_t kIds = kBars + 128;
+  static constexpr int kQIds = BQ + 8, kKIds = BK + 8;  // ints
+  static constexpr size_t kIdBytes = (kQIds + kStages * kKIds) * 4;
 };
 
 // The mbarriers: Q and dO arrived; K, V of a stage arrived; a stage
-// released by both consumer warpgroups.
+// released by both consumer warpgroups; (segment-id mode) a stage's k
+// ids written.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+  uint64_t ids_full[kStages];
 };
 
 // Issue acc = A B^T over DP / 16 k16 steps: A this warpgroup's 64 rows
@@ -217,7 +260,7 @@ __device__ __forceinline__ void dq_update(float (&acc)[DP / 2],
   }
 }
 
-template <int DP>
+template <int DP, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -227,7 +270,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ delta,
                              bf16* __restrict__ dq, int H, int Hkv, int Sq,
                              int Sk, int D, float scale, float scale_log2,
-                             int causal) {
+                             int causal, const int* __restrict__ seg_q,
+                             const int* __restrict__ seg_k) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dQ accumulator registers a thread
   constexpr int NS = BK / 2;  // S or dP accumulator registers a thread
@@ -246,12 +290,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto sK = [&](int s) { return sQ + L::kStage0 + s * 2 * L::kKV; };
   auto sV = [&](int s) { return sK(s) + L::kKV; };
   Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  // segment-id mode: the q ids and flags, then stage s's k ids and flags
+  int* sid = reinterpret_cast<int*>(base + L::kIds);
+  auto kids = [&](int s) { return sid + L::kQIds + s * L::kKIds; };
   if (threadIdx.x == 0) {
     hop::mbar_init(&bar.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&bar.k_full[s], 1);
       hop::mbar_init(&bar.v_full[s], 1);
       hop::mbar_init(&bar.empty[s], kConsumers);
+      if constexpr (SEG) hop::mbar_init(&bar.ids_full[s], 32);
     }
     hop::mbar_fence_init();
   }
@@ -259,29 +307,51 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread loads Q and dO once, then keeps the ring full
-    // with the K and V tiles of KV head hk
+    // with the K and V tiles of KV head hk; in segment-id mode its warp
+    // writes the ids
     hop::regs_dealloc<24>();
-    if (threadIdx.x == kConsumers) {
-      hop::mbar_arrive_expect_tx(&bar.q_full, 2 * L::kQ);
-      for (int c = 0; c < DP / 64; ++c) {
-        hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64,
-                         i * BQ, b * H + h);
-        hop::tma_load_3d(sdO + c * BQ * 128, &tdo, &bar.q_full, c * 64,
-                         i * BQ, b * H + h);
+    const int pt = threadIdx.x - kConsumers;
+    if constexpr (SEG) {  // announced with tile 0's k ids; a row past
+      // Sq (never stored) takes the last row's id
+      if (pt < 32) {
+        int v[BQ / 32];
+        hop::seg_load(v, seg_q + (size_t)b * Sq, i * BQ, Sq - 1, pt);
+        hop::seg_publish(sid, sid + BQ, pt, v);
+      }
+    }
+    if (SEG ? pt < 32 : pt == 0) {
+      if (pt == 0) {
+        hop::mbar_arrive_expect_tx(&bar.q_full, 2 * L::kQ);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64,
+                           i * BQ, b * H + h);
+          hop::tma_load_3d(sdO + c * BQ * 128, &tdo, &bar.q_full, c * 64,
+                           i * BQ, b * H + h);
+        }
       }
       for (int j = 0; j < nkt; ++j) {
         const int s = j % kStages;
+        int v[BK / 32];  // segment-id mode: the tile's k ids
+        if constexpr (SEG) {
+          hop::seg_load(v, seg_k + (size_t)b * Sk, j * BK, Sk - 1, pt);
+        }
         // the stage's previous tile, j - kStages, is released
         if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
-        hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
-        for (int c = 0; c < DP / 64; ++c) {
-          hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s], c * 64,
-                           j * BK, b * Hkv + hk);
+        if (pt == 0) {
+          hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+          for (int c = 0; c < DP / 64; ++c) {
+            hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s],
+                             c * 64, j * BK, b * Hkv + hk);
+          }
+          hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+          for (int c = 0; c < DP / 64; ++c) {
+            hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s],
+                             c * 64, j * BK, b * Hkv + hk);
+          }
         }
-        hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
-        for (int c = 0; c < DP / 64; ++c) {
-          hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s], c * 64,
-                           j * BK, b * Hkv + hk);
+        if constexpr (SEG) {  // a key past Sk (masked) took the last's id
+          hop::seg_publish(kids(s), kids(s) + BK, pt, v);
+          hop::mbar_arrive(&bar.ids_full[s]);
         }
       }
     }
@@ -299,8 +369,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // lse (base 2) and delta of this thread's two rows; rows past Sq read
   // zeros there and are never stored
   const size_t head_row = ((size_t)b * H + h) * Sq;
-  const float lse0 = row0 < Sq ? lse[head_row + row0] * kLog2e : 0.f;
-  const float lse1 = row1 < Sq ? lse[head_row + row1] * kLog2e : 0.f;
+  float lse0 = row0 < Sq ? lse[head_row + row0] : 0.f;
+  float lse1 = row1 < Sq ? lse[head_row + row1] : 0.f;
+  // segment-id mode: a row that saw no key has lse NEG_INF
+  if constexpr (SEG) {
+    if (lse0 <= kNegInf * 0.5f) lse0 = 0.f;
+    if (lse1 <= kNegInf * 0.5f) lse1 = 0.f;
+  }
+  lse0 *= kLog2e;
+  lse1 *= kLog2e;
   const float delta0 = row0 < Sq ? delta[head_row + row0] : 0.f;
   const float delta1 = row1 < Sq ? delta[head_row + row1] : 0.f;
 
@@ -321,6 +398,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       continue;
     }
 
+    // segment-id mode: how this warpgroup's rows and the tile's keys
+    // mask (hop::SegMode), read before the products, while their
+    // accumulators are not yet live
+    int seg = hop::kSegNone;
+    if constexpr (SEG) {
+      hop::mbar_wait(&bar.ids_full[s], phase);
+      seg = hop::seg_mode(sid + BQ, wg, 1, kids(s) + BK, 0, 2);
+    }
+
     // S = Q K^T, then dP = dO V^T: the tensor cores work on dP while
     // P's exponentials are computed
     float sacc[NS], dpacc[NS];
@@ -334,12 +420,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     hop::wgmma_wait<1>();
     hop::fence_regs(sacc);
 
+    // segment-id mode: scores where ids differ masked to -inf, in a
+    // warp-uniform branch apart from the unsegmented mask below
+    if (seg == hop::kSegById) {
+      const int* kid = kids(s);
+      const int qid0 = sid[row0 - i * BQ], qid1 = sid[row1 - i * BQ];
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        const int c = 8 * (x / 4) + 2 * quad + (x & 1);
+        if (kid[c] != ((x & 2) ? qid1 : qid0)) sacc[x] = -INFINITY;
+      }
+    }
+    // a tile masked whole: every p = exp2(-inf) = 0
+    const float nl0 = seg == hop::kSegAll ? -INFINITY : -lse0;
+    const float nl1 = seg == hop::kSegAll ? -INFINITY : -lse1;
+
     // P over S's registers: x = 4 c + e is row (e & 2 ? row1 : row0),
     // key k_lo + 8 c + 2 quad + (e & 1)
     const bool mask = (causal && k_lo + BK - 1 > q_lo) || k_lo + BK > Sk;
 #pragma unroll
     for (int x = 0; x < NS; ++x) {
-      float p = hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? -lse1 : -lse0));
+      float p = hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? nl1 : nl0));
       if (mask) {
         const int kr = k_lo + 8 * (x / 4) + 2 * quad + (x & 1);
         const int qr = (x & 2) ? row1 : row0;
@@ -388,11 +489,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP>
+template <int DP, bool SEG>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dq, int B, int H, int Hkv, int Sq, int Sk, int D,
-                float scale, int causal, void* stream) {
+                float scale, int causal, void* stream,
+                const int* seg_q = nullptr, const int* seg_k = nullptr) {
   CUtensorMap tq, tk, tv, tdo;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
       !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
@@ -404,10 +506,11 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
-  return hop::launch(flash_bwd_dq_bf16_kernel<DP>, grid, kThreads,
-                     Layout<DP>::kSmem, stream, tq, tk, tv, tdo, lse, delta,
+  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  return hop::launch(flash_bwd_dq_bf16_kernel<DP, SEG>, grid, kThreads,
+                     smem, stream, tq, tk, tv, tdo, lse, delta,
                      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, scale,
-                     scale * kLog2e, causal);
+                     scale * kLog2e, causal, seg_q, seg_k);
 }
 
 }  // namespace dq
@@ -419,12 +522,13 @@ extern "C" int dlr_flash_bwd_dq_bf16(const void* q, const void* k,
                                      void* dq, int B, int H, int Hkv, int Sq,
                                      int Sk, int D, float scale, int causal,
                                      void* stream) {
-  return D <= 64 ? dlr::dq::launch_bf16<64>(q, k, v, dout, lse, delta, dq, B,
-                                            H, Hkv, Sq, Sk, D, scale, causal,
-                                            stream)
-                 : dlr::dq::launch_bf16<128>(q, k, v, dout, lse, delta, dq,
-                                             B, H, Hkv, Sq, Sk, D, scale,
-                                             causal, stream);
+  return D <= 64
+             ? dlr::dq::launch_bf16<64, false>(q, k, v, dout, lse, delta, dq,
+                                               B, H, Hkv, Sq, Sk, D, scale,
+                                               causal, stream)
+             : dlr::dq::launch_bf16<128, false>(q, k, v, dout, lse, delta, dq,
+                                                B, H, Hkv, Sq, Sk, D, scale,
+                                                causal, stream);
 }
 
 extern "C" int dlr_flash_bwd_dq_f32(const void* q, const void* k,
@@ -433,8 +537,33 @@ extern "C" int dlr_flash_bwd_dq_f32(const void* q, const void* k,
                                     void* dq, int B, int H, int Hkv, int Sq,
                                     int Sk, int D, float scale, int causal,
                                     void* stream) {
-  return dlr::launch_dq<float>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq,
-                               Sk, D, scale, causal, stream);
+  return dlr::launch_dq<float, false>(q, k, v, dout, lse, delta, dq, B, H,
+                                      Hkv, Sq, Sk, D, scale, causal, stream);
+}
+
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+extern "C" int dlr_flash_bwd_dq_seg_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, const int* seg_q,
+    const int* seg_k, int B, int H, int Hkv, int Sq, int Sk, int D,
+    float scale, int causal, void* stream) {
+  return D <= 64
+             ? dlr::dq::launch_bf16<64, true>(q, k, v, dout, lse, delta, dq,
+                                              B, H, Hkv, Sq, Sk, D, scale,
+                                              causal, stream, seg_q, seg_k)
+             : dlr::dq::launch_bf16<128, true>(q, k, v, dout, lse, delta, dq,
+                                               B, H, Hkv, Sq, Sk, D, scale,
+                                               causal, stream, seg_q, seg_k);
+}
+
+extern "C" int dlr_flash_bwd_dq_seg_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, const int* seg_q,
+    const int* seg_k, int B, int H, int Hkv, int Sq, int Sk, int D,
+    float scale, int causal, void* stream) {
+  return dlr::launch_dq<float, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
+                                     Sq, Sk, D, scale, causal, stream, seg_q,
+                                     seg_k);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_bwd_dq_error)

@@ -34,6 +34,34 @@
 //
 // f32 (the parity path, flash_fwd_f32_kernel): 32x32 tiles staged in
 // shared memory, scalar FMA products (flash_common.cuh).
+//
+// Segment-id mode (packed documents; the reference's segmented=True,
+// flash_attention.py:127-131): a separate instantiation of each kernel
+// (SEG = true, entry points dlr_flash_fwd_seg_*) takes int32 ids seg_q
+// [B, Sq] and seg_k [B, Sk] and keeps a score only where the query's id
+// equals the key's, on top of the causal mask; the SEG = false kernels
+// are the unsegmented ones, unchanged. Any tile can hold a document
+// boundary, and ids need not be sorted (a pad tail of -1 follows higher
+// ids), so no tile goes unchecked. In the bf16 kernel one warp of the
+// producer warpgroup (otherwise idle but for its TMA thread) reads the
+// ids by plain loads, issued before it waits for the ring stage, into
+// shared memory: the block's 128 q ids once, each K/V tile's 128 k ids
+// beside the tile, with "these 64 ids are one value" flags
+// (hop::seg_load, hop::seg_publish), announced by one more mbarrier a
+// stage. From the flags a consumer warpgroup learns how its rows and the
+// tile's keys meet (hop::seg_mode, voted warp-uniform): one id on both
+// sides, the unsegmented masks alone; one id each but two ids, every
+// score -inf; ids changing inside the tile, a pass that sets -inf where
+// a key's id differs from its row's. Both run as warp-uniform branches
+// apart from the unsegmented mask: merged into its per-element loop
+// (a predicated body on every tile), or with ids in registers (spills
+// under the consumers' 240), the packed row took 1.5-2.3x the
+// unsegmented time (PERF.md, section 6). The f32 kernel stages the ids
+// beside its tiles and masks element by element. Tiles are skipped by the
+// causal diagonal only, as in the reference. A row that sees no key at
+// all (the pair form's kv-side ids may lack its id) keeps l = 0: it
+// stores out = 0 and lse = NEG_INF (finfo(float32).min, not -inf), the
+// reference's values.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -42,7 +70,7 @@ namespace dlr {
 
 // -- f32 ---------------------------------------------------------------------
 
-size_t fwd_smem_bytes(int D) {
+size_t fwd_smem_bytes(int D, bool seg) {
   using T = float;
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   const int ldt = D + PAD;
@@ -50,15 +78,20 @@ size_t fwd_smem_bytes(int D) {
          + 2 * round128(sizeof(T) * BK * ldt)  // K, V
          + round128(sizeof(float) * BQ * (BK + kFPad))  // S
          + round128(sizeof(T) * BQ * (BK + PAD))        // P
-         + round128(sizeof(float) * BQ * (D + kFPad));  // O accumulator
+         + round128(sizeof(float) * BQ * (D + kFPad))   // O accumulator
+         + (seg ? round128(sizeof(int) * BQ) + round128(sizeof(int) * BK)
+                : 0);  // segment ids of the rows and of the K/V tile
 }
 
+template <bool SEG>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int H, int Hkv, int Sq,
-                         int Sk, int D, float scale, int causal) {
+                         int Sk, int D, float scale, int causal,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k) {
   using T = float;
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int LANES = kThreads / BQ;  // threads sharing one row
@@ -78,12 +111,19 @@ __global__ void __launch_bounds__(kThreads)
   float* sS = carve.take<float>(BQ * lds);
   T* sP = carve.take<T>(BQ * ldp);
   float* sO = carve.take<float>(BQ * ldo);
+  int* sSegQ = SEG ? carve.take<int>(BQ) : nullptr;
+  int* sSegK = SEG ? carve.take<int>(BK) : nullptr;
 
   const size_t q_row0 = ((size_t)b * H + h) * Sq + (size_t)i * BQ;
   const T* k_head = k + ((size_t)b * Hkv + hk) * Sk * D;
   const T* v_head = v + ((size_t)b * Hkv + hk) * Sk * D;
   load_tile(sQ, ldt, q + q_row0 * D, min(BQ, Sq - i * BQ), BQ, D);
   zero_f32(sO, ldo, BQ, D);
+  if constexpr (SEG) {  // rows past Sq read 0 and are never stored
+    for (int t = threadIdx.x; t < BQ; t += blockDim.x) {
+      sSegQ[t] = i * BQ + t < Sq ? seg_q[(size_t)b * Sq + i * BQ + t] : 0;
+    }
+  }
 
   const int r = threadIdx.x / LANES, lane = threadIdx.x % LANES;
   const int row = i * BQ + r;
@@ -96,6 +136,11 @@ __global__ void __launch_bounds__(kThreads)
     const int kvalid = min(BK, Sk - j * BK);
     load_tile(sK, ldt, k_head + (size_t)j * BK * D, kvalid, BK, D);
     load_tile(sV, ldt, v_head + (size_t)j * BK * D, kvalid, BK, D);
+    if constexpr (SEG) {
+      for (int t = threadIdx.x; t < BK; t += blockDim.x) {
+        sSegK[t] = t < kvalid ? seg_k[(size_t)b * Sk + j * BK + t] : 0;
+      }
+    }
     __syncthreads();
     tile_mma<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);
     __syncthreads();
@@ -105,7 +150,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < COLS; ++t) {
       const int c = lane + t * LANES, col = j * BK + c;
-      const bool ok = col < Sk && (!causal || col <= row);
+      const bool ok = col < Sk && (!causal || col <= row) &&
+                      (!SEG || sSegK[c] == sSegQ[r]);
       s[t] = ok ? sS[r * lds + c] * scale : kNegInf;
       mx = fmaxf(mx, s[t]);
     }
@@ -161,12 +207,18 @@ struct Layout {
   static constexpr uint32_t kKV = BK * DP * 2;  // one K or one V tile
   static constexpr uint32_t kBars = kQ + 2 * kStages * kKV;
   static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+  // segment-id mode, after the mbarriers: the block's q ids and their
+  // flags (hop::seg_publish), then a stage's k ids and flags each
+  static constexpr uint32_t kIds = kBars + 128;
+  static constexpr int kQIds = BQ + 8, kKIds = BK + 8;  // ints
+  static constexpr size_t kIdBytes = (kQIds + kStages * kKIds) * 4;
 };
 
 // The mbarriers: Q arrived; K, V of a stage arrived; a stage released by
-// both consumer warpgroups.
+// both consumer warpgroups; (segment-id mode) a stage's k ids written.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+  uint64_t ids_full[kStages];
 };
 
 // One step of the online softmax over S columns [64 HALF, 64 HALF + 64)
@@ -246,14 +298,16 @@ __device__ __forceinline__ void pv(float (&oacc)[DP / 2],
   hop::wgmma_commit();
 }
 
-template <int DP>
+template <int DP, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           bf16* __restrict__ o, float* __restrict__ lse,
                           int H, int Hkv, int Sq, int Sk, int D,
-                          float scale_log2, int causal) {
+                          float scale_log2, int causal,
+                          const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_k) {
   using L = Layout<DP>;
   constexpr int NO = DP / 2;  // O accumulator registers a thread
   const int nqt = (Sq + BQ - 1) / BQ;
@@ -270,40 +324,66 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto sK = [&](int s) { return sQ + L::kQ + s * 2 * L::kKV; };
   auto sV = [&](int s) { return sK(s) + L::kKV; };
   Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  // segment-id mode: the q ids and flags, then stage s's k ids and flags
+  int* sid = reinterpret_cast<int*>(base + L::kIds);
+  auto kids = [&](int s) { return sid + L::kQIds + s * L::kKIds; };
   if (threadIdx.x == 0) {
     hop::mbar_init(&bar.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&bar.k_full[s], 1);
       hop::mbar_init(&bar.v_full[s], 1);
       hop::mbar_init(&bar.empty[s], kConsumers);
+      if constexpr (SEG) hop::mbar_init(&bar.ids_full[s], 32);
     }
     hop::mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    // producer: one thread keeps the TMA loads of the ring in flight
+    // producer: one thread keeps the TMA loads of the ring in flight; in
+    // segment-id mode its warp writes the ids
     hop::regs_dealloc<24>();
-    if (threadIdx.x == kConsumers) {
+    const int pt = threadIdx.x - kConsumers;
+    if constexpr (SEG) {  // announced with tile 0's k ids; a row past
+      // Sq (never stored) takes the last row's id
+      if (pt < 32) {
+        int v[BQ / 32];
+        hop::seg_load(v, seg_q + (size_t)b * Sq, i * BQ, Sq - 1, pt);
+        hop::seg_publish(sid, sid + BQ, pt, v);
+      }
+    }
+    if (SEG ? pt < 32 : pt == 0) {
       const int hk = h / (H / Hkv);
-      hop::mbar_arrive_expect_tx(&bar.q_full, L::kQ);
-      for (int c = 0; c < DP / 64; ++c) {
-        hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64, i * BQ,
-                         b * H + h);
+      if (pt == 0) {
+        hop::mbar_arrive_expect_tx(&bar.q_full, L::kQ);
+        for (int c = 0; c < DP / 64; ++c) {
+          hop::tma_load_3d(sQ + c * BQ * 128, &tq, &bar.q_full, c * 64,
+                           i * BQ, b * H + h);
+        }
       }
       for (int j = 0; j < nkt; ++j) {
         const int s = j % kStages;
+        int v[BK / 32];  // segment-id mode: the tile's k ids
+        if constexpr (SEG) {
+          hop::seg_load(v, seg_k + (size_t)b * Sk, j * BK, Sk - 1, pt);
+        }
         // the stage's previous tile, j - kStages, is released
         if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
-        hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
-        for (int c = 0; c < DP / 64; ++c) {
-          hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s], c * 64,
-                           j * BK, b * Hkv + hk);
+        if (pt == 0) {
+          hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+          for (int c = 0; c < DP / 64; ++c) {
+            hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s],
+                             c * 64, j * BK, b * Hkv + hk);
+          }
+          hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+          for (int c = 0; c < DP / 64; ++c) {
+            hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s],
+                             c * 64, j * BK, b * Hkv + hk);
+          }
         }
-        hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
-        for (int c = 0; c < DP / 64; ++c) {
-          hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s], c * 64,
-                           j * BK, b * Hkv + hk);
+        if constexpr (SEG) {  // a key past Sk (masked) took the last's id
+          hop::seg_publish(kids(s), kids(s) + BK, pt, v);
+          hop::mbar_arrive(&bar.ids_full[s]);
         }
       }
     }
@@ -328,6 +408,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 0; j < nkt; ++j) {
     const int s = j % kStages, phase = (j / kStages) & 1;
 
+    // segment-id mode: how this warpgroup's rows and the tile's keys
+    // mask (hop::SegMode), read before the products, while their
+    // accumulators are not yet live
+    int seg = hop::kSegNone;
+    if constexpr (SEG) {
+      hop::mbar_wait(&bar.ids_full[s], phase);
+      seg = hop::seg_mode(sid + BQ, wg, 1, kids(s) + BK, 0, 2);
+    }
+
     // S = Q K^T over DP / 16 k16 steps
     float sacc[64];
     hop::mbar_wait(&bar.k_full[s], phase);
@@ -343,10 +432,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sacc);
+    // segment-id mode: a tile masked whole, or by id where ids change
+    // (warp-uniform branches, apart from the unsegmented mask below)
+    if (seg == hop::kSegAll) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) sacc[x] = -INFINITY;
+    } else if (seg == hop::kSegById) {
+      const int* kid = kids(s);
+      const int qid0 = sid[row0 - i * BQ], qid1 = sid[row1 - i * BQ];
+#pragma unroll
+      for (int x = 0; x < 64; ++x) {
+        const int c = 8 * (x / 4) + 2 * quad + (x & 1);
+        if (kid[c] != ((x & 2) ? qid1 : qid0)) sacc[x] = -INFINITY;
+      }
+    }
     // mask the tiles that cross the ragged end or this warpgroup's
     // diagonal
-    if ((j + 1) * BK > Sk ||
-        (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
+    if ((j + 1) * BK > Sk || (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
 #pragma unroll
       for (int x = 0; x < 64; ++x) {
         const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
@@ -402,15 +504,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (quad == 0) {  // lse in natural-log units, as the backward reads it
-    if (row0 < Sq) lse[head_row + row0] = m0 * kLn2 + logf(ls0);
-    if (row1 < Sq) lse[head_row + row1] = m1 * kLn2 + logf(ls1);
+    // (segment-id mode: a row that saw no key stores NEG_INF, not -inf)
+    if (row0 < Sq) {
+      lse[head_row + row0] =
+          SEG && l0 == 0.f ? kNegInf : m0 * kLn2 + logf(ls0);
+    }
+    if (row1 < Sq) {
+      lse[head_row + row1] =
+          SEG && l1 == 0.f ? kNegInf : m1 * kLn2 + logf(ls1);
+    }
   }
 }
 
-template <int DP>
+template <int DP, bool SEG>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
-                float scale, int causal, void* stream) {
+                float scale, int causal, void* stream,
+                const int* seg_q = nullptr, const int* seg_k = nullptr) {
   // the row max is taken on unscaled scores: it needs scale > 0
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -422,36 +532,74 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
-  return hop::launch(flash_fwd_bf16_kernel<DP>, grid, kThreads,
-                     Layout<DP>::kSmem, stream, tq, tk, tv,
-                     static_cast<bf16*>(o), lse, H, Hkv, Sq, Sk, D,
-                     scale * kLog2e, causal);
+  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  return hop::launch(flash_fwd_bf16_kernel<DP, SEG>, grid, kThreads, smem,
+                     stream, tq, tk, tv, static_cast<bf16*>(o), lse, H, Hkv,
+                     Sq, Sk, D, scale * kLog2e, causal, seg_q, seg_k);
 }
 
 }  // namespace fwd
+
+template <bool SEG>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                   float scale, int causal, void* stream,
+                   const int* seg_q = nullptr, const int* seg_k = nullptr) {
+  const dim3 grid((Sq + Tile<float>::BQ - 1) / Tile<float>::BQ, H, B);
+  return launch(flash_fwd_f32_kernel<SEG>, grid, fwd_smem_bytes(D, SEG),
+                stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<float*>(o), lse, H, Hkv, Sq, Sk, D, scale, causal,
+                seg_q, seg_k);
+}
+
 }  // namespace dlr
 
 extern "C" int dlr_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, void* o, float* lse, int B,
                                   int H, int Hkv, int Sq, int Sk, int D,
                                   float scale, int causal, void* stream) {
-  return D <= 64 ? dlr::fwd::launch_bf16<64>(q, k, v, o, lse, B, H, Hkv, Sq,
-                                             Sk, D, scale, causal, stream)
-                 : dlr::fwd::launch_bf16<128>(q, k, v, o, lse, B, H, Hkv, Sq,
-                                              Sk, D, scale, causal, stream);
+  return D <= 64
+             ? dlr::fwd::launch_bf16<64, false>(q, k, v, o, lse, B, H, Hkv,
+                                                Sq, Sk, D, scale, causal,
+                                                stream)
+             : dlr::fwd::launch_bf16<128, false>(q, k, v, o, lse, B, H, Hkv,
+                                                 Sq, Sk, D, scale, causal,
+                                                 stream);
 }
 
 extern "C" int dlr_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, float* lse, int B, int H, int Hkv,
                                  int Sq, int Sk, int D, float scale,
                                  int causal, void* stream) {
-  const dim3 grid((Sq + dlr::Tile<float>::BQ - 1) / dlr::Tile<float>::BQ, H,
-                  B);
-  return dlr::launch(dlr::flash_fwd_f32_kernel, grid, dlr::fwd_smem_bytes(D),
-                     stream, static_cast<const float*>(q),
-                     static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<float*>(o),
-                     lse, H, Hkv, Sq, Sk, D, scale, causal);
+  return dlr::launch_fwd_f32<false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
+                                    scale, causal, stream);
+}
+
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+extern "C" int dlr_flash_fwd_seg_bf16(const void* q, const void* k,
+                                      const void* v, void* o, float* lse,
+                                      const int* seg_q, const int* seg_k,
+                                      int B, int H, int Hkv, int Sq, int Sk,
+                                      int D, float scale, int causal,
+                                      void* stream) {
+  return D <= 64
+             ? dlr::fwd::launch_bf16<64, true>(q, k, v, o, lse, B, H, Hkv,
+                                               Sq, Sk, D, scale, causal,
+                                               stream, seg_q, seg_k)
+             : dlr::fwd::launch_bf16<128, true>(q, k, v, o, lse, B, H, Hkv,
+                                                Sq, Sk, D, scale, causal,
+                                                stream, seg_q, seg_k);
+}
+
+extern "C" int dlr_flash_fwd_seg_f32(const void* q, const void* k,
+                                     const void* v, void* o, float* lse,
+                                     const int* seg_q, const int* seg_k,
+                                     int B, int H, int Hkv, int Sq, int Sk,
+                                     int D, float scale, int causal,
+                                     void* stream) {
+  return dlr::launch_fwd_f32<true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
+                                   scale, causal, stream, seg_q, seg_k);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_fwd_error)

@@ -414,6 +414,73 @@ __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
+// -- segment ids (packed documents) -------------------------------------------
+
+// The flash kernels' segment-id mode stages ids in shared memory: one
+// warp of the producer warpgroup reads 32 PER of them (seg_load, lane l
+// src[first + PER l + e], clamped to src[last]; issued before the wait
+// for the ring stage, so the load's latency hides under it) and writes
+// them (seg_publish) with, for each half, whether it holds one value and
+// which (flags[2 h], flags[2 h + 1]). A consumer then tells a tile whose
+// ids are all one value from the rest with a few reads (seg_mode), and
+// masks element by element only where ids change inside its tile.
+template <int PER>
+__device__ __forceinline__ void seg_load(int (&v)[PER], const int* src,
+                                         int first, int last, int lane) {
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    v[e] = __ldg(src + min(first + PER * lane + e, last));
+  }
+}
+template <int PER>
+__device__ __forceinline__ void seg_publish(int* ids, int* flags, int lane,
+                                            const int (&v)[PER]) {
+  bool same = true;
+  const int head = __shfl_sync(0xffffffffu, v[0], lane & 16);
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    ids[PER * lane + e] = v[e];
+    same = same && v[e] == head;
+  }
+  const uint32_t votes = __ballot_sync(0xffffffffu, same);
+  if ((lane & 15) == 0) {
+    const int h = lane / 16;
+    flags[2 * h] = ((votes >> (16 * h)) & 0xffffu) == 0xffffu;
+    flags[2 * h + 1] = head;
+  }
+}
+// True when every id of halves [h0, h0 + n) published by seg_publish
+// equals one value, written to `id`.
+__device__ __forceinline__ bool seg_uniform(const int* flags, int h0, int n,
+                                            int& id) {
+  id = flags[2 * h0 + 1];
+  bool uniform = true;
+#pragma unroll
+  for (int h = h0; h < h0 + n; ++h) {
+    uniform = uniform && flags[2 * h] && flags[2 * h + 1] == id;
+  }
+  return uniform;
+}
+// How a (q rows, keys) tile is masked by segment: kSegNone when every
+// row and key share one id (only the causal and ragged masks apply),
+// kSegAll when the rows share one id and the keys another (every score
+// masked), kSegById otherwise (element by element).
+enum SegMode { kSegNone = 0, kSegAll = 1, kSegById = 2 };
+__device__ __forceinline__ int seg_mode(const int* q_flags, int q_h0,
+                                        int q_n, const int* k_flags,
+                                        int k_h0, int k_n) {
+  int qid, kid;
+  const bool q_uniform = seg_uniform(q_flags, q_h0, q_n, qid);
+  const bool k_uniform = seg_uniform(k_flags, k_h0, k_n, kid);
+  const int mode = !(q_uniform && k_uniform) ? kSegById
+                   : qid == kid                 ? kSegNone
+                                                : kSegAll;
+  // one value in the warp (every thread read the same flags); the votes
+  // let the compiler know, so the masks branch as warp-uniform code
+  if (__all_sync(0xffffffffu, mode == kSegNone)) return kSegNone;
+  return __all_sync(0xffffffffu, mode == kSegAll) ? kSegAll : kSegById;
+}
+
 // -- host ---------------------------------------------------------------------
 
 // Set the dynamic shared-memory limit and launch `threads` threads a

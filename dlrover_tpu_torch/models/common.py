@@ -28,6 +28,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] segment ids -> each token's position within its segment
+    (RoPE restarts per packed document); ``torch.cummax`` in place of
+    the reference's ``lax.cummax``."""
+    b, s = segment_ids.shape
+    idx = torch.arange(s, device=segment_ids.device).expand(b, s)
+    is_start = torch.ones((b, s), dtype=torch.bool,
+                          device=segment_ids.device)
+    is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return idx - starts
+
+
 def cast_floats(tree, dtype: torch.dtype):
     """Cast floating leaves of a nested dict to ``dtype`` (params stored
     f32, computed bf16); other leaves pass through."""

@@ -9,7 +9,10 @@ leaves. An ``nn.Module`` would re-key and split the stacked weights and
 buy nothing the trainer uses. ``apply`` runs the layers as a
 plain loop, each under the configured remat policy, with attention
 through the Hopper flash kernels (``use_flash``) or the reference
-attention. With ``num_experts`` > 0 the FFN is a mixture of experts
+attention. Packed documents (``segment_ids``) restart RoPE positions
+per document and attend within their document, through the flash
+kernels' segment-id mode or the reference attention with a bias. With
+``num_experts`` > 0 the FFN is a mixture of experts
 (``ops.moe``); ``moe_dispatch="grouped"`` runs it dropless through the
 grouped-matmul kernels, and ``"grouped_ep"`` shards the experts over the
 ranks of the expert group: each rank's parameter tree then holds its
@@ -20,9 +23,9 @@ f32 angles on rotated halves, GQA, SwiGLU, untied head; params stored in
 ``param_dtype`` and cast to ``compute_dtype`` per layer; logits computed
 in the compute dtype and cast to f32.
 
-Not in this slice (they raise): sequence parallelism (A13), packed
-``segment_ids`` (A10), the low-precision FSDP wire (A14), pipelining
-(A15) and the serving functions (A16).
+Not in this slice (they raise): sequence parallelism (A13), the
+low-precision FSDP wire (A14), pipelining (A15) and the serving
+functions (A16).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from dlrover_tpu_torch.models.common import (
     dense_init,
     param_count as common_param_count,
     rms_norm,
+    segment_positions,
 )
 from dlrover_tpu_torch.models.losses import (
     chunked_lm_head_loss,
@@ -49,7 +53,10 @@ from dlrover_tpu_torch.models.losses import (
 )
 from dlrover_tpu_torch.ops import moe as moe_ops
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
-from dlrover_tpu_torch.ops.flash_attention import flash_attention_auto
+from dlrover_tpu_torch.ops.flash_attention import (
+    flash_attention_auto,
+    segmented_attention,
+)
 from dlrover_tpu_torch.ops.remat import apply_remat
 
 
@@ -131,15 +138,12 @@ def _moe_config(c: LlamaConfig) -> moe_ops.MoEConfig:
     )
 
 
-def _check_supported(c: LlamaConfig, segment_ids=None) -> None:
+def _check_supported(c: LlamaConfig) -> None:
     if c.num_experts > 0:
         moe_ops.check_dispatch(_moe_config(c))
     if c.seq_axis:
         raise NotImplementedError("sequence parallelism (ring attention) "
                                   "is not ported yet (ROADMAP A13)")
-    if segment_ids is not None:
-        raise NotImplementedError("packed documents (segment_ids) are not "
-                                  "ported yet (ROADMAP A10)")
     if c.fsdp_precision not in ("", "bf16"):
         raise NotImplementedError("the low-precision FSDP wire is not "
                                   "ported yet (ROADMAP A14)")
@@ -282,7 +286,8 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return rotated.to(x.dtype)
 
 
-def _attention_block(x, layer, config: LlamaConfig, positions):
+def _attention_block(x, layer, config: LlamaConfig, positions,
+                     segment_ids=None):
     c = config
     b, s, _ = x.shape
     h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
@@ -294,7 +299,14 @@ def _attention_block(x, layer, config: LlamaConfig, positions):
     # [B, H, S, Dh]; kv heads are not repeated, the kernels read the
     # shared head of each query group
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    if c.use_flash:
+    if segment_ids is not None:
+        # packed documents: the per-document mask inside the kernels
+        out = segmented_attention(
+            q, k, v, segment_ids, c.use_flash, block_q=c.flash_block_q,
+            block_k=c.flash_block_k, block_q_bwd=c.flash_block_q_bwd,
+            block_k_bwd=c.flash_block_k_bwd,
+        )
+    elif c.use_flash:
         out = flash_attention_auto(
             q, k, v, True, block_q=c.flash_block_q, block_k=c.flash_block_k,
             block_q_bwd=c.flash_block_q_bwd,
@@ -319,13 +331,14 @@ def _ffn_block(x, layer, config: LlamaConfig, rng=None):
     return (gate * up) @ layer["down_proj"]["kernel"], None, None, None
 
 
-def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None):
+def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None,
+                   segment_ids=None):
     """One layer: params may be stored f32; compute in the configured
     dtype. Returns (x, aux_loss, dropped_frac, expert_load)."""
     c = config
     layer = cast_floats(layer, c.compute_dtype)
     attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
-    x = x + _attention_block(attn_in, layer, c, positions)
+    x = x + _attention_block(attn_in, layer, c, positions, segment_ids)
     ffn_in = rms_norm(x, layer["post_norm"]["scale"], c.rms_eps)
     out, *moe_stats = _ffn_block(ffn_in, layer, c, rng)
     return (x + out, *moe_stats)
@@ -346,18 +359,21 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     but the head. With ``with_moe_metrics`` a third element is returned:
     the layer-averaged {"moe_dropped_frac", "moe_expert_load" [E]}.
     ``rng`` (a ``torch.Generator``) reaches the router, which draws from
-    it only under router jitter; the model sets none."""
+    it only under router jitter; the model sets none.
+    ``segment_ids`` [B, S]: packed documents, with per-document attention
+    and RoPE positions restarting at each document."""
     c = config
-    _check_supported(c, segment_ids)
+    _check_supported(c)
     x = params["embed_tokens"]["embedding"][input_ids].to(c.compute_dtype)
     b, s = input_ids.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = (segment_positions(segment_ids) if segment_ids is not None
+                 else torch.arange(s, device=x.device).expand(b, s))
     # one unbind per stacked leaf: its backward stacks the per-layer
     # gradients once, instead of one full-size scatter per layer
     per_layer = _tree_map(lambda t: t.unbind(0), params["layers"])
     block = apply_remat(
         functools.partial(_decoder_block, config=c, positions=positions,
-                          rng=rng),
+                          rng=rng, segment_ids=segment_ids),
         c.remat_policy,
     )
     stats = []

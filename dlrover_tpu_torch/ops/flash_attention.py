@@ -1,8 +1,9 @@
 """Flash attention for Hopper: three hand-written CUDA kernels behind a
 ``torch.autograd.Function``.
 
-Port of ``dlrover_tpu/ops/flash_attention.py`` (causal and non-causal
-GQA modes). The kernels, in ``dlrover_tpu_torch/csrc``:
+Port of ``dlrover_tpu/ops/flash_attention.py``: the causal and
+non-causal GQA modes, and the segment-id mode of packed documents. The
+kernels, in ``dlrover_tpu_torch/csrc``:
 
   flash_fwd      (B1) O and the per-row f32 logsumexp
   flash_bwd_dkv  (B2) dK, dV summed over the GQA group, k tiles outer
@@ -17,6 +18,19 @@ that the wrapper uses for a tensor on the CPU, and a launch counter,
 cotangent folds into the backward's ``delta = rowsum(dO * O) - dlse``,
 computed here in plain torch as the reference computes it outside its
 kernels.
+
+Segment-id mode (``seg_q [B, Sq]``, ``seg_k [B, Sk]`` int32, given to
+each wrapper as keywords): a score is kept only where the query's id
+equals the key's, on top of the causal mask. Each kernel has a separate
+instantiation for it (C entry points ``dlr_<name>_seg_<dtype>``, its own
+launch counter ``<wrapper>.seg_launches``), so the unsegmented kernels
+are unchanged. A row that sees no key at all (possible in the pair form,
+``flash_attention_segmented_pair_lse``, whose kv-side ids may lack some
+q-side ids) gets ``out = 0`` and ``lse = NEG_INF`` (``finfo(float32).min``,
+not ``-inf``), as the reference's finalize writes it; the backward
+clamps such an lse to 0 before ``exp(s - lse)``, so its masked entries
+stay exactly 0. The kernels mask every tile element by element in this
+mode and skip tiles by the causal diagonal only, as the reference does.
 
 Layout follows the reference: q ``[B, H, S, D]``, k/v ``[B, H_kv, S, D]``,
 query head ``h`` reading KV head ``h // (H // H_kv)``.
@@ -41,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dlrover_tpu_torch.ops import kernel_build
+from dlrover_tpu_torch.ops.attention_ref import mha_reference
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -58,14 +73,31 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "source": "dlrover_tpu_torch/csrc/flash_bwd_dq.cu",
         "replaces": "dlrover_tpu/ops/flash_attention.py:638",
     },
+    # the segment-id mode: the same sources, separate instantiations
+    "flash_fwd_seg": {
+        "source": "dlrover_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:127",
+    },
+    "flash_bwd_dkv_seg": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dkv.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:610",
+    },
+    "flash_bwd_dq_seg": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dq.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:678",
+    },
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream
+# C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream;
+# the segmented entry points take seg_q and seg_k after the other pointers
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "flash_fwd_seg": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "flash_bwd_dkv_seg": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+    "flash_bwd_dq_seg": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -82,23 +114,36 @@ def _group_size(q: torch.Tensor, k: torch.Tensor) -> int:
 # -- plain versions (the CPU path, and what the kernels are held to) --------
 
 
-def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+def _scores(q, k, causal: bool, scale: float, seg_q=None,
+            seg_k=None) -> torch.Tensor:
     """f32 scaled logits [B, H, Sq, Sk], masked with NEG_INF above the
-    diagonal when causal; GQA by repeating KV heads."""
+    diagonal when causal and, given segment ids, where the query's id
+    differs from the key's; GQA by repeating KV heads."""
     k = k.repeat_interleave(_group_size(q, k), dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.ones(s.shape[-2:], dtype=torch.bool,
                           device=q.device).tril()
         s = s.masked_fill(~mask, NEG_INF)
+    if seg_q is not None:
+        same = seg_q[:, None, :, None] == seg_k[:, None, None, :]
+        s = s.masked_fill(~same, NEG_INF)
     return s
 
 
-def flash_fwd_plain(q, k, v, causal: bool, scale: float):
-    """The forward kernel's function as one tile: (out, lse)."""
-    s = _scores(q, k, causal, scale)
+def _no_key_to_zero(t: torch.Tensor) -> torch.Tensor:
+    """A row max or lse of a row that sees no key (NEG_INF) replaced by
+    0, so that exp(NEG_INF - it) is exactly 0 (the reference's clamp)."""
+    return torch.where(t <= NEG_INF * 0.5, torch.zeros_like(t), t)
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale: float, seg_q=None,
+                    seg_k=None):
+    """The forward kernel's function as one tile: (out, lse). A row
+    that sees no key gets out 0 and lse NEG_INF."""
+    s = _scores(q, k, causal, scale, seg_q, seg_k)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.exp(s - _no_key_to_zero(m))
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     v_rep = v.repeat_interleave(_group_size(q, k), dim=1)
@@ -109,20 +154,23 @@ def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
-def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale):
+def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q=None,
+                  seg_k=None):
     """Recomputed probabilities p = exp(s - lse) and
     dS = p * (dO V^T - delta) * scale, both f32 [B, H, Sq, Sk]."""
-    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    s = _scores(q, k, causal, scale, seg_q, seg_k)
+    p = torch.exp(s - _no_key_to_zero(lse)[..., None])
     v_rep = v.repeat_interleave(_group_size(q, k), dim=1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v_rep.float())
     return p, p * (dp - delta[..., None]) * scale
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
-                        scale: float):
+                        scale: float, seg_q=None, seg_k=None):
     """The dKV kernel's function: (dk, dv), summed over each KV head's
     group of query heads."""
-    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                          seg_k)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
                       dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
@@ -135,9 +183,10 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
-                       scale: float):
+                       scale: float, seg_q=None, seg_k=None):
     """The dQ kernel's function: dq."""
-    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                          seg_k)
     k_rep = k.repeat_interleave(_group_size(q, k), dim=1)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
                       k_rep.float())
@@ -148,7 +197,7 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
 
 
 def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
-                  rows=()) -> None:
+                  rows=(), seg_q=None, seg_k=None) -> None:
     """Shapes the kernels index raw pointers by (and the plain versions
     broadcast over): checked on every path."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -171,11 +220,21 @@ def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
         if t.shape != (b, h, s_q) or t.dtype != torch.float32:
             raise ValueError(f"{name}: lse/delta must be float32 "
                              f"[{b}, {h}, {s_q}]")
+    if (seg_q is None) != (seg_k is None):
+        raise ValueError(f"{name}: give both seg_q and seg_k, or neither")
+    if seg_q is not None:
+        for ids, length, side in ((seg_q, s_q, "seg_q"),
+                                  (seg_k, k.shape[2], "seg_k")):
+            if ids.shape != (b, length) or ids.dtype != torch.int32:
+                raise ValueError(f"{name}: {side} must be int32 "
+                                 f"[{b}, {length}]; got {ids.dtype} "
+                                 f"{tuple(ids.shape)}")
 
 
-def _kernel_suffix(name: str, q, k, v, dout=None, rows=()) -> str:
-    """What the kernel itself takes; returns the dtype suffix of its C
-    entry point."""
+def _kernel_suffix(name: str, q, k, v, dout=None, rows=(),
+                   seg=()) -> str:
+    """What the kernel itself takes; returns the suffix of its C entry
+    point: the dtype's, after ``seg_`` when segment ids are given."""
     d = q.shape[-1]
     if q.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
@@ -187,11 +246,11 @@ def _kernel_suffix(name: str, q, k, v, dout=None, rows=()) -> str:
     for t in inputs:
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
-    for t in (*inputs, *rows):
+    for t in (*inputs, *rows, *seg):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be contiguous and "
                              f"16-byte aligned")
-    return _SUFFIX[q.dtype]
+    return ("seg_" if seg else "") + _SUFFIX[q.dtype]
 
 
 def _shape_args(q, k, causal, scale):
@@ -200,57 +259,80 @@ def _shape_args(q, k, causal, scale):
             int(causal))
 
 
-def flash_fwd(q, k, v, causal: bool, scale: float):
-    """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32)."""
-    _check_shapes("flash_fwd", q, k, v, causal)
-    if kernel_build.on_cpu("flash attention", q, k, v):
-        return flash_fwd_plain(q, k, v, causal, scale)
-    suffix = _kernel_suffix("flash_fwd", q, k, v)
+def _count(fn, seg_q) -> None:
+    if seg_q is None:
+        fn.launches += 1
+    else:
+        fn.seg_launches += 1
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float, *, seg_q=None,
+              seg_k=None):
+    """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32); in segment-id
+    mode with ``seg_q`` [B,Sq] and ``seg_k`` [B,Sk] int32."""
+    _check_shapes("flash_fwd", q, k, v, causal, seg_q=seg_q, seg_k=seg_k)
+    seg = () if seg_q is None else (seg_q, seg_k)
+    if kernel_build.on_cpu("flash attention", q, k, v, *seg):
+        return flash_fwd_plain(q, k, v, causal, scale, seg_q, seg_k)
+    suffix = _kernel_suffix("flash_fwd", q, k, v, seg=seg)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     kernel_build.launch(
-        "flash_fwd", suffix, _ARGTYPES["flash_fwd"], q.device, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        "flash_fwd", suffix,
+        _ARGTYPES["flash_fwd_seg" if seg else "flash_fwd"], q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *(t.data_ptr() for t in seg),
         *_shape_args(q, k, causal, scale))
-    flash_fwd.launches += 1
+    _count(flash_fwd, seg_q)
     return out, lse
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                  *, seg_q=None, seg_k=None):
     """B2: (dk, dv) in k's and v's shape and dtype."""
-    _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta))
-    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta):
-        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale)
-    suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta))
+    _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta),
+                  seg_q, seg_k)
+    seg = () if seg_q is None else (seg_q, seg_k)
+    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
+                           *seg):
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale,
+                                   seg_q, seg_k)
+    suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta),
+                            seg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernel_build.launch(
-        "flash_bwd_dkv", suffix, _ARGTYPES["flash_bwd_dkv"], q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        "flash_bwd_dkv", suffix,
+        _ARGTYPES["flash_bwd_dkv_seg" if seg else "flash_bwd_dkv"],
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, k, causal, scale))
-    flash_bwd_dkv.launches += 1
+        *(t.data_ptr() for t in seg), *_shape_args(q, k, causal, scale))
+    _count(flash_bwd_dkv, seg_q)
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                 *, seg_q=None, seg_k=None):
     """B3: dq in q's shape and dtype."""
-    _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta))
-    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta):
-        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale)
-    suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta))
+    _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta),
+                  seg_q, seg_k)
+    seg = () if seg_q is None else (seg_q, seg_k)
+    if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
+                           *seg):
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale,
+                                  seg_q, seg_k)
+    suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta),
+                            seg)
     dq = torch.empty_like(q)
     kernel_build.launch(
-        "flash_bwd_dq", suffix, _ARGTYPES["flash_bwd_dq"], q.device,
+        "flash_bwd_dq", suffix,
+        _ARGTYPES["flash_bwd_dq_seg" if seg else "flash_bwd_dq"], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_shape_args(q, k, causal, scale))
-    flash_bwd_dq.launches += 1
+        *(t.data_ptr() for t in seg), *_shape_args(q, k, causal, scale))
+    _count(flash_bwd_dq, seg_q)
     return dq
 
 
-flash_fwd.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
 WRAPPERS = {"flash_fwd": flash_fwd, "flash_bwd_dkv": flash_bwd_dkv,
             "flash_bwd_dq": flash_bwd_dq}
 PLAIN = {"flash_fwd": flash_fwd_plain, "flash_bwd_dkv": flash_bwd_dkv_plain,
@@ -258,36 +340,52 @@ PLAIN = {"flash_fwd": flash_fwd_plain, "flash_bwd_dkv": flash_bwd_dkv_plain,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Launches of each kernel since the last reset: the unsegmented
+    ones under the wrapper's name, the segment-id ones under
+    ``<name>_seg``."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts.update({f"{name}_seg": fn.seg_launches
+                   for name, fn in WRAPPERS.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = fn.seg_launches = 0
+
+
+reset_launch_counts()
 
 
 # -- autograd ----------------------------------------------------------------
 
 
 class _FlashAttention(torch.autograd.Function):
+    """(out, lse) of the three kernels; with ``seg_q``/``seg_k`` (int32,
+    no gradient) in their segment-id mode."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal: bool, scale: float, seg_q=None,
+                seg_k=None):
+        seg = {} if seg_q is None else {"seg_q": seg_q, "seg_k": seg_k}
+        out, lse = flash_fwd(q, k, v, causal, scale, **seg)
+        ctx.save_for_backward(q, k, v, out, lse, *seg.values())
         ctx.causal, ctx.scale = causal, scale
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, *ids = ctx.saved_tensors
+        seg = dict(zip(("seg_q", "seg_k"), ids))
         dout = dout.contiguous()
         # the lse cotangent enters as ds = p * (dp - (delta - dlse))
         delta = ((dout.float() * out.float()).sum(dim=-1)
                  - dlse.float()).contiguous()
         dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.scale)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+                               ctx.scale, **seg)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale,
+                          **seg)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_lse(
@@ -326,3 +424,77 @@ def flash_attention_auto(q, k, v, causal: bool = True,
     ``shard_map`` wrapper under a multi-device mesh; this slice runs on
     one device, so it is a local call."""
     return flash_attention(q, k, v, causal, scale, **blocks)
+
+
+# -- packed documents (segment ids) -------------------------------------------
+
+
+def _ids(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Segment ids as the kernels take them: int32, contiguous (cast
+    once here, not per kernel)."""
+    return segment_ids.to(torch.int32).contiguous()
+
+
+def flash_attention_segmented_pair_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg_q: torch.Tensor,  # [B, S_q]
+    seg_k: torch.Tensor,  # [B, S_k]: independent kv-side ids
+    causal: bool = False,
+    scale: Optional[float] = None,
+    **blocks,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segmented attention whose q-side and kv-side ids are independent
+    arrays (the ring-attention step's shape: local queries against a
+    visiting KV shard). Returns ``(out, lse)``, differentiable in both;
+    a row whose id no key carries reads ``out = 0``, ``lse = NEG_INF``."""
+    del blocks  # parity with the reference; the kernels' tiles are fixed
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal), float(scale),
+                                 _ids(seg_q), _ids(seg_k))
+
+
+def flash_attention_segmented(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,  # [B, H_kv, S, D]
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,  # [B, S]: tokens attend within a segment
+    causal: bool = True,
+    scale: Optional[float] = None,
+    **blocks,
+) -> torch.Tensor:
+    """Flash attention over packed documents: several documents share a
+    row, separated by ``segment_ids``, and a token attends only to keys
+    of its own segment (and, when causal, not after it). The ids get no
+    gradient."""
+    ids = _ids(segment_ids)
+    return flash_attention_segmented_pair_lse(q, k, v, ids, ids, causal,
+                                              scale, **blocks)[0]
+
+
+def flash_attention_segmented_auto(q, k, v, segment_ids, causal: bool = True,
+                                   scale: Optional[float] = None,
+                                   **blocks) -> torch.Tensor:
+    """The model's segmented flash call site: a local call on one
+    device, as ``flash_attention_auto`` is."""
+    return flash_attention_segmented(q, k, v, segment_ids, causal, scale,
+                                     **blocks)
+
+
+def segmented_attention(q, k, v, segment_ids, use_flash: bool,
+                        block_q: int = 512, block_k: int = 1024,
+                        block_q_bwd: int = 0,
+                        block_k_bwd: int = 0) -> torch.Tensor:
+    """The one segmented-attention dispatch of the model families: the
+    flash kernels in their segment-id mode, or the reference attention
+    with an additive NEG_INF bias between segments."""
+    if use_flash:
+        return flash_attention_segmented_auto(
+            q, k, v, segment_ids, causal=True, block_q=block_q,
+            block_k=block_k, block_q_bwd=block_q_bwd,
+            block_k_bwd=block_k_bwd)
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    bias = torch.where(same, 0.0, NEG_INF)
+    return mha_reference(q, k, v, causal=True, bias=bias)

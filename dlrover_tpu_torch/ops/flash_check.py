@@ -19,6 +19,10 @@ reference: ``<got - ref, ref> / <ref, ref>``, within ``BIAS_LIMIT``.
 Rounding to nearest leaves that projection near zero whatever the
 tensor's size; ``bias_controls`` are the truncated outputs it must
 reject.
+
+In segment-id mode ``segment_faults`` are what the row rule must
+reject: a kernel whose segment mask is shifted by one key, and one that
+ignores the ids.
 """
 
 from __future__ import annotations
@@ -186,4 +190,29 @@ def planted_faults(q, k, v, dout, lse, delta, scale: float,
                ("dq", "causal mask one key too wide",
                 _bwd_zeroing(q, k, v, dout, lse, delta, False, scale,
                              cols > rows + 1)[2])]
+    return faults
+
+
+def segment_faults(q, k, v, dout, lse, delta, scale: float, seg_q, seg_k
+                   ) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) for causal segmented inputs
+    (``lse``, ``delta`` the right ones): every output of kernels whose
+    segment mask is shifted by one key (each key read with the id of the
+    key before it, so each document's first key goes to the document
+    before) and of kernels that ignore the ids (plain causal). Each must
+    fail ``rows_close`` against the right answer."""
+    shifted = seg_k.clone()
+    shifted[:, 1:] = seg_k[:, :-1]
+    faults = []
+    for fault, ids in (("segment mask shifted by one key",
+                        (seg_q, shifted)),
+                       ("segment ids ignored (plain causal)", (None, None))):
+        out, _ = fa.flash_fwd_plain(q, k, v, True, scale, *ids)
+        faults.append(("out", fault, out))
+        del out
+        bwd = (q, k, v, dout, lse, delta, True, scale, *ids)
+        dk, dv = fa.flash_bwd_dkv_plain(*bwd)
+        faults += [("dk", fault, dk), ("dv", fault, dv)]
+        del dk, dv
+        faults.append(("dq", fault, fa.flash_bwd_dq_plain(*bwd)))
     return faults

@@ -274,7 +274,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
     ]
     torch.cuda.synchronize()
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1,
-                                  "flash_bwd_dq": 1}
+                                  "flash_bwd_dq": 1, "flash_fwd_seg": 0,
+                                  "flash_bwd_dkv_seg": 0,
+                                  "flash_bwd_dq_seg": 0}
     for got, ref in pairs:
         for g, r in zip(got, ref):
             if g.dtype == torch.bfloat16:
@@ -282,6 +284,119 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
                     flash_check.row_errors(g, r)
                 assert flash_check.bias_close(g, r), flash_check.bias(g, r)
             else:
+                assert (g.float() - r.float()).abs().max().item() <= tol
+
+
+def _doc_ids(b, s, doc, pad=0, device="cpu"):
+    """[b, s] int32 segment ids: documents of ``doc`` tokens (row r's
+    ids start at 10 r), the last ``pad`` tokens -1 (after higher ids)."""
+    ids = torch.arange(s, device=device)[None] // doc + 10 * torch.arange(
+        b, device=device)[:, None]
+    if pad:
+        ids[:, s - pad:] = -1
+    return ids.int().contiguous()
+
+
+def test_segment_faults_fail_the_row_rule():
+    """On the CPU, bf16 and causal, documents of 70 tokens and a pad
+    tail: the reference attention with the segment bias passes the row
+    rule against the plain segmented forward; a segment mask shifted by
+    one key, or ids ignored, fail it in every output."""
+    q, k, v, do, scale = _bf16_case(seed=3)
+    seg = _doc_ids(1, q.shape[2], 70, pad=30)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, scale, seg, seg)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale, seg, seg)
+    dk, dv = fa.flash_bwd_dkv_plain(*args)
+    right = {"out": out, "dk": dk, "dv": dv,
+             "dq": fa.flash_bwd_dq_plain(*args)}
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    sound = mha_reference(q, k, v, causal=True, scale=scale,
+                          bias=torch.where(same, 0.0, fa.NEG_INF))
+    assert flash_check.rows_close(sound, out), flash_check.row_errors(
+        sound, out)
+    faults = flash_check.segment_faults(q, k, v, do, lse, delta, scale, seg,
+                                        seg)
+    assert len(faults) == 8
+    for name, fault, got in faults:
+        assert got.shape == right[name].shape, fault
+        assert not flash_check.rows_close(got, right[name]), (
+            name, fault, flash_check.row_errors(got, right[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,doc,pad,sk", [
+    # documents on tile edges (512) and inside tiles (700), a pad tail
+    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 512, 0, None),
+    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 700, 100, None),
+    (torch.bfloat16, 2, 4, 2, 1000, 64, True, 130, 77, None),
+    (torch.bfloat16, 1, 4, 1, 1000, 128, False, 300, 0, None),
+    (torch.bfloat16, 2, 4, 4, 300, 48, True, 37, 20, None),
+    (torch.float32, 2, 4, 2, 300, 64, True, 70, 25, None),
+    (torch.float32, 1, 4, 2, 300, 64, False, 90, 0, None),
+    # the pair form: kv-side ids lacking some q-side ids
+    (torch.bfloat16, 1, 4, 2, 300, 128, False, 60, 0, 1000),
+    (torch.float32, 1, 4, 2, 300, 64, False, 60, 0, 1000),
+], ids=["bf16_docs_512", "bf16_docs_700_pad", "bf16_batch2_d64_pad",
+        "bf16_non_causal", "bf16_group1_d48", "f32_ragged_causal",
+        "f32_non_causal", "bf16_pair_rows_without_keys",
+        "f32_pair_rows_without_keys"])
+def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
+                                               hkv, s, d, causal, doc, pad,
+                                               sk):
+    """Each kernel in segment-id mode against its plain version on the
+    same card inputs, held as ``test_kernels_match_plain_on_card`` holds
+    the unsegmented ones (bf16 by the row and the bias rule, f32 to 1e-4,
+    lse to 1e-3). ``sk``: the key length of a pair case, whose kv-side
+    ids are the q side's documents of ``doc`` tokens with every other id
+    dropped, so that some rows see no key: those read out 0 and lse
+    NEG_INF."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    pair = sk is not None
+    sk = s if sk is None else sk
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
+        rnd(b, h, s, d)
+    seg_q = _doc_ids(b, s, doc, pad, cuda_device)
+    seg_k = seg_q if not pair else _doc_ids(b, sk, doc, 0, cuda_device)
+    if pair:  # drop the odd ids from the kv side
+        seg_k = torch.where(seg_k % 2 == 1, seg_k + 1000, seg_k).int()
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    seg = {"seg_q": seg_q, "seg_k": seg_k}
+    out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale, seg_q,
+                                          seg_k)
+    delta = (do.float() * out_ref.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    pairs = [
+        (fa.flash_fwd(q, k, v, causal, scale, **seg), (out_ref, lse_ref)),
+        (fa.flash_bwd_dkv(*args, **seg),
+         fa.flash_bwd_dkv_plain(*args, seg_q, seg_k)),
+        ((fa.flash_bwd_dq(*args, **seg),),
+         (fa.flash_bwd_dq_plain(*args, seg_q, seg_k),)),
+    ]
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                                  "flash_bwd_dq": 0, "flash_fwd_seg": 1,
+                                  "flash_bwd_dkv_seg": 1,
+                                  "flash_bwd_dq_seg": 1}
+    if pair:
+        no_key = lse_ref == fa.NEG_INF
+        assert no_key.any() and not no_key.all()
+        out, lse = pairs[0][0]
+        assert bool((lse[no_key] == fa.NEG_INF).all())
+        assert bool((out[no_key] == 0).all())
+    for got, ref in pairs:
+        for g, r in zip(got, ref):
+            if g.dtype == torch.bfloat16:
+                assert flash_check.rows_close(g, r), \
+                    flash_check.row_errors(g, r)
+                assert flash_check.bias_close(g, r), flash_check.bias(g, r)
+            else:
+                tol = 1e-3 if g.dim() == 3 else 1e-4
                 assert (g.float() - r.float()).abs().max().item() <= tol
 
 

@@ -273,11 +273,96 @@ class TestLaterSlicesRaise:
         with pytest.raises(NotImplementedError, match=item):
             llama.apply({}, torch.zeros((1, 4), dtype=torch.long), cfg)
 
-    def test_segment_ids_and_serving(self):
+    def test_serving_raises(self):
         cfg = llama.llama_tiny()
         params = llama.init(torch.Generator().manual_seed(0), cfg)
-        ids = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="A10"):
-            llama.apply(params, ids, cfg, segment_ids=ids)
         with pytest.raises(NotImplementedError, match="A16"):
             llama.decode_step(params)
+
+
+def _packed(b=2, s=32, vocab=256, seed=0):
+    """Token ids, segment ids and labels of packed rows: documents
+    separated by ids (a -1 pad tail on the second row), labels -100
+    across each boundary and on pads, as the reference's packer writes
+    them."""
+    ids, labels = _batch(b, s, vocab, seed)
+    seg = np.array([[0] * 10 + [1] * 14 + [2] * 8,
+                    [5] * 20 + [6] * 7 + [-1] * 5], np.int32)[:b, :s]
+    labels = labels.copy()
+    labels[:, :-1][seg[:, :-1] != seg[:, 1:]] = -100
+    labels[seg == -1] = -100
+    return ids, seg, labels
+
+
+class TestPackedLlamaAgainstJax:
+    """``segment_ids`` through ``apply``: per-document RoPE positions and
+    attention within each document, against the JAX package's."""
+
+    def _jax(self, jcfg, tree, ids, seg, labels):
+        jparams = jax.tree.map(jnp.asarray, tree)
+        jbatch = {"input_ids": jnp.asarray(ids), "labels": jnp.asarray(labels),
+                  "segment_ids": jnp.asarray(seg)}
+        jlogits, _ = jax_llama.apply(jparams, jbatch["input_ids"], jcfg,
+                                     segment_ids=jbatch["segment_ids"])
+        (jloss, _), jgrads = jax.value_and_grad(
+            jax_llama.make_loss_fn(jcfg), has_aux=True)(
+                jparams, jbatch, jax.random.PRNGKey(0))
+        return jlogits, jloss, jgrads
+
+    def _port(self, cfg, tree, ids, seg, labels):
+        params = interop.params_from_numpy(tree, device="cpu")
+        for t in tree_leaves(params):
+            t.requires_grad_()
+        batch = {"input_ids": torch.from_numpy(ids),
+                 "labels": torch.from_numpy(labels),
+                 "segment_ids": torch.from_numpy(seg)}
+        logits, _ = llama.apply(params, batch["input_ids"], cfg,
+                                segment_ids=batch["segment_ids"])
+        loss, _ = llama.make_loss_fn(cfg)(params, batch, None)
+        loss.backward()
+        return logits, loss, params
+
+    def _compare(self, got, want):
+        """Logits and loss within 1e-5, gradients within 1e-4 (f32)."""
+        (logits, loss, params), (jlogits, jloss, jgrads) = got, want
+        np.testing.assert_allclose(logits.detach().numpy(),
+                                   np.asarray(jlogits), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+        flat_p = _flatten(params)
+        for key, jg in _flatten(jax.device_get(jgrads)).items():
+            np.testing.assert_allclose(
+                flat_p[key].grad.numpy(), jg, atol=1e-4, rtol=1e-4,
+                err_msg=key)
+
+    @pytest.mark.parametrize("jax_flash", [False, True],
+                             ids=["reference_attn", "jax_flash_interpret"])
+    def test_logits_loss_and_grads(self, jax_flash):
+        jcfg = jax_llama.llama_tiny(use_flash=jax_flash,
+                                    flash_interpret=True)
+        tree = _jax_params(jcfg)
+        data = _packed()
+        want = self._jax(jcfg, tree, *data)
+        self._compare(self._port(_port_cfg(jcfg), tree, *data), want)
+
+    @pytest.mark.parametrize("policy", ["none", "full"])
+    def test_remat_policy_keeps_the_ids(self, policy):
+        """The ids reach every layer through the remat wrapper's partial
+        under each policy (the JAX side under its default)."""
+        jcfg = jax_llama.llama_tiny(use_flash=True, flash_interpret=True)
+        tree = _jax_params(jcfg, seed=1)
+        data = _packed(seed=1)
+        want = self._jax(jcfg, tree, *data)
+        cfg = _port_cfg(jcfg, remat_policy=policy)
+        self._compare(self._port(cfg, tree, *data), want)
+
+    def test_positions_restart_per_document(self):
+        """A document's logits do not depend on what precedes it in the
+        row: the same tokens packed after another document, or alone."""
+        cfg = llama.llama_tiny(remat_policy="none")
+        params = llama.init(torch.Generator().manual_seed(0), cfg)
+        ids = torch.from_numpy(_batch(b=1, s=24)[0])
+        seg = torch.tensor([[0] * 10 + [1] * 14], dtype=torch.int32)
+        packed, _ = llama.apply(params, ids, cfg, segment_ids=seg)
+        alone, _ = llama.apply(params, ids[:, 10:], cfg)
+        torch.testing.assert_close(packed[:, 10:], alone, atol=1e-5,
+                                   rtol=1e-5)
