@@ -79,7 +79,25 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      packed greedily as the reference's text reader packs them) with
      the segmented launches pinned, then profiled; one batch's gradients
      against the reference path with the segment bias, and the loss of
-     each path against an exact attention's over 64 packed batches.
+     each path against an exact attention's over 64 packed batches;
+ 14. GLM prefix-LM (``glm_10b`` widths: 64 heads of 64, MHA): B1-B3 in
+     their prefix-LM mode against their plain versions at q, k, v
+     [4, 64, 2048, 64] bf16 on the training batch's prompts, row by row
+     and by the bias rule, with planted faults the row rule must reject
+     (the prefix ignored, one key too wide, the prompt's tiles above the
+     diagonal dropped) and truncation controls; edge prompts (127, 128,
+     129, 1000, 0, 1, the whole row, half of it); prompts 0 and 1 bit
+     for bit the causal kernels', the whole row the non-causal ones'; an
+     f32 ragged case; the kernels' times unprefixed at this shape and in
+     prefix-LM mode beside the bound over the visible pairs, SDPA with
+     the boolean prefix mask and flex_attention with a prefix block mask
+     (yardsticks the port never calls); ``glm_10b`` x6 layers trained
+     through ``accelerate`` on the example's instruction rows (4 x 2048
+     tokens, Adam 2e-3) for 10 steps, every flash counter pinned (12 / 6
+     / 6 prefix-LM launches a step), then profiled; one batch's
+     gradients against the reference path with the prefix-LM bias, and
+     the loss of each path against an exact attention's over 64 batches
+     with the prefix ignored and one key too wide as controls.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -213,11 +231,12 @@ def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
 
 
 def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None,
-                  seg=None, label=""):
+                  seg=None, label="", pfx=None):
     """Run each kernel and its plain version on the same inputs; return
     ({kernel: max abs error}, the inputs and the plain results). ``seg``:
     (seg_q, seg_k) int32 on the card, the segment-id mode (its kernels
-    named ``<kernel>_seg``). A bf16 output is held row by row
+    named ``<kernel>_seg``); ``pfx``: prefix_len [b] int32 on the card,
+    the prefix-LM mode (``<kernel>_pfx``). A bf16 output is held row by row
     (``flash_check.rows_close``: each row's error within 1% of its norm,
     plus 0.1% of the tensor's RMS row norm) and by its bias
     (``flash_check.bias_close``: the signed error projected on the plain
@@ -230,6 +249,8 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None,
     q, k, v, do = attention_inputs(b, h, hkv, s, d, dtype, seed, sk)
     scale = 1.0 / math.sqrt(d)
     ids = {} if seg is None else {"seg_q": seg[0], "seg_k": seg[1]}
+    if pfx is not None:
+        ids = {"prefix_len": pfx}
     out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale, **ids)
     out, lse = fa.flash_fwd(q, k, v, causal, scale, **ids)
     delta = (do.float() * out_ref.float()).sum(-1).contiguous()
@@ -245,7 +266,7 @@ def check_kernels(fa, b, h, hkv, s, d, dtype, causal, seed, tol, sk=None,
     label = (f"{dtype} B={b} H={h}/{hkv} S={s}"
              + (f"/{sk}" if sk is not None else "")
              + f" D={d} causal={causal}" + (f" {label}" if label else ""))
-    suffix = "_seg" if seg is not None else ""
+    suffix = "_seg" if seg is not None else "_pfx" if pfx is not None else ""
     for kernel, name, got, ref in (
         ("flash_fwd", "out", out, out_ref),
         ("flash_fwd", "lse", lse, lse_ref),
@@ -789,8 +810,10 @@ KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
 
 FLASH_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2",
                  "flash_bwd_dq": "B3"}  # a substring of each kernel's name
-# the segment-id kernels, which no unpacked path launches
+# the segment-id kernels, which no unpacked path launches, and the
+# prefix-LM kernels, which only phase 14 launches
 NO_SEG = {f"{name}_seg": 0 for name in FLASH_KERNELS}
+NO_PFX = {f"{name}_pfx": 0 for name in FLASH_KERNELS}
 
 
 def profile_steps(trainer, state, batch, n=3):
@@ -1059,20 +1082,27 @@ def round_bits(bits):
     return rnd
 
 
-def faulty_fwd(fa, round_p=None, extra_keys=0, ignore_ids=False):
+def faulty_fwd(fa, round_p=None, extra_keys=0, ignore_ids=False,
+               ignore_prefix=False, prefix_extra=0):
     """``flash_fwd_plain`` with P rounded by ``round_p`` (f32 -> f32; bf16
     when None) before P.V, the causal mask ``extra_keys`` keys too wide,
-    and (``ignore_ids``) segment ids ignored: what a forward kernel with
-    those faults returns."""
+    (``ignore_ids``) segment ids ignored, and in prefix-LM mode the
+    prefix ignored (``ignore_prefix``) or ``prefix_extra`` keys too wide:
+    what a forward kernel with those faults returns."""
     import torch
 
-    def fwd(q, k, v, causal, scale, seg_q=None, seg_k=None):
+    def fwd(q, k, v, causal, scale, seg_q=None, seg_k=None,
+            prefix_len=None):
         ids = (None, None) if ignore_ids else (seg_q, seg_k)
         s = fa._scores(q, k, False, scale, *ids)
         if causal:
             rows = torch.arange(s.shape[-2], device=q.device)[:, None]
             cols = torch.arange(s.shape[-1], device=q.device)[None, :]
-            s = s.masked_fill(cols > rows + extra_keys, fa.NEG_INF)
+            hidden = cols > rows + extra_keys
+            if prefix_len is not None and not ignore_prefix:
+                p = prefix_len[:, None, None, None] + prefix_extra
+                hidden = hidden & (cols >= p)
+            s = s.masked_fill(hidden, fa.NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
@@ -1587,7 +1617,8 @@ def ep_phases(run_local, llama, moe_config, card):
                       timeout=EP_TIMEOUT)
     per = EP_STEPS * MOE_LAYERS
     expected = {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
-                "flash_bwd_dq": per, **NO_SEG, "grouped_matmul_fwd": 6 * per,
+                "flash_bwd_dq": per, **NO_SEG, **NO_PFX,
+                "grouped_matmul_fwd": 6 * per,
                 "grouped_matmul_dw": 2 * per,
                 "grouped_matmul_fwd_quant": 2 * per}
     tokens = EP_RANKS * EP_TOKENS
@@ -2037,7 +2068,7 @@ def packed_phases(llama, fa, remat, config, card):
         f"log-uniform; {np.mean(docs):.1f} segments a row, "
         f"{np.mean(shares):.3f} of the causal pairs within a document):")
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
-    expected = {**{name: 0 for name in FLASH_KERNELS},
+    expected = {**{name: 0 for name in FLASH_KERNELS}, **NO_PFX,
                 "flash_fwd_seg": STEPS * LAYERS * (1 + recompute),
                 "flash_bwd_dkv_seg": STEPS * LAYERS,
                 "flash_bwd_dq_seg": STEPS * LAYERS}
@@ -2072,6 +2103,432 @@ def packed_phases(llama, fa, remat, config, card):
     return report, errs, times
 
 
+# -- phase 14: GLM prefix-LM training -----------------------------------------
+
+# glm_10b at its published widths, cut to 6 of 48 layers; the reference
+# example's instruction rows, 4 x 2048 tokens
+GLM_LAYERS, GLM_BATCH, GLM_SEQ = 6, 4, 2048
+PFX_DESIGN = {  # the prefix-LM instantiations of B1-B3
+    name: (f"{base}'s kernel; the block reads the prompt length once into "
+           "shared memory, and its producer and consumers visit every tile "
+           "of prompt keys beside the causal ones; prompt tiles above the "
+           "diagonal need no mask, and only the tiles that cross the "
+           "diagonal and the end of the prompt mask by element, in the "
+           "unsegmented mask's warp-uniform branch")
+    for name, base in (("flash_fwd_pfx", "B1"), ("flash_bwd_dkv_pfx", "B2"),
+                       ("flash_bwd_dq_pfx", "B3"))
+}
+# The GLM loss check: the flash path's loss against an exact attention's
+# (with the prefix-LM bias) over LOSS_BATCHES instruction batches, as the
+# dense one. Calibrated on this configuration (PERF.md, section 6): the
+# sound paths read rms 1.9e-4 to 2.0e-4 and |mean| under 2e-5; a prompt
+# one key too wide reads rms 3.0e-4 (its mean, -4.6e-5, is within two
+# standard errors of 0), the prefix ignored 2.8e-3. The rms limit lies
+# between the two groups; the mean's stays the dense check's
+GLM_LOSS_BIAS_LIMIT = 1e-4
+GLM_LOSS_RMS_LIMIT = 2.5e-4
+
+
+def glm_batch(config, seed):
+    """One batch of the reference example's rule on the card:
+    ``synth_instruction_batch(vocab, GLM_BATCH, GLM_SEQ, seed)``."""
+    import torch
+
+    from dlrover_tpu_torch.examples.train_glm_prefix import (
+        synth_instruction_batch,
+    )
+
+    rows = synth_instruction_batch(config.vocab_size, GLM_BATCH, GLM_SEQ,
+                                   seed)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in rows.items()}
+
+
+def visible_pairs(prefixes, s) -> int:
+    """The (q, k) pairs the prefix-LM mask lets through in rows of ``s``
+    tokens with these prompt lengths: p keys for each of a row's first p
+    queries, i + 1 for query i after them."""
+    total = 0
+    for p in prefixes:
+        p = min(max(int(p), 0), s)
+        total += p * p + (s * (s + 1) - p * (p + 1)) // 2
+    return total
+
+
+def check_prefix_faults(inputs, prefix, right):
+    """The row rule must reject every output of kernels that ignore the
+    prefix, take it one key too wide, or stop at the diagonal tile
+    (``flash_check.prefix_faults``), and the bias rule the truncation
+    controls in prefix-LM mode, on the inputs of the check that
+    passed."""
+    from dlrover_tpu_torch.ops import flash_check
+
+    q, k, v, do, lse, delta, scale = inputs
+    results = []
+    for name, fault, got in flash_check.prefix_faults(
+            q, k, v, do, lse, delta, scale, prefix):
+        e = flash_check.row_errors(got, right[name])
+        caught = not flash_check.rows_close(got, right[name])
+        log(f"  planted fault, {name}: {fault}: worst row "
+            f"{e['worst_row']:.1f} of its limit, max_abs_err "
+            f"{e['max_abs_err']:.3e} -> {'rejected' if caught else 'PASSED'}")
+        if not caught:
+            fail(f"the kernel check lets a planted prefix fault pass: "
+                 f"{fault} ({name})")
+        results.append({"output": name, "fault": fault, **e})
+        del got
+    return results + check_bias_controls(
+        flash_check.bias_controls(q, k, v, do, lse, delta, True, scale,
+                                  prefix_len=prefix), right)
+
+
+def check_prefix_edges(fa, b, h, s, d):
+    """Prefixes 0 and 1 mask as the causal kernels do, a prefix of the
+    whole row as the non-causal ones: every output of the prefix-LM
+    kernels must be bit for bit theirs."""
+    import torch
+
+    q, k, v, do = attention_inputs(b, h, h, s, d, torch.bfloat16, 53)
+    scale = 1.0 / math.sqrt(d)
+    for prefixes, causal in (([0, 1] * (b // 2), True), ([s] * b, False)):
+        p = torch.tensor(prefixes, dtype=torch.int32, device="cuda")
+        ref_out, ref_lse = fa.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * ref_out.float()).sum(-1).contiguous()
+        args = (q, k, v, do, ref_lse, delta)
+        got = (*fa.flash_fwd(q, k, v, True, scale, prefix_len=p),
+               *fa.flash_bwd_dkv(*args, True, scale, prefix_len=p),
+               fa.flash_bwd_dq(*args, True, scale, prefix_len=p))
+        want = (ref_out, ref_lse, *fa.flash_bwd_dkv(*args, causal, scale),
+                fa.flash_bwd_dq(*args, causal, scale))
+        same = {name: torch.equal(g, w) for name, g, w in zip(
+            ("out", "lse", "dk", "dv", "dq"), got, want)}
+        log(f"  prefixes {sorted(set(prefixes))} against the "
+            f"{'causal' if causal else 'non-causal'} kernels: bitwise "
+            f"equal {same}")
+        if not all(same.values()):
+            fail(f"the prefix-LM kernels at prefixes {sorted(set(prefixes))}"
+                 f" differ from the {'causal' if causal else 'non-causal'}"
+                 f" kernels: {same}")
+
+
+def prefix_kernel_checks(fa, prefixes):
+    """Phase 14 (a): B1-B3 in prefix-LM mode against their plain
+    versions at the GLM shape on phase 14's prompts, with planted faults;
+    edge prefixes; f32. Returns ({kernel: max abs error}, the faults'
+    readings)."""
+    import torch
+
+    def dev(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    b, h, s, d = GLM_BATCH, 64, GLM_SEQ, 64
+    p = dev(prefixes)
+    errs, inputs, right = check_kernels(
+        fa, b, h, h, s, d, torch.bfloat16, True, 50, 1e-3, pfx=p,
+        label=f"prompts {prefixes}")
+    log("the same check against planted prefix faults, same inputs:")
+    faults = check_prefix_faults(inputs, p, right)
+    del inputs, right
+    torch.cuda.empty_cache()
+    for n, edge in enumerate(([128, 127, 129, 1000], [0, 1, s, s // 2])):
+        e, _, _ = check_kernels(fa, b, h, h, s, d, torch.bfloat16, True,
+                                51 + n, 1e-3, pfx=dev(edge),
+                                label=f"prompts {edge}")
+        for kernel, err in e.items():
+            errs[kernel] = max(errs[kernel], err)
+        torch.cuda.empty_cache()
+    check_prefix_edges(fa, b, h, s, d)
+    torch.cuda.empty_cache()
+    check_kernels(fa, 2, 4, 2, 300, 64, torch.float32, True, 54, 1e-4,
+                  pfx=dev([130, 0]), label="ragged f32, prompts [130, 0]")
+    return errs, faults
+
+
+def flex_yardstick(q, k, v, do, prefix, out):
+    """``torch.nn.attention.flex_attention`` with a prefix-LM block mask
+    (compiled; it skips masked tiles, as the kernels do): its forward and
+    backward times, and whether its output passes the row rule against
+    B1's. None and the reason where it cannot run."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    try:
+        from torch.nn.attention.flex_attention import (
+            create_block_mask,
+            flex_attention,
+        )
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            return (kv_idx <= q_idx) | (kv_idx < prefix[b])
+
+        s = q.shape[2]
+        block_mask = create_block_mask(mask_mod, B=q.shape[0], H=None,
+                                       Q_LEN=s, KV_LEN=s, device="cuda")
+        flex = torch.compile(flex_attention)
+        fwd_ms = time_ms(lambda: flex(q, k, v, block_mask=block_mask))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        fout = flex(ql, kl, vl, block_mask=block_mask)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            fout, (ql, kl, vl), do, retain_graph=True))
+        agrees = flash_check.rows_close(fout.detach(), out)
+    except Exception as e:  # noqa: BLE001 - a yardstick, reported
+        return None, f"flex_attention failed: {type(e).__name__}: {e}"[:300]
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "rows_close_to_b1": agrees}, None
+
+
+def prefix_kernel_times(fa, prefixes, unprefixed):
+    """Phase 14 (b): each prefix-LM kernel at the GLM shape on phase 14's
+    prompts: its time (median of 10 device samples), its plain version's,
+    the bound over the visible pairs, SDPA with the boolean prefix-LM
+    mask and flex_attention with a prefix-LM block mask (yardsticks the
+    port never calls), beside the same kernels unprefixed
+    (``unprefixed``: ``kernel_times`` at this shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, s, d = GLM_BATCH, 64, GLM_SEQ, 64
+    q, k, v, do = attention_inputs(b, h, h, s, d, torch.bfloat16, 7)
+    scale = 1.0 / math.sqrt(d)
+    p = torch.tensor(prefixes, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_fwd(q, k, v, True, scale, prefix_len=p)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    pairs = visible_pairs(prefixes, s)  # over the batch's rows
+    qb = kb = b * h * s * d * 2
+    rows = b * h * s * 4
+    work = {  # (flops, bytes read once and written once)
+        "flash_fwd": (4 * h * d * pairs, qb + 2 * kb + qb + rows + 4 * b),
+        "flash_bwd_dkv": (8 * h * d * pairs,
+                          2 * qb + 2 * kb + 2 * rows + 2 * kb + 4 * b),
+        "flash_bwd_dq": (6 * h * d * pairs,
+                         2 * qb + 2 * kb + 2 * rows + qb + 4 * b),
+    }
+    calls = {
+        "flash_fwd": lambda f: f(q, k, v, True, scale, prefix_len=p),
+        "flash_bwd_dkv": lambda f: f(q, k, v, do, lse, delta, True, scale,
+                                     prefix_len=p),
+        "flash_bwd_dq": lambda f: f(q, k, v, do, lse, delta, True, scale,
+                                    prefix_len=p),
+    }
+    cols = torch.arange(s, device="cuda")
+    mask = (cols[None, :] <= cols[:, None])[None, None] | (
+        cols < p[:, None, None, None])
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+
+    backend = sdpa_backend(q, k, v, mask)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True))
+    del lib_out
+    flex, why = flex_yardstick(q, k, v, do, p, out)
+    log(f"  prompts {prefixes}: {pairs} visible (q, k) pairs, "
+        f"{pairs / (b * s * (s + 1) // 2):.4f} of the causal pairs")
+    log(f"  SDPA with the boolean prefix-LM mask: fwd {lib_fwd:.3f} ms, bwd "
+        f"{lib_bwd:.3f} ms; backend {backend}")
+    if flex is None:
+        log(f"  flex_attention: not measured ({why})")
+    else:
+        log(f"  flex_attention with a prefix-LM block mask: fwd "
+            f"{flex['fwd_ms']:.3f} ms, bwd {flex['bwd_ms']:.3f} ms; its "
+            f"output passes the row rule against B1's: "
+            f"{flex['rows_close_to_b1']}")
+    results = {}
+    for name, (flops, nbytes) in work.items():
+        samples = time_samples(lambda: calls[name](fa.WRAPPERS[name]))
+        kernel_ms = statistics.median(samples)
+        plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name]), iters=5,
+                           warmup=1)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        fwd = name == "flash_fwd"
+        r = results[name] = {
+            "ms": kernel_ms, "samples_ms": samples, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9,
+            "library_ms": lib_fwd if fwd else lib_bwd,
+            "flex_ms": (None if flex is None else
+                        flex["fwd_ms" if fwd else "bwd_ms"]),
+            "unprefixed_ms": unprefixed[name]["ms"],
+        }
+        log(f"  {name} prefix-LM: {kernel_ms:.3f} ms (samples "
+            f"{min(samples):.3f}-{max(samples):.3f}), unprefixed (causal) "
+            f"{r['unprefixed_ms']:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {flops / 1e9:.1f} "
+            f"GFLOP over the visible pairs; {r['bound_ms'] / kernel_ms:.3f} "
+            f"of it); {kernel_ms / r['library_ms']:.2f}x SDPA's masked "
+            f"{'forward' if fwd else 'backward'}")
+    return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                     "sdpa_backend": backend, "flex": flex,
+                     "flex_note": why, "visible_pairs": pairs}
+
+
+def glm_step_flops(config, prefixes, s) -> float:
+    """Training FLOPs of one step: 6 x the matmul parameters (the
+    projections and lm_head; not the embedding tables, norms and biases)
+    x tokens, plus 12 x head_dim x heads x layers x the visible (q, k)
+    pairs (two products, forward and backward)."""
+    d, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    matmul = config.num_layers * (4 * d * d + 2 * d * f) + d * v
+    attn = (12 * config.head_dim * config.num_heads * config.num_layers
+            * visible_pairs(prefixes, s))
+    return 6.0 * matmul * len(prefixes) * s + attn
+
+
+def glm_train(glm, fa, remat, config, label, card):
+    """Phase 14's main path: ``accelerate`` with ``glm.make_init_fn`` and
+    ``make_loss_fn`` on the example's instruction batch, Adam(2e-3), for
+    STEPS steps with every flash counter pinned; then a profile."""
+    import types
+
+    import torch
+
+    from dlrover_tpu_torch.examples.train_glm_prefix import (
+        adam,
+        synth_instruction_batch,
+    )
+    from dlrover_tpu_torch.parallel.accelerate import accelerate
+    from dlrover_tpu_torch.parallel.mesh import MeshPlan
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+
+    host = synth_instruction_batch(config.vocab_size, GLM_BATCH, GLM_SEQ, 0)
+    prefixes = host["prefix_len"].tolist()
+    result = accelerate(glm.make_init_fn(config), glm.make_loss_fn(config),
+                        adam(), host,
+                        strategy=Strategy(mesh=MeshPlan(data=-1),
+                                          rule_set="glm"), device="cuda")
+    state = result.init_fn(0)
+    batch = result.shard_batch(host)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    layers = config.num_layers
+    expected = {name: 0 for name in fa.launch_counts()}
+    expected.update({"flash_fwd_pfx": STEPS * layers * (1 + recompute),
+                     "flash_bwd_dkv_pfx": STEPS * layers,
+                     "flash_bwd_dq_pfx": STEPS * layers})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    events, metrics = [], []
+
+    def mark():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    for _ in range(STEPS):
+        mark()
+        state, m = result.train_step(state, batch)
+        metrics.append(m)
+    mark()
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = GLM_BATCH * GLM_SEQ
+    flops = glm_step_flops(config, prefixes, GLM_SEQ)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [float(m["loss"]) for m in metrics]
+    for step, (ms, m) in enumerate(zip(step_ms, metrics), start=1):
+        log(f"  step {step}: loss={losses[step - 1]:.4f} grad_norm="
+            f"{float(m['grad_norm']):.4f} {ms:.1f} ms "
+            f"{tokens / ms * 1e3:.0f} tokens/s")
+        if not (math.isfinite(losses[step - 1]) and bool(m["finite"])):
+            fail(f"non-finite GLM loss at step {step}")
+    if abs(losses[0] - math.log(config.vocab_size)) > 3.0:
+        fail(f"first GLM loss {losses[0]:.3f} is far from ln(vocab) "
+             f"{math.log(config.vocab_size):.3f} for a random init")
+    if not losses[-1] < losses[0]:
+        fail(f"the GLM loss did not fall over {STEPS} steps on one batch: "
+             f"{losses}")
+    # steps 2..N-1 (the first pays for first-call set-up)
+    steady = events[1].elapsed_time(events[-2]) / (STEPS - 2)
+    mfu = flops / (steady / 1e3) / PEAK_BF16_FLOPS
+    log(f"  launches {counts} (per step: B1-pfx "
+        f"{counts['flash_fwd_pfx'] / STEPS:g}, B2-pfx "
+        f"{counts['flash_bwd_dkv_pfx'] / STEPS:g}, B3-pfx "
+        f"{counts['flash_bwd_dq_pfx'] / STEPS:g}); steady step "
+        f"{steady:.1f} ms, {tokens / steady * 1e3:.0f} tokens/s, MFU "
+        f"{mfu:.4f} (step FLOPs {flops:.4e}: 6 x matmul parameters incl. "
+        f"lm_head x tokens + 12 x head_dim x heads x layers x visible pairs,"
+        f" against 989 TFLOP/s); peak memory {peak / 2**30:.2f} GiB; {card}")
+    if counts != expected:
+        fail(f"kernel launches {counts} on the GLM path, expected {expected}")
+    trainer = types.SimpleNamespace(
+        step=lambda st, bt: result.train_step(st, bt))
+    profile = profile_steps(trainer, state, batch)
+    summary = {
+        "profile": profile, "config": label,
+        "params": glm.param_count(config), "batch": GLM_BATCH,
+        "seq": GLM_SEQ, "prefix_len": prefixes, "steps": STEPS,
+        "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+        "tokens_per_s": tokens / steady * 1e3, "mfu": mfu,
+        "step_flops": flops, "peak_memory_bytes": peak,
+        "launches": counts, "expected_launches": expected,
+    }
+    del state, result
+    return summary
+
+
+def glm_phases(glm, fa, remat, card):
+    """Phase 14: GLM prefix-LM training through the prefix-LM mode of
+    B1-B3, and the kernels' checks and times at its shape."""
+    import torch
+
+    from dlrover_tpu_torch.examples.train_glm_prefix import (
+        synth_instruction_batch,
+    )
+
+    report = {}
+    config = glm.glm_10b(num_layers=GLM_LAYERS)
+    prefixes = synth_instruction_batch(config.vocab_size, GLM_BATCH,
+                                       GLM_SEQ, 0)["prefix_len"].tolist()
+    log(f"prefix-LM: B1-B3 in prefix-LM mode vs plain (bf16, B={GLM_BATCH} "
+        f"H=64/64 S={GLM_SEQ} D=64, unless said):")
+    errs, report["planted_prefix_faults"] = prefix_kernel_checks(fa,
+                                                                 prefixes)
+    torch.cuda.empty_cache()
+    log(f"kernel times at GLM's heads, unprefixed (bf16, B={GLM_BATCH} "
+        f"H=64/64 S={GLM_SEQ} D=64, causal; {card}):")
+    report["kernel_times_glm_heads"], report["sdpa_glm_heads"] = \
+        kernel_times(fa, GLM_BATCH, 64, 64, GLM_SEQ, 64)
+    torch.cuda.empty_cache()
+    log(f"prefix-LM kernel times (bf16, B={GLM_BATCH} H=64/64 S={GLM_SEQ} "
+        f"D=64; {card}):")
+    times, report["prefix_yardsticks"] = prefix_kernel_times(
+        fa, prefixes, report["kernel_times_glm_heads"])
+    report["prefix_kernel_times"] = times
+    torch.cuda.empty_cache()
+
+    label = f"glm_10b(num_layers={GLM_LAYERS})"
+    log(f"GLM main path: {label}, batch {GLM_BATCH} x {GLM_SEQ} tokens "
+        f"(the example's instruction rows, prompts {prefixes}), Adam(2e-3), "
+        f"{STEPS} steps:")
+    report["train_glm"] = glm_train(glm, fa, remat, config, label, card)
+    torch.cuda.empty_cache()
+    log("full-width cross-check on an instruction batch (use_flash True vs "
+        "False, the reference with the prefix-LM bias):")
+    report["cross_check_glm"] = cross_check(
+        glm, config, (("flash", {"use_flash": True}),
+                      ("reference", {"use_flash": False})), (fa,),
+        None, GRAD_GAP_LIMIT, batch=glm_batch(config, 1))
+    torch.cuda.empty_cache()
+    log(f"full-width loss check on instruction batches against an exact "
+        f"attention with the prefix-LM bias ({card}):")
+    controls = [("prefix ignored", faulty_fwd(fa, ignore_prefix=True),
+                 "control"),
+                ("prefix one key too wide", faulty_fwd(fa, prefix_extra=1),
+                 "control"),
+                ("P rounded to 5 significant bits",
+                 faulty_fwd(fa, round_p=round_bits(5)), "reading")]
+    report["loss_check_glm"] = loss_check(
+        glm, config, fa, controls, bias_limit=GLM_LOSS_BIAS_LIMIT,
+        rms_limit=GLM_LOSS_RMS_LIMIT, batch_fn=glm_batch, b1="flash_fwd_pfx")
+    torch.cuda.empty_cache()
+    return report, errs, times
+
+
 def main():
     import argparse
 
@@ -2087,7 +2544,7 @@ def main():
         fail("no CUDA device is available")
     sys.path.insert(0, ROOT)
     try:
-        from dlrover_tpu_torch.models import llama
+        from dlrover_tpu_torch.models import glm, llama
         from dlrover_tpu_torch.ops import flash_attention as fa
         from dlrover_tpu_torch.ops import grouped_matmul as gm
         from dlrover_tpu_torch.ops import kernel_build, moe, quantize, remat
@@ -2176,7 +2633,7 @@ def main():
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
     flash_expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
                       "flash_bwd_dkv": STEPS * LAYERS,
-                      "flash_bwd_dq": STEPS * LAYERS, **NO_SEG}
+                      "flash_bwd_dq": STEPS * LAYERS, **NO_SEG, **NO_PFX}
     report["train"] = train_main_path(
         llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
         "llama", (fa,), flash_expected, card)
@@ -2257,7 +2714,7 @@ def main():
     moe_expected = {
         "flash_fwd": STEPS * MOE_LAYERS * (1 + recompute),
         "flash_bwd_dkv": STEPS * MOE_LAYERS,
-        "flash_bwd_dq": STEPS * MOE_LAYERS, **NO_SEG,
+        "flash_bwd_dq": STEPS * MOE_LAYERS, **NO_SEG, **NO_PFX,
         "grouped_matmul_fwd": STEPS * MOE_LAYERS * (2 * (1 + recompute) + 2),
         "grouped_matmul_dw": STEPS * MOE_LAYERS * 2,
         "grouped_matmul_fwd_quant": 0,  # the expert-parallel fp8 wire's
@@ -2327,6 +2784,10 @@ def main():
     packed, seg_errs, seg_times = packed_phases(llama, fa, remat, config,
                                                 card)
     report.update(packed)
+    torch.cuda.empty_cache()
+
+    glm_report, pfx_errs, pfx_times = glm_phases(glm, fa, remat, card)
+    report.update(glm_report)
 
     kernels = []
     for name in FLASH_KERNELS:
@@ -2396,6 +2857,18 @@ def main():
             "verdict": "ok", "bound_causal_ms": t["bound_causal_ms"],
             "unsegmented_ms": t["unsegmented_ms"],
             "varlen_ms": t["varlen_ms"], "design": SEG_DESIGN[seg],
+        })
+    for name in FLASH_KERNELS:
+        pfx, t = f"{name}_pfx", pfx_times[name]
+        kernels.append({
+            "name": pfx, "route": "cuda", "source": fa.KERNELS[pfx]["source"],
+            "replaces": fa.KERNELS[pfx]["replaces"],
+            "launches": report["train_glm"]["launches"][pfx],
+            "max_abs_err": pfx_errs[pfx], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "verdict": "ok", "unprefixed_ms": t["unprefixed_ms"],
+            "flex_ms": t["flex_ms"], "design": PFX_DESIGN[pfx],
         })
     report["kernels"] = kernels
     if args.json:

@@ -63,6 +63,25 @@
 // beside its tiles. A row that saw no key has lse = NEG_INF from the
 // forward; the lse is clamped to 0 first, as the reference does, so
 // every p of that row stays exactly 0.
+//
+// Prefix-LM mode (GLM's mask; the reference's _recompute_p with
+// prefix_len, flash_attention.py:594-597): a third instantiation of each
+// kernel (PFX = true, entry points dlr_flash_bwd_dkv_pfx_*, always
+// causal) takes int32 prefix_len [B]; key j is visible to q row i iff j
+// <= i or j < p. Each thread reads p at the block's start, where the
+// schedule is fixed before the first barrier (as in the other
+// instantiations, whose code stays as it was: a read through shared
+// memory after the barrier moved it), and the producer and consumers
+// start the q-tile loop at 0 when the key tile holds prompt keys (j BK <
+// p, p clamped to [0, Sk] for the schedule only), at the diagonal
+// otherwise. A warpgroup whose 64 keys are all prompt keys masks no
+// step; one that crosses the diagonal and the end of the prompt masks by
+// element (p = 0 where key > row and key >= p), inside the unsegmented
+// mask's warp-uniform branch, the mode's terms compiled away in the
+// other instantiations. Every row sees key 0,
+// so lse is finite and a masked p is exactly 0. The heaviest-first order
+// of the key tiles is the causal one: prompt key tiles now carry every q
+// tile, and they come first all the same.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -82,7 +101,7 @@ size_t dkv_smem_bytes(int D, bool seg) {
                 : 0);  // segment ids of the keys and of the q tile
 }
 
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -91,7 +110,8 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
                          int D, float scale, int causal,
                          const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_k) {
+                         const int* __restrict__ seg_k,
+                         const int* __restrict__ prefix_len) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int ELEMS = BQ * BK / kThreads;  // S elements per thread
   const int ldt = D + PAD, lds = BK + kFPad, ldp = BK + PAD, lda = D + kFPad;
@@ -130,8 +150,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int nqt = (Sq + BQ - 1) / BQ;
-  // q tiles strictly above this k tile's diagonal see none of its keys
-  const int i0 = causal ? (j * BK) / BQ : 0;
+  // q tiles strictly above this k tile's diagonal see none of its keys,
+  // unless (prefix-LM mode) it holds prompt keys
+  const int plen = PFX ? prefix_len[b] : 0;
+  const int i0 = causal && !(PFX && j * BK < min(max(plen, 0), Sk))
+                     ? (j * BK) / BQ
+                     : 0;
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
@@ -159,7 +183,8 @@ __global__ void __launch_bounds__(kThreads)
         const int idx = threadIdx.x + e * kThreads;
         const int r = idx / BK, c = idx % BK;
         const int row = i * BQ + r, col = j * BK + c;
-        const bool ok = row < Sq && col < Sk && (!causal || col <= row) &&
+        const bool ok = row < Sq && col < Sk &&
+                        (!causal || col <= row || (PFX && col < plen)) &&
                         (!SEG || sSegQ[r] == sSegK[c]);
         // segment-id mode: a row that saw no key has lse NEG_INF
         const float l =
@@ -189,19 +214,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool PFX = false>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
                int causal, void* stream, const int* seg_q = nullptr,
-               const int* seg_k = nullptr) {
+               const int* seg_k = nullptr, const int* prefix_len = nullptr) {
   const dim3 grid((Sk + Tile<T>::BK - 1) / Tile<T>::BK, Hkv, B);
-  return launch(flash_bwd_dkv_kernel<T, SEG>, grid,
+  return launch(flash_bwd_dkv_kernel<T, SEG, PFX>, grid,
                 dkv_smem_bytes<T>(D, SEG), stream, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
                 static_cast<T*>(dv), H, Hkv, Sq, Sk, D, scale, causal, seg_q,
-                seg_k);
+                seg_k, prefix_len);
 }
 
 
@@ -242,7 +267,8 @@ struct Layout {
 
 // The mbarriers: K and V arrived; a stage's Q, dO, lse and delta
 // arrived; a stage released by both consumer warpgroups; (segment-id
-// mode) a stage's q ids written.
+// mode) a stage's q ids written. Then (prefix-LM mode) the block's prefix
+// length.
 struct Bars {
   uint64_t kv_full, full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
@@ -285,7 +311,7 @@ __device__ __forceinline__ void grads(float (&acc)[DP / 2],
   }
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -297,7 +323,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                               int B, int H, int Hkv, int Sq, int Sk, int D,
                               float scale, float scale_log2, int causal,
                               const int* __restrict__ seg_q,
-                              const int* __restrict__ seg_k) {
+                              const int* __restrict__ seg_k,
+                              const int* __restrict__ prefix_len) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dK or dV accumulator registers a thread
   // every head's first key tiles (the most causal work) first
@@ -305,8 +332,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / Hkv, hk = bh % Hkv;
   const int group = H / Hkv;
   const int nqt = (Sq + BQ - 1) / BQ;
-  // q tiles strictly above this key tile's diagonal see none of its keys
-  const int i0 = causal ? j * BK / BQ : 0;
+  // prefix-LM mode: the prompt's length, read at the block's start
+  const int plen = PFX ? prefix_len[b] : 0;
+  // q tiles strictly above this key tile's diagonal see none of its keys,
+  // unless (prefix-LM mode) it holds prompt keys
+  const int i0 = causal && !(PFX && j * BK < min(max(plen, 0), Sk))
+                     ? j * BK / BQ
+                     : 0;
   const int per_head = max(nqt - i0, 0);
   const int steps = group * per_head;
 
@@ -415,8 +447,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = t % kStages, phase = (t / kStages) & 1;
     const int q_lo = (i0 + t % per_head) * BQ;
     hop::mbar_wait(&bar.full[s], phase);
-    // keys all past Sk, or all above this q tile's diagonal: nothing to add
-    if (k_lo >= Sk || (causal && k_lo > q_lo + BQ - 1)) {
+    // keys all past Sk, or all above this q tile's diagonal (and, in
+    // prefix-LM mode, past the prompt): nothing to add
+    if constexpr (PFX) {
+      if (k_lo >= Sk || (k_lo > q_lo + BQ - 1 && k_lo >= plen)) {
+        hop::mbar_arrive(&bar.empty[s]);
+        continue;
+      }
+    } else if (k_lo >= Sk || (causal && k_lo > q_lo + BQ - 1)) {
       hop::mbar_arrive(&bar.empty[s]);
       continue;
     }
@@ -455,8 +493,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // P^T, over S^T's registers; a column is the q row
     // q_lo + 8 c + 2 quad + (x & 1), a row the key kr0 or kr1
-    const bool mask = (causal && k_lo + 63 > q_lo) || q_lo + BQ > Sq ||
-                      k_lo + 64 > Sk;
+    // (prefix-LM mode: keys all inside the prompt need no mask)
+    const bool mask =
+        (causal && k_lo + 63 > q_lo && !(PFX && k_lo + 64 <= plen)) ||
+        q_lo + BQ > Sq || k_lo + 64 > Sk;
     const int off = first_row(t) & 3;  // the tile's first row in the box
     const float* lse = sLse(s) + off + 2 * quad;
 #pragma unroll
@@ -476,7 +516,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (mask) {
           const int qc = q_lo + 8 * c + 2 * quad + (e & 1);
           const int kr = (e & 2) ? kr1 : kr0;
-          if (kr >= Sk || qc >= Sq || (causal && kr > qc)) p = 0.f;
+          if (kr >= Sk || qc >= Sq ||
+              (causal && kr > qc && !(PFX && kr < plen))) {
+            p = 0.f;
+          }
         }
         sacc[x] = p;
       }
@@ -545,12 +588,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX = false>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
                 int D, float scale, int causal, void* stream,
-                const int* seg_q = nullptr, const int* seg_k = nullptr) {
+                const int* seg_q = nullptr, const int* seg_k = nullptr,
+                const int* prefix_len = nullptr) {
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
   const size_t rows = (size_t)B * H * Sq;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
@@ -566,11 +610,11 @@ int launch_bf16(const void* q, const void* k, const void* v,
   }
   const dim3 grid((Sk + BK - 1) / BK * B * Hkv);
   const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
-  return hop::launch(flash_bwd_dkv_bf16_kernel<DP, SEG>, grid, kThreads,
+  return hop::launch(flash_bwd_dkv_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
                      smem, stream, tq, tk, tv, tdo, tlse, tdelta,
                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H,
                      Hkv, Sq, Sk, D, scale, scale * kLog2e, causal, seg_q,
-                     seg_k);
+                     seg_k, prefix_len);
 }
 
 }  // namespace dkv
@@ -626,6 +670,35 @@ extern "C" int dlr_flash_bwd_dkv_seg_f32(
   return dlr::launch_dkv<float, true>(q, k, v, dout, lse, delta, dk, dv, B,
                                       H, Hkv, Sq, Sk, D, scale, causal, stream,
                                       seg_q, seg_k);
+}
+
+// prefix-LM mode: prefix_len [B] int32; always causal (the flag is
+// ignored)
+extern "C" int dlr_flash_bwd_dkv_pfx_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const int* prefix_len, int B, int H, int Hkv, int Sq, int Sk, int D,
+    float scale, int causal, void* stream) {
+  (void)causal;
+  return D <= 64
+             ? dlr::dkv::launch_bf16<64, false, true>(
+                   q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D,
+                   scale, 1, stream, nullptr, nullptr, prefix_len)
+             : dlr::dkv::launch_bf16<128, false, true>(
+                   q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D,
+                   scale, 1, stream, nullptr, nullptr, prefix_len);
+}
+
+extern "C" int dlr_flash_bwd_dkv_pfx_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const int* prefix_len, int B, int H, int Hkv, int Sq, int Sk, int D,
+    float scale, int causal, void* stream) {
+  (void)causal;
+  return dlr::launch_dkv<float, false, true>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, H, Hkv, Sq, Sk, D, scale,
+                                             1, stream, nullptr, nullptr,
+                                             prefix_len);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_bwd_dkv_error)

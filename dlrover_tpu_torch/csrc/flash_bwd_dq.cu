@@ -63,6 +63,20 @@
 // the ids beside its tiles. A row that saw no key has lse = NEG_INF from
 // the forward; the lse is clamped to 0 first, as the reference does, so
 // every p of that row stays exactly 0.
+//
+// Prefix-LM mode (GLM's mask; the reference's _recompute_p with
+// prefix_len, flash_attention.py:662-665): a third instantiation of each
+// kernel (PFX = true, entry points dlr_flash_bwd_dq_pfx_*, always causal)
+// takes int32 prefix_len [B]; key j is visible to q row i iff j <= i or
+// j < p. A block reads p once (thread 0, into shared memory), and its
+// producer and consumers visit k tiles 0 .. max(i + 1, ceil(p / BK)) - 1
+// (p clamped to [0, Sk] for the schedule only), as B1 does. A tile
+// wholly inside the prompt masks nothing; one that crosses a
+// warpgroup's diagonal and the end of the prompt masks by element (p = 0
+// where key > row and key >= p), inside the unsegmented mask's
+// warp-uniform branch, the mode's terms compiled away in the other
+// instantiations. Every row sees key 0, so lse is finite and a masked p
+// is exactly 0.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -82,7 +96,7 @@ size_t dq_smem_bytes(int D, bool seg) {
                 : 0);  // segment ids of the rows and of the K/V tile
 }
 
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -90,7 +104,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Hkv, int Sq, int Sk, int D, float scale,
                         int causal, const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_k) {
+                        const int* __restrict__ seg_k,
+                        const int* __restrict__ prefix_len) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int ELEMS = BQ * BK / kThreads;
   const int ldt = D + PAD, lds = BK + kFPad, ldp = BK + PAD, lda = D + kFPad;
@@ -132,6 +147,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* v_head = v + ((size_t)b * Hkv + hk) * Sk * D;
   int nkt = (Sk + BK - 1) / BK;
   if (causal) nkt = min(nkt, (i * BQ + BQ - 1) / BK + 1);
+  // prefix-LM mode: every tile of prompt keys as well
+  const int plen = PFX ? prefix_len[b] : 0;
+  if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
 
   for (int j = 0; j < nkt; ++j) {
     __syncthreads();
@@ -154,7 +172,8 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = threadIdx.x + e * kThreads;
       const int r = idx / BK, c = idx % BK;
       const int row = i * BQ + r, col = j * BK + c;
-      const bool ok = row < Sq && col < Sk && (!causal || col <= row) &&
+      const bool ok = row < Sq && col < Sk &&
+                      (!causal || col <= row || (PFX && col < plen)) &&
                       (!SEG || sSegQ[r] == sSegK[c]);
       // segment-id mode: a row that saw no key has lse NEG_INF
       const float l = SEG && sLse[r] <= kNegInf * 0.5f ? 0.f : sLse[r];
@@ -178,18 +197,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool PFX = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
               int Hkv, int Sq, int Sk, int D, float scale, int causal,
               void* stream, const int* seg_q = nullptr,
-              const int* seg_k = nullptr) {
+              const int* seg_k = nullptr, const int* prefix_len = nullptr) {
   const dim3 grid((Sq + Tile<T>::BQ - 1) / Tile<T>::BQ, H, B);
-  return launch(flash_bwd_dq_kernel<T, SEG>, grid, dq_smem_bytes<T>(D, SEG),
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                delta, static_cast<T*>(dq), H, Hkv, Sq, Sk, D, scale, causal,
-                seg_q, seg_k);
+  return launch(flash_bwd_dq_kernel<T, SEG, PFX>, grid,
+                dq_smem_bytes<T>(D, SEG), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+                H, Hkv, Sq, Sk, D, scale, causal, seg_q, seg_k, prefix_len);
 }
 
 // -- bf16 --------------------------------------------------------------------
@@ -223,10 +242,11 @@ struct Layout {
 
 // The mbarriers: Q and dO arrived; K, V of a stage arrived; a stage
 // released by both consumer warpgroups; (segment-id mode) a stage's k
-// ids written.
+// ids written. Then (prefix-LM mode) the block's prefix length.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
+  int prefix;
 };
 
 // Issue acc = A B^T over DP / 16 k16 steps: A this warpgroup's 64 rows
@@ -260,7 +280,7 @@ __device__ __forceinline__ void dq_update(float (&acc)[DP / 2],
   }
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -271,7 +291,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              bf16* __restrict__ dq, int H, int Hkv, int Sq,
                              int Sk, int D, float scale, float scale_log2,
                              int causal, const int* __restrict__ seg_q,
-                             const int* __restrict__ seg_k) {
+                             const int* __restrict__ seg_k,
+                             const int* __restrict__ prefix_len) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dQ accumulator registers a thread
   constexpr int NS = BK / 2;  // S or dP accumulator registers a thread
@@ -302,8 +323,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (SEG) hop::mbar_init(&bar.ids_full[s], 32);
     }
     hop::mbar_fence_init();
+    if constexpr (PFX) bar.prefix = prefix_len[b];
   }
   __syncthreads();
+  // prefix-LM mode: the prompt's k tiles too (p clamped for the schedule)
+  const int plen = PFX ? bar.prefix : 0;
+  if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread loads Q and dO once, then keeps the ring full
@@ -390,9 +415,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages, phase = (j / kStages) & 1;
     const int k_lo = j * BK;
     hop::mbar_wait(&bar.k_full[s], phase);
-    // no rows, or every key of the tile above this warpgroup's rows:
-    // nothing to add
-    if (q_lo >= Sq || (causal && k_lo > q_lo + 63)) {
+    // no rows, or every key of the tile above this warpgroup's rows (and,
+    // in prefix-LM mode, past the prompt): nothing to add
+    if (q_lo >= Sq ||
+        (causal && k_lo > q_lo + 63 && !(PFX && k_lo < plen))) {
       hop::mbar_wait(&bar.v_full[s], phase);
       hop::mbar_arrive(&bar.empty[s]);
       continue;
@@ -437,14 +463,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // P over S's registers: x = 4 c + e is row (e & 2 ? row1 : row0),
     // key k_lo + 8 c + 2 quad + (e & 1)
-    const bool mask = (causal && k_lo + BK - 1 > q_lo) || k_lo + BK > Sk;
+    // (prefix-LM mode: keys all inside the prompt need no mask)
+    const bool mask =
+        (causal && k_lo + BK - 1 > q_lo && !(PFX && k_lo + BK <= plen)) ||
+        k_lo + BK > Sk;
 #pragma unroll
     for (int x = 0; x < NS; ++x) {
       float p = hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? nl1 : nl0));
       if (mask) {
         const int kr = k_lo + 8 * (x / 4) + 2 * quad + (x & 1);
         const int qr = (x & 2) ? row1 : row0;
-        if (kr >= Sk || (causal && kr > qr)) p = 0.f;
+        if (kr >= Sk || (causal && kr > qr && !(PFX && kr < plen))) p = 0.f;
       }
       sacc[x] = p;
     }
@@ -489,12 +518,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX = false>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dq, int B, int H, int Hkv, int Sq, int Sk, int D,
                 float scale, int causal, void* stream,
-                const int* seg_q = nullptr, const int* seg_k = nullptr) {
+                const int* seg_q = nullptr, const int* seg_k = nullptr,
+                const int* prefix_len = nullptr) {
   CUtensorMap tq, tk, tv, tdo;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
       !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
@@ -507,10 +537,10 @@ int launch_bf16(const void* q, const void* k, const void* v,
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
   const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
-  return hop::launch(flash_bwd_dq_bf16_kernel<DP, SEG>, grid, kThreads,
+  return hop::launch(flash_bwd_dq_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
                      smem, stream, tq, tk, tv, tdo, lse, delta,
                      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, scale,
-                     scale * kLog2e, causal, seg_q, seg_k);
+                     scale * kLog2e, causal, seg_q, seg_k, prefix_len);
 }
 
 }  // namespace dq
@@ -564,6 +594,35 @@ extern "C" int dlr_flash_bwd_dq_seg_f32(
   return dlr::launch_dq<float, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
                                      Sq, Sk, D, scale, causal, stream, seg_q,
                                      seg_k);
+}
+
+// prefix-LM mode: prefix_len [B] int32; always causal (the flag is
+// ignored)
+extern "C" int dlr_flash_bwd_dq_pfx_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, const int* prefix_len,
+    int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+    void* stream) {
+  (void)causal;
+  return D <= 64
+             ? dlr::dq::launch_bf16<64, false, true>(
+                   q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D, scale,
+                   1, stream, nullptr, nullptr, prefix_len)
+             : dlr::dq::launch_bf16<128, false, true>(
+                   q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D, scale,
+                   1, stream, nullptr, nullptr, prefix_len);
+}
+
+extern "C" int dlr_flash_bwd_dq_pfx_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, const int* prefix_len,
+    int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+    void* stream) {
+  (void)causal;
+  return dlr::launch_dq<float, false, true>(q, k, v, dout, lse, delta, dq, B,
+                                            H, Hkv, Sq, Sk, D, scale, 1,
+                                            stream, nullptr, nullptr,
+                                            prefix_len);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_bwd_dq_error)

@@ -62,6 +62,25 @@
 // all (the pair form's kv-side ids may lack its id) keeps l = 0: it
 // stores out = 0 and lse = NEG_INF (finfo(float32).min, not -inf), the
 // reference's values.
+//
+// Prefix-LM mode (GLM's mask; the reference's prefix=True,
+// flash_attention.py:122-126): a third instantiation of each kernel (PFX
+// = true, entry points dlr_flash_fwd_pfx_*, always causal) takes int32
+// prefix_len [B] and lets query i see key j iff j <= i or j < p, p =
+// prefix_len[b]. A block reads p once (thread 0, into shared memory,
+// before the barrier that follows the mbarriers' set-up), and the
+// producer warp and the consumers derive the same schedule from it: k
+// tiles 0 .. max(i + 1, ceil(p / BK)) - 1, p clamped to [0, Sk] for the
+// schedule only. A tile wholly inside the prompt needs no mask even
+// above the diagonal; only a tile that crosses a warpgroup's diagonal and
+// is not wholly prompt keys (or crosses the ragged end) takes the
+// per-element pass, which sets -inf where col > row and col >= p, the
+// reference's rule for any p. That pass is a warp-uniform branch of its
+// own: the unsegmented instantiation's code is unchanged. Tiles are
+// visited with j rising, so key 0, which every row sees, comes first: a
+// half-step above the diagonal and past the prompt can be masked whole
+// for every row of a warpgroup, and by then each row's running max is
+// finite, so exp2 of -inf - m is 0 and no clamp is needed.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -83,7 +102,7 @@ size_t fwd_smem_bytes(int D, bool seg) {
                 : 0);  // segment ids of the rows and of the K/V tile
 }
 
-template <bool SEG>
+template <bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -91,7 +110,8 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ lse, int H, int Hkv, int Sq,
                          int Sk, int D, float scale, int causal,
                          const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_k) {
+                         const int* __restrict__ seg_k,
+                         const int* __restrict__ prefix_len) {
   using T = float;
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK, PAD = Tile<T>::PAD;
   constexpr int LANES = kThreads / BQ;  // threads sharing one row
@@ -130,6 +150,9 @@ __global__ void __launch_bounds__(kThreads)
   float m_run = kNegInf, l_run = 0.f;
   int nkt = (Sk + BK - 1) / BK;
   if (causal) nkt = min(nkt, (i * BQ + BQ - 1) / BK + 1);
+  // prefix-LM mode: every tile of prompt keys as well
+  const int plen = PFX ? prefix_len[b] : 0;
+  if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
 
   for (int j = 0; j < nkt; ++j) {
     __syncthreads();  // the previous tile's readers of sK/sV/sP are done
@@ -150,7 +173,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < COLS; ++t) {
       const int c = lane + t * LANES, col = j * BK + c;
-      const bool ok = col < Sk && (!causal || col <= row) &&
+      const bool ok = col < Sk && (!causal || col <= row ||
+                                   (PFX && col < plen)) &&
                       (!SEG || sSegK[c] == sSegQ[r]);
       s[t] = ok ? sS[r * lds + c] * scale : kNegInf;
       mx = fmaxf(mx, s[t]);
@@ -216,9 +240,11 @@ struct Layout {
 
 // The mbarriers: Q arrived; K, V of a stage arrived; a stage released by
 // both consumer warpgroups; (segment-id mode) a stage's k ids written.
+// Then (prefix-LM mode) the block's prefix length.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
+  int prefix;
 };
 
 // One step of the online softmax over S columns [64 HALF, 64 HALF + 64)
@@ -298,7 +324,7 @@ __device__ __forceinline__ void pv(float (&oacc)[DP / 2],
   hop::wgmma_commit();
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -307,7 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           int H, int Hkv, int Sq, int Sk, int D,
                           float scale_log2, int causal,
                           const int* __restrict__ seg_q,
-                          const int* __restrict__ seg_k) {
+                          const int* __restrict__ seg_k,
+                          const int* __restrict__ prefix_len) {
   using L = Layout<DP>;
   constexpr int NO = DP / 2;  // O accumulator registers a thread
   const int nqt = (Sq + BQ - 1) / BQ;
@@ -336,8 +363,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (SEG) hop::mbar_init(&bar.ids_full[s], 32);
     }
     hop::mbar_fence_init();
+    if constexpr (PFX) bar.prefix = prefix_len[b];
   }
   __syncthreads();
+  // prefix-LM mode: the prompt's k tiles too (p clamped for the schedule)
+  const int plen = PFX ? bar.prefix : 0;
+  if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread keeps the TMA loads of the ring in flight; in
@@ -447,8 +478,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     // mask the tiles that cross the ragged end or this warpgroup's
-    // diagonal
-    if ((j + 1) * BK > Sk || (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
+    // diagonal; in prefix-LM mode not those wholly inside the prompt
+    if constexpr (PFX) {
+      if ((j + 1) * BK > Sk ||
+          (j * BK + BK - 1 > i * BQ + wg * 64 && j * BK + BK > plen)) {
+#pragma unroll
+        for (int x = 0; x < 64; ++x) {
+          const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
+          const int row = (x & 2) ? row1 : row0;
+          if (col >= Sk || (col > row && col >= plen)) sacc[x] = -INFINITY;
+        }
+      }
+    } else if ((j + 1) * BK > Sk ||
+               (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
 #pragma unroll
       for (int x = 0; x < 64; ++x) {
         const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
@@ -516,11 +558,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP, bool SEG>
+template <int DP, bool SEG, bool PFX = false>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
                 float scale, int causal, void* stream,
-                const int* seg_q = nullptr, const int* seg_k = nullptr) {
+                const int* seg_q = nullptr, const int* seg_k = nullptr,
+                const int* prefix_len = nullptr) {
   // the row max is taken on unscaled scores: it needs scale > 0
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -533,24 +576,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
   const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
-  return hop::launch(flash_fwd_bf16_kernel<DP, SEG>, grid, kThreads, smem,
-                     stream, tq, tk, tv, static_cast<bf16*>(o), lse, H, Hkv,
-                     Sq, Sk, D, scale * kLog2e, causal, seg_q, seg_k);
+  return hop::launch(flash_fwd_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
+                     smem, stream, tq, tk, tv, static_cast<bf16*>(o), lse, H,
+                     Hkv, Sq, Sk, D, scale * kLog2e, causal, seg_q, seg_k,
+                     prefix_len);
 }
 
 }  // namespace fwd
 
-template <bool SEG>
+template <bool SEG, bool PFX = false>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
                    float scale, int causal, void* stream,
-                   const int* seg_q = nullptr, const int* seg_k = nullptr) {
+                   const int* seg_q = nullptr, const int* seg_k = nullptr,
+                   const int* prefix_len = nullptr) {
   const dim3 grid((Sq + Tile<float>::BQ - 1) / Tile<float>::BQ, H, B);
-  return launch(flash_fwd_f32_kernel<SEG>, grid, fwd_smem_bytes(D, SEG),
+  return launch(flash_fwd_f32_kernel<SEG, PFX>, grid, fwd_smem_bytes(D, SEG),
                 stream, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(o), lse, H, Hkv, Sq, Sk, D, scale, causal,
-                seg_q, seg_k);
+                seg_q, seg_k, prefix_len);
 }
 
 }  // namespace dlr
@@ -600,6 +645,34 @@ extern "C" int dlr_flash_fwd_seg_f32(const void* q, const void* k,
                                      void* stream) {
   return dlr::launch_fwd_f32<true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
                                    scale, causal, stream, seg_q, seg_k);
+}
+
+// prefix-LM mode: prefix_len [B] int32; always causal (the flag is
+// ignored)
+extern "C" int dlr_flash_fwd_pfx_bf16(const void* q, const void* k,
+                                      const void* v, void* o, float* lse,
+                                      const int* prefix_len, int B, int H,
+                                      int Hkv, int Sq, int Sk, int D,
+                                      float scale, int causal, void* stream) {
+  (void)causal;
+  return D <= 64
+             ? dlr::fwd::launch_bf16<64, false, true>(
+                   q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, scale, 1, stream,
+                   nullptr, nullptr, prefix_len)
+             : dlr::fwd::launch_bf16<128, false, true>(
+                   q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, scale, 1, stream,
+                   nullptr, nullptr, prefix_len);
+}
+
+extern "C" int dlr_flash_fwd_pfx_f32(const void* q, const void* k,
+                                     const void* v, void* o, float* lse,
+                                     const int* prefix_len, int B, int H,
+                                     int Hkv, int Sq, int Sk, int D,
+                                     float scale, int causal, void* stream) {
+  (void)causal;
+  return dlr::launch_fwd_f32<false, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                          D, scale, 1, stream, nullptr,
+                                          nullptr, prefix_len);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_flash_fwd_error)

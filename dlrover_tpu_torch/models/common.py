@@ -19,6 +19,18 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
                        device=generator.device) * scale
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float):
+    """LayerNorm with f32 statistics; the normalised value is cast to
+    x's dtype before the scale and bias (both cast to x's dtype too), as
+    the reference orders it."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return normed.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
     """RMSNorm with f32 statistics; the normalised value is cast to x's
     dtype BEFORE the multiply by the scale (cast to x's dtype too), the
@@ -47,6 +59,13 @@ def cast_floats(tree, dtype: torch.dtype):
     if isinstance(tree, dict):
         return {k: cast_floats(v, dtype) for k, v in tree.items()}
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to each leaf of a nested dict, same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def tree_leaves(tree) -> list:

@@ -46,6 +46,7 @@ from dlrover_tpu_torch.models.common import (
     param_count as common_param_count,
     rms_norm,
     segment_positions,
+    tree_map,
 )
 from dlrover_tpu_torch.models.losses import (
     chunked_lm_head_loss,
@@ -344,12 +345,6 @@ def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None,
     return (x + out, *moe_stats)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def apply_hidden(params: Dict, input_ids: torch.Tensor,
                  config: LlamaConfig, rng: Any = None,
                  segment_ids: Optional[torch.Tensor] = None,
@@ -370,7 +365,7 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
                  else torch.arange(s, device=x.device).expand(b, s))
     # one unbind per stacked leaf: its backward stacks the per-layer
     # gradients once, instead of one full-size scatter per layer
-    per_layer = _tree_map(lambda t: t.unbind(0), params["layers"])
+    per_layer = tree_map(lambda t: t.unbind(0), params["layers"])
     block = apply_remat(
         functools.partial(_decoder_block, config=c, positions=positions,
                           rng=rng, segment_ids=segment_ids),
@@ -378,7 +373,7 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     )
     stats = []
     for i in range(c.num_layers):
-        x, *layer_stats = block(x, _tree_map(lambda ts: ts[i], per_layer))
+        x, *layer_stats = block(x, tree_map(lambda ts: ts[i], per_layer))
         stats.append(layer_stats)
     x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
     zero = torch.zeros((), device=x.device)

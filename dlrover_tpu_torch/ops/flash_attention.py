@@ -2,8 +2,8 @@
 ``torch.autograd.Function``.
 
 Port of ``dlrover_tpu/ops/flash_attention.py``: the causal and
-non-causal GQA modes, and the segment-id mode of packed documents. The
-kernels, in ``dlrover_tpu_torch/csrc``:
+non-causal GQA modes, the segment-id mode of packed documents and the
+prefix-LM mode of GLM. The kernels, in ``dlrover_tpu_torch/csrc``:
 
   flash_fwd      (B1) O and the per-row f32 logsumexp
   flash_bwd_dkv  (B2) dK, dV summed over the GQA group, k tiles outer
@@ -31,6 +31,16 @@ not ``-inf``), as the reference's finalize writes it; the backward
 clamps such an lse to 0 before ``exp(s - lse)``, so its masked entries
 stay exactly 0. The kernels mask every tile element by element in this
 mode and skip tiles by the causal diagonal only, as the reference does.
+
+Prefix-LM mode (``prefix_len [B]`` int32, a keyword of each wrapper;
+always causal): key ``j`` is visible to query ``i`` iff ``j <= i`` or
+``j < prefix_len[b]``, so a row's prompt is visible to it whole. Again a
+separate instantiation of each kernel (``dlr_<name>_pfx_<dtype>``,
+counted in ``<wrapper>.pfx_launches``): the kernels visit the tiles
+below the diagonal and every tile of prompt keys, and mask by element
+only the tiles that cross the diagonal and are not wholly prompt. Every
+row sees key 0, so no row is left without a key. Segment ids and a
+prefix together raise.
 
 Layout follows the reference: q ``[B, H, S, D]``, k/v ``[B, H_kv, S, D]``,
 query head ``h`` reading KV head ``h // (H // H_kv)``.
@@ -86,19 +96,34 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "source": "dlrover_tpu_torch/csrc/flash_bwd_dq.cu",
         "replaces": "dlrover_tpu/ops/flash_attention.py:678",
     },
+    # the prefix-LM mode: the same sources, separate instantiations
+    "flash_fwd_pfx": {
+        "source": "dlrover_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:122",
+    },
+    "flash_bwd_dkv_pfx": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dkv.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:594",
+    },
+    "flash_bwd_dq_pfx": {
+        "source": "dlrover_tpu_torch/csrc/flash_bwd_dq.cu",
+        "replaces": "dlrover_tpu/ops/flash_attention.py:662",
+    },
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream;
-# the segmented entry points take seg_q and seg_k after the other pointers
+# the segmented entry points take seg_q and seg_k after the other
+# pointers, the prefix-LM ones prefix_len
+_POINTERS = {"flash_fwd": 5, "flash_bwd_dkv": 8, "flash_bwd_dq": 7}
+_MODE_POINTERS = {"": 0, "_seg": 2, "_pfx": 1}
 _ARGTYPES = {
-    "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-    "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "flash_fwd_seg": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "flash_bwd_dkv_seg": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
-    "flash_bwd_dq_seg": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    name + mode: [_P] * (n + extra) + [_I] * 6 + [_F, _I, _P]
+    for name, n in _POINTERS.items()
+    for mode, extra in _MODE_POINTERS.items()
 }
+# each mode's launch counter on the wrapper
+_COUNTERS = {"": "launches", "_seg": "seg_launches", "_pfx": "pfx_launches"}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -115,15 +140,19 @@ def _group_size(q: torch.Tensor, k: torch.Tensor) -> int:
 
 
 def _scores(q, k, causal: bool, scale: float, seg_q=None,
-            seg_k=None) -> torch.Tensor:
+            seg_k=None, prefix_len=None) -> torch.Tensor:
     """f32 scaled logits [B, H, Sq, Sk], masked with NEG_INF above the
-    diagonal when causal and, given segment ids, where the query's id
-    differs from the key's; GQA by repeating KV heads."""
+    diagonal when causal (past the prompt too, given ``prefix_len``)
+    and, given segment ids, where the query's id differs from the key's;
+    GQA by repeating KV heads."""
     k = k.repeat_interleave(_group_size(q, k), dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.ones(s.shape[-2:], dtype=torch.bool,
                           device=q.device).tril()
+        if prefix_len is not None:  # the prompt is visible to every row
+            cols = torch.arange(s.shape[-1], device=q.device)
+            mask = mask | (cols < prefix_len[:, None, None, None])
         s = s.masked_fill(~mask, NEG_INF)
     if seg_q is not None:
         same = seg_q[:, None, :, None] == seg_k[:, None, None, :]
@@ -138,10 +167,10 @@ def _no_key_to_zero(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd_plain(q, k, v, causal: bool, scale: float, seg_q=None,
-                    seg_k=None):
+                    seg_k=None, prefix_len=None):
     """The forward kernel's function as one tile: (out, lse). A row
     that sees no key gets out 0 and lse NEG_INF."""
-    s = _scores(q, k, causal, scale, seg_q, seg_k)
+    s = _scores(q, k, causal, scale, seg_q, seg_k, prefix_len)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - _no_key_to_zero(m))
     l = p.sum(dim=-1, keepdim=True)
@@ -155,10 +184,10 @@ def flash_fwd_plain(q, k, v, causal: bool, scale: float, seg_q=None,
 
 
 def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q=None,
-                  seg_k=None):
+                  seg_k=None, prefix_len=None):
     """Recomputed probabilities p = exp(s - lse) and
     dS = p * (dO V^T - delta) * scale, both f32 [B, H, Sq, Sk]."""
-    s = _scores(q, k, causal, scale, seg_q, seg_k)
+    s = _scores(q, k, causal, scale, seg_q, seg_k, prefix_len)
     p = torch.exp(s - _no_key_to_zero(lse)[..., None])
     v_rep = v.repeat_interleave(_group_size(q, k), dim=1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v_rep.float())
@@ -166,11 +195,12 @@ def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q=None,
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
-                        scale: float, seg_q=None, seg_k=None):
+                        scale: float, seg_q=None, seg_k=None,
+                        prefix_len=None):
     """The dKV kernel's function: (dk, dv), summed over each KV head's
     group of query heads."""
     p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q,
-                          seg_k)
+                          seg_k, prefix_len)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
                       dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
@@ -183,10 +213,11 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
-                       scale: float, seg_q=None, seg_k=None):
+                       scale: float, seg_q=None, seg_k=None,
+                       prefix_len=None):
     """The dQ kernel's function: dq."""
     _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, seg_q,
-                          seg_k)
+                          seg_k, prefix_len)
     k_rep = k.repeat_interleave(_group_size(q, k), dim=1)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
                       k_rep.float())
@@ -197,7 +228,7 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
 
 
 def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
-                  rows=(), seg_q=None, seg_k=None) -> None:
+                  rows=(), seg_q=None, seg_k=None, prefix_len=None) -> None:
     """Shapes the kernels index raw pointers by (and the plain versions
     broadcast over): checked on every path."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -229,12 +260,32 @@ def _check_shapes(name: str, q, k, v, causal: bool, dout=None,
                 raise ValueError(f"{name}: {side} must be int32 "
                                  f"[{b}, {length}]; got {ids.dtype} "
                                  f"{tuple(ids.shape)}")
+    if prefix_len is not None:
+        if seg_q is not None:
+            raise ValueError(f"{name}: segment ids and prefix_len are "
+                             f"mutually exclusive masking modes")
+        if not causal:
+            raise ValueError(f"{name}: the prefix-LM mode is causal")
+        if prefix_len.shape != (b,) or prefix_len.dtype != torch.int32:
+            raise ValueError(f"{name}: prefix_len must be int32 [{b}]; got "
+                             f"{prefix_len.dtype} "
+                             f"{tuple(prefix_len.shape)}")
 
 
-def _kernel_suffix(name: str, q, k, v, dout=None, rows=(),
-                   seg=()) -> str:
+def _mode(seg_q, seg_k, prefix_len):
+    """(the mode's suffix of a kernel's name: "", "_seg" or "_pfx"; its
+    int32 operands, in the C entry point's order)."""
+    if prefix_len is not None:
+        return "_pfx", (prefix_len,)
+    if seg_q is not None:
+        return "_seg", (seg_q, seg_k)
+    return "", ()
+
+
+def _kernel_suffix(name: str, q, k, v, dout=None, rows=(), mode="",
+                   ids=()) -> str:
     """What the kernel itself takes; returns the suffix of its C entry
-    point: the dtype's, after ``seg_`` when segment ids are given."""
+    point: the dtype's, after ``seg_`` or ``pfx_`` in those modes."""
     d = q.shape[-1]
     if q.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
@@ -246,11 +297,11 @@ def _kernel_suffix(name: str, q, k, v, dout=None, rows=(),
     for t in inputs:
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
-    for t in (*inputs, *rows, *seg):
+    for t in (*inputs, *rows, *ids):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be contiguous and "
                              f"16-byte aligned")
-    return ("seg_" if seg else "") + _SUFFIX[q.dtype]
+    return mode[1:] + ("_" if mode else "") + _SUFFIX[q.dtype]
 
 
 def _shape_args(q, k, causal, scale):
@@ -259,77 +310,75 @@ def _shape_args(q, k, causal, scale):
             int(causal))
 
 
-def _count(fn, seg_q) -> None:
-    if seg_q is None:
-        fn.launches += 1
-    else:
-        fn.seg_launches += 1
+def _count(fn, mode: str) -> None:
+    counter = _COUNTERS[mode]
+    setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float, *, seg_q=None,
-              seg_k=None):
+              seg_k=None, prefix_len=None):
     """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32); in segment-id
-    mode with ``seg_q`` [B,Sq] and ``seg_k`` [B,Sk] int32."""
-    _check_shapes("flash_fwd", q, k, v, causal, seg_q=seg_q, seg_k=seg_k)
-    seg = () if seg_q is None else (seg_q, seg_k)
-    if kernel_build.on_cpu("flash attention", q, k, v, *seg):
-        return flash_fwd_plain(q, k, v, causal, scale, seg_q, seg_k)
-    suffix = _kernel_suffix("flash_fwd", q, k, v, seg=seg)
+    mode with ``seg_q`` [B,Sq] and ``seg_k`` [B,Sk] int32, in prefix-LM
+    mode with ``prefix_len`` [B] int32."""
+    _check_shapes("flash_fwd", q, k, v, causal, seg_q=seg_q, seg_k=seg_k,
+                  prefix_len=prefix_len)
+    mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if kernel_build.on_cpu("flash attention", q, k, v, *ids):
+        return flash_fwd_plain(q, k, v, causal, scale, seg_q, seg_k,
+                               prefix_len)
+    suffix = _kernel_suffix("flash_fwd", q, k, v, mode=mode, ids=ids)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     kernel_build.launch(
-        "flash_fwd", suffix,
-        _ARGTYPES["flash_fwd_seg" if seg else "flash_fwd"], q.device,
+        "flash_fwd", suffix, _ARGTYPES["flash_fwd" + mode], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *(t.data_ptr() for t in seg),
+        lse.data_ptr(), *(t.data_ptr() for t in ids),
         *_shape_args(q, k, causal, scale))
-    _count(flash_fwd, seg_q)
+    _count(flash_fwd, mode)
     return out, lse
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                  *, seg_q=None, seg_k=None):
+                  *, seg_q=None, seg_k=None, prefix_len=None):
     """B2: (dk, dv) in k's and v's shape and dtype."""
     _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta),
-                  seg_q, seg_k)
-    seg = () if seg_q is None else (seg_q, seg_k)
+                  seg_q, seg_k, prefix_len)
+    mode, ids = _mode(seg_q, seg_k, prefix_len)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
-                           *seg):
+                           *ids):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale,
-                                   seg_q, seg_k)
+                                   seg_q, seg_k, prefix_len)
     suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta),
-                            seg)
+                            mode, ids)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernel_build.launch(
-        "flash_bwd_dkv", suffix,
-        _ARGTYPES["flash_bwd_dkv_seg" if seg else "flash_bwd_dkv"],
+        "flash_bwd_dkv", suffix, _ARGTYPES["flash_bwd_dkv" + mode],
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *(t.data_ptr() for t in seg), *_shape_args(q, k, causal, scale))
-    _count(flash_bwd_dkv, seg_q)
+        *(t.data_ptr() for t in ids), *_shape_args(q, k, causal, scale))
+    _count(flash_bwd_dkv, mode)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                 *, seg_q=None, seg_k=None):
+                 *, seg_q=None, seg_k=None, prefix_len=None):
     """B3: dq in q's shape and dtype."""
     _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta),
-                  seg_q, seg_k)
-    seg = () if seg_q is None else (seg_q, seg_k)
+                  seg_q, seg_k, prefix_len)
+    mode, ids = _mode(seg_q, seg_k, prefix_len)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
-                           *seg):
+                           *ids):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale,
-                                  seg_q, seg_k)
+                                  seg_q, seg_k, prefix_len)
     suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta),
-                            seg)
+                            mode, ids)
     dq = torch.empty_like(q)
     kernel_build.launch(
-        "flash_bwd_dq", suffix,
-        _ARGTYPES["flash_bwd_dq_seg" if seg else "flash_bwd_dq"], q.device,
+        "flash_bwd_dq", suffix, _ARGTYPES["flash_bwd_dq" + mode], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *(t.data_ptr() for t in seg), *_shape_args(q, k, causal, scale))
-    _count(flash_bwd_dq, seg_q)
+        *(t.data_ptr() for t in ids), *_shape_args(q, k, causal, scale))
+    _count(flash_bwd_dq, mode)
     return dq
 
 
@@ -342,16 +391,16 @@ PLAIN = {"flash_fwd": flash_fwd_plain, "flash_bwd_dkv": flash_bwd_dkv_plain,
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset: the unsegmented
     ones under the wrapper's name, the segment-id ones under
-    ``<name>_seg``."""
-    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
-    counts.update({f"{name}_seg": fn.seg_launches
-                   for name, fn in WRAPPERS.items()})
-    return counts
+    ``<name>_seg``, the prefix-LM ones under ``<name>_pfx``."""
+    return {name + mode: getattr(fn, counter)
+            for mode, counter in _COUNTERS.items()
+            for name, fn in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = fn.seg_launches = 0
+        for counter in _COUNTERS.values():
+            setattr(fn, counter, 0)
 
 
 reset_launch_counts()
@@ -362,30 +411,35 @@ reset_launch_counts()
 
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) of the three kernels; with ``seg_q``/``seg_k`` (int32,
-    no gradient) in their segment-id mode."""
+    no gradient) in their segment-id mode, with ``prefix_len`` in their
+    prefix-LM mode."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, seg_q=None,
-                seg_k=None):
-        seg = {} if seg_q is None else {"seg_q": seg_q, "seg_k": seg_k}
-        out, lse = flash_fwd(q, k, v, causal, scale, **seg)
-        ctx.save_for_backward(q, k, v, out, lse, *seg.values())
-        ctx.causal, ctx.scale = causal, scale
+                seg_k=None, prefix_len=None):
+        ids = {}
+        if seg_q is not None:
+            ids = {"seg_q": seg_q, "seg_k": seg_k}
+        if prefix_len is not None:
+            ids["prefix_len"] = prefix_len
+        out, lse = flash_fwd(q, k, v, causal, scale, **ids)
+        ctx.save_for_backward(q, k, v, out, lse, *ids.values())
+        ctx.causal, ctx.scale, ctx.id_names = causal, scale, tuple(ids)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse, *ids = ctx.saved_tensors
-        seg = dict(zip(("seg_q", "seg_k"), ids))
+        ids = dict(zip(ctx.id_names, ids))
         dout = dout.contiguous()
         # the lse cotangent enters as ds = p * (dp - (delta - dlse))
         delta = ((dout.float() * out.float()).sum(dim=-1)
                  - dlse.float()).contiguous()
         dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.scale, **seg)
+                               ctx.scale, **ids)
         dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale,
-                          **seg)
-        return dq, dk, dv, None, None, None, None
+                          **ids)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_lse(
@@ -498,3 +552,43 @@ def segmented_attention(q, k, v, segment_ids, use_flash: bool,
     same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
     bias = torch.where(same, 0.0, NEG_INF)
     return mha_reference(q, k, v, causal=True, bias=bias)
+
+
+# -- prefix-LM (GLM) ---------------------------------------------------------
+
+
+def flash_attention_prefix_lse(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,  # [B, H_kv, S, D]
+    v: torch.Tensor,
+    prefix_len: torch.Tensor,  # [B]: bidirectional over [0, prefix)
+    scale: Optional[float] = None,
+    **blocks,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_prefix`` returning ``(out, lse)``,
+    differentiable in both, the lse cotangent folded into ``delta`` as
+    in ``flash_attention_lse``. ``prefix_len`` gets no gradient."""
+    del blocks  # parity with the reference; the kernels' tiles are fixed
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), True, float(scale), None,
+                                 None, _ids(prefix_len))
+
+
+def flash_attention_prefix(q, k, v, prefix_len,
+                           scale: Optional[float] = None,
+                           **blocks) -> torch.Tensor:
+    """Prefix-LM flash attention (GLM's mask): token ``i`` attends key
+    ``j`` iff ``j <= i`` (causal) or ``j < prefix_len[b]`` (the prompt
+    is visible in both directions), inside the kernels' tiles: no S x S
+    bias is formed."""
+    return flash_attention_prefix_lse(q, k, v, prefix_len, scale,
+                                      **blocks)[0]
+
+
+def flash_attention_prefix_auto(q, k, v, prefix_len,
+                                scale: Optional[float] = None,
+                                **blocks) -> torch.Tensor:
+    """The model's prefix-LM flash call site: a local call on one
+    device, as ``flash_attention_auto`` is."""
+    return flash_attention_prefix(q, k, v, prefix_len, scale, **blocks)

@@ -22,7 +22,10 @@ reject.
 
 In segment-id mode ``segment_faults`` are what the row rule must
 reject: a kernel whose segment mask is shifted by one key, and one that
-ignores the ids.
+ignores the ids. In prefix-LM mode ``prefix_faults`` are: a kernel that
+ignores the prefix, one whose prompt is one key too wide, and one that
+stops its schedule at the diagonal tile (the prompt's keys above it
+left out). The rules are the same in every mode.
 """
 
 from __future__ import annotations
@@ -80,19 +83,21 @@ def truncate_bf16(x: torch.Tensor) -> torch.Tensor:
     return (bits & -65536).view(torch.float32)
 
 
-def bias_controls(q, k, v, dout, lse, delta, causal: bool, scale: float
-                  ) -> List[Tuple[str, str, torch.Tensor]]:
+def bias_controls(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                  prefix_len=None) -> List[Tuple[str, str, torch.Tensor]]:
     """(output name, fault, faulty output): the forward with P, the
     dK/dV kernel with P^T or dS^T, and the dQ kernel with dS, truncated
-    to bf16 where the kernels round to nearest. Each must fail
-    ``bias_close`` against the right answer."""
-    s = fa._scores(q, k, causal, scale)
+    to bf16 where the kernels round to nearest (in prefix-LM mode with
+    ``prefix_len``). Each must fail ``bias_close`` against the right
+    answer."""
+    s = fa._scores(q, k, causal, scale, prefix_len=prefix_len)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     group = fa._group_size(q, k)
     v_rep = v.repeat_interleave(group, dim=1).float()
     out = (truncate_bf16(p) @ v_rep
            / p.sum(dim=-1, keepdim=True)).to(q.dtype)
-    p, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    p, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, causal, scale,
+                             prefix_len=prefix_len)
     b, kv_heads, s_k, d = k.shape
 
     def group_sum(t):
@@ -136,9 +141,11 @@ def _fwd_no_rescale(q, k, v, causal, scale, tile):
     return (acc / l).to(q.dtype)
 
 
-def _bwd_zeroing(q, k, v, dout, lse, delta, causal, scale, zero):
+def _bwd_zeroing(q, k, v, dout, lse, delta, causal, scale, zero,
+                 prefix_len=None):
     """(dk, dv, dq) with p and dS set to 0 where ``zero`` is true."""
-    p, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, causal, scale)
+    p, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, causal, scale,
+                             prefix_len=prefix_len)
     p, ds = p.masked_fill(zero, 0.0), ds.masked_fill(zero, 0.0)
     group = fa._group_size(q, k)
     b, kv_heads, s_k, d = k.shape
@@ -215,4 +222,38 @@ def segment_faults(q, k, v, dout, lse, delta, scale: float, seg_q, seg_k
         faults += [("dk", fault, dk), ("dv", fault, dv)]
         del dk, dv
         faults.append(("dq", fault, fa.flash_bwd_dq_plain(*bwd)))
+    return faults
+
+
+def prefix_faults(q, k, v, dout, lse, delta, scale: float, prefix_len,
+                  tile: int = 128) -> List[Tuple[str, str, torch.Tensor]]:
+    """(output name, fault, faulty output) for prefix-LM inputs
+    (``lse``, ``delta`` the right ones): every output of kernels that
+    ignore the prefix (plain causal), of kernels whose prompt is one key
+    too wide, and of kernels whose schedule stops at the diagonal tile
+    (``tile`` rows and keys), leaving out the prompt's keys above it.
+    Each must fail ``rows_close`` against the right answer."""
+    faults = []
+    for fault, p in (("prefix ignored (p passed as 0)",
+                      torch.zeros_like(prefix_len)),
+                     ("prefix one key too wide (p + 1)", prefix_len + 1)):
+        out, _ = fa.flash_fwd_plain(q, k, v, True, scale, prefix_len=p)
+        faults.append(("out", fault, out))
+        del out
+        bwd = (q, k, v, dout, lse, delta, True, scale)
+        dk, dv = fa.flash_bwd_dkv_plain(*bwd, prefix_len=p)
+        faults += [("dk", fault, dk), ("dv", fault, dv)]
+        del dk, dv
+        faults.append(("dq", fault, fa.flash_bwd_dq_plain(*bwd,
+                                                          prefix_len=p)))
+    fault = "prompt tiles above the diagonal dropped"
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    above = cols // tile > rows // tile
+    visible = (cols <= rows) | (cols < prefix_len[:, None, None, None])
+    faults.append(("out", fault,
+                   _fwd_dropping(q, k, v, scale, above | ~visible)))
+    dk, dv, dq = _bwd_zeroing(q, k, v, dout, lse, delta, True, scale, above,
+                              prefix_len)
+    faults += [("dk", fault, dk), ("dv", fault, dv), ("dq", fault, dq)]
     return faults

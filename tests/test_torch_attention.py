@@ -195,7 +195,10 @@ class TestNoFallback:
         assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkv": 0,
                                       "flash_bwd_dq": 0, "flash_fwd_seg": 0,
                                       "flash_bwd_dkv_seg": 0,
-                                      "flash_bwd_dq_seg": 0}
+                                      "flash_bwd_dq_seg": 0,
+                                      "flash_fwd_pfx": 0,
+                                      "flash_bwd_dkv_pfx": 0,
+                                      "flash_bwd_dq_pfx": 0}
 
     def test_other_devices_raise(self):
         q = torch.zeros(1, 2, 8, 16, device="meta")

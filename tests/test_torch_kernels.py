@@ -276,7 +276,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1,
                                   "flash_bwd_dq": 1, "flash_fwd_seg": 0,
                                   "flash_bwd_dkv_seg": 0,
-                                  "flash_bwd_dq_seg": 0}
+                                  "flash_bwd_dq_seg": 0,
+                                  "flash_fwd_pfx": 0, "flash_bwd_dkv_pfx": 0,
+                                  "flash_bwd_dq_pfx": 0}
     for got, ref in pairs:
         for g, r in zip(got, ref):
             if g.dtype == torch.bfloat16:
@@ -382,7 +384,9 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkv": 0,
                                   "flash_bwd_dq": 0, "flash_fwd_seg": 1,
                                   "flash_bwd_dkv_seg": 1,
-                                  "flash_bwd_dq_seg": 1}
+                                  "flash_bwd_dq_seg": 1,
+                                  "flash_fwd_pfx": 0, "flash_bwd_dkv_pfx": 0,
+                                  "flash_bwd_dq_pfx": 0}
     if pair:
         no_key = lse_ref == fa.NEG_INF
         assert no_key.any() and not no_key.all()
@@ -398,6 +402,127 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
             else:
                 tol = 1e-3 if g.dim() == 3 else 1e-4
                 assert (g.float() - r.float()).abs().max().item() <= tol
+
+
+def test_prefix_faults_fail_the_row_rule():
+    """On the CPU, bf16 and causal, prompts of 300 and 170 tokens: the
+    reference attention with the prefix-LM bias passes the row rule
+    against the plain prefix forward; a kernel that ignores the prefix,
+    one whose prompt is one key too wide, or one that leaves out the
+    prompt's tiles above the diagonal fails it in every output."""
+    q, k, v, do, scale = _bf16_case(seed=4, b=2, s=512)
+    prefix = torch.tensor([300, 170], dtype=torch.int32)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, scale, prefix_len=prefix)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    dk, dv = fa.flash_bwd_dkv_plain(*args, prefix_len=prefix)
+    right = {"out": out, "dk": dk, "dv": dv,
+             "dq": fa.flash_bwd_dq_plain(*args, prefix_len=prefix)}
+    rows = torch.arange(q.shape[2])[:, None]
+    cols = torch.arange(q.shape[2])[None, :]
+    visible = (cols <= rows) | (cols < prefix[:, None, None, None])
+    sound = mha_reference(q, k, v, causal=False, scale=scale,
+                          bias=torch.where(visible, 0.0, fa.NEG_INF))
+    assert flash_check.rows_close(sound, out), flash_check.row_errors(
+        sound, out)
+    faults = flash_check.prefix_faults(q, k, v, do, lse, delta, scale,
+                                       prefix)
+    assert len(faults) == 12
+    for name, fault, got in faults:
+        assert got.shape == right[name].shape, fault
+        assert not flash_check.rows_close(got, right[name]), (
+            name, fault, flash_check.row_errors(got, right[name]))
+    for name, fault, got in flash_check.bias_controls(
+            q, k, v, do, lse, delta, True, scale, prefix_len=prefix):
+        assert not flash_check.bias_close(got, right[name]), (name, fault)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,prefix", [
+    # GLM's heads (64 of width 64, MHA) on prompts inside tiles, on a
+    # tile edge and past half the row
+    (torch.bfloat16, 2, 8, 8, 2048, 64, (1000, 128)),
+    (torch.bfloat16, 2, 8, 8, 2048, 64, (127, 129)),
+    # GQA and the 128-wide head tile, a ragged row
+    (torch.bfloat16, 2, 8, 2, 1000, 128, (700, 37)),
+    (torch.bfloat16, 1, 4, 1, 300, 48, (300,)),
+    # out-of-range prefixes keep the reference's rule
+    (torch.bfloat16, 2, 4, 2, 512, 64, (-5, 5000)),
+    (torch.float32, 2, 4, 2, 300, 64, (130, 0)),
+    (torch.float32, 1, 4, 4, 300, 64, (299,)),
+], ids=["bf16_glm_heads", "bf16_tile_edges", "bf16_gqa_ragged",
+        "bf16_whole_row_d48", "bf16_out_of_range", "f32_ragged",
+        "f32_mha"])
+def test_prefix_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv,
+                                            s, d, prefix):
+    """Each kernel in prefix-LM mode against its plain version on the
+    same card inputs, held as ``test_kernels_match_plain_on_card`` holds
+    the unsegmented ones (bf16 by the row and the bias rule, f32 to
+    1e-4, lse to 1e-3)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+    p = torch.tensor(prefix, dtype=torch.int32, device=cuda_device)
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    out_ref, lse_ref = fa.flash_fwd_plain(q, k, v, True, scale, prefix_len=p)
+    delta = (do.float() * out_ref.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse_ref, delta, True, scale)
+    pairs = [
+        (fa.flash_fwd(q, k, v, True, scale, prefix_len=p),
+         (out_ref, lse_ref)),
+        (fa.flash_bwd_dkv(*args, prefix_len=p),
+         fa.flash_bwd_dkv_plain(*args, prefix_len=p)),
+        ((fa.flash_bwd_dq(*args, prefix_len=p),),
+         (fa.flash_bwd_dq_plain(*args, prefix_len=p),)),
+    ]
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_fwd_pfx": 1, "flash_bwd_dkv_pfx": 1, "flash_bwd_dq_pfx": 1}
+    for got, ref in pairs:
+        for g, r in zip(got, ref):
+            if g.dtype == torch.bfloat16:
+                assert flash_check.rows_close(g, r), \
+                    flash_check.row_errors(g, r)
+                assert flash_check.bias_close(g, r), flash_check.bias(g, r)
+            else:
+                tol = 1e-3 if g.dim() == 3 else 1e-4
+                assert (g.float() - r.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefix_edges_match_the_unprefixed_kernels_bitwise(cuda_device,
+                                                           dtype):
+    """Prefixes 0 and 1 mask as the causal kernels do, and a prefix of
+    the whole row as the non-causal ones: the outputs are bit for bit
+    theirs (ragged row, GLM's 64-wide heads)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, h, s, d = 2, 4, 1000, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = (rnd(b, h, s, d) for _ in range(4))
+    scale = d ** -0.5
+    for p, causal in ((0, True), (1, True), (s, False)):
+        prefix = torch.full((b,), p, dtype=torch.int32, device=cuda_device)
+        out, lse = fa.flash_fwd(q, k, v, True, scale, prefix_len=prefix)
+        ref_out, ref_lse = fa.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * ref_out.float()).sum(-1).contiguous()
+        args = (q, k, v, do, ref_lse, delta)
+        got = (out, lse, *fa.flash_bwd_dkv(*args, True, scale,
+                                           prefix_len=prefix),
+               fa.flash_bwd_dq(*args, True, scale, prefix_len=prefix))
+        want = (ref_out, ref_lse, *fa.flash_bwd_dkv(*args, causal, scale),
+                fa.flash_bwd_dq(*args, causal, scale))
+        for name, g, w in zip(("out", "lse", "dk", "dv", "dq"), got, want):
+            assert torch.equal(g, w), (p, name)
 
 
 def _grouped_case(device, dtype, tiles, d, f, seed=0, bt=128):

@@ -1,0 +1,213 @@
+"""Prefix-LM (GLM) flash attention in the PyTorch port held against the
+JAX package.
+
+Inputs come from a numpy seed and go through both the JAX function and
+its port counterpart. On the CPU the port's flash wrappers take their
+plain versions; the JAX flash kernels run in Pallas interpret mode, as
+the JAX package's own tests run them, with blocks of 8 to 16 tokens so
+that each sequence spans several blocks. f32 throughout, so the
+tolerances are summation-order ones: 1e-5 for outputs and lse, 1e-4 for
+gradients.
+
+The prefix-LM kernels themselves are held to these plain versions on
+the card by ``tests/test_torch_kernels.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlrover_tpu.ops.flash_attention import (
+    flash_attention_prefix as jax_prefix,
+    flash_attention_prefix_lse as jax_prefix_lse,
+)
+from dlrover_tpu_torch.ops import flash_attention as fa
+
+FWD_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _torch_settings():
+    """f32 results are compared: no TF32 in matmuls. One CPU thread:
+    these shapes are tiny, and the suite's other workers run
+    timing-sensitive tests beside them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved[0]
+    torch.set_num_threads(saved[1])
+
+
+# (b, h, hkv, s, d, jax block, prefix lengths of the rows)
+CASES = {
+    # one prompt row, one pure-causal row (the JAX package's own case)
+    "gqa_40_0": (2, 4, 2, 64, 16, 16, (40, 0)),
+    # early rows visit prompt blocks past their diagonal and past the
+    # prompt: the reference's clamp case
+    "mha_small_blocks_24": (1, 2, 2, 64, 16, 8, (24,)),
+    # the whole row is prompt: no causal mask left
+    "gqa_whole_row": (2, 4, 2, 64, 16, 16, (64, 17)),
+    # prompts ending on a block boundary
+    "gqa_block_boundary": (2, 4, 2, 96, 16, 16, (32, 48)),
+    # GLM's 64-wide heads, MHA
+    "mha_d64": (2, 2, 2, 64, 64, 16, (30, 1)),
+    "gqa_d64": (1, 4, 1, 80, 64, 16, (45,)),
+}
+
+
+def _arrays(shapes, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.asarray(a)).requires_grad_(grad)
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref),
+                               atol=tol, rtol=tol)
+
+
+def _case(name, seed):
+    b, h, hkv, s, d, block, prefix = CASES[name]
+    q, dout = _arrays([(b, h, s, d), (b, h, s, d)], seed)
+    k, v = _arrays([(b, hkv, s, d), (b, hkv, s, d)], seed + 1)
+    (dlse,) = _arrays([(b, h, s)], seed + 2)
+    return q, k, v, dout, dlse, np.asarray(prefix, np.int32), block
+
+
+class TestPrefixFlashAgainstJax:
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_out_lse_and_both_cotangents(self, case):
+        """``flash_attention_prefix_lse``: out, lse and the gradients of
+        q, k and v with cotangents on both outputs."""
+        q, k, v, dout, dlse, prefix, block = _case(case, 1)
+        pre = jnp.asarray(prefix)
+
+        def jfn(q, k, v):
+            return jax_prefix_lse(q, k, v, pre, None, block, block, True)
+
+        (jout, jlse), vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp((jnp.asarray(dout), jnp.asarray(dlse)))
+
+        tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+        out, lse = fa.flash_attention_prefix_lse(tq, tk, tv, _t(prefix),
+                                                 block_q=block,
+                                                 block_k=block)
+        assert lse.dtype == torch.float32
+        _close(out, jout, FWD_TOL)
+        _close(lse, jlse, FWD_TOL)
+        grads = torch.autograd.grad((out, lse), (tq, tk, tv),
+                                    (_t(dout), _t(dlse)))
+        for g, jg in zip(grads, jgrads):
+            assert np.isfinite(g.numpy()).all()
+            _close(g, jg, GRAD_TOL)
+
+    @pytest.mark.parametrize("case", ["gqa_40_0", "mha_small_blocks_24",
+                                      "mha_d64"])
+    def test_out_and_grads(self, case):
+        """``flash_attention_prefix`` (out alone): the output and the
+        gradients of an out cotangent."""
+        q, k, v, dout, _, prefix, block = _case(case, 4)
+
+        def jfn(q, k, v):
+            return jax_prefix(q, k, v, jnp.asarray(prefix), None, block,
+                              block, True)
+
+        jout, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp(jnp.asarray(dout))
+        tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+        out = fa.flash_attention_prefix_auto(tq, tk, tv, _t(prefix))
+        _close(out, jout, FWD_TOL)
+        for g, jg in zip(torch.autograd.grad(out, (tq, tk, tv), _t(dout)),
+                         jgrads):
+            _close(g, jg, GRAD_TOL)
+
+
+class TestPrefixMask:
+    def test_no_prefix_is_causal_attention(self):
+        """Prefixes 0 and 1 give the causal mask: the same output as
+        the causal flash attention, bit for bit."""
+        q, k, v, *_ = _case("gqa_40_0", 7)
+        causal = fa.flash_attention(_t(q), _t(k), _t(v))
+        for p in (0, 1):
+            out = fa.flash_attention_prefix(
+                _t(q), _t(k), _t(v), torch.full((2,), p, dtype=torch.int32))
+            np.testing.assert_array_equal(out.numpy(), causal.numpy())
+
+    def test_whole_row_prefix_is_full_attention(self):
+        q, k, v, *_ = _case("gqa_40_0", 8)
+        full = fa.flash_attention(_t(q), _t(k), _t(v), causal=False)
+        out = fa.flash_attention_prefix(_t(q), _t(k), _t(v),
+                                        torch.full((2,), 64,
+                                                   dtype=torch.int32))
+        np.testing.assert_array_equal(out.numpy(), full.numpy())
+
+    def test_generated_tokens_do_not_reach_the_prompt(self):
+        """Changing a generated token's key and value leaves every prompt
+        row's output exactly as it was, and moves the rows after it."""
+        q, k, v, *_ = _case("mha_small_blocks_24", 9)
+        p = torch.tensor([24], dtype=torch.int32)
+        base = fa.flash_attention_prefix(_t(q), _t(k), _t(v), p)
+        k2, v2 = k.copy(), v.copy()
+        k2[:, :, 40] += 1.0
+        v2[:, :, 40] -= 1.0
+        moved = fa.flash_attention_prefix(_t(q), _t(k2), _t(v2), p)
+        np.testing.assert_array_equal(moved[:, :, :40].numpy(),
+                                      base[:, :, :40].numpy())
+        assert not torch.equal(moved[:, :, 40:], base[:, :, 40:])
+
+
+class TestPrefixChecks:
+    def test_segment_ids_and_a_prefix_raise(self):
+        q = torch.zeros(1, 2, 8, 16)
+        ids = torch.zeros(1, 8, dtype=torch.int32)
+        p = torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            fa.flash_fwd(q, q, q, True, 0.25, seg_q=ids, seg_k=ids,
+                         prefix_len=p)
+
+    def test_prefix_must_be_int32_of_the_batch(self):
+        q = torch.zeros(2, 2, 8, 16)
+        rows = torch.zeros(2, 2, 8)
+        with pytest.raises(ValueError, match="int32"):
+            fa.flash_fwd(q, q, q, True, 0.25,
+                         prefix_len=torch.zeros(2, dtype=torch.int64))
+        with pytest.raises(ValueError, match=r"must be int32 \[2\]"):
+            fa.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.25,
+                             prefix_len=torch.zeros(3, dtype=torch.int32))
+        with pytest.raises(ValueError, match="causal"):
+            fa.flash_bwd_dq(q, q, q, q, rows, rows, False, 0.25,
+                            prefix_len=torch.zeros(2, dtype=torch.int32))
+
+    def test_prefix_on_another_device_raises(self):
+        q = torch.zeros(1, 2, 8, 16)
+        p = torch.zeros(1, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="several devices"):
+            fa.flash_fwd(q, q, q, True, 0.25, prefix_len=p)
+
+    def test_entry_points_cast_the_prefix_once(self):
+        """An int64 prefix (a batch's usual type) reaches the wrappers as
+        int32 and gives what an int32 one gives."""
+        q, k, v, *_ = _case("gqa_40_0", 10)
+        p = torch.tensor([40, 3])
+        np.testing.assert_array_equal(
+            fa.flash_attention_prefix(_t(q), _t(k), _t(v), p).numpy(),
+            fa.flash_attention_prefix(_t(q), _t(k), _t(v),
+                                      p.int()).numpy())
+
+    def test_cpu_path_counts_no_launch(self):
+        fa.reset_launch_counts()
+        q, k, v, *_ = _case("gqa_40_0", 11)
+        tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+        fa.flash_attention_prefix(tq, tk, tv, torch.tensor([40, 0])
+                                  ).sum().backward()
+        counts = fa.launch_counts()
+        assert {"flash_fwd_pfx", "flash_bwd_dkv_pfx",
+                "flash_bwd_dq_pfx"} <= set(counts)
+        assert set(counts.values()) == {0}
