@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--json PATH]   # from the root of a checkout
+    python3 chip_smoke.py --against DIR [--may-differ PART ...]
 
 Phases, each of which fails the run (exit code 1) when it goes wrong:
 
@@ -21,7 +22,9 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      output); and show that the row rule rejects outputs with planted
      faults and the bias rule outputs with P, P^T, dS^T or dS truncated
      to bf16;
-  4. time each flash kernel (median of 10 device samples), its plain
+  4. time each flash kernel (median of 10 device samples; beside it,
+     ``device_ms``, the same with the device spinning while the host
+     queues the calls, which reads the kernels alone), its plain
      version and PyTorch's scaled_dot_product_attention (a yardstick the
      port never calls), beside the least time the card could take, as a
      share of that bound and a ratio to SDPA's forward or backward: at
@@ -68,13 +71,21 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      against their plain versions at the main shape, row by row and by
      the bias rule, on the packed training layout, on documents of 512
      tokens (boundaries on tile edges) and of 700 (inside tiles), on a
-     row with a -1 pad tail, on a pair-form case whose rows partly see no
-     key, and in f32 on a ragged case; planted controls (a segment mask
-     shifted by one key, ids ignored) the row rule must reject; each
-     segmented kernel's time beside the same kernel unsegmented, its
-     bound over the causal pairs and over the within-document pairs,
-     SDPA with the block-diagonal causal mask and a varlen flash call
-     (yardsticks the port never calls); Llama-3-8B x4 layers trained on
+     row with a -1 pad tail, on the row's documents shuffled under
+     permuted ids (one recurring far apart), on the row cut to 4000
+     tokens, on a pair-form case whose rows partly see no key, on one
+     whose later keys carry ids no row has (blocks of B2 and B3 with
+     empty tile lists), and in f32 on a ragged case, with the tiles B2
+     and B3 list on each layout against the causal tiles (counted on
+     the host from the same table); planted
+     controls (a segment mask shifted by one key, ids ignored) the row
+     rule must reject; each segmented kernel's time beside the same
+     kernel unsegmented (B2 and B3 through their wrappers, which build
+     the ids' tile table, and given the table as the backward launches
+     them), its bound over the causal pairs and over the
+     within-document pairs, SDPA with the block-diagonal causal mask and
+     a varlen flash call (yardsticks the port never calls), and on other
+     layouts beside the share of tiles listed; Llama-3-8B x4 layers trained on
      packed rows (log-uniform document lengths over 64-4096 tokens,
      packed greedily as the reference's text reader packs them) with
      the segmented launches pinned, then profiled; one batch's gradients
@@ -102,6 +113,13 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
 number the run measured to PATH.
+
+``--against DIR`` runs none of the phases above: it holds this tree's
+flash kernels against the tree under DIR (``against``: SASS of every
+kernel but those named by ``--may-differ``, B2's and B3's segment-id
+outputs bit for bit on phase 13's layouts, their times in turns), for
+a change to B2 or B3 against its parent (``git archive`` into a
+git-ignored directory such as ``_archive/``).
 Needs one GPU; exits non-zero without one, or without the repository.
 Phases 11 and 12 spawn their ranks (``trainer.run.run_local``) and stop
 them before the script goes on.
@@ -112,6 +130,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,7 +186,13 @@ SEG_DESIGN = {  # the segment-id instantiations of B1-B3
            "64 are one value' flags (one more mbarrier a stage); from them "
            "a consumer warpgroup masks a tile not at all by segment, whole "
            "(-inf scores or exponent offsets), or, where ids change inside "
-           "it, by a warp-uniform pass apart from the unsegmented mask")
+           "it, by a warp-uniform pass apart from the unsegmented mask"
+           + ("" if base == "B1" else
+              "; before the role split one warp lists in shared memory the "
+              "block's tiles whose [min, max] ids (a per-64 table built on "
+              "the device once a backward) meet its own, and producer and "
+              "consumers walk only that list, a warpgroup skipping a "
+              "listed tile its own 64 ids cannot meet"))
     for name, base in (("flash_fwd_seg", "B1"), ("flash_bwd_dkv_seg", "B2"),
                        ("flash_bwd_dq_seg", "B3"))
 }
@@ -190,14 +215,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_samples(fn, iters=10, warmup=2):
+def time_samples(fn, iters=10, warmup=2, spin=False):
     """Milliseconds of each of ``iters`` calls of ``fn``, each between two
     CUDA events and queued behind the call before it, so that a sample is
-    the device's time and not the host's launch gap."""
+    the device's time and not the host's launch gap. With ``spin`` the
+    device first spins (``torch.cuda._sleep``) while the host queues
+    every call, so that a call the host takes longer to launch than the
+    device to run reads its kernels' time alone."""
     import torch
 
     for _ in range(warmup):
         fn()
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     events = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
@@ -210,9 +240,18 @@ def time_samples(fn, iters=10, warmup=2):
     return [start.elapsed_time(end) for start, end in events]
 
 
+SPIN_CYCLES = 50_000_000  # ~25 ms of the device's clock: the host queues
+
+
 def time_ms(fn, iters=10, warmup=2):
     """Median of ``time_samples``."""
     return statistics.median(time_samples(fn, iters, warmup))
+
+
+def device_ms(fn, iters=10, warmup=2):
+    """Median of ``time_samples`` with the device spinning first: the
+    ``device_ms`` beside each kernel's and library call's ``ms``."""
+    return statistics.median(time_samples(fn, iters, warmup, spin=True))
 
 
 def attention_inputs(b, h, hkv, s, d, dtype, seed, sk=None):
@@ -391,11 +430,17 @@ def kernel_times(fa, b, h, hkv, s, d):
     lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                        enable_gqa=True), (ql, kl, vl), do))
+    lib_dev = {"flash_fwd": device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))}
+    lib_dev["flash_bwd_dkv"] = lib_dev["flash_bwd_dq"] = device_ms(
+        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                    retain_graph=True))
     del lib_out
     results = {}
     for name, (flops, nbytes) in work.items():
         samples = time_samples(lambda: calls[name](fa.WRAPPERS[name]))
         kernel_ms = statistics.median(samples)
+        dev_ms = device_ms(lambda: calls[name](fa.WRAPPERS[name]))
         plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name]), iters=5,
                            warmup=1)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -404,6 +449,7 @@ def kernel_times(fa, b, h, hkv, s, d):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "device_ms": dev_ms, "library_device_ms": lib_dev[name],
             "gflop": flops / 1e9,
             "tflops_achieved": flops / kernel_ms / 1e9,
         }
@@ -411,7 +457,8 @@ def kernel_times(fa, b, h, hkv, s, d):
         r["bound_share"] = r["bound_ms"] / kernel_ms
         r["library_ratio"] = kernel_ms / r["library_ms"]
         log(f"  {name}: {kernel_ms:.3f} ms (samples {min(samples):.3f}-"
-            f"{max(samples):.3f}, {r['tflops_achieved']:.1f} TFLOP/s), "
+            f"{max(samples):.3f}, {r['tflops_achieved']:.1f} TFLOP/s; "
+            f"device alone {dev_ms:.3f} ms, SDPA's {lib_dev[name]:.3f}), "
             f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}, {flops / 1e9:.1f} GFLOP): "
             f"{r['bound_share']:.3f} of the bound, {r['library_ratio']:.2f}x "
@@ -624,10 +671,11 @@ def grouped_times(gm, x, w, dy, lay):
     results = {}
     for name, (kernel, fl, nbytes) in work.items():
         kernel_ms = time_ms(lambda: calls[name](gm.WRAPPERS[kernel]))
+        dev_ms = device_ms(lambda: calls[name](gm.WRAPPERS[kernel]))
         plain_ms = time_ms(lambda: calls[name](plain[name]), iters=5,
                            warmup=1)
         ref = calls[name](plain[name])
-        lib_ms, lib_call = None, "no single call"
+        lib_ms, lib_dev, lib_call = None, None, "no single call"
         if hasattr(torch, "_grouped_mm"):
             for label, fn in library[name]:
                 try:
@@ -642,6 +690,7 @@ def grouped_times(gm, x, w, dy, lay):
                         f"disagrees: {flash_check.row_errors(out, ref)}")
                     continue
                 lib_ms, lib_call = time_ms(fn), f"torch._grouped_mm ({label})"
+                lib_dev = device_ms(fn)
                 break
         loop_ms = None if lib_ms is not None else time_ms(lambda: loop(name))
         del ref
@@ -652,14 +701,16 @@ def grouped_times(gm, x, w, dy, lay):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms, "library_call": lib_call,
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
             "loop_ms": loop_ms, "gflop": fl / 1e9, "bytes": nbytes,
             "tflops_achieved": fl / kernel_ms / 1e9,
         }
         r = results[name]
         log(f"  {name} ({kernel}): {kernel_ms:.3f} ms "
-            f"({r['tflops_achieved']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"library {lib_call}"
-            + (f" {lib_ms:.3f} ms" if lib_ms is not None else
+            f"({r['tflops_achieved']:.1f} TFLOP/s; device alone "
+            f"{dev_ms:.3f} ms), plain {plain_ms:.3f} ms, library {lib_call}"
+            + (f" {lib_ms:.3f} ms (device alone {lib_dev:.3f})"
+               if lib_ms is not None else
                f" (per-expert matmul loop {loop_ms:.3f} ms)")
             + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
             f"{fl / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
@@ -1330,6 +1381,8 @@ def quant_times(gm, quantize, v, s, w, rl):
 
     kernel_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant(v, s, w, te,
                                                             BLOCK_T))
+    dev_ms = device_ms(lambda: gm.grouped_matmul_fwd_quant(v, s, w, te,
+                                                           BLOCK_T))
     plain_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant_plain(
         v, s, w, te, BLOCK_T), iters=5, warmup=1)
     xd = quantize.dequantize_block_scaled(v, s)
@@ -1339,7 +1392,8 @@ def quant_times(gm, quantize, v, s, w, rl):
     loop_ms = time_ms(loop, iters=5, warmup=1)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     r = {"ms": kernel_ms, "plain_ms": plain_ms, "b4_f32_ms": b4_ms,
-         "loop_ms": loop_ms, "library_ms": None,
+         "loop_ms": loop_ms, "library_ms": None, "device_ms": dev_ms,
+         "library_device_ms": None,
          "library_call": "none: torch._grouped_mm takes bf16 and "
                          "torch._scaled_grouped_mm wants both operands in "
                          "fp8",
@@ -1349,7 +1403,8 @@ def quant_times(gm, quantize, v, s, w, rl):
          "gflop": flops / 1e9, "bytes": nbytes,
          "tflops_achieved": flops / kernel_ms / 1e9}
     log(f"  B6 (grouped_matmul_fwd_quant): {kernel_ms:.3f} ms "
-        f"({r['tflops_achieved']:.2f} TFLOP/s f32), plain {plain_ms:.3f} ms, "
+        f"({r['tflops_achieved']:.2f} TFLOP/s f32; device alone "
+        f"{dev_ms:.3f} ms), plain {plain_ms:.3f} ms, "
         f"B4 f32 on the dequantized rows {b4_ms:.3f} ms, dequantize + "
         f"per-expert matmul loop {loop_ms:.3f} ms, library none, bound "
         f"{r['bound_ms']:.3f} ms ({r['bound_by']} at 67 TFLOP/s f32, "
@@ -1760,9 +1815,10 @@ def segment_lengths(row):
 
 
 def whole_masked_tiles(row, q_rows, keys) -> float:
-    """The share of the causal (``q_rows`` x ``keys``) tiles of a row
-    whose rows hold one id and keys another: tiles the segmented kernels
-    visit (they skip by the diagonal only) and mask whole."""
+    """The share of the causal (``q_rows`` x ``keys``) warpgroup tiles of
+    a row whose rows hold one id and keys another: tiles B1-seg visits
+    (it skips by the diagonal only) and masks whole. B2-seg and B3-seg
+    list their tiles instead (``tile_lists``), and skip these."""
     s, whole, visited = len(row), 0, 0
     for i in range(0, s, q_rows):
         q = row[i:i + q_rows]
@@ -1778,6 +1834,39 @@ def document_pairs(row) -> int:
     """The causal (q, k) pairs of a row whose tokens share a document."""
     n = segment_lengths(row).astype("int64")
     return int((n * (n + 1) // 2).sum())
+
+
+def tile_lists(fa, seg_q, seg_k, causal):
+    """What B3-seg and B2-seg schedule for these ids, counted on the host
+    from ``fa.segment_tiles`` by ``flash_check.listed_tiles``: per kernel,
+    the tiles listed and the causal tiles visited without lists (summed
+    over the batch), the blocks whose list is empty, and the longest and
+    the mean list a block."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    seg_q, seg_k = (torch.as_tensor(t).cpu() for t in (seg_q, seg_k))
+    lists = flash_check.listed_tiles(fa.segment_tiles(seg_q, seg_k),
+                                     seg_q.shape[1], seg_k.shape[1], causal)
+    out = {}
+    for name, (listed, visited) in lists.items():
+        per_block = listed.sum(dim=-1).flatten().float()
+        out[name] = {"listed": int(listed.sum()),
+                     "visited": int(visited.sum()),
+                     "empty_blocks": int((per_block == 0).sum()),
+                     "blocks": per_block.numel(),
+                     "longest": int(per_block.max()),
+                     "mean": per_block.mean().item()}
+    return out
+
+
+def log_tile_lists(label, counts):
+    log(f"  tiles listed (computed on the host), {label}: " + "; ".join(
+        f"{name}_seg {c['listed']} of {c['visited']} "
+        f"({c['listed'] / c['visited']:.3f}), {c['empty_blocks']} of "
+        f"{c['blocks']} lists empty, longest {c['longest']}, mean "
+        f"{c['mean']:.2f}" for name, c in counts.items()))
 
 
 def check_segment_faults(inputs, ids, right):
@@ -1803,57 +1892,94 @@ def check_segment_faults(inputs, ids, right):
     return results
 
 
-def packed_kernel_checks(fa):
-    """Phase 13 (a): B1-B3 in segment-id mode against their plain
-    versions; returns ({kernel: max abs error at the main shape}, the
-    planted faults' readings)."""
+def shuffled_documents(row, seed):
+    """``row``'s documents in shuffled order under permuted ids, the last
+    document taking the first's id (one id recurring far apart)."""
     import numpy as np
-    import torch
+
+    rs = np.random.RandomState(seed)
+    lengths = segment_lengths(row)
+    out = np.repeat(rs.permutation(len(lengths)),
+                    lengths[rs.permutation(len(lengths))]).astype(np.int32)
+    out[out == out[-1]] = out[0]
+    return out
+
+
+EMPTY_LISTS = "pair form, the second half of the keys' ids negated"
+
+
+def segment_layouts():
+    """Phase 13's bf16 layouts at the main shape: (label, q-side ids,
+    kv-side ids, causal), each a numpy int32 row."""
+    import numpy as np
 
     train_row = next(packed_segment_rows(SEQ, PACK_SEED))
     pad_row = train_row.copy()
     pad_row[-333:] = -1  # pads after higher ids, as the text reader's
     ar = np.arange(SEQ, dtype=np.int32)
+    docs = ar // 700
+    return [(name, row, row, True) for name, row in (
+        ("packed training row", train_row),
+        ("documents of 512 tokens", ar // 512),
+        ("documents of 700 tokens", docs),
+        ("a -1 pad tail", pad_row),
+        ("shuffled documents, an id recurring far apart",
+         shuffled_documents(train_row, 1)),
+        # a length that is no multiple of 64
+        ("the packed row cut to 4000 tokens", train_row[:4000]))] + [
+        # the pair form: kv-side ids of 700-token documents with every odd
+        # id dropped, so the odd documents' rows see no key (out 0, lse
+        # NEG_INF, held by the same comparison)
+        ("pair form, odd ids missing on the kv side", docs,
+         np.where(docs % 2 == 1, docs + 1_000_000, docs), False),
+        # empty lists: the second half of the keys carries ids no row
+        # has, so their B2 blocks and the rows of the later documents in
+        # B3 list no tile and must store zeros
+        (EMPTY_LISTS, docs, np.where(ar >= SEQ // 2, -1 - docs, docs),
+         False)]
+
+
+def packed_kernel_checks(fa):
+    """Phase 13 (a): B1-B3 in segment-id mode against their plain
+    versions, with the tiles B2 and B3 list on each layout (computed on
+    the host); returns ({kernel: max abs error at the main shape}, the
+    planted faults' readings, {layout: tiles listed})."""
+    import numpy as np
+    import torch
 
     def dev(*rows):
         return torch.as_tensor(np.stack(rows).astype(np.int32),
                                device="cuda")
 
-    errs, faults = {}, None
-    for n, (name, row) in enumerate((
-            ("packed training row", train_row),
-            ("documents of 512 tokens", ar // 512),
-            ("documents of 700 tokens", ar // 700),
-            ("a -1 pad tail", pad_row))):
-        ids = dev(row)
+    errs, faults, lists = {}, None, {}
+    for n, (name, row_q, row_k, causal) in enumerate(segment_layouts()):
+        seg_q, seg_k = dev(row_q), dev(row_k)
+        if not causal:
+            blind = int((~np.isin(row_q, row_k)).sum())
+            log(f"  {name}: {blind * 32} of {len(row_q) * 32} rows see no "
+                f"key")
+        lists[name] = tile_lists(fa, seg_q, seg_k, causal)
+        log_tile_lists(name, lists[name])
         e, inputs, right = check_kernels(
-            fa, 1, 32, 8, SEQ, 128, torch.bfloat16, True, 30 + n, 1e-3,
-            seg=(ids, ids), label=f"segments: {name}")
+            fa, 1, 32, 8, len(row_q), 128, torch.bfloat16, causal, 30 + n,
+            1e-3, seg=(seg_q, seg_k), label=f"segments: {name}")
         for kernel, err in e.items():
             errs[kernel] = max(errs.get(kernel, 0.0), err)
         if n == 0:
             log("the same check against planted segment faults, same "
                 "inputs:")
-            faults = check_segment_faults(inputs, ids, right)
+            faults = check_segment_faults(inputs, seg_q, right)
         del inputs, right
         torch.cuda.empty_cache()
-    # the pair form: kv-side ids of 700-token documents with every odd id
-    # dropped, so the odd documents' rows see no key (out 0, lse NEG_INF,
-    # held by the same comparison)
-    seg_q = dev(ar // 700)
-    seg_k = torch.where(seg_q % 2 == 1, seg_q + 1_000_000, seg_q)
-    log(f"  pair form: {int((seg_q % 2 == 1).sum()) * 32} of "
-        f"{SEQ * 32} rows see no key")
-    check_kernels(fa, 1, 32, 8, SEQ, 128, torch.bfloat16, False, 40, 1e-3,
-                  seg=(seg_q, seg_k),
-                  label="pair form, odd ids missing on the kv side")
-    torch.cuda.empty_cache()
+    if any(c["empty_blocks"] == 0 for c in lists[EMPTY_LISTS].values()):
+        fail(f"the empty-list layout leaves no list empty: "
+             f"{lists[EMPTY_LISTS]}")
     ragged = np.arange(300) // 70
     ragged[-25:] = -1
     ids = dev(ragged, np.arange(300) // 45 + 10)
     check_kernels(fa, 2, 4, 2, 300, 64, torch.float32, True, 41, 1e-4,
                   seg=(ids, ids), label="ragged, a pad tail")
-    return errs, faults
+    return errs, faults, lists
 
 
 def sdpa_backend(q, k, v, mask):
@@ -1906,24 +2032,34 @@ def varlen_yardstick(q, k, v, do, row, out):
         note = "KV heads repeated beforehand"
     try:
         ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
-        fwd_ms = time_ms(lambda: varlen_attn(qt, kt, vt, cu, cu, longest,
-                                             longest, **kw))
+        def fwd():
+            return varlen_attn(qt, kt, vt, cu, cu, longest, longest, **kw)
+
         lout = varlen_attn(ql, kl, vl, cu, cu, longest, longest, **kw)
-        bwd_ms = time_ms(lambda: torch.autograd.grad(
-            lout, (ql, kl, vl), dot, retain_graph=True))
+
+        def bwd():
+            return torch.autograd.grad(lout, (ql, kl, vl), dot,
+                                       retain_graph=True)
+
+        fwd_ms, bwd_ms = time_ms(fwd), time_ms(bwd)
+        fwd_dev, bwd_dev = device_ms(fwd), device_ms(bwd)
         agrees = flash_check.rows_close(
             lout.detach().transpose(0, 1)[None], out)
     except Exception as e:  # noqa: BLE001 - a yardstick, reported
         return None, f"varlen_attn failed: {type(e).__name__}: {e}"[:300]
-    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "gqa": note,
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_device_ms": fwd_dev,
+            "bwd_device_ms": bwd_dev, "gqa": note,
             "rows_close_to_b1": agrees}, None
 
 
 def segmented_kernel_times(fa, row):
     """Phase 13 (b): each segmented kernel at the main shape on the
-    packed row ``row``: its time (median of 10 device samples), the same
-    kernel unsegmented, its plain version, its bound over the causal
-    pairs and over the within-document pairs, and the yardsticks."""
+    packed row ``row``: its time through its wrapper (median of 10
+    device samples; B2's and B3's wrappers build the ids' tile table),
+    the device's alone, and B2's and B3's given the table as the
+    backward launches them; the same kernel unsegmented, its plain
+    version, its bound over the causal pairs and over the
+    within-document pairs, and the yardsticks."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1933,16 +2069,28 @@ def segmented_kernel_times(fa, row):
     scale = 1.0 / math.sqrt(d)
     ids = torch.as_tensor(row[None], device="cuda")
     seg = {"seg_q": ids, "seg_k": ids}
+    # the autograd backward builds the ids' tile table once and launches
+    # B2 and B3 with it (``fa._launch_bwd_*``); the table is timed alone
+    table = fa.segment_tiles(ids, ids)
+    table_ms = time_ms(lambda: fa.segment_tiles(ids, ids))
+    table_dev = device_ms(lambda: fa.segment_tiles(ids, ids))
+    given_table = {
+        "flash_bwd_dkv": lambda: fa._launch_bwd_dkv(
+            q, k, v, do, lse, delta, True, scale, ids, ids, None, table),
+        "flash_bwd_dq": lambda: fa._launch_bwd_dq(
+            q, k, v, do, lse, delta, True, scale, ids, ids, None, table)}
     out, lse = fa.flash_fwd(q, k, v, True, scale, **seg)
     delta = (do.float() * out.float()).sum(-1).contiguous()
     pairs = {"causal": s * (s + 1) // 2, "document": document_pairs(row)}
     io = 2
     qb, kb = b * h * s * d * io, b * hkv * s * d * io
     rows, idb = b * h * s * 4, 2 * b * s * 4
+    tb = table.numel() * 4  # the backward's table
     work = {  # (flops per pair and head, bytes read once and written once)
         "flash_fwd": (4 * d, qb + 2 * kb + qb + rows + idb),
-        "flash_bwd_dkv": (8 * d, 2 * qb + 2 * kb + 2 * rows + 2 * kb + idb),
-        "flash_bwd_dq": (6 * d, 2 * qb + 2 * kb + 2 * rows + qb + idb),
+        "flash_bwd_dkv": (8 * d,
+                          2 * qb + 2 * kb + 2 * rows + 2 * kb + idb + tb),
+        "flash_bwd_dq": (6 * d, 2 * qb + 2 * kb + 2 * rows + qb + idb + tb),
     }
     calls = {
         "flash_fwd": lambda f, **kw: f(q, k, v, True, scale, **kw),
@@ -1951,6 +2099,7 @@ def segmented_kernel_times(fa, row):
         "flash_bwd_dq": lambda f, **kw: f(q, k, v, do, lse, delta, True,
                                           scale, **kw),
     }
+
     # the yardstick: SDPA with the block-diagonal causal boolean mask
     mask = ((ids[:, None, :, None] == ids[:, None, None, :])
             & torch.ones(s, s, dtype=torch.bool, device="cuda").tril())
@@ -1965,24 +2114,33 @@ def segmented_kernel_times(fa, row):
     lib_out = sdpa(ql, kl, vl)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), do, retain_graph=True))
+    lib_dev = {"fwd": device_ms(lambda: sdpa(q, k, v)),
+               "bwd": device_ms(lambda: torch.autograd.grad(
+                   lib_out, (ql, kl, vl), do, retain_graph=True))}
     del lib_out
     varlen, why = varlen_yardstick(q, k, v, do, row, out)
     log(f"  the row: {len(segment_lengths(row))} documents, "
         f"{pairs['document']} of {pairs['causal']} causal pairs within a "
         f"document ({pairs['document'] / pairs['causal']:.3f})")
     log(f"  SDPA with the block-diagonal causal mask (enable_gqa): fwd "
-        f"{lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms; backend {backend}")
+        f"{lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms (device alone "
+        f"{lib_dev['fwd']:.3f}, {lib_dev['bwd']:.3f}); backend {backend}")
     if varlen is None:
         log(f"  varlen flash: not measured ({why})")
     else:
         log(f"  varlen flash ({varlen['gqa']}): fwd {varlen['fwd_ms']:.3f} "
-            f"ms, bwd {varlen['bwd_ms']:.3f} ms; its output passes the "
-            f"row rule against B1's: {varlen['rows_close_to_b1']}")
+            f"ms, bwd {varlen['bwd_ms']:.3f} ms (device alone "
+            f"{varlen['fwd_device_ms']:.3f}, {varlen['bwd_device_ms']:.3f});"
+            f" its output passes the row rule against B1's: "
+            f"{varlen['rows_close_to_b1']}")
     results = {}
     for name, (per_pair, nbytes) in work.items():
-        samples = time_samples(lambda: calls[name](fa.WRAPPERS[name],
-                                                   **seg))
+        samples = time_samples(lambda: calls[name](fa.WRAPPERS[name], **seg))
         kernel_ms = statistics.median(samples)
+        dev_ms = device_ms(lambda: calls[name](fa.WRAPPERS[name], **seg))
+        given = {} if name not in given_table else {
+            "ms": time_ms(given_table[name]),
+            "device_ms": device_ms(given_table[name])}
         dense_ms = time_ms(lambda: calls[name](fa.WRAPPERS[name]))
         plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name], **seg),
                            iters=5, warmup=1)
@@ -1998,12 +2156,21 @@ def segmented_kernel_times(fa, row):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_causal_ms": bounds["causal"],
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "device_ms": dev_ms,
+            "library_device_ms": lib_dev["fwd" if name == "flash_fwd"
+                                         else "bwd"],
+            "given_table": given,
             "varlen_ms": (None if varlen is None else
                           varlen["fwd_ms" if name == "flash_fwd"
                                  else "bwd_ms"]),
         }
         log(f"  {name} segmented: {kernel_ms:.3f} ms (samples "
-            f"{min(samples):.3f}-{max(samples):.3f}), unsegmented "
+            f"{min(samples):.3f}-{max(samples):.3f}; device alone "
+            f"{dev_ms:.3f} ms"
+            + ("" if not given else
+               f"; given the table {given['ms']:.3f} ms, device alone "
+               f"{given['device_ms']:.3f}")
+            + f"), unsegmented "
             f"{dense_ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
             f"{r['bound_ms']:.3f} ms over the within-document pairs "
             f"({r['bound_ms'] / kernel_ms:.3f} of it), "
@@ -2011,11 +2178,29 @@ def segmented_kernel_times(fa, row):
             f"({r['bound_causal_ms'] / kernel_ms:.3f}); "
             f"{kernel_ms / r['library_ms']:.2f}x SDPA's masked "
             f"{'forward' if name == 'flash_fwd' else 'backward'}")
+    pair = {key: sum(results[n][key] for n in given_table)
+            for key in ("ms", "device_ms")}
+    pair.update({f"given_table_{key}": sum(
+        results[n]["given_table"][key] for n in given_table)
+        for key in ("ms", "device_ms")})
+    log(f"  B2-seg + B3-seg through their wrappers: {pair['ms']:.3f} ms "
+        f"(device alone {pair['device_ms']:.3f}); given the table as the "
+        f"backward launches them {pair['given_table_ms']:.3f} ms (device "
+        f"alone {pair['given_table_device_ms']:.3f}), the table "
+        f"(segment_tiles, once a backward) {table_ms:.3f} ms (device "
+        f"alone {table_dev:.3f})"
+        + ("" if varlen is None else
+           f"; varlen's backward {varlen['bwd_ms']:.3f} ms (device alone "
+           f"{varlen['bwd_device_ms']:.3f}): "
+           f"{pair['ms'] / varlen['bwd_ms']:.2f}x, device alone "
+           f"{pair['device_ms'] / varlen['bwd_device_ms']:.2f}x")
+        + f"; {pair['ms'] / lib_bwd:.2f}x SDPA's masked backward")
     # the same kernels on other layouts: what the segment machinery costs
     # where no tile needs an element mask (one document; documents on
-    # tile edges), and where some do
+    # tile edges), and where some do, beside the share of tiles the
+    # backward kernels list
     ar = np.arange(s, dtype=np.int32)
-    layout_ms = {}
+    layout_ms, layout_lists = {}, {}
     for name, lay in (("one document", np.zeros(s, np.int32)),
                       ("documents of 512", ar // 512),
                       ("documents of 700", ar // 700),
@@ -2023,13 +2208,23 @@ def segmented_kernel_times(fa, row):
         lids = torch.as_tensor(lay[None], device="cuda")
         layout_ms[name] = {k: time_ms(lambda: calls[k](
             fa.WRAPPERS[k], seg_q=lids, seg_k=lids)) for k in work}
+        layout_ms[name].update({f"{k}_device": device_ms(lambda: calls[k](
+            fa.WRAPPERS[k], seg_q=lids, seg_k=lids)) for k in work})
+        layout_lists[name] = tile_lists(fa, lids, lids, True)
         log(f"  segmented on {name}: "
-            + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
-                        layout_ms[name].items()))
+            + ", ".join(f"{k} {layout_ms[name][k]:.3f} ms (device alone "
+                        f"{layout_ms[name][k + '_device']:.3f})"
+                        for k in work)
+            + "; tiles listed (computed on the host) " + ", ".join(
+                f"{k} {c['listed'] / c['visited']:.3f}"
+                for k, c in layout_lists[name].items()))
     return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
                      "sdpa_backend": backend, "varlen": varlen,
                      "varlen_note": why, "pairs": pairs,
-                     "layout_ms": layout_ms}
+                     "bwd_pair": pair, "table_ms": table_ms,
+                     "table_device_ms": table_dev,
+                     "layout_ms": layout_ms,
+                     "layout_lists": layout_lists}
 
 
 def packed_phases(llama, fa, remat, config, card):
@@ -2040,7 +2235,8 @@ def packed_phases(llama, fa, remat, config, card):
     report = {}
     log("packed documents: B1-B3 in segment-id mode vs plain (bf16, B=1 "
         f"H=32/8 S={SEQ} D=128, causal, unless said):")
-    errs, report["planted_segment_faults"] = packed_kernel_checks(fa)
+    errs, report["planted_segment_faults"], report["tile_lists"] = \
+        packed_kernel_checks(fa)
     torch.cuda.empty_cache()
     rows = packed_segment_rows(SEQ, PACK_SEED)
     train_rows = [next(rows) for _ in range(STEPS)]
@@ -2050,13 +2246,22 @@ def packed_phases(llama, fa, remat, config, card):
     # warpgroup's 64 keys against 64 rows
     whole = {"B1_B3": [whole_masked_tiles(r, 64, 128) for r in train_rows],
              "B2": [whole_masked_tiles(r, 64, 64) for r in train_rows]}
+    listed = {name: [] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for r in train_rows:
+        for name, c in tile_lists(fa, r[None], r[None], True).items():
+            listed[name].append(c["listed"] / c["visited"])
     report["packing"] = {"documents_per_row": docs,
                          "within_document_share": shares,
-                         "whole_masked_tile_share": whole}
+                         "whole_masked_tile_share": whole,
+                         "listed_tile_share": listed}
     log(f"  packed rows: documents {docs}; within-document share of the "
-        f"causal pairs {[round(x, 3) for x in shares]}; causal tiles masked "
-        f"whole, B1/B3 {[round(x, 3) for x in whole['B1_B3']]}, B2 "
-        f"{[round(x, 3) for x in whole['B2']]}")
+        f"causal pairs {[round(x, 3) for x in shares]}; causal warpgroup "
+        f"tiles masked whole (B1-seg visits them), 64x128 "
+        f"{[round(x, 3) for x in whole['B1_B3']]}, 64x64 "
+        f"{[round(x, 3) for x in whole['B2']]}; causal tiles listed "
+        f"(computed on the host), "
+        + ", ".join(f"{name}_seg {[round(x, 3) for x in xs]} (mean "
+                    f"{np.mean(xs):.3f})" for name, xs in listed.items()))
     log(f"segmented kernel times on the first packed row ({card}):")
     times, yard = segmented_kernel_times(fa, train_rows[0])
     report["segmented_kernel_times"], report["segmented_yardsticks"] = \
@@ -2323,6 +2528,9 @@ def prefix_kernel_times(fa, prefixes, unprefixed):
     lib_out = sdpa(ql, kl, vl)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), do, retain_graph=True))
+    lib_dev = {"fwd": device_ms(lambda: sdpa(q, k, v)),
+               "bwd": device_ms(lambda: torch.autograd.grad(
+                   lib_out, (ql, kl, vl), do, retain_graph=True))}
     del lib_out
     flex, why = flex_yardstick(q, k, v, do, p, out)
     log(f"  prompts {prefixes}: {pairs} visible (q, k) pairs, "
@@ -2340,6 +2548,7 @@ def prefix_kernel_times(fa, prefixes, unprefixed):
     for name, (flops, nbytes) in work.items():
         samples = time_samples(lambda: calls[name](fa.WRAPPERS[name]))
         kernel_ms = statistics.median(samples)
+        dev_ms = device_ms(lambda: calls[name](fa.WRAPPERS[name]))
         plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name]), iters=5,
                            warmup=1)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -2351,12 +2560,16 @@ def prefix_kernel_times(fa, prefixes, unprefixed):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9,
             "library_ms": lib_fwd if fwd else lib_bwd,
+            "device_ms": dev_ms,
+            "library_device_ms": lib_dev["fwd" if fwd else "bwd"],
             "flex_ms": (None if flex is None else
                         flex["fwd_ms" if fwd else "bwd_ms"]),
             "unprefixed_ms": unprefixed[name]["ms"],
         }
         log(f"  {name} prefix-LM: {kernel_ms:.3f} ms (samples "
-            f"{min(samples):.3f}-{max(samples):.3f}), unprefixed (causal) "
+            f"{min(samples):.3f}-{max(samples):.3f}; device alone "
+            f"{dev_ms:.3f} ms, SDPA's "
+            f"{r['library_device_ms']:.3f}), unprefixed (causal) "
             f"{r['unprefixed_ms']:.3f} ms, plain {plain_ms:.3f} ms; bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {flops / 1e9:.1f} "
             f"GFLOP over the visible pairs; {r['bound_ms'] / kernel_ms:.3f} "
@@ -2529,12 +2742,183 @@ def glm_phases(glm, fa, remat, card):
     return report, errs, times
 
 
+def _parse_entry(source, entry):
+    """ctypes argument types of ``extern "C" int <entry>(...)`` in a
+    kernel source's text: a pointer for each ``*`` parameter, else int
+    or float."""
+    import ctypes
+    import re
+
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", source,
+                  re.S)
+    if m is None:
+        fail(f"no entry point {entry}")
+    return [ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+            for p in m.group(1).split(",")]
+
+
+def _sass_by_kernel(cuobjdump, cubin):
+    """{kernel's mangled name up to the end of its template arguments:
+    its SASS text}. The parameters are left out: a kernel given one more
+    pointer keeps its key."""
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    return {name.strip().split("EEv")[0]: body.strip() for name, _, body in
+            (part.partition("\n")
+             for part in text.split("Function : ")[1:])}
+
+
+AGAINST_SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+AGAINST_BWD = {"flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
+
+
+def against(other, may_differ):
+    """``--against DIR``: this tree's flash kernels against another
+    tree's (DIR holds its ``dlrover_tpu_torch/csrc``: a parent from
+    ``git archive``, or a variant of this tree's sources). Fails when a
+    kernel of ``flash_fwd.cu``, ``flash_bwd_dkv.cu`` or ``flash_bwd_dq.cu``
+    whose mangled name holds none of ``may_differ`` has other SASS
+    (``nvcc -cubin``, ``cuobjdump -sass``), or when B2's and B3's bf16
+    segment-id entry points of the two trees disagree by a bit on a
+    phase-13 layout (a tile one tree skips adds exact zeros in the
+    other); then times both trees' entry points in turns (other, this,
+    this, other) on the packed row and on documents of 700 tokens. An
+    entry point's arguments are read from its tree's source: a kernel
+    that takes the ids' tile table is given it."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import kernel_build
+
+    report = {"card": card_line(), "other": os.path.abspath(other)}
+    log(f"card: {report['card']}")
+    trees = {"other": os.path.join(os.path.abspath(other),
+                                   "dlrover_tpu_torch", "csrc"),
+             "this": str(kernel_build.CSRC)}
+    work = kernel_build.BUILD_DIR / "against"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    nvcc = kernel_build.nvcc_path()
+    jobs = []
+    for tree, csrc in trees.items():
+        for name in AGAINST_SOURCES:
+            src, out = os.path.join(csrc, f"{name}.cu"), work / f"{tree}_{name}"
+            jobs.append([nvcc, "-cubin", *kernel_build.NVCC_FLAGS[:4], "-o",
+                         f"{out}.cubin", src])
+            if name in AGAINST_BWD:
+                jobs.append([nvcc, *kernel_build.NVCC_FLAGS, "-o",
+                             f"{out}.so", src])
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    for cmd, proc in zip(jobs, procs):
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for {cmd[-1]}:\n{text[-4000:]}")
+    log(f"built both trees: {time.monotonic() - t0:.1f} s")
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    report["sass"] = {}
+    for name in AGAINST_SOURCES:
+        old, new = (_sass_by_kernel(cuobjdump, str(work / f"{t}_{name}.cubin"))
+                    for t in ("other", "this"))
+        if set(old) != set(new):
+            fail(f"{name}: the trees' kernels differ: "
+                 f"{sorted(set(old) ^ set(new))}")
+        for kernel in sorted(old):
+            same = old[kernel] == new[kernel]
+            allowed = any(m in kernel for m in may_differ)
+            report["sass"][kernel] = same
+            log(f"  SASS {kernel}: {'identical' if same else 'differs'}"
+                f"{' (may differ)' if allowed else ''}")
+            if not same and not allowed:
+                fail(f"{kernel}: SASS differs from the other tree's")
+
+    entries = {}
+    for tree, csrc in trees.items():
+        for name in AGAINST_BWD:
+            with open(os.path.join(csrc, f"{name}.cu")) as f:
+                source = f.read()
+            fn = getattr(ctypes.CDLL(str(work / f"{tree}_{name}.so")),
+                         f"dlr_{name}_seg_bf16")
+            fn.argtypes = _parse_entry(source, f"dlr_{name}_seg_bf16")
+            fn.restype = ctypes.c_int
+            # pointers: q k v dO lse delta, the outputs, then the ids
+            ids = sum(t == ctypes.c_void_p for t in fn.argtypes) - 7 - len(
+                AGAINST_BWD[name])
+            entries[(tree, name)] = (fn, ids)
+
+    def run(tree, name, q, k, v, do, lse, delta, seg_q, seg_k, tiles,
+            causal, scale):
+        fn, n_ids = entries[(tree, name)]
+        outs = [torch.empty_like(q if o == "dq" else k)
+                for o in AGAINST_BWD[name]]
+        code = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+                  *(t.data_ptr() for t in (seg_q, seg_k, tiles)[:n_ids]),
+                  *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                  q.shape[3], scale, int(causal),
+                  torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            fail(f"{tree} {name}: launch failed ({code})")
+        return outs
+
+    report["outputs"], report["times_ms"] = {}, {}
+    for n, (label, row_q, row_k, causal) in enumerate(segment_layouts()):
+        q, k, v, do = attention_inputs(1, 32, 8, len(row_q), 128,
+                                       torch.bfloat16, 50 + n)
+        scale = 128 ** -0.5
+        seg_q, seg_k = (torch.as_tensor(r[None].astype(np.int32),
+                                        device="cuda")
+                        for r in (row_q, row_k))
+        out, lse = fa.flash_fwd(q, k, v, causal, scale, seg_q=seg_q,
+                                seg_k=seg_k)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        args = (q, k, v, do, lse, delta, seg_q, seg_k,
+                fa.segment_tiles(seg_q, seg_k), causal, scale)
+        same = all(torch.equal(a, b) for name in AGAINST_BWD
+                   for a, b in zip(run("other", name, *args),
+                                   run("this", name, *args)))
+        report["outputs"][label] = same
+        log(f"  outputs, {label}: {'bit for bit' if same else 'DIFFER'}")
+        if not same:
+            fail(f"B2-seg or B3-seg differs from the other tree's on {label}")
+        if n not in (0, 2):  # the packed row, documents of 700
+            continue
+        report["times_ms"][label] = {}
+        for name in AGAINST_BWD:
+            samples = {t: {"ms": [], "device_ms": []} for t in trees}
+            for tree in ("other", "this", "this", "other"):
+                for key, spin in (("ms", False), ("device_ms", True)):
+                    samples[tree][key] += time_samples(
+                        lambda: run(tree, name, *args), spin=spin)
+            report["times_ms"][label][name] = {
+                t: {key: statistics.median(xs) for key, xs in d.items()}
+                for t, d in samples.items()}
+            log(f"  {name}, {label} (medians of 20 samples in turns): "
+                + "; ".join(f"{t} {m['ms']:.3f} ms, device alone "
+                            f"{m['device_ms']:.3f}" for t, m in
+                            report["times_ms"][label][name].items()))
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def main():
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", default="",
                         help="also write the run's measurements here")
+    parser.add_argument("--against", default="", metavar="DIR",
+                        help="only hold the flash kernels against another "
+                             "tree's under DIR (see against())")
+    parser.add_argument("--may-differ", nargs="*", default=[],
+                        metavar="PART", help="with --against: kernels "
+                        "whose mangled name holds PART may change SASS")
     args = parser.parse_args()
     try:
         import torch
@@ -2553,6 +2937,16 @@ def main():
         fail(f"the dlrover_tpu_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.against:
+        report = against(args.against, args.may_differ)
+        if args.json:
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                        exist_ok=True)
+            with open(args.json, "w") as out:
+                json.dump(report, out, indent=1)
+        print(json.dumps({"ok": True, "against": report["other"]}),
+              flush=True)
+        return
     report = {}
 
     card = card_line()
@@ -2799,6 +3193,8 @@ def main():
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
             "verdict": "ok",
         })
         kernels[-1]["design"] = {"flash_fwd": B1_DESIGN,
@@ -2822,6 +3218,8 @@ def main():
                             else g_errs[name]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
             "verdict": "ok",
         }
         if name == "grouped_matmul_fwd":
@@ -2854,6 +3252,8 @@ def main():
             "max_abs_err": seg_errs[seg], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
             "verdict": "ok", "bound_causal_ms": t["bound_causal_ms"],
             "unsegmented_ms": t["unsegmented_ms"],
             "varlen_ms": t["varlen_ms"], "design": SEG_DESIGN[seg],
@@ -2867,6 +3267,8 @@ def main():
             "max_abs_err": pfx_errs[pfx], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
             "verdict": "ok", "unprefixed_ms": t["unprefixed_ms"],
             "flex_ms": t["flex_ms"], "design": PFX_DESIGN[pfx],
         })

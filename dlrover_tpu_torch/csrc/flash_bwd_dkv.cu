@@ -51,16 +51,29 @@
 // of each kernel (SEG = true, entry points dlr_flash_bwd_dkv_seg_*) takes
 // int32 ids seg_q [B, Sq] and seg_k [B, Sk] and sets p = 0 where a q
 // row's id differs from the key's, on top of the causal mask; the SEG =
-// false kernels are unchanged. With the scores transposed, seg_k indexes
-// the accumulator's rows and seg_q its columns. As in B1 (flash_fwd.cu),
-// one producer warp stages the ids in shared memory with per-64 "one
-// value" flags, the block's 128 k ids once and each step's 64 q ids
-// beside its tiles, and a consumer warpgroup masks a step whole (every
-// p = exp2(-inf) through the lse it subtracts), not at all by segment,
-// or, where ids change inside it, by a warp-uniform pass that sets S^T
-// to -inf apart from the unsegmented mask. Any tile can hold a document
-// boundary, and ids need not be sorted. The f32 kernel stages the ids
-// beside its tiles. A row that saw no key has lse = NEG_INF from the
+// false kernels are unchanged. The bf16 kernel also takes the ids' tile
+// table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2]: the [min, max]
+// id of each 64-id tile, q side then k side, built on the device once a
+// backward (flash_attention.py's segment_tiles). Before the role split
+// one warp lists in shared memory the block's q tiles (i0 .. nqt, after
+// the causal cut) whose [min, max] meets that of one of its two 64-key
+// halves, each with a bit for each warpgroup whose half it meets; the
+// producer and both consumer warpgroups walk that list, group x count
+// steps, so the mbarrier phases stay in step, and a warpgroup whose bit
+// is clear skips the step as the causal skip does. The test never drops
+// a tile that holds a same-id pair, for any ids, and on sorted ids lists
+// exactly those tiles. A block whose list is empty (pair-form keys no row
+// shares an id with) loads K and V, runs no step and stores dK = dV = 0.
+// With the scores transposed, seg_k indexes the accumulator's rows and
+// seg_q its columns. On a listed step, as in B1 (flash_fwd.cu), one
+// producer warp stages the ids in shared memory with per-64 "one value"
+// flags, the block's 128 k ids once and each step's 64 q ids beside its
+// tiles, and a consumer warpgroup masks the step not at all by segment,
+// whole (every p = exp2(-inf) through the lse it subtracts), or, where
+// ids change inside it, by a warp-uniform pass that sets S^T to -inf
+// apart from the unsegmented mask. Ids need not be sorted. The f32
+// kernel visits every causal tile, stages the ids beside its tiles and
+// ignores the table. A row that saw no key has lse = NEG_INF from the
 // forward; the lse is clamped to 0 first, as the reference does, so
 // every p of that row stays exactly 0.
 //
@@ -263,15 +276,18 @@ struct Layout {
   static constexpr uint32_t kIds = kBars + 128;
   static constexpr int kKIds = BK + 8, kQIds = BQ + 8;  // ints
   static constexpr size_t kIdBytes = (kKIds + kStages * kQIds) * 4;
+  // then the block's list of steps, one int a q tile
+  static constexpr uint32_t kList = kIds + kIdBytes;
 };
 
 // The mbarriers: K and V arrived; a stage's Q, dO, lse and delta
 // arrived; a stage released by both consumer warpgroups; (segment-id
-// mode) a stage's q ids written. Then (prefix-LM mode) the block's prefix
-// length.
+// mode) a stage's q ids written. Then (segment-id mode) the length of the
+// block's list of q tiles.
 struct Bars {
   uint64_t kv_full, full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
+  int count;
 };
 
 template <int N>
@@ -324,7 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                               float scale, float scale_log2, int causal,
                               const int* __restrict__ seg_q,
                               const int* __restrict__ seg_k,
-                              const int* __restrict__ prefix_len) {
+                              const int* __restrict__ prefix_len,
+                              const int* __restrict__ seg_tiles) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dK or dV accumulator registers a thread
   // every head's first key tiles (the most causal work) first
@@ -339,8 +356,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int i0 = causal && !(PFX && j * BK < min(max(plen, 0), Sk))
                      ? j * BK / BQ
                      : 0;
-  const int per_head = max(nqt - i0, 0);
-  const int steps = group * per_head;
+  int per_head = max(nqt - i0, 0);  // segment-id mode: the list's length
+  int steps = group * per_head;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -352,10 +369,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     return reinterpret_cast<const float*>(base + L::kRows + s * 2 * L::kRow);
   };
   auto sDelta = [&](int s) { return sLse(s) + L::kRow / 4; };
+  // segment-id mode: the listed q tiles, q tile * 4 + a bit for each
+  // warpgroup whose keys the tile's ids can meet
+  int* list = reinterpret_cast<int*>(base + L::kList);
+  // the q tile of step t
+  auto q_tile = [&](int t) {
+    if constexpr (SEG) {
+      return list[t % per_head] >> 2;
+    } else {
+      return i0 + t % per_head;
+    }
+  };
   // the first row of step t's q tile in the [B H Sq] rows of lse, delta
   auto first_row = [&](int t) {
-    return (b * H + hk * group + t / per_head) * Sq +
-           (i0 + t % per_head) * BQ;
+    return (b * H + hk * group + t / per_head) * Sq + q_tile(t) * BQ;
   };
   Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
   // segment-id mode: the k ids and flags, then stage s's q ids and flags
@@ -370,7 +397,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     hop::mbar_fence_init();
   }
+  if constexpr (SEG) {
+    // one warp lists the q tiles i0 .. nqt whose ids can meet this key
+    // tile's: by the [min, max] ids of its two 64-key halves (warpgroup
+    // w's keys) and of each 64-row q tile
+    if (threadIdx.x < 32) {
+      const int nk = (Sk + 63) / 64;
+      const int* tab_q = seg_tiles + (size_t)b * (nqt + nk) * 2;
+      const int* tab_k = tab_q + nqt * 2;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int kt = min(2 * j + w, nk - 1);
+        lo[w] = __ldg(tab_k + 2 * kt);
+        hi[w] = __ldg(tab_k + 2 * kt + 1);
+      }
+      const int n = hop::seg_compact(list, i0, nqt, threadIdx.x, [&](int i) {
+        int m = 0;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int kt = 2 * j + w;
+          if (kt < nk && !(causal && kt > i) &&
+              hop::seg_meets(tab_q + 2 * i, lo[w], hi[w])) {
+            m |= 1 << w;
+          }
+        }
+        return m;
+      });
+      if (threadIdx.x == 0) bar.count = n;
+    }
+  }
   __syncthreads();
+  if constexpr (SEG) {
+    per_head = bar.count;
+    steps = group * per_head;
+  }
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread loads K and V once, then keeps the ring full
@@ -398,7 +459,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       for (int t = 0; t < steps; ++t) {
         const int s = t % kStages;
-        const int h = hk * group + t / per_head, i = i0 + t % per_head;
+        const int h = hk * group + t / per_head, i = q_tile(t);
         int v[BQ / 32];  // segment-id mode: the step's q ids
         if constexpr (SEG) {
           hop::seg_load(v, seg_q + (size_t)b * Sq, i * BQ, Sq - 1, pt);
@@ -445,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   hop::mbar_wait(&bar.kv_full, 0);
   for (int t = 0; t < steps; ++t) {
     const int s = t % kStages, phase = (t / kStages) & 1;
-    const int q_lo = (i0 + t % per_head) * BQ;
+    const int q_lo = q_tile(t) * BQ;
     hop::mbar_wait(&bar.full[s], phase);
     // keys all past Sk, or all above this q tile's diagonal (and, in
     // prefix-LM mode, past the prompt): nothing to add
@@ -457,6 +518,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else if (k_lo >= Sk || (causal && k_lo > q_lo + BQ - 1)) {
       hop::mbar_arrive(&bar.empty[s]);
       continue;
+    }
+    // segment-id mode: the step's ids can meet none of this warpgroup's
+    // keys (its tile was listed for the other's)
+    if constexpr (SEG) {
+      if (!((list[t % per_head] >> wg) & 1)) {
+        hop::mbar_arrive(&bar.empty[s]);
+        continue;
+      }
     }
 
     // segment-id mode: how this warpgroup's keys and the step's q rows
@@ -594,7 +663,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
                 int D, float scale, int causal, void* stream,
                 const int* seg_q = nullptr, const int* seg_k = nullptr,
-                const int* prefix_len = nullptr) {
+                const int* prefix_len = nullptr,
+                const int* seg_tiles = nullptr) {
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
   const size_t rows = (size_t)B * H * Sq;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
@@ -609,12 +679,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sk + BK - 1) / BK * B * Hkv);
-  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  // segment-id mode: the ids, then the list (one int a q tile)
+  const size_t smem =
+      Layout<DP>::kSmem +
+      (SEG ? Layout<DP>::kIdBytes + (Sq + BQ - 1) / BQ * sizeof(int) : 0);
   return hop::launch(flash_bwd_dkv_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
                      smem, stream, tq, tk, tv, tdo, tlse, tdelta,
                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H,
                      Hkv, Sq, Sk, D, scale, scale * kLog2e, causal, seg_q,
-                     seg_k, prefix_len);
+                     seg_k, prefix_len, seg_tiles);
 }
 
 }  // namespace dkv
@@ -646,27 +719,30 @@ extern "C" int dlr_flash_bwd_dkv_f32(const void* q, const void* k,
                                        stream);
 }
 
-// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32, and their tile
+// table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2] int32 (the f32
+// kernel visits every tile and does not read it)
 extern "C" int dlr_flash_bwd_dkv_seg_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    const int* seg_q, const int* seg_k, int B, int H, int Hkv, int Sq,
-    int Sk, int D, float scale, int causal, void* stream) {
-  return D <= 64
-             ? dlr::dkv::launch_bf16<64, true>(q, k, v, dout, lse, delta, dk,
-                                               dv, B, H, Hkv, Sq, Sk, D, scale,
-                                               causal, stream, seg_q, seg_k)
-             : dlr::dkv::launch_bf16<128, true>(q, k, v, dout, lse, delta, dk,
-                                                dv, B, H, Hkv, Sq, Sk, D,
-                                                scale, causal, stream, seg_q,
-                                                seg_k);
+    const int* seg_q, const int* seg_k, const int* seg_tiles, int B, int H,
+    int Hkv, int Sq, int Sk, int D, float scale, int causal, void* stream) {
+  return D <= 64 ? dlr::dkv::launch_bf16<64, true>(
+                       q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+                       D, scale, causal, stream, seg_q, seg_k, nullptr,
+                       seg_tiles)
+                 : dlr::dkv::launch_bf16<128, true>(
+                       q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk,
+                       D, scale, causal, stream, seg_q, seg_k, nullptr,
+                       seg_tiles);
 }
 
 extern "C" int dlr_flash_bwd_dkv_seg_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    const int* seg_q, const int* seg_k, int B, int H, int Hkv, int Sq,
-    int Sk, int D, float scale, int causal, void* stream) {
+    const int* seg_q, const int* seg_k, const int* seg_tiles, int B, int H,
+    int Hkv, int Sq, int Sk, int D, float scale, int causal, void* stream) {
+  (void)seg_tiles;
   return dlr::launch_dkv<float, true>(q, k, v, dout, lse, delta, dk, dv, B,
                                       H, Hkv, Sq, Sk, D, scale, causal, stream,
                                       seg_q, seg_k);

@@ -53,16 +53,30 @@
 // of each kernel (SEG = true, entry points dlr_flash_bwd_dq_seg_*) takes
 // int32 ids seg_q [B, Sq] and seg_k [B, Sk] and sets p = 0 where a q
 // row's id differs from the key's, on top of the causal mask; the SEG =
-// false kernels are unchanged. As in B1 (flash_fwd.cu), one producer
-// warp stages the block's q ids and each K/V tile's k ids in shared
-// memory with per-64 "one value" flags, and a consumer warpgroup masks a
-// tile whole (every p = exp2(-inf) through the lse it subtracts), not at
-// all by segment, or, where ids change inside it, by a warp-uniform pass
-// that sets S to -inf apart from the unsegmented mask. Any tile can hold
-// a document boundary, and ids need not be sorted. The f32 kernel stages
-// the ids beside its tiles. A row that saw no key has lse = NEG_INF from
-// the forward; the lse is clamped to 0 first, as the reference does, so
-// every p of that row stays exactly 0.
+// false kernels are unchanged. The bf16 kernel also takes the ids' tile
+// table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2]: the [min, max]
+// id of each 64-id tile, q side then k side, built on the device once a
+// backward (flash_attention.py's segment_tiles) and shared with B2.
+// Before the role split one warp lists in shared memory the block's K/V
+// tiles (0 .. nkt, after the causal cut; all of them when not causal)
+// one of whose 64-key halves has a [min, max] meeting that of one of the
+// block's two 64-row halves, each with a bit for each warpgroup whose
+// rows it meets; the producer and both consumer warpgroups walk that
+// list, so the mbarrier phases stay in step, and a warpgroup whose bit
+// is clear skips the tile as the causal skip does. The test never drops
+// a tile that holds a same-id pair, for any ids, and on sorted ids lists
+// exactly those tiles. A block whose list is empty (pair-form rows whose
+// ids no key carries) runs no tile and stores dQ = 0. On a listed tile,
+// as in B1 (flash_fwd.cu), one producer warp stages the block's q ids
+// and each K/V tile's k ids in shared memory with per-64 "one value"
+// flags, and a consumer warpgroup masks the tile not at all by segment,
+// whole (every p = exp2(-inf) through the lse it subtracts), or, where
+// ids change inside it, by a warp-uniform pass that sets S to -inf apart
+// from the unsegmented mask. Ids need not be sorted. The f32 kernel
+// visits every causal tile, stages the ids beside its tiles and ignores
+// the table. A row that saw no key has lse = NEG_INF from the forward;
+// the lse is clamped to 0 first, as the reference does, so every p of
+// that row stays exactly 0.
 //
 // Prefix-LM mode (GLM's mask; the reference's _recompute_p with
 // prefix_len, flash_attention.py:662-665): a third instantiation of each
@@ -238,15 +252,18 @@ struct Layout {
   static constexpr uint32_t kIds = kBars + 128;
   static constexpr int kQIds = BQ + 8, kKIds = BK + 8;  // ints
   static constexpr size_t kIdBytes = (kQIds + kStages * kKIds) * 4;
+  // then the block's list of K/V tiles, one int a tile
+  static constexpr uint32_t kList = kIds + kIdBytes;
 };
 
 // The mbarriers: Q and dO arrived; K, V of a stage arrived; a stage
 // released by both consumer warpgroups; (segment-id mode) a stage's k
-// ids written. Then (prefix-LM mode) the block's prefix length.
+// ids written. Then (prefix-LM mode) the block's prefix length;
+// (segment-id mode) the length of the block's list of K/V tiles.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
-  int prefix;
+  int prefix, count;
 };
 
 // Issue acc = A B^T over DP / 16 k16 steps: A this warpgroup's 64 rows
@@ -292,7 +309,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              int Sk, int D, float scale, float scale_log2,
                              int causal, const int* __restrict__ seg_q,
                              const int* __restrict__ seg_k,
-                             const int* __restrict__ prefix_len) {
+                             const int* __restrict__ prefix_len,
+                             const int* __restrict__ seg_tiles) {
   using L = Layout<DP>;
   constexpr int NA = DP / 2;  // dQ accumulator registers a thread
   constexpr int NS = BK / 2;  // S or dP accumulator registers a thread
@@ -314,6 +332,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   // segment-id mode: the q ids and flags, then stage s's k ids and flags
   int* sid = reinterpret_cast<int*>(base + L::kIds);
   auto kids = [&](int s) { return sid + L::kQIds + s * L::kKIds; };
+  // segment-id mode: the listed K/V tiles, tile * 4 + a bit for each
+  // warpgroup whose rows' ids the tile's can meet
+  int* list = reinterpret_cast<int*>(base + L::kList);
+  // the K/V tile of step j
+  auto k_tile = [&](int j) {
+    if constexpr (SEG) {
+      return list[j] >> 2;
+    } else {
+      return j;
+    }
+  };
   if (threadIdx.x == 0) {
     hop::mbar_init(&bar.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -325,10 +354,45 @@ __global__ void __launch_bounds__(kThreads, 1)
     hop::mbar_fence_init();
     if constexpr (PFX) bar.prefix = prefix_len[b];
   }
+  if constexpr (SEG) {
+    // one warp lists the K/V tiles 0 .. nkt whose ids can meet this q
+    // tile's: by the [min, max] ids of its two 64-row halves (warpgroup
+    // w's rows) and of each 64-key half of a K/V tile
+    if (threadIdx.x < 32) {
+      const int nq = (Sq + 63) / 64, nk = (Sk + 63) / 64;
+      const int* tab_q = seg_tiles + (size_t)b * (nq + nk) * 2;
+      const int* tab_k = tab_q + nq * 2;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int qt = min(2 * i + w, nq - 1);
+        lo[w] = __ldg(tab_q + 2 * qt);
+        hi[w] = __ldg(tab_q + 2 * qt + 1);
+      }
+      const int n = hop::seg_compact(list, 0, nkt, threadIdx.x, [&](int jt) {
+        int m = 0;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int qt = 2 * i + w;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kt = 2 * jt + e;
+            if (qt < nq && kt < nk && !(causal && kt > qt) &&
+                hop::seg_meets(tab_k + 2 * kt, lo[w], hi[w])) {
+              m |= 1 << w;
+            }
+          }
+        }
+        return m;
+      });
+      if (threadIdx.x == 0) bar.count = n;
+    }
+  }
   __syncthreads();
   // prefix-LM mode: the prompt's k tiles too (p clamped for the schedule)
   const int plen = PFX ? bar.prefix : 0;
   if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
+  if constexpr (SEG) nkt = bar.count;
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread loads Q and dO once, then keeps the ring full
@@ -355,10 +419,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       for (int j = 0; j < nkt; ++j) {
-        const int s = j % kStages;
+        const int s = j % kStages, jt = k_tile(j);
         int v[BK / 32];  // segment-id mode: the tile's k ids
         if constexpr (SEG) {
-          hop::seg_load(v, seg_k + (size_t)b * Sk, j * BK, Sk - 1, pt);
+          hop::seg_load(v, seg_k + (size_t)b * Sk, jt * BK, Sk - 1, pt);
         }
         // the stage's previous tile, j - kStages, is released
         if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
@@ -366,12 +430,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
           for (int c = 0; c < DP / 64; ++c) {
             hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s],
-                             c * 64, j * BK, b * Hkv + hk);
+                             c * 64, jt * BK, b * Hkv + hk);
           }
           hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
           for (int c = 0; c < DP / 64; ++c) {
             hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s],
-                             c * 64, j * BK, b * Hkv + hk);
+                             c * 64, jt * BK, b * Hkv + hk);
           }
         }
         if constexpr (SEG) {  // a key past Sk (masked) took the last's id
@@ -413,7 +477,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   hop::mbar_wait(&bar.q_full, 0);
   for (int j = 0; j < nkt; ++j) {
     const int s = j % kStages, phase = (j / kStages) & 1;
-    const int k_lo = j * BK;
+    const int k_lo = k_tile(j) * BK;
     hop::mbar_wait(&bar.k_full[s], phase);
     // no rows, or every key of the tile above this warpgroup's rows (and,
     // in prefix-LM mode, past the prompt): nothing to add
@@ -422,6 +486,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       hop::mbar_wait(&bar.v_full[s], phase);
       hop::mbar_arrive(&bar.empty[s]);
       continue;
+    }
+    // segment-id mode: the tile's ids can meet none of this warpgroup's
+    // rows (it was listed for the other's)
+    if constexpr (SEG) {
+      if (!((list[j] >> wg) & 1)) {
+        hop::mbar_wait(&bar.v_full[s], phase);
+        hop::mbar_arrive(&bar.empty[s]);
+        continue;
+      }
     }
 
     // segment-id mode: how this warpgroup's rows and the tile's keys
@@ -524,7 +597,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 void* dq, int B, int H, int Hkv, int Sq, int Sk, int D,
                 float scale, int causal, void* stream,
                 const int* seg_q = nullptr, const int* seg_k = nullptr,
-                const int* prefix_len = nullptr) {
+                const int* prefix_len = nullptr,
+                const int* seg_tiles = nullptr) {
   CUtensorMap tq, tk, tv, tdo;
   if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
       !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
@@ -536,11 +610,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
-  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  // segment-id mode: the ids, then the list (one int a K/V tile)
+  const size_t smem =
+      Layout<DP>::kSmem +
+      (SEG ? Layout<DP>::kIdBytes + (Sk + BK - 1) / BK * sizeof(int) : 0);
   return hop::launch(flash_bwd_dq_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
                      smem, stream, tq, tk, tv, tdo, lse, delta,
                      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, scale,
-                     scale * kLog2e, causal, seg_q, seg_k, prefix_len);
+                     scale * kLog2e, causal, seg_q, seg_k, prefix_len,
+                     seg_tiles);
 }
 
 }  // namespace dq
@@ -571,26 +649,30 @@ extern "C" int dlr_flash_bwd_dq_f32(const void* q, const void* k,
                                       Hkv, Sq, Sk, D, scale, causal, stream);
 }
 
-// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32, and their tile
+// table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2] int32 (the f32
+// kernel visits every tile and does not read it)
 extern "C" int dlr_flash_bwd_dq_seg_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const int* seg_q,
-    const int* seg_k, int B, int H, int Hkv, int Sq, int Sk, int D,
-    float scale, int causal, void* stream) {
-  return D <= 64
-             ? dlr::dq::launch_bf16<64, true>(q, k, v, dout, lse, delta, dq,
-                                              B, H, Hkv, Sq, Sk, D, scale,
-                                              causal, stream, seg_q, seg_k)
-             : dlr::dq::launch_bf16<128, true>(q, k, v, dout, lse, delta, dq,
-                                               B, H, Hkv, Sq, Sk, D, scale,
-                                               causal, stream, seg_q, seg_k);
+    const int* seg_k, const int* seg_tiles, int B, int H, int Hkv, int Sq,
+    int Sk, int D, float scale, int causal, void* stream) {
+  return D <= 64 ? dlr::dq::launch_bf16<64, true>(
+                       q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D,
+                       scale, causal, stream, seg_q, seg_k, nullptr,
+                       seg_tiles)
+                 : dlr::dq::launch_bf16<128, true>(
+                       q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D,
+                       scale, causal, stream, seg_q, seg_k, nullptr,
+                       seg_tiles);
 }
 
 extern "C" int dlr_flash_bwd_dq_seg_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const int* seg_q,
-    const int* seg_k, int B, int H, int Hkv, int Sq, int Sk, int D,
-    float scale, int causal, void* stream) {
+    const int* seg_k, const int* seg_tiles, int B, int H, int Hkv, int Sq,
+    int Sk, int D, float scale, int causal, void* stream) {
+  (void)seg_tiles;
   return dlr::launch_dq<float, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
                                      Sq, Sk, D, scale, causal, stream, seg_q,
                                      seg_k);

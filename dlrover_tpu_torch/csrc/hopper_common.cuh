@@ -481,6 +481,30 @@ __device__ __forceinline__ int seg_mode(const int* q_flags, int q_h0,
   return __all_sync(0xffffffffu, mode == kSegAll) ? kSegAll : kSegById;
 }
 
+// The backward kernels' tile lists (B2, B3): the ids' tile table holds
+// the [min, max] id of each 64-id tile (flash_attention.py's
+// segment_tiles, q side then k side). Two tiles can hold a same-id pair
+// only if their ranges meet; on sorted ids only then do they.
+__device__ __forceinline__ bool seg_meets(const int* a, int lo, int hi) {
+  return __ldg(a) <= hi && lo <= __ldg(a + 1);
+}
+// One warp writes list[n] = c * 4 + mask(c) for each candidate c in
+// [first, end) with mask(c) != 0, in order (mask: bit w set when the
+// candidate's ids can meet warpgroup w's); returns n in every lane.
+template <typename Mask>
+__device__ __forceinline__ int seg_compact(int* list, int first, int end,
+                                           int lane, Mask mask) {
+  int n = 0;
+  for (int base = first; base < end; base += 32) {
+    const int c = base + lane;
+    const int m = c < end ? mask(c) : 0;
+    const uint32_t votes = __ballot_sync(0xffffffffu, m != 0);
+    if (m) list[n + __popc(votes & ((1u << lane) - 1))] = c * 4 + m;
+    n += __popc(votes);
+  }
+  return n;
+}
+
 // -- host ---------------------------------------------------------------------
 
 // Set the dynamic shared-memory limit and launch `threads` threads a

@@ -29,8 +29,10 @@ are unchanged. A row that sees no key at all (possible in the pair form,
 q-side ids) gets ``out = 0`` and ``lse = NEG_INF`` (``finfo(float32).min``,
 not ``-inf``), as the reference's finalize writes it; the backward
 clamps such an lse to 0 before ``exp(s - lse)``, so its masked entries
-stay exactly 0. The kernels mask every tile element by element in this
-mode and skip tiles by the causal diagonal only, as the reference does.
+stay exactly 0. B1 skips tiles by the causal diagonal only, as the
+reference does; B2 and B3 visit only the tiles whose ids can meet, by
+the ids' tile table (``segment_tiles``: the [min, max] id of each 64-id
+tile), which the backward builds on the device once and hands to both.
 
 Prefix-LM mode (``prefix_len [B]`` int32, a keyword of each wrapper;
 always causal): key ``j`` is visible to query ``i`` iff ``j <= i`` or
@@ -114,14 +116,18 @@ KERNELS: Dict[str, Dict[str, str]] = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream;
 # the segmented entry points take seg_q and seg_k after the other
-# pointers, the prefix-LM ones prefix_len
+# pointers (the backward ones then the ids' tile table), the prefix-LM
+# ones prefix_len
 _POINTERS = {"flash_fwd": 5, "flash_bwd_dkv": 8, "flash_bwd_dq": 7}
 _MODE_POINTERS = {"": 0, "_seg": 2, "_pfx": 1}
+_TILE_TABLE = ("flash_bwd_dkv", "flash_bwd_dq")  # seg mode: one more
 _ARGTYPES = {
-    name + mode: [_P] * (n + extra) + [_I] * 6 + [_F, _I, _P]
+    name + mode: [_P] * (n + extra + (mode == "_seg" and name in _TILE_TABLE))
+    + [_I] * 6 + [_F, _I, _P]
     for name, n in _POINTERS.items()
     for mode, extra in _MODE_POINTERS.items()
 }
+SEG_TILE = 64  # ids a row of the tile table covers
 # each mode's launch counter on the wrapper
 _COUNTERS = {"": "launches", "_seg": "seg_launches", "_pfx": "pfx_launches"}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -222,6 +228,25 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
                       k_rep.float())
     return dq.to(q.dtype)
+
+
+def segment_tiles(seg_q: torch.Tensor,
+                  seg_k: torch.Tensor) -> torch.Tensor:
+    """The ids' tile table of B2's and B3's segment-id mode: int32
+    ``[B, ceil(Sq / 64) + ceil(Sk / 64), 2]``, the smallest and largest
+    id of each run of ``SEG_TILE`` ids, ``seg_q``'s tiles first, then
+    ``seg_k``'s (a ragged last tile over its own ids only). Plain torch
+    ops on the ids' device: no host sync. The kernels schedule a tile
+    pair only where the two ranges meet, which keeps every tile pair
+    that holds a same-id pair."""
+    b = seg_q.shape[0]
+    pieces = []
+    for ids in (seg_q, seg_k):
+        pad = -ids.shape[1] % SEG_TILE  # the last id again: same range
+        pieces += [ids, ids[:, -1:].expand(b, pad)]
+    tiles = torch.cat(pieces, dim=1).view(b, -1, SEG_TILE)
+    return torch.stack([tiles.amin(dim=-1), tiles.amax(dim=-1)],
+                       dim=-1).to(torch.int32).contiguous()
 
 
 # -- kernel wrappers ---------------------------------------------------------
@@ -341,9 +366,21 @@ def flash_fwd(q, k, v, causal: bool, scale: float, *, seg_q=None,
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
                   *, seg_q=None, seg_k=None, prefix_len=None):
     """B2: (dk, dv) in k's and v's shape and dtype."""
+    return _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                           seg_k, prefix_len, None)
+
+
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
+                    prefix_len, seg_tiles):
+    """B2; in segment-id mode given ``segment_tiles(seg_q, seg_k)``, or
+    None to build it here: the autograd backward builds the table once
+    for B2 and B3."""
     _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
     mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if seg_q is not None:
+        ids += (segment_tiles(seg_q, seg_k) if seg_tiles is None
+                else seg_tiles,)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale,
@@ -363,9 +400,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
                  *, seg_q=None, seg_k=None, prefix_len=None):
     """B3: dq in q's shape and dtype."""
+    return _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                          seg_k, prefix_len, None)
+
+
+def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
+                   prefix_len, seg_tiles):
+    """B3 given the ids' tile table, as ``_launch_bwd_dkv``."""
     _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
     mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if seg_q is not None:
+        ids += (segment_tiles(seg_q, seg_k) if seg_tiles is None
+                else seg_tiles,)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale,
@@ -435,10 +482,13 @@ class _FlashAttention(torch.autograd.Function):
         # the lse cotangent enters as ds = p * (dp - (delta - dlse))
         delta = ((dout.float() * out.float()).sum(dim=-1)
                  - dlse.float()).contiguous()
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.scale, **ids)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale,
-                          **ids)
+        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.scale,
+                ids.get("seg_q"), ids.get("seg_k"), ids.get("prefix_len"))
+        # one tile table for both kernels
+        tiles = (segment_tiles(ids["seg_q"], ids["seg_k"]) if "seg_q" in ids
+                 else None)
+        dk, dv = _launch_bwd_dkv(*args, tiles)
+        dq = _launch_bwd_dq(*args, tiles)
         return dq, dk, dv, None, None, None, None, None
 
 

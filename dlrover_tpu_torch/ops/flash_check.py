@@ -225,6 +225,38 @@ def segment_faults(q, k, v, dout, lse, delta, scale: float, seg_q, seg_k
     return faults
 
 
+def listed_tiles(tiles: torch.Tensor, s_q: int, s_k: int, causal: bool
+                 ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """The tiles B2 and B3 list in segment-id mode from the tile table
+    ``tiles`` (``fa.segment_tiles``), by the kernels' rule, beside the
+    tiles they visit without a list (the causal cut only): for
+    ``"flash_bwd_dq"`` (listed, visited) bool [B, 128-row q tiles,
+    128-key K/V tiles], for ``"flash_bwd_dkv"`` [B, 128-key tiles,
+    64-row q steps]. A tile is listed when one of its 64 x 64 parts at or
+    below the diagonal has ranges that meet."""
+    t = fa.SEG_TILE
+    b, nq, nk = tiles.shape[0], -(-s_q // t), -(-s_k // t)
+    q, k = tiles[:, :nq, None], tiles[:, None, nq:]
+    meets = (q[..., 0] <= k[..., 1]) & (k[..., 0] <= q[..., 1])
+    if causal:
+        meets &= torch.ones(nq, nk, dtype=torch.bool,
+                            device=tiles.device).tril()
+    # the 128-wide tiles' halves; a missing second half meets nothing
+    nq2, nk2 = -(-nq // 2), -(-nk // 2)
+    halves = torch.zeros(b, 2 * nq2, 2 * nk2, dtype=torch.bool,
+                         device=tiles.device)
+    halves[:, :nq, :nk] = meets
+    dq = halves.view(b, nq2, 2, nk2, 2).any(dim=4).any(dim=2)
+    dkv = halves[:, :nq].view(b, nq, nk2, 2).any(dim=3).transpose(1, 2)
+    i, j = torch.arange(nq2)[:, None], torch.arange(nk2)[None, :]
+    steps = torch.arange(nq)[None, :]
+    visited_dq = (j <= i) if causal else torch.ones(nq2, nk2, dtype=bool)
+    visited_dkv = ((steps >= 2 * j.T) if causal
+                   else torch.ones(nk2, nq, dtype=bool))
+    return {"flash_bwd_dq": (dq, visited_dq.expand(b, -1, -1)),
+            "flash_bwd_dkv": (dkv, visited_dkv.expand(b, -1, -1))}
+
+
 def prefix_faults(q, k, v, dout, lse, delta, scale: float, prefix_len,
                   tile: int = 128) -> List[Tuple[str, str, torch.Tensor]]:
     """(output name, fault, faulty output) for prefix-LM inputs

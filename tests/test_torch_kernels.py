@@ -327,32 +327,44 @@ def test_segment_faults_fail_the_row_rule():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,doc,pad,sk", [
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,doc,pad,sk,ids", [
     # documents on tile edges (512) and inside tiles (700), a pad tail
-    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 512, 0, None),
-    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 700, 100, None),
-    (torch.bfloat16, 2, 4, 2, 1000, 64, True, 130, 77, None),
-    (torch.bfloat16, 1, 4, 1, 1000, 128, False, 300, 0, None),
-    (torch.bfloat16, 2, 4, 4, 300, 48, True, 37, 20, None),
-    (torch.float32, 2, 4, 2, 300, 64, True, 70, 25, None),
-    (torch.float32, 1, 4, 2, 300, 64, False, 90, 0, None),
+    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 512, 0, None, "docs"),
+    (torch.bfloat16, 1, 8, 2, 2048, 128, True, 700, 100, None, "docs"),
+    (torch.bfloat16, 2, 4, 2, 1000, 64, True, 130, 77, None, "docs"),
+    (torch.bfloat16, 1, 4, 1, 1000, 128, False, 300, 0, None, "docs"),
+    (torch.bfloat16, 2, 4, 4, 300, 48, True, 37, 20, None, "docs"),
+    (torch.float32, 2, 4, 2, 300, 64, True, 70, 25, None, "docs"),
+    (torch.float32, 1, 4, 2, 300, 64, False, 90, 0, None, "docs"),
     # the pair form: kv-side ids lacking some q-side ids
-    (torch.bfloat16, 1, 4, 2, 300, 128, False, 60, 0, 1000),
-    (torch.float32, 1, 4, 2, 300, 64, False, 60, 0, 1000),
+    (torch.bfloat16, 1, 4, 2, 300, 128, False, 60, 0, 1000, "docs"),
+    (torch.float32, 1, 4, 2, 300, 64, False, 60, 0, 1000, "docs"),
+    # documents in shuffled order, the last one taking the first's id
+    (torch.bfloat16, 1, 8, 2, 2000, 128, True, 230, 0, None, "shuffled"),
+    (torch.bfloat16, 2, 4, 2, 1000, 64, False, 90, 40, None, "shuffled"),
+    # blocks whose tile lists are empty: the second half of the keys
+    # carries ids no row has (their dK, dV and those rows' dQ are 0)
+    (torch.bfloat16, 1, 4, 2, 1000, 128, False, 100, 0, 1000, "empty"),
+    (torch.bfloat16, 2, 4, 2, 1000, 64, True, 150, 0, 1000, "empty"),
 ], ids=["bf16_docs_512", "bf16_docs_700_pad", "bf16_batch2_d64_pad",
         "bf16_non_causal", "bf16_group1_d48", "f32_ragged_causal",
         "f32_non_causal", "bf16_pair_rows_without_keys",
-        "f32_pair_rows_without_keys"])
+        "f32_pair_rows_without_keys", "bf16_shuffled_causal",
+        "bf16_shuffled_non_causal_pad", "bf16_empty_lists_non_causal",
+        "bf16_empty_lists_causal"])
 def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
                                                hkv, s, d, causal, doc, pad,
-                                               sk):
+                                               sk, ids):
     """Each kernel in segment-id mode against its plain version on the
     same card inputs, held as ``test_kernels_match_plain_on_card`` holds
     the unsegmented ones (bf16 by the row and the bias rule, f32 to 1e-4,
     lse to 1e-3). ``sk``: the key length of a pair case, whose kv-side
     ids are the q side's documents of ``doc`` tokens with every other id
     dropped, so that some rows see no key: those read out 0 and lse
-    NEG_INF."""
+    NEG_INF (``ids == "empty"``: the second half of the keys' ids
+    negated instead, so that whole blocks of B2 and B3 list no tile and
+    must store exact zeros). ``ids == "shuffled"``: the documents' ids
+    permuted, the last document's id the first's."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     pair = sk is not None
     sk = s if sk is None else sk
@@ -363,9 +375,23 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
     q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
         rnd(b, h, s, d)
     seg_q = _doc_ids(b, s, doc, pad, cuda_device)
+    if ids == "shuffled":
+        perm = torch.randperm(int(seg_q.max()) + 1,
+                              generator=torch.Generator().manual_seed(2))
+        perm[-1] = perm[0]
+        seg_q = torch.where(seg_q >= 0, perm.to(cuda_device)[seg_q.long()],
+                            seg_q).int().contiguous()
     seg_k = seg_q if not pair else _doc_ids(b, sk, doc, 0, cuda_device)
-    if pair:  # drop the odd ids from the kv side
+    if ids == "empty":
+        second = torch.arange(sk, device=cuda_device) >= sk // 2
+        seg_k = torch.where(second, -1 - seg_k, seg_k).int()
+    elif pair:  # drop the odd ids from the kv side
         seg_k = torch.where(seg_k % 2 == 1, seg_k + 1000, seg_k).int()
+    if ids == "empty":  # the layout does what it says
+        lists = flash_check.listed_tiles(fa.segment_tiles(seg_q, seg_k), s,
+                                         sk, causal)
+        for listed, _ in lists.values():
+            assert bool((listed.sum(dim=-1) == 0).any())
     scale = d ** -0.5
     fa.reset_launch_counts()
     seg = {"seg_q": seg_q, "seg_k": seg_k}
@@ -393,6 +419,12 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
         out, lse = pairs[0][0]
         assert bool((lse[no_key] == fa.NEG_INF).all())
         assert bool((out[no_key] == 0).all())
+        assert bool((pairs[2][0][0][no_key] == 0).all())  # dQ
+        # keys whose id no row carries: exact zeros in dK and dV
+        unseen = ~torch.stack([torch.isin(seg_k[r], seg_q[r])
+                               for r in range(b)])[:, None]
+        for g in pairs[1][0]:
+            assert bool((g[unseen.expand(g.shape[:3])] == 0).all())
     for got, ref in pairs:
         for g, r in zip(got, ref):
             if g.dtype == torch.bfloat16:

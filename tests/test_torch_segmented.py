@@ -12,11 +12,16 @@ The segmented kernels themselves are held to these plain versions on
 the card by ``tests/test_torch_kernels.py``.
 """
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dlrover_tpu.models.common import segment_positions as jax_positions
 from dlrover_tpu.ops.flash_attention import (
@@ -26,6 +31,7 @@ from dlrover_tpu.ops.flash_attention import (
 )
 from dlrover_tpu_torch.models.common import segment_positions
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import flash_check
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -273,3 +279,162 @@ class TestSegmentChecks:
         ids = torch.from_numpy(_ids([12, 20], 32))[None]
         fa.flash_attention_segmented(q, k, v, ids).sum().backward()
         assert set(fa.launch_counts().values()) == {0}
+
+
+# -- the backward kernels' tile lists ------------------------------------------
+
+
+def _numpy_ranges(ids):
+    """[B, ceil(S / 64), 2]: each 64-id tile's min and max id."""
+    n = -(-ids.shape[1] // 64)
+    return np.stack([[(row[t * 64:(t + 1) * 64].min(),
+                       row[t * 64:(t + 1) * 64].max()) for t in range(n)]
+                     for row in ids]).astype(np.int32)
+
+
+def _same_id_pairs(seg_q, seg_k, causal):
+    """Per tile of B3 [B, 128-row q tiles, 128-key tiles] and of B2
+    [B, 128-key tiles, 64-row q steps]: whether it holds a (row, key)
+    pair of one id (key at or before the row when causal)."""
+    same = seg_q[:, :, None] == seg_k[:, None, :]
+    if causal:
+        same &= np.tri(seg_q.shape[1], seg_k.shape[1], dtype=bool)
+
+    def tiles(a, rows, cols):
+        b, n, m = a.shape
+        padded = np.zeros((b, -(-n // rows) * rows, -(-m // cols) * cols),
+                          bool)
+        padded[:, :n, :m] = a
+        return padded.reshape(b, padded.shape[1] // rows, rows,
+                              padded.shape[2] // cols, cols).any(axis=(2, 4))
+
+    return tiles(same, 128, 128), tiles(same, 64, 128).transpose(0, 2, 1)
+
+
+class TestSegmentTiles:
+    @pytest.mark.parametrize("s_q,s_k", [(64, 64), (100, 100), (300, 300),
+                                         (4096, 4096), (130, 257), (1, 65)])
+    def test_table_matches_numpy(self, s_q, s_k):
+        """Each 64-id tile's [min, max], q side then k side, a ragged
+        last tile over its own ids only."""
+        rs = np.random.RandomState(s_q + s_k)
+        seg_q = rs.randint(-1, 9, (2, s_q)).astype(np.int32)
+        seg_k = rs.randint(-1, 9, (2, s_k)).astype(np.int32)
+        got = fa.segment_tiles(_t(seg_q), _t(seg_k))
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        np.testing.assert_array_equal(
+            got.numpy(), np.concatenate([_numpy_ranges(seg_q),
+                                         _numpy_ranges(seg_k)], axis=1))
+
+    @staticmethod
+    @st.composite
+    def _layouts(draw):
+        """(seg_q, seg_k, causal, sorted self form): documents of drawn
+        lengths, sorted, shuffled (with an id that recurs far apart), with
+        a -1 pad tail, or the pair form with independent kv-side ids."""
+        kind = draw(st.sampled_from(["sorted", "shuffled", "pad_tail",
+                                     "pair"]))
+        s = draw(st.integers(1, 320))
+        causal = draw(st.booleans())
+        rs = np.random.RandomState(draw(st.integers(0, 2 ** 31 - 1)))
+
+        def row(length):
+            docs = draw(st.lists(st.integers(1, 160), min_size=1,
+                                 max_size=10))
+            ids = np.repeat(np.arange(len(docs)), docs)[:length]
+            return np.r_[ids, np.full(length - len(ids), ids[-1])]
+
+        seg_q = row(s)
+        if kind == "shuffled":
+            seg_q = rs.permutation(seg_q.max() + 1)[seg_q]
+            seg_q[seg_q == seg_q[-1]] = seg_q[0]
+        if kind == "pad_tail":
+            seg_q[s - draw(st.integers(1, s)):] = -1
+        seg_k = seg_q
+        if kind == "pair":
+            s_k = s if causal else draw(st.integers(1, 320))
+            seg_k = row(s_k) + draw(st.integers(-3, 3))
+        return (seg_q[None].astype(np.int32), seg_k[None].astype(np.int32),
+                causal, kind == "sorted")
+
+    @settings(max_examples=300, deadline=None, derandomize=True)
+    @given(_layouts())
+    def test_lists_keep_every_tile_with_a_same_id_pair(self, layout):
+        """For any ids, every tile holding a same-id (causal) pair is
+        listed, and nothing outside the causal cut is; on sorted ids
+        exactly those tiles are."""
+        seg_q, seg_k, causal, exact = layout
+        lists = flash_check.listed_tiles(
+            fa.segment_tiles(_t(seg_q), _t(seg_k)), seg_q.shape[1],
+            seg_k.shape[1], causal)
+        needed = dict(zip(("flash_bwd_dq", "flash_bwd_dkv"),
+                          _same_id_pairs(seg_q, seg_k, causal)))
+        for name, (listed, visited) in lists.items():
+            listed, visited = listed.numpy(), visited.numpy()
+            assert listed.shape == needed[name].shape, name
+            assert not (needed[name] & ~listed).any(), name
+            assert not (listed & ~visited).any(), name
+            if exact:
+                np.testing.assert_array_equal(listed, needed[name],
+                                              err_msg=name)
+
+    @pytest.mark.parametrize("layout,counts", [
+        ("packed row", (145, 528, 290, 1056)),
+        ("documents of 512", (80, 528, 160, 1056)),
+        ("documents of 700", (129, 528, 241, 1056)),
+        ("-1 pad tail", (171, 528, 313, 1056)),
+        ("pair form", (198, 1024, 367, 2048)),
+    ])
+    def test_phase_13_counts(self, layout, counts):
+        """The tiles B3 and B2 list against the causal tiles they
+        visited before lists, on chip_smoke.py's phase-13 layouts (the
+        first packed training row: documents of 627, 1253, 785, 617, 373
+        and 441 tokens)."""
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                       "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        row = next(smoke.packed_segment_rows(4096, smoke.PACK_SEED))
+        assert list(smoke.segment_lengths(row)) == [627, 1253, 785, 617,
+                                                    373, 441]
+        ar = np.arange(4096, dtype=np.int32)
+        seg_q = {"packed row": row, "documents of 512": ar // 512,
+                 "documents of 700": ar // 700,
+                 "-1 pad tail": np.r_[row[:-333], np.full(333, -1)],
+                 "pair form": ar // 700}[layout][None].astype(np.int32)
+        seg_k = seg_q
+        if layout == "pair form":  # every odd id missing on the kv side
+            seg_k = np.where(seg_q % 2 == 1, seg_q + 1_000_000, seg_q)
+        causal = layout != "pair form"
+        lists = flash_check.listed_tiles(
+            fa.segment_tiles(_t(seg_q), _t(seg_k)), 4096, 4096, causal)
+        got = []
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            listed, visited = lists[name]
+            got += [int(listed.sum()), int(visited.sum())]
+        assert tuple(got) == counts
+
+    def test_wrappers_take_a_table_or_build_it(self):
+        """The public backward wrappers build the ids' tile table
+        themselves and take none; the launch helpers the autograd
+        backward calls take the one table it builds for both kernels.
+        On the CPU the plain versions answer either way."""
+        q, k, v, dout = (_t(a) for a in _arrays(
+            [(1, 2, 100, 16), (1, 1, 100, 16), (1, 1, 100, 16),
+             (1, 2, 100, 16)], 11))
+        ids = torch.from_numpy(_ids([30, 70], 100))[None]
+        lse, delta = torch.zeros(1, 2, 100), torch.zeros(1, 2, 100)
+        args = (q, k, v, dout, lse, delta, True, 0.25)
+        table = fa.segment_tiles(ids, ids)
+        assert table.shape == (1, 4, 2)
+        for fn, helper in ((fa.flash_bwd_dkv, fa._launch_bwd_dkv),
+                           (fa.flash_bwd_dq, fa._launch_bwd_dq)):
+            built = fn(*args, seg_q=ids, seg_k=ids)
+            given_ = helper(*args, ids, ids, None, table)
+            for a, b in zip(built if isinstance(built, tuple) else (built,),
+                            given_ if isinstance(given_, tuple)
+                            else (given_,)):
+                assert torch.equal(a, b)
+            with pytest.raises(TypeError, match="seg_tiles"):
+                fn(*args, seg_q=ids, seg_k=ids, seg_tiles=table)
