@@ -74,18 +74,20 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      row with a -1 pad tail, on the row's documents shuffled under
      permuted ids (one recurring far apart), on the row cut to 4000
      tokens, on a pair-form case whose rows partly see no key, on one
-     whose later keys carry ids no row has (blocks of B2 and B3 with
-     empty tile lists), and in f32 on a ragged case, with the tiles B2
-     and B3 list on each layout against the causal tiles (counted on
-     the host from the same table); planted
+     whose later keys carry ids no row has (blocks of B1, B2 and B3
+     with empty tile lists; B1's rows there must read out 0 and lse
+     NEG_INF), and in f32 on a ragged case, with the tiles B1, B2 and
+     B3 list on each layout against the causal tiles (counted on the
+     host from the same table); planted
      controls (a segment mask shifted by one key, ids ignored) the row
      rule must reject; each segmented kernel's time beside the same
-     kernel unsegmented (B2 and B3 through their wrappers, which build
-     the ids' tile table, and given the table as the backward launches
-     them), its bound over the causal pairs and over the
+     kernel unsegmented (through its wrapper, which builds the ids'
+     tile table, and given the table as the autograd function launches
+     it), its bound over the causal pairs and over the
      within-document pairs, SDPA with the block-diagonal causal mask and
      a varlen flash call (yardsticks the port never calls), and on other
-     layouts beside the share of tiles listed; Llama-3-8B x4 layers trained on
+     layouts beside the share of tiles listed, with a line fitted
+     through them; Llama-3-8B x4 layers trained on
      packed rows (log-uniform document lengths over 64-4096 tokens,
      packed greedily as the reference's text reader packs them) with
      the segmented launches pinned, then profiled; one batch's gradients
@@ -116,10 +118,10 @@ number the run measured to PATH.
 
 ``--against DIR`` runs none of the phases above: it holds this tree's
 flash kernels against the tree under DIR (``against``: SASS of every
-kernel but those named by ``--may-differ``, B2's and B3's segment-id
-outputs bit for bit on phase 13's layouts, their times in turns), for
-a change to B2 or B3 against its parent (``git archive`` into a
-git-ignored directory such as ``_archive/``).
+kernel but those named by ``--may-differ``, B1's, B2's and B3's
+segment-id outputs bit for bit on phase 13's layouts, their times in
+turns), for a change to a flash kernel against its parent (``git
+archive`` into a git-ignored directory such as ``_archive/``).
 Needs one GPU; exits non-zero without one, or without the repository.
 Phases 11 and 12 spawn their ranks (``trainer.run.run_local``) and stop
 them before the script goes on.
@@ -181,18 +183,17 @@ B5_DESIGN = ("B4's persistent wgmma loop with x^T and dy both MN-major, "
              "tile written by TMA stores from shared memory while the "
              "producer loads the next tile's stages")
 SEG_DESIGN = {  # the segment-id instantiations of B1-B3
-    name: (f"{base}'s kernel; one producer warp stages the segment ids of "
-           "the block and of each ring stage in shared memory with 'these "
-           "64 are one value' flags (one more mbarrier a stage); from them "
-           "a consumer warpgroup masks a tile not at all by segment, whole "
+    name: (f"{base}'s kernel; before the role split one warp lists in "
+           "shared memory the block's tiles whose [min, max] ids (a per-64 "
+           "table built on the device once a layer's forward and shared by "
+           "B1-B3) meet its own, and producer and consumers walk only that "
+           "list, a warpgroup skipping a listed tile its own 64 ids cannot "
+           "meet; one producer warp stages the segment ids of the block and "
+           "of each ring stage in shared memory with 'these 64 are one "
+           "value' flags (one more mbarrier a stage); from them a consumer "
+           "warpgroup masks a listed tile not at all by segment, whole "
            "(-inf scores or exponent offsets), or, where ids change inside "
-           "it, by a warp-uniform pass apart from the unsegmented mask"
-           + ("" if base == "B1" else
-              "; before the role split one warp lists in shared memory the "
-              "block's tiles whose [min, max] ids (a per-64 table built on "
-              "the device once a backward) meet its own, and producer and "
-              "consumers walk only that list, a warpgroup skipping a "
-              "listed tile its own 64 ids cannot meet"))
+           "it, by a warp-uniform pass apart from the unsegmented mask")
     for name, base in (("flash_fwd_seg", "B1"), ("flash_bwd_dkv_seg", "B2"),
                        ("flash_bwd_dq_seg", "B3"))
 }
@@ -1225,8 +1226,10 @@ def loss_check(llama, config, fa, controls, batches=LOSS_BATCHES,
                 exact = llama.make_loss_fn(ref_cfg)(params, batch,
                                                     None)[0].item()
             for name, cfg, fwd, _ in paths:
-                with (swapped(fa, "flash_fwd", fwd) if fwd is not None
-                      else contextlib.nullcontext()):
+                # in the place of the autograd forward's launch of B1,
+                # whose last argument is the ids' tile table
+                with (swapped(fa, "_launch_fwd", lambda *a: fwd(*a[:-1]))
+                      if fwd is not None else contextlib.nullcontext()):
                     loss = llama.make_loss_fn(cfg)(params, batch,
                                                    None)[0].item()
                 gaps[name].append(loss - exact)
@@ -1814,22 +1817,6 @@ def segment_lengths(row):
     return np.diff(np.r_[0, cuts, len(row)])
 
 
-def whole_masked_tiles(row, q_rows, keys) -> float:
-    """The share of the causal (``q_rows`` x ``keys``) warpgroup tiles of
-    a row whose rows hold one id and keys another: tiles B1-seg visits
-    (it skips by the diagonal only) and masks whole. B2-seg and B3-seg
-    list their tiles instead (``tile_lists``), and skip these."""
-    s, whole, visited = len(row), 0, 0
-    for i in range(0, s, q_rows):
-        q = row[i:i + q_rows]
-        for j in range(0, min(s, i + q_rows), keys):
-            k = row[j:j + keys]
-            visited += 1
-            whole += bool((q == q[0]).all() and (k == k[0]).all()
-                          and q[0] != k[0])
-    return whole / visited
-
-
 def document_pairs(row) -> int:
     """The causal (q, k) pairs of a row whose tokens share a document."""
     n = segment_lengths(row).astype("int64")
@@ -1837,8 +1824,9 @@ def document_pairs(row) -> int:
 
 
 def tile_lists(fa, seg_q, seg_k, causal):
-    """What B3-seg and B2-seg schedule for these ids, counted on the host
-    from ``fa.segment_tiles`` by ``flash_check.listed_tiles``: per kernel,
+    """What B1-seg, B2-seg and B3-seg schedule for these ids, counted on
+    the host from ``fa.segment_tiles`` by ``flash_check.listed_tiles``
+    (B1's list is B3's): per kernel,
     the tiles listed and the causal tiles visited without lists (summed
     over the batch), the blocks whose list is empty, and the longest and
     the mean list a block."""
@@ -1939,11 +1927,41 @@ def segment_layouts():
          False)]
 
 
+def check_empty_lists(fa, inputs, seg_q, seg_k, causal):
+    """B1-seg's blocks whose tile list is empty (computed on the host by
+    ``flash_check.listed_tiles`` from the ids' table) run no tile: every
+    one of their rows must read out exactly 0 and lse exactly NEG_INF.
+    Returns the count of such rows (over the heads)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    q, k, v, *_, scale = inputs
+    listed, _ = flash_check.listed_tiles(
+        fa.segment_tiles(seg_q, seg_k), seg_q.shape[1], seg_k.shape[1],
+        causal)["flash_fwd"]
+    rows = (listed.sum(dim=-1) == 0).repeat_interleave(128, dim=1)
+    rows = rows[:, None, :q.shape[2]].expand(q.shape[:3])
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, seg_q=seg_q,
+                            seg_k=seg_k)
+    torch.cuda.synchronize()
+    n = int(rows.sum())
+    zeros = bool((out[rows] == 0).all()) and bool((lse[rows] ==
+                                                   fa.NEG_INF).all())
+    log(f"  B1-seg's empty lists: {n} rows (over the heads) in blocks that "
+        f"list no tile; out 0 and lse NEG_INF: {zeros}")
+    if n == 0 or not zeros:
+        fail(f"B1-seg's empty lists: {n} rows, out 0 and lse NEG_INF: "
+             f"{zeros}")
+    return n
+
+
 def packed_kernel_checks(fa):
     """Phase 13 (a): B1-B3 in segment-id mode against their plain
-    versions, with the tiles B2 and B3 list on each layout (computed on
-    the host); returns ({kernel: max abs error at the main shape}, the
-    planted faults' readings, {layout: tiles listed})."""
+    versions, with the tiles each lists on each layout (computed on the
+    host), and B1's empty lists held to out 0 and lse NEG_INF; returns
+    ({kernel: max abs error at the main shape}, the planted faults'
+    readings, {layout: tiles listed}, the rows of B1's empty lists)."""
     import numpy as np
     import torch
 
@@ -1951,7 +1969,7 @@ def packed_kernel_checks(fa):
         return torch.as_tensor(np.stack(rows).astype(np.int32),
                                device="cuda")
 
-    errs, faults, lists = {}, None, {}
+    errs, faults, lists, empty_rows = {}, None, {}, None
     for n, (name, row_q, row_k, causal) in enumerate(segment_layouts()):
         seg_q, seg_k = dev(row_q), dev(row_k)
         if not causal:
@@ -1969,17 +1987,20 @@ def packed_kernel_checks(fa):
             log("the same check against planted segment faults, same "
                 "inputs:")
             faults = check_segment_faults(inputs, seg_q, right)
+        if name == EMPTY_LISTS:
+            empty_rows = check_empty_lists(fa, inputs, seg_q, seg_k, causal)
         del inputs, right
         torch.cuda.empty_cache()
     if any(c["empty_blocks"] == 0 for c in lists[EMPTY_LISTS].values()):
-        fail(f"the empty-list layout leaves no list empty: "
+        fail(f"the empty-list layout leaves some kernel's lists all "
+             f"non-empty (B1's among them must be empty): "
              f"{lists[EMPTY_LISTS]}")
     ragged = np.arange(300) // 70
     ragged[-25:] = -1
     ids = dev(ragged, np.arange(300) // 45 + 10)
     check_kernels(fa, 2, 4, 2, 300, 64, torch.float32, True, 41, 1e-4,
                   seg=(ids, ids), label="ragged, a pad tail")
-    return errs, faults, lists
+    return errs, faults, lists, empty_rows
 
 
 def sdpa_backend(q, k, v, mask):
@@ -2055,11 +2076,12 @@ def varlen_yardstick(q, k, v, do, row, out):
 def segmented_kernel_times(fa, row):
     """Phase 13 (b): each segmented kernel at the main shape on the
     packed row ``row``: its time through its wrapper (median of 10
-    device samples; B2's and B3's wrappers build the ids' tile table),
-    the device's alone, and B2's and B3's given the table as the
-    backward launches them; the same kernel unsegmented, its plain
-    version, its bound over the causal pairs and over the
-    within-document pairs, and the yardsticks."""
+    device samples; each wrapper builds the ids' tile table), the
+    device's alone, and given the table as the autograd function
+    launches it; the same kernel unsegmented, its plain version, its
+    bound over the causal pairs and over the within-document pairs, and
+    the yardsticks. Then each kernel on other layouts against the share
+    of tiles it lists, with a line fitted through them."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2069,12 +2091,15 @@ def segmented_kernel_times(fa, row):
     scale = 1.0 / math.sqrt(d)
     ids = torch.as_tensor(row[None], device="cuda")
     seg = {"seg_q": ids, "seg_k": ids}
-    # the autograd backward builds the ids' tile table once and launches
-    # B2 and B3 with it (``fa._launch_bwd_*``); the table is timed alone
+    # the autograd forward builds the ids' tile table once and launches
+    # B1 with it, then B2 and B3 in the backward (``fa._launch_*``); the
+    # table is timed alone
     table = fa.segment_tiles(ids, ids)
     table_ms = time_ms(lambda: fa.segment_tiles(ids, ids))
     table_dev = device_ms(lambda: fa.segment_tiles(ids, ids))
     given_table = {
+        "flash_fwd": lambda: fa._launch_fwd(q, k, v, True, scale, ids, ids,
+                                            None, table),
         "flash_bwd_dkv": lambda: fa._launch_bwd_dkv(
             q, k, v, do, lse, delta, True, scale, ids, ids, None, table),
         "flash_bwd_dq": lambda: fa._launch_bwd_dq(
@@ -2085,9 +2110,9 @@ def segmented_kernel_times(fa, row):
     io = 2
     qb, kb = b * h * s * d * io, b * hkv * s * d * io
     rows, idb = b * h * s * 4, 2 * b * s * 4
-    tb = table.numel() * 4  # the backward's table
+    tb = table.numel() * 4  # the ids' tile table
     work = {  # (flops per pair and head, bytes read once and written once)
-        "flash_fwd": (4 * d, qb + 2 * kb + qb + rows + idb),
+        "flash_fwd": (4 * d, qb + 2 * kb + qb + rows + idb + tb),
         "flash_bwd_dkv": (8 * d,
                           2 * qb + 2 * kb + 2 * rows + 2 * kb + idb + tb),
         "flash_bwd_dq": (6 * d, 2 * qb + 2 * kb + 2 * rows + qb + idb + tb),
@@ -2138,9 +2163,8 @@ def segmented_kernel_times(fa, row):
         samples = time_samples(lambda: calls[name](fa.WRAPPERS[name], **seg))
         kernel_ms = statistics.median(samples)
         dev_ms = device_ms(lambda: calls[name](fa.WRAPPERS[name], **seg))
-        given = {} if name not in given_table else {
-            "ms": time_ms(given_table[name]),
-            "device_ms": device_ms(given_table[name])}
+        given = {"ms": time_ms(given_table[name]),
+                 "device_ms": device_ms(given_table[name])}
         dense_ms = time_ms(lambda: calls[name](fa.WRAPPERS[name]))
         plain_ms = time_ms(lambda: calls[name](fa.PLAIN[name], **seg),
                            iters=5, warmup=1)
@@ -2166,11 +2190,8 @@ def segmented_kernel_times(fa, row):
         }
         log(f"  {name} segmented: {kernel_ms:.3f} ms (samples "
             f"{min(samples):.3f}-{max(samples):.3f}; device alone "
-            f"{dev_ms:.3f} ms"
-            + ("" if not given else
-               f"; given the table {given['ms']:.3f} ms, device alone "
-               f"{given['device_ms']:.3f}")
-            + f"), unsegmented "
+            f"{dev_ms:.3f} ms; given the table {given['ms']:.3f} ms, "
+            f"device alone {given['device_ms']:.3f}), unsegmented "
             f"{dense_ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
             f"{r['bound_ms']:.3f} ms over the within-document pairs "
             f"({r['bound_ms'] / kernel_ms:.3f} of it), "
@@ -2178,17 +2199,30 @@ def segmented_kernel_times(fa, row):
             f"({r['bound_causal_ms'] / kernel_ms:.3f}); "
             f"{kernel_ms / r['library_ms']:.2f}x SDPA's masked "
             f"{'forward' if name == 'flash_fwd' else 'backward'}")
-    pair = {key: sum(results[n][key] for n in given_table)
+    fwd = results["flash_fwd"]
+    log(f"  B1-seg through its wrapper: {fwd['ms']:.3f} ms (device alone "
+        f"{fwd['device_ms']:.3f}); given the table as the autograd forward "
+        f"launches it {fwd['given_table']['ms']:.3f} ms (device alone "
+        f"{fwd['given_table']['device_ms']:.3f}); the table (segment_tiles, "
+        f"once a layer) {table_ms:.3f} ms (device alone {table_dev:.3f})"
+        + ("" if varlen is None else
+           f"; varlen's forward {varlen['fwd_ms']:.3f} ms (device alone "
+           f"{varlen['fwd_device_ms']:.3f}): "
+           f"{fwd['ms'] / varlen['fwd_ms']:.2f}x, device alone "
+           f"{fwd['device_ms'] / varlen['fwd_device_ms']:.2f}x, given the "
+           f"table {fwd['given_table']['ms'] / varlen['fwd_ms']:.2f}x")
+        + f"; {fwd['ms'] / lib_fwd:.2f}x SDPA's masked forward; "
+        f"unsegmented B1 {fwd['unsegmented_ms']:.3f} ms")
+    bwd = ("flash_bwd_dkv", "flash_bwd_dq")
+    pair = {key: sum(results[n][key] for n in bwd)
             for key in ("ms", "device_ms")}
     pair.update({f"given_table_{key}": sum(
-        results[n]["given_table"][key] for n in given_table)
+        results[n]["given_table"][key] for n in bwd)
         for key in ("ms", "device_ms")})
     log(f"  B2-seg + B3-seg through their wrappers: {pair['ms']:.3f} ms "
         f"(device alone {pair['device_ms']:.3f}); given the table as the "
         f"backward launches them {pair['given_table_ms']:.3f} ms (device "
-        f"alone {pair['given_table_device_ms']:.3f}), the table "
-        f"(segment_tiles, once a backward) {table_ms:.3f} ms (device "
-        f"alone {table_dev:.3f})"
+        f"alone {pair['given_table_device_ms']:.3f})"
         + ("" if varlen is None else
            f"; varlen's backward {varlen['bwd_ms']:.3f} ms (device alone "
            f"{varlen['bwd_device_ms']:.3f}): "
@@ -2197,8 +2231,9 @@ def segmented_kernel_times(fa, row):
         + f"; {pair['ms'] / lib_bwd:.2f}x SDPA's masked backward")
     # the same kernels on other layouts: what the segment machinery costs
     # where no tile needs an element mask (one document; documents on
-    # tile edges), and where some do, beside the share of tiles the
-    # backward kernels list
+    # tile edges), and where some do, beside the share of tiles each
+    # kernel lists; B1 also given the table, as the autograd forward
+    # launches it
     ar = np.arange(s, dtype=np.int32)
     layout_ms, layout_lists = {}, {}
     for name, lay in (("one document", np.zeros(s, np.int32)),
@@ -2206,25 +2241,50 @@ def segmented_kernel_times(fa, row):
                       ("documents of 700", ar // 700),
                       ("the packed row", row)):
         lids = torch.as_tensor(lay[None], device="cuda")
+        ltab = fa.segment_tiles(lids, lids)
         layout_ms[name] = {k: time_ms(lambda: calls[k](
             fa.WRAPPERS[k], seg_q=lids, seg_k=lids)) for k in work}
         layout_ms[name].update({f"{k}_device": device_ms(lambda: calls[k](
             fa.WRAPPERS[k], seg_q=lids, seg_k=lids)) for k in work})
+        layout_ms[name]["flash_fwd_given_table_device"] = device_ms(
+            lambda: fa._launch_fwd(q, k, v, True, scale, lids, lids, None,
+                                   ltab))
         layout_lists[name] = tile_lists(fa, lids, lids, True)
         log(f"  segmented on {name}: "
             + ", ".join(f"{k} {layout_ms[name][k]:.3f} ms (device alone "
                         f"{layout_ms[name][k + '_device']:.3f})"
                         for k in work)
+            + f"; flash_fwd given the table, device alone "
+            f"{layout_ms[name]['flash_fwd_given_table_device']:.3f} ms"
             + "; tiles listed (computed on the host) " + ", ".join(
                 f"{k} {c['listed'] / c['visited']:.3f}"
                 for k, c in layout_lists[name].items()))
+    fits, sms = {}, torch.cuda.get_device_properties(0).multi_processor_count
+    for key in (*(f"{k}_device" for k in work),
+                "flash_fwd_given_table_device"):
+        kernel = key.split("_device")[0].split("_given")[0]
+        share = [c[kernel]["listed"] / c[kernel]["visited"]
+                 for c in layout_lists.values()]
+        slope, fixed = np.polyfit(
+            share, [m[key] for m in layout_ms.values()], 1)
+        # B1 and B3: a block a q tile and head; B2 a key tile and KV head
+        blocks = layout_lists["one document"][kernel]["blocks"] * (
+            hkv if kernel == "flash_bwd_dkv" else h)
+        waves = blocks / sms
+        fits[key] = {"fixed_ms": float(fixed), "slope_ms": float(slope),
+                     "blocks": blocks, "waves": waves,
+                     "fixed_per_block_us": float(fixed) / waves * 1e3}
+        log(f"  {key}: about {fixed:.3f} + {slope:.3f} x share listed ms "
+            f"(least squares over the four layouts); {blocks} blocks, "
+            f"{waves:.2f} waves: {fits[key]['fixed_per_block_us']:.2f} us "
+            f"a block at share 0")
     return results, {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
                      "sdpa_backend": backend, "varlen": varlen,
                      "varlen_note": why, "pairs": pairs,
                      "bwd_pair": pair, "table_ms": table_ms,
                      "table_device_ms": table_dev,
                      "layout_ms": layout_ms,
-                     "layout_lists": layout_lists}
+                     "layout_lists": layout_lists, "share_fits": fits}
 
 
 def packed_phases(llama, fa, remat, config, card):
@@ -2235,33 +2295,29 @@ def packed_phases(llama, fa, remat, config, card):
     report = {}
     log("packed documents: B1-B3 in segment-id mode vs plain (bf16, B=1 "
         f"H=32/8 S={SEQ} D=128, causal, unless said):")
-    errs, report["planted_segment_faults"], report["tile_lists"] = \
-        packed_kernel_checks(fa)
+    (errs, report["planted_segment_faults"], report["tile_lists"],
+     report["b1_empty_list_rows"]) = packed_kernel_checks(fa)
     torch.cuda.empty_cache()
     rows = packed_segment_rows(SEQ, PACK_SEED)
     train_rows = [next(rows) for _ in range(STEPS)]
     shares = [document_pairs(r) / (SEQ * (SEQ + 1) // 2) for r in train_rows]
     docs = [len(segment_lengths(r)) for r in train_rows]
-    # B1 and B3 mask a warpgroup's 64 rows against 128 keys, B2 a
-    # warpgroup's 64 keys against 64 rows
-    whole = {"B1_B3": [whole_masked_tiles(r, 64, 128) for r in train_rows],
-             "B2": [whole_masked_tiles(r, 64, 64) for r in train_rows]}
-    listed = {name: [] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    # B1 and B3 list one set of 128 x 128 tiles, B2 (128-key block,
+    # 64-row step) pairs
+    listed = {name: [] for name in ("flash_fwd", "flash_bwd_dkv")}
     for r in train_rows:
         for name, c in tile_lists(fa, r[None], r[None], True).items():
-            listed[name].append(c["listed"] / c["visited"])
+            if name in listed:
+                listed[name].append(c["listed"] / c["visited"])
     report["packing"] = {"documents_per_row": docs,
                          "within_document_share": shares,
-                         "whole_masked_tile_share": whole,
                          "listed_tile_share": listed}
     log(f"  packed rows: documents {docs}; within-document share of the "
-        f"causal pairs {[round(x, 3) for x in shares]}; causal warpgroup "
-        f"tiles masked whole (B1-seg visits them), 64x128 "
-        f"{[round(x, 3) for x in whole['B1_B3']]}, 64x64 "
-        f"{[round(x, 3) for x in whole['B2']]}; causal tiles listed "
-        f"(computed on the host), "
-        + ", ".join(f"{name}_seg {[round(x, 3) for x in xs]} (mean "
-                    f"{np.mean(xs):.3f})" for name, xs in listed.items()))
+        f"causal pairs {[round(x, 3) for x in shares]}; causal tiles "
+        f"listed (computed on the host), "
+        + ", ".join(f"{name}_seg{' and B3-seg' * (name == 'flash_fwd')} "
+                    f"{[round(x, 3) for x in xs]} (mean {np.mean(xs):.3f})"
+                    for name, xs in listed.items()))
     log(f"segmented kernel times on the first packed row ({card}):")
     times, yard = segmented_kernel_times(fa, train_rows[0])
     report["segmented_kernel_times"], report["segmented_yardsticks"] = \
@@ -2770,7 +2826,10 @@ def _sass_by_kernel(cuobjdump, cubin):
 
 
 AGAINST_SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-AGAINST_BWD = {"flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
+# each segment-id entry point's inputs (after q, k, v) and outputs
+AGAINST_SEG = {"flash_fwd": ((), ("out", "lse")),
+               "flash_bwd_dkv": (("do", "lse", "delta"), ("dk", "dv")),
+               "flash_bwd_dq": (("do", "lse", "delta"), ("dq",))}
 
 
 def against(other, may_differ):
@@ -2779,9 +2838,9 @@ def against(other, may_differ):
     ``git archive``, or a variant of this tree's sources). Fails when a
     kernel of ``flash_fwd.cu``, ``flash_bwd_dkv.cu`` or ``flash_bwd_dq.cu``
     whose mangled name holds none of ``may_differ`` has other SASS
-    (``nvcc -cubin``, ``cuobjdump -sass``), or when B2's and B3's bf16
-    segment-id entry points of the two trees disagree by a bit on a
-    phase-13 layout (a tile one tree skips adds exact zeros in the
+    (``nvcc -cubin``, ``cuobjdump -sass``), or when B1's, B2's and B3's
+    bf16 segment-id entry points of the two trees disagree by a bit on
+    a phase-13 layout (a tile one tree skips adds exact zeros in the
     other); then times both trees' entry points in turns (other, this,
     this, other) on the packed row and on documents of 700 tokens. An
     entry point's arguments are read from its tree's source: a kernel
@@ -2809,9 +2868,8 @@ def against(other, may_differ):
             src, out = os.path.join(csrc, f"{name}.cu"), work / f"{tree}_{name}"
             jobs.append([nvcc, "-cubin", *kernel_build.NVCC_FLAGS[:4], "-o",
                          f"{out}.cubin", src])
-            if name in AGAINST_BWD:
-                jobs.append([nvcc, *kernel_build.NVCC_FLAGS, "-o",
-                             f"{out}.so", src])
+            jobs.append([nvcc, *kernel_build.NVCC_FLAGS, "-o", f"{out}.so",
+                         src])
     t0 = time.monotonic()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -2841,24 +2899,28 @@ def against(other, may_differ):
 
     entries = {}
     for tree, csrc in trees.items():
-        for name in AGAINST_BWD:
+        for name, (ins, outs) in AGAINST_SEG.items():
             with open(os.path.join(csrc, f"{name}.cu")) as f:
                 source = f.read()
             fn = getattr(ctypes.CDLL(str(work / f"{tree}_{name}.so")),
                          f"dlr_{name}_seg_bf16")
             fn.argtypes = _parse_entry(source, f"dlr_{name}_seg_bf16")
             fn.restype = ctypes.c_int
-            # pointers: q k v dO lse delta, the outputs, then the ids
-            ids = sum(t == ctypes.c_void_p for t in fn.argtypes) - 7 - len(
-                AGAINST_BWD[name])
+            # pointers: q k v, the inputs, the outputs, the ids, the stream
+            ids = sum(t == ctypes.c_void_p for t in fn.argtypes) - 4 - len(
+                ins) - len(outs)
             entries[(tree, name)] = (fn, ids)
 
     def run(tree, name, q, k, v, do, lse, delta, seg_q, seg_k, tiles,
             causal, scale):
         fn, n_ids = entries[(tree, name)]
-        outs = [torch.empty_like(q if o == "dq" else k)
-                for o in AGAINST_BWD[name]]
-        code = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+        ins, names = AGAINST_SEG[name]
+        given = {"do": do, "lse": lse, "delta": delta}
+        outs = [torch.empty_like(q) if o in ("out", "dq") else
+                torch.empty_like(lse) if o == "lse" else torch.empty_like(k)
+                for o in names]
+        code = fn(*(t.data_ptr() for t in (q, k, v, *(given[i] for i in ins),
+                                          *outs)),
                   *(t.data_ptr() for t in (seg_q, seg_k, tiles)[:n_ids]),
                   *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
                   q.shape[3], scale, int(causal),
@@ -2880,17 +2942,20 @@ def against(other, may_differ):
         delta = (do.float() * out.float()).sum(-1).contiguous()
         args = (q, k, v, do, lse, delta, seg_q, seg_k,
                 fa.segment_tiles(seg_q, seg_k), causal, scale)
-        same = all(torch.equal(a, b) for name in AGAINST_BWD
-                   for a, b in zip(run("other", name, *args),
-                                   run("this", name, *args)))
+        same = {name: all(torch.equal(a, b) for a, b in zip(
+            run("other", name, *args), run("this", name, *args)))
+            for name in AGAINST_SEG}
         report["outputs"][label] = same
-        log(f"  outputs, {label}: {'bit for bit' if same else 'DIFFER'}")
-        if not same:
-            fail(f"B2-seg or B3-seg differs from the other tree's on {label}")
+        log(f"  outputs, {label}: " + ", ".join(
+            f"{name}_seg {'bit for bit' if ok else 'DIFFER'}"
+            for name, ok in same.items()))
+        if not all(same.values()):
+            fail(f"a segment-id kernel differs from the other tree's on "
+                 f"{label}: {same}")
         if n not in (0, 2):  # the packed row, documents of 700
             continue
         report["times_ms"][label] = {}
-        for name in AGAINST_BWD:
+        for name in AGAINST_SEG:
             samples = {t: {"ms": [], "device_ms": []} for t in trees}
             for tree in ("other", "this", "this", "other"):
                 for key, spin in (("ms", False), ("device_ms", True)):
@@ -3256,6 +3321,8 @@ def main():
             "library_device_ms": t["library_device_ms"],
             "verdict": "ok", "bound_causal_ms": t["bound_causal_ms"],
             "unsegmented_ms": t["unsegmented_ms"],
+            "given_table_ms": t["given_table"]["ms"],
+            "given_table_device_ms": t["given_table"]["device_ms"],
             "varlen_ms": t["varlen_ms"], "design": SEG_DESIGN[seg],
         })
     for name in FLASH_KERNELS:

@@ -54,7 +54,8 @@
 // false kernels are unchanged. The bf16 kernel also takes the ids' tile
 // table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2]: the [min, max]
 // id of each 64-id tile, q side then k side, built on the device once a
-// backward (flash_attention.py's segment_tiles). Before the role split
+// layer's forward (flash_attention.py's segment_tiles), where B1 walks it
+// first, and kept for the backward. Before the role split
 // one warp lists in shared memory the block's q tiles (i0 .. nqt, after
 // the causal cut) whose [min, max] meets that of one of its two 64-key
 // halves, each with a bit for each warpgroup whose half it meets; the

@@ -56,7 +56,8 @@
 // false kernels are unchanged. The bf16 kernel also takes the ids' tile
 // table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2]: the [min, max]
 // id of each 64-id tile, q side then k side, built on the device once a
-// backward (flash_attention.py's segment_tiles) and shared with B2.
+// layer's forward (flash_attention.py's segment_tiles) and shared with B1
+// and B2; B1 lists the same tiles (flash_fwd.cu).
 // Before the role split one warp lists in shared memory the block's K/V
 // tiles (0 .. nkt, after the causal cut; all of them when not causal)
 // one of whose 64-key halves has a [min, max] meeting that of one of the

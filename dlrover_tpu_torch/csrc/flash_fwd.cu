@@ -40,28 +40,44 @@
 // (SEG = true, entry points dlr_flash_fwd_seg_*) takes int32 ids seg_q
 // [B, Sq] and seg_k [B, Sk] and keeps a score only where the query's id
 // equals the key's, on top of the causal mask; the SEG = false kernels
-// are the unsegmented ones, unchanged. Any tile can hold a document
-// boundary, and ids need not be sorted (a pad tail of -1 follows higher
-// ids), so no tile goes unchecked. In the bf16 kernel one warp of the
-// producer warpgroup (otherwise idle but for its TMA thread) reads the
-// ids by plain loads, issued before it waits for the ring stage, into
-// shared memory: the block's 128 q ids once, each K/V tile's 128 k ids
-// beside the tile, with "these 64 ids are one value" flags
-// (hop::seg_load, hop::seg_publish), announced by one more mbarrier a
-// stage. From the flags a consumer warpgroup learns how its rows and the
-// tile's keys meet (hop::seg_mode, voted warp-uniform): one id on both
-// sides, the unsegmented masks alone; one id each but two ids, every
-// score -inf; ids changing inside the tile, a pass that sets -inf where
-// a key's id differs from its row's. Both run as warp-uniform branches
-// apart from the unsegmented mask: merged into its per-element loop
-// (a predicated body on every tile), or with ids in registers (spills
-// under the consumers' 240), the packed row took 1.5-2.3x the
-// unsegmented time (PERF.md, section 6). The f32 kernel stages the ids
-// beside its tiles and masks element by element. Tiles are skipped by the
-// causal diagonal only, as in the reference. A row that sees no key at
+// are the unsegmented ones, unchanged. The bf16 kernel also takes the
+// ids' tile table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2]: the
+// [min, max] id of each 64-id tile, q side then k side, built on the
+// device once a layer's forward (flash_attention.py's segment_tiles) and
+// handed on to B2 and B3 for its backward. Before the role split one
+// warp lists in shared memory the block's K/V tiles (0 .. nkt, after the
+// causal cut; all of them when not causal) one of whose 64-key halves at
+// or below a warpgroup's diagonal has a [min, max] meeting that of the
+// warpgroup's 64 rows, each with a bit for each warpgroup it meets (B3's
+// list: the two kernels share a tile geometry); the producer and both
+// consumer warpgroups walk that list, so the mbarrier phases stay in
+// step, and a warpgroup whose bit is clear waits for the stage and
+// releases it unread. The test never drops a tile that holds a same-id
+// pair, for any ids, and on sorted ids lists exactly those tiles; a tile
+// it drops would have added exact zeros (with finite inputs the rescale
+// factor of a masked step is 1, or 0 while the row has seen no key). A
+// listed tile can still hold a document boundary, and ids need not be
+// sorted (a pad tail of -1 follows higher ids), so no listed tile goes
+// unchecked. One warp of the producer warpgroup (otherwise idle but for
+// its TMA thread) reads the ids by plain loads, issued before it waits
+// for the ring stage, into shared memory: the block's 128 q ids once,
+// each listed K/V tile's 128 k ids beside the tile, with "these 64 ids
+// are one value" flags (hop::seg_load, hop::seg_publish), announced by
+// one more mbarrier a stage. From the flags a consumer warpgroup learns
+// how its rows and the tile's keys meet (hop::seg_mode, voted
+// warp-uniform): one id on both sides, the unsegmented masks alone; one
+// id each but two ids, every score -inf; ids changing inside the tile, a
+// pass that sets -inf where a key's id differs from its row's. Both run
+// as warp-uniform branches apart from the unsegmented mask: merged into
+// its per-element loop (a predicated body on every tile), or with ids in
+// registers (spills under the consumers' 240), the packed row took
+// 1.5-2.3x the unsegmented time (PERF.md, section 6). The f32 kernel
+// visits every causal tile, stages the ids beside its tiles, masks
+// element by element and ignores the table. A row that sees no key at
 // all (the pair form's kv-side ids may lack its id) keeps l = 0: it
 // stores out = 0 and lse = NEG_INF (finfo(float32).min, not -inf), the
-// reference's values.
+// reference's values; a block whose list is empty runs no tile and
+// stores those values for all its rows.
 //
 // Prefix-LM mode (GLM's mask; the reference's prefix=True,
 // flash_attention.py:122-126): a third instantiation of each kernel (PFX
@@ -236,15 +252,18 @@ struct Layout {
   static constexpr uint32_t kIds = kBars + 128;
   static constexpr int kQIds = BQ + 8, kKIds = BK + 8;  // ints
   static constexpr size_t kIdBytes = (kQIds + kStages * kKIds) * 4;
+  // then the block's list of K/V tiles, one int a tile
+  static constexpr uint32_t kList = kIds + kIdBytes;
 };
 
 // The mbarriers: Q arrived; K, V of a stage arrived; a stage released by
 // both consumer warpgroups; (segment-id mode) a stage's k ids written.
-// Then (prefix-LM mode) the block's prefix length.
+// Then (prefix-LM mode) the block's prefix length; (segment-id mode) the
+// length of the block's list of K/V tiles.
 struct Bars {
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
   uint64_t ids_full[kStages];
-  int prefix;
+  int prefix, count;
 };
 
 // One step of the online softmax over S columns [64 HALF, 64 HALF + 64)
@@ -334,7 +353,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           float scale_log2, int causal,
                           const int* __restrict__ seg_q,
                           const int* __restrict__ seg_k,
-                          const int* __restrict__ prefix_len) {
+                          const int* __restrict__ prefix_len,
+                          const int* __restrict__ seg_tiles) {
   using L = Layout<DP>;
   constexpr int NO = DP / 2;  // O accumulator registers a thread
   const int nqt = (Sq + BQ - 1) / BQ;
@@ -354,6 +374,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   // segment-id mode: the q ids and flags, then stage s's k ids and flags
   int* sid = reinterpret_cast<int*>(base + L::kIds);
   auto kids = [&](int s) { return sid + L::kQIds + s * L::kKIds; };
+  // segment-id mode: the listed K/V tiles, tile * 4 + a bit for each
+  // warpgroup whose rows' ids the tile's can meet
+  int* list = reinterpret_cast<int*>(base + L::kList);
+  // the K/V tile of step j
+  auto k_tile = [&](int j) {
+    if constexpr (SEG) {
+      return list[j] >> 2;
+    } else {
+      return j;
+    }
+  };
   if (threadIdx.x == 0) {
     hop::mbar_init(&bar.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -365,10 +396,45 @@ __global__ void __launch_bounds__(kThreads, 1)
     hop::mbar_fence_init();
     if constexpr (PFX) bar.prefix = prefix_len[b];
   }
+  if constexpr (SEG) {
+    // one warp lists the K/V tiles 0 .. nkt whose ids can meet this q
+    // tile's: by the [min, max] ids of its two 64-row halves (warpgroup
+    // w's rows) and of each 64-key half of a K/V tile
+    if (threadIdx.x < 32) {
+      const int nq = (Sq + 63) / 64, nk = (Sk + 63) / 64;
+      const int* tab_q = seg_tiles + (size_t)b * (nq + nk) * 2;
+      const int* tab_k = tab_q + nq * 2;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int qt = min(2 * i + w, nq - 1);
+        lo[w] = __ldg(tab_q + 2 * qt);
+        hi[w] = __ldg(tab_q + 2 * qt + 1);
+      }
+      const int n = hop::seg_compact(list, 0, nkt, threadIdx.x, [&](int jt) {
+        int m = 0;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int qt = 2 * i + w;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kt = 2 * jt + e;
+            if (qt < nq && kt < nk && !(causal && kt > qt) &&
+                hop::seg_meets(tab_k + 2 * kt, lo[w], hi[w])) {
+              m |= 1 << w;
+            }
+          }
+        }
+        return m;
+      });
+      if (threadIdx.x == 0) bar.count = n;
+    }
+  }
   __syncthreads();
   // prefix-LM mode: the prompt's k tiles too (p clamped for the schedule)
   const int plen = PFX ? bar.prefix : 0;
   if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
+  if constexpr (SEG) nkt = bar.count;
 
   if (threadIdx.x >= kConsumers) {
     // producer: one thread keeps the TMA loads of the ring in flight; in
@@ -393,10 +459,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       for (int j = 0; j < nkt; ++j) {
-        const int s = j % kStages;
+        const int s = j % kStages, jt = k_tile(j);
         int v[BK / 32];  // segment-id mode: the tile's k ids
         if constexpr (SEG) {
-          hop::seg_load(v, seg_k + (size_t)b * Sk, j * BK, Sk - 1, pt);
+          hop::seg_load(v, seg_k + (size_t)b * Sk, jt * BK, Sk - 1, pt);
         }
         // the stage's previous tile, j - kStages, is released
         if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
@@ -404,12 +470,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
           for (int c = 0; c < DP / 64; ++c) {
             hop::tma_load_3d(sK(s) + c * BK * 128, &tk, &bar.k_full[s],
-                             c * 64, j * BK, b * Hkv + hk);
+                             c * 64, jt * BK, b * Hkv + hk);
           }
           hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
           for (int c = 0; c < DP / 64; ++c) {
             hop::tma_load_3d(sV(s) + c * BK * 128, &tv, &bar.v_full[s],
-                             c * 64, j * BK, b * Hkv + hk);
+                             c * 64, jt * BK, b * Hkv + hk);
           }
         }
         if constexpr (SEG) {  // a key past Sk (masked) took the last's id
@@ -437,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   hop::mbar_wait(&bar.q_full, 0);
   for (int j = 0; j < nkt; ++j) {
-    const int s = j % kStages, phase = (j / kStages) & 1;
+    const int s = j % kStages, phase = (j / kStages) & 1, jt = k_tile(j);
 
     // segment-id mode: how this warpgroup's rows and the tile's keys
     // mask (hop::SegMode), read before the products, while their
@@ -445,6 +511,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     int seg = hop::kSegNone;
     if constexpr (SEG) {
       hop::mbar_wait(&bar.ids_full[s], phase);
+      // the tile's ids can meet none of this warpgroup's rows (it was
+      // listed for the other's): the stage is released unread
+      if (!((list[j] >> wg) & 1)) {
+        hop::mbar_wait(&bar.k_full[s], phase);
+        hop::mbar_wait(&bar.v_full[s], phase);
+        hop::mbar_arrive(&bar.empty[s]);
+        continue;
+      }
       seg = hop::seg_mode(sid + BQ, wg, 1, kids(s) + BK, 0, 2);
     }
 
@@ -480,20 +554,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     // mask the tiles that cross the ragged end or this warpgroup's
     // diagonal; in prefix-LM mode not those wholly inside the prompt
     if constexpr (PFX) {
-      if ((j + 1) * BK > Sk ||
-          (j * BK + BK - 1 > i * BQ + wg * 64 && j * BK + BK > plen)) {
+      if ((jt + 1) * BK > Sk ||
+          (jt * BK + BK - 1 > i * BQ + wg * 64 && jt * BK + BK > plen)) {
 #pragma unroll
         for (int x = 0; x < 64; ++x) {
-          const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
+          const int col = jt * BK + 8 * (x / 4) + 2 * quad + (x & 1);
           const int row = (x & 2) ? row1 : row0;
           if (col >= Sk || (col > row && col >= plen)) sacc[x] = -INFINITY;
         }
       }
-    } else if ((j + 1) * BK > Sk ||
-               (causal && j * BK + BK - 1 > i * BQ + wg * 64)) {
+    } else if ((jt + 1) * BK > Sk ||
+               (causal && jt * BK + BK - 1 > i * BQ + wg * 64)) {
 #pragma unroll
       for (int x = 0; x < 64; ++x) {
-        const int col = j * BK + 8 * (x / 4) + 2 * quad + (x & 1);
+        const int col = jt * BK + 8 * (x / 4) + 2 * quad + (x & 1);
         const int row = (x & 2) ? row1 : row0;
         if (col >= Sk || (causal && col > row)) sacc[x] = -INFINITY;
       }
@@ -546,14 +620,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (quad == 0) {  // lse in natural-log units, as the backward reads it
-    // (segment-id mode: a row that saw no key stores NEG_INF, not -inf)
+    // (segment-id mode: a row that saw no key stores NEG_INF, not -inf,
+    // and the product and the sum are rounded one by one: the tile
+    // list's branches led the compiler to fuse them into one FMA, which
+    // moved lse by an ulp against the kernel before lists)
     if (row0 < Sq) {
       lse[head_row + row0] =
-          SEG && l0 == 0.f ? kNegInf : m0 * kLn2 + logf(ls0);
+          SEG ? (l0 == 0.f ? kNegInf
+                           : __fadd_rn(__fmul_rn(m0, kLn2), logf(ls0)))
+              : m0 * kLn2 + logf(ls0);
     }
     if (row1 < Sq) {
       lse[head_row + row1] =
-          SEG && l1 == 0.f ? kNegInf : m1 * kLn2 + logf(ls1);
+          SEG ? (l1 == 0.f ? kNegInf
+                           : __fadd_rn(__fmul_rn(m1, kLn2), logf(ls1)))
+              : m1 * kLn2 + logf(ls1);
     }
   }
 }
@@ -563,7 +644,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
                 float scale, int causal, void* stream,
                 const int* seg_q = nullptr, const int* seg_k = nullptr,
-                const int* prefix_len = nullptr) {
+                const int* prefix_len = nullptr,
+                const int* seg_tiles = nullptr) {
   // the row max is taken on unscaled scores: it needs scale > 0
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -575,11 +657,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((Sq + BQ - 1) / BQ * H, B);
-  const size_t smem = Layout<DP>::kSmem + (SEG ? Layout<DP>::kIdBytes : 0);
+  // segment-id mode: the ids, then the list (one int a K/V tile)
+  const size_t smem =
+      Layout<DP>::kSmem +
+      (SEG ? Layout<DP>::kIdBytes + (Sk + BK - 1) / BK * sizeof(int) : 0);
   return hop::launch(flash_fwd_bf16_kernel<DP, SEG, PFX>, grid, kThreads,
                      smem, stream, tq, tk, tv, static_cast<bf16*>(o), lse, H,
                      Hkv, Sq, Sk, D, scale * kLog2e, causal, seg_q, seg_k,
-                     prefix_len);
+                     prefix_len, seg_tiles);
 }
 
 }  // namespace fwd
@@ -621,28 +706,34 @@ extern "C" int dlr_flash_fwd_f32(const void* q, const void* k, const void* v,
                                     scale, causal, stream);
 }
 
-// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32
+// segment-id mode: seg_q [B, Sq] and seg_k [B, Sk] int32, and their tile
+// table seg_tiles [B, ceil(Sq / 64) + ceil(Sk / 64), 2] int32 (the f32
+// kernel visits every tile and does not read it)
 extern "C" int dlr_flash_fwd_seg_bf16(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       const int* seg_q, const int* seg_k,
-                                      int B, int H, int Hkv, int Sq, int Sk,
-                                      int D, float scale, int causal,
+                                      const int* seg_tiles, int B, int H,
+                                      int Hkv, int Sq, int Sk, int D,
+                                      float scale, int causal,
                                       void* stream) {
   return D <= 64
              ? dlr::fwd::launch_bf16<64, true>(q, k, v, o, lse, B, H, Hkv,
                                                Sq, Sk, D, scale, causal,
-                                               stream, seg_q, seg_k)
+                                               stream, seg_q, seg_k, nullptr,
+                                               seg_tiles)
              : dlr::fwd::launch_bf16<128, true>(q, k, v, o, lse, B, H, Hkv,
                                                 Sq, Sk, D, scale, causal,
-                                                stream, seg_q, seg_k);
+                                                stream, seg_q, seg_k, nullptr,
+                                                seg_tiles);
 }
 
 extern "C" int dlr_flash_fwd_seg_f32(const void* q, const void* k,
                                      const void* v, void* o, float* lse,
                                      const int* seg_q, const int* seg_k,
-                                     int B, int H, int Hkv, int Sq, int Sk,
-                                     int D, float scale, int causal,
-                                     void* stream) {
+                                     const int* seg_tiles, int B, int H,
+                                     int Hkv, int Sq, int Sk, int D,
+                                     float scale, int causal, void* stream) {
+  (void)seg_tiles;
   return dlr::launch_fwd_f32<true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
                                    scale, causal, stream, seg_q, seg_k);
 }

@@ -481,8 +481,8 @@ __device__ __forceinline__ int seg_mode(const int* q_flags, int q_h0,
   return __all_sync(0xffffffffu, mode == kSegAll) ? kSegAll : kSegById;
 }
 
-// The backward kernels' tile lists (B2, B3): the ids' tile table holds
-// the [min, max] id of each 64-id tile (flash_attention.py's
+// The segment-id kernels' tile lists (B1, B2, B3): the ids' tile table
+// holds the [min, max] id of each 64-id tile (flash_attention.py's
 // segment_tiles, q side then k side). Two tiles can hold a same-id pair
 // only if their ranges meet; on sorted ids only then do they.
 __device__ __forceinline__ bool seg_meets(const int* a, int lo, int hi) {

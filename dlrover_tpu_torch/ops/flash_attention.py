@@ -29,10 +29,11 @@ are unchanged. A row that sees no key at all (possible in the pair form,
 q-side ids) gets ``out = 0`` and ``lse = NEG_INF`` (``finfo(float32).min``,
 not ``-inf``), as the reference's finalize writes it; the backward
 clamps such an lse to 0 before ``exp(s - lse)``, so its masked entries
-stay exactly 0. B1 skips tiles by the causal diagonal only, as the
-reference does; B2 and B3 visit only the tiles whose ids can meet, by
-the ids' tile table (``segment_tiles``: the [min, max] id of each 64-id
-tile), which the backward builds on the device once and hands to both.
+stay exactly 0. All three kernels visit only the tiles whose ids can
+meet, by the ids' tile table (``segment_tiles``: the [min, max] id of
+each 64-id tile), which the autograd forward builds on the device once,
+launches B1 with and keeps for B2 and B3 in the backward; the public
+wrappers build their own on every call.
 
 Prefix-LM mode (``prefix_len [B]`` int32, a keyword of each wrapper;
 always causal): key ``j`` is visible to query ``i`` iff ``j <= i`` or
@@ -115,15 +116,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers..., B, H, H_kv, Sq, Sk, D, scale, causal, stream;
-# the segmented entry points take seg_q and seg_k after the other
-# pointers (the backward ones then the ids' tile table), the prefix-LM
-# ones prefix_len
+# the segmented entry points take seg_q, seg_k and the ids' tile table
+# after the other pointers, the prefix-LM ones prefix_len
 _POINTERS = {"flash_fwd": 5, "flash_bwd_dkv": 8, "flash_bwd_dq": 7}
-_MODE_POINTERS = {"": 0, "_seg": 2, "_pfx": 1}
-_TILE_TABLE = ("flash_bwd_dkv", "flash_bwd_dq")  # seg mode: one more
+_MODE_POINTERS = {"": 0, "_seg": 3, "_pfx": 1}
 _ARGTYPES = {
-    name + mode: [_P] * (n + extra + (mode == "_seg" and name in _TILE_TABLE))
-    + [_I] * 6 + [_F, _I, _P]
+    name + mode: [_P] * (n + extra) + [_I] * 6 + [_F, _I, _P]
     for name, n in _POINTERS.items()
     for mode, extra in _MODE_POINTERS.items()
 }
@@ -232,7 +230,7 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
 
 def segment_tiles(seg_q: torch.Tensor,
                   seg_k: torch.Tensor) -> torch.Tensor:
-    """The ids' tile table of B2's and B3's segment-id mode: int32
+    """The ids' tile table of B1's, B2's and B3's segment-id mode: int32
     ``[B, ceil(Sq / 64) + ceil(Sk / 64), 2]``, the smallest and largest
     id of each run of ``SEG_TILE`` ids, ``seg_q``'s tiles first, then
     ``seg_k``'s (a ragged last tile over its own ids only). Plain torch
@@ -307,6 +305,17 @@ def _mode(seg_q, seg_k, prefix_len):
     return "", ()
 
 
+def _table(seg_q, seg_k, seg_tiles) -> tuple:
+    """The ids' tile table as the segment-id kernels take it (one more
+    int32 operand, built from the ids on their device): ``seg_tiles``,
+    or built here when None; nothing outside segment-id mode. The plain
+    versions do not read it."""
+    if seg_q is None:
+        return ()
+    return (segment_tiles(seg_q, seg_k) if seg_tiles is None
+            else seg_tiles,)
+
+
 def _kernel_suffix(name: str, q, k, v, dout=None, rows=(), mode="",
                    ids=()) -> str:
     """What the kernel itself takes; returns the suffix of its C entry
@@ -345,12 +354,22 @@ def flash_fwd(q, k, v, causal: bool, scale: float, *, seg_q=None,
     """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32); in segment-id
     mode with ``seg_q`` [B,Sq] and ``seg_k`` [B,Sk] int32, in prefix-LM
     mode with ``prefix_len`` [B] int32."""
+    return _launch_fwd(q, k, v, causal, scale, seg_q, seg_k, prefix_len,
+                       None)
+
+
+def _launch_fwd(q, k, v, causal, scale, seg_q, seg_k, prefix_len,
+                seg_tiles):
+    """B1; in segment-id mode given ``segment_tiles(seg_q, seg_k)``, or
+    None to build it here: the autograd forward builds the table once
+    for B1 and keeps it for B2 and B3."""
     _check_shapes("flash_fwd", q, k, v, causal, seg_q=seg_q, seg_k=seg_k,
                   prefix_len=prefix_len)
     mode, ids = _mode(seg_q, seg_k, prefix_len)
     if kernel_build.on_cpu("flash attention", q, k, v, *ids):
         return flash_fwd_plain(q, k, v, causal, scale, seg_q, seg_k,
                                prefix_len)
+    ids += _table(seg_q, seg_k, seg_tiles)
     suffix = _kernel_suffix("flash_fwd", q, k, v, mode=mode, ids=ids)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -372,19 +391,15 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
 
 def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
                     prefix_len, seg_tiles):
-    """B2; in segment-id mode given ``segment_tiles(seg_q, seg_k)``, or
-    None to build it here: the autograd backward builds the table once
-    for B2 and B3."""
+    """B2 given the ids' tile table, as ``_launch_fwd``."""
     _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
     mode, ids = _mode(seg_q, seg_k, prefix_len)
-    if seg_q is not None:
-        ids += (segment_tiles(seg_q, seg_k) if seg_tiles is None
-                else seg_tiles,)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale,
                                    seg_q, seg_k, prefix_len)
+    ids += _table(seg_q, seg_k, seg_tiles)
     suffix = _kernel_suffix("flash_bwd_dkv", q, k, v, dout, (lse, delta),
                             mode, ids)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -410,13 +425,11 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
     _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
     mode, ids = _mode(seg_q, seg_k, prefix_len)
-    if seg_q is not None:
-        ids += (segment_tiles(seg_q, seg_k) if seg_tiles is None
-                else seg_tiles,)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale,
                                   seg_q, seg_k, prefix_len)
+    ids += _table(seg_q, seg_k, seg_tiles)
     suffix = _kernel_suffix("flash_bwd_dq", q, k, v, dout, (lse, delta),
                             mode, ids)
     dq = torch.empty_like(q)
@@ -456,6 +469,14 @@ reset_launch_counts()
 # -- autograd ----------------------------------------------------------------
 
 
+def _id_args(ids):
+    """seg_q, seg_k, prefix_len and the ids' tile table from the
+    autograd function's ``ids`` (None where absent), in the launch
+    helpers' order."""
+    return tuple(ids.get(name) for name in ("seg_q", "seg_k", "prefix_len",
+                                            "seg_tiles"))
+
+
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) of the three kernels; with ``seg_q``/``seg_k`` (int32,
     no gradient) in their segment-id mode, with ``prefix_len`` in their
@@ -466,10 +487,12 @@ class _FlashAttention(torch.autograd.Function):
                 seg_k=None, prefix_len=None):
         ids = {}
         if seg_q is not None:
-            ids = {"seg_q": seg_q, "seg_k": seg_k}
+            # one tile table for the three kernels
+            ids = {"seg_q": seg_q, "seg_k": seg_k,
+                   "seg_tiles": segment_tiles(seg_q, seg_k)}
         if prefix_len is not None:
             ids["prefix_len"] = prefix_len
-        out, lse = flash_fwd(q, k, v, causal, scale, **ids)
+        out, lse = _launch_fwd(q, k, v, causal, scale, *_id_args(ids))
         ctx.save_for_backward(q, k, v, out, lse, *ids.values())
         ctx.causal, ctx.scale, ctx.id_names = causal, scale, tuple(ids)
         return out, lse
@@ -483,12 +506,9 @@ class _FlashAttention(torch.autograd.Function):
         delta = ((dout.float() * out.float()).sum(dim=-1)
                  - dlse.float()).contiguous()
         args = (q, k, v, dout, lse, delta, ctx.causal, ctx.scale,
-                ids.get("seg_q"), ids.get("seg_k"), ids.get("prefix_len"))
-        # one tile table for both kernels
-        tiles = (segment_tiles(ids["seg_q"], ids["seg_k"]) if "seg_q" in ids
-                 else None)
-        dk, dv = _launch_bwd_dkv(*args, tiles)
-        dq = _launch_bwd_dq(*args, tiles)
+                *_id_args(ids))
+        dk, dv = _launch_bwd_dkv(*args)
+        dq = _launch_bwd_dq(*args)
         return dq, dk, dv, None, None, None, None, None
 
 

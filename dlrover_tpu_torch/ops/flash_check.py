@@ -227,11 +227,12 @@ def segment_faults(q, k, v, dout, lse, delta, scale: float, seg_q, seg_k
 
 def listed_tiles(tiles: torch.Tensor, s_q: int, s_k: int, causal: bool
                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-    """The tiles B2 and B3 list in segment-id mode from the tile table
-    ``tiles`` (``fa.segment_tiles``), by the kernels' rule, beside the
-    tiles they visit without a list (the causal cut only): for
+    """The tiles B1, B2 and B3 list in segment-id mode from the tile
+    table ``tiles`` (``fa.segment_tiles``), by the kernels' rule, beside
+    the tiles they would visit without a list (the causal cut only): for
     ``"flash_bwd_dq"`` (listed, visited) bool [B, 128-row q tiles,
-    128-key K/V tiles], for ``"flash_bwd_dkv"`` [B, 128-key tiles,
+    128-key K/V tiles], for ``"flash_fwd"`` the same (B1 has B3's tile
+    geometry and list), for ``"flash_bwd_dkv"`` [B, 128-key tiles,
     64-row q steps]. A tile is listed when one of its 64 x 64 parts at or
     below the diagonal has ranges that meet."""
     t = fa.SEG_TILE
@@ -253,7 +254,8 @@ def listed_tiles(tiles: torch.Tensor, s_q: int, s_k: int, causal: bool
     visited_dq = (j <= i) if causal else torch.ones(nq2, nk2, dtype=bool)
     visited_dkv = ((steps >= 2 * j.T) if causal
                    else torch.ones(nk2, nq, dtype=bool))
-    return {"flash_bwd_dq": (dq, visited_dq.expand(b, -1, -1)),
+    visited_dq = visited_dq.expand(b, -1, -1)
+    return {"flash_fwd": (dq, visited_dq), "flash_bwd_dq": (dq, visited_dq),
             "flash_bwd_dkv": (dkv, visited_dkv.expand(b, -1, -1))}
 
 

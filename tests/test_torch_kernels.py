@@ -392,6 +392,10 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
                                          sk, causal)
         for listed, _ in lists.values():
             assert bool((listed.sum(dim=-1) == 0).any())
+        # the rows of B1's blocks that list no tile, [B, S]
+        no_tile = (lists["flash_fwd"][0].sum(dim=-1) == 0)
+        no_tile = no_tile.repeat_interleave(128, dim=1)[:, :s].to(
+            cuda_device)
     scale = d ** -0.5
     fa.reset_launch_counts()
     seg = {"seg_q": seg_q, "seg_k": seg_k}
@@ -419,6 +423,11 @@ def test_segmented_kernels_match_plain_on_card(cuda_device, dtype, b, h,
         out, lse = pairs[0][0]
         assert bool((lse[no_key] == fa.NEG_INF).all())
         assert bool((out[no_key] == 0).all())
+        if ids == "empty":  # B1's empty lists: no tile run, zeros stored
+            rows = no_tile[:, None].expand(lse.shape)
+            assert bool(rows.any())
+            assert bool((lse[rows] == fa.NEG_INF).all())
+            assert bool((out[rows] == 0).all())
         assert bool((pairs[2][0][0][no_key] == 0).all())  # dQ
         # keys whose id no row carries: exact zeros in dK and dV
         unseen = ~torch.stack([torch.isin(seg_k[r], seg_q[r])

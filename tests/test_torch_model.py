@@ -218,13 +218,13 @@ class TestRemat:
         kernel's, so the backward re-runs the forward once per layer
         (what chip_smoke.py's launch count expects)."""
         calls = []
-        real = fa.flash_fwd
+        real = fa._launch_fwd  # what the autograd forward launches B1 by
 
         def counting(*args):
             calls.append(1)
             return real(*args)
 
-        monkeypatch.setattr(fa, "flash_fwd", counting)
+        monkeypatch.setattr(fa, "_launch_fwd", counting)
         cfg = llama.llama_tiny(use_flash=True, remat_policy=policy)
         params = llama.init(torch.Generator().manual_seed(0), cfg)
         for t in tree_leaves(params):

@@ -281,7 +281,7 @@ class TestSegmentChecks:
         assert set(fa.launch_counts().values()) == {0}
 
 
-# -- the backward kernels' tile lists ------------------------------------------
+# -- the segment-id kernels' tile lists ---------------------------------------
 
 
 def _numpy_ranges(ids):
@@ -369,6 +369,7 @@ class TestSegmentTiles:
             seg_k.shape[1], causal)
         needed = dict(zip(("flash_bwd_dq", "flash_bwd_dkv"),
                           _same_id_pairs(seg_q, seg_k, causal)))
+        needed["flash_fwd"] = needed["flash_bwd_dq"]  # B3's geometry
         for name, (listed, visited) in lists.items():
             listed, visited = listed.numpy(), visited.numpy()
             assert listed.shape == needed[name].shape, name
@@ -386,10 +387,10 @@ class TestSegmentTiles:
         ("pair form", (198, 1024, 367, 2048)),
     ])
     def test_phase_13_counts(self, layout, counts):
-        """The tiles B3 and B2 list against the causal tiles they
-        visited before lists, on chip_smoke.py's phase-13 layouts (the
-        first packed training row: documents of 627, 1253, 785, 617, 373
-        and 441 tokens)."""
+        """The tiles B1 and B3 (one list) and B2 list against the
+        causal tiles they would visit without lists, on chip_smoke.py's
+        phase-13 layouts (the first packed training row: documents of
+        627, 1253, 785, 617, 373 and 441 tokens)."""
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
                                        "chip_smoke.py"))
@@ -410,26 +411,28 @@ class TestSegmentTiles:
         lists = flash_check.listed_tiles(
             fa.segment_tiles(_t(seg_q), _t(seg_k)), 4096, 4096, causal)
         got = []
-        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             listed, visited = lists[name]
             got += [int(listed.sum()), int(visited.sum())]
-        assert tuple(got) == counts
+        assert tuple(got) == counts[:2] + counts
 
     def test_wrappers_take_a_table_or_build_it(self):
-        """The public backward wrappers build the ids' tile table
-        themselves and take none; the launch helpers the autograd
-        backward calls take the one table it builds for both kernels.
-        On the CPU the plain versions answer either way."""
+        """The public wrappers build the ids' tile table themselves and
+        take none; the launch helpers the autograd function calls take
+        the one table it builds for the three kernels. On the CPU the
+        plain versions answer either way."""
         q, k, v, dout = (_t(a) for a in _arrays(
             [(1, 2, 100, 16), (1, 1, 100, 16), (1, 1, 100, 16),
              (1, 2, 100, 16)], 11))
         ids = torch.from_numpy(_ids([30, 70], 100))[None]
         lse, delta = torch.zeros(1, 2, 100), torch.zeros(1, 2, 100)
-        args = (q, k, v, dout, lse, delta, True, 0.25)
+        bwd = (q, k, v, dout, lse, delta, True, 0.25)
         table = fa.segment_tiles(ids, ids)
         assert table.shape == (1, 4, 2)
-        for fn, helper in ((fa.flash_bwd_dkv, fa._launch_bwd_dkv),
-                           (fa.flash_bwd_dq, fa._launch_bwd_dq)):
+        for fn, helper, args in (
+                (fa.flash_fwd, fa._launch_fwd, (q, k, v, True, 0.25)),
+                (fa.flash_bwd_dkv, fa._launch_bwd_dkv, bwd),
+                (fa.flash_bwd_dq, fa._launch_bwd_dq, bwd)):
             built = fn(*args, seg_q=ids, seg_k=ids)
             given_ = helper(*args, ids, ids, None, table)
             for a, b in zip(built if isinstance(built, tuple) else (built,),
@@ -438,3 +441,45 @@ class TestSegmentTiles:
                 assert torch.equal(a, b)
             with pytest.raises(TypeError, match="seg_tiles"):
                 fn(*args, seg_q=ids, seg_k=ids, seg_tiles=table)
+
+    def test_entry_points_take_the_table_after_the_ids(self):
+        """Every segment-id entry point, B1's too, takes three int32
+        pointers after the others: seg_q, seg_k and the tile table."""
+        for name, pointers in (("flash_fwd", 5), ("flash_bwd_dkv", 8),
+                               ("flash_bwd_dq", 7)):
+            argtypes = fa._ARGTYPES[name + "_seg"]
+            assert argtypes[:pointers + 3] == [fa._P] * (pointers + 3)
+            assert argtypes[pointers + 3] is fa._I  # B, then the shape
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_one_table_a_layer(self, monkeypatch, causal):
+        """One forward and backward of the autograd function builds the
+        ids' tile table once and hands that same tensor to B1, B2 and
+        B3's launch helpers."""
+        built, given_ = [], {}
+        real_tiles = fa.segment_tiles
+
+        def tiles(*args):
+            built.append(real_tiles(*args))
+            return built[-1]
+
+        def seen(name):
+            real = getattr(fa, name)
+
+            def helper(*args):
+                given_[name] = args[-1]
+                return real(*args)
+            return helper
+
+        monkeypatch.setattr(fa, "segment_tiles", tiles)
+        for name in ("_launch_fwd", "_launch_bwd_dkv", "_launch_bwd_dq"):
+            monkeypatch.setattr(fa, name, seen(name))
+        q, k, v = (_t(a, True) for a in _arrays(
+            [(1, 2, 160, 16), (1, 1, 160, 16), (1, 1, 160, 16)], 12))
+        ids = torch.from_numpy(_ids([50, 110], 160))[None]
+        fa.flash_attention_segmented(q, k, v, ids,
+                                     causal=causal).sum().backward()
+        assert len(built) == 1
+        assert set(given_) == {"_launch_fwd", "_launch_bwd_dkv",
+                               "_launch_bwd_dq"}
+        assert all(t is built[0] for t in given_.values())
