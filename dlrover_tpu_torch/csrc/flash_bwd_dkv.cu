@@ -37,9 +37,28 @@
 //         as they stand, dO and Q are read MN-major (transpose bit).
 // A producer warp keeps TMA loads of Q, dO, lse and delta (3-D maps for
 // the tiles, 1-D for the rows) in flight through a 2-stage mbarrier
-// ring. Head dims up to 64 run on a 64-wide head tile, the others on a
-// 128-wide one; columns past D read as zeros, which change none of the
-// four products' stored parts.
+// ring. The segment-id kernels run this design on a 64-wide head tile
+// at head dims up to 64, every kernel on a 128-wide one above; columns
+// past D read as zeros, which change none of the four products' stored
+// parts.
+//
+// 64-wide head tile (flash_bwd_dkv_d64_kernel: head dims up to 64,
+// unsegmented, causal, not causal or prefix-LM; GLM's main path). The
+// blocks and products above, with the same sums in the same order, so
+// the outputs are bit for bit the above design's at D <= 64. Measured by
+// stages at GLM's shape (PERF.md), the time there went on neither
+// the exponentials nor the ring's waits: a step's scores and gradients
+// cost more than their products, and the work around them most. So:
+//   - 128 q rows a step: S^T and dP^T are m64n128k16 SS products (half
+//     the shared-memory reads a flop of m64n64, half the steps, waits
+//     and lse/delta boxes), dV and dK eight m64n64k16 RS k16 steps in
+//     the q-row order two 64-row steps take; the accumulators fit
+//     (64 + 64 + 32 + 32 of 240 registers);
+//   - the diagonal and prompt masks are a branch of their own that only
+//     a step crossing them takes (per element, they had cost every step
+//     a branch for each score);
+//   - 4 ring stages of Q, dO, lse and delta.
+// (Warpgroup turns, which B3 takes, measured no faster here.)
 //
 // f32 (the parity path, flash_bwd_dkv_kernel<float>): 32x32 tiles staged
 // in shared memory, scalar FMA products (flash_common.cuh); the probability
@@ -691,6 +710,306 @@ int launch_bf16(const void* q, const void* k, const void* v,
                      seg_k, prefix_len, seg_tiles);
 }
 
+// -- bf16, 64-wide head tile ----------------------------------------------
+//
+// The unsegmented kernels at head dims up to 64 (header: "64-wide head
+// tile"): 128 q rows a step, the masks in a branch of their own, a
+// 4-stage ring.
+namespace d64 {
+
+constexpr int BQ = 128;  // q rows a step
+constexpr int kStages = 4;
+constexpr int kRowBox = BQ + 4;  // a row box, from the 16-byte boundary
+
+struct Layout {
+  static constexpr uint32_t kKV = BK * 64 * 2;  // K or V
+  static constexpr uint32_t kQ = BQ * 64 * 2;   // one Q or dO tile
+  static constexpr uint32_t kRow = 640;  // one lse or delta box, aligned
+  static constexpr uint32_t kStage0 = 2 * kKV;
+  static constexpr uint32_t kRows = kStage0 + kStages * 2 * kQ;
+  static constexpr uint32_t kBars = kRows + kStages * 2 * kRow;
+  static constexpr uint32_t kStageTx = 2 * kQ + 2 * kRowBox * 4;
+  static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+};
+
+// K and V arrived; a stage's Q, dO, lse and delta arrived; a stage
+// released by both consumer warpgroups.
+struct Bars {
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+
+// Issue acc = A B^T over 4 k16 steps: A this warpgroup's 64 rows of K or
+// V, B the step's 128-row Q or dO tile, both K-major.
+__device__ __forceinline__ void scores(float (&acc)[BQ / 2], uint32_t sA,
+                                       uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hop::wgmma_ss_m64n128k16<0>(acc, hop::desc_sw128(sA + kk * 32, 16, 1024),
+                                hop::desc_sw128(sB + kk * 32, 16, 1024),
+                                kk > 0);
+  }
+}
+
+// Issue acc += A B over the step's 128 q rows, 16 at a time in order (the
+// order two 64-row steps take): A in bf16 from registers (eight k16
+// fragments), B the [BQ][64] dO or Q tile read MN-major.
+__device__ __forceinline__ void grads(float (&acc)[32],
+                                      const uint32_t (&a)[BQ / 16][4],
+                                      uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    hop::wgmma_rs_m64n64k16<1>(
+        acc, a[kk], hop::desc_sw128(sB + kk * 16 * 128, BQ * 128, 1024), 1);
+  }
+}
+
+template <bool PFX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_d64_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tlse,
+                             const __grid_constant__ CUtensorMap tdelta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int B, int H, int Hkv, int Sq, int Sk, int D,
+                             float scale, float scale_log2, int causal,
+                             const int* __restrict__ prefix_len) {
+  using L = Layout;
+  // every head's first key tiles (the most causal work) first
+  const int j = blockIdx.x / (B * Hkv), bh = blockIdx.x % (B * Hkv);
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int group = H / Hkv;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // prefix-LM mode: the prompt's length
+  const int plen = PFX ? prefix_len[b] : 0;
+  // steps strictly above this key tile's diagonal see none of its keys,
+  // unless (prefix-LM mode) it holds prompt keys
+  const int i0 = causal && !(PFX && j * BK < min(max(plen, 0), Sk))
+                     ? j * BK / BQ
+                     : 0;
+  const int per_head = max(nqt - i0, 0);
+  const int steps = group * per_head;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = hop::smem_u32(base), sV = sK + L::kKV;
+  auto sQ = [&](int s) { return sK + L::kStage0 + s * 2 * L::kQ; };
+  auto sdO = [&](int s) { return sQ(s) + L::kQ; };
+  auto sLse = [&](int s) {
+    return reinterpret_cast<const float*>(base + L::kRows + s * 2 * L::kRow);
+  };
+  auto sDelta = [&](int s) { return sLse(s) + L::kRow / 4; };
+  // the first row of step t's q rows in the [B H Sq] rows of lse, delta
+  auto first_row = [&](int t) {
+    return (b * H + hk * group + t / per_head) * Sq +
+           (i0 + t % per_head) * BQ;
+  };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&bar.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread loads K and V once, then keeps the ring full
+    // with step t's Q and dO tiles and lse and delta rows
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      hop::mbar_arrive_expect_tx(&bar.kv_full, 2 * L::kKV);
+      hop::tma_load_3d(sK, &tk, &bar.kv_full, 0, j * BK, bh);
+      hop::tma_load_3d(sV, &tv, &bar.kv_full, 0, j * BK, bh);
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % kStages;
+        const int h = hk * group + t / per_head, i = i0 + t % per_head;
+        // the stage's previous tile, t - kStages, is released
+        if (t >= kStages) hop::mbar_wait(&bar.empty[s], (t / kStages - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.full[s], L::kStageTx);
+        hop::tma_load_3d(sQ(s), &tq, &bar.full[s], 0, i * BQ, b * H + h);
+        hop::tma_load_3d(sdO(s), &tdo, &bar.full[s], 0, i * BQ, b * H + h);
+        // 1-D rows: a ragged step reads the next head's values (masked)
+        // or, past the end, zeros
+        const int row = first_row(t) & ~3;
+        hop::tma_load_1d(hop::smem_u32(sLse(s)), &tlse, &bar.full[s], row);
+        hop::tma_load_1d(hop::smem_u32(sDelta(s)), &tdelta, &bar.full[s],
+                         row);
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  // consumers: warpgroup wg owns key rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int quad = t128 % 4;
+  const int k_lo = j * BK + wg * 64;
+  const int kr0 = k_lo + (t128 / 32) * 16 + (t128 % 32) / 4;
+  const int kr1 = kr0 + 8;
+  const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
+  // the steps of each head this warpgroup skips, which lead the head's
+  // run: its keys all past Sk, or all above the step's rows (q tile i <
+  // k_lo / BQ) and, in prefix-LM mode, past the prompt
+  const int n_skip = k_lo >= Sk ? per_head
+                     : causal && !(PFX && k_lo < plen)
+                         ? min(max(k_lo / BQ - i0, 0), per_head)
+                         : 0;
+
+  float dkacc[32], dvacc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dkacc[x] = dvacc[x] = 0.f;
+
+  hop::mbar_wait(&bar.kv_full, 0);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % kStages, phase = (t / kStages) & 1;
+    const int q_lo = (i0 + t % per_head) * BQ;
+    hop::mbar_wait(&bar.full[s], phase);
+    if (t % per_head < n_skip) {  // the stage is released unread
+      hop::mbar_arrive(&bar.empty[s]);
+      continue;
+    }
+
+    // S^T = K Q^T, then dP^T = V dO^T: the tensor cores work on dP^T
+    // while P^T's exponentials are computed
+    float sacc[BQ / 2], dpacc[BQ / 2];
+    hop::wgmma_fence();
+    scores(sacc, sKw, sQ(s));
+    hop::wgmma_commit();
+    scores(dpacc, sVw, sdO(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();
+    hop::fence_regs(sacc);
+
+    // P^T over S^T's registers; a column is the q row
+    // q_lo + 8 c + 2 quad + (e & 1), a row the key kr0 or kr1. Only a step
+    // that crosses the diagonal (prefix-LM mode: and the prompt's end) or a
+    // ragged end masks, in a branch of its own.
+    const float* lse = sLse(s) + (first_row(t) & 3) + 2 * quad;
+    if ((causal && k_lo + 63 > q_lo && !(PFX && k_lo + 64 <= plen)) ||
+        q_lo + BQ > Sq || k_lo + 64 > Sk) {
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c) {
+        const float l0 = lse[8 * c] * kLog2e, l1 = lse[8 * c + 1] * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * c + e;
+          const int qc = q_lo + 8 * c + 2 * quad + (e & 1);
+          const int kr = (e & 2) ? kr1 : kr0;
+          const float p =
+              hop::ex2(fmaf(sacc[x], scale_log2, (e & 1) ? -l1 : -l0));
+          sacc[x] = kr >= Sk || qc >= Sq ||
+                            (causal && kr > qc && !(PFX && kr < plen))
+                        ? 0.f
+                        : p;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c) {
+        const float l0 = lse[8 * c] * kLog2e, l1 = lse[8 * c + 1] * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * c + e;
+          sacc[x] = hop::ex2(fmaf(sacc[x], scale_log2, (e & 1) ? -l1 : -l0));
+        }
+      }
+    }
+    hop::wgmma_wait<0>();  // dP^T is done
+    hop::fence_regs(dpacc);
+
+    // dS^T = P^T (dP^T - delta) scale over dP^T's registers; P^T and dS^T
+    // rounded to bf16 as the A fragments of the step's dV and dK products
+    const float* delta = sDelta(s) + (first_row(t) & 3) + 2 * quad;
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c) {
+      const float d0 = delta[8 * c], d1 = delta[8 * c + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * c + e;
+        dpacc[x] = sacc[x] * (dpacc[x] - ((e & 1) ? d1 : d0)) * scale;
+      }
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hop::acc_to_a(sacc, kk, pa[kk]);
+      hop::acc_to_a(dpacc, kk, da[kk]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q (dO and Q [q][64] MN-major)
+    hop::wgmma_fence();
+    hop::fence_regs(dvacc);
+    hop::fence_regs(dkacc);
+    grads(dvacc, pa, sdO(s));
+    grads(dkacc, da, sQ(s));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dvacc);
+    hop::fence_regs(dkacc);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hop::fence_regs(pa[kk]);
+      hop::fence_regs(da[kk]);
+    }
+    hop::mbar_arrive(&bar.empty[s]);  // this thread is done with stage s
+  }
+
+  // dK, dV in bf16 straight from the accumulators
+  const size_t head_row = (size_t)bh * Sk;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * quad;
+    if (col < D) {
+      if (kr0 < Sk) {
+        const size_t at = (head_row + kr0) * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * c], dkacc[4 * c + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * c], dvacc[4 * c + 1]);
+      }
+      if (kr1 < Sk) {
+        const size_t at = (head_row + kr1) * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dkacc[4 * c + 2], dkacc[4 * c + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dvacc[4 * c + 2], dvacc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+template <bool PFX>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dk, void* dv, int B,
+           int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+           void* stream, const int* prefix_len = nullptr) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const size_t rows = (size_t)B * H * Sq;
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tdo, static_cast<const bf16*>(dout), B * H, Sq, D,
+                       BQ) ||
+      !hop::tensor_map_1d(&tlse, lse, rows, kRowBox) ||
+      !hop::tensor_map_1d(&tdelta, delta, rows, kRowBox)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Sk + BK - 1) / BK * B * Hkv);
+  return hop::launch(flash_bwd_dkv_d64_kernel<PFX>, grid, kThreads,
+                     Layout::kSmem, stream, tq, tk, tv, tdo, tlse, tdelta,
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H,
+                     Hkv, Sq, Sk, D, scale, scale * kLog2e, causal,
+                     prefix_len);
+}
+
+}  // namespace d64
 }  // namespace dkv
 }  // namespace dlr
 
@@ -701,9 +1020,9 @@ extern "C" int dlr_flash_bwd_dkv_bf16(const void* q, const void* k,
                                       int Hkv, int Sq, int Sk, int D,
                                       float scale, int causal, void* stream) {
   return D <= 64
-             ? dlr::dkv::launch_bf16<64, false>(q, k, v, dout, lse, delta,
-                                                dk, dv, B, H, Hkv, Sq, Sk, D,
-                                                scale, causal, stream)
+             ? dlr::dkv::d64::launch<false>(q, k, v, dout, lse, delta, dk, dv,
+                                            B, H, Hkv, Sq, Sk, D, scale,
+                                            causal, stream)
              : dlr::dkv::launch_bf16<128, false>(q, k, v, dout, lse, delta,
                                                  dk, dv, B, H, Hkv, Sq, Sk, D,
                                                  scale, causal, stream);
@@ -758,9 +1077,9 @@ extern "C" int dlr_flash_bwd_dkv_pfx_bf16(
     float scale, int causal, void* stream) {
   (void)causal;
   return D <= 64
-             ? dlr::dkv::launch_bf16<64, false, true>(
-                   q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D,
-                   scale, 1, stream, nullptr, nullptr, prefix_len)
+             ? dlr::dkv::d64::launch<true>(q, k, v, dout, lse, delta, dk, dv,
+                                           B, H, Hkv, Sq, Sk, D, scale, 1,
+                                           stream, prefix_len)
              : dlr::dkv::launch_bf16<128, false, true>(
                    q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D,
                    scale, 1, stream, nullptr, nullptr, prefix_len);

@@ -36,14 +36,33 @@
 //   dQ += dS K   wgmma RS m64n{DP}k16: dS rounded to bf16 in the
 //         accumulator layout is the A fragment as it stands, and K, the
 //         tile S read K-major, is read MN-major (transpose bit).
-// (64-key tiles, whose m64n64 SS products read as many shared-memory
-// bytes per flop as the tensor cores can take, were slower, and so was
-// leaving one tile's dQ product in flight under the next tile's S:
-// PERF.md has the runs.)
-// Head dims up to 64 run on a 64-wide head tile, the others on a
-// 128-wide one; columns past D read as zeros, which change none of the
-// three products' stored parts. Rows past Sq read zeros and are never
-// stored.
+// (At D = 128, 64-key tiles, whose m64n64 SS products read as many
+// shared-memory bytes per flop as the tensor cores can take, were
+// slower, 0.363 against 0.348 ms at 32/8 heads, and so was leaving one
+// tile's dQ product in flight under the next tile's S, 0.396 ms, where
+// ptxas serialized every wgmma; H100 80GB HBM3, 700 W.)
+// The segment-id kernels run this design on a 64-wide head tile at head
+// dims up to 64, every kernel on a 128-wide one above; columns past D
+// read as zeros, which change none of the three products' stored parts.
+// Rows past Sq read zeros and are never stored.
+//
+// 64-wide head tile (flash_bwd_dq_d64_kernel: head dims up to 64,
+// unsegmented, causal, not causal or prefix-LM; GLM's main path). The
+// blocks, tiles and products above, with the same sums in the same
+// order, so dQ is bit for bit the above design's at D <= 64 (PERF.md),
+// and:
+//   - the two consumer warpgroups take turns to issue their products
+//     (named barriers 1 and 2: a warpgroup waits for its turn, issues,
+//     and hands the turn over), so that one's exponentials and dS run
+//     while the other's products do;
+//   - a tile's turn issues the last tile's dQ product, then its own S
+//     and dP: at D = 64 the dQ accumulator and the dS fragments are 32
+//     registers each, so the product stays in flight with no wgmma
+//     serialized (64 + 64 + 32 + 32 of 240 registers);
+//   - the diagonal, prompt and ragged-end masks are a branch of their
+//     own (per element they had cost every tile a predicated test for
+//     each score);
+//   - 4 ring stages of K and V.
 //
 // f32 (the parity path, flash_bwd_dq_kernel<float>): 32x32 tiles staged
 // in shared memory, scalar FMA products (flash_common.cuh).
@@ -622,6 +641,284 @@ int launch_bf16(const void* q, const void* k, const void* v,
                      seg_tiles);
 }
 
+// -- bf16, 64-wide head tile ----------------------------------------------
+//
+// The unsegmented kernels at head dims up to 64 (header: "64-wide head
+// tile"): the two consumer warpgroups take turns to issue their products,
+// each tile's dQ product with the next tile's S and dP, so that one
+// warpgroup's exponentials and dS run under the other's products; a
+// 4-stage ring.
+namespace d64 {
+
+constexpr int kStages = 4;
+constexpr int kTurnBar = 1;  // named barriers 1 and 2: warpgroup 0's, 1's turn
+
+struct Layout {
+  static constexpr uint32_t kQ = BQ * 64 * 2;   // Q or dO
+  static constexpr uint32_t kKV = BK * 64 * 2;  // one K or one V tile
+  static constexpr uint32_t kStage0 = 2 * kQ;
+  static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKV;
+  static constexpr size_t kSmem = kBars + 128 + 1024;  // + align slack
+};
+
+// Q and dO arrived; K, V of a stage arrived; a stage released by both
+// consumer warpgroups.
+struct Bars {
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+template <bool PFX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_d64_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int H, int Hkv, int Sq,
+                            int Sk, int D, float scale, float scale_log2,
+                            int causal, const int* __restrict__ prefix_len) {
+  using L = Layout;
+  constexpr int NS = BK / 2;  // S or dP accumulator registers a thread
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // every head's last q tile first: the heaviest causal blocks lead
+  const int i = nqt - 1 - blockIdx.x / H;
+  const int h = blockIdx.x % H, b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  int nkt = (Sk + BK - 1) / BK;
+  if (causal) nkt = min(nkt, (i * BQ + BQ - 1) / BK + 1);
+  // prefix-LM mode: the prompt's k tiles too (p clamped for the schedule)
+  const int plen = PFX ? prefix_len[b] : 0;
+  if (PFX) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = hop::smem_u32(base), sdO = sQ + L::kQ;
+  auto sK = [&](int s) { return sQ + L::kStage0 + s * 2 * L::kKV; };
+  auto sV = [&](int s) { return sK(s) + L::kKV; };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.k_full[s], 1);
+      hop::mbar_init(&bar.v_full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread loads Q and dO once, then keeps the ring full
+    // with the K and V tiles of KV head hk
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      hop::mbar_arrive_expect_tx(&bar.q_full, 2 * L::kQ);
+      hop::tma_load_3d(sQ, &tq, &bar.q_full, 0, i * BQ, b * H + h);
+      hop::tma_load_3d(sdO, &tdo, &bar.q_full, 0, i * BQ, b * H + h);
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % kStages;
+        // the stage's previous tile, j - kStages, is released
+        if (j >= kStages) hop::mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+        hop::tma_load_3d(sK(s), &tk, &bar.k_full[s], 0, j * BK, b * Hkv + hk);
+        hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+        hop::tma_load_3d(sV(s), &tv, &bar.v_full[s], 0, j * BK, b * Hkv + hk);
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  // consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int quad = t % 4;
+  const int q_lo = i * BQ + wg * 64;
+  const int row0 = q_lo + (t / 32) * 16 + (t % 32) / 4;
+  const int row1 = row0 + 8;
+  const uint32_t sQw = sQ + wg * 64 * 128, sdOw = sdO + wg * 64 * 128;
+  // lse (base 2) and delta of this thread's two rows; rows past Sq read
+  // zeros there and are never stored
+  const size_t head_row = ((size_t)b * H + h) * Sq;
+  const float nl0 = -((row0 < Sq ? lse[head_row + row0] : 0.f) * kLog2e);
+  const float nl1 = -((row1 < Sq ? lse[head_row + row1] : 0.f) * kLog2e);
+  const float delta0 = row0 < Sq ? delta[head_row + row0] : 0.f;
+  const float delta1 = row1 < Sq ? delta[head_row + row1] : 0.f;
+  // the tiles this warpgroup visits, which lead the block's: none past
+  // Sq; else up to its last row's diagonal (and, in prefix-LM mode, the
+  // prompt's last key)
+  const int nact = q_lo >= Sq ? 0
+                   : !causal  ? nkt
+                              : min(nkt, max(q_lo + 63, PFX ? plen - 1 : 0) /
+                                                 BK +
+                                             1);
+  // Turns: a warpgroup issues its products between its turn() and its
+  // pass(), which hands the turn to the other. Both take nkt + 1 turns;
+  // warpgroup 1 lets warpgroup 0 start, and warpgroup 0 takes one more
+  // turn at the end.
+  auto turn = [&]() { hop::bar_sync(kTurnBar + wg, 256); };
+  auto pass = [&]() { hop::bar_arrive(kTurnBar + 1 - wg, 256); };
+
+  float dqacc[32];
+  // dS of the tile before in bf16, the A fragments of its dQ product
+  uint32_t da[BK / 16][4];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dqacc[x] = 0.f;
+
+  // tile j's S = Q K^T, then dP = dO V^T
+  auto issue_scores = [&](float (&sacc)[NS], float (&dpacc)[NS], int s) {
+    hop::wgmma_fence();
+    scores<64>(sacc, sQw, sK(s));
+    hop::wgmma_commit();
+    scores<64>(dpacc, sdOw, sV(s));
+    hop::wgmma_commit();
+  };
+  // dQ += dS K over stage s's K
+  auto issue_dq = [&](int s) {
+    hop::wgmma_fence();
+    hop::fence_regs(dqacc);
+    dq_update<64>(dqacc, da, sK(s));
+    hop::wgmma_commit();
+  };
+  auto retire_dq = [&]() {
+    hop::fence_regs(dqacc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::fence_regs(da[kk]);
+  };
+  // P over S's registers: x = 4 c + e is row (e & 2 ? row1 : row0), key
+  // k_lo + 8 c + 2 quad + (e & 1). Only a tile that crosses the diagonal
+  // (prefix-LM mode: and the prompt's end) or the ragged end masks, in a
+  // branch of its own.
+  auto probs = [&](float (&sacc)[NS], int j) {
+    const int k_lo = j * BK;
+    if ((causal && k_lo + BK - 1 > q_lo && !(PFX && k_lo + BK <= plen)) ||
+        k_lo + BK > Sk) {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        const int kr = k_lo + 8 * (x / 4) + 2 * quad + (x & 1);
+        const int qr = (x & 2) ? row1 : row0;
+        const float p =
+            hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? nl1 : nl0));
+        sacc[x] =
+            kr >= Sk || (causal && kr > qr && !(PFX && kr < plen)) ? 0.f : p;
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        sacc[x] = hop::ex2(fmaf(sacc[x], scale_log2, (x & 2) ? nl1 : nl0));
+      }
+    }
+  };
+  // dS = P (dP - delta) scale, rounded to bf16 A fragments
+  auto frags = [&](const float (&sacc)[NS], float (&dpacc)[NS]) {
+#pragma unroll
+    for (int x = 0; x < NS; ++x) {
+      dpacc[x] = sacc[x] * (dpacc[x] - ((x & 2) ? delta1 : delta0)) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::acc_to_a(dpacc, kk, da[kk]);
+  };
+  auto wait_tile = [&](int j) {
+    hop::mbar_wait(&bar.k_full[j % kStages], (j / kStages) & 1);
+    hop::mbar_wait(&bar.v_full[j % kStages], (j / kStages) & 1);
+  };
+
+  if (wg == 1) pass();  // warpgroup 0 takes the first turn
+  hop::mbar_wait(&bar.q_full, 0);
+  if (nact > 0) {
+    {  // the first tile: no dQ product of a tile before
+      float sacc[NS], dpacc[NS];
+      wait_tile(0);
+      turn();
+      issue_scores(sacc, dpacc, 0);
+      pass();
+      hop::wgmma_wait<1>();
+      hop::fence_regs(sacc);
+      probs(sacc, 0);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dpacc);
+      frags(sacc, dpacc);
+    }
+    for (int j = 1; j < nact; ++j) {
+      const int s = j % kStages, prev = (j - 1) % kStages;
+      // the last tile's dQ product, then this tile's S and dP: the tensor
+      // cores run dP while P's exponentials are computed
+      float sacc[NS], dpacc[NS];
+      wait_tile(j);
+      turn();
+      issue_dq(prev);
+      issue_scores(sacc, dpacc, s);
+      pass();
+      hop::wgmma_wait<1>();
+      retire_dq();
+      hop::mbar_arrive(&bar.empty[prev]);  // done with the last tile's stage
+      hop::fence_regs(sacc);
+      probs(sacc, j);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dpacc);
+      frags(sacc, dpacc);
+    }
+    // the last tile's dQ product
+    turn();
+    issue_dq((nact - 1) % kStages);
+    pass();
+    hop::wgmma_wait<0>();
+    retire_dq();
+    hop::mbar_arrive(&bar.empty[(nact - 1) % kStages]);
+  } else {  // the turn a last dQ product takes
+    turn();
+    pass();
+  }
+  // tiles whose keys this warpgroup's rows cannot see: released unread
+  for (int j = nact; j < nkt; ++j) {
+    wait_tile(j);
+    turn();
+    pass();
+    hop::mbar_arrive(&bar.empty[j % kStages]);
+  }
+  if (wg == 0) turn();  // warpgroup 1's last pass
+
+  // dQ in bf16 straight from the accumulator
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * quad;
+    if (col < D) {
+      if (row0 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + (head_row + row0) * D + col) =
+            __floats2bfloat162_rn(dqacc[4 * c], dqacc[4 * c + 1]);
+      }
+      if (row1 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + (head_row + row1) * D + col) =
+            __floats2bfloat162_rn(dqacc[4 * c + 2], dqacc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+template <bool PFX>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, int B, int H,
+           int Hkv, int Sq, int Sk, int D, float scale, int causal,
+           void* stream, const int* prefix_len = nullptr) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tdo, static_cast<const bf16*>(dout), B * H, Sq, D,
+                       BQ)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Sq + BQ - 1) / BQ * H, B);
+  return hop::launch(flash_bwd_dq_d64_kernel<PFX>, grid, kThreads,
+                     Layout::kSmem, stream, tq, tk, tv, tdo, lse, delta,
+                     static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, scale,
+                     scale * kLog2e, causal, prefix_len);
+}
+
+}  // namespace d64
 }  // namespace dq
 }  // namespace dlr
 
@@ -632,9 +929,9 @@ extern "C" int dlr_flash_bwd_dq_bf16(const void* q, const void* k,
                                      int Sk, int D, float scale, int causal,
                                      void* stream) {
   return D <= 64
-             ? dlr::dq::launch_bf16<64, false>(q, k, v, dout, lse, delta, dq,
-                                               B, H, Hkv, Sq, Sk, D, scale,
-                                               causal, stream)
+             ? dlr::dq::d64::launch<false>(q, k, v, dout, lse, delta, dq, B,
+                                           H, Hkv, Sq, Sk, D, scale, causal,
+                                           stream)
              : dlr::dq::launch_bf16<128, false>(q, k, v, dout, lse, delta, dq,
                                                 B, H, Hkv, Sq, Sk, D, scale,
                                                 causal, stream);
@@ -688,9 +985,9 @@ extern "C" int dlr_flash_bwd_dq_pfx_bf16(
     void* stream) {
   (void)causal;
   return D <= 64
-             ? dlr::dq::launch_bf16<64, false, true>(
-                   q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D, scale,
-                   1, stream, nullptr, nullptr, prefix_len)
+             ? dlr::dq::d64::launch<true>(q, k, v, dout, lse, delta, dq, B, H,
+                                          Hkv, Sq, Sk, D, scale, 1, stream,
+                                          prefix_len)
              : dlr::dq::launch_bf16<128, false, true>(
                    q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, D, scale,
                    1, stream, nullptr, nullptr, prefix_len);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptors, mbarriers, TMA
-// tensor loads and stores, register rebalancing, a launcher that takes
-// its own thread count, and the host's tensor-map encoders. Used by the
+// tensor loads and stores, named barriers, register rebalancing, a
+// launcher that takes its own thread count, and the host's tensor-map
+// encoders. Used by the
 // bf16 paths of flash_fwd.cu (B1), flash_bwd_dkv.cu (B2),
 // flash_bwd_dq.cu (B3) and, through grouped_common.cuh,
 // grouped_matmul_fwd.cu (B4) and grouped_matmul_dw.cu (B5).
@@ -404,6 +405,18 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 
 // -- warp specialisation ----------------------------------------------------
+
+// Named barrier `id` (1-15; 0 is __syncthreads), complete once `threads`
+// threads (a multiple of 32) have reached it through bar_sync, which
+// waits for it, or bar_arrive, which does not: two warpgroups take turns
+// with it while the others run on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Reach named barrier `id` without waiting for it.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 template <int REGS>
 __device__ __forceinline__ void regs_dealloc() {

@@ -241,11 +241,18 @@ def cuda_device():
     # B3's edge: a q tile shorter than one warpgroup's 64 rows, so the
     # second warpgroup has none
     (torch.bfloat16, 1, 4, 2, 40, 128, True, 1e-3, None),
+    # the 64-wide head tile's own kernels: without the causal mask on a
+    # row that ends inside a 64-row step, cross attention, and a q tile
+    # shorter than one warpgroup's rows
+    (torch.bfloat16, 2, 4, 2, 900, 64, False, 1e-3, None),
+    (torch.bfloat16, 1, 4, 2, 300, 64, False, 1e-3, 1000),
+    (torch.bfloat16, 1, 4, 2, 40, 64, True, 1e-3, None),
 ], ids=["bf16", "bf16_ragged", "f32_ragged_causal", "f32_ragged",
         "bf16_d64", "bf16_d80_padded", "bf16_batch2_ragged_q",
         "bf16_cross", "bf16_one_past_tile", "bf16_d16", "bf16_d32",
         "bf16_d48", "bf16_group1", "bf16_group8", "bf16_batch2_d64",
-        "bf16_moe_heads", "bf16_short_q_tile"])
+        "bf16_moe_heads", "bf16_short_q_tile", "bf16_d64_noncausal_900",
+        "bf16_d64_cross", "bf16_d64_short_q_tile"])
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
                                      causal, tol, sk):
     """Each kernel against its plain version on the same card inputs:
@@ -484,6 +491,11 @@ def test_prefix_faults_fail_the_row_rule():
     # tile edge and past half the row
     (torch.bfloat16, 2, 8, 8, 2048, 64, (1000, 128)),
     (torch.bfloat16, 2, 8, 8, 2048, 64, (127, 129)),
+    # a ragged row (1000 rows: the last 128-row q tile part full) with a
+    # prompt inside a tile beside none, and prompts that end inside a
+    # 128-row tile on a 64-row edge, over GQA groups of 2
+    (torch.bfloat16, 2, 8, 8, 1000, 64, (192, 0)),
+    (torch.bfloat16, 2, 8, 4, 1000, 64, (64, 320)),
     # GQA and the 128-wide head tile, a ragged row
     (torch.bfloat16, 2, 8, 2, 1000, 128, (700, 37)),
     (torch.bfloat16, 1, 4, 1, 300, 48, (300,)),
@@ -491,7 +503,8 @@ def test_prefix_faults_fail_the_row_rule():
     (torch.bfloat16, 2, 4, 2, 512, 64, (-5, 5000)),
     (torch.float32, 2, 4, 2, 300, 64, (130, 0)),
     (torch.float32, 1, 4, 4, 300, 64, (299,)),
-], ids=["bf16_glm_heads", "bf16_tile_edges", "bf16_gqa_ragged",
+], ids=["bf16_glm_heads", "bf16_tile_edges", "bf16_ragged_d64",
+        "bf16_step_edge_gqa", "bf16_gqa_ragged",
         "bf16_whole_row_d48", "bf16_out_of_range", "f32_ragged",
         "f32_mha"])
 def test_prefix_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv,

@@ -13,6 +13,10 @@ The prefix-LM kernels themselves are held to these plain versions on
 the card by ``tests/test_torch_kernels.py``.
 """
 
+import importlib.util
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,3 +215,95 @@ class TestPrefixChecks:
         assert {"flash_fwd_pfx", "flash_bwd_dkv_pfx",
                 "flash_bwd_dq_pfx"} <= set(counts)
         assert set(counts.values()) == {0}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` loaded as a module (it imports no torch or JAX
+    at the top)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _source(name):
+    return (fa.kernel_build.CSRC / f"{name}.cu").read_text()
+
+
+class TestAgainstTables:
+    """``chip_smoke.py --against`` holds every bf16 entry point of the
+    flash sources against another tree's, the prefix-LM and unprefixed
+    ones as well as the segment-id ones, and reads each one's argument
+    types from its source."""
+
+    @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq"])
+    def test_tables_name_every_bf16_entry_point(self, name):
+        smoke = _chip_smoke()
+        assert name in smoke.AGAINST_SOURCES
+        found = set(re.findall(r'extern "C" int (dlr_\w+_bf16)\(',
+                               _source(name)))
+        listed = {entry for entry, (source, _) in
+                  smoke.AGAINST_ENTRIES.items() if source == name}
+        assert found == listed
+        assert {f"dlr_{name}_pfx_bf16", f"dlr_{name}_bf16"} <= listed
+        for kernel, mode in smoke.AGAINST_TIMED:
+            assert f"dlr_{kernel}{mode}_bf16" in smoke.AGAINST_ENTRIES
+
+    @pytest.mark.parametrize("mode", ["", "_pfx", "_seg"])
+    @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq"])
+    def test_parse_entry_reads_the_wrappers_argument_types(self, name,
+                                                           mode):
+        smoke = _chip_smoke()
+        entry = f"dlr_{name}{mode}_bf16"
+        assert smoke.AGAINST_ENTRIES[entry] == (name, mode)
+        assert smoke._parse_entry(_source(name), entry) == \
+            fa._ARGTYPES[name + mode]
+
+    def test_cases_cover_the_new_step_geometry(self):
+        """GLM's shape on phase 14's prompts and its edge prompts, and
+        ragged rows whose last 128-row step is part full."""
+        smoke = _chip_smoke()
+        cases = smoke.against_cases([688, 563, 633, 196])
+        labels = [c[0] for c in cases]
+        assert len(set(labels)) == len(labels)
+        prompts = [c[6] for c in cases if c[6] is not None]
+        assert [688, 563, 633, 196] in prompts
+        assert [128, 127, 129, 1000] in prompts
+        assert [0, 1, smoke.GLM_SEQ, smoke.GLM_SEQ // 2] in prompts
+        assert {c[7] for c in cases if c[6] is None} == {True, False}
+        assert any(c[4] % 128 for c in cases)
+        assert all(c[5] <= 64 for c in cases)
+
+
+def _chip_stages():
+    spec = importlib.util.spec_from_file_location(
+        "chip_stages", os.path.join(os.path.dirname(__file__), "..",
+                                    "chip_stages.py"))
+    stages = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stages)
+    return stages
+
+
+@pytest.mark.parametrize("name", ["d64-noexp", "d64-noscores", "d64-nograds",
+                                  "d64-noring", "d64-noturns",
+                                  "d64-noproducts", "d64-nothing"])
+def test_stage_variants_fit_todays_kernels(tmp_path, name):
+    """``chip_stages.py write`` compiles each stage of the 64-wide head
+    tile's B2 and B3 out of today's sources: every text it replaces is
+    there, and only the two backward sources change."""
+    stages = _chip_stages()
+    root = os.path.join(os.path.dirname(__file__), "..")
+    stages.write(root, str(tmp_path), [name])
+    out = tmp_path / name / stages.CSRC
+    changed = sorted(
+        f.name for f in out.iterdir()
+        if f.read_bytes() != (fa.kernel_build.CSRC / f.name).read_bytes())
+    assert changed == sorted(stages.VARIANTS[name])
+    for source, pairs in stages.VARIANTS[name].items():
+        text = (out / source).read_text()
+        for old, new in pairs:
+            assert new in text
