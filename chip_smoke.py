@@ -157,11 +157,19 @@ EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
 EP_TIMEOUT = 600  # seconds a 4-rank phase may take
 # packed documents: lengths log-uniform over [DOC_MIN, DOC_MAX] tokens
 DOC_MIN, DOC_MAX, PACK_SEED = 64, 4096, 0
+# the 64-wide head tile's own kernels (head dims up to 64, unsegmented)
+B1_D64_DESIGN = ("on the 64-wide head tile a kernel of its own, "
+                 "flash_fwd_d64_kernel: the 128-row blocks, tiles and 64-key "
+                 "steps as the items of persistent blocks (one an SM), in "
+                 "the same order, Q double-buffered so each item's first "
+                 "tiles load under the last item's, each tile's next S "
+                 "issued behind its first P.V, the masks a branch only "
+                 "tiles crossing them take, a 4-stage ring")
 B1_DESIGN = ("stage B: wgmma m64n128k16 for S and P.V with S, P and O in "
              "registers, two consumer warpgroups over 128 q rows, a "
              "producer warp keeping TMA loads of 128-key K/V tiles in a "
-             "2-stage mbarrier ring, online softmax in 64-key steps")
-# the 64-wide head tile's own kernels (head dims up to 64, unsegmented)
+             "2-stage mbarrier ring, online softmax in 64-key steps; "
+             + B1_D64_DESIGN)
 B2_D64_DESIGN = ("on the 64-wide head tile a kernel of its own: 128 q rows a "
                  "step, wgmma m64n128k16 for S^T and dP^T, eight RS "
                  "m64n64k16 k16 steps each for dV and dK, the masks a "
@@ -1379,7 +1387,9 @@ def quant_times(gm, quantize, v, s, w, rl):
     dequantized rows, and dequantize plus a per-expert torch.matmul loop
     (TF32 off), beside the bound. No single PyTorch call computes this
     function: torch._grouped_mm takes bf16, torch._scaled_grouped_mm
-    wants both operands in fp8."""
+    wants both operands in fp8. Also B5's f32 path at the same rank's
+    up projection (the dequantized rows and a gradient of y's shape),
+    and the f32 paths' bound (B4's and B5's move the same bytes)."""
     import torch
 
     te = rl.tile_expert
@@ -1406,10 +1416,18 @@ def quant_times(gm, quantize, v, s, w, rl):
     xd = quantize.dequantize_block_scaled(v, s)
     b4_ms = time_ms(lambda: gm.grouped_matmul_fwd(xd, w, te, BLOCK_T),
                     iters=5, warmup=1)
-    del xd
+    dy = torch.randn(rows, f, device=v.device, generator=torch.Generator(
+        device=v.device).manual_seed(10))
+    b5_ms = time_ms(lambda: gm.grouped_matmul_dw(xd, dy, te, el, BLOCK_T),
+                    iters=5, warmup=1)
+    del xd, dy
     loop_ms = time_ms(loop, iters=5, warmup=1)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    # B4 f32: x, w, y; B5 f32: x, dy, dW (w's size), each once
+    f32_bytes = 4 * (rows * d + el * d * f + rows * f) + te.numel() * 4
+    f32_bound = max(t_ops, f32_bytes / PEAK_BYTES * 1e3)
     r = {"ms": kernel_ms, "plain_ms": plain_ms, "b4_f32_ms": b4_ms,
+         "b5_f32_ms": b5_ms, "f32_bound_ms": f32_bound,
          "loop_ms": loop_ms, "library_ms": None, "device_ms": dev_ms,
          "library_device_ms": None,
          "library_call": "none: torch._grouped_mm takes bf16 and "
@@ -1423,7 +1441,8 @@ def quant_times(gm, quantize, v, s, w, rl):
     log(f"  B6 (grouped_matmul_fwd_quant): {kernel_ms:.3f} ms "
         f"({r['tflops_achieved']:.2f} TFLOP/s f32; device alone "
         f"{dev_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-        f"B4 f32 on the dequantized rows {b4_ms:.3f} ms, dequantize + "
+        f"B4 f32 on the dequantized rows {b4_ms:.3f} ms, B5 f32 there "
+        f"{b5_ms:.3f} ms (their bound {f32_bound:.3f} ms), dequantize + "
         f"per-expert matmul loop {loop_ms:.3f} ms, library none, bound "
         f"{r['bound_ms']:.3f} ms ({r['bound_by']} at 67 TFLOP/s f32, "
         f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
@@ -2392,7 +2411,8 @@ PFX_DESIGN = {  # the prefix-LM instantiations of B1-B3
            "the prompt mask by element, in the unsegmented mask's "
            "warp-uniform branch" + extra)
     for name, base, extra in (
-        ("flash_fwd_pfx", "B1", ""),
+        ("flash_fwd_pfx", "B1", "; at GLM's 64-wide heads B1's " +
+         B1_D64_DESIGN),
         ("flash_bwd_dkv_pfx", "B2", "; at GLM's 64-wide heads B2's " +
          B2_D64_DESIGN),
         ("flash_bwd_dq_pfx", "B3", "; at GLM's 64-wide heads B3's " +
@@ -2896,8 +2916,13 @@ AGAINST_ENTRIES = {f"dlr_{name}{mode}_bf16": (name, mode)
                    for mode in ("_seg", "_pfx", "")
                    for name in AGAINST_SOURCES}
 # the kernels timed in turns at GLM's shape (phase 14's prompts; causal)
-AGAINST_TIMED = (("flash_bwd_dkv", "_pfx"), ("flash_bwd_dq", "_pfx"),
+AGAINST_TIMED = (("flash_fwd", "_pfx"), ("flash_bwd_dkv", "_pfx"),
+                 ("flash_bwd_dq", "_pfx"), ("flash_fwd", ""),
                  ("flash_bwd_dkv", ""), ("flash_bwd_dq", ""))
+# which of them each timed layout of against_cases times: phase 14's
+# prompts and unprefixed causal all, non-causal B1's alone
+AGAINST_TIMED_LAYOUTS = {"GLM shape, causal": AGAINST_SOURCES,
+                         "GLM shape, non-causal": ("flash_fwd",)}
 
 
 def against_cases(prompts):
@@ -2965,8 +2990,9 @@ def against(other, may_differ, variant=False):
     tile one tree skips adds exact zeros in the other), the prefix-LM
     and unprefixed ones on ``against_cases``. Then times both trees'
     entry points in turns (other, this, this, other): the segment-id
-    ones on the packed row and on documents of 700 tokens, B2 and B3
-    prefix-LM and unprefixed causal at GLM's shape. An entry point's
+    ones on the packed row and on documents of 700 tokens, B1, B2 and B3
+    prefix-LM and unprefixed causal at GLM's shape, and B1 non-causal
+    there. An entry point's
     arguments are read from its tree's source. With ``variant`` (DIR is
     a variant made by hand, a stage compiled out, to time what it costs)
     outputs that differ are reported with their distance in ulps and do
@@ -3135,10 +3161,11 @@ def against(other, may_differ, variant=False):
         delta = (do.float() * out.float()).sum(-1).contiguous()
         args = (q, k, v, do, lse, delta, extra, causal, scale)
         compare(label, mode, args)
-        if n in (0, 3):  # phase 14's prompts; unprefixed causal
-            for name, timed in AGAINST_TIMED:
-                if timed == mode:
-                    in_turns(label, name, mode, args)
+        timed_here = (AGAINST_SOURCES if n == 0 else  # phase 14's prompts
+                      AGAINST_TIMED_LAYOUTS.get(label, ()))
+        for name, timed in AGAINST_TIMED:
+            if timed == mode and name in timed_here:
+                in_turns(label, name, mode, args)
         del q, k, v, do, out, lse, delta, args
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
@@ -3484,7 +3511,9 @@ def main():
                           "design": B5_DESIGN})
         if name == "grouped_matmul_fwd_quant":
             entry.update({"loop_ms": t["loop_ms"],
-                          "b4_f32_ms": t["b4_f32_ms"]})
+                          "b4_f32_ms": t["b4_f32_ms"],
+                          "b5_f32_ms": t["b5_f32_ms"],
+                          "f32_bound_ms": t["f32_bound_ms"]})
         kernels.append(entry)
     for name in FLASH_KERNELS:
         seg, t = f"{name}_seg", seg_times[name]

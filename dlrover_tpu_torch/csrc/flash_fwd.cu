@@ -27,10 +27,31 @@
 // the diagonal or the ragged end, and advances in 64-key steps: the
 // first half's P V runs on the tensor cores while the second half's max
 // and exponentials are computed. (A 128-key step moved the full-width
-// loss above the reference path's; PERF.md has the runs.) Head dims up
-// to 64 run on a 64-wide head tile, the others on a 128-wide one;
-// columns past D read as zeros, which change neither S nor the stored
-// part of O.
+// loss above the reference path's; PERF.md has the runs.) The
+// segment-id kernels run this design on a 64-wide head tile at head
+// dims up to 64, every kernel on a 128-wide one above; columns past D
+// read as zeros, which change neither S nor the stored part of O.
+//
+// 64-wide head tile (flash_fwd_d64_kernel: head dims up to 64,
+// unsegmented, causal, not causal or prefix-LM; GLM's main path). The
+// blocks above, with the same tiles, 64-key steps, sums and order, so O
+// and lse are bit for bit the above design's at D <= 64 (PERF.md), and:
+//   - persistent blocks, one an SM, walk the blocks above as items in
+//     their order (item w, w + gridDim.x, ...), with Q double-buffered:
+//     the next item's Q and first K/V tiles load under this item's last
+//     tiles. One K/V tile a block had cost 0.142 ms of the 0.449 at
+//     GLM's shape (H100 80GB HBM3, 700 W): launch, barriers, Q's
+//     latency and the epilogue, for each of 4096 blocks;
+//   - each tile's next S is issued behind its first P V and runs under
+//     its second softmax step; the second P V runs under the next tile's
+//     first step. Every wgmma wait is on every path (a conditional one
+//     made ptxas serialize every wgmma);
+//   - 4 ring stages of K and V.
+// By stages (chip_stages.py, the fwd64- set) the softmax's own
+// instructions hold it: with no product and no exponential it still
+// takes most of its time (PERF.md). Neither turns between the
+// warpgroups, nor S issued a whole tile ahead into a second register
+// buffer, nor three consumer warpgroups over 192 rows made it faster.
 //
 // f32 (the parity path, flash_fwd_f32_kernel): 32x32 tiles staged in
 // shared memory, scalar FMA products (flash_common.cuh).
@@ -97,6 +118,8 @@
 // half-step above the diagonal and past the prompt can be masked whole
 // for every row of a warpgroup, and by then each row's running max is
 // finite, so exp2 of -inf - m is 0 and no clamp is needed.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -667,6 +690,292 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                      prefix_len, seg_tiles);
 }
 
+// -- bf16, 64-wide head tile ----------------------------------------------
+//
+// The unsegmented kernel at head dims up to 64 (header: "64-wide head
+// tile"): the blocks, tiles and 64-key softmax steps of
+// flash_fwd_bf16_kernel as the items of persistent blocks, one an SM, Q
+// double-buffered; each tile's next S issued behind its first P V; a
+// 4-stage ring.
+namespace d64 {
+
+constexpr int kStages = 4;
+
+struct Layout {
+  static constexpr uint32_t kQ = BQ * 64 * 2;   // one of the two Q buffers
+  static constexpr uint32_t kKV = BK * 64 * 2;  // one K or one V tile
+  static constexpr uint32_t kStage0 = 2 * kQ;
+  static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKV;
+  static constexpr size_t kSmem = kBars + 256 + 1024;  // + align slack
+};
+
+// Q of a buffer arrived, and released by both consumer warpgroups; K, V
+// of a stage arrived; a stage released by both consumer warpgroups.
+struct Bars {
+  uint64_t q_full[2], q_empty[2];
+  uint64_t k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+// Item w of a launch: q tile i of head h of batch b, every head's last q
+// tile first (flash_fwd_bf16_kernel's blocks, in its order), and its k
+// tiles 0 .. nkt - 1; (prefix-LM mode) the prompt's length.
+struct Item {
+  int i, h, b, plen, nkt;
+  __device__ Item(int w, int H, int Sq, int Sk, int causal,
+                  const int* prefix_len, bool pfx) {
+    const int nqt = (Sq + BQ - 1) / BQ, per_b = nqt * H;
+    b = w / per_b;
+    i = nqt - 1 - (w % per_b) / H;
+    h = w % H;
+    plen = pfx ? __ldg(prefix_len + b) : 0;
+    nkt = (Sk + BK - 1) / BK;
+    if (causal) nkt = min(nkt, i + 1);  // BQ == BK: tiles 0..i
+    // prefix-LM mode: the prompt's k tiles too (p clamped for the
+    // schedule)
+    if (pfx) nkt = max(nkt, (min(max(plen, 0), Sk) + BK - 1) / BK);
+  }
+};
+
+template <bool PFX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         bf16* __restrict__ o, float* __restrict__ lse,
+                         int items, int H, int Hkv, int Sq, int Sk, int D,
+                         float scale_log2, int causal,
+                         const int* __restrict__ prefix_len) {
+  using L = Layout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  auto sQ = [&](int n) { return hop::smem_u32(base) + (n & 1) * L::kQ; };
+  auto sK = [&](int s) {
+    return hop::smem_u32(base) + L::kStage0 + s * 2 * L::kKV;
+  };
+  auto sV = [&](int s) { return sK(s) + L::kKV; };
+  Bars& bar = *reinterpret_cast<Bars*>(base + L::kBars);
+  if (threadIdx.x == 0) {
+    for (int n = 0; n < 2; ++n) {
+      hop::mbar_init(&bar.q_full[n], 1);
+      hop::mbar_init(&bar.q_empty[n], kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.k_full[s], 1);
+      hop::mbar_init(&bar.v_full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread loads each item's Q into the buffer the item
+    // before last released, and keeps the ring full with the items' K
+    // and V tiles; g counts the ring's tiles over all items
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      int g = 0;
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const Item it(w, H, Sq, Sk, causal, prefix_len, PFX);
+        const int hk = it.h / (H / Hkv);
+        if (n >= 2) hop::mbar_wait(&bar.q_empty[n & 1], (n / 2 - 1) & 1);
+        hop::mbar_arrive_expect_tx(&bar.q_full[n & 1], L::kQ);
+        hop::tma_load_3d(sQ(n), &tq, &bar.q_full[n & 1], 0, it.i * BQ,
+                         it.b * H + it.h);
+        for (int j = 0; j < it.nkt; ++j, ++g) {
+          const int s = g % kStages;
+          // the stage's previous tile, g - kStages, is released
+          if (g >= kStages) {
+            hop::mbar_wait(&bar.empty[s], (g / kStages - 1) & 1);
+          }
+          hop::mbar_arrive_expect_tx(&bar.k_full[s], L::kKV);
+          hop::tma_load_3d(sK(s), &tk, &bar.k_full[s], 0, j * BK,
+                           it.b * Hkv + hk);
+          hop::mbar_arrive_expect_tx(&bar.v_full[s], L::kKV);
+          hop::tma_load_3d(sV(s), &tv, &bar.v_full[s], 0, j * BK,
+                           it.b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  // consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) of each item
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int quad = t % 4;
+  const int r0 = wg * 64 + (t / 32) * 16 + (t % 32) / 4;  // row0 - i BQ
+
+  float oacc[32];
+  float m0, m1, l0, l1;  // running max (base 2), this thread's row sums
+  float a0, a1;          // a softmax step's rescale factors
+  float sacc[64];        // S of the tile, then its P
+  uint32_t pa[8][4];     // P in bf16, the A fragments of P V
+
+  // S = Q K^T of item n's q rows and the K tile in stage s
+  auto issue_s = [&](int n, int s) {
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hop::wgmma_ss_m64n128k16<0>(
+          sacc, hop::desc_sw128(sQ(n) + wg * 64 * 128 + kk * 32, 16, 1024),
+          hop::desc_sw128(sK(s) + kk * 32, 16, 1024), kk > 0);
+    }
+    hop::wgmma_commit();
+  };
+  auto retire = [&](int first) {  // a P V's fragments, after its wait
+    hop::fence_regs(oacc);
+#pragma unroll
+    for (int kk = first; kk < first + 4; ++kk) hop::fence_regs(pa[kk]);
+  };
+
+  int g = 0;  // the ring's tiles over all items
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const Item it(w, H, Sq, Sk, causal, prefix_len, PFX);
+    const int q_lo = it.i * BQ + wg * 64;
+    const int row0 = it.i * BQ + r0, row1 = row0 + 8;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) oacc[x] = 0.f;
+    m0 = m1 = -INFINITY;
+    l0 = l1 = 0.f;
+
+    // Tile j (ring tile g + j), whose S is in sacc; the last tile's
+    // second P V may still run under its first softmax step. With NEXT,
+    // tile j + 1's S is issued behind this tile's first P V and has
+    // arrived when the tile ends, its second P V still running.
+    auto tile = [&](int j, auto next) {
+      constexpr bool NEXT = decltype(next)::value;
+      const int s = (g + j) % kStages, phase = ((g + j) / kStages) & 1;
+      // Only a tile that crosses the ragged end or this warpgroup's
+      // diagonal (in prefix-LM mode: and is not wholly prompt keys)
+      // masks, in a branch of its own: -inf where col >= Sk or col > row
+      // (prefix-LM mode: and col >= p).
+      const int k_lo = j * BK;
+      if (k_lo + BK > Sk ||
+          (causal && k_lo + BK - 1 > q_lo && !(PFX && k_lo + BK <= it.plen))) {
+#pragma unroll
+        for (int x = 0; x < 64; ++x) {
+          const int col = k_lo + 8 * (x / 4) + 2 * quad + (x & 1);
+          const int row = (x & 2) ? row1 : row0;
+          if (col >= Sk || (causal && col > row && !(PFX && col < it.plen))) {
+            sacc[x] = -INFINITY;
+          }
+        }
+      }
+      // the softmax state advances every 64 keys, two steps a tile
+      softmax_step<0>(sacc, m0, m1, l0, l1, a0, a1, scale_log2);
+      // the last tile's second P V (none before tile 0: the wait is
+      // unconditional all the same, or ptxas serializes every wgmma)
+      hop::wgmma_wait<0>();
+      retire(4);
+      if (j > 0) hop::mbar_arrive(&bar.empty[(g + j - 1) % kStages]);
+      rescale<32>(oacc, a0, a1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::acc_to_a(sacc, kk, pa[kk]);
+      hop::mbar_wait(&bar.v_full[s], phase);
+      pv<64, 0>(oacc, pa, sV(s));
+      softmax_step<1>(sacc, m0, m1, l0, l1, a0, a1, scale_log2);
+#pragma unroll
+      for (int kk = 4; kk < 8; ++kk) hop::acc_to_a(sacc, kk, pa[kk]);
+      if constexpr (NEXT) {
+        const int gn = g + j + 1;
+        hop::mbar_wait(&bar.k_full[gn % kStages], (gn / kStages) & 1);
+        issue_s(n, gn % kStages);
+        hop::wgmma_wait<1>();  // the first P V
+      } else {
+        hop::wgmma_wait<0>();
+      }
+      retire(0);
+      rescale<32>(oacc, a0, a1);
+      pv<64, 1>(oacc, pa, sV(s));
+      if constexpr (NEXT) {
+        hop::wgmma_wait<1>();  // the next tile's S
+        hop::fence_regs(sacc);
+      }
+    };
+
+    // every item has a tile (the tensor maps refuse an empty sequence)
+    hop::mbar_wait(&bar.q_full[n & 1], (n / 2) & 1);
+    hop::mbar_wait(&bar.k_full[g % kStages], (g / kStages) & 1);
+    issue_s(n, g % kStages);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sacc);
+    for (int j = 0; j + 1 < it.nkt; ++j) tile(j, std::true_type());
+    tile(it.nkt - 1, std::false_type());
+    hop::wgmma_wait<0>();
+    retire(4);
+    hop::mbar_arrive(&bar.empty[(g + it.nkt - 1) % kStages]);
+    hop::mbar_arrive(&bar.q_empty[n & 1]);  // every S of the item is done
+    g += it.nkt;
+
+#pragma unroll
+    for (int lane = 1; lane <= 2; lane <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, lane);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, lane);
+    }
+    const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+    const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+    const size_t head_row = ((size_t)it.b * H + it.h) * Sq;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 8 * c + 2 * quad;
+      if (col < D) {
+        if (row0 < Sq) {
+          *reinterpret_cast<__nv_bfloat162*>(o + (head_row + row0) * D +
+                                             col) =
+              __floats2bfloat162_rn(oacc[4 * c] * inv0,
+                                    oacc[4 * c + 1] * inv0);
+        }
+        if (row1 < Sq) {
+          *reinterpret_cast<__nv_bfloat162*>(o + (head_row + row1) * D +
+                                             col) =
+              __floats2bfloat162_rn(oacc[4 * c + 2] * inv1,
+                                    oacc[4 * c + 3] * inv1);
+        }
+      }
+    }
+    if (quad == 0) {  // lse in natural-log units; product and sum rounded
+      // one by one, as flash_fwd_bf16_kernel's unsegmented lse is
+      if (row0 < Sq) {
+        lse[head_row + row0] = __fadd_rn(__fmul_rn(m0, kLn2), logf(ls0));
+      }
+      if (row1 < Sq) {
+        lse[head_row + row1] = __fadd_rn(__fmul_rn(m1, kLn2), logf(ls1));
+      }
+    }
+  }
+}
+
+template <bool PFX>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+           int causal, void* stream, const int* prefix_len = nullptr) {
+  // the row max is taken on unscaled scores: it needs scale > 0
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!hop::tensor_map(&tq, static_cast<const bf16*>(q), B * H, Sq, D, BQ) ||
+      !hop::tensor_map(&tk, static_cast<const bf16*>(k), B * Hkv, Sk, D,
+                       BK) ||
+      !hop::tensor_map(&tv, static_cast<const bf16*>(v), B * Hkv, Sk, D,
+                       BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int items = (Sq + BQ - 1) / BQ * H * B;
+  return hop::launch(flash_fwd_d64_kernel<PFX>, dim3(min(items, sms)),
+                     kThreads, Layout::kSmem, stream, tq, tk, tv,
+                     static_cast<bf16*>(o), lse, items, H, Hkv, Sq, Sk, D,
+                     scale * kLog2e, causal, prefix_len);
+}
+
+}  // namespace d64
 }  // namespace fwd
 
 template <bool SEG, bool PFX = false>
@@ -690,9 +999,8 @@ extern "C" int dlr_flash_fwd_bf16(const void* q, const void* k,
                                   int H, int Hkv, int Sq, int Sk, int D,
                                   float scale, int causal, void* stream) {
   return D <= 64
-             ? dlr::fwd::launch_bf16<64, false>(q, k, v, o, lse, B, H, Hkv,
-                                                Sq, Sk, D, scale, causal,
-                                                stream)
+             ? dlr::fwd::d64::launch<false>(q, k, v, o, lse, B, H, Hkv, Sq,
+                                            Sk, D, scale, causal, stream)
              : dlr::fwd::launch_bf16<128, false>(q, k, v, o, lse, B, H, Hkv,
                                                  Sq, Sk, D, scale, causal,
                                                  stream);
@@ -747,9 +1055,9 @@ extern "C" int dlr_flash_fwd_pfx_bf16(const void* q, const void* k,
                                       float scale, int causal, void* stream) {
   (void)causal;
   return D <= 64
-             ? dlr::fwd::launch_bf16<64, false, true>(
-                   q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, scale, 1, stream,
-                   nullptr, nullptr, prefix_len)
+             ? dlr::fwd::d64::launch<true>(q, k, v, o, lse, B, H, Hkv, Sq,
+                                           Sk, D, scale, 1, stream,
+                                           prefix_len)
              : dlr::fwd::launch_bf16<128, false, true>(
                    q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, scale, 1, stream,
                    nullptr, nullptr, prefix_len);

@@ -278,6 +278,23 @@ class TestAgainstTables:
         assert any(c[4] % 128 for c in cases)
         assert all(c[5] <= 64 for c in cases)
 
+    def test_b1_is_timed_in_turns_at_glms_shape(self):
+        """``--against`` times B1 beside B2 and B3, prefix-LM and
+        unprefixed, and B1 alone on the non-causal layout: each timed
+        layout is one of ``against_cases`` at GLM's shape."""
+        smoke = _chip_smoke()
+        for mode in ("_pfx", ""):
+            assert {name for name, m in smoke.AGAINST_TIMED if m == mode} \
+                == set(smoke.AGAINST_SOURCES)
+        cases = {c[0]: c for c in smoke.against_cases([688, 563, 633, 196])}
+        for label, names in smoke.AGAINST_TIMED_LAYOUTS.items():
+            _, b, h, _, s, d, prompts, _ = cases[label]
+            assert (b, h, s, d) == (smoke.GLM_BATCH, 64, smoke.GLM_SEQ, 64)
+            assert prompts is None and "flash_fwd" in names
+        assert smoke.AGAINST_TIMED_LAYOUTS["GLM shape, non-causal"] == (
+            "flash_fwd",)
+        assert cases["GLM shape, non-causal"][7] is False
+
 
 def _chip_stages():
     spec = importlib.util.spec_from_file_location(
@@ -290,11 +307,18 @@ def _chip_stages():
 
 @pytest.mark.parametrize("name", ["d64-noexp", "d64-noscores", "d64-nograds",
                                   "d64-noring", "d64-noturns",
-                                  "d64-noproducts", "d64-nothing"])
+                                  "d64-noproducts", "d64-nothing",
+                                  "fwd64-noexp", "fwd64-noscores",
+                                  "fwd64-nopv", "fwd64-nomask",
+                                  "fwd64-noring", "fwd64-onetile",
+                                  "fwd64-truncp", "fwd64-introundp",
+                                  "fwd64-timeline", "fwd64-noproducts",
+                                  "fwd64-nothing"])
 def test_stage_variants_fit_todays_kernels(tmp_path, name):
     """``chip_stages.py write`` compiles each stage of the 64-wide head
-    tile's B2 and B3 out of today's sources: every text it replaces is
-    there, and only the two backward sources change."""
+    tile's kernels out of today's sources: every text it replaces is
+    there, and only the sources it names change (B2's and B3's for the
+    ``d64-`` set, B1's for the ``fwd64-`` set)."""
     stages = _chip_stages()
     root = os.path.join(os.path.dirname(__file__), "..")
     stages.write(root, str(tmp_path), [name])
