@@ -55,10 +55,18 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      the capacity "gather" dispatch at a capacity nothing overflows;
  10. B6, the dequant-in-kernel grouped matmul of the expert-parallel fp8
      wire, against its plain version and bit for bit against dequantize
-     + B4's f32 path, on the rows rank 0 of 4 receives (llama2_7b+moe8
-     widths, 4 x 1024 tokens top-2, 2 local experts), on a skewed
-     routing and a ragged case; its planted faults; its time beside its
-     bound and dequantize + a per-expert matmul loop;
+     + B4's f32 path, without and with the layout's live_rows (rows past
+     it zero), on the rows rank 0 of 4 receives (llama2_7b+moe8 widths,
+     4 x 1024 tokens top-2, 2 local experts), on a skewed routing and a
+     ragged case; its planted faults; on the main layout B6 and B4's four
+     f32 forms (the up and down projections' y, dx through w_down^T and
+     w_up^T) each checked against its plain version with and without
+     live_rows, their errors against an f64 product beside the plain
+     versions', and their times (both clocks, with and without
+     live_rows) beside the plain version, a per-expert cuBLAS loop (TF32
+     off) over the rows given and the live rows, and two bounds (FFMA at
+     67 TFLOP/s, the design kept, and 3xTF32 at 494.7) over the rows
+     given and the live rows;
  11. one full-width MoE layer over 4 ranks sharing the card (gloo),
      forward and backward: the fp8 wire bitwise equal to fp8_qdq at 1
      and 2 chunks; the unquantized wire against the one-rank grouped
@@ -118,12 +126,14 @@ is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
 number the run measured to PATH.
 
 ``--against DIR`` runs none of the phases above: it holds this tree's
-flash kernels against the tree under DIR (``against``: SASS of every
-kernel but those named by ``--may-differ``, the bf16 outputs of B1's,
-B2's and B3's segment-id entry points bit for bit on phase 13's layouts
-and of their prefix-LM and unprefixed ones on GLM's shape and ragged
-64-wide-head layouts, their times in turns), for a change to a flash
-kernel against its parent (``git archive`` into a git-ignored directory
+flash and grouped kernels against the tree under DIR (``against``: SASS
+of every kernel of the six sources but those named by ``--may-differ``,
+the bf16 outputs of B1's, B2's and B3's segment-id entry points bit for
+bit on phase 13's layouts and of their prefix-LM and unprefixed ones on
+GLM's shape and ragged 64-wide-head layouts, their times in turns; B4's
+four f32 forms and B6 on phase 10's expert-parallel layout, outputs and
+f64 errors side by side and times in turns), for a change to a kernel
+against its parent (``git archive`` into a git-ignored directory
 such as ``_archive/``); with ``--variant`` DIR is a copy with a stage
 compiled out, and outputs that differ are reported, not failed.
 Needs one GPU; exits non-zero without one, or without the repository.
@@ -150,7 +160,8 @@ LAYERS = 4
 SEQ = 4096
 MOE_LAYERS = 2  # llama2_7b+moe8 at 2 layers: 1.84 B params, ~30 GB of state
 MOE_EXPERTS, MOE_TOP_K, BLOCK_T = 8, 2, 128
-PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B6 is exact f32)
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B4 f32, B6)
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor cores, data sheet
 # expert parallel: 4 ranks sharing the one card over gloo, 1024 tokens
 # each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
 EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
@@ -200,6 +211,14 @@ B4_DESIGN = ("wgmma SS m64n256k16 from TMA-loaded 128-byte-swizzled shared "
              "setmaxnreg 240/24, a persistent grid (one block an SM) in "
              "groups of 8 row tiles, each warp's output staged through two "
              "swizzled 2 KB boxes and written by TMA stores")
+F32_DESIGN = ("f32 on the CUDA cores (3xTF32 wgmma reads biased: "
+              "chip_stages.py tf32): a persistent grid, a producer warp "
+              "keeping TMA loads of 128 x 32 A and B tiles in a 4-stage "
+              "mbarrier ring, 256 consumer threads each an 8 x 8 block of a "
+              "128 x 128 tile from 16-byte shared reads, four k at a time, "
+              "the parent's fmaf chain in k order (its outputs bit for bit), "
+              "row tiles at or past live_rows written as zeros with no load, "
+              "live tiles first")
 B5_DESIGN = ("B4's persistent wgmma loop with x^T and dy both MN-major, "
              "128 (D) x 256 (F) tiles expert by expert, each reducing its "
              "expert's rows found by binary search (no atomics), the f32 "
@@ -1330,35 +1349,54 @@ def ep_received_rows(moe, quantize, d, f, seed, bias=None, tokens=EP_TOKENS,
 def check_quant(gm, quantize, v, s, w, rl, label, f32_tol=1e-4):
     """B6 against its plain version by the row rule (and within
     ``f32_tol`` absolute plus relative, element by element), and bit for
-    bit against dequantize followed by B4's f32 path. Returns (max abs
-    error, the plain result)."""
+    bit against dequantize followed by B4's f32 path: without
+    ``live_rows`` and with the layout's (rows past it exactly zero, the
+    rows before bit for bit the run without it). Returns (max abs error
+    with ``live_rows``, the plain result with it)."""
     import torch
 
     from dlrover_tpu_torch.ops import flash_check
 
-    te = rl.tile_expert
-    right = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, BLOCK_T)
-    got = gm.grouped_matmul_fwd_quant(v, s, w, te, BLOCK_T)
-    b4 = gm.grouped_matmul_fwd(quantize.dequantize_block_scaled(v, s), w, te,
-                               BLOCK_T)
-    torch.cuda.synchronize()
-    es = flash_check.row_errors(got, right)
-    ok = flash_check.rows_close(got, right) and bool(
-        torch.allclose(got, right, atol=f32_tol, rtol=f32_tol))
-    bitwise = torch.equal(got, b4)
-    log(f"  {label} y {tuple(got.shape)}: max_abs_err="
-        f"{es['max_abs_err']:.3e} (worst row {es['worst_row']:.3f} of its "
-        f"limit, norm ratio {es['norm_ratio']:.3e}; limit {f32_tol:.0e} "
-        f"abs + rel) {'ok' if ok else 'MISMATCH'}; dequantize + B4 f32: "
-        f"{'bitwise equal' if bitwise else 'DIFFERENT'}")
-    if not ok:
-        fail(f"grouped_matmul_fwd_quant disagrees with its plain version "
-             f"({label})")
-    if not bitwise:
-        fail(f"grouped_matmul_fwd_quant is not bitwise dequantize + B4 f32 "
-             f"({label}): max diff {(got - b4).abs().max().item():.3e}")
-    del got, b4
-    return es["max_abs_err"], right
+    te, live = rl.tile_expert, rl.live_rows
+    n = live.item()
+    runs = {}
+    for tag, lr in (("all rows", None), (f"live_rows {n}", live)):
+        right = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, BLOCK_T,
+                                                  live_rows=lr)
+        got = gm.grouped_matmul_fwd_quant(v, s, w, te, BLOCK_T,
+                                          live_rows=lr)
+        b4 = gm.grouped_matmul_fwd(quantize.dequantize_block_scaled(v, s), w,
+                                   te, BLOCK_T, live_rows=lr)
+        torch.cuda.synchronize()
+        es = flash_check.row_errors(got, right)
+        ok = flash_check.rows_close(got, right) and bool(
+            torch.allclose(got, right, atol=f32_tol, rtol=f32_tol))
+        bitwise = torch.equal(got, b4)
+        log(f"  {label}, {tag}: y {tuple(got.shape)}: max_abs_err="
+            f"{es['max_abs_err']:.3e} (worst row {es['worst_row']:.3f} of "
+            f"its limit, norm ratio {es['norm_ratio']:.3e}; limit "
+            f"{f32_tol:.0e} abs + rel) {'ok' if ok else 'MISMATCH'}; "
+            f"dequantize + B4 f32: "
+            f"{'bitwise equal' if bitwise else 'DIFFERENT'}")
+        if not ok:
+            fail(f"grouped_matmul_fwd_quant disagrees with its plain version "
+                 f"({label}, {tag})")
+        if not bitwise:
+            fail(f"grouped_matmul_fwd_quant is not bitwise dequantize + B4 "
+                 f"f32 ({label}, {tag}): max diff "
+                 f"{(got - b4).abs().max().item():.3e}")
+        runs[tag] = (got, right, es["max_abs_err"])
+        del b4
+    (full, _, _), (got, right, err) = runs.values()
+    dead = torch.count_nonzero(got[n:]).item()
+    same = torch.equal(got[:n], full[:n])
+    log(f"  {label}: rows past live_rows ({rl.rows - n} of {rl.rows}) "
+        f"{'all zero' if dead == 0 else f'{dead} NONZERO'}; the rows "
+        f"before {'bit for bit' if same else 'DIFFER from'} the run "
+        f"without it")
+    if dead or not same:
+        fail(f"grouped_matmul_fwd_quant's live_rows ({label})")
+    return err, right
 
 
 def check_quant_faults(v, s, w, rl, right):
@@ -1382,70 +1420,289 @@ def check_quant_faults(v, s, w, rl, right):
     return results
 
 
-def quant_times(gm, quantize, v, s, w, rl):
-    """B6 at the main shape: kernel, plain, B4's f32 path on the
-    dequantized rows, and dequantize plus a per-expert torch.matmul loop
-    (TF32 off), beside the bound. No single PyTorch call computes this
-    function: torch._grouped_mm takes bf16, torch._scaled_grouped_mm
-    wants both operands in fp8. Also B5's f32 path at the same rank's
-    up projection (the dequantized rows and a gradient of y's shape),
-    and the f32 paths' bound (B4's and B5's move the same bytes)."""
+def clocks_under(fn, seconds=2.0):
+    """The SM clock and power draw (``nvidia-smi``, every 50 ms; medians
+    of the samples taken while the calls ran) while ``fn`` runs back to
+    back for about ``seconds`` on the device: what a share of a bound
+    taken at 1980 MHz is measured against."""
+    import datetime
+
     import torch
 
-    te = rl.tile_expert
-    rows, d = v.shape
-    el, _, f = w.shape
-    flops = 2 * rows * d * f
-    nbytes = (v.numel() + s.numel() * 4 + w.numel() * 4 + rows * f * 4
-              + te.numel() * 4)
-    ends = [0] + [int(x) for x in (torch.searchsorted(
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    calls = max(1, int(seconds / max(time.monotonic() - t0, 1e-4)))
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(1.0)  # nvidia-smi starts
+        begin = datetime.datetime.now()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        stop = datetime.datetime.now()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        try:
+            at = datetime.datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+            if begin <= at <= stop:
+                rows.append((float(parts[1]), float(parts[2])))
+        except (ValueError, IndexError):
+            continue
+    if not rows:
+        return {"sm_mhz": None, "power_w": None, "samples": 0}
+    return {"sm_mhz": statistics.median(r[0] for r in rows),
+            "power_w": statistics.median(r[1] for r in rows),
+            "samples": len(rows)}
+
+
+def f64_errors(got, ref64):
+    """``got`` against an f64 product of the same inputs: the norm
+    ratio, ``flash_check.bias`` and the largest error."""
+    from dlrover_tpu_torch.ops import flash_check
+
+    err = got.double() - ref64
+    return {"norm_ratio": (err.norm() / ref64.norm()).item(),
+            "bias": flash_check.bias(got, ref64),
+            "max_abs_err": err.abs().max().item()}
+
+
+def expert_ends(te):
+    """Row offsets [0, end of expert 0, ...] from tile_expert (host)."""
+    import torch
+
+    el = int(te.max().item()) + 1
+    return [0] + [int(x) for x in (torch.searchsorted(
         te, torch.arange(el, dtype=te.dtype, device=te.device),
         right=True) * BLOCK_T).tolist()]
 
-    def loop():
-        xd = quantize.dequantize_block_scaled(v, s)
-        for i in range(el):
-            xd[ends[i]:ends[i + 1]] @ w[i]
 
-    kernel_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant(v, s, w, te,
-                                                            BLOCK_T))
-    dev_ms = device_ms(lambda: gm.grouped_matmul_fwd_quant(v, s, w, te,
-                                                           BLOCK_T))
-    plain_ms = time_ms(lambda: gm.grouped_matmul_fwd_quant_plain(
-        v, s, w, te, BLOCK_T), iters=5, warmup=1)
+def grouped_f32_bounds(rows, k, n, el, live, a_row_bytes=None):
+    """The least times of an f32 grouped product of ``rows`` x ``k`` by
+    ``el`` weights [k, n] with rows at or past ``live`` written as zeros,
+    over the rows given and over the live rows: FFMA (2 rows k n at 67
+    TFLOP/s, the design kept) and 3xTF32 tensor cores (3 x 2 rows k n at
+    494.7 TFLOP/s), each or the bytes (the rows read, ``a_row_bytes`` a
+    row, 4 k for f32; every weight read; every output row written) at
+    3.35 TB/s if larger."""
+    a_row_bytes = 4.0 * k if a_row_bytes is None else a_row_bytes
+    out = {}
+    for tag, used in (("given", rows), ("live", live)):
+        ops = 2.0 * used * k * n
+        t_bytes = (used * a_row_bytes + 4.0 * (el * k * n + rows * n)) \
+            / PEAK_BYTES * 1e3
+        out[tag] = {"gflop": ops / 1e9,
+                    "ffma_ms": max(ops / PEAK_F32_FLOPS * 1e3, t_bytes),
+                    "tf32x3_ms": max(3 * ops / PEAK_TF32_FLOPS * 1e3,
+                                     t_bytes),
+                    "bytes_ms": t_bytes}
+    return out
+
+
+def f32_form_times(gm, label, a, w, rl, transpose_w):
+    """One f32 form of B4 at the expert-parallel rank's layout: checked
+    against its plain version with and without ``live_rows`` (row rule
+    and 1e-4 absolute plus relative; rows past it zero, the rows before
+    bit for bit the run without it), its f64 errors and its plain
+    version's, then timed (both clocks) with and without ``live_rows``
+    beside the plain version, a per-expert cuBLAS loop (TF32 off) over
+    the rows given and over the live rows, and both bounds."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    te, live = rl.tile_expert, rl.live_rows
+    rows, k = a.shape
+    el = w.shape[0]
+    n = w.shape[1] if transpose_w else w.shape[2]
+    n_live = live.item()
+
+    def run(lr):
+        return gm.grouped_matmul_fwd(a, w, te, BLOCK_T, transpose_w, lr)
+
+    ends = expert_ends(te)
+    ref64 = torch.zeros((rows, n), dtype=torch.float64, device=a.device)
+    for i in range(el):
+        we = w[i].double()
+        ref64[ends[i]:ends[i + 1]] = a[ends[i]:ends[i + 1]].double() @ (
+            we.t() if transpose_w else we)
+    errs = {}
+    full = run(None)
+    for tag, lr in (("all rows", None), ("live_rows", live)):
+        got = run(lr)
+        right = gm.grouped_matmul_fwd_plain(a, w, te, BLOCK_T, transpose_w,
+                                            lr)
+        torch.cuda.synchronize()
+        ok = flash_check.rows_close(got, right) and bool(
+            torch.allclose(got, right, atol=1e-4, rtol=1e-4))
+        if not ok:
+            fail(f"B4 f32 {label} disagrees with its plain version ({tag}): "
+                 f"{flash_check.row_errors(got, right)}")
+        errs[tag] = {"kernel": f64_errors(got, ref64),
+                     "plain": f64_errors(right, ref64)}
+    dead = torch.count_nonzero(got[n_live:]).item()
+    if dead or not torch.equal(got[:n_live], full[:n_live]):
+        fail(f"B4 f32 {label}: live_rows wrong ({dead} nonzero dead "
+             f"entries, or the live rows differ from the run without it)")
+    del full, got, right, ref64
+
+    def loop(end):
+        cut = [min(x, end) for x in ends]
+        for i in range(el):
+            we = w[i]
+            a[cut[i]:cut[i + 1]] @ (we.t() if transpose_w else we)
+
+    r = {"ms": time_ms(lambda: run(live)),
+         "device_ms": device_ms(lambda: run(live)),
+         "all_rows_ms": time_ms(lambda: run(None)),
+         "all_rows_device_ms": device_ms(lambda: run(None)),
+         "plain_ms": time_ms(lambda: gm.grouped_matmul_fwd_plain(
+             a, w, te, BLOCK_T, transpose_w, live), iters=5, warmup=1),
+         "loop_ms": time_ms(lambda: loop(rows), iters=5, warmup=1),
+         "loop_live_ms": time_ms(lambda: loop(n_live), iters=5, warmup=1),
+         "bounds": grouped_f32_bounds(rows, k, n, el, n_live),
+         "clocks": clocks_under(lambda: run(live)),
+         "f64": errs, "rows": rows, "live_rows": n_live}
+    log_f32_times(f"B4 f32 {label}", r)
+    return r
+
+
+def log_f32_times(label, r):
+    """One f32 kernel's phase-10 line: times, bounds, shares, errors."""
+    b = r["bounds"]
+    share = b["live"]["ffma_ms"] / r["device_ms"]
+    share_all = b["given"]["ffma_ms"] / r["all_rows_device_ms"]
+    r["share"], r["all_rows_share"] = share, share_all
+    e = r["f64"]["live_rows"]
+    log(f"  {label}: {r['ms']:.3f} ms (device alone {r['device_ms']:.3f}) "
+        f"with live_rows {r['live_rows']} of {r['rows']}; all rows "
+        f"{r['all_rows_ms']:.3f} ({r['all_rows_device_ms']:.3f}); plain "
+        f"{r['plain_ms']:.3f}; per-expert cuBLAS loop (TF32 off) "
+        f"{r['loop_ms']:.3f}, over the live rows {r['loop_live_ms']:.3f}; "
+        f"bounds FFMA {b['given']['ffma_ms']:.3f} given / "
+        f"{b['live']['ffma_ms']:.3f} live, 3xTF32 "
+        f"{b['given']['tf32x3_ms']:.3f} / {b['live']['tf32x3_ms']:.3f} "
+        f"({b['given']['gflop']:.1f} / {b['live']['gflop']:.1f} GFLOP); "
+        f"share of the FFMA bound {share:.3f} live, {share_all:.3f} all "
+        f"rows (device alone); f64: kernel norm ratio "
+        f"{e['kernel']['norm_ratio']:.3e} bias {e['kernel']['bias']:.3e}, "
+        f"plain {e['plain']['norm_ratio']:.3e} / {e['plain']['bias']:.3e}; "
+        f"while it runs the SM clock reads {r['clocks']['sm_mhz']} MHz "
+        f"and the card draws {r['clocks']['power_w']} W (medians of "
+        f"{r['clocks']['samples']} nvidia-smi samples)")
+    if share > 1.0 or share_all > 1.0:
+        fail(f"{label} reads above its bound ({share:.3f}, {share_all:.3f})")
+
+
+def ep_f32_forms(gm, quantize, v, s, w_up, rl, seed=20):
+    """B4's four f32 forms on rank 0's layout (``f32_form_times``): the
+    up projection's y (the dequantized rows), the down projection's y
+    (h [rows, F]), and the backward's dx through w_down^T (g [rows, D])
+    and through w_up^T (gh [rows, F]); h, g and gh random on the live
+    rows and zero past them, as the layout leaves them; w_down [el, F,
+    D] from bf16 as w_up."""
+    import torch
+
+    rows, d = v.shape
+    el, _, f = w_up.shape
+    n = rl.live_rows.item()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def live(t):
+        t[n:] = 0.0
+        return t
+
+    w_down = rnd(el, f, d, scale=f ** -0.5).to(torch.bfloat16).float()
+    out = {}
+    for label, a, w, tw in (
+            ("y up", quantize.dequantize_block_scaled(v, s), w_up, False),
+            ("y down", live(rnd(rows, f)), w_down, False),
+            ("dx through w_down^T", live(rnd(rows, d)), w_down, True),
+            ("dx through w_up^T", live(rnd(rows, f)), w_up, True)):
+        out[label] = f32_form_times(gm, label, a, w, rl, tw)
+        del a
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_times(gm, quantize, v, s, w, rl):
+    """B6 at the main shape, with the layout's ``live_rows`` (as the main
+    path calls it) and without: kernel (both clocks), plain, dequantize
+    plus a per-expert torch.matmul loop (TF32 off) over the rows given
+    and over the live rows, both bounds over the rows given and the
+    live rows, f64 errors of kernel and plain. No single PyTorch call
+    computes this function: torch._grouped_mm takes bf16,
+    torch._scaled_grouped_mm wants both operands in fp8. Also B5's f32
+    path at the same rank's up projection (the dequantized rows and a
+    gradient of y's shape)."""
+    import torch
+
+    te, live = rl.tile_expert, rl.live_rows
+    rows, d = v.shape
+    el, _, f = w.shape
+    n_live = live.item()
+    ends = expert_ends(te)
     xd = quantize.dequantize_block_scaled(v, s)
-    b4_ms = time_ms(lambda: gm.grouped_matmul_fwd(xd, w, te, BLOCK_T),
-                    iters=5, warmup=1)
+    ref64 = torch.zeros((rows, f), dtype=torch.float64, device=v.device)
+    for i in range(el):
+        ref64[ends[i]:ends[i + 1]] = (xd[ends[i]:ends[i + 1]].double()
+                                      @ w[i].double())
+    errs = {"live_rows": {
+        "kernel": f64_errors(gm.grouped_matmul_fwd_quant(
+            v, s, w, te, BLOCK_T, live), ref64),
+        "plain": f64_errors(gm.grouped_matmul_fwd_quant_plain(
+            v, s, w, te, BLOCK_T, live), ref64)}}
+    del ref64
+
+    def run(lr):
+        return gm.grouped_matmul_fwd_quant(v, s, w, te, BLOCK_T, lr)
+
+    def loop(end):
+        cut = [min(x, end) for x in ends]
+        x = quantize.dequantize_block_scaled(v, s)
+        for i in range(el):
+            x[cut[i]:cut[i + 1]] @ w[i]
+
     dy = torch.randn(rows, f, device=v.device, generator=torch.Generator(
         device=v.device).manual_seed(10))
     b5_ms = time_ms(lambda: gm.grouped_matmul_dw(xd, dy, te, el, BLOCK_T),
                     iters=5, warmup=1)
     del xd, dy
-    loop_ms = time_ms(loop, iters=5, warmup=1)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    # B4 f32: x, w, y; B5 f32: x, dy, dW (w's size), each once
-    f32_bytes = 4 * (rows * d + el * d * f + rows * f) + te.numel() * 4
-    f32_bound = max(t_ops, f32_bytes / PEAK_BYTES * 1e3)
-    r = {"ms": kernel_ms, "plain_ms": plain_ms, "b4_f32_ms": b4_ms,
-         "b5_f32_ms": b5_ms, "f32_bound_ms": f32_bound,
-         "loop_ms": loop_ms, "library_ms": None, "device_ms": dev_ms,
-         "library_device_ms": None,
+    r = {"ms": time_ms(lambda: run(live)),
+         "device_ms": device_ms(lambda: run(live)),
+         "all_rows_ms": time_ms(lambda: run(None)),
+         "all_rows_device_ms": device_ms(lambda: run(None)),
+         "plain_ms": time_ms(lambda: gm.grouped_matmul_fwd_quant_plain(
+             v, s, w, te, BLOCK_T, live), iters=5, warmup=1),
+         "loop_ms": time_ms(lambda: loop(rows), iters=5, warmup=1),
+         "loop_live_ms": time_ms(lambda: loop(n_live), iters=5, warmup=1),
+         "b5_f32_ms": b5_ms,
+         # B6's A is the fp8 values and their f32 scales
+         "bounds": grouped_f32_bounds(rows, d, f, el, n_live,
+                                      d + 4 * s.shape[1]),
+         "clocks": clocks_under(lambda: run(live)),
+         "f64": errs, "rows": rows, "live_rows": n_live,
+         "library_ms": None, "library_device_ms": None,
          "library_call": "none: torch._grouped_mm takes bf16 and "
                          "torch._scaled_grouped_mm wants both operands in "
-                         "fp8",
-         "bound_ms": max(t_ops, t_bytes),
-         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-         "bound_peak": "67 TFLOP/s f32 on the CUDA cores",
-         "gflop": flops / 1e9, "bytes": nbytes,
-         "tflops_achieved": flops / kernel_ms / 1e9}
-    log(f"  B6 (grouped_matmul_fwd_quant): {kernel_ms:.3f} ms "
-        f"({r['tflops_achieved']:.2f} TFLOP/s f32; device alone "
-        f"{dev_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-        f"B4 f32 on the dequantized rows {b4_ms:.3f} ms, B5 f32 there "
-        f"{b5_ms:.3f} ms (their bound {f32_bound:.3f} ms), dequantize + "
-        f"per-expert matmul loop {loop_ms:.3f} ms, library none, bound "
-        f"{r['bound_ms']:.3f} ms ({r['bound_by']} at 67 TFLOP/s f32, "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+                         "fp8"}
+    b = r["bounds"]
+    r["bound_ms"] = b["live"]["ffma_ms"]
+    r["bound_by"] = ("operations" if b["live"]["ffma_ms"] > b["live"][
+        "bytes_ms"] else "bytes")
+    r["bound_peak"] = "67 TFLOP/s f32 on the CUDA cores, live rows"
+    log_f32_times("B6 (grouped_matmul_fwd_quant)", r)
+    log(f"  B5 f32 at the same rank's up projection: {b5_ms:.3f} ms")
     return r
 
 
@@ -2906,6 +3163,8 @@ def _sass_by_kernel(cuobjdump, cubin):
 
 
 AGAINST_SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+GROUPED_SOURCES = ("grouped_matmul_fwd", "grouped_matmul_dw",
+                   "grouped_matmul_fwd_quant")
 # each entry point's inputs (after q, k, v) and outputs
 AGAINST_IO = {"flash_fwd": ((), ("out", "lse")),
               "flash_bwd_dkv": (("do", "lse", "delta"), ("dk", "dv")),
@@ -2979,12 +3238,12 @@ def _ptxas_lines(text):
 
 
 def against(other, may_differ, variant=False):
-    """``--against DIR``: this tree's flash kernels against another
-    tree's (DIR holds its ``dlrover_tpu_torch/csrc``: a parent from
-    ``git archive``, or a variant of this tree's sources). Fails when a
-    kernel of ``flash_fwd.cu``, ``flash_bwd_dkv.cu`` or ``flash_bwd_dq.cu``
-    whose mangled name holds none of ``may_differ`` has other SASS
-    (``nvcc -cubin``, ``cuobjdump -sass``) or is in one tree only, or
+    """``--against DIR``: this tree's flash and grouped kernels against
+    another tree's (DIR holds its ``dlrover_tpu_torch/csrc``: a parent
+    from ``git archive``, or a variant of this tree's sources). Fails
+    when a kernel of the six sources whose mangled name holds none of
+    ``may_differ`` has other SASS (``nvcc -cubin``, ``cuobjdump -sass``)
+    or is in one tree only, or
     when an output of B1's, B2's or B3's bf16 entry points differs by a
     bit between the trees: the segment-id ones on phase 13's layouts (a
     tile one tree skips adds exact zeros in the other), the prefix-LM
@@ -2993,7 +3252,8 @@ def against(other, may_differ, variant=False):
     ones on the packed row and on documents of 700 tokens, B1, B2 and B3
     prefix-LM and unprefixed causal at GLM's shape, and B1 non-causal
     there. An entry point's
-    arguments are read from its tree's source. With ``variant`` (DIR is
+    arguments are read from its tree's source. Then the grouped f32
+    entry points (``against_grouped``). With ``variant`` (DIR is
     a variant made by hand, a stage compiled out, to time what it costs)
     outputs that differ are reported with their distance in ulps and do
     not fail the run."""
@@ -3021,7 +3281,7 @@ def against(other, may_differ, variant=False):
     nvcc = kernel_build.nvcc_path()
     jobs = []
     for tree, csrc in trees.items():
-        for name in AGAINST_SOURCES:
+        for name in AGAINST_SOURCES + GROUPED_SOURCES:
             src, out = os.path.join(csrc, f"{name}.cu"), work / f"{tree}_{name}"
             jobs.append([nvcc, "-cubin", *kernel_build.NVCC_FLAGS[:4], "-o",
                          f"{out}.cubin", src])
@@ -3048,7 +3308,7 @@ def against(other, may_differ, variant=False):
 
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     report["sass"] = {}
-    for name in AGAINST_SOURCES:
+    for name in AGAINST_SOURCES + GROUPED_SOURCES:
         old, new = (_sass_by_kernel(cuobjdump, str(work / f"{t}_{name}.cubin"))
                     for t in ("other", "this"))
         for kernel in sorted(set(old) | set(new)):
@@ -3168,7 +3428,145 @@ def against(other, may_differ, variant=False):
                 in_turns(label, name, mode, args)
         del q, k, v, do, out, lse, delta, args
         torch.cuda.empty_cache()
+    report["grouped"] = against_grouped(trees, work, variant)
     shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
+def against_grouped(trees, work, variant):
+    """``--against``'s grouped part: B4's f32 entry point (its four forms)
+    and B6's of both trees on rank 0's expert-parallel layout (phase
+    10's): outputs against each other (this tree without ``live_rows``
+    and with it, rows past it zero in both) and against the f64 product,
+    this tree's norm ratio no more than twice the other's and its bias no
+    more than twice the other's in magnitude; then both timed in turns
+    (other, this, this, other; both clocks), this tree with the layout's
+    ``live_rows`` (as the main path calls it) and without. A tree's entry
+    point takes ``live_rows`` when its source declares one more
+    pointer."""
+    import ctypes
+
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import moe, quantize
+
+    cfg = llama.llama2_7b()
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    v, s, w_up, rl, real = ep_received_rows(moe, quantize, d, f, 0)
+    te, live = rl.tile_expert, rl.live_rows
+    rows, el, n_live = v.shape[0], w_up.shape[0], live.item()
+    log(f"grouped f32 kernels on rank 0's layout: {rows} rows "
+        f"({sum(real)} real, live_rows {n_live}), D={d}, F={f}, {el} local "
+        f"experts:")
+    fns = {}
+    for tree, csrc in trees.items():
+        for name, entry, base in (
+                ("grouped_matmul_fwd", "dlr_grouped_matmul_fwd_f32", 5),
+                ("grouped_matmul_fwd_quant",
+                 "dlr_grouped_matmul_fwd_quant_f32", 6)):
+            with open(os.path.join(csrc, f"{name}.cu")) as src:
+                argtypes = _parse_entry(src.read(), entry)
+            fn = getattr(ctypes.CDLL(str(work / f"{tree}_{name}.so")), entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            takes_live = sum(t == ctypes.c_void_p for t in argtypes) > base
+            fns[(tree, name)] = (fn, takes_live)
+
+    def call(tree, name, pointers, ints, out, with_live):
+        fn, takes_live = fns[(tree, name)]
+        lr = [live.data_ptr() if with_live else 0] if takes_live else []
+        code = fn(*(t.data_ptr() for t in pointers), *lr, out.data_ptr(),
+                  *ints, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            fail(f"{tree} {name}: launch failed ({code})")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def dead_zero(t):
+        t[n_live:] = 0.0
+        return t
+
+    w_down = rnd(el, f, d, scale=f ** -0.5).to(torch.bfloat16).float()
+    xd = quantize.dequantize_block_scaled(v, s)
+    cases = {  # label: (a, w, transpose_w), B4's f32 forms
+        "y up": (xd, w_up, 0),
+        "y down": (dead_zero(rnd(rows, f)), w_down, 0),
+        "dx through w_down^T": (dead_zero(rnd(rows, d)), w_down, 1),
+        "dx through w_up^T": (dead_zero(rnd(rows, f)), w_up, 1)}
+    ends = expert_ends(te)
+    report = {"outputs": {}, "times_ms": {}}
+
+    def runner(label):
+        if label == "B6":
+            def run(tree, with_live):
+                y = torch.empty((rows, f), device="cuda")
+                return call(tree, "grouped_matmul_fwd_quant",
+                            (v, s, w_up, te), (rows, d, f, el, s.shape[1],
+                                               BLOCK_T), y, with_live)
+            return run, xd, w_up, 0
+        a, w, tw = cases[label]
+        n = w.shape[1] if tw else w.shape[2]
+
+        def run(tree, with_live):
+            y = torch.empty((rows, n), device="cuda")
+            return call(tree, "grouped_matmul_fwd", (a, w, te),
+                        (rows, w.shape[1], w.shape[2], el, BLOCK_T, tw), y,
+                        with_live)
+        return run, a, w, tw
+
+    for label in (*cases, "B6"):
+        run, a, w, tw = runner(label)
+        ref64 = torch.cat([a[ends[i]:ends[i + 1]].double() @ (
+            w[i].double().t() if tw else w[i].double()) for i in range(el)])
+        outs = {"other": run("other", False), "this": run("this", False),
+                "this, live_rows": run("this", True)}
+        torch.cuda.synchronize()
+        errs = {t: f64_errors(o, ref64) for t, o in outs.items()}
+        same = torch.equal(outs["this"], outs["other"])
+        dead = torch.count_nonzero(outs["this, live_rows"][n_live:]).item()
+        same_live = torch.equal(outs["this, live_rows"][:n_live],
+                                outs["other"][:n_live])
+        mine, theirs = errs["this, live_rows"], errs["other"]
+        within = (mine["norm_ratio"] <= 2 * theirs["norm_ratio"]
+                  and abs(mine["bias"]) <= 2 * abs(theirs["bias"]))
+        report["outputs"][label] = {
+            "bit_for_bit": same, "ulps": ulps(outs["this"], outs["other"]),
+            "live_rows_bit_for_bit": same_live, "dead_nonzero": dead,
+            "f64": errs, "precision_within_2x": within}
+        log(f"  {label}: this tree {'bit for bit' if same else 'DIFFERS'} "
+            f"the other's"
+            + ("" if same else f" (at most {ulps(outs['this'], outs['other'])}"
+               " ulps)")
+            + f"; with live_rows the live rows "
+            f"{'bit for bit' if same_live else 'DIFFER'}, {dead} nonzero "
+            f"past it; f64 norm ratio / bias: other "
+            f"{theirs['norm_ratio']:.3e} / {theirs['bias']:.3e}, this "
+            f"{mine['norm_ratio']:.3e} / {mine['bias']:.3e} "
+            f"({'within' if within else 'NOT within'} twice the other's)")
+        if not variant and (dead or not within or not (same and same_live)):
+            fail(f"{label}: outputs, live_rows or the precision against the "
+                 f"other tree")
+        del outs, ref64
+        samples = {t: {"ms": [], "device_ms": []}
+                   for t in ("other", "this", "this, all rows")}
+        for tree in ("other", "this", "this", "other"):
+            for key, spin in (("ms", False), ("device_ms", True)):
+                samples[tree][key] += time_samples(
+                    lambda: run(tree, True), spin=spin)
+                if tree == "this":
+                    samples["this, all rows"][key] += time_samples(
+                        lambda: run(tree, False), spin=spin)
+        got = report["times_ms"][label] = {
+            t: {key: statistics.median(xs) for key, xs in dd.items()}
+            for t, dd in samples.items()}
+        log(f"  {label} (medians of 20 samples in turns): " + "; ".join(
+            f"{t} {m['ms']:.3f} ms, device alone {m['device_ms']:.3f}"
+            for t, m in got.items()))
+        torch.cuda.empty_cache()
     return report
 
 
@@ -3179,8 +3577,9 @@ def main():
     parser.add_argument("--json", default="",
                         help="also write the run's measurements here")
     parser.add_argument("--against", default="", metavar="DIR",
-                        help="only hold the flash kernels against another "
-                             "tree's under DIR (see against())")
+                        help="only hold the flash and grouped kernels "
+                             "against another tree's under DIR (see "
+                             "against())")
     parser.add_argument("--may-differ", nargs="*", default=[],
                         metavar="PART", help="with --against: kernels "
                         "whose mangled name holds PART may change SASS, or "
@@ -3408,18 +3807,22 @@ def main():
         f"scales per 32 channels, D={d}, F={f}):")
     v, s, w, rl, real = ep_received_rows(moe, quantize, d, f, 0)
     tiles = torch.bincount(rl.tile_expert.long(), minlength=el).tolist()
-    log(f"  main: {rl.rows} rows ({sum(real)} real); tiles per local "
-        f"expert {tiles}, real rows per local expert {real}")
+    log(f"  main: {rl.rows} rows ({sum(real)} real, live_rows "
+        f"{rl.live_rows.item()}); tiles per local expert {tiles}, real rows "
+        f"per local expert {real}")
     q_err, q_right = check_quant(gm, quantize, v, s, w, rl, "main")
     log("the same check against planted faults, same inputs:")
     report["quant_planted_faults"] = check_quant_faults(v, s, w, rl,
                                                         q_right)
     del q_right
     torch.cuda.empty_cache()
-    log(f"B6 time ({rl.rows} rows of which {sum(real)} real, D={d}, F={f}, "
+    log(f"B6 and B4's f32 forms on that layout ({rl.rows} rows of which "
+        f"{sum(real)} real, live_rows {rl.live_rows.item()}, D={d}, F={f}, "
         f"{el} local experts; {card}):")
     q_times = quant_times(gm, quantize, v, s, w, rl)
     report["quant_kernel_times"] = q_times
+    f32_forms = ep_f32_forms(gm, quantize, v, s, w, rl)
+    report["f32_forms"] = f32_forms
     report["quant_main_groups"] = {"tiles": tiles, "real_rows": real,
                                    "rows": rl.rows}
     del v, s, w, rl
@@ -3501,7 +3904,7 @@ def main():
                               f"{key}_plain_ms": tm["plain_ms"],
                               f"{key}_bound_ms": tm["bound_ms"],
                               f"{key}_library_ms": tm["library_ms"]})
-            entry["design"] = B4_DESIGN
+            entry["design"] = f"{B4_DESIGN}; {F32_DESIGN}"
         if name == "grouped_matmul_dw":
             tm = g_times_down["dw"]
             entry.update({"down_ms": tm["ms"],
@@ -3509,11 +3912,26 @@ def main():
                           "down_bound_ms": tm["bound_ms"],
                           "down_library_ms": tm["library_ms"],
                           "design": B5_DESIGN})
+        if name == "grouped_matmul_fwd":
+            # the f32 forms at the expert-parallel rank (launched on that
+            # path: its launches are counted under this name there)
+            entry["f32_ep"] = {
+                form: {key: tm[key] for key in (
+                    "ms", "device_ms", "all_rows_ms", "all_rows_device_ms",
+                    "plain_ms", "loop_ms", "loop_live_ms", "bounds",
+                    "share", "all_rows_share", "f64", "live_rows", "rows",
+                    "clocks")}
+                for form, tm in f32_forms.items()}
+            entry["f32_ep_launches"] = (
+                report["ep_train"]["ranks"][0]["launches"][name])
         if name == "grouped_matmul_fwd_quant":
-            entry.update({"loop_ms": t["loop_ms"],
-                          "b4_f32_ms": t["b4_f32_ms"],
-                          "b5_f32_ms": t["b5_f32_ms"],
-                          "f32_bound_ms": t["f32_bound_ms"]})
+            entry["design"] = (f"B4's f32 loop, its A tile dequantized by "
+                               f"the consumers one stage ahead; "
+                               f"{F32_DESIGN}")
+            entry.update({key: t[key] for key in (
+                "all_rows_ms", "all_rows_device_ms", "loop_ms",
+                "loop_live_ms", "b5_f32_ms", "bounds", "share",
+                "all_rows_share", "f64", "live_rows", "rows", "clocks")})
         kernels.append(entry)
     for name in FLASH_KERNELS:
         seg, t = f"{name}_seg", seg_times[name]

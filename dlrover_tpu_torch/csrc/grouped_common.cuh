@@ -1,5 +1,5 @@
 // The tiled matrix products shared by the grouped-matmul kernels
-// (grouped_matmul_fwd.cu, grouped_matmul_dw.cu, and the f32 loop of
+// (grouped_matmul_fwd.cu, grouped_matmul_dw.cu and
 // grouped_matmul_fwd_quant.cu).
 //
 // Each computes tiles of C = op(A) op(B) over a range of the reduction
@@ -30,7 +30,18 @@
 // zeros outside each tensor and writes nothing outside it, so a ragged
 // M, N or K edge needs no mask.
 //
-// f32 (the parity path, gemm_tile): one block a 128x64 tile, a ring of
+// f32 B4 and B6 (ffma::persistent_gemm; the expert-parallel rank's
+// products): on the CUDA cores, bound by the 67 TFLOP/s of f32 FMA. The
+// tensor cores' 3xTF32 split would bound it lower, but they truncate
+// their f32 sums (a bias 15-40 times this loop's: chip_stages.py tf32).
+// A persistent grid, one producer thread keeping TMA loads of 128 x 32 A
+// and B tiles (SW128) in a 4-stage mbarrier ring; 256 consumer threads,
+// setmaxnreg 240, each an 8 x 8 block of a 128 x 128 output tile, four k
+// at a time from 16-byte shared reads; each output one fmaf chain over k
+// in order (gemm_tile's arithmetic, bit for bit). Row tiles at or past
+// live_rows come out as zeros with no load; live tiles go first.
+//
+// f32 B5 (the parity path, gemm_tile): one block a 128x64 tile, a ring of
 // kStages shared-memory buffers fed by cp.async (16-byte copies,
 // zero-filled past the edges of M, N and K), each thread an 8x4 block of
 // scalar FMA accumulators in registers. A is "MK" (A[m * lda + k]) or
@@ -410,6 +421,246 @@ __device__ __forceinline__ void persistent_gemm(const Form& form) {
 }
 
 }  // namespace ws
+
+// -- f32: TMA-fed FMA on the CUDA cores ---------------------------------------
+
+namespace ffma {
+
+constexpr int BM = 128;  // output rows of a tile
+constexpr int BN = 128;  // output columns of a tile
+constexpr int BK = 32;   // k of a ring stage: one 128-byte row of f32
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;  // a 16 x 16 grid of 8 x 8 output blocks
+// and a producer warpgroup, so that setmaxnreg can hand the consumers 240
+// registers (the products' 128 live values and their next loads)
+constexpr int kThreads = kConsumers + 128;
+constexpr uint32_t kA = BM * BK * 4;  // a stage's A tile (16 KB)
+constexpr uint32_t kB = BN * BK * 4;  // and its B tile (16 KB)
+constexpr uint32_t kStage = kA + kB;
+constexpr uint32_t kBars = kStages * kStage;
+constexpr size_t kSmem = kBars + 128 + 1024;  // + mbarriers, align slack
+
+// The mbarriers: a stage's TMA loads landed; a stage released by the
+// eight consumer warps.
+struct Bars {
+  uint64_t full[kStages], empty[kStages];
+};
+
+// acc[i][j] += A[m][k] B[k][n] for this thread's rows m = ty + 16 i and
+// columns n (K_MAJOR_B: tx + 16 j; else 4 tx + j % 4 + 64 (j / 4)), k
+// over the stage's 32 in order: one fmaf chain an output, as the parent
+// kernel's (gemm_tile's) arithmetic. A is the stage's K-major SW128 tile
+// [128 rows][32 k]; B is K-major [128 n][32 k] (dx: w[e] read as
+// [D][F]) or TMA's four SW128 boxes [32 k][32 n] (y: w[e] [D][F], box c
+// holding n in [32 c, 32 c + 32)). Every shared-memory read is 16 bytes:
+// four k of an A row or a K-major B row, or four n of a B row; the
+// lanes of a warp that read different rows read different bank groups.
+template <bool K_MAJOR_B>
+__device__ __forceinline__ void stage_fma(float (&acc)[8][8],
+                                          const unsigned char* sA,
+                                          const unsigned char* sB, int ty,
+                                          int tx) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 4; ++kc) {  // four k at a time
+    float4 a[8], b[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = ty + 16 * i;
+      a[i] = *reinterpret_cast<const float4*>(sA + m * 128 +
+                                              ((kc ^ (m & 7)) * 16));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (K_MAJOR_B) {  // b[j]: k 4 kc + [0, 4) of column n
+        const int n = tx + 16 * j;
+        b[j] = *reinterpret_cast<const float4*>(sB + n * 128 +
+                                                ((kc ^ (n & 7)) * 16));
+      } else {  // b[2 kk + h]: columns 4 tx + 64 h + [0, 4) at k 4 kc + kk
+        const int k = 4 * kc + j / 2, box = tx / 8 + 2 * (j % 2);
+        b[j] = *reinterpret_cast<const float4*>(
+            sB + box * 4096 + k * 128 + (((tx & 7) ^ (k & 7)) * 16));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float av = reinterpret_cast<const float*>(&a[i])[kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float bv =
+              K_MAJOR_B
+                  ? reinterpret_cast<const float*>(&b[j])[kk]
+                  : reinterpret_cast<const float*>(&b[2 * kk + j / 4])[j % 4];
+          acc[i][j] = fmaf(av, bv, acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// The persistent, warp-specialised loop over 128 x 128 output tiles in
+// f32. Form gives kKMajorB, kAByTma (A arrives by TMA with B; else each
+// consumer warp writes the 16 rows of each stage's A tile that it reads,
+// rows 2 w + [0, 2) + 16 i for warp w, one stage ahead: ARaw,
+// fetch_a(raw, tile, k, row, half) issues a lane's loads of row ``row``,
+// k + 16 half + [0, 16), before the stage's products, put_a(raw, sA,
+// tile, k, row, half) writes them after; the consumers then meet at a
+// named barrier, so no warp runs a stage ahead of the others), kBytes
+// (a stage's TMA bytes), num_tiles, live (rows at or past it are written
+// as zeros), tile(id) (nk = 0 for a tile of dead rows: no load, no
+// product), load(a, b, bar, tile, k) (the TMA loads of the stage at k),
+// N and out (the [rows][N] f32 output). Launch with
+// kThreads threads and kSmem bytes.
+template <class Form>
+__device__ __forceinline__ void persistent_gemm(const Form& form) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = hop::smem_u32(base);
+  Bars& bar = *reinterpret_cast<Bars*>(base + kBars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&bar.full[s], 1);
+      hop::mbar_init(&bar.empty[s], kConsumers / 32);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread walks the block's tiles and their k steps,
+    // a stage at a time as the consumers release them
+    hop::regs_dealloc<24>();
+    if (threadIdx.x == kConsumers) {
+      int it = 0;  // stages loaded so far, across tiles
+      for (int id = blockIdx.x; id < form.num_tiles; id += gridDim.x) {
+        const ws::Tile tile = form.tile(id);
+        for (int kt = 0; kt < tile.nk; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            hop::mbar_wait(&bar.empty[s], (it / kStages - 1) & 1);
+          }
+          hop::mbar_arrive_expect_tx(&bar.full[s], Form::kBytes);
+          const uint32_t a = ring + s * kStage;
+          form.load(a, a + kA, &bar.full[s], tile, tile.k0 + kt * BK);
+        }
+      }
+    }
+    return;
+  }
+  hop::regs_alloc<240>();
+
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16, lane = t % 32;
+  // the A row this lane writes when the consumers write A (of the 16
+  // this warp reads), and which half of the stage's 32 k
+  const int a_row = 2 * (t / 32) + (lane / 2) % 2 + 16 * (lane / 4);
+  const int a_half = lane % 2;
+  int it = 0;  // stages consumed so far, across tiles
+  for (int id = blockIdx.x; id < form.num_tiles; id += gridDim.x) {
+    const ws::Tile tile = form.tile(id);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;  // a dead tile: zeros
+    typename Form::ARaw raw;
+    if constexpr (!Form::kAByTma) {
+      if (tile.nk > 0) {
+        form.fetch_a(raw, tile, tile.k0, a_row, a_half);
+        form.put_a(raw, base + (it % kStages) * kStage, tile, tile.k0, a_row,
+                   a_half);
+        hop::bar_sync(1, kConsumers);
+      }
+    }
+    for (int kt = 0; kt < tile.nk; ++kt, ++it) {
+      const int s = it % kStages;
+      const bool more = kt + 1 < tile.nk;
+      const int k_next = tile.k0 + (kt + 1) * BK;
+      if constexpr (!Form::kAByTma) {
+        if (more) form.fetch_a(raw, tile, k_next, a_row, a_half);
+      }
+      hop::mbar_wait(&bar.full[s], (it / kStages) & 1);
+      const unsigned char* stage = base + s * kStage;
+      stage_fma<Form::kKMajorB>(acc, stage, stage + kA, ty, tx);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&bar.empty[s]);
+      if constexpr (!Form::kAByTma) {
+        // this warp last read these rows of that stage kStages - 1
+        // steps ago. Without the barrier (each warp only its own rows,
+        // warps free to run stages apart) a rare output came out wrong
+        // on the card, and the cause was not found: PERF.md.
+        if (more) {
+          form.put_a(raw, base + ((it + 1) % kStages) * kStage, tile,
+                     k_next, a_row, a_half);
+          hop::bar_sync(1, kConsumers);
+        }
+      }
+    }
+    // straight from the registers: rows at or past live are zeros
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = tile.m0 + ty + 16 * i;
+      const bool dead = m >= form.live;
+      float* row = form.out + (size_t)m * form.N + tile.n0;
+      if constexpr (Form::kKMajorB) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = tx + 16 * j;
+          if (tile.n0 + n < form.N) row[n] = dead ? 0.f : acc[i][j];
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = 4 * tx + 64 * h;
+          if (tile.n0 + n < form.N) {
+            *reinterpret_cast<float4*>(row + n) =
+                dead ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                   acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Which output tile the launch order's id is: the tiles of live rows
+// first, num_live_m of them down and num_n across, in groups of
+// kGroupRows row tiles (column tiles within a group, so the row tiles and
+// weight columns in flight stay in the L2); then the dead ones, nk = 0.
+// e is row tile m's expert, clamped to [0, E) so a bad entry cannot read
+// outside w.
+__device__ __forceinline__ ws::Tile live_first_tile(
+    int id, int num_live_m, int num_n, int group_rows_max,
+    const int* tile_expert, int block_t, int E, int nk) {
+  const int live_tiles = num_live_m * num_n;
+  int m_tile, n_tile;
+  if (id < live_tiles) {
+    const int per_group = group_rows_max * num_n;
+    const int first_m = (id / per_group) * group_rows_max;
+    const int group_rows = min(num_live_m - first_m, group_rows_max);
+    m_tile = first_m + (id % per_group) % group_rows;
+    n_tile = (id % per_group) / group_rows;
+  } else {
+    m_tile = num_live_m + (id - live_tiles) / num_n;
+    n_tile = (id - live_tiles) % num_n;
+    nk = 0;
+  }
+  const int m0 = m_tile * BM;
+  const int e = min(max(tile_expert[m0 / block_t], 0), E - 1);
+  return {e, m0, n_tile * BN, 0, nk};
+}
+
+// rows at or past *live_rows (all rows when live_rows is null; clamped
+// to [0, rows]) are dead; row tiles from the first wholly dead one on
+// are not computed.
+__device__ __forceinline__ int live_row_count(const int* live_rows,
+                                              int rows) {
+  return live_rows == nullptr ? rows : min(max(__ldg(live_rows), 0), rows);
+}
+
+}  // namespace ffma
 
 }  // namespace gm
 }  // namespace dlr

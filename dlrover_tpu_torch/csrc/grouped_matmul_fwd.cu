@@ -27,10 +27,16 @@
 // expert e's D rows and F columns, so a ragged K needs no mask, and the
 // TMA stores of y write nothing past a ragged N.
 //
-// f32 (the parity path, grouped_fwd_kernel, whose arithmetic B6 shares
-// bit for bit): one block a 128 x 64 tile, the cp.async + scalar-FMA
-// loop (gemm_tile) of grouped_common.cuh, reading w^T as its "NK"
-// layout.
+// f32 (grouped_fwd_f32_kernel: the expert-parallel rank's products,
+// whose arithmetic B6 shares bit for bit): ffma::persistent_gemm of
+// grouped_common.cuh on the CUDA cores, bound by the 67 TFLOP/s of f32
+// FMA (at the rank's up projection, x [8448, 4096] of which 2048 rows
+// live, w [2, 4096, 11008]: 185 GFLOP, 2.8 ms). x by TMA; w[e] for y as
+// four [32 k][32 n] boxes a stage (MN-major), for dx one [128 n][32 k]
+// box of its [D][F] rows (K-major), in place. Each output is the same
+// fmaf chain over k in order as the cp.async loop it replaced
+// (gemm_tile), so the outputs are bit for bit that loop's. Row tiles at
+// or past live_rows are written as zeros without reading x or w.
 
 #include "grouped_common.cuh"
 
@@ -39,53 +45,88 @@ namespace gm {
 
 constexpr int kGroupRows = 8;  // row tiles per launch-order group
 
-// y [rows, N] = x [rows, K] @ (TRANS ? w[e]^T : w[e]) with w [E, D, F]:
-// N = F, K = D plainly; N = D, K = F transposed.
-template <typename T, bool TRANS>
-__global__ void __launch_bounds__(kThreads, 2)
-    grouped_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const int* __restrict__ tile_expert, T* __restrict__ y,
-                       int rows, int D, int F, int E, int block_t) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN;
-  const int N = TRANS ? D : F, K = TRANS ? F : D;
-  const int num_m = rows / BM, num_n = (N + BN - 1) / BN;
-  // launch order -> (row tile, column tile), kGroupRows row tiles at a time
-  const int id = blockIdx.x, per_group = kGroupRows * num_n;
-  const int first_m = (id / per_group) * kGroupRows;
-  const int group_rows = min(num_m - first_m, kGroupRows);
-  const int m_tile = first_m + (id % per_group) % group_rows;
-  const int n_tile = (id % per_group) / group_rows;
-  const int m0 = m_tile * BM, n0 = n_tile * BN;
+// -- f32 ---------------------------------------------------------------------
 
-  int e = tile_expert[m0 / block_t];
-  e = min(max(e, 0), E - 1);
-  const T* we = w + (size_t)e * D * F;
-  // w[e] is [D][F]: as B it is KN (k = d, n = f) or, transposed, NK
-  // (n = d, k = f); the row stride is F either way
-  gemm_tile<T, false, TRANS, T>(x, K, we, F, y, N, m0, rows, n0, N, 0, K,
-                                smem);
+// y [rows, N] = x [rows, K] @ (TRANS_W ? w[e]^T : w[e]) on
+// ffma::persistent_gemm: A (x, or dy for dx) by TMA as one 32 x 128 box
+// a stage; w[e] [D][F] as four [32 k][32 n] boxes for y, one
+// [128 n][32 k] box of its [D][F] rows for dx, read in place. The 3-D
+// map over [E, D, F] reads zeros past expert e's D rows and F columns,
+// so a ragged K needs no mask.
+template <int TRANS_W>
+struct FwdF32Form {
+  static constexpr bool kKMajorB = TRANS_W != 0, kAByTma = true;
+  static constexpr uint32_t kBytes = ffma::kStage;
+  struct ARaw {};
+  const CUtensorMap* tx;  // x [1, rows, K], box {32, 128}
+  const CUtensorMap* tw;  // w [E, D, F], box {32, 32} (y) or {32, 128} (dx)
+  const int* tile_expert;
+  float* out;
+  int N, K, E, block_t, num_live_m, num_n, num_tiles, live;
+
+  __device__ ws::Tile tile(int id) const {
+    return ffma::live_first_tile(id, num_live_m, num_n, kGroupRows,
+                                tile_expert, block_t, E,
+                                (K + ffma::BK - 1) / ffma::BK);
+  }
+
+  __device__ void load(uint32_t a, uint32_t b, uint64_t* bar,
+                       const ws::Tile& t, int k) const {
+    hop::tma_load_3d(a, tx, bar, k, t.m0, 0);
+    if constexpr (TRANS_W != 0) {
+      hop::tma_load_3d(b, tw, bar, k, t.n0, t.e);
+    } else {
+#pragma unroll
+      for (int c = 0; c < ffma::BN / 32; ++c) {
+        hop::tma_load_3d(b + c * 4096, tw, bar, t.n0 + 32 * c, k, t.e);
+      }
+    }
+  }
+};
+
+template <int TRANS_W>
+__global__ void __launch_bounds__(ffma::kThreads, 1)
+    grouped_fwd_f32_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const int* __restrict__ tile_expert,
+                           const int* __restrict__ live_rows,
+                           float* __restrict__ y, int rows, int N, int K,
+                           int E, int block_t, int num_n) {
+  const int live = ffma::live_row_count(live_rows, rows);
+  const int num_m = rows / ffma::BM;
+  const FwdF32Form<TRANS_W> form{
+      &tx,   &tw,     tile_expert, y, N, K, E, block_t,
+      (live + ffma::BM - 1) / ffma::BM, num_n, num_m * num_n, live};
+  ffma::persistent_gemm(form);
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* w, const int* tile_expert, void* y,
-               int rows, int D, int F, int E, int block_t, int transpose_w,
-               void* stream) {
-  constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN;
+int launch_fwd_f32(const void* x, const void* w, const int* tile_expert,
+                   const int* live_rows, void* y, int rows, int D, int F,
+                   int E, int block_t, int transpose_w, void* stream) {
   if (rows <= 0) return 0;
-  const int N = transpose_w ? D : F;
-  const dim3 grid((rows / BM) * ((N + BN - 1) / BN));
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* yp = static_cast<T*>(y);
-  if (transpose_w) {
-    return launch(grouped_fwd_kernel<T, true>, grid,
-                  Layout<T, false, true>::SMEM, stream, xp, wp, tile_expert,
-                  yp, rows, D, F, E, block_t);
+  const int N = transpose_w ? D : F, K = transpose_w ? F : D;
+  CUtensorMap tx, tw;
+  if (!hop::tensor_map(&tx, static_cast<const float*>(x), 1, rows, K,
+                       ffma::BM) ||
+      !hop::tensor_map(&tw, static_cast<const float*>(w), E, D, F,
+                       transpose_w ? ffma::BN : 32)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch(grouped_fwd_kernel<T, false>, grid,
-                Layout<T, false, false>::SMEM, stream, xp, wp, tile_expert,
-                yp, rows, D, F, E, block_t);
+  const int num_n = (N + ffma::BN - 1) / ffma::BN;
+  const int tiles = (rows / ffma::BM) * num_n;
+  int sms = 0;
+  const cudaError_t err = hop::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles < sms ? tiles : sms);
+  float* yp = static_cast<float*>(y);
+  if (transpose_w) {
+    return hop::launch(grouped_fwd_f32_kernel<1>, grid, ffma::kThreads,
+                       ffma::kSmem, stream, tx, tw, tile_expert, live_rows,
+                       yp, rows, N, K, E, block_t, num_n);
+  }
+  return hop::launch(grouped_fwd_f32_kernel<0>, grid, ffma::kThreads,
+                     ffma::kSmem, stream, tx, tw, tile_expert, live_rows, yp,
+                     rows, N, K, E, block_t, num_n);
 }
 
 // -- bf16 --------------------------------------------------------------------
@@ -186,12 +227,13 @@ extern "C" int dlr_grouped_matmul_fwd_bf16(const void* x, const void* w,
 }
 
 extern "C" int dlr_grouped_matmul_fwd_f32(const void* x, const void* w,
-                                          const int* tile_expert, void* y,
+                                          const int* tile_expert,
+                                          const int* live_rows, void* y,
                                           int rows, int D, int F, int E,
                                           int block_t, int transpose_w,
                                           void* stream) {
-  return dlr::gm::launch_fwd<float>(x, w, tile_expert, y, rows, D, F, E,
-                                    block_t, transpose_w, stream);
+  return dlr::gm::launch_fwd_f32(x, w, tile_expert, live_rows, y, rows, D,
+                                 F, E, block_t, transpose_w, stream);
 }
 
 DLR_DEFINE_ERROR_STRING(dlr_grouped_matmul_fwd_error)

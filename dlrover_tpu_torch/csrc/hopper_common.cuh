@@ -5,7 +5,8 @@
 // encoders. Used by the
 // bf16 paths of flash_fwd.cu (B1), flash_bwd_dkv.cu (B2),
 // flash_bwd_dq.cu (B3) and, through grouped_common.cuh,
-// grouped_matmul_fwd.cu (B4) and grouped_matmul_dw.cu (B5).
+// grouped_matmul_fwd.cu (B4), grouped_matmul_dw.cu (B5) and
+// grouped_matmul_fwd_quant.cu (B6).
 //
 // Shared-memory operand layout ("SW128"): a tile with a 128-byte inner
 // extent (64 bf16) stored row after row, 128 bytes a row, with the eight

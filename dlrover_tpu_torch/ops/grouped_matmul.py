@@ -8,17 +8,31 @@ tile of ``block_t`` rows belongs to one expert. The kernels, in
 ``dlrover_tpu_torch/csrc``:
 
   grouped_matmul_fwd  (B4) y = x @ w[e] per row tile, and, reading w
-                      transposed in place, dx = dy @ w[e]^T
+                      transposed in place, dx = dy @ w[e]^T: bf16 on
+                      wgmma; f32 (the expert-parallel rank's products)
+                      on the CUDA cores, skipping the row tiles at or
+                      past ``live_rows``
   grouped_matmul_dw   (B5) dw[e] = sum over e's row tiles of x^T dy, f32
   grouped_matmul_fwd_quant
                       (B6) y = dequant(values, scales) @ w[e], f32: the
                       fp8 rows of the expert-parallel wire, dequantized
                       in the kernel, bitwise equal to dequantizing
-                      first and running B4's f32 path
+                      first and running B4's f32 path (the same loop),
+                      skipping the row tiles at or past ``live_rows``
 
 Each has a wrapper here that launches it on a CUDA tensor (or raises:
 there is no fallback), a plain PyTorch version that the wrapper uses for
 tensors on the CPU, and a launch counter, ``<wrapper>.launches``.
+
+``live_rows`` ([1] int32 on x's device, or None: every row live) is
+where the rows that hold anything end: the expert-parallel regroup pads
+to a static bound, and its rows from the end of the last local expert's
+group on read the zero sentinel (``ops.moe.RegroupLayout.live_rows``).
+Rows at or past it come out as zeros, on the CPU too; the f32 kernels
+write them without reading x or w. The bf16 kernels do not take it:
+their output there is the same, zero rows in, zero rows out, by the
+layout's contract. It differs from computing those rows only where w
+holds a non-finite value (0 * inf is NaN).
 
 The TPU tiling rule (``_pick_block``) does not apply: the kernels mask
 ragged D and F edges. ``block_f`` is kept for API parity and does not
@@ -62,11 +76,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # rows, D (x's width), F (the output width), E, block_t, transpose_w
     "grouped_matmul_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # the f32 entry point: live_rows after tile_expert
+    "grouped_matmul_fwd_f32": [_P] * 5 + [_I] * 6 + [_P],
     # rows, D, F, E, num_tiles, block_t
     "grouped_matmul_dw": [_P] * 4 + [_I] * 6 + [_P],
-    # values, scales, w, tile_expert, y, then rows, D, F, E, the scale
-    # blocks per row, block_t
-    "grouped_matmul_fwd_quant": [_P] * 5 + [_I] * 6 + [_P],
+    # values, scales, w, tile_expert, live_rows, y, then rows, D, F, E,
+    # the scale blocks per row, block_t
+    "grouped_matmul_fwd_quant": [_P] * 6 + [_I] * 6 + [_P],
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -75,13 +91,23 @@ def _row_experts(tile_expert: torch.Tensor, block_t: int) -> torch.Tensor:
     return tile_expert.long().repeat_interleave(block_t)
 
 
+def _zero_dead_rows(y: torch.Tensor, live_rows) -> torch.Tensor:
+    """y with its rows at or past ``live_rows`` zero (no host sync)."""
+    if live_rows is None:
+        return y
+    rows = torch.arange(y.shape[0], device=y.device)
+    return torch.where((rows < live_rows.to(y.device).long())[:, None], y,
+                       y.new_zeros(()))
+
+
 # -- plain versions (the CPU path, and what the kernels are held to) --------
 
 
 def grouped_matmul_fwd_plain(x, w, tile_expert, block_t: int,
-                             transpose_w: bool = False):
+                             transpose_w: bool = False, live_rows=None):
     """B4's function, one expert's rows at a time: ``x @ w[e]`` (or
-    ``x @ w[e]^T``), f32 accumulation, output in x's dtype."""
+    ``x @ w[e]^T``), f32 accumulation, output in x's dtype; rows at or
+    past ``live_rows`` zero."""
     rows = _row_experts(tile_expert, block_t)
     out_width = w.shape[1] if transpose_w else w.shape[2]
     y = torch.zeros((x.shape[0], out_width), dtype=torch.float32,
@@ -90,7 +116,7 @@ def grouped_matmul_fwd_plain(x, w, tile_expert, block_t: int,
         sel = rows == e
         we = w[e].float()
         y[sel] = x[sel].float() @ (we.t() if transpose_w else we)
-    return y.to(x.dtype)
+    return _zero_dead_rows(y, live_rows).to(x.dtype)
 
 
 def grouped_matmul_dw_plain(x, dy, tile_expert, num_experts: int,
@@ -107,10 +133,11 @@ def grouped_matmul_dw_plain(x, dy, tile_expert, num_experts: int,
 
 
 def grouped_matmul_fwd_quant_plain(values, scales, w, tile_expert,
-                                   block_t: int):
+                                   block_t: int, live_rows=None):
     """B6's function: dequantize, then B4's plain product, f32 out."""
     return grouped_matmul_fwd_plain(dequantize_block_scaled(values, scales),
-                                    w.float(), tile_expert, block_t)
+                                    w.float(), tile_expert, block_t,
+                                    live_rows=live_rows)
 
 
 # -- kernel wrappers ---------------------------------------------------------
@@ -130,6 +157,30 @@ def _check_shapes(name: str, x, other, tile_expert, block_t: int,
         raise ValueError(f"{name}: tile_expert {tuple(tile_expert.shape)} "
                          f"is not one entry per tile "
                          f"({x.shape[0] // block_t})")
+
+
+def _check_live_rows(name: str, live_rows, x) -> None:
+    """``live_rows`` is None or a [1] int32 tensor on x's device: the
+    kernels read it as one int through a raw pointer."""
+    if live_rows is None:
+        return
+    if not isinstance(live_rows, torch.Tensor):
+        raise TypeError(f"{name}: live_rows must be a tensor or None, got "
+                        f"{type(live_rows).__name__}")
+    if live_rows.dtype != torch.int32:
+        raise TypeError(f"{name}: live_rows must be int32, got "
+                        f"{live_rows.dtype}")
+    if live_rows.shape != (1,):
+        raise ValueError(f"{name}: live_rows must have shape (1,), got "
+                         f"{tuple(live_rows.shape)}")
+    if live_rows.device != x.device:
+        raise ValueError(f"{name}: live_rows on {live_rows.device}, x on "
+                         f"{x.device}")
+
+
+def _live_ptr(live_rows) -> int:
+    """The pointer the f32 kernels take: 0 (null) reads every row live."""
+    return 0 if live_rows is None else live_rows.data_ptr()
 
 
 def _kernel_suffix(name: str, tile_expert, block_t: int, *inputs) -> str:
@@ -158,22 +209,27 @@ def _kernel_suffix(name: str, tile_expert, block_t: int, *inputs) -> str:
 
 
 def grouped_matmul_fwd(x, w, tile_expert, block_t: int = 128,
-                       transpose_w: bool = False):
+                       transpose_w: bool = False, live_rows=None):
     """B4: ``[Tp, F]`` (``[Tp, D]`` with ``transpose_w``) in x's dtype.
     ``transpose_w`` reads w ``[E, D, F]`` as ``[E, F, D]`` in place, for
-    dx; wᵀ is never materialised."""
+    dx; wᵀ is never materialised. Rows at or past ``live_rows`` are
+    zeros (the f32 kernel skips them; the bf16 one computes them from
+    the zero rows the layout puts there)."""
     e, d, f = w.shape
     _check_shapes("grouped_matmul_fwd", x, w, tile_expert, block_t,
                   f if transpose_w else d)
+    _check_live_rows("grouped_matmul_fwd", live_rows, x)
     if kernel_build.on_cpu("grouped matmul", x, w, tile_expert):
         return grouped_matmul_fwd_plain(x, w, tile_expert, block_t,
-                                        transpose_w)
+                                        transpose_w, live_rows)
     suffix = _kernel_suffix("grouped_matmul_fwd", tile_expert, block_t, x, w)
     y = torch.empty((x.shape[0], d if transpose_w else f), dtype=x.dtype,
                     device=x.device)
+    live = [_live_ptr(live_rows)] if suffix == "f32" else []
     kernel_build.launch(
-        "grouped_matmul_fwd", suffix, _ARGTYPES["grouped_matmul_fwd"],
-        x.device, x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+        "grouped_matmul_fwd", suffix,
+        _ARGTYPES["grouped_matmul_fwd_f32" if live else "grouped_matmul_fwd"],
+        x.device, x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), *live,
         y.data_ptr(), x.shape[0], d, f, e, block_t, int(transpose_w))
     grouped_matmul_fwd.launches += 1
     return y
@@ -203,13 +259,15 @@ def grouped_matmul_dw(x, dy, tile_expert, num_experts: int,
 
 
 def grouped_matmul_fwd_quant(values, scales, w, tile_expert,
-                             block_t: int = 128):
+                             block_t: int = 128, live_rows=None):
     """B6: ``[Tp, F]`` f32 from e4m3 ``values`` [Tp, D], f32 ``scales``
     [Tp, D / qb] and f32 ``w`` [E, D, F] (a bf16 w is the caller's to
-    promote, as the reference's dot does)."""
+    promote, as the reference's dot does); rows at or past ``live_rows``
+    zero, not computed."""
     e, d, f = w.shape
     _check_shapes("grouped_matmul_fwd_quant", values, w, tile_expert,
                   block_t, d)
+    _check_live_rows("grouped_matmul_fwd_quant", live_rows, values)
     nb = scales.shape[-1]
     if values.dtype != WIRE_DTYPE or scales.dtype != torch.float32:
         raise TypeError(f"grouped_matmul_fwd_quant: values must be "
@@ -222,7 +280,8 @@ def grouped_matmul_fwd_quant(values, scales, w, tile_expert,
     if kernel_build.on_cpu("grouped matmul", values, scales, w,
                            tile_expert):
         return grouped_matmul_fwd_quant_plain(values, scales, w,
-                                              tile_expert, block_t)
+                                              tile_expert, block_t,
+                                              live_rows)
     _kernel_suffix("grouped_matmul_fwd_quant", tile_expert, block_t, w)
     for t in (values, scales):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -240,8 +299,8 @@ def grouped_matmul_fwd_quant(values, scales, w, tile_expert,
         "grouped_matmul_fwd_quant", "f32",
         _ARGTYPES["grouped_matmul_fwd_quant"], values.device,
         values.data_ptr(), scales.data_ptr(), w.data_ptr(),
-        tile_expert.data_ptr(), y.data_ptr(), values.shape[0], d, f, e, nb,
-        block_t)
+        tile_expert.data_ptr(), _live_ptr(live_rows), y.data_ptr(),
+        values.shape[0], d, f, e, nb, block_t)
     grouped_matmul_fwd_quant.launches += 1
     return y
 
@@ -296,29 +355,32 @@ def _check_tile_expert(tile_expert: torch.Tensor, num_experts: int) -> None:
 
 class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, tile_expert, block_t: int):
-        ctx.save_for_backward(x, w, tile_expert)
+    def forward(ctx, x, w, tile_expert, block_t: int, live_rows):
+        ctx.save_for_backward(x, w, tile_expert, live_rows)
         ctx.block_t = block_t
-        return grouped_matmul_fwd(x, w, tile_expert, block_t)
+        return grouped_matmul_fwd(x, w, tile_expert, block_t,
+                                  live_rows=live_rows)
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, tile_expert = ctx.saved_tensors
+        x, w, tile_expert, live_rows = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # the same kernel over w^T ([E, F, D]), read in place
+            # the same kernel over w^T ([E, F, D]), read in place; rows
+            # past live_rows carry no gradient
             dx = grouped_matmul_fwd(dy, w, tile_expert, ctx.block_t,
-                                    transpose_w=True)
+                                    transpose_w=True, live_rows=live_rows)
         if ctx.needs_input_grad[1]:
             dw = grouped_matmul_dw(x, dy, tile_expert, w.shape[0],
                                    ctx.block_t).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    tile_expert: torch.Tensor, block_t: int = 128,
-                   block_f: int = 512) -> torch.Tensor:
+                   block_f: int = 512,
+                   live_rows: torch.Tensor = None) -> torch.Tensor:
     """``y[i] = x[i] @ w[tile_expert[i // block_t]]``.
 
     Args:
@@ -330,6 +392,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         tile; non-decreasing, every expert present (checked on CPU
         tensors; see ``_check_tile_expert``).
       block_f: accepted for parity with the reference and ignored.
+      live_rows: [1] int32 on x's device, or None (every row live):
+        rows at or past it are zeros (see the module docstring); the
+        backward's dx is zero there too.
     Returns [Tp, F] in x's dtype (f32 accumulation inside).
     Differentiable in x (dx through B4 over w^T) and w (dw through B5,
     cast to w's dtype); ``tile_expert`` gets no gradient.
@@ -337,16 +402,18 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     del block_f
     _check_tile_expert(tile_expert, w.shape[0])
     return _GroupedMatmul.apply(x.contiguous(), w.contiguous(),
-                                tile_expert.contiguous(), int(block_t))
+                                tile_expert.contiguous(), int(block_t),
+                                live_rows)
 
 
 class _GroupedMatmulQuantized(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, scales, w, tile_expert, block_t: int):
+    def forward(ctx, values, scales, w, tile_expert, block_t: int,
+                live_rows):
         ctx.save_for_backward(values, scales, tile_expert)
         ctx.block_t, ctx.num_experts = block_t, w.shape[0]
         return grouped_matmul_fwd_quant(values, scales, w, tile_expert,
-                                        block_t)
+                                        block_t, live_rows)
 
     @staticmethod
     def backward(ctx, dy):
@@ -361,23 +428,25 @@ class _GroupedMatmulQuantized(torch.autograd.Function):
         # values and scales get zero (None): the rows arrived over the
         # wire already quantized, and the caller's wire boundary carries
         # the activation gradient
-        return None, None, dw, None, None
+        return None, None, dw, None, None, None
 
 
 def grouped_matmul_quantized(values: torch.Tensor, scales: torch.Tensor,
                              w: torch.Tensor, tile_expert: torch.Tensor,
-                             block_t: int = 128,
-                             block_f: int = 512) -> torch.Tensor:
+                             block_t: int = 128, block_f: int = 512,
+                             live_rows: torch.Tensor = None
+                             ) -> torch.Tensor:
     """``grouped_matmul`` over a block-scaled fp8 LHS, dequantized in the
     kernel (B6): ``y[i] = dequant(values[i], scales[i]) @
     w[tile_expert[i // block_t]]``, f32 out. ``w`` must be f32.
 
     Bitwise equal to ``grouped_matmul(dequantize_block_scaled(values,
-    scales), w, ...)``. Differentiable in ``w`` only: dw through B5 on
-    the dequantized rows; ``values`` and ``scales`` get zeros.
+    scales), w, ...)`` (with the same ``live_rows``). Differentiable in
+    ``w`` only: dw through B5 on the dequantized rows; ``values`` and
+    ``scales`` get zeros.
     """
     del block_f
     _check_tile_expert(tile_expert, w.shape[0])
     return _GroupedMatmulQuantized.apply(
         values.contiguous(), scales.contiguous(), w.contiguous(),
-        tile_expert.contiguous(), int(block_t))
+        tile_expert.contiguous(), int(block_t), live_rows)

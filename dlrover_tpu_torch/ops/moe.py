@@ -372,13 +372,17 @@ class RegroupLayout:
     for pad rows) each sorted row reads; ``tile_expert`` [rows /
     block_t] int32; ``dest_row`` [P, nc] each received row's sorted row
     (``rows`` for an empty slot) and ``valid`` [P, nc] whether the slot
-    holds a row."""
+    holds a row; ``live_rows`` [1] int32, the padded end of the last
+    local expert's group: every row from it on reads the sentinel (the
+    reference computes them, "garbage compute, masked by unsort"; the
+    grouped kernels skip them)."""
 
     row_src: torch.Tensor
     tile_expert: torch.Tensor
     dest_row: torch.Tensor
     valid: torch.Tensor
     rows: int
+    live_rows: torch.Tensor
 
 
 def regroup_layout(recv, lo: int, nc: int, ep: int, el: int,
@@ -419,7 +423,8 @@ def regroup_layout(recv, lo: int, nc: int, ep: int, el: int,
     tile_start = torch.arange(tp // block_t, device=device) * block_t
     tile_expert = torch.searchsorted(ends, tile_start, right=True).clamp(
         0, el - 1).int()
-    return RegroupLayout(row_src, tile_expert, dest_row, valid, tp)
+    return RegroupLayout(row_src, tile_expert, dest_row, valid, tp,
+                         ends[-1:].int())
 
 
 def _regroup_window(recv, lo, nc, up_l, down_l, *, x_chunk=None,
@@ -442,6 +447,7 @@ def _regroup_window(recv, lo, nc, up_l, down_l, *, x_chunk=None,
     d = rows.shape[-1]
     lay = regroup_layout(recv, lo, nc, ep, el, block_t)
     row_src, tile_expert, tp = lay.row_src, lay.tile_expert, lay.rows
+    live = lay.live_rows  # the products skip the sentinel rows past it
     if quantized:
         # values and scales gathered by the same row map; pad rows read
         # zero sentinel rows on both sides (zero values decode to zero
@@ -453,13 +459,14 @@ def _regroup_window(recv, lo, nc, up_l, down_l, *, x_chunk=None,
                            s_chunk.new_zeros((1, nb))])
         h = activation(grouped_matmul_quantized(
             v_pad[row_src], s_pad[row_src], up_l.float(), tile_expert,
-            block_t))
+            block_t, live_rows=live))
     else:
         x_pad = torch.cat([x_chunk.reshape(ep * nc, d),
                            x_chunk.new_zeros((1, d))])
         h = activation(grouped_matmul(x_pad[row_src], up_l.to(rows.dtype),
-                                      tile_expert, block_t))
-    y_sorted = grouped_matmul(h, down_l.to(h.dtype), tile_expert, block_t)
+                                      tile_expert, block_t, live_rows=live))
+    y_sorted = grouped_matmul(h, down_l.to(h.dtype), tile_expert, block_t,
+                              live_rows=live)
     # back to the chunk's receive layout (invalid slots zero)
     y_flat = y_sorted[lay.dest_row.clamp(0, tp - 1).reshape(-1)]
     y_flat = torch.where(lay.valid.reshape(-1)[:, None], y_flat,

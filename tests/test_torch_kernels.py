@@ -753,3 +753,53 @@ def test_quant_kernel_matches_plain_on_card(cuda_device, tiles, d, f):
     assert y.shape == ref.shape and y.dtype == torch.float32
     torch.testing.assert_close(y, ref, atol=1e-4, rtol=1e-4)
     assert torch.equal(y, b4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,d,f,live", [
+    ([3, 2, 1], 256, 384, 512),
+    ([3, 2, 1], 384, 256, 512),
+    ([1, 2, 1], 96, 200, 300),
+    ([1, 2, 1], 200, 96, 300),
+    ([2, 1], 128, 256, 0),
+    ([2, 1], 128, 256, 10 ** 6),
+], ids=["up", "down", "ragged_up", "ragged_down", "all_dead", "all_live"])
+def test_f32_kernels_with_live_rows_on_card(cuda_device, tiles, d, f, live):
+    """B4's f32 forms (y = x w[e]; dx = dy w[e]^T, w read transposed in
+    place) and B6 with and without ``live_rows``: within 1e-4 absolute
+    plus relative of their plain versions; rows at or past it exactly
+    zero, the rows before bit for bit the same kernel's without it (a
+    dead row tile is skipped, not computed); B6 bit for bit dequantize +
+    B4's f32 path with the same ``live_rows``. Shapes with D < F (an up
+    projection) and D > F (a down one), ragged D and F (a K tail,
+    ragged columns), a ``live_rows`` inside a row tile, none live, and
+    one past the end (every row live)."""
+    x, w, te, dy, bt = _grouped_case(cuda_device, torch.float32, tiles, d, f)
+    lr = torch.tensor([live], dtype=torch.int32, device=cuda_device)
+    n = min(live, x.shape[0])
+    v, s = quantize.quantize_block_scaled(x * 3)
+    xd = quantize.dequantize_block_scaled(v, s)
+    gm.reset_launch_counts()
+    for args, kwargs in (((x, w, te, bt), {}),
+                         ((dy, w, te, bt), {"transpose_w": True})):
+        full = gm.grouped_matmul_fwd(*args, **kwargs)
+        got = gm.grouped_matmul_fwd(*args, live_rows=lr, **kwargs)
+        ref = gm.grouped_matmul_fwd_plain(*args, live_rows=lr, **kwargs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(full, gm.grouped_matmul_fwd_plain(
+            *args, **kwargs), atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        assert torch.count_nonzero(got[n:]).item() == 0
+        assert torch.equal(got[:n], full[:n])
+    for live_rows in (None, lr):
+        y = gm.grouped_matmul_fwd_quant(v, s, w, te, bt, live_rows=live_rows)
+        b4 = gm.grouped_matmul_fwd(xd, w, te, bt, live_rows=live_rows)
+        ref = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, bt,
+                                                live_rows=live_rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, ref, atol=1e-4, rtol=1e-4)
+        assert torch.equal(y, b4)
+    assert torch.count_nonzero(y[n:]).item() == 0
+    assert gm.launch_counts() == {"grouped_matmul_fwd": 6,
+                                  "grouped_matmul_dw": 0,
+                                  "grouped_matmul_fwd_quant": 2}
