@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--json PATH]   # from the root of a checkout
     python3 chip_smoke.py --against DIR [--may-differ PART ...]
+                          [--variant] [--stress N]
 
 Phases, each of which fails the run (exit code 1) when it goes wrong:
 
@@ -58,15 +59,18 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      + B4's f32 path, without and with the layout's live_rows (rows past
      it zero), on the rows rank 0 of 4 receives (llama2_7b+moe8 widths,
      4 x 1024 tokens top-2, 2 local experts), on a skewed routing and a
-     ragged case; its planted faults; on the main layout B6 and B4's four
-     f32 forms (the up and down projections' y, dx through w_down^T and
-     w_up^T) each checked against its plain version with and without
-     live_rows, their errors against an f64 product beside the plain
-     versions', and their times (both clocks, with and without
-     live_rows) beside the plain version, a per-expert cuBLAS loop (TF32
-     off) over the rows given and the live rows, and two bounds (FFMA at
-     67 TFLOP/s, the design kept, and 3xTF32 at 494.7) over the rows
-     given and the live rows;
+     ragged case, each followed by a stress loop (STRESS_CALLS calls of
+     B6 and of B4's f32 path, every output bit for bit and within 1e-4 of
+     the plain version); its planted faults; on the main layout B6, B4's
+     four f32 forms (the up and down projections' y, dx through w_down^T
+     and w_up^T) and B5's two (dw at the up and the down projection),
+     each checked against its plain version with and without live_rows,
+     their errors against an f64 product beside the plain versions', and
+     their times (both clocks, with and without live_rows) beside the
+     plain version, a per-expert cuBLAS loop (TF32 off) over the rows
+     given and the live rows, and two bounds (FFMA at 67 TFLOP/s, the
+     design kept, and 3xTF32 at 494.7) over the rows given and the live
+     rows;
  11. one full-width MoE layer over 4 ranks sharing the card (gloo),
      forward and backward: the fp8 wire bitwise equal to fp8_qdq at 1
      and 2 chunks; the unquantized wire against the one-rank grouped
@@ -131,11 +135,15 @@ of every kernel of the six sources but those named by ``--may-differ``,
 the bf16 outputs of B1's, B2's and B3's segment-id entry points bit for
 bit on phase 13's layouts and of their prefix-LM and unprefixed ones on
 GLM's shape and ragged 64-wide-head layouts, their times in turns; B4's
-four f32 forms and B6 on phase 10's expert-parallel layout, outputs and
-f64 errors side by side and times in turns), for a change to a kernel
+four f32 forms, B5's two and B6 on phase 10's expert-parallel layout,
+outputs and f64 errors side by side and times in turns, B5's outputs on
+the skewed and ragged layouts too), for a change to a kernel
 against its parent (``git archive`` into a git-ignored directory
 such as ``_archive/``); with ``--variant`` DIR is a copy with a stage
 compiled out, and outputs that differ are reported, not failed.
+``--stress N`` adds N calls of both trees' B6 and B4-f32 on each of phase
+10's layouts, each held bit for bit (a copy of B6 without a barrier, say,
+and how often it goes wrong).
 Needs one GPU; exits non-zero without one, or without the repository.
 Phases 11 and 12 spawn their ranks (``trainer.run.run_local``) and stop
 them before the script goes on.
@@ -224,6 +232,16 @@ B5_DESIGN = ("B4's persistent wgmma loop with x^T and dy both MN-major, "
              "expert's rows found by binary search (no atomics), the f32 "
              "tile written by TMA stores from shared memory while the "
              "producer loads the next tile's stages")
+B5_F32_DESIGN = ("f32 (the expert-parallel rank's dw): B4's f32 FFMA loop "
+                 "with x^T and dy both MN-major (four TMA boxes of 32 rows "
+                 "x 32 columns each a stage), each 128 (D) x 128 (F) tile "
+                 "of each expert one owner reducing over the expert's rows "
+                 "up to live_rows (the rows past it, sentinel tiles, not "
+                 "read; a tail inside a stage from global memory), the "
+                 "parent's fmaf chain in row order (its outputs bit for "
+                 "bit), the experts with the longest range first, tiles "
+                 "across the wider of D and F, stores straight from the "
+                 "registers")
 SEG_DESIGN = {  # the segment-id instantiations of B1-B3
     name: (f"{base}'s kernel; before the role split one warp lists in "
            "shared memory the block's tiles whose [min, max] ids (a per-64 "
@@ -1420,6 +1438,62 @@ def check_quant_faults(v, s, w, rl, right):
     return results
 
 
+STRESS_CALLS = 100  # phase 10's calls of B6 and of B4-f32 on each layout
+
+
+def wrong_cells(got, want):
+    """Where ``got`` differs from ``want`` (2-D): the entries, the
+    128 x 128 output tiles (row tile, column tile) that hold them, and
+    their rows and columns."""
+    bad = (got != want).nonzero()[:100_000].tolist()
+    rows = sorted({r for r, _ in bad})
+    cols = sorted({c for _, c in bad})
+    tiles = sorted({(r // 128, c // 128) for r, c in bad})
+    return (f"{len(bad)} entries in output tiles {tiles[:8]}; rows "
+            f"{rows[:32]} ({len(rows)}); columns {cols[0]}-{cols[-1]} "
+            f"({len(cols)})")
+
+
+def stress_layout(runs, label, v, s, w, rl, calls, report_only=False):
+    """The f32 loop's stress check: ``calls`` calls of each kernel of
+    ``runs`` ({name: fn(v, s, xd, w, tile_expert, live_rows) -> y}) on
+    one expert-parallel layout with its ``live_rows``, each held bit for
+    bit against one call of this tree's B4-f32 on the dequantized rows
+    (which B6 must equal) and within 1e-4 of B6's plain version. A wrong
+    output is logged with its tiles, rows and columns, and fails the run
+    unless ``report_only``. Returns {name: wrong calls}."""
+    import torch
+
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import quantize
+
+    te, live = rl.tile_expert, rl.live_rows
+    xd = quantize.dequantize_block_scaled(v, s)
+    ref = gm.grouped_matmul_fwd(xd, w, te, BLOCK_T, live_rows=live)
+    plain = gm.grouped_matmul_fwd_quant_plain(v, s, w, te, BLOCK_T,
+                                              live_rows=live)
+    if not torch.allclose(ref, plain, atol=1e-4, rtol=1e-4):
+        fail(f"stress, {label}: B4-f32 disagrees with B6's plain version")
+    counts = {}
+    for name, fn in runs.items():
+        t0, bad = time.monotonic(), 0
+        for i in range(calls):
+            y = fn(v, s, xd, w, te, live)
+            if torch.equal(y, ref) and torch.allclose(y, plain, atol=1e-4,
+                                                      rtol=1e-4):
+                continue
+            bad += 1
+            log(f"  stress, {name} on {label}: call {i} WRONG: "
+                f"{wrong_cells(y, ref)}")
+            if not report_only:
+                fail(f"{name} gave a wrong output on {label} (call {i})")
+        counts[name] = bad
+        log(f"  stress, {name} on {label}: {calls} calls, {bad} wrong "
+            f"({time.monotonic() - t0:.1f} s)")
+    del xd, ref, plain
+    return counts
+
+
 def clocks_under(fn, seconds=2.0):
     """The SM clock and power draw (``nvidia-smi``, every 50 ms; medians
     of the samples taken while the calls ran) while ``fn`` runs back to
@@ -1484,20 +1558,23 @@ def expert_ends(te):
         right=True) * BLOCK_T).tolist()]
 
 
-def grouped_f32_bounds(rows, k, n, el, live, a_row_bytes=None):
+def grouped_f32_bounds(rows, k, n, el, live, a_row_bytes=None, dw=False):
     """The least times of an f32 grouped product of ``rows`` x ``k`` by
     ``el`` weights [k, n] with rows at or past ``live`` written as zeros,
     over the rows given and over the live rows: FFMA (2 rows k n at 67
     TFLOP/s, the design kept) and 3xTF32 tensor cores (3 x 2 rows k n at
     494.7 TFLOP/s), each or the bytes (the rows read, ``a_row_bytes`` a
     row, 4 k for f32; every weight read; every output row written) at
-    3.35 TB/s if larger."""
+    3.35 TB/s if larger. ``dw``: B5's dw [el, k, n] summed over the rows
+    of x [rows, k] and dy [rows, n] (the same operations; the rows of
+    both read, dw written)."""
     a_row_bytes = 4.0 * k if a_row_bytes is None else a_row_bytes
     out = {}
     for tag, used in (("given", rows), ("live", live)):
         ops = 2.0 * used * k * n
-        t_bytes = (used * a_row_bytes + 4.0 * (el * k * n + rows * n)) \
-            / PEAK_BYTES * 1e3
+        moved = (used * 4.0 * (k + n) + 4.0 * el * k * n if dw else
+                 used * a_row_bytes + 4.0 * (el * k * n + rows * n))
+        t_bytes = moved / PEAK_BYTES * 1e3
         out[tag] = {"gflop": ops / 1e9,
                     "ffma_ms": max(ops / PEAK_F32_FLOPS * 1e3, t_bytes),
                     "tf32x3_ms": max(3 * ops / PEAK_TF32_FLOPS * 1e3,
@@ -1559,19 +1636,116 @@ def f32_form_times(gm, label, a, w, rl, transpose_w):
             we = w[i]
             a[cut[i]:cut[i + 1]] @ (we.t() if transpose_w else we)
 
-    r = {"ms": time_ms(lambda: run(live)),
-         "device_ms": device_ms(lambda: run(live)),
-         "all_rows_ms": time_ms(lambda: run(None)),
-         "all_rows_device_ms": device_ms(lambda: run(None)),
-         "plain_ms": time_ms(lambda: gm.grouped_matmul_fwd_plain(
-             a, w, te, BLOCK_T, transpose_w, live), iters=5, warmup=1),
-         "loop_ms": time_ms(lambda: loop(rows), iters=5, warmup=1),
-         "loop_live_ms": time_ms(lambda: loop(n_live), iters=5, warmup=1),
-         "bounds": grouped_f32_bounds(rows, k, n, el, n_live),
-         "clocks": clocks_under(lambda: run(live)),
-         "f64": errs, "rows": rows, "live_rows": n_live}
+    r = f32_times(run, lambda: gm.grouped_matmul_fwd_plain(
+        a, w, te, BLOCK_T, transpose_w, live), loop, rl, rows,
+                  grouped_f32_bounds(rows, k, n, el, n_live), errs)
     log_f32_times(f"B4 f32 {label}", r)
     return r
+
+
+def dw_f32_form_times(gm, label, x, dy, rl):
+    """One f32 form of B5 at the expert-parallel rank's layout (x and dy
+    zero past ``live_rows``, as the layout leaves them): checked against
+    its plain version with and without ``live_rows`` (row rule and 1e-4
+    absolute plus relative; bit for bit the same either way), its f64
+    errors and its plain version's, then timed (both clocks) with and
+    without ``live_rows`` beside the plain version, a per-expert cuBLAS
+    loop (TF32 off) over the rows given and over the live rows, and both
+    bounds."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_check
+
+    te, live = rl.tile_expert, rl.live_rows
+    rows, k = x.shape
+    n = dy.shape[1]
+    el = int(te.max().item()) + 1
+    n_live = live.item()
+    ends = expert_ends(te)
+
+    def run(lr):
+        return gm.grouped_matmul_dw(x, dy, te, el, BLOCK_T, lr)
+
+    ref64 = torch.stack([x[ends[i]:ends[i + 1]].double().t()
+                         @ dy[ends[i]:ends[i + 1]].double()
+                         for i in range(el)])
+    errs, outs = {}, {}
+    for tag, lr in (("all rows", None), ("live_rows", live)):
+        got = outs[tag] = run(lr)
+        right = gm.grouped_matmul_dw_plain(x, dy, te, el, BLOCK_T, lr)
+        torch.cuda.synchronize()
+        ok = flash_check.rows_close(got, right) and bool(
+            torch.allclose(got, right, atol=1e-4, rtol=1e-4))
+        if not ok:
+            fail(f"B5 f32 {label} disagrees with its plain version ({tag}): "
+                 f"{flash_check.row_errors(got, right)}")
+        errs[tag] = {"kernel": f64_errors(got, ref64),
+                     "plain": f64_errors(right, ref64)}
+        del right
+    if not torch.equal(outs["all rows"], outs["live_rows"]):
+        fail(f"B5 f32 {label}: the run with live_rows differs from the one "
+             f"without it on inputs zero past it")
+    del outs, got, ref64
+
+    def loop(end):
+        cut = [min(e, end) for e in ends]
+        for i in range(el):
+            x[cut[i]:cut[i + 1]].t() @ dy[cut[i]:cut[i + 1]]
+
+    r = f32_times(run, lambda: gm.grouped_matmul_dw_plain(
+        x, dy, te, el, BLOCK_T, live), loop, rl, rows,
+                  grouped_f32_bounds(rows, k, n, el, n_live, dw=True), errs)
+    log_f32_times(f"B5 f32 {label}", r)
+    return r
+
+
+def ep_dw_forms(gm, quantize, v, s, rl, f, seed=21):
+    """B5's two f32 forms on rank 0's layout (``dw_f32_form_times``): the
+    up projection's dw (the dequantized rows and a gradient of y's
+    shape [rows, F]) and the down projection's (h [rows, F] and a
+    gradient [rows, D]), the gradients and h random on the live rows
+    and zero past them, as the layout leaves them."""
+    import torch
+
+    rows, d = v.shape
+    n = rl.live_rows.item()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def live(*shape):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        t[n:] = 0.0
+        return t
+
+    out = {}
+    for label, make in (
+            ("dw up", lambda: (quantize.dequantize_block_scaled(v, s),
+                               live(rows, f))),
+            ("dw down", lambda: (live(rows, f), live(rows, d)))):
+        x, dy = make()
+        out[label] = dw_f32_form_times(gm, label, x, dy, rl)
+        del x, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_times(run, plain, loop, rl, rows, bounds, errs):
+    """Phase 10's times of one f32 kernel, ``run(live_rows)``: both clocks
+    with the layout's ``live_rows`` (as the main path calls it) and
+    without, its plain version ``plain()``, ``loop(end)`` (a per-expert
+    cuBLAS loop over the rows below ``end``) over every row and over the
+    live rows, and the SM clock while it runs; with ``bounds`` and the
+    f64 errors ``errs`` beside them."""
+    live, n_live = rl.live_rows, rl.live_rows.item()
+    return {"ms": time_ms(lambda: run(live)),
+            "device_ms": device_ms(lambda: run(live)),
+            "all_rows_ms": time_ms(lambda: run(None)),
+            "all_rows_device_ms": device_ms(lambda: run(None)),
+            "plain_ms": time_ms(plain, iters=5, warmup=1),
+            "loop_ms": time_ms(lambda: loop(rows), iters=5, warmup=1),
+            "loop_live_ms": time_ms(lambda: loop(n_live), iters=5,
+                                    warmup=1),
+            "bounds": bounds, "clocks": clocks_under(lambda: run(live)),
+            "f64": errs, "rows": rows, "live_rows": n_live}
 
 
 def log_f32_times(label, r):
@@ -1642,9 +1816,7 @@ def quant_times(gm, quantize, v, s, w, rl):
     and over the live rows, both bounds over the rows given and the
     live rows, f64 errors of kernel and plain. No single PyTorch call
     computes this function: torch._grouped_mm takes bf16,
-    torch._scaled_grouped_mm wants both operands in fp8. Also B5's f32
-    path at the same rank's up projection (the dequantized rows and a
-    gradient of y's shape)."""
+    torch._scaled_grouped_mm wants both operands in fp8."""
     import torch
 
     te, live = rl.tile_expert, rl.live_rows
@@ -1673,36 +1845,22 @@ def quant_times(gm, quantize, v, s, w, rl):
         for i in range(el):
             x[cut[i]:cut[i + 1]] @ w[i]
 
-    dy = torch.randn(rows, f, device=v.device, generator=torch.Generator(
-        device=v.device).manual_seed(10))
-    b5_ms = time_ms(lambda: gm.grouped_matmul_dw(xd, dy, te, el, BLOCK_T),
-                    iters=5, warmup=1)
-    del xd, dy
-    r = {"ms": time_ms(lambda: run(live)),
-         "device_ms": device_ms(lambda: run(live)),
-         "all_rows_ms": time_ms(lambda: run(None)),
-         "all_rows_device_ms": device_ms(lambda: run(None)),
-         "plain_ms": time_ms(lambda: gm.grouped_matmul_fwd_quant_plain(
-             v, s, w, te, BLOCK_T, live), iters=5, warmup=1),
-         "loop_ms": time_ms(lambda: loop(rows), iters=5, warmup=1),
-         "loop_live_ms": time_ms(lambda: loop(n_live), iters=5, warmup=1),
-         "b5_f32_ms": b5_ms,
-         # B6's A is the fp8 values and their f32 scales
-         "bounds": grouped_f32_bounds(rows, d, f, el, n_live,
-                                      d + 4 * s.shape[1]),
-         "clocks": clocks_under(lambda: run(live)),
-         "f64": errs, "rows": rows, "live_rows": n_live,
-         "library_ms": None, "library_device_ms": None,
-         "library_call": "none: torch._grouped_mm takes bf16 and "
-                         "torch._scaled_grouped_mm wants both operands in "
-                         "fp8"}
+    del xd
+    # B6's A is the fp8 values and their f32 scales
+    r = f32_times(run, lambda: gm.grouped_matmul_fwd_quant_plain(
+        v, s, w, te, BLOCK_T, live), loop, rl, rows,
+                  grouped_f32_bounds(rows, d, f, el, n_live,
+                                     d + 4 * s.shape[1]), errs)
+    r.update({"library_ms": None, "library_device_ms": None,
+              "library_call": "none: torch._grouped_mm takes bf16 and "
+                              "torch._scaled_grouped_mm wants both operands "
+                              "in fp8"})
     b = r["bounds"]
     r["bound_ms"] = b["live"]["ffma_ms"]
     r["bound_by"] = ("operations" if b["live"]["ffma_ms"] > b["live"][
         "bytes_ms"] else "bytes")
     r["bound_peak"] = "67 TFLOP/s f32 on the CUDA cores, live rows"
     log_f32_times("B6 (grouped_matmul_fwd_quant)", r)
-    log(f"  B5 f32 at the same rank's up projection: {b5_ms:.3f} ms")
     return r
 
 
@@ -3237,7 +3395,7 @@ def _ptxas_lines(text):
     return lines
 
 
-def against(other, may_differ, variant=False):
+def against(other, may_differ, variant=False, stress=0):
     """``--against DIR``: this tree's flash and grouped kernels against
     another tree's (DIR holds its ``dlrover_tpu_torch/csrc``: a parent
     from ``git archive``, or a variant of this tree's sources). Fails
@@ -3428,22 +3586,24 @@ def against(other, may_differ, variant=False):
                 in_turns(label, name, mode, args)
         del q, k, v, do, out, lse, delta, args
         torch.cuda.empty_cache()
-    report["grouped"] = against_grouped(trees, work, variant)
+    report["grouped"] = against_grouped(trees, work, variant, stress)
     shutil.rmtree(work, ignore_errors=True)
     return report
 
 
-def against_grouped(trees, work, variant):
-    """``--against``'s grouped part: B4's f32 entry point (its four forms)
-    and B6's of both trees on rank 0's expert-parallel layout (phase
-    10's): outputs against each other (this tree without ``live_rows``
-    and with it, rows past it zero in both) and against the f64 product,
-    this tree's norm ratio no more than twice the other's and its bias no
-    more than twice the other's in magnitude; then both timed in turns
-    (other, this, this, other; both clocks), this tree with the layout's
-    ``live_rows`` (as the main path calls it) and without. A tree's entry
-    point takes ``live_rows`` when its source declares one more
-    pointer."""
+def against_grouped(trees, work, variant, stress=0):
+    """``--against``'s grouped part: B4's f32 entry point (its four
+    forms), B5's (dw at the up and the down projection) and B6's of both
+    trees on rank 0's expert-parallel layout (phase 10's): outputs
+    against each other (this tree without ``live_rows`` and with it, rows
+    past it zero in both; B5's inputs zero past it, as the layout leaves
+    them) and against the f64 product, this tree's norm ratio no more than
+    twice the other's and its bias no more than twice the other's in
+    magnitude; then both timed in turns (other, this, this, other; both
+    clocks), this tree with the layout's ``live_rows`` (as the main path
+    calls it) and without. B5's outputs also on phase 10's skewed and
+    ragged layouts. A tree's entry point takes ``live_rows`` when its
+    source declares one more pointer."""
     import ctypes
 
     import torch
@@ -3464,7 +3624,8 @@ def against_grouped(trees, work, variant):
         for name, entry, base in (
                 ("grouped_matmul_fwd", "dlr_grouped_matmul_fwd_f32", 5),
                 ("grouped_matmul_fwd_quant",
-                 "dlr_grouped_matmul_fwd_quant_f32", 6)):
+                 "dlr_grouped_matmul_fwd_quant_f32", 6),
+                ("grouped_matmul_dw", "dlr_grouped_matmul_dw_f32", 5)):
             with open(os.path.join(csrc, f"{name}.cu")) as src:
                 argtypes = _parse_entry(src.read(), entry)
             fn = getattr(ctypes.CDLL(str(work / f"{tree}_{name}.so")), entry)
@@ -3472,9 +3633,10 @@ def against_grouped(trees, work, variant):
             takes_live = sum(t == ctypes.c_void_p for t in argtypes) > base
             fns[(tree, name)] = (fn, takes_live)
 
-    def call(tree, name, pointers, ints, out, with_live):
+    def call(tree, name, pointers, ints, out, with_live, live_rows=None):
         fn, takes_live = fns[(tree, name)]
-        lr = [live.data_ptr() if with_live else 0] if takes_live else []
+        live_rows = live if live_rows is None else live_rows
+        lr = [live_rows.data_ptr() if with_live else 0] if takes_live else []
         code = fn(*(t.data_ptr() for t in pointers), *lr, out.data_ptr(),
                   *ints, torch.cuda.current_stream().cuda_stream)
         if code != 0:
@@ -3497,10 +3659,23 @@ def against_grouped(trees, work, variant):
         "y down": (dead_zero(rnd(rows, f)), w_down, 0),
         "dx through w_down^T": (dead_zero(rnd(rows, d)), w_down, 1),
         "dx through w_up^T": (dead_zero(rnd(rows, f)), w_up, 1)}
+    dw_cases = {  # label: (x, dy), B5's f32 forms
+        "dw up": (xd, dead_zero(rnd(rows, f))),
+        "dw down": (dead_zero(rnd(rows, f)), dead_zero(rnd(rows, d)))}
     ends = expert_ends(te)
     report = {"outputs": {}, "times_ms": {}}
 
+    def dw_run(x, dy, te_, lr=None):
+        def run(tree, with_live):
+            out = torch.empty((el, x.shape[1], dy.shape[1]), device="cuda")
+            return call(tree, "grouped_matmul_dw", (x, dy, te_),
+                        (x.shape[0], x.shape[1], dy.shape[1], el,
+                         te_.shape[0], BLOCK_T), out, with_live, lr)
+        return run
+
     def runner(label):
+        if label in dw_cases:
+            return dw_run(*dw_cases[label], te), None, None, None
         if label == "B6":
             def run(tree, with_live):
                 y = torch.empty((rows, f), device="cuda")
@@ -3518,18 +3693,28 @@ def against_grouped(trees, work, variant):
                         with_live)
         return run, a, w, tw
 
-    for label in (*cases, "B6"):
+    for label in (*cases, "B6", *dw_cases):
         run, a, w, tw = runner(label)
-        ref64 = torch.cat([a[ends[i]:ends[i + 1]].double() @ (
-            w[i].double().t() if tw else w[i].double()) for i in range(el)])
+        if label in dw_cases:
+            x, dy = dw_cases[label]
+            ref64 = torch.stack([x[ends[i]:ends[i + 1]].double().t()
+                                 @ dy[ends[i]:ends[i + 1]].double()
+                                 for i in range(el)])
+        else:
+            ref64 = torch.cat([a[ends[i]:ends[i + 1]].double() @ (
+                w[i].double().t() if tw else w[i].double())
+                for i in range(el)])
         outs = {"other": run("other", False), "this": run("this", False),
                 "this, live_rows": run("this", True)}
         torch.cuda.synchronize()
         errs = {t: f64_errors(o, ref64) for t, o in outs.items()}
         same = torch.equal(outs["this"], outs["other"])
-        dead = torch.count_nonzero(outs["this, live_rows"][n_live:]).item()
-        same_live = torch.equal(outs["this, live_rows"][:n_live],
-                                outs["other"][:n_live])
+        # dw has no rows past live_rows: its sums end there
+        cut = None if label in dw_cases else n_live
+        dead = (0 if cut is None else
+                torch.count_nonzero(outs["this, live_rows"][cut:]).item())
+        same_live = torch.equal(outs["this, live_rows"][:cut],
+                                outs["other"][:cut])
         mine, theirs = errs["this, live_rows"], errs["other"]
         within = (mine["norm_ratio"] <= 2 * theirs["norm_ratio"]
                   and abs(mine["bias"]) <= 2 * abs(theirs["bias"]))
@@ -3567,7 +3752,82 @@ def against_grouped(trees, work, variant):
             f"{t} {m['ms']:.3f} ms, device alone {m['device_ms']:.3f}"
             for t, m in got.items()))
         torch.cuda.empty_cache()
+    del cases, dw_cases
+    for label, (lv, ls, _, lrl) in (
+            ("skewed", ep_received_rows(
+                moe, quantize, d, f, 1,
+                bias=[-30.0, 3.0] + [0.0] * (MOE_EXPERTS - 2))[:4]),
+            ("ragged", ep_received_rows(moe, quantize, 200, 96, 2,
+                                        tokens=75)[:4])):
+        n = lrl.live_rows.item()
+        x_up = quantize.dequantize_block_scaled(lv, ls)
+        width = 96 if label == "ragged" else f
+        for form, (x, dy) in (("up", (x_up, rnd(x_up.shape[0], width))),
+                              ("down", (rnd(x_up.shape[0], width), x_up))):
+            x, dy = x.clone(), dy.clone()
+            x[n:], dy[n:] = 0.0, 0.0
+            run = dw_run(x, dy, lrl.tile_expert, lrl.live_rows)
+            other = run("other", False)
+            same = {"all rows": torch.equal(run("this", False), other),
+                    "live_rows": torch.equal(run("this", True), other)}
+            report["outputs"][f"dw {form}, {label}"] = same
+            log(f"  dw {form} on the {label} layout ({x.shape[0]} rows, "
+                f"live_rows {n}): this tree without and with live_rows "
+                + ", ".join("bit for bit" if ok else "DIFFERS"
+                            for ok in same.values()) + " the other's")
+            if not variant and not all(same.values()):
+                fail(f"dw {form} on the {label} layout differs from the other "
+                     f"tree's")
+        torch.cuda.empty_cache()
+    if stress:
+        report["stress"] = against_stress(call, v, s, w_up, rl, stress,
+                                          variant)
     return report
+
+
+def against_stress(call, v, s, w, rl, calls, variant):
+    """``--stress N``: ``stress_layout`` over phase 10's three layouts
+    (rank 0's, the skewed one and the ragged one, whose layout ``v``,
+    ``s``, ``w``, ``rl`` is the first) with both trees' B6 and B4-f32
+    entry points, N calls of each on each layout; with ``--variant`` a
+    wrong output is reported, not failed."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import moe, quantize
+
+    cfg = llama.llama2_7b()
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    layouts = (("main", lambda: (v, s, w, rl)),
+               ("skewed", lambda: ep_received_rows(
+                   moe, quantize, d, f, 1,
+                   bias=[-30.0, 3.0] + [0.0] * (MOE_EXPERTS - 2))[:4]),
+               ("ragged", lambda: ep_received_rows(
+                   moe, quantize, 200, 96, 2, tokens=75)[:4]))
+    counts = {}
+    for label, make in layouts:
+        lv, ls, lw, lrl = make()
+        rows, dd, ff, el = lv.shape[0], lv.shape[1], lw.shape[2], lw.shape[0]
+
+        def b6(tree):
+            return lambda v_, s_, xd, w_, te, lr: call(
+                tree, "grouped_matmul_fwd_quant", (v_, s_, w_, te),
+                (rows, dd, ff, el, s_.shape[1], BLOCK_T),
+                torch.empty((rows, ff), device="cuda"), True, lr)
+
+        def b4(tree):
+            return lambda v_, s_, xd, w_, te, lr: call(
+                tree, "grouped_matmul_fwd", (xd, w_, te),
+                (rows, dd, ff, el, BLOCK_T, 0),
+                torch.empty((rows, ff), device="cuda"), True, lr)
+
+        runs = {f"{k} ({tree})": fn(tree) for tree in ("other", "this")
+                for k, fn in (("B6", b6), ("B4 f32", b4))}
+        counts[label] = stress_layout(runs, label, lv, ls, lw, lrl, calls,
+                                      report_only=variant)
+        del lv, ls, lw, lrl
+        torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -3588,6 +3848,10 @@ def main():
                         help="with --against: DIR is a variant made by hand "
                              "(a stage compiled out); outputs that differ "
                              "are reported, not failed")
+    parser.add_argument("--stress", type=int, default=0, metavar="N",
+                        help="with --against: also N calls of both trees' "
+                             "B6 and B4-f32 on each of phase 10's layouts, "
+                             "each held bit for bit (against_stress)")
     args = parser.parse_args()
     try:
         import torch
@@ -3607,7 +3871,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.against:
-        report = against(args.against, args.may_differ, args.variant)
+        report = against(args.against, args.may_differ, args.variant,
+                         args.stress)
         if args.json:
             os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                         exist_ok=True)
@@ -3816,13 +4081,23 @@ def main():
                                                         q_right)
     del q_right
     torch.cuda.empty_cache()
-    log(f"B6 and B4's f32 forms on that layout ({rl.rows} rows of which "
-        f"{sum(real)} real, live_rows {rl.live_rows.item()}, D={d}, F={f}, "
-        f"{el} local experts; {card}):")
+    stress_runs = {
+        "B6": lambda v, s, xd, w, te, lr: gm.grouped_matmul_fwd_quant(
+            v, s, w, te, BLOCK_T, lr),
+        "B4 f32": lambda v, s, xd, w, te, lr: gm.grouped_matmul_fwd(
+            xd, w, te, BLOCK_T, live_rows=lr)}
+    report["stress"] = {"main": stress_layout(stress_runs, "main", v, s, w,
+                                              rl, STRESS_CALLS)}
+    torch.cuda.empty_cache()
+    log(f"B6 and the f32 forms of B4 and B5 on that layout ({rl.rows} rows "
+        f"of which {sum(real)} real, live_rows {rl.live_rows.item()}, D={d}, "
+        f"F={f}, {el} local experts; {card}):")
     q_times = quant_times(gm, quantize, v, s, w, rl)
     report["quant_kernel_times"] = q_times
     f32_forms = ep_f32_forms(gm, quantize, v, s, w, rl)
     report["f32_forms"] = f32_forms
+    dw_forms = ep_dw_forms(gm, quantize, v, s, rl, f)
+    report["dw_f32_forms"] = dw_forms
     report["quant_main_groups"] = {"tiles": tiles, "real_rows": real,
                                    "rows": rl.rows}
     del v, s, w, rl
@@ -3838,10 +4113,14 @@ def main():
     if real[0] != 0 or tiles[0] != 1:
         fail(f"the skewed routing is not skewed: {tiles}, {real}")
     check_quant(gm, quantize, v, s, w, rl, "skewed")
+    report["stress"]["skewed"] = stress_layout(stress_runs, "skewed", v, s,
+                                               w, rl, STRESS_CALLS)
     del v, s, w, rl
     v, s, w, rl, _ = ep_received_rows(moe, quantize, 200, 96, 2, tokens=75)
     check_quant(gm, quantize, v, s, w, rl, "ragged (75 tokens per source, "
                 "D=200: 25-channel scale blocks, F=96)")
+    report["stress"]["ragged"] = stress_layout(stress_runs, "ragged", v, s,
+                                               w, rl, STRESS_CALLS)
     del v, s, w, rl
     torch.cuda.empty_cache()
 
@@ -3911,17 +4190,18 @@ def main():
                           "down_plain_ms": tm["plain_ms"],
                           "down_bound_ms": tm["bound_ms"],
                           "down_library_ms": tm["library_ms"],
-                          "design": B5_DESIGN})
-        if name == "grouped_matmul_fwd":
+                          "design": f"{B5_DESIGN}; {B5_F32_DESIGN}"})
+        if name in ("grouped_matmul_fwd", "grouped_matmul_dw"):
             # the f32 forms at the expert-parallel rank (launched on that
             # path: its launches are counted under this name there)
+            forms = f32_forms if name == "grouped_matmul_fwd" else dw_forms
             entry["f32_ep"] = {
                 form: {key: tm[key] for key in (
                     "ms", "device_ms", "all_rows_ms", "all_rows_device_ms",
                     "plain_ms", "loop_ms", "loop_live_ms", "bounds",
                     "share", "all_rows_share", "f64", "live_rows", "rows",
                     "clocks")}
-                for form, tm in f32_forms.items()}
+                for form, tm in forms.items()}
             entry["f32_ep_launches"] = (
                 report["ep_train"]["ranks"][0]["launches"][name])
         if name == "grouped_matmul_fwd_quant":
@@ -3930,7 +4210,7 @@ def main():
                                f"{F32_DESIGN}")
             entry.update({key: t[key] for key in (
                 "all_rows_ms", "all_rows_device_ms", "loop_ms",
-                "loop_live_ms", "b5_f32_ms", "bounds", "share",
+                "loop_live_ms", "bounds", "share",
                 "all_rows_share", "f64", "live_rows", "rows", "clocks")})
         kernels.append(entry)
     for name in FLASH_KERNELS:

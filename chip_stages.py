@@ -809,8 +809,8 @@ __global__ void __launch_bounds__(128) tf32_tile(const float* A,
   }
 }
 
-// The parent's f32 arithmetic: each output a chain of fmaf over k in
-// order (Mma<float> of grouped_common.cuh).
+// The f32 grouped kernels' arithmetic: each output a chain of fmaf over
+// k in order (stage_fma of grouped_common.cuh).
 __global__ void ffma_tile(const float* A, const float* B, float* C, int K) {
   const int m = blockIdx.x, n = threadIdx.x;
   float acc = 0.f;
@@ -932,8 +932,9 @@ def sass(tree, out, parts):
     """Build TREE's flash and grouped sources into cubins, write the SASS
     of each kernel whose mangled name holds one of ``parts`` to
     OUT/<name>.sass and print, for each, its instructions, those under a
-    predicate, its branches, exponentials, wgmma, FFMA and shared-memory
-    loads and stores, and what ptxas reports of it."""
+    predicate, its branches, exponentials, wgmma, FFMA, shared-memory
+    loads (all, and the 16-byte ones) and stores, and what ptxas reports
+    of it."""
     import re
 
     sys.path.insert(0, ROOT)
@@ -972,6 +973,7 @@ def sass(tree, out, parts):
                     "ffma": sum(i.startswith("FFMA") or " FFMA" in i
                                 for i in ins),
                     "lds": sum("LDS" in i for i in ins),
+                    "lds128": sum("LDS.128" in i for i in ins),
                     "sts": sum("STS" in i for i in ins),
                 }
                 ptxas = [line.strip() for line in (

@@ -2,8 +2,8 @@
 // paths of the forward (flash_fwd.cu), dK/dV (flash_bwd_dkv.cu) and dQ
 // (flash_bwd_dq.cu). The bf16 paths of all three are wgmma kernels built
 // on hopper_common.cuh instead. The grouped-matmul kernels
-// (grouped_common.cuh) use its launcher, shared-memory carving and
-// conversions too.
+// (grouped_common.cuh) take only its includes and its error-string
+// macro.
 //
 // Layout: q/o/dq [B, H, Sq, D], k/v/dk/dv [B, H_kv, Sk, D], lse/delta
 // [B, H, Sq] f32, all contiguous. Query head h reads KV head

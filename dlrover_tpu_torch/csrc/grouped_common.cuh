@@ -30,7 +30,7 @@
 // zeros outside each tensor and writes nothing outside it, so a ragged
 // M, N or K edge needs no mask.
 //
-// f32 B4 and B6 (ffma::persistent_gemm; the expert-parallel rank's
+// f32 B4, B5 and B6 (ffma::persistent_gemm; the expert-parallel rank's
 // products): on the CUDA cores, bound by the 67 TFLOP/s of f32 FMA. The
 // tensor cores' 3xTF32 split would bound it lower, but they truncate
 // their f32 sums (a bias 15-40 times this loop's: chip_stages.py tf32).
@@ -38,14 +38,10 @@
 // and B tiles (SW128) in a 4-stage mbarrier ring; 256 consumer threads,
 // setmaxnreg 240, each an 8 x 8 block of a 128 x 128 output tile, four k
 // at a time from 16-byte shared reads; each output one fmaf chain over k
-// in order (gemm_tile's arithmetic, bit for bit). Row tiles at or past
-// live_rows come out as zeros with no load; live tiles go first.
-//
-// f32 B5 (the parity path, gemm_tile): one block a 128x64 tile, a ring of
-// kStages shared-memory buffers fed by cp.async (16-byte copies,
-// zero-filled past the edges of M, N and K), each thread an 8x4 block of
-// scalar FMA accumulators in registers. A is "MK" (A[m * lda + k]) or
-// "KM" (A[k * lda + m]), B "KN" (B[k * ldb + n]) or "NK" (B[n * ldb + k]).
+// in order (the arithmetic of the cp.async loop it replaced, bit for
+// bit). B4 and B6: row tiles at or past live_rows come out as zeros with
+// no load; live tiles go first. B5: live_rows ends each expert's
+// reduction over its rows.
 //
 // Every operand's contiguous dimension must be a multiple of 8 elements
 // and its base 16-byte aligned (the wrapper checks): a 16-byte chunk is
@@ -61,169 +57,6 @@
 
 namespace dlr {
 namespace gm {
-
-constexpr int kStages = 3;
-
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<float> {
-  static constexpr int BM = 128, BN = 64, BK = 16, PAD = 4;
-};
-
-// Shared-memory layout of one pipeline stage: the A tile, then the B
-// tile, each stored with its global layout's contiguous dimension
-// innermost (plus PAD elements against bank conflicts).
-template <typename T, bool A_KM, bool B_NK>
-struct Layout {
-  using C = Cfg<T>;
-  static constexpr int A_ROWS = A_KM ? C::BK : C::BM;
-  static constexpr int A_COLS = A_KM ? C::BM : C::BK;
-  static constexpr int B_ROWS = B_NK ? C::BN : C::BK;
-  static constexpr int B_COLS = B_NK ? C::BK : C::BN;
-  static constexpr int LDA = A_COLS + C::PAD;
-  static constexpr int LDB = B_COLS + C::PAD;
-  static constexpr int A_ELEMS = A_ROWS * LDA;
-  static constexpr int STAGE_ELEMS = A_ELEMS + B_ROWS * LDB;
-  static constexpr size_t SMEM = (size_t)kStages * STAGE_ELEMS * sizeof(T);
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying an R x C tile (contiguous along C in global and shared
-// memory) whose top-left element is (r0, c0) of a matrix with row stride
-// ld; rows >= r_lim and columns >= c_lim arrive as zeros.
-template <typename T, int R, int C>
-__device__ __forceinline__ void load_tile_async(T* dst, int ldd, const T* src,
-                                                int ld, int r0, int c0,
-                                                int r_lim, int c_lim) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CHUNKS = C / V;
-  static_assert(C % V == 0, "tile width must be whole 16-byte chunks");
-  for (int idx = threadIdx.x; idx < R * CHUNKS; idx += kThreads) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * V;
-    const int gr = r0 + r, gc = c0 + c;
-    const bool ok = gr < r_lim && gc < c_lim;
-    cp_async16(dst + r * ldd + c, ok ? src + (size_t)gr * ld + gc : src,
-               ok ? 16 : 0);
-  }
-}
-
-template <typename T, bool A_KM, bool B_NK>
-struct Mma;
-
-// f32: thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i (i < 8) and
-// columns tx + 16 j (j < 4) of the tile.
-template <bool A_KM, bool B_NK>
-struct Mma<float, A_KM, B_NK> {
-  using L = Layout<float, A_KM, B_NK>;
-  float acc[8][4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ void step(const float* sA, const float* sB) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-    for (int k = 0; k < Cfg<float>::BK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = ty + 16 * i;
-        a[i] = A_KM ? sA[k * L::LDA + m] : sA[m * L::LDA + k];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tx + 16 * j;
-        b[j] = B_NK ? sB[n * L::LDB + k] : sB[k * L::LDB + n];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  template <typename Out>
-  __device__ void store(Out* out, int ldc, int m0, int M, int n0, int N,
-                        unsigned char*) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (m < M && n < N) out[(size_t)m * ldc + n] = from_f<Out>(acc[i][j]);
-      }
-    }
-  }
-};
-
-// C[m0:m0+BM, n0:n0+BN] = sum over k in [k_begin, k_end) of
-// op(A)[m, k] op(B)[k, n], written to out (row stride ldc) where m < M
-// and n < N. An empty k range writes zeros.
-template <typename T, bool A_KM, bool B_NK, typename Out>
-__device__ void gemm_tile(const T* __restrict__ A, int lda,
-                          const T* __restrict__ B, int ldb, Out* out,
-                          int ldc, int m0, int M, int n0, int N, int k_begin,
-                          int k_end, unsigned char* smem) {
-  using C = Cfg<T>;
-  using L = Layout<T, A_KM, B_NK>;
-  T* ring = reinterpret_cast<T*>(smem);
-  const int nk = k_end > k_begin ? (k_end - k_begin + C::BK - 1) / C::BK : 0;
-
-  auto load = [&](int kt) {
-    T* sA = ring + (kt % kStages) * L::STAGE_ELEMS;
-    T* sB = sA + L::A_ELEMS;
-    const int k = k_begin + kt * C::BK;
-    if constexpr (A_KM) {
-      load_tile_async<T, C::BK, C::BM>(sA, L::LDA, A, lda, k, m0, k_end, M);
-    } else {
-      load_tile_async<T, C::BM, C::BK>(sA, L::LDA, A, lda, m0, k, M, k_end);
-    }
-    if constexpr (B_NK) {
-      load_tile_async<T, C::BN, C::BK>(sB, L::LDB, B, ldb, n0, k, N, k_end);
-    } else {
-      load_tile_async<T, C::BK, C::BN>(sB, L::LDB, B, ldb, k, n0, k_end, N);
-    }
-  };
-
-  Mma<T, A_KM, B_NK> mma;
-  mma.zero();
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's part)
-    __syncthreads();  // ... everyone's, and tile kt - 1 is no longer read
-    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
-    cp_async_commit();
-    const T* sA = ring + (kt % kStages) * L::STAGE_ELEMS;
-    mma.step(sA, sA + L::A_ELEMS);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the epilogue's staging
-  mma.store(out, ldc, m0, M, n0, N, smem);
-}
 
 // -- bf16: wgmma from TMA-fed shared memory ---------------------------------
 
@@ -446,16 +279,18 @@ struct Bars {
   uint64_t full[kStages], empty[kStages];
 };
 
-// acc[i][j] += A[m][k] B[k][n] for this thread's rows m = ty + 16 i and
-// columns n (K_MAJOR_B: tx + 16 j; else 4 tx + j % 4 + 64 (j / 4)), k
-// over the stage's 32 in order: one fmaf chain an output, as the parent
-// kernel's (gemm_tile's) arithmetic. A is the stage's K-major SW128 tile
-// [128 rows][32 k]; B is K-major [128 n][32 k] (dx: w[e] read as
-// [D][F]) or TMA's four SW128 boxes [32 k][32 n] (y: w[e] [D][F], box c
-// holding n in [32 c, 32 c + 32)). Every shared-memory read is 16 bytes:
-// four k of an A row or a K-major B row, or four n of a B row; the
-// lanes of a warp that read different rows read different bank groups.
-template <bool K_MAJOR_B>
+// acc[i][j] += A[m][k] B[k][n] for this thread's rows m (K_MAJOR_A:
+// ty + 16 i; else 4 ty + i % 4 + 64 (i / 4)) and columns n (K_MAJOR_B:
+// tx + 16 j; else 4 tx + j % 4 + 64 (j / 4)), k over the stage's 32 in
+// order: one fmaf chain an output, as the cp.async loop these kernels
+// replaced. A K-major operand is the stage's SW128 tile [128 m or n][32
+// k] (B4's x; B's w[e] read as [D][F] for dx); an MN-major one TMA's
+// four SW128 boxes [32 k][32 m or n], box c holding m or n in [32 c, 32 c
+// + 32) (B5's x^T and dy; B4's w[e] [D][F] for y). Every shared-memory
+// read is 16 bytes: four k of a K-major row, or four m or n of an MN-major
+// one; the lanes of a warp that read different rows, or different
+// columns of one row, read different bank groups.
+template <bool K_MAJOR_A, bool K_MAJOR_B>
 __device__ __forceinline__ void stage_fma(float (&acc)[8][8],
                                           const unsigned char* sA,
                                           const unsigned char* sB, int ty,
@@ -465,9 +300,15 @@ __device__ __forceinline__ void stage_fma(float (&acc)[8][8],
     float4 a[8], b[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int m = ty + 16 * i;
-      a[i] = *reinterpret_cast<const float4*>(sA + m * 128 +
-                                              ((kc ^ (m & 7)) * 16));
+      if constexpr (K_MAJOR_A) {  // a[i]: k 4 kc + [0, 4) of row m
+        const int m = ty + 16 * i;
+        a[i] = *reinterpret_cast<const float4*>(sA + m * 128 +
+                                                ((kc ^ (m & 7)) * 16));
+      } else {  // a[2 kk + h]: rows 4 ty + 64 h + [0, 4) at k 4 kc + kk
+        const int k = 4 * kc + i / 2, box = ty / 8 + 2 * (i % 2);
+        a[i] = *reinterpret_cast<const float4*>(
+            sA + box * 4096 + k * 128 + (((ty & 7) ^ (k & 7)) * 16));
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -485,7 +326,10 @@ __device__ __forceinline__ void stage_fma(float (&acc)[8][8],
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float av = reinterpret_cast<const float*>(&a[i])[kk];
+        const float av =
+            K_MAJOR_A
+                ? reinterpret_cast<const float*>(&a[i])[kk]
+                : reinterpret_cast<const float*>(&a[2 * kk + i / 4])[i % 4];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float bv =
@@ -500,18 +344,21 @@ __device__ __forceinline__ void stage_fma(float (&acc)[8][8],
 }
 
 // The persistent, warp-specialised loop over 128 x 128 output tiles in
-// f32. Form gives kKMajorB, kAByTma (A arrives by TMA with B; else each
-// consumer warp writes the 16 rows of each stage's A tile that it reads,
-// rows 2 w + [0, 2) + 16 i for warp w, one stage ahead: ARaw,
-// fetch_a(raw, tile, k, row, half) issues a lane's loads of row ``row``,
-// k + 16 half + [0, 16), before the stage's products, put_a(raw, sA,
-// tile, k, row, half) writes them after; the consumers then meet at a
-// named barrier, so no warp runs a stage ahead of the others), kBytes
+// f32. Form gives kKMajorA and kKMajorB (stage_fma), kLiveK (live bounds
+// the reduction, not the output rows: B5, below), kAByTma (A arrives by
+// TMA with B; else each consumer warp writes the 16 rows of each stage's
+// A tile that it reads, rows 2 w + [0, 2) + 16 i for warp w, one stage
+// ahead: ARaw, fetch_a(raw, tile, k, row, half) issues a lane's loads of
+// row ``row``, k + 16 half + [0, 16), before the stage's products,
+// put_a(raw, sA, tile, k, row, half) writes them after), kBytes
 // (a stage's TMA bytes), num_tiles, live (rows at or past it are written
 // as zeros), tile(id) (nk = 0 for a tile of dead rows: no load, no
 // product), load(a, b, bar, tile, k) (the TMA loads of the stage at k),
-// N and out (the [rows][N] f32 output). Launch with
-// kThreads threads and kSmem bytes.
+// N and out (the [rows][N] f32 output). With kLiveK the form's tile(id)
+// bounds nk by live itself, tail(acc, tile, ty, tx) adds the rows of k
+// past the tile's last whole stage, and the output is out [E][M][N]: a
+// tile's rows are those of its expert's [M][N] block, masked at M. Launch
+// with kThreads threads and kSmem bytes.
 template <class Form>
 __device__ __forceinline__ void persistent_gemm(const Form& form) {
   extern __shared__ unsigned char smem_raw[];
@@ -535,7 +382,7 @@ __device__ __forceinline__ void persistent_gemm(const Form& form) {
     if (threadIdx.x == kConsumers) {
       int it = 0;  // stages loaded so far, across tiles
       for (int id = blockIdx.x; id < form.num_tiles; id += gridDim.x) {
-        const ws::Tile tile = form.tile(id);
+        const auto tile = form.tile(id);
         for (int kt = 0; kt < tile.nk; ++kt, ++it) {
           const int s = it % kStages;
           if (it >= kStages) {
@@ -558,7 +405,7 @@ __device__ __forceinline__ void persistent_gemm(const Form& form) {
   const int a_half = lane % 2;
   int it = 0;  // stages consumed so far, across tiles
   for (int id = blockIdx.x; id < form.num_tiles; id += gridDim.x) {
-    const ws::Tile tile = form.tile(id);
+    const auto tile = form.tile(id);
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -570,7 +417,7 @@ __device__ __forceinline__ void persistent_gemm(const Form& form) {
         form.fetch_a(raw, tile, tile.k0, a_row, a_half);
         form.put_a(raw, base + (it % kStages) * kStage, tile, tile.k0, a_row,
                    a_half);
-        hop::bar_sync(1, kConsumers);
+        __syncwarp();  // the warp's lanes read each other's rows
       }
     }
     for (int kt = 0; kt < tile.nk; ++kt, ++it) {
@@ -582,27 +429,44 @@ __device__ __forceinline__ void persistent_gemm(const Form& form) {
       }
       hop::mbar_wait(&bar.full[s], (it / kStages) & 1);
       const unsigned char* stage = base + s * kStage;
-      stage_fma<Form::kKMajorB>(acc, stage, stage + kA, ty, tx);
+      stage_fma<Form::kKMajorA, Form::kKMajorB>(acc, stage, stage + kA, ty,
+                                                tx);
+      // The release lets the producer refill the stage by TMA, the async
+      // proxy; the stage's reads above are generic-proxy loads, the last
+      // of which ptxas issues just before the arrive (their FFMAs after
+      // it). The proxy fence orders them before that refill. Without it
+      // B6 came out wrong in about 1 % of its calls on the card: 16 rows
+      // of one warp, the tile's first 32 (or 64) columns, the first TMA
+      // box of a refill (PERF.md).
+      hop::fence_async_shared();
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(&bar.empty[s]);
       if constexpr (!Form::kAByTma) {
         // this warp last read these rows of that stage kStages - 1
-        // steps ago. Without the barrier (each warp only its own rows,
-        // warps free to run stages apart) a rare output came out wrong
-        // on the card, and the cause was not found: PERF.md.
+        // steps ago, and released it since
         if (more) {
           form.put_a(raw, base + ((it + 1) % kStages) * kStage, tile,
                      k_next, a_row, a_half);
-          hop::bar_sync(1, kConsumers);
+          __syncwarp();
         }
       }
     }
-    // straight from the registers: rows at or past live are zeros
+    if constexpr (Form::kLiveK) form.tail(acc, tile, ty, tx);
+    // straight from the registers: rows at or past live are zeros (with
+    // kLiveK, rows at or past M are not written)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int m = tile.m0 + ty + 16 * i;
-      const bool dead = m >= form.live;
-      float* row = form.out + (size_t)m * form.N + tile.n0;
+      const int m = tile.m0 + (Form::kKMajorA ? ty + 16 * i
+                                              : 4 * ty + i % 4 + 64 * (i / 4));
+      bool dead = false;
+      float* row;
+      if constexpr (Form::kLiveK) {
+        if (m >= form.M) continue;
+        row = form.out + ((size_t)tile.e * form.M + m) * form.N + tile.n0;
+      } else {
+        dead = m >= form.live;
+        row = form.out + (size_t)m * form.N + tile.n0;
+      }
       if constexpr (Form::kKMajorB) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {

@@ -34,9 +34,9 @@
 // live, w [2, 4096, 11008]: 185 GFLOP, 2.8 ms). x by TMA; w[e] for y as
 // four [32 k][32 n] boxes a stage (MN-major), for dx one [128 n][32 k]
 // box of its [D][F] rows (K-major), in place. Each output is the same
-// fmaf chain over k in order as the cp.async loop it replaced
-// (gemm_tile), so the outputs are bit for bit that loop's. Row tiles at
-// or past live_rows are written as zeros without reading x or w.
+// fmaf chain over k in order as the cp.async loop it replaced, so the
+// outputs are bit for bit that loop's. Row tiles at or past live_rows
+// are written as zeros without reading x or w.
 
 #include "grouped_common.cuh"
 
@@ -55,7 +55,8 @@ constexpr int kGroupRows = 8;  // row tiles per launch-order group
 // so a ragged K needs no mask.
 template <int TRANS_W>
 struct FwdF32Form {
-  static constexpr bool kKMajorB = TRANS_W != 0, kAByTma = true;
+  static constexpr bool kKMajorA = true, kKMajorB = TRANS_W != 0;
+  static constexpr bool kLiveK = false, kAByTma = true;
   static constexpr uint32_t kBytes = ffma::kStage;
   struct ARaw {};
   const CUtensorMap* tx;  // x [1, rows, K], box {32, 128}

@@ -35,12 +35,13 @@
 // through the TMA ring as for B4's y; A arrives as fp8 with its scales,
 // which TMA cannot widen, so each consumer warp dequantizes the 16 rows
 // of the A tile it reads, one stage ahead (its loads issued before the
-// stage's products, its stores after), and the consumers meet at a named
-// barrier each stage. The scale block of a channel is found without an
-// integer division (about 30 instructions a division; they and an
-// untaken per-channel path laid out in the loop cost 0.9 ms of 5.5:
-// PERF.md), and the per-channel scale path is an instantiation of its
-// own (ONE_SCALE false, qb not a multiple of 8). fp8 tensor cores
+// stage's products, its stores after), each warp on its own: the warps
+// need no barrier among them, only the loop's proxy fence before each
+// stage's release (grouped_common.cuh). The scale block of a channel is
+// found without an integer division (about 30 instructions a division;
+// they and an untaken per-channel path laid out in the loop cost 0.9 ms
+// of 5.5: PERF.md), and the per-channel scale path is an instantiation
+// of its own (ONE_SCALE false, qb not a multiple of 8). fp8 tensor cores
 // (wgmma) would break the bitwise contract with the f32 path.
 
 #include <cuda_fp8.h>
@@ -63,7 +64,8 @@ constexpr int kGroupRowsQ = 8;  // row tiles per launch-order group, as B4
 // channel's scale is read, a path the main instantiation does not carry.
 template <bool ONE_SCALE>
 struct QuantForm {
-  static constexpr bool kKMajorB = false, kAByTma = false;
+  static constexpr bool kKMajorA = true, kKMajorB = false;
+  static constexpr bool kLiveK = false, kAByTma = false;
   static constexpr uint32_t kBytes = ffma::kB;
   const CUtensorMap* tw;  // w [E, D, F], box {32, 32}
   const uint8_t* values;

@@ -12,7 +12,9 @@ tile of ``block_t`` rows belongs to one expert. The kernels, in
                       wgmma; f32 (the expert-parallel rank's products)
                       on the CUDA cores, skipping the row tiles at or
                       past ``live_rows``
-  grouped_matmul_dw   (B5) dw[e] = sum over e's row tiles of x^T dy, f32
+  grouped_matmul_dw   (B5) dw[e] = sum over e's row tiles of x^T dy, f32:
+                      bf16 on wgmma; f32 on the CUDA cores, each
+                      expert's sum ending at ``live_rows``
   grouped_matmul_fwd_quant
                       (B6) y = dequant(values, scales) @ w[e], f32: the
                       fp8 rows of the expert-parallel wire, dequantized
@@ -29,10 +31,11 @@ where the rows that hold anything end: the expert-parallel regroup pads
 to a static bound, and its rows from the end of the last local expert's
 group on read the zero sentinel (``ops.moe.RegroupLayout.live_rows``).
 Rows at or past it come out as zeros, on the CPU too; the f32 kernels
-write them without reading x or w. The bf16 kernels do not take it:
-their output there is the same, zero rows in, zero rows out, by the
-layout's contract. It differs from computing those rows only where w
-holds a non-finite value (0 * inf is NaN).
+write them without reading x or w, and B5's sums over the rows below it
+only. The bf16 kernels do not take it: their output there is the same,
+zero rows in, zero rows out (and zero rows add nothing to dw), by the
+layout's contract. It differs from computing those rows only where w,
+or for dw the other operand, holds a non-finite value (0 * inf is NaN).
 
 The TPU tiling rule (``_pick_block``) does not apply: the kernels mask
 ragged D and F edges. ``block_f`` is kept for API parity and does not
@@ -80,6 +83,8 @@ _ARGTYPES = {
     "grouped_matmul_fwd_f32": [_P] * 5 + [_I] * 6 + [_P],
     # rows, D, F, E, num_tiles, block_t
     "grouped_matmul_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # the f32 entry point: live_rows after tile_expert
+    "grouped_matmul_dw_f32": [_P] * 5 + [_I] * 6 + [_P],
     # values, scales, w, tile_expert, live_rows, y, then rows, D, F, E,
     # the scale blocks per row, block_t
     "grouped_matmul_fwd_quant": [_P] * 6 + [_I] * 6 + [_P],
@@ -120,10 +125,14 @@ def grouped_matmul_fwd_plain(x, w, tile_expert, block_t: int,
 
 
 def grouped_matmul_dw_plain(x, dy, tile_expert, num_experts: int,
-                            block_t: int):
-    """B5's function: ``dw[e] = x_e^T @ dy_e`` over expert e's rows, f32;
-    zeros for an expert that owns no row."""
+                            block_t: int, live_rows=None):
+    """B5's function: ``dw[e] = x_e^T @ dy_e`` over expert e's rows below
+    ``live_rows``, f32; zeros for an expert that owns no such row."""
     rows = _row_experts(tile_expert, block_t)
+    if live_rows is not None:  # a row past it belongs to no expert
+        index = torch.arange(rows.shape[0], device=rows.device)
+        rows = torch.where(index < live_rows.to(rows.device).long(), rows,
+                           rows.new_full((), -1))
     dw = torch.zeros((num_experts, x.shape[1], dy.shape[1]),
                      dtype=torch.float32, device=x.device)
     for e in range(num_experts):
@@ -236,24 +245,31 @@ def grouped_matmul_fwd(x, w, tile_expert, block_t: int = 128,
 
 
 def grouped_matmul_dw(x, dy, tile_expert, num_experts: int,
-                      block_t: int = 128):
-    """B5: ``[E, D, F]`` f32, zeros for an expert that owns no tile."""
+                      block_t: int = 128, live_rows=None):
+    """B5: ``[E, D, F]`` f32, zeros for an expert that owns no tile; each
+    expert's sum over its rows below ``live_rows`` (the f32 kernel reads
+    none past it; the bf16 one sums them too, zero by the layout's
+    contract)."""
     _check_shapes("grouped_matmul_dw", x, dy, tile_expert, block_t,
                   x.shape[-1])
     if dy.dim() != 2 or dy.shape[0] != x.shape[0]:
         raise ValueError(f"grouped_matmul_dw: dy {tuple(dy.shape)} does not "
                          f"have x's {x.shape[0]} rows")
+    _check_live_rows("grouped_matmul_dw", live_rows, x)
     if kernel_build.on_cpu("grouped matmul", x, dy, tile_expert):
         return grouped_matmul_dw_plain(x, dy, tile_expert, num_experts,
-                                       block_t)
+                                       block_t, live_rows)
     suffix = _kernel_suffix("grouped_matmul_dw", tile_expert, block_t, x, dy)
     d, f = x.shape[1], dy.shape[1]
     dw = torch.empty((num_experts, d, f), dtype=torch.float32,
                      device=x.device)
+    live = [_live_ptr(live_rows)] if suffix == "f32" else []
     kernel_build.launch(
-        "grouped_matmul_dw", suffix, _ARGTYPES["grouped_matmul_dw"], x.device,
-        x.data_ptr(), dy.data_ptr(), tile_expert.data_ptr(), dw.data_ptr(),
-        x.shape[0], d, f, num_experts, tile_expert.shape[0], block_t)
+        "grouped_matmul_dw", suffix,
+        _ARGTYPES["grouped_matmul_dw_f32" if live else "grouped_matmul_dw"],
+        x.device, x.data_ptr(), dy.data_ptr(), tile_expert.data_ptr(), *live,
+        dw.data_ptr(), x.shape[0], d, f, num_experts, tile_expert.shape[0],
+        block_t)
     grouped_matmul_dw.launches += 1
     return dw
 
@@ -373,7 +389,8 @@ class _GroupedMatmul(torch.autograd.Function):
                                     transpose_w=True, live_rows=live_rows)
         if ctx.needs_input_grad[1]:
             dw = grouped_matmul_dw(x, dy, tile_expert, w.shape[0],
-                                   ctx.block_t).to(w.dtype)
+                                   ctx.block_t,
+                                   live_rows=live_rows).to(w.dtype)
         return dx, dw, None, None, None
 
 
@@ -394,7 +411,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
       block_f: accepted for parity with the reference and ignored.
       live_rows: [1] int32 on x's device, or None (every row live):
         rows at or past it are zeros (see the module docstring); the
-        backward's dx is zero there too.
+        backward's dx is zero there too, and its dw sums the rows below
+        it only.
     Returns [Tp, F] in x's dtype (f32 accumulation inside).
     Differentiable in x (dx through B4 over w^T) and w (dw through B5,
     cast to w's dtype); ``tile_expert`` gets no gradient.
@@ -410,21 +428,21 @@ class _GroupedMatmulQuantized(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, scales, w, tile_expert, block_t: int,
                 live_rows):
-        ctx.save_for_backward(values, scales, tile_expert)
+        ctx.save_for_backward(values, scales, tile_expert, live_rows)
         ctx.block_t, ctx.num_experts = block_t, w.shape[0]
         return grouped_matmul_fwd_quant(values, scales, w, tile_expert,
                                         block_t, live_rows)
 
     @staticmethod
     def backward(ctx, dy):
-        values, scales, tile_expert = ctx.saved_tensors
+        values, scales, tile_expert, live_rows = ctx.saved_tensors
         dw = None
         if ctx.needs_input_grad[2]:
             # B5 over the dequantized rows, as the reference's _gmq_bwd
             x_deq = dequantize_block_scaled(values, scales)
             dw = grouped_matmul_dw(x_deq, dy.float().contiguous(),
                                    tile_expert, ctx.num_experts,
-                                   ctx.block_t)
+                                   ctx.block_t, live_rows=live_rows)
         # values and scales get zero (None): the rows arrived over the
         # wire already quantized, and the caller's wire boundary carries
         # the activation gradient

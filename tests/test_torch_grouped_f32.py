@@ -1,5 +1,5 @@
-"""The f32 grouped kernels' live rows (B4's f32 path and B6) against the
-reference, on the CPU.
+"""The f32 grouped kernels' live rows (B4's f32 path, B5's and B6)
+against the reference, on the CPU.
 
 The expert-parallel regroup (``ops/moe.py``'s ``regroup_layout``) pads
 the received rows to a static bound; every row from the padded end of
@@ -7,11 +7,14 @@ the last local expert's group on reads the zero sentinel.
 ``RegroupLayout.live_rows`` says where that is, and the f32 kernels skip
 the row tiles past it. Here: ``live_rows`` against the reference's own
 row map, the plain versions with ``live_rows`` against the Pallas
-kernels in interpret mode, the wrappers' checks of it, and a plain
+kernels in interpret mode (B5's ``dw`` summing the rows below it only),
+autograd through both grouped products against ``jax.grad``, the
+wrappers' checks of it, and a plain
 emulation of the 3xTF32 split that ``chip_stages.py tf32`` measured on
 the card and ruled out (its tensor-core accumulation is biased).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,6 +216,98 @@ def test_live_rows_through_autograd_and_the_wrappers():
     assert torch.equal(yq, yd)
 
 
+def _dw_case(recv, lo, nc, block_t, d, f, seed):
+    """x as rank 0's regroup lays out its received rows (zero sentinel
+    rows past ``live_rows``), a gradient dy random on the live rows and
+    zero past them, as the layout leaves it, and the layout."""
+    recv = np.asarray(recv, np.int32)
+    ep, el = recv.shape
+    rs = np.random.RandomState(seed)
+    lay = moe.regroup_layout(torch.from_numpy(recv), lo, nc, ep, el, block_t)
+    rows = rs.randn(ep * nc, d).astype(np.float32)
+    x = np.concatenate([rows, np.zeros((1, d), np.float32)])[
+        lay.row_src.numpy()]
+    dy = rs.randn(lay.rows, f).astype(np.float32)
+    dy[lay.live_rows.item():] = 0.0
+    return x, dy, lay
+
+
+@pytest.mark.parametrize("label,recv,lo,nc,block_t", LAYOUTS,
+                         ids=[c[0] for c in LAYOUTS])
+def test_plain_dw_with_live_rows_matches_the_pallas_kernel(
+        label, recv, lo, nc, block_t):
+    """B5's plain version with ``live_rows`` against the reference's dw
+    kernel (``_grouped_matmul_dw``) in interpret mode over every row, on
+    the reference's own regroup layouts, f32, within F32_TOL; and the
+    rows past ``live_rows`` are not summed at all: garbage put there
+    leaves the result bit for bit the same."""
+    d, f = 32, 48
+    x, dy, lay = _dw_case(recv, lo, nc, block_t, d, f, 5)
+    te, live = lay.tile_expert, lay.live_rows
+    el = int(np.asarray(recv).shape[1])
+    want = np.asarray(jax_gm._grouped_matmul_dw(
+        jnp.asarray(x), jnp.asarray(dy), jnp.asarray(te.numpy()), el,
+        block_t, 16, True))
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    got = gm.grouped_matmul_dw(xt, dyt, te, el, block_t, live_rows=live)
+    assert got.shape == (el, d, f) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL)
+    n = live.item()
+    rs = np.random.RandomState(6)
+    xg, dyg = xt.clone(), dyt.clone()
+    xg[n:] = torch.from_numpy(rs.randn(lay.rows - n, d).astype(np.float32))
+    dyg[n:] = torch.from_numpy(rs.randn(lay.rows - n, f).astype(np.float32))
+    assert torch.equal(gm.grouped_matmul_dw_plain(xg, dyg, te, el, block_t,
+                                                  live_rows=live), got)
+    if n < lay.rows:  # without it, the garbage is summed
+        assert not torch.equal(
+            gm.grouped_matmul_dw_plain(xg, dyg, te, el, block_t), got)
+
+
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["grouped_matmul", "grouped_matmul_quantized"])
+def test_autograd_dw_with_live_rows_matches_jax_grad(quantized):
+    """dW through ``grouped_matmul`` (B4 forward, B5 backward) and through
+    ``grouped_matmul_quantized`` (B6 forward, B5 on the dequantized rows)
+    with ``live_rows``: within F32_TOL of the reference's ``jax.grad`` of
+    the same loss over every row (the layout's rows past it are zero),
+    and within F32_TOL of the port's run without ``live_rows``."""
+    block_t, f = 8, 48
+    x, w, lay = _ep_case([[7, 0], [5, 1], [9, 0], [3, 0]], 10, block_t, 32,
+                         f, 7)
+    te, live = lay.tile_expert, lay.live_rows
+    n = live.item()
+    cot = np.random.RandomState(8).randn(x.shape[0], f).astype(np.float32)
+    cot[n:] = 0.0  # the layout's contract: no gradient past it
+    jte = jnp.asarray(te.numpy())
+    if quantized:
+        jv, js = jax_quantize.quantize_block_scaled(jnp.asarray(x))
+
+        def loss(jw):
+            return (jax_gm.grouped_matmul_quantized(
+                jv, js, jw, jte, block_t, 16, True) * cot).sum()
+    else:
+        def loss(jw):
+            return (jax_gm.grouped_matmul(jnp.asarray(x), jw, jte, block_t,
+                                          16, True) * cot).sum()
+    want = np.asarray(jax.grad(loss)(jnp.asarray(w)))
+    grads = []
+    for lr in (live, None):
+        wt = torch.from_numpy(w).requires_grad_()
+        if quantized:
+            v, s = quantize.quantize_block_scaled(torch.from_numpy(x))
+            y = gm.grouped_matmul_quantized(v, s, wt, te, block_t,
+                                            live_rows=lr)
+        else:
+            y = gm.grouped_matmul(torch.from_numpy(x), wt, te, block_t,
+                                  live_rows=lr)
+        (y * torch.from_numpy(cot)).sum().backward()
+        grads.append(wt.grad)
+    np.testing.assert_allclose(grads[0].numpy(), want, atol=F32_TOL)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(),
+                               atol=F32_TOL)
+
+
 @pytest.mark.parametrize("bad,err,match", [
     (torch.tensor([16], dtype=torch.int64), TypeError, "int32"),
     (torch.tensor([16.0]), TypeError, "int32"),
@@ -223,9 +318,9 @@ def test_live_rows_through_autograd_and_the_wrappers():
     (16, TypeError, "tensor or None"),
 ], ids=["int64", "float", "two_entries", "scalar", "other_device", "int"])
 def test_wrappers_refuse_a_bad_live_rows(bad, err, match):
-    """Both wrappers check ``live_rows`` before anything runs: int32,
-    shape [1], on x's device (the kernels read one int through a raw
-    pointer)."""
+    """The three wrappers that take it (B4, B6 and B5's dw) check
+    ``live_rows`` before anything runs: int32, shape [1], on x's device
+    (the kernels read one int through a raw pointer)."""
     x, w, lay = _ep_case([[7, 0], [5, 1], [9, 0], [3, 0]], 10, 8, 32, 48, 3)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     with pytest.raises(err, match=match):
@@ -234,6 +329,9 @@ def test_wrappers_refuse_a_bad_live_rows(bad, err, match):
     with pytest.raises(err, match=match):
         gm.grouped_matmul_fwd_quant(v, s, wt, lay.tile_expert, 8,
                                     live_rows=bad)
+    dy = torch.zeros((xt.shape[0], 48))
+    with pytest.raises(err, match=match):
+        gm.grouped_matmul_dw(xt, dy, lay.tile_expert, 2, 8, live_rows=bad)
 
 
 # -- the 3xTF32 split, emulated -------------------------------------------

@@ -763,23 +763,50 @@ def test_quant_kernel_matches_plain_on_card(cuda_device, tiles, d, f):
     ([1, 2, 1], 200, 96, 300),
     ([2, 1], 128, 256, 0),
     ([2, 1], 128, 256, 10 ** 6),
-], ids=["up", "down", "ragged_up", "ragged_down", "all_dead", "all_live"])
+    ([2, 6], 256, 384, 512),
+    ([1, 9], 256, 384, 1024),
+    ([2, 1, 3], 256, 384, 256),
+    ([1, 2, 1], 96, 200, 256),
+], ids=["up", "down", "ragged_up", "ragged_down", "all_dead", "all_live",
+        "main_like", "skewed", "expert_without_live_rows",
+        "ragged_whole_tiles"])
 def test_f32_kernels_with_live_rows_on_card(cuda_device, tiles, d, f, live):
     """B4's f32 forms (y = x w[e]; dx = dy w[e]^T, w read transposed in
     place) and B6 with and without ``live_rows``: within 1e-4 absolute
     plus relative of their plain versions; rows at or past it exactly
     zero, the rows before bit for bit the same kernel's without it (a
     dead row tile is skipped, not computed); B6 bit for bit dequantize +
-    B4's f32 path with the same ``live_rows``. Shapes with D < F (an up
-    projection) and D > F (a down one), ragged D and F (a K tail,
-    ragged columns), a ``live_rows`` inside a row tile, none live, and
-    one past the end (every row live)."""
+    B4's f32 path with the same ``live_rows``. B5's f32 dw: on inputs
+    zero past ``live_rows`` bit for bit the same with and without it; on
+    inputs that are not, the same result (nothing past it is read),
+    within 1e-4 of the plain version; an expert whose rows all lie past
+    it gets zeros. Shapes with D < F (an up projection) and D > F (a
+    down one), ragged D and F (a K tail, ragged columns), a
+    ``live_rows`` inside a row tile (B5's tail rows), none live, one
+    past the end (every row live), the expert-parallel layout's (the
+    last expert's pad tiles past it), a skewed one, and experts with no
+    live rows."""
     x, w, te, dy, bt = _grouped_case(cuda_device, torch.float32, tiles, d, f)
     lr = torch.tensor([live], dtype=torch.int32, device=cuda_device)
     n = min(live, x.shape[0])
+    e = len(tiles)
+    xz, dyz = x.clone(), dy.clone()
+    xz[n:], dyz[n:] = 0.0, 0.0
+    gm.reset_launch_counts()
+    dw_all = gm.grouped_matmul_dw(xz, dyz, te, e, bt)
+    dw_live = gm.grouped_matmul_dw(xz, dyz, te, e, bt, live_rows=lr)
+    dw_junk = gm.grouped_matmul_dw(x, dy, te, e, bt, live_rows=lr)
+    ref = gm.grouped_matmul_dw_plain(x, dy, te, e, bt, live_rows=lr)
+    torch.cuda.synchronize()
+    assert torch.equal(dw_all, dw_live) and torch.equal(dw_junk, dw_live)
+    torch.testing.assert_close(dw_live, ref, atol=1e-4, rtol=1e-4)
+    first = torch.searchsorted(te, torch.arange(e, device=cuda_device,
+                                                dtype=te.dtype)) * bt
+    for expert in range(e):
+        if first[expert].item() >= n:
+            assert torch.count_nonzero(dw_live[expert]).item() == 0
     v, s = quantize.quantize_block_scaled(x * 3)
     xd = quantize.dequantize_block_scaled(v, s)
-    gm.reset_launch_counts()
     for args, kwargs in (((x, w, te, bt), {}),
                          ((dy, w, te, bt), {"transpose_w": True})):
         full = gm.grouped_matmul_fwd(*args, **kwargs)
@@ -801,5 +828,5 @@ def test_f32_kernels_with_live_rows_on_card(cuda_device, tiles, d, f, live):
         assert torch.equal(y, b4)
     assert torch.count_nonzero(y[n:]).item() == 0
     assert gm.launch_counts() == {"grouped_matmul_fwd": 6,
-                                  "grouped_matmul_dw": 0,
+                                  "grouped_matmul_dw": 3,
                                   "grouped_matmul_fwd_quant": 2}
