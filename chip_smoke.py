@@ -124,6 +124,22 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      gradients against the reference path with the prefix-LM bias, and
      the loss of each path against an exact attention's over 64 batches
      with the prefix ignored and one key too wide as controls.
+  15. checkpoint and restore (``torch.distributed.checkpoint``) of the
+     dense and the MoE cell (phases 5 and 8's models, full width) through
+     ElasticTrainer and TrainExecutor with ``ckpt_dir`` in a temporary
+     directory: the free disk, /dev/shm and host RAM first (a dense cell
+     whose three host copies or two steps on disk do not fit runs 2
+     layers and says so), the host link's and the disk's rates; a
+     HostSnapshot after step 3 and step 4 run twice from it, bit for bit;
+     a forced async save at step 3 and steps 4-6 run on; a fresh trainer
+     restoring in ``prepare`` from the /dev/shm staging mirror and, the
+     mirror cleared, another from disk, each running steps 4-6 on the
+     same batches (losses and every bit of the state equal); on the
+     last, a NaN planted at step 5 under ``on_nonfinite="rollback"``:
+     the executor restores step 3 onto the built trainer and finishes
+     on the uninterrupted run's losses; the state bytes and the seconds
+     of the snapshot, its restore, the save's stage and commit and each
+     restore, beside the link's bound, on one line a cell.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -778,6 +794,23 @@ def grouped_times(gm, x, w, dy, lay):
     return results
 
 
+def main_trainer(llama, config, rule_set, example_batch, loss_fn=None,
+                 **kwargs):
+    """The main path's ElasticTrainer on the card: ``config``'s init and
+    loss (or ``loss_fn``), the example's AdamW, one device; ``kwargs``
+    go to the trainer (``ckpt_dir``)."""
+    from dlrover_tpu_torch.examples.train_llama import adamw
+    from dlrover_tpu_torch.parallel.mesh import single_device_plan
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    return ElasticTrainer(
+        llama.make_init_fn(config), loss_fn or llama.make_loss_fn(config),
+        adamw(), example_batch,
+        strategy=Strategy(mesh=single_device_plan(), rule_set=rule_set),
+        device="cuda", **kwargs)
+
+
 def train_main_path(llama, config, label, rule_set, kernels, expected,
                     card, active_fpt=None, batches=None):
     """Drive TrainExecutor + ElasticTrainer on ``config`` for STEPS
@@ -790,14 +823,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     import torch
 
     from dlrover_tpu_torch.common.config import get_context
-    from dlrover_tpu_torch.examples.train_llama import (
-        adamw,
-        synthetic_batches,
-    )
-    from dlrover_tpu_torch.parallel.mesh import single_device_plan
-    from dlrover_tpu_torch.parallel.strategy import Strategy
+    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
     from dlrover_tpu_torch.trainer.conf import build_configuration
-    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
     from dlrover_tpu_torch.trainer.executor import TrainExecutor, TrainHook
 
     if not config.use_flash:
@@ -829,12 +856,7 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     record = Record()
     if batches is None:
         batches = synthetic_batches(config.vocab_size, 1, SEQ)
-    trainer = ElasticTrainer(
-        llama.make_init_fn(config), llama.make_loss_fn(config), adamw(),
-        next(batches()),
-        strategy=Strategy(mesh=single_device_plan(), rule_set=rule_set),
-        device="cuda",
-    )
+    trainer = main_trainer(llama, config, rule_set, next(batches()))
     window = get_context().train_window  # the default, as users run it
     executor = TrainExecutor(
         trainer, train_iter_fn=batches, hooks=[record],
@@ -3291,6 +3313,385 @@ def glm_phases(glm, fa, remat, card):
     return report, errs, times
 
 
+# -- phase 15: checkpoint and restore ----------------------------------------
+
+CKPT_SAVE_AT, CKPT_STEPS = 3, 6  # the save after step 3; train to step 6
+DIGEST_CHUNK = 1 << 26  # elements a digest reduces at once
+
+
+def state_digest(state):
+    """Two position-weighted int64 sums of the bits of every parameter
+    and optimizer slot, reduced on their device: equal states give
+    equal lists, and one flipped bit changes the list."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.manager import state_tensors
+
+    tensors, _ = state_tensors(state)
+    sums = []
+    for name in sorted(tensors):
+        t = tensors[name].detach().reshape(-1)
+        bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                       1: torch.uint8}[t.element_size()])
+        for lo in range(0, bits.numel(), DIGEST_CHUNK):
+            c = bits[lo:lo + DIGEST_CHUNK].to(torch.int64)
+            w = torch.arange(lo, lo + c.numel(), device=c.device,
+                             dtype=torch.int64) * 2654435761 + 1
+            sums += [int(c.sum()), int((c * w).sum())]
+    return sums
+
+
+class PlantedNaN:
+    """The main path's loss with one NaN planted: after ``arm(n)`` the
+    n-th call returns NaN, and the calls after it are clean again."""
+
+    def __init__(self, loss_fn):
+        self.loss_fn, self.countdown = loss_fn, 0
+
+    def arm(self, n):
+        self.countdown = n
+
+    def __call__(self, params, batch, rng):
+        loss, aux = self.loss_fn(params, batch, rng)
+        if self.countdown:
+            self.countdown -= 1
+            if self.countdown == 0:
+                loss = loss * float("nan")
+        return loss, aux
+
+
+def meminfo_bytes(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    fail(f"/proc/meminfo has no {key}")
+
+
+def link_rates():
+    """GB/s of a 1 GiB copy card -> page-locked host memory and back
+    (median of 5 each)."""
+    import torch
+
+    n = 1 << 30
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+
+    def rate(dst, src):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            samples.append(n / (time.perf_counter() - t0) / 1e9)
+        return statistics.median(samples)
+
+    return rate(host, dev), rate(dev, host)
+
+
+def disk_write_rate(directory):
+    """GB/s of one 1 GiB file written and fsynced under ``directory``."""
+    block = os.urandom(1 << 24)
+    path = os.path.join(directory, "disk_rate.bin")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(64):
+            f.write(block)
+        f.flush()
+        os.fsync(f.fileno())
+    rate = (1 << 30) / (time.perf_counter() - t0) / 1e9
+    os.remove(path)
+    return rate
+
+
+def last_event(kind, since, **match):
+    """The newest event of ``kind`` after the ``since``-th event of the
+    ring whose fields equal ``match``."""
+    from dlrover_tpu_torch.telemetry import recent_events
+
+    for event in reversed(recent_events()[since:]):
+        if event["kind"] == kind and all(event.get(k) == v
+                                         for k, v in match.items()):
+            return event
+    fail(f"no {kind} event {match} in the phase's timeline")
+
+
+def free_memory():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def checkpoint_cell(llama, config, label, rule_set, root, rates, card):
+    """Phase 15 on one cell, through ElasticTrainer and TrainExecutor
+    with ``ckpt_dir`` under ``root``: a HostSnapshot at step 3 and step
+    4 run twice from it (determinism); a forced async save at step 3
+    and steps 4-6 run on; a fresh trainer restoring in ``prepare`` from
+    the staging mirror, another from disk with the mirror cleared, each
+    running steps 4-6 on the same batches (losses and the state's bits
+    equal); on the last, a NaN planted at step 5 under "rollback"."""
+    import torch
+
+    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
+    from dlrover_tpu_torch.telemetry import get_registry, names
+    from dlrover_tpu_torch.telemetry import recent_events
+    from dlrover_tpu_torch.trainer.conf import build_configuration
+    from dlrover_tpu_torch.trainer.executor import TrainExecutor, TrainHook
+
+    stream = synthetic_batches(config.vocab_size, 1, SEQ)()
+    batches = [next(stream) for _ in range(CKPT_STEPS)]
+    ckpt = os.path.join(root, rule_set)
+    d2h, h2d, disk = rates
+    since = len(recent_events())
+
+    def run(trainer, state, steps):
+        losses = []
+        for step in steps:
+            state, metrics = trainer.step(state, batches[step - 1])
+            losses.append(float(metrics["loss"]))
+            if not (math.isfinite(losses[-1]) and bool(metrics["finite"])):
+                fail(f"{label}: non-finite step {step}")
+        return state, losses
+
+    # A: steps 1-3, a snapshot and a forced async save, step 4 twice
+    trainer = main_trainer(llama, config, rule_set, batches[0],
+                           ckpt_dir=ckpt)
+    state = trainer.prepare()
+    if state.step != 0:
+        fail(f"{label}: {ckpt} held a checkpoint before the phase")
+    state, _ = run(trainer, state, range(1, CKPT_SAVE_AT + 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = trainer.snapshot(state)
+    take_s = time.perf_counter() - t0
+    nbytes = snap.nbytes()
+    t0 = time.perf_counter()
+    trainer.save(state)
+    stage_s = time.perf_counter() - t0
+    state, first = run(trainer, state, [CKPT_SAVE_AT + 1])
+    first_digest = state_digest(state)
+    t0 = time.perf_counter()
+    trainer.restore_snapshot(state, snap)
+    snap_restore_s = time.perf_counter() - t0
+    state, again = run(trainer, state, [CKPT_SAVE_AT + 1])
+    digest = state_digest(state)
+    deterministic = first == again and first_digest == digest
+    tol = 0.0
+    if not deterministic:
+        # which operations have no deterministic form: run step 4 once
+        # more with torch's determinism check warning on each
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                trainer.restore_snapshot(state, snap)
+                state, again = run(trainer, state, [CKPT_SAVE_AT + 1])
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).splitlines()[0] for w in caught
+                      if "determinis" in str(w.message)})
+        tol = abs(first[0] - again[0]) * 10
+        log(f"  {label}: step {CKPT_SAVE_AT + 1} from one snapshot is NOT "
+            f"deterministic (losses {first[0]!r} vs {again[0]!r}, state "
+            f"bits equal: {first_digest == digest}); torch names {ops}; "
+            f"the resumes below are held to 10x the loss difference, "
+            f"{tol:.3e}, and their bits are not compared")
+    del snap
+    state, later = run(trainer, state, range(CKPT_SAVE_AT + 2,
+                                              CKPT_STEPS + 1))
+    want = again + later
+    want_digest = state_digest(state)
+    mgr = trainer.checkpoint_manager
+    t0 = time.perf_counter()
+    if trainer.finalize():
+        fail(f"{label}: the staging mirror of step {CKPT_SAVE_AT} timed out")
+    drain_s = time.perf_counter() - t0
+    commit_s = mgr.commit_seconds[CKPT_SAVE_AT]
+    mirror_s = last_event("ckpt_mirror", since,
+                          step=CKPT_SAVE_AT)["mirror_seconds"]
+    del trainer, state, mgr
+    free_memory()
+
+    def check_resume(trainer, source, what):
+        mark = len(recent_events())
+        t0 = time.perf_counter()
+        state = trainer.prepare()
+        prepare_s = time.perf_counter() - t0
+        event = last_event("ckpt_restore", mark, step=CKPT_SAVE_AT)
+        if state.step != CKPT_SAVE_AT or event.get("source") != source:
+            fail(f"{label}: {what} restored step {state.step} from "
+                 f"{event.get('source')}, expected {CKPT_SAVE_AT} from "
+                 f"{source}")
+        state, got = run(trainer, state, range(CKPT_SAVE_AT + 1,
+                                               CKPT_STEPS + 1))
+        same_bits = state_digest(state) == want_digest
+        worst = max(abs(a - b) for a, b in zip(got, want))
+        if worst > tol or (deterministic and not same_bits):
+            fail(f"{label}: resumed from {what}: losses {got} vs {want}, "
+                 f"state bits equal: {same_bits}")
+        log(f"  {label}: resumed from {what} at step {CKPT_SAVE_AT} "
+            f"(restore {event['restore_seconds']:.2f} s, prepare "
+            f"{prepare_s:.2f} s): steps {CKPT_SAVE_AT + 1}-{CKPT_STEPS} "
+            f"losses {got} equal the uninterrupted run's: {got == want}; "
+            f"state bits equal: {same_bits}")
+        return state, event["restore_seconds"], got == want, same_bits
+
+    # B: a fresh trainer restores from the staging mirror
+    trainer = main_trainer(llama, config, rule_set, batches[0],
+                           ckpt_dir=ckpt)
+    state, staging_s, staging_losses, staging_bits = check_resume(
+        trainer, "staging", "the staging mirror")
+    trainer.checkpoint_manager.clear_staging()
+    trainer.finalize()
+    del trainer, state
+    free_memory()
+
+    # C: from disk, then the rollback on the same built trainer
+    loss_fn = PlantedNaN(llama.make_loss_fn(config))
+    trainer = main_trainer(llama, config, rule_set, batches[0],
+                           loss_fn=loss_fn, ckpt_dir=ckpt)
+    state, disk_s, disk_losses, disk_bits = check_resume(
+        trainer, "primary", "disk (the mirror cleared)")
+    mark = len(recent_events())
+    state = trainer.restore_state(state)
+    if state.step != CKPT_SAVE_AT:
+        fail(f"{label}: restore_state gave step {state.step}")
+
+    class Record(TrainHook):
+        def __init__(self):
+            self.losses = {}
+
+        def after_step(self, step, metrics):
+            self.losses[step] = metrics["loss"]
+
+    record = Record()
+    executor = TrainExecutor(
+        trainer, train_iter_fn=lambda: iter(batches[CKPT_SAVE_AT:]),
+        hooks=[record], conf=build_configuration({
+            "train_steps": CKPT_STEPS, "check_finite_every_steps": 1,
+            "on_nonfinite": "rollback", "log_every_steps": 1}))
+    executor.state = state
+    rollbacks = get_registry().counter(names.NONFINITE_ROLLBACKS).value
+    loss_fn.arm(2)  # the second step from here: step 5
+    t0 = time.perf_counter()
+    out = executor.train_and_evaluate()
+    rollback_run_s = time.perf_counter() - t0
+    restored = last_event("rollback_restored", mark)
+    rollback_restore = last_event("ckpt_restore", mark)
+    got = [record.losses[s] for s in range(CKPT_SAVE_AT + 1, CKPT_STEPS + 1)]
+    rollback_bits = state_digest(executor.state) == want_digest
+    if (out["step"] != CKPT_STEPS or restored["restored_step"] !=
+            CKPT_SAVE_AT or restored["step"] != CKPT_SAVE_AT + 2
+            or get_registry().counter(names.NONFINITE_ROLLBACKS).value
+            != rollbacks + 1
+            or not all(math.isfinite(v) for v in got)):
+        fail(f"{label}: the rollback run ended at step {out['step']} with "
+             f"losses {got} ({restored})")
+    worst = max(abs(a - b) for a, b in zip(got, want))
+    if worst > tol or (deterministic and not rollback_bits):
+        fail(f"{label}: after the rollback, losses {got} vs {want}, state "
+             f"bits equal: {rollback_bits}")
+    final = last_event("ckpt_save", mark, step=CKPT_STEPS)
+    final_mgr = trainer.checkpoint_manager
+    log(f"  {label}: NaN planted at step {CKPT_SAVE_AT + 2} under "
+        f"on_nonfinite=rollback: restored step {restored['restored_step']} "
+        f"onto the built trainer ({rollback_restore['source']}, "
+        f"{rollback_restore['restore_seconds']:.2f} s), finished at step "
+        f"{out['step']} with losses {got} (the uninterrupted run's: "
+        f"{got == want}; state bits equal: {rollback_bits}); its final "
+        f"forced save staged in {final['stage_seconds']:.2f} s and "
+        f"committed {final_mgr.commit_seconds[CKPT_STEPS]:.1f} s after; run "
+        f"{rollback_run_s:.1f} s")
+    final_mgr.clear_staging()
+    del trainer, state, executor, final_mgr
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cell = {
+        "config": label, "state_bytes": nbytes,
+        "params": llama.param_count(config),
+        "deterministic": deterministic, "loss_tolerance": tol,
+        "snapshot_take_s": take_s, "snapshot_restore_s": snap_restore_s,
+        "snapshot_take_gbps": nbytes / take_s / 1e9,
+        "snapshot_restore_gbps": nbytes / snap_restore_s / 1e9,
+        "link_d2h_gbps": d2h, "link_h2d_gbps": h2d,
+        "take_bound_s": nbytes / d2h / 1e9,
+        "restore_bound_s": nbytes / h2d / 1e9,
+        "save_stage_s": stage_s, "commit_s": commit_s,
+        "commit_gbps": nbytes / commit_s / 1e9, "mirror_s": mirror_s,
+        "finalize_wait_s": drain_s,
+        "restore_staging_s": staging_s, "restore_disk_s": disk_s,
+        "rollback_restore_s": rollback_restore["restore_seconds"],
+        "final_save_stage_s": final["stage_seconds"],
+        "disk_write_gbps": disk,
+        "losses": want, "staging_losses_equal": staging_losses,
+        "staging_bits_equal": staging_bits,
+        "disk_losses_equal": disk_losses, "disk_bits_equal": disk_bits,
+        "rollback_losses": got, "rollback_bits_equal": rollback_bits,
+        "card": card,
+    }
+    log(f"  {label}: state {nbytes / 1e9:.2f} GB; HostSnapshot.take "
+        f"{take_s:.2f} s ({cell['snapshot_take_gbps']:.1f} GB/s; bound "
+        f"{cell['take_bound_s']:.2f} s at {d2h:.1f} GB/s), restore "
+        f"{snap_restore_s:.2f} s ({cell['snapshot_restore_gbps']:.1f} GB/s; "
+        f"bound {cell['restore_bound_s']:.2f} s at {h2d:.1f} GB/s); save "
+        f"stage {stage_s:.2f} s (the loop blocked), commit {commit_s:.1f} s "
+        f"({cell['commit_gbps']:.2f} GB/s), mirror {mirror_s:.1f} s; "
+        f"restore from staging {staging_s:.2f} s, from disk {disk_s:.2f} s, "
+        f"rollback's {cell['rollback_restore_s']:.2f} s; disk write "
+        f"{disk:.2f} GB/s on 1 GiB; {card}")
+    return cell
+
+
+def checkpoint_phase(llama, config, moe_config, card):
+    """Phase 15: checkpoint and restore of the dense and the MoE cell
+    (``checkpoint_cell``) at full width."""
+    import tempfile
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    disk_free = shutil.disk_usage(root).free
+    shm = shutil.disk_usage("/dev/shm")
+    ram, avail = meminfo_bytes("MemTotal"), meminfo_bytes("MemAvailable")
+    log(f"  free disk under {root}: {disk_free / 2**30:.1f} GiB; /dev/shm "
+        f"{shm.total / 2**30:.1f} GiB ({shm.free / 2**30:.1f} free); host "
+        f"RAM {ram / 2**30:.1f} GiB ({avail / 2**30:.1f} available)")
+    d2h, h2d = link_rates()
+    disk = disk_write_rate(root)
+    log(f"  host link (1 GiB, page-locked): {d2h:.1f} GB/s to the host, "
+        f"{h2d:.1f} GB/s to the card; disk write {disk:.2f} GB/s (1 GiB, "
+        f"fsynced); {card}")
+    report = {"root_free_bytes": disk_free, "shm_bytes": shm.total,
+              "ram_bytes": ram, "ram_available_bytes": avail,
+              "link_d2h_gbps": d2h, "link_h2d_gbps": h2d,
+              "disk_write_gbps": disk}
+    cells = (("dense", config, "llama"), ("moe", moe_config, "moe"))
+    for name, cfg, rule_set in cells:
+        # the snapshot, the save's host copy and the staging copy in RAM;
+        # steps 3 and 6 on disk
+        state_bytes = llama.param_count(cfg) * 3 * 4
+        note = ""
+        if 3 * state_bytes > avail or 2 * state_bytes > disk_free:
+            cfg = dataclasses.replace(cfg, num_layers=2)
+            note = (f" (cut to 2 layers: 3 x {state_bytes / 2**30:.1f} GiB "
+                    f"of host copies or 2 x of steps on disk do not fit)")
+        label = (f"{name}: {'llama3_8b' if name == 'dense' else 'llama2_7b+moe8'}"
+                 f" x{cfg.num_layers} layers, batch 1 x {SEQ}")
+        log(f"checkpoint cell {label}{note}:")
+        report[name] = checkpoint_cell(llama, cfg, label, rule_set, root,
+                                       (d2h, h2d, disk), card)
+        report[name]["cut"] = note
+    shutil.rmtree(root, ignore_errors=True)
+    report["wall_s"] = time.monotonic() - t0
+    log(f"  phase 15 wall time {report['wall_s']:.1f} s")
+    return report
+
+
 def _parse_entry(source, entry):
     """ctypes argument types of ``extern "C" int <entry>(...)`` in a
     kernel source's text: a pointer for each ``*`` parameter, else int
@@ -4134,6 +4535,11 @@ def main():
 
     glm_report, pfx_errs, pfx_times = glm_phases(glm, fa, remat, card)
     report.update(glm_report)
+    torch.cuda.empty_cache()
+
+    log(f"phase 15, checkpoint and restore (torch.distributed.checkpoint; "
+        f"{card}):")
+    report["checkpoint"] = checkpoint_phase(llama, config, moe_config, card)
 
     kernels = []
     for name in FLASH_KERNELS:

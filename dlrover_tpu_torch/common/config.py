@@ -24,9 +24,13 @@ class Context:
         self.train_window = 4
         # optimizer steps per call; only 1 exists in this slice
         self.steps_per_call = 1
-        # on a non-finite step: "halt" | "ignore" ("rollback" needs the
-        # checkpoint slice and is refused)
+        # on a non-finite step: "halt" | "ignore" | "rollback" (restore
+        # the newest checkpoint and go on)
         self.on_nonfinite = "halt"
+        # checkpoint: save in the background after a host copy of the
+        # state; mirror committed steps into host DRAM (/dev/shm)
+        self.ckpt_async = True
+        self.ckpt_host_staging = True
         # master switch for the metrics registry, events and spans
         self.telemetry_enabled = True
         # JSONL event sink ("" = in-memory ring only)

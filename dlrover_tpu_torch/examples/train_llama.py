@@ -28,8 +28,9 @@ sharded over the ranks (``rule_set="moe_ep"``); ``--moe_precision`` and
         --moe_experts 8 --moe_top_k 2 --moe_dispatch grouped_ep \
         --moe_precision fp8
 
-``--ckpt_dir``, ``--ring`` and ``--pipe`` belong to later slices and are
-refused.
+``--ckpt_dir DIR`` checkpoints the run there (a forced save at the end)
+and resumes from the newest step DIR holds. ``--ring`` and ``--pipe``
+belong to later slices and are refused.
 """
 
 from __future__ import annotations
@@ -125,7 +126,7 @@ def main(argv=None, hooks=()):
                    help="process-group backend over several ranks "
                         "(default: nccl on the GPU, gloo on the CPU)")
     args = p.parse_args(argv)
-    for flag in ("ckpt_dir", "ring", "pipe", "pipe_depths"):
+    for flag in ("ring", "pipe", "pipe_depths"):
         if getattr(args, flag):
             p.error(f"--{flag} is not ported yet (see ROADMAP.md)")
 
@@ -157,6 +158,7 @@ def main(argv=None, hooks=()):
         adamw(),
         next(batches()),
         strategy=strategy,
+        ckpt_dir=args.ckpt_dir,
         device=device,
         dispatch_chunks=args.dispatch_chunks,
         moe_precision=args.moe_precision,

@@ -12,6 +12,11 @@ the same tree with the expert leaves (``experts/{up,down}/kernel``: the
 expert dim is 1 of a stacked ``[L, E, ...]`` leaf, 0 of an ``[E, ...]``
 one) cut to its block of experts ``[r E/P, (r+1) E/P)``, as the
 reference's ``moe_ep`` rules shard them.
+
+``train_state_from_numpy`` carries a whole training state over: the
+parameters as above and ``optax.adamw``'s moments into the per-parameter
+slots of ``torch.optim.AdamW``, so a checkpoint of the JAX package
+resumes in the port (``train_state_to_numpy`` is its inverse).
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
 
 
 def _expert_block(a, expert_shard: Tuple[int, int]):
+    from dlrover_tpu_torch.parallel.strategy import shard_dim
+
     rank, ranks = expert_shard
-    axis = 1 if a.ndim == 4 else 0
+    axis = shard_dim(a.ndim)
     per, rest = divmod(a.shape[axis], ranks)
     if rest:
         raise ValueError(f"{a.shape[axis]} experts do not split over "
@@ -69,3 +76,92 @@ def params_to_numpy(params: Dict) -> Dict:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy().copy()
+
+
+def _adam_state(opt_state):
+    """The element of an optax state holding Adam's ``count``, ``mu``
+    and ``nu`` (``optax.adamw``'s state is ``(ScaleByAdamState(count,
+    mu, nu), EmptyState(), EmptyState())``)."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for item in opt_state:
+            found = _adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
+def _unflatten(pairs) -> Dict:
+    tree: Dict = {}
+    for path, leaf in pairs:
+        node = tree
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def train_state_from_numpy(state, optimizer, device: DeviceLike = None,
+                           expert_shard: Optional[Tuple[int, int]] = None):
+    """The reference's ``TrainState`` with numpy leaves
+    (``jax.device_get(state)``; ``opt_state`` from ``optax.adamw``) ->
+    the port's ``TrainState`` on ``device``: the parameters through
+    ``params_from_numpy`` (``expert_shard`` as there), and an optimizer
+    built by ``optimizer`` (a ``torch.optim.AdamW`` factory) whose
+    per-parameter ``step``, ``exp_avg`` and ``exp_avg_sq`` are Adam's
+    ``count``, ``mu`` and ``nu``, path for path."""
+    from dlrover_tpu_torch.checkpoint.manager import slot_device
+    from dlrover_tpu_torch.models.common import tree_leaves
+    from dlrover_tpu_torch.parallel.accelerate import (
+        TrainState,
+        _named_leaves,
+    )
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("the reference state holds no Adam moments "
+                         "(count, mu, nu)")
+    params = params_from_numpy(state.params, device, expert_shard)
+    mu = dict(_named_leaves(params_from_numpy(adam.mu, device,
+                                              expert_shard)))
+    nu = dict(_named_leaves(params_from_numpy(adam.nu, device,
+                                              expert_shard)))
+    for _, p in _named_leaves(params):
+        p.requires_grad_(p.is_floating_point())
+    opt = optimizer(tree_leaves(params))
+    count = float(np.asarray(adam.count))
+    for path, p in _named_leaves(params):
+        opt.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32,
+                                 device=slot_device(opt, p, "step")),
+            "exp_avg": mu[path].to(p.dtype),
+            "exp_avg_sq": nu[path].to(p.dtype),
+        }
+    return TrainState(step=int(np.asarray(state.step)), params=params,
+                      opt_state=opt)
+
+
+def train_state_to_numpy(state) -> Dict:
+    """The port's ``TrainState`` -> {"step", "params", "count", "mu",
+    "nu"} as numpy (the reference's names for AdamW's ``step``,
+    ``exp_avg`` and ``exp_avg_sq``; zeros and count 0 before the first
+    step)."""
+    from dlrover_tpu_torch.parallel.accelerate import _named_leaves
+
+    named = _named_leaves(state.params)
+    slots = state.opt_state.state
+    counts = {float(slots[p]["step"]) for _, p in named if p in slots}
+    if len(counts) > 1:
+        raise ValueError(f"the parameters' step counts differ: {counts}")
+
+    def moment(key):
+        return params_to_numpy(_unflatten(
+            (path, slots[p][key] if p in slots else torch.zeros_like(p))
+            for path, p in named))
+
+    return {"step": int(state.step), "params": params_to_numpy(
+                state.params),
+            "count": int(counts.pop()) if counts else 0,
+            "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}

@@ -31,6 +31,12 @@ def is_sharded(rule_set: str, path: str) -> bool:
     return rule_set == "moe_ep" and bool(_EXPERT_LEAF.search(path))
 
 
+def shard_dim(ndim: int) -> int:
+    """The dim a sharded (expert) leaf is split on over the ranks: 1 of
+    a stacked [L, E, ...] leaf, 0 of an [E, ...] one."""
+    return 1 if ndim == 4 else 0
+
+
 @dataclass
 class DtypePolicy:
     param_dtype: str = "float32"

@@ -1,13 +1,22 @@
-"""Metric, event and span names the trainer uses (the subset of
-``dlrover_tpu/telemetry/names.py`` this slice emits, with the same
-values, so one dashboard reads both packages)."""
+"""Metric, event and span names the trainer and the checkpoint emit (the
+subset of ``dlrover_tpu/telemetry/names.py`` the port emits, with the
+same values, so one dashboard reads both packages)."""
 
 STEP_TIME = "dlrover_step_time_seconds"
 STEP_DISPATCH_TIME = "dlrover_step_dispatch_seconds"
 STEP_HOST_SYNC_TIME = "dlrover_step_host_sync_seconds"
 TRAIN_STEPS = "dlrover_train_steps_total"
 NONFINITE_STEPS = "dlrover_nonfinite_steps_total"
+NONFINITE_ROLLBACKS = "dlrover_nonfinite_rollbacks_total"
+PREEMPT_NOTICES = "dlrover_preemption_notices_total"
 EVAL_TIME = "dlrover_eval_seconds"
+SNAPSHOT_TIME = "dlrover_state_snapshot_seconds"
+CKPT_SAVES = "dlrover_checkpoint_saves_total"
+CKPT_SAVE_TIME = "dlrover_checkpoint_save_stage_seconds"
+CKPT_MIRROR_TIME = "dlrover_checkpoint_mirror_seconds"
+CKPT_MIRROR_TIMEOUTS = "dlrover_checkpoint_mirror_timeouts_total"
+CKPT_RESTORE_TIME = "dlrover_checkpoint_restore_seconds"
+CKPT_RESTORES = "dlrover_checkpoint_restores_total"
 
 
 class EventKind:
@@ -15,11 +24,23 @@ class EventKind:
     TRAIN_START = "train_start"
     TRAIN_END = "train_end"
     # first materialized step after TRAIN_START: its latency is the
-    # set-up cost (kernel builds, allocator warm-up)
+    # set-up cost (kernel builds, allocator warm-up, a restore)
     COMPILE_FIRST_STEP = "compile_first_step"
+    STATE_SNAPSHOT = "state_snapshot"
+    PREEMPT_NOTICE = "preempt_notice"
+    PREEMPT_DRAIN_DONE = "preempt_drain_done"
+    CKPT_SAVE = "ckpt_save"
+    CKPT_MIRROR = "ckpt_mirror"
+    CKPT_MIRROR_TIMEOUT = "ckpt_mirror_timeout"
+    CKPT_RESTORE = "ckpt_restore"
+    ROLLBACK_RESTORED = "rollback_restored"
 
 
 class SpanName:
     STEP_DISPATCH = "step_dispatch"
     HOST_SYNC = "host_sync"
     EVALUATE = "evaluate"
+    STATE_SNAPSHOT = "state_snapshot"
+    CKPT_SAVE_STAGE = "ckpt_save_stage"
+    CKPT_MIRROR = "ckpt_mirror"
+    CKPT_RESTORE = "ckpt_restore"

@@ -1,13 +1,17 @@
 """ElasticTrainer: owns the (strategy, train step, state) triple (port of
 ``dlrover_tpu/trainer/elastic.py``).
 
-This slice ports construction, ``prepare`` with a fresh init, ``step``
+Ported: construction, ``prepare`` (a restore from ``ckpt_dir`` when it
+holds a checkpoint, else a fresh init), ``step`` with its save cadence,
+``restore_state``, ``snapshot``, ``save``, ``latest_checkpoint_step``
 and ``finalize``, on one device or over the ranks of
 ``torch.distributed`` (the world ``trainer.bootstrap.init_worker``
 joined). The MoE's ``dispatch_chunks`` and ``moe_precision`` are pinned
 on the Context before the step is built, as the reference pins them
-before it traces. Restore, snapshot, live reshard, prewarm and retune
-come with the checkpoint slice; a ``ckpt_dir`` raises until then.
+before it traces. The rng stream (the ``torch.Generator`` handed to the
+loss each step) rides in each checkpoint's metadata, so a resumed run
+draws what the uninterrupted one would have. Peer restore, live
+reshard, prewarm, retune and ``step_multi`` come with a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +21,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from dlrover_tpu_torch.checkpoint import (
+    CheckpointInterval,
+    ElasticCheckpointManager,
+    HostSnapshot,
+)
 from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import get_logger
@@ -24,10 +33,15 @@ from dlrover_tpu_torch.parallel.accelerate import (
     AccelerateResult,
     OptimizerFn,
     TrainState,
+    _named_leaves,
     accelerate,
 )
 from dlrover_tpu_torch.parallel.mesh import topology_key
-from dlrover_tpu_torch.parallel.strategy import Strategy
+from dlrover_tpu_torch.parallel.strategy import (
+    Strategy,
+    is_sharded,
+    shard_dim,
+)
 
 logger = get_logger("trainer.elastic")
 
@@ -36,8 +50,8 @@ class ElasticTrainer:
     """Usage::
 
         trainer = ElasticTrainer(init_fn, loss_fn, optimizer, example_batch,
-                                 strategy)
-        state = trainer.prepare()
+                                 strategy, ckpt_dir="/ckpt")
+        state = trainer.prepare()          # restores if a checkpoint exists
         for batch in loader:
             state, metrics = trainer.step(state, batch)
     """
@@ -50,15 +64,13 @@ class ElasticTrainer:
         example_batch: Any,
         strategy: Optional[Strategy] = None,
         ckpt_dir: str = "",
+        ckpt_interval: Optional[CheckpointInterval] = None,
         device: DeviceLike = None,
         steps_per_call: Optional[int] = None,
         grad_precision: Optional[str] = None,
         dispatch_chunks: Optional[int] = None,
         moe_precision: Optional[str] = None,
     ):
-        if ckpt_dir:
-            raise NotImplementedError("checkpointing is not ported yet "
-                                      "(the checkpoint/restore slice)")
         self._init_fn = init_fn
         self._loss_fn = loss_fn
         self._optimizer = optimizer
@@ -84,6 +96,13 @@ class ElasticTrainer:
         # handed to loss_fn each step (the reference splits a PRNG key
         # per step); the dense model draws nothing from it
         self._rng = torch.Generator(device="cpu").manual_seed(0)
+        # host-side mirror of state.step
+        self._host_step = 0
+        self._ckpt: Optional[ElasticCheckpointManager] = None
+        if ckpt_dir:
+            self._ckpt = ElasticCheckpointManager(
+                ckpt_dir, save_interval=ckpt_interval or CheckpointInterval()
+            )
 
     @property
     def world(self) -> int:
@@ -122,18 +141,134 @@ class ElasticTrainer:
         return result
 
     def prepare(self, state: Optional[TrainState] = None) -> TrainState:
-        """Build the step; return ``state`` as given, or a fresh init."""
+        """Build the step; return ``state`` as given, else the newest
+        checkpoint restored (staging mirror, then storage, then an older
+        step), else a fresh init."""
         if self._result is None:
             self._result = self._build()
         if state is not None:
+            self._host_step = int(state.step)
             return state
-        return self._result.init_fn(0)
+        state = self._result.init_fn(0)
+        self._host_step = 0
+        if self._ckpt is not None:
+            # the fresh init is the restore's target: it is filled in
+            # place, so the optimizer holds the restored tensors
+            restored = self._try_restore(state)
+            if restored is not None:
+                return restored
+        return state
+
+    def _shard_dims(self, state: TrainState) -> Optional[Dict[str, int]]:
+        """The leaves this rank holds only its part of, with the dim
+        they are split on."""
+        if self.world == 1:
+            return None
+        rules = self._result.strategy.rule_set
+        return {path: shard_dim(p.dim())
+                for path, p in _named_leaves(state.params)
+                if is_sharded(rules, path)}
+
+    def _try_restore(self, state: TrainState) -> Optional[TrainState]:
+        out = self._ckpt.restore(state, shard_dims=self._shard_dims(state))
+        if out is None:
+            return None
+        rng = out["meta"].get("rng")
+        if rng is not None:
+            self._rng.set_state(torch.tensor(rng, dtype=torch.uint8))
+        self._host_step = int(out["step"])
+        logger.info("resumed from step %d", out["step"])
+        return out["state"]
+
+    def restore_state(self, state: Optional[TrainState] = None
+                      ) -> Optional[TrainState]:
+        """Restore the latest checkpoint onto the built step — the
+        rollback path. With ``state`` (the live one) its tensors are
+        filled in place, so no second copy of the model is made; else a
+        fresh init is the target. None without a checkpoint."""
+        if self._result is None or self._ckpt is None:
+            return None
+        if state is None:
+            state = self._result.init_fn(0)
+        return self._try_restore(state)
+
+    @property
+    def checkpoint_manager(self) -> Optional[ElasticCheckpointManager]:
+        return self._ckpt
+
+    def restore_snapshot(self, state: TrainState,
+                         snapshot: HostSnapshot) -> TrainState:
+        """Put ``snapshot`` (of this trainer, ``snapshot()``) back into
+        the live ``state`` in place, with the rng stream and host step
+        it was taken at."""
+        snapshot.restore(state)
+        self._rng.set_state(torch.tensor(snapshot.meta["rng"],
+                                         dtype=torch.uint8))
+        self._host_step = int(snapshot.meta["host_step"])
+        return state
+
+    def snapshot(self, state: TrainState) -> HostSnapshot:
+        """Host-DRAM copy of the live state (one device-to-host copy a
+        leaf, then one sync); its meta holds the strategy, the rng
+        stream and the host step, so it is a complete resume point."""
+        return HostSnapshot.take(
+            state, strategy=self._result.strategy.to_json()
+            if self._result else "",
+            rng=self._rng.get_state().tolist(),
+            host_step=int(self._host_step),
+        )
 
     def step(self, state: TrainState, batch: Any) -> Tuple[TrainState, Dict]:
-        return self._result.train_step(
+        state, metrics = self._result.train_step(
             state, self._result.shard_batch(batch), self._rng)
+        self._host_step += 1
+        step = self._host_step
+        if self._ckpt is not None and self._ckpt.interval.should_save(step):
+            # never checkpoint a NaN-poisoned state: it would corrupt the
+            # rollback/restore target (the one device sync this costs
+            # happens only on save steps)
+            if "finite" not in metrics or bool(metrics["finite"]):
+                self.save(state)
+            else:
+                logger.warning(
+                    "skipping checkpoint at step %d: non-finite state", step
+                )
+        return state, metrics
+
+    # -- checkpoint ----------------------------------------------------------
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        """Newest restorable step, flushing any in-flight async save
+        first; None when no checkpointing is configured or nothing has
+        been committed yet (the executor's rollback precondition)."""
+        if self._ckpt is None:
+            return None
+        try:
+            self._ckpt.wait()
+        except Exception:  # noqa: BLE001
+            logger.exception("flushing async checkpoint failed")
+        return self._ckpt.latest_step()
+
+    def save(self, state: TrainState, force: bool = True):
+        if self._ckpt is None:
+            return
+        self._ckpt.save(
+            int(state.step),
+            state,
+            metadata={"strategy": self._result.strategy.to_json(),
+                      "rng": self._rng.get_state().tolist(),
+                      "host_step": int(self._host_step)},
+            force=force,
+            shard_dims=self._shard_dims(state),
+        )
 
     def finalize(self) -> bool:
-        """Flush and close checkpointing; returns True when a staging
-        mirror timed out. Nothing to flush in this slice."""
-        return False
+        """Flush + close checkpointing. Returns True when a staging
+        mirror timed out (``ElasticCheckpointManager.wait``), so exit
+        paths (the preemption drain) can report that the host-DRAM
+        mirror never committed."""
+        timed_out = False
+        if self._ckpt is not None:
+            timed_out = bool(self._ckpt.wait())
+            self._ckpt.close()
+        return timed_out

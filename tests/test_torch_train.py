@@ -25,6 +25,7 @@ from dlrover_tpu.trainer.executor import TrainHook as JaxHook
 from dlrover_tpu_torch import interop
 from dlrover_tpu_torch.examples import train_llama as example
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.models.common import tree_leaves
 from dlrover_tpu_torch.parallel import mesh
 from dlrover_tpu_torch.parallel.accelerate import accelerate
 from dlrover_tpu_torch.parallel.strategy import DtypePolicy, Strategy
@@ -273,19 +274,16 @@ class TestExecutor:
 
     @pytest.mark.parametrize("policy", ["halt", "rollback"])
     def test_nonfinite_step_stops_the_run(self, policy):
-        """"halt" stops at the first non-finite step; "rollback" needs a
-        checkpoint, which this slice lacks, so the executor refuses it
-        before any step runs."""
+        """"halt" stops at the first non-finite step; "rollback" with no
+        checkpoint to restore escalates to a halt, as the reference's
+        does, instead of restarting from a fresh init."""
         trainer, batches = _trainer(self._nan_loss())
         conf = Configuration({"train_steps": 3,
                               "check_finite_every_steps": 1,
                               "on_nonfinite": policy})
-        if policy == "rollback":
-            with pytest.raises(NotImplementedError, match="A8"):
-                TrainExecutor(trainer, batches, conf=conf)
-            return
         executor = TrainExecutor(trainer, batches, conf=conf)
-        with pytest.raises(NonFiniteLossError):
+        match = "no.*checkpoint" if policy == "rollback" else "non-finite"
+        with pytest.raises(NonFiniteLossError, match=match):
             executor.train_and_evaluate()
 
     def test_ignore_policy_runs_on(self):
@@ -334,10 +332,19 @@ class TestExecutor:
                       if s[0] == "step_dispatch"]
         assert len(dispatched) >= 3
 
-    def test_checkpointing_waits_for_its_slice(self):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            ElasticTrainer(None, None, None, {}, ckpt_dir="/nonexistent",
-                           device="cpu")
+    def test_checkpointing_waits_for_its_slice(self, tmp_path):
+        """A ``ckpt_dir`` that holds no checkpoint gives a fresh init:
+        the same parameters as a trainer without one, at step 0."""
+        cfg = llama.llama_tiny()
+        batch = next(example.synthetic_batches(cfg.vocab_size, 2, 8)())
+        states = [ElasticTrainer(llama.make_init_fn(cfg),
+                                 llama.make_loss_fn(cfg), example.adamw(),
+                                 batch, ckpt_dir=ckpt, device="cpu").prepare()
+                  for ckpt in (str(tmp_path / "empty"), "")]
+        assert states[0].step == 0 and not states[0].opt_state.state
+        for a, b in zip(tree_leaves(states[0].params),
+                        tree_leaves(states[1].params)):
+            assert torch.equal(a, b)
 
 
 class TestDevice:

@@ -23,6 +23,7 @@ from dlrover_tpu_torch.parallel.accelerate import accelerate
 from dlrover_tpu_torch.parallel.mesh import MeshPlan, ProcessMesh
 from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.trainer import bootstrap
+from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 
 
 def _join():
@@ -113,6 +114,47 @@ def init_ranks(config_kw):
     dist.destroy_process_group()
     return {k: tree["layers"]["experts"][k]["kernel"].numpy()
             for k in ("up", "down")}
+
+
+def checkpoint_ranks(ckpt_dir, config_kw, batch, save):
+    """An ``ElasticTrainer`` with ``rule_set="moe_ep"`` over the ranks
+    on ``ckpt_dir``: ``prepare`` (a restore when the directory holds a
+    checkpoint), this rank's experts and their Adam moments as
+    prepared, then one step, and with ``save`` a checkpoint of it: the
+    step prepared at, the experts (and moments) and the replicated
+    embedding before and after the step, and the step's loss."""
+    rank, ranks = _join()
+    config = llama.llama_tiny(**config_kw)
+    trainer = ElasticTrainer(
+        llama.make_init_fn(config, (rank, ranks)),
+        llama.make_loss_fn(config),
+        functools.partial(torch.optim.Adam, lr=1e-2), batch,
+        strategy=Strategy(mesh=MeshPlan(data=ranks, fsdp=1),
+                          rule_set="moe_ep"),
+        ckpt_dir=ckpt_dir, device="cpu")
+    state = trainer.prepare()
+
+    def experts():
+        out = {"embed": state.params["embed_tokens"]["embedding"]
+               .detach().numpy().copy()}
+        for key in ("up", "down"):
+            p = state.params["layers"]["experts"][key]["kernel"]
+            out[key] = p.detach().numpy().copy()
+            slots = state.opt_state.state.get(p, {})
+            if "exp_avg" in slots:
+                out[f"{key}_exp_avg"] = slots["exp_avg"].numpy().copy()
+        return out
+
+    prepared = {"step": state.step, **experts()}
+    state, metrics = trainer.step(state, batch)
+    if save:
+        trainer.save(state)
+    trainer.finalize()
+    if dist.is_initialized():  # one rank joins no group
+        dist.destroy_process_group()
+    return {"prepared": prepared, "stepped": experts(),
+            "loss": float(metrics["loss"]),
+            "finite": bool(metrics["finite"])}
 
 
 def failing_rank():
