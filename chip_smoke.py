@@ -140,6 +140,22 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      on the uninterrupted run's losses; the state bytes and the seconds
      of the snapshot, its restore, the save's stage and commit and each
      restore, beside the link's bound, on one line a cell.
+ 16. in-process recovery: (a) the expert-parallel cell (phase 12's) through
+     ElasticTrainer on 4 ranks sharing the card: 3 steps, a snapshot
+     laid out for the world of ranks 0 and 1 (into fresh host buffers,
+     then into the same ones again), ``live_reshard`` onto it (ranks 2
+     and 3 leave, the group re-formed in the processes), 3 steps at 2
+     ranks with grad accumulation doubled; the survivors' expert leaves
+     held against their slices of the pre-change leaves, and the live
+     path against a cold trainer built for 2 ranks and restored from the
+     same snapshot (losses and every state bit); every rank's launches
+     pinned, no kernel module built or loaded again; the seconds of the
+     snapshot, re-form, rebuild and restore, host bytes and peak memory;
+     (b) the dense cell: ``prewarm(steps_per_call=4)`` and the ``retune``
+     after it (a cache hit) beside a retune without one, two K = 4 calls
+     through the executor's window and, from the same snapshot, 8 single
+     steps, bit for bit; the step and the device's idle share at K = 1
+     and K = 4 (readings).
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -3319,26 +3335,31 @@ CKPT_SAVE_AT, CKPT_STEPS = 3, 6  # the save after step 3; train to step 6
 DIGEST_CHUNK = 1 << 26  # elements a digest reduces at once
 
 
-def state_digest(state):
-    """Two position-weighted int64 sums of the bits of every parameter
-    and optimizer slot, reduced on their device: equal states give
-    equal lists, and one flipped bit changes the list."""
+def tensor_digest(t):
+    """Two position-weighted int64 sums of a tensor's bits per chunk,
+    reduced on its device: equal tensors give equal lists, and one
+    flipped bit changes the list."""
     import torch
 
+    t = t.detach().reshape(-1)
+    bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
+    sums = []
+    for lo in range(0, bits.numel(), DIGEST_CHUNK):
+        c = bits[lo:lo + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), device=c.device,
+                         dtype=torch.int64) * 2654435761 + 1
+        sums += [int(c.sum()), int((c * w).sum())]
+    return sums
+
+
+def state_digest(state):
+    """``tensor_digest`` of every parameter and optimizer slot."""
     from dlrover_tpu_torch.checkpoint.manager import state_tensors
 
     tensors, _ = state_tensors(state)
-    sums = []
-    for name in sorted(tensors):
-        t = tensors[name].detach().reshape(-1)
-        bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
-                       1: torch.uint8}[t.element_size()])
-        for lo in range(0, bits.numel(), DIGEST_CHUNK):
-            c = bits[lo:lo + DIGEST_CHUNK].to(torch.int64)
-            w = torch.arange(lo, lo + c.numel(), device=c.device,
-                             dtype=torch.int64) * 2654435761 + 1
-            sums += [int(c.sum()), int((c * w).sum())]
-    return sums
+    return [x for name in sorted(tensors)
+            for x in tensor_digest(tensors[name])]
 
 
 class PlantedNaN:
@@ -3689,6 +3710,418 @@ def checkpoint_phase(llama, config, moe_config, card):
     shutil.rmtree(root, ignore_errors=True)
     report["wall_s"] = time.monotonic() - t0
     log(f"  phase 15 wall time {report['wall_s']:.1f} s")
+    return report
+
+
+# -- phase 16: in-process recovery ------------------------------------------
+
+RECOVERY_STEPS = 3  # 16 (a): steps at 4 ranks, at 2, and on the cold path
+RECOVERY_SURVIVORS = [0, 1]
+RETUNE_K, RETUNE_WINDOW = 4, 4  # 16 (b): K, and the steps in flight
+
+
+def expert_digests(state, rank):
+    """By global expert index: ``tensor_digest`` of that expert's slice
+    of each expert leaf ([L, E/P, ...]) and of its Adam moments, so a
+    slice is recognised on whichever rank holds it."""
+    from dlrover_tpu_torch.checkpoint.manager import state_tensors
+
+    tensors, _ = state_tensors(state)
+    out = {}
+    for name in sorted(tensors):
+        t = tensors[name]
+        if "/experts/" not in name or t.dim() != 4:
+            continue
+        for j in range(t.shape[1]):
+            out.setdefault(rank * t.shape[1] + j, {})[name] = tensor_digest(
+                t[:, j].contiguous())
+    return out
+
+
+def recovery_ep_rank(config_kw, seq, batch_rows, steps):
+    """One rank of phase 16 (a): the phase-12 cell through ElasticTrainer
+    on 4 ranks sharing the card, ``steps`` steps, a snapshot for the world
+    of ranks 0 and 1 (first into fresh host buffers, then again into the
+    same ones), ``live_reshard`` onto it (ranks 2 and 3 leave), ``steps``
+    steps at 2 ranks; then on the survivors a cold trainer built for 2
+    ranks with the post-change strategy, restored from the same snapshot,
+    the same ``steps`` steps. Launch counters are reset just before the
+    first step and read after the live steps, and again around the cold
+    path."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.examples.train_llama import (
+        adamw,
+        synthetic_batches,
+    )
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import kernel_build
+    from dlrover_tpu_torch.parallel.mesh import MeshPlan
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    rank, ranks = _ep_join()
+    config = llama.llama2_7b(**config_kw)
+
+    def init_fn(gen):  # this world's block of experts
+        return llama.init(gen, config, expert_shard=(dist.get_rank(),
+                                                     dist.get_world_size()))
+
+    def trainer_for(strategy):
+        return ElasticTrainer(
+            init_fn, llama.make_loss_fn(config), adamw(), first,
+            strategy=strategy, device="cuda:0", moe_precision="fp8",
+            dispatch_chunks=1)
+
+    gen = synthetic_batches(config.vocab_size, batch_rows, seq)()
+    batches = [next(gen) for _ in range(2 * steps)]
+    first = batches[0]
+
+    def run(trainer, state, group):
+        losses = []
+        for batch in group:
+            state, metrics = trainer.step(state, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        return state, losses
+
+    def counts():
+        return {**fa.launch_counts(), **gm.launch_counts()}
+
+    trainer = trainer_for(Strategy(mesh=MeshPlan(data=ranks, fsdp=1),
+                                   rule_set="moe_ep"))
+    state = trainer.prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    t0 = time.monotonic()
+    state, losses = run(trainer, state, batches[:steps])
+    out = {"rank": rank, "losses": losses,
+           "before_s": time.monotonic() - t0,
+           "accum_before": trainer.accelerated.strategy.grad_accum_steps,
+           "experts_before": expert_digests(state, rank),
+           "peak_before": torch.cuda.max_memory_allocated()}
+    snaps = []
+    for _ in range(2):  # fresh host buffers, then the same ones again
+        t = time.monotonic()
+        snaps.append(trainer.snapshot(state, world_to=RECOVERY_SURVIVORS,
+                                      reuse_arena=True))
+        out.setdefault("snapshot_s", []).append(time.monotonic() - t)
+    snap = snaps[-1]
+    out["host_bytes"] = snap.nbytes()
+    loads = (dict(kernel_build.LOADS), dict(kernel_build.BUILDS))
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.live_reshard(state, devices=RECOVERY_SURVIVORS,
+                                 snapshot=snap, reason="chip_smoke")
+    if state is None:  # left: give the card back to the survivors
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["left"] = True
+        out["launches"] = counts()
+        return out
+    out["reshard"] = dict(trainer.last_reshard)
+    out["rank_after"] = dist.get_rank()
+    out["accum_after"] = trainer.accelerated.strategy.grad_accum_steps
+    out["experts_after"] = expert_digests(state, dist.get_rank())
+    t0 = time.monotonic()
+    state, out["live"] = run(trainer, state, batches[steps:])
+    out["after_s"] = time.monotonic() - t0
+    out["launches"] = counts()
+    out["live_digest"] = state_digest(state)
+    out["peak_after"] = torch.cuda.max_memory_allocated()
+    strategy = trainer.accelerated.strategy
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold = trainer_for(strategy)
+    cstate = cold.restore_snapshot(cold.prepare(), snap)
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    cstate, out["cold"] = run(cold, cstate, batches[steps:])
+    out["cold_launches"] = counts()
+    out["cold_digest"] = state_digest(cstate)
+    out["kernels_again"] = (dict(kernel_build.LOADS) != loads[0]
+                            or dict(kernel_build.BUILDS) != loads[1])
+    del cstate
+    dist.destroy_process_group()
+    return out
+
+
+def recovery_world_change(run_local, llama, moe_config, card):
+    """Phase 16 (a): the expert-parallel cell from 4 ranks to 2 in the
+    processes (``recovery_ep_rank``)."""
+    kw = {"num_experts": MOE_EXPERTS, "moe_top_k": MOE_TOP_K,
+          "moe_dispatch": "grouped_ep", "num_layers": MOE_LAYERS}
+    log(f"  (a) llama2_7b+moe8 x{MOE_LAYERS} layers, grouped_ep, fp8 wire, "
+        f"global batch {EP_RANKS} x {EP_TOKENS}, {EP_RANKS} ranks sharing "
+        f"the card (gloo): {RECOVERY_STEPS} steps, live_reshard onto ranks "
+        f"{RECOVERY_SURVIVORS}, {RECOVERY_STEPS} steps; the cold path from "
+        f"the same snapshot:")
+    t0 = time.monotonic()
+    ranks = run_local(recovery_ep_rank, EP_RANKS,
+                      (kw, EP_TOKENS, EP_RANKS, RECOVERY_STEPS),
+                      timeout=EP_TIMEOUT)
+    per = MOE_LAYERS  # one microbatch of each rank, per layer
+    unit = {"flash_fwd": 2 * per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
+            **NO_SEG, **NO_PFX, "grouped_matmul_fwd": 6 * per,
+            "grouped_matmul_dw": 2 * per,
+            "grouped_matmul_fwd_quant": 2 * per}
+    survivors, leavers = ranks[:2], ranks[2:]
+    for r in leavers:
+        if not r.get("left"):
+            fail(f"rank {r['rank']} did not leave the world")
+        if r["launches"] != {k: RECOVERY_STEPS * v for k, v in unit.items()}:
+            fail(f"rank {r['rank']} launches {r['launches']} before it "
+                 f"left")
+    experts_before = {}
+    for r in ranks:
+        experts_before.update(r["experts_before"])
+        if r["losses"] != ranks[0]["losses"]:
+            fail("the ranks disagree on the global loss")
+    report = {"ranks": ranks}
+    for t, r in enumerate(survivors):
+        if r.get("left") or r["rank_after"] != t:
+            fail(f"rank {r['rank']} should be rank {t} of the new world")
+        # at 2 ranks each step runs two microbatches a rank
+        want = {k: RECOVERY_STEPS * v + 2 * RECOVERY_STEPS * v
+                for k, v in unit.items()}
+        if r["launches"] != want:
+            fail(f"rank {t} launches {r['launches']}, expected {want}")
+        want_cold = {k: 2 * RECOVERY_STEPS * v for k, v in unit.items()}
+        if r["cold_launches"] != want_cold:
+            fail(f"rank {t} cold-path launches {r['cold_launches']}, "
+                 f"expected {want_cold}")
+        if (r["accum_before"], r["accum_after"]) != (1, 2):
+            fail(f"grad accumulation {r['accum_before']} -> "
+                 f"{r['accum_after']}, expected 1 -> 2")
+        slices = {e: experts_before[e] for e in range(4 * t, 4 * t + 4)}
+        if r["experts_after"] != slices:
+            fail(f"rank {t}'s expert leaves are not experts "
+                 f"{4 * t}..{4 * t + 3} of the pre-change leaves")
+        if r["live"] != r["cold"] or r["live_digest"] != r["cold_digest"]:
+            fail(f"rank {t}: live path {r['live']} vs cold path "
+                 f"{r['cold']} (state bits equal: "
+                 f"{r['live_digest'] == r['cold_digest']})")
+        if r["kernels_again"]:
+            fail(f"rank {t} built or loaded a kernel module again")
+        if not all(math.isfinite(x) for x in r["live"]):
+            fail("non-finite loss after the change")
+        rs = r["reshard"]
+        log(f"    rank {t}: losses at 4 ranks {[round(x, 4) for x in r['losses']]}"
+            f", at 2 {[round(x, 4) for x in r['live']]} (cold path equal, "
+            f"state bits equal); snapshot for the new world "
+            f"{r['snapshot_s'][0]:.2f} s fresh host buffers, "
+            f"{r['snapshot_s'][1]:.2f} s reused; re-form "
+            f"{rs['reform_s']:.3f} s, rebuild {rs['rebuild_s']:.3f} s, "
+            f"restore {rs['restore_s']:.2f} s; total with the reused "
+            f"snapshot {r['snapshot_s'][1] + rs['seconds']:.2f} s, with the "
+            f"fresh {r['snapshot_s'][0] + rs['seconds']:.2f} s; recompiled "
+            f"{rs['recompiled']}; experts {4 * t}..{4 * t + 3} held, bit "
+            f"for bit; host bytes {r['host_bytes'] / 1e9:.2f} GB; peak "
+            f"memory {r['peak_before'] / 2**30:.2f} GiB at 4 ranks, "
+            f"{r['peak_after'] / 2**30:.2f} at 2; no kernel module built "
+            f"or loaded again; steps {r['before_s']:.1f} s (3 at 4 ranks), "
+            f"{r['after_s']:.1f} s (3 at 2)")
+    report["wall_s"] = time.monotonic() - t0
+    log(f"    ({report['wall_s']:.1f} s with the ranks' start-up; {card})")
+    return report
+
+
+def device_busy(prof):
+    """(busy ms, span ms) of the profiled device work: the union of the
+    kernels' and copies' intervals, and first start to last end."""
+    import torch
+
+    spans = sorted(
+        (e.time_range.start / 1e3, e.time_range.end / 1e3)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False) and "#" not in e.name)
+    if not spans:
+        return 0.0, 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    first = lo
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return busy, hi - first
+
+
+def recovery_retune(llama, config, card):
+    """Phase 16 (b): the dense cell, ``prewarm`` and ``retune`` from
+    K = 1 to RETUNE_K, two fused calls through the executor's window,
+    and from the same snapshot RETUNE_K x 2 single steps, bit for bit;
+    the steady step and the device's idle share at K = 1 and K = RETUNE_K
+    (readings)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import remat
+    from dlrover_tpu_torch.trainer.conf import build_configuration
+    from dlrover_tpu_torch.trainer.executor import TrainExecutor, TrainHook
+
+    n = 2 * RETUNE_K
+    gen = synthetic_batches(config.vocab_size, 1, SEQ)()
+    batches = [next(gen) for _ in range(n + 2)]
+    trainer = main_trainer(llama, config, "llama", batches[0])
+    state = trainer.prepare()
+    for batch in batches[:2]:  # first-call set-up
+        state, _ = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    report = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t
+
+    _, fresh = timed(lambda: trainer.snapshot(state, reuse_arena=True))
+    _, reused = timed(lambda: trainer.snapshot(state, reuse_arena=True))
+    state, without = timed(lambda: trainer.retune(state, steps_per_call=2))
+    report["retune_without_prewarm"] = dict(trainer.last_reshard,
+                                            seconds_wall=without)
+    state, back = timed(lambda: trainer.retune(state, steps_per_call=1))
+    torch.cuda.reset_peak_memory_stats()
+    count = trainer.compile_count
+    built, prewarm_s = timed(lambda: trainer.prewarm(steps_per_call=RETUNE_K))
+    prewarm_peak = torch.cuda.max_memory_allocated()
+    if not built or trainer.compile_count != count + 1:
+        fail("prewarm did not build the K-step call")
+    state, with_ = timed(lambda: trainer.retune(state,
+                                                steps_per_call=RETUNE_K))
+    report["retune_with_prewarm"] = dict(trainer.last_reshard,
+                                         seconds_wall=with_)
+    if trainer.compile_count != count + 1 or \
+            trainer.last_reshard["recompiled"]:
+        fail("the retune after the prewarm built a step (not a cache hit)")
+    log(f"  (b) llama3_8b x{config.num_layers} layers, batch 1 x {SEQ}: "
+        f"snapshot {fresh:.2f} s into fresh host buffers, {reused:.2f} s "
+        f"reused; retune K 1 -> 2 without a prewarm {without:.2f} s "
+        f"(built), back to 1 {back:.2f} s (cache hit); prewarm(K="
+        f"{RETUNE_K}) {prewarm_s:.2f} s, peak memory "
+        f"{prewarm_peak / 2**30:.2f} GiB; retune K 1 -> {RETUNE_K} after it "
+        f"{with_:.2f} s (cache hit: snapshot "
+        f"{trainer.last_reshard['snapshot_s']:.2f}, rebuild "
+        f"{trainer.last_reshard['rebuild_s']:.4f}, restore "
+        f"{trainer.last_reshard['restore_s']:.2f}); {card}")
+    report.update(snapshot_fresh_s=fresh, snapshot_reused_s=reused,
+                  retune_back_s=back, prewarm_s=prewarm_s,
+                  prewarm_peak_bytes=prewarm_peak)
+
+    class Record(TrainHook):
+        def __init__(self):
+            self.losses, self.events = {}, []
+
+        def _mark(self):
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+
+        def begin(self, executor):
+            self._mark()
+
+        def after_step(self, step, metrics):
+            self.losses[step] = metrics["loss"]
+
+        def end(self, executor):
+            self._mark()
+
+    def through_executor(state, group, prof=None):
+        record = Record()
+        executor = TrainExecutor(
+            trainer, train_iter_fn=lambda: iter(group), hooks=[record],
+            conf=build_configuration({
+                "train_steps": int(state.step) + len(group),
+                "log_every_steps": 0, "train_window": RETUNE_WINDOW,
+                "preemption_grace": False}))
+        executor.state = state
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        with prof if prof is not None else contextlib.nullcontext():
+            executor.train_and_evaluate()
+            torch.cuda.synchronize()
+        steps = sorted(record.losses)
+        if len(steps) != len(group) or steps != list(
+                range(steps[0], steps[0] + len(group))):
+            fail(f"the executor materialized steps {steps}")
+        ms = record.events[0].elapsed_time(record.events[-1]) / len(group)
+        return (executor.state, [record.losses[s] for s in steps], ms,
+                fa.launch_counts())
+
+    ref = trainer.snapshot(state, reuse_arena=True)
+    state, fused, fused_ms, fused_launches = through_executor(
+        state, batches[2:])
+    fused_digest = state_digest(state)
+    trainer.restore_snapshot(state, ref)
+    state = trainer.retune(state, steps_per_call=1)
+    if trainer.compile_count != count + 1:
+        fail("the retune back to K = 1 built a step")
+    state, single, single_ms, single_launches = through_executor(
+        state, batches[2:])
+    single_digest = state_digest(state)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    want = {"flash_fwd": n * LAYERS * (1 + recompute),
+            "flash_bwd_dkv": n * LAYERS, "flash_bwd_dq": n * LAYERS,
+            **NO_SEG, **NO_PFX}
+    if fused_launches != want or single_launches != want:
+        fail(f"launches {fused_launches} (K = {RETUNE_K}) and "
+             f"{single_launches} (K = 1), expected {want}")
+    if fused != single or fused_digest != single_digest:
+        fail(f"K = {RETUNE_K} losses {fused} vs single steps {single} "
+             f"(state bits equal: {fused_digest == single_digest})")
+    idle = {}
+    for k in (1, RETUNE_K):
+        if k != trainer.steps_per_call:
+            state = trainer.retune(state, steps_per_call=k)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        state, _, prof_ms, _ = through_executor(state, batches[2:], prof)
+        busy, span_ms = device_busy(prof)
+        idle[k] = {"busy_ms": busy / n, "span_ms": span_ms / n,
+                   "idle_share": 1 - busy / span_ms if span_ms else None,
+                   "profiled_step_ms": prof_ms}
+    log(f"      {n} steps as {n // RETUNE_K} calls of K = {RETUNE_K} through "
+        f"the executor (window {RETUNE_WINDOW} steps) and, from the same "
+        f"snapshot, {n} single steps: losses equal, state bits equal, "
+        f"launches {fused_launches}; losses {[round(x, 4) for x in fused]}")
+    for k, ms in ((1, single_ms), (RETUNE_K, fused_ms)):
+        i = idle[k]
+        share = ("not measured (no device time in the profile)"
+                 if i["idle_share"] is None else f"{i['idle_share']:.3f}")
+        log(f"      K = {k}: step {ms:.1f} ms (device clock, {n} steps); "
+            f"under the profiler {i['profiled_step_ms']:.1f} ms, device "
+            f"busy {i['busy_ms']:.1f} of {i['span_ms']:.1f} ms a step, idle "
+            f"share {share}")
+    report.update(losses=fused, step_ms={1: single_ms, RETUNE_K: fused_ms},
+                  idle=idle, launches=fused_launches)
+    del state, ref
+    return report
+
+
+def recovery_phase(run_local, llama, config, moe_config, card):
+    """Phase 16: in-process recovery on the card (16 (a) the world
+    change, 16 (b) the retune)."""
+    t0 = time.monotonic()
+    report = {"world_change": recovery_world_change(run_local, llama,
+                                                    moe_config, card)}
+    free_memory()
+    report["retune"] = recovery_retune(llama, config, card)
+    free_memory()
+    report["wall_s"] = time.monotonic() - t0
+    log(f"  phase 16 wall time {report['wall_s']:.1f} s")
     return report
 
 
@@ -4540,6 +4973,11 @@ def main():
     log(f"phase 15, checkpoint and restore (torch.distributed.checkpoint; "
         f"{card}):")
     report["checkpoint"] = checkpoint_phase(llama, config, moe_config, card)
+    free_memory()
+
+    log(f"phase 16, in-process recovery (live_reshard, retune; {card}):")
+    report["recovery"] = recovery_phase(run_local, llama, config,
+                                        moe_config, card)
 
     kernels = []
     for name in FLASH_KERNELS:

@@ -1,5 +1,7 @@
 """Elastic checkpoint/resume on ``torch.distributed.checkpoint`` (port of
-``dlrover_tpu/checkpoint``). Peer replication comes with a later slice.
+``dlrover_tpu/checkpoint``), and the snapshot regrouped for a planned
+change of world (``regroup``). Peer replication needs the RPC layer and
+the master's plan, and comes with them (ROADMAP A12).
 """
 
 from dlrover_tpu_torch.checkpoint.manager import (

@@ -315,14 +315,26 @@ class HostSnapshot:
     _arena: Any = field(default=None, repr=False)
 
     @classmethod
-    def take(cls, state, **meta) -> "HostSnapshot":
+    def take(cls, state, arena=None, regroup=None, **meta) -> "HostSnapshot":
         """One device-to-host copy of every leaf, then one sync. Callers
-        drain in-flight steps first so this waits only on the last."""
+        drain in-flight steps first so this waits only on the last.
+
+        ``arena``: the host buffers of an earlier snapshot (its
+        ``_arena``), copied into when the shapes match instead of
+        pinning new ones; that snapshot's contents are overwritten.
+        ``regroup``: a ``checkpoint.regroup.Regroup``, for a planned
+        change of world: the sharded leaves are taken as this rank's
+        slices of the next world (a collective over the old group)."""
         t0 = time.monotonic()
         with span(SpanName.STATE_SNAPSHOT):
             tensors, values = state_tensors(state)
-            arena = _HostArena(_specs(tensors), _pin_for(tensors))
-            tree = {**_copy_to_host(tensors, arena), **values}
+            specs = (_specs(tensors) if regroup is None
+                     else regroup.specs(tensors))
+            if arena is None or not arena.matches(specs):
+                arena = _HostArena(specs, _pin_for(tensors))
+            host = (_copy_to_host(tensors, arena) if regroup is None
+                    else regroup.copy(tensors, arena))
+            tree = {**host, **values}
         snap_s = time.monotonic() - t0
         get_registry().histogram(
             tm.SNAPSHOT_TIME,

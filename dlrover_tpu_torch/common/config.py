@@ -22,8 +22,13 @@ class Context:
         # train-step calls in flight before the oldest call's metrics
         # are read on the host (0 = read right after each call)
         self.train_window = 4
-        # optimizer steps per call; only 1 exists in this slice
+        # optimizer steps per train-step call (K > 1: the fused
+        # multi-step call, ``ElasticTrainer.step_multi``)
         self.steps_per_call = 1
+        # survivable membership changes are absorbed in the process
+        # (drain, snapshot, rebuild, restore); off = every change takes
+        # the process-restart path
+        self.live_recovery = True
         # on a non-finite step: "halt" | "ignore" | "rollback" (restore
         # the newest checkpoint and go on)
         self.on_nonfinite = "halt"

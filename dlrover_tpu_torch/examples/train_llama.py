@@ -115,6 +115,9 @@ def main(argv=None, hooks=()):
     p.add_argument("--dispatch_chunks", type=int, default=None,
                    help="grouped_ep row-exchange chunks (default: the "
                         "Context's)")
+    p.add_argument("--steps_per_call", type=int, default=None,
+                   help="optimizer steps fused per call (default: the "
+                        "Context's, DLROVER_TPU_STEPS_PER_CALL)")
     p.add_argument("--ring", type=int, default=0)
     p.add_argument("--pipe", type=int, default=0)
     p.add_argument("--pipe_virtual", type=int, default=1)
@@ -160,6 +163,7 @@ def main(argv=None, hooks=()):
         strategy=strategy,
         ckpt_dir=args.ckpt_dir,
         device=device,
+        steps_per_call=args.steps_per_call,
         dispatch_chunks=args.dispatch_chunks,
         moe_precision=args.moe_precision,
     )

@@ -48,6 +48,10 @@ NVCC_FLAGS = (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# per library: the times this process loaded it, and the times it ran
+# nvcc for it (a rebuilt step loads and builds nothing)
+LOADS: Dict[str, int] = {}
+BUILDS: Dict[str, int] = {}
 
 
 def nvcc_path() -> str:
@@ -96,6 +100,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         procs = {}
         t0 = time.monotonic()
         for n in todo:
+            BUILDS[n] = BUILDS.get(n, 0) + 1
             out = library_path(n)
             tmp = out.with_suffix(".so.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
@@ -125,6 +130,7 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
+            LOADS[name] = LOADS.get(name, 0) + 1
         return lib
 
 

@@ -23,8 +23,12 @@ the mean over its own rows; the reported loss is the mean of the ranks'
 (the global mean when every rank has as many labelled tokens), and the
 gradient norm and finite check are global.
 
-``steps_per_call`` > 1 and a low-precision gradient wire come with
-later slices and raise here.
+``steps_per_call = K > 1`` also builds ``train_step_multi``: K optimizer
+steps in one call over K stacked batches, each the single step's own
+arithmetic with the same rng stream, so it is bit for bit K calls of
+``train_step``; its metrics come back stacked along a leading [K] axis,
+and nothing between the K steps waits on the device. A low-precision
+gradient wire comes with a later slice (ROADMAP A14) and raises here.
 """
 
 from __future__ import annotations
@@ -71,19 +75,26 @@ class AccelerateResult:
     mesh: ProcessMesh
     rank: int = 0
     world: int = 1
+    # (state, stacked batches [K, rows, ...], rng) -> (state, metrics
+    # stacked [K, ...]); None when steps_per_call == 1
+    train_step_multi: Optional[Callable] = None
+    steps_per_call: int = 1
 
-    def shard_batch(self, batch: Dict) -> Dict:
+    def shard_batch(self, batch: Dict, stacked: bool = False) -> Dict:
         """Global host batch (numpy arrays or tensors) -> this rank's
-        contiguous block of its rows, as tensors on the device."""
-        rows = _rows(batch) // self.world
+        contiguous block of its rows, as tensors on the device.
+        ``stacked``: the batch has a leading K axis (``train_step_multi``'s
+        input), and the rows are axis 1."""
+        axis = 1 if stacked else 0
+        rows = _rows(batch, axis) // self.world
         lo = self.rank * rows
-        return {k: torch.as_tensor(v)[lo:lo + rows].to(
+        return {k: torch.as_tensor(v).narrow(axis, lo, rows).to(
                     self.device, non_blocking=True)
                 for k, v in batch.items()}
 
 
-def _rows(batch: Dict) -> int:
-    return next(iter(batch.values())).shape[0]
+def _rows(batch: Dict, axis: int = 0) -> int:
+    return next(iter(batch.values())).shape[axis]
 
 
 def _named_leaves(tree, prefix=""):
@@ -117,11 +128,10 @@ def accelerate(
         ranks of ``torch.distributed`` (one when it is not initialised).
       rng: seed of the init generator.
       device: default ``cuda`` (raises without one); tests pass "cpu".
+      steps_per_call: K > 1 builds ``train_step_multi`` beside the step.
     """
     device = resolve_device(device)
-    if max(1, int(steps_per_call)) > 1:
-        raise NotImplementedError("steps_per_call > 1 (the fused multi-step "
-                                  "call) is not ported yet")
+    steps_per_call = max(1, int(steps_per_call))
     if (grad_precision or "bf16") != "bf16":
         raise NotImplementedError(
             f"grad_precision {grad_precision!r}: only the exact gradient "
@@ -225,6 +235,26 @@ def accelerate(
         state.step += 1
         return state, metrics
 
+    def train_step_multi(state: TrainState, batches: Dict, step_rng=None):
+        """K = ``steps_per_call`` steps over ``batches`` (this rank's
+        rows of K batches, stacked on a leading axis), each drawing from
+        ``step_rng`` in turn, as K calls would. Metrics come back stacked
+        [K, ...]."""
+        k = _rows(batches)
+        if k != steps_per_call:
+            raise ValueError(f"train_step_multi takes {steps_per_call} "
+                             f"stacked batches, got {k}")
+        per_step = []
+        with ambient_mesh(mesh):
+            for i in range(k):
+                state, metrics = _train_step(
+                    state, {key: v[i] for key, v in batches.items()},
+                    step_rng)
+                per_step.append(metrics)
+        return state, {key: torch.stack([torch.as_tensor(m[key])
+                                         for m in per_step])
+                       for key in per_step[0]}
+
     def eval_step(state: TrainState, batch: Dict):
         with torch.no_grad(), ambient_mesh(mesh):
             loss, aux = loss_fn(state.params, batch, None)
@@ -234,9 +264,12 @@ def accelerate(
 
     if rank == 0:
         logger.info("accelerate: device=%s ranks=%d rules=%s accum=%d "
-                    "remat=%s", device, world, strategy.rule_set, accum,
-                    strategy.remat_policy or "none")
+                    "remat=%s steps_per_call=%d", device, world,
+                    strategy.rule_set, accum,
+                    strategy.remat_policy or "none", steps_per_call)
     return AccelerateResult(
         train_step=train_step, eval_step=eval_step, init_fn=make_state,
         device=device, strategy=strategy, mesh=mesh, rank=rank, world=world,
+        train_step_multi=train_step_multi if steps_per_call > 1 else None,
+        steps_per_call=steps_per_call,
     )

@@ -17,6 +17,12 @@ CKPT_MIRROR_TIME = "dlrover_checkpoint_mirror_seconds"
 CKPT_MIRROR_TIMEOUTS = "dlrover_checkpoint_mirror_timeouts_total"
 CKPT_RESTORE_TIME = "dlrover_checkpoint_restore_seconds"
 CKPT_RESTORES = "dlrover_checkpoint_restores_total"
+# in-process world or knob changes (live reshard, retune)
+LIVE_RESHARDS = "dlrover_live_reshards_total"
+LIVE_RESHARD_TIME = "dlrover_live_reshard_seconds"
+# ElasticTrainer's cache of built steps
+PROGRAM_CACHE_HITS = "dlrover_program_cache_hits_total"
+PROGRAM_CACHE_MISSES = "dlrover_program_cache_misses_total"
 
 
 class EventKind:
@@ -34,6 +40,12 @@ class EventKind:
     CKPT_MIRROR_TIMEOUT = "ckpt_mirror_timeout"
     CKPT_RESTORE = "ckpt_restore"
     ROLLBACK_RESTORED = "rollback_restored"
+    LIVE_RESHARD_BEGIN = "live_reshard_begin"
+    LIVE_RESHARD_DONE = "live_reshard_done"
+    # what the failover monitor classifies (trainer/failover.py)
+    RDZV_JOIN = "rdzv_join"
+    SCALE_PLAN_APPLIED = "scale_plan_applied"
+    WORKER_FAILED = "worker_failed"
 
 
 class SpanName:
@@ -44,3 +56,4 @@ class SpanName:
     CKPT_SAVE_STAGE = "ckpt_save_stage"
     CKPT_MIRROR = "ckpt_mirror"
     CKPT_RESTORE = "ckpt_restore"
+    LIVE_RESHARD = "live_reshard"

@@ -2,15 +2,24 @@
 ``dlrover_tpu/trainer/executor.py``).
 
 Ported: the step loop with its dispatch window (up to ``train_window``
-steps in flight before the oldest one's metrics are read on the host,
-so the host does not wait on the device every step),
-``log_every_steps``, evaluation, hooks, the non-finite guardrail with
-its policies (``rollback`` restores the newest checkpoint onto the built
-trainer, at most ``max_nonfinite_rollbacks`` times), the final forced
-save, and the preemption drain (SIGTERM: materialize the in-flight
-steps, save, end cleanly). Over several ranks only rank 0 logs. Master
-hooks and reports, failover, live reshard and retune come with later
-slices.
+steps in flight before the oldest call's metrics are read on the host,
+so the host does not wait on the device every step), the fused
+multi-step call (a group of ``steps_per_call`` batches dispatches as
+one ``step_multi`` and enters the window as one call of K steps; a
+short tail dispatches as single steps), ``log_every_steps``,
+evaluation, hooks, the non-finite guardrail with its policies
+(``rollback`` restores the newest checkpoint onto the built trainer, at
+most ``max_nonfinite_rollbacks`` times), the final forced save, the
+preemption drain (SIGTERM: materialize the in-flight steps, save, end
+cleanly), and the requests applied at the next loop boundary once the
+window has drained: ``request_live_reshard`` (a change of world in the
+process), ``request_retune`` (new knobs of the step, and the window)
+and ``request_restart`` (the rebuild of ``on_world_change``). With a
+master client, ``trainer.failover.TrainingFailover`` watches for
+membership changes and makes those requests. The window, the
+non-finite check, the drains and evaluation count steps, not calls.
+Over several ranks only rank 0 logs. The master's reports, plan ids
+and the peer replication hook come with ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import math
 import signal
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -37,6 +46,10 @@ from dlrover_tpu_torch.telemetry import (
 )
 from dlrover_tpu_torch.trainer.conf import Configuration
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+from dlrover_tpu_torch.trainer.failover import (
+    FailoverClient,
+    TrainingFailover,
+)
 
 logger = get_logger("trainer.executor")
 
@@ -49,7 +62,8 @@ class NonFiniteLossError(RuntimeError):
 @dataclass
 class _Inflight:
     last_step: int
-    metrics: Dict[str, Any]
+    count: int  # steps the call ran (K for step_multi)
+    metrics: Dict[str, Any]  # stacked [K, ...] when count > 1
 
 
 class TrainHook:
@@ -83,7 +97,18 @@ class TrainExecutor:
       conf: Configuration with (all optional) ``train_steps``,
         ``eval_every_steps``, ``log_every_steps``,
         ``check_finite_every_steps``, ``train_window``, ``on_nonfinite``,
-        ``max_nonfinite_rollbacks`` (3), ``preemption_grace`` (True).
+        ``max_nonfinite_rollbacks`` (3), ``preemption_grace`` (True),
+        ``live_recovery`` (the Context's).
+      master_client: starts the failover monitor (any object with the
+        reference master client's methods; the port's comes with A12).
+      failover_client: the PS version handshake of that monitor.
+      reshard_world_fn: () -> the ranks of the current world that form
+        the next one (or None), called when a live reshard was requested
+        without them.
+
+    ``train_iter_fn`` is called again after a rollback and after each
+    applied request: a source that resumes where it stopped (one
+    iterator, returned each time) feeds every step once.
     """
 
     def __init__(
@@ -93,6 +118,9 @@ class TrainExecutor:
         eval_fn: Optional[Callable[[Any], Dict]] = None,
         hooks: Optional[List[TrainHook]] = None,
         conf: Optional[Configuration] = None,
+        master_client=None,
+        failover_client: Optional[FailoverClient] = None,
+        reshard_world_fn: Optional[Callable[[], Optional[List[int]]]] = None,
     ):
         self._trainer = trainer
         self._train_iter_fn = train_iter_fn
@@ -142,6 +170,24 @@ class TrainExecutor:
         self._last_materialize = time.monotonic()
         self._started: Optional[float] = None
         self._last_metrics: Optional[Dict[str, Any]] = None
+        # boundary requests (applied by _maybe_restart once the window
+        # has drained)
+        self._live_recovery = bool(conf.get("live_recovery",
+                                            ctx.live_recovery))
+        self._restart_requested = False
+        self._reshard_requested = False
+        self._reshard_devices: Optional[List[int]] = None
+        self._retune_request: Optional[Dict[str, Any]] = None
+        self._reshard_world_fn = reshard_world_fn
+        self._failover: Optional[TrainingFailover] = None
+        if master_client is not None:
+            if failover_client is not None:
+                failover_client.init_version()
+            self._failover = TrainingFailover(
+                master_client, self.request_restart,
+                failover_client=failover_client,
+                on_reshard=(self.request_live_reshard
+                            if self._live_recovery else None))
         self.state: Any = None
         self.eval_metrics: Dict[str, Any] = {}
         self._last_eval_step = -1
@@ -303,14 +349,103 @@ class TrainExecutor:
             return False
         raise NonFiniteLossError(detail)
 
+    # -- boundary requests ---------------------------------------------------
+
+    def request_restart(self):
+        """Membership changed: drain, then rebuild through the trainer's
+        ``on_world_change`` at the next loop boundary."""
+        self._restart_requested = True
+
+    def request_live_reshard(self, devices: Optional[List[int]] = None):
+        """A survivable change of world: at the next loop boundary drain
+        the window, then ``live_reshard`` in the process. ``devices``:
+        the ranks of the current world that stay (None: ask
+        ``reshard_world_fn``, else the world as it is then)."""
+        self._reshard_devices = (list(devices) if devices is not None
+                                 else None)
+        self._reshard_requested = True
+
+    def request_retune(self, steps_per_call: Optional[int] = None,
+                       train_window: Optional[int] = None,
+                       dispatch_chunks: Optional[int] = None,
+                       moe_precision: Optional[str] = None,
+                       prewarm: bool = True):
+        """New knobs at the next loop boundary: ``train_window`` is set
+        in place, and the step's knobs swap through the trainer's cache
+        (``prewarm`` first builds the step there, ``retune`` switches to
+        it). No restart."""
+        self._retune_request = {
+            "steps_per_call": steps_per_call, "train_window": train_window,
+            "dispatch_chunks": dispatch_chunks,
+            "moe_precision": moe_precision, "prewarm": bool(prewarm),
+        }
+
+    def _requested(self) -> bool:
+        return (self._restart_requested or self._reshard_requested
+                or self._retune_request is not None)
+
+    def _maybe_restart(self):
+        """Apply the pending request (the window is drained)."""
+        if self._reshard_requested:
+            self._reshard_requested = False
+            devices, self._reshard_devices = self._reshard_devices, None
+            if devices is None and self._reshard_world_fn is not None:
+                devices = self._reshard_world_fn()
+            if devices is None and not self._trainer.world_changed():
+                # no new coordinates and the same group: a reshard onto
+                # the identical world would be churn, not recovery
+                logger.info("live reshard requested but the world is "
+                            "unchanged; skipping (no new coordinates)")
+                return
+            self.state = self._trainer.live_reshard(
+                self.state, devices=devices, reason="executor")
+            return
+        if self._retune_request is not None:
+            req, self._retune_request = self._retune_request, None
+            self._apply_retune(req)
+            return
+        if not self._restart_requested:
+            return
+        self._restart_requested = False
+        logger.info("rebuilding the training session (membership change)")
+        self.state = self._trainer.on_world_change(self.state)
+
+    def _apply_retune(self, req: Dict[str, Any]):
+        trainer = self._trainer
+        k, w = req["steps_per_call"], req["train_window"]
+        ch, mp = req["dispatch_chunks"], req["moe_precision"]
+        if k is not None and int(k) == trainer.steps_per_call:
+            k = None
+        if ch is not None and int(ch) == trainer.dispatch_chunks:
+            ch = None
+        if mp is not None and str(mp) == trainer.moe_precision:
+            mp = None
+        t0 = time.monotonic()
+        if k is not None or ch is not None or mp is not None:
+            compiles = trainer.compile_count
+            if req["prewarm"]:
+                trainer.prewarm(steps_per_call=k, dispatch_chunks=ch,
+                                moe_precision=mp)
+            self.state = trainer.retune(self.state, steps_per_call=k,
+                                        dispatch_chunks=ch, moe_precision=mp)
+            logger.info("retuned in %.2fs (K=%d, c=%d, p=%s; %d built)",
+                        time.monotonic() - t0, trainer.steps_per_call,
+                        trainer.dispatch_chunks, trainer.moe_precision,
+                        trainer.compile_count - compiles)
+        if w is not None:
+            self._train_window = max(0, int(w))
+        # the stall must not count as the next step's time
+        self._last_materialize = time.monotonic()
+
     # -- loop ---------------------------------------------------------------
 
     def _materialize_oldest(self, handle_nonfinite: bool = True) -> bool:
-        """Read the oldest in-flight step's metrics on the host (the one
-        device sync of the loop) and run the lagged consumers: hooks,
-        the finite check, the speed log. Returns True when a non-finite
-        step triggered a rollback (the remaining in-flight steps descend
-        from the poisoned state, so the window is discarded)."""
+        """Read the oldest in-flight call's metrics on the host (the one
+        device sync of the loop) and run the lagged consumers for each
+        step it ran: hooks, the finite check, the speed log. Returns
+        True when a non-finite step triggered a rollback (the remaining
+        in-flight steps descend from the poisoned state, so the window
+        is discarded)."""
         entry = self._window.popleft()
         t_sync = time.monotonic()
         with span(SpanName.HOST_SYNC, step=entry.last_step):
@@ -321,43 +456,88 @@ class TrainExecutor:
             emit_event(EventKind.COMPILE_FIRST_STEP, step=entry.last_step,
                        seconds=round(now - self._started, 3))
             self._started = None
-        self._h_step_time.observe(now - self._last_materialize)
+        # a fused call's steps share its time evenly
+        per_step = (now - self._last_materialize) / entry.count
         self._last_materialize = now
-        self._c_steps.inc()
-        s = entry.last_step
-        self._last_metrics = host
-        for hook in self._hooks:
-            hook.after_step(s, host)
-        if (handle_nonfinite and self._check_finite_every
-                and s % self._check_finite_every == 0
-                and not self._step_is_finite(host)):
-            if self._handle_nonfinite(s, host):
-                self._window.clear()
-                return True
-        if (self._log_every and s % self._log_every == 0
-                and self._trainer.is_chief):
-            dt = now - self._last_log
-            self._last_log = now
-            logger.info("step %d loss=%.4f (%.2f steps/s)", s,
-                        float(host.get("loss", float("nan"))),
-                        self._log_every / max(dt, 1e-9))
+        for i in range(entry.count):
+            s = entry.last_step - entry.count + 1 + i
+            sub = (host if entry.count == 1 else
+                   {k: v[i] if isinstance(v, list) else v
+                    for k, v in host.items()})
+            self._h_step_time.observe(per_step)
+            self._c_steps.inc()
+            self._last_metrics = sub
+            for hook in self._hooks:
+                hook.after_step(s, sub)
+            if (handle_nonfinite and self._check_finite_every
+                    and s % self._check_finite_every == 0
+                    and not self._step_is_finite(sub)):
+                if self._handle_nonfinite(s, sub):
+                    self._window.clear()
+                    return True
+            if (self._log_every and s % self._log_every == 0
+                    and self._trainer.is_chief):
+                dt = now - self._last_log
+                self._last_log = now
+                logger.info("step %d loss=%.4f (%.2f steps/s)", s,
+                            float(sub.get("loss", float("nan"))),
+                            self._log_every / max(dt, 1e-9))
         return False
 
     def _trim_window(self, limit: int, handle_nonfinite: bool = True) -> bool:
-        """Materialize down to ``limit`` steps in flight; True when a
-        rollback happened."""
-        while len(self._window) > limit:
+        """Materialize the oldest calls until at most ``limit`` steps
+        are in flight; True when a rollback happened."""
+        while sum(e.count for e in self._window) > limit:
             if self._materialize_oldest(handle_nonfinite):
                 return True
         return False
 
+    @staticmethod
+    def _take_batches(data_iter: Iterator, n: int) -> List[Any]:
+        out: List[Any] = []
+        for _ in range(n):
+            try:
+                out.append(next(data_iter))
+            except StopIteration:
+                break
+        return out
+
     def train_and_evaluate(self) -> Dict[str, Any]:
         if self._preempt_grace:
             self.install_preemption_handler()
+        if self._failover is not None:
+            self._failover.start()
         try:
             return self._train()
         finally:
             self._restore_signal_dispositions()
+            if self._failover is not None:
+                self._failover.stop()
+
+    def _dispatch(self, step: int, group: List[Any], k: int) -> int:
+        """Dispatch ``group``: one ``step_multi`` when it holds K > 1
+        batches, else a step each. Returns the step reached."""
+        if k > 1 and len(group) == k:
+            for i in range(k):
+                for hook in self._hooks:
+                    hook.before_step(step + 1 + i)
+            t_disp = time.monotonic()
+            with span(SpanName.STEP_DISPATCH, step=step + k, k=k):
+                self.state, metrics = self._trainer.step_multi(self.state,
+                                                               group)
+            self._h_dispatch.observe(time.monotonic() - t_disp)
+            self._window.append(_Inflight(step + k, k, metrics))
+            return step + k
+        for batch in group:
+            for hook in self._hooks:
+                hook.before_step(step + 1)
+            t_disp = time.monotonic()
+            with span(SpanName.STEP_DISPATCH, step=step + 1):
+                self.state, metrics = self._trainer.step(self.state, batch)
+            self._h_dispatch.observe(time.monotonic() - t_disp)
+            step += 1
+            self._window.append(_Inflight(step, 1, metrics))
+        return step
 
     def _train(self) -> Dict[str, Any]:
         self.state = self._trainer.prepare(self.state)
@@ -368,27 +548,25 @@ class TrainExecutor:
         self._last_log = self._last_materialize = time.monotonic()
         self._started = time.monotonic()
         emit_event(EventKind.TRAIN_START, step=step,
-                   train_window=self._train_window, steps_per_call=1)
+                   train_window=self._train_window,
+                   steps_per_call=self._trainer.steps_per_call)
         while True:
-            # one pass over a fresh iterator; a rollback re-enters with
-            # the restored state and a fresh iterator
+            # one pass over the data source; a rollback or an applied
+            # request re-enters with the state, knobs and window as they
+            # are then, and calls train_iter_fn again
+            window = self._train_window
+            k = self._trainer.steps_per_call
             data_iter = iter(self._train_iter_fn())
             restarted = False
-            while not (self._train_steps and step >= self._train_steps):
-                try:
-                    batch = next(data_iter)
-                except StopIteration:
-                    break  # data source exhausted
-                for hook in self._hooks:
-                    hook.before_step(step + 1)
-                t_disp = time.monotonic()
-                with span(SpanName.STEP_DISPATCH, step=step + 1):
-                    self.state, metrics = self._trainer.step(self.state,
-                                                             batch)
-                self._h_dispatch.observe(time.monotonic() - t_disp)
-                step += 1
-                self._window.append(_Inflight(step, metrics))
-                if self._trim_window(self._train_window):
+            while True:
+                take = k
+                if self._train_steps:
+                    take = min(take, self._train_steps - step)
+                group = self._take_batches(data_iter, take)
+                if not group:
+                    break  # data source exhausted, or train_steps reached
+                step = self._dispatch(step, group, k)
+                if self._trim_window(window):
                     restarted = True
                     break
                 if self._preempted is not None:
@@ -401,17 +579,38 @@ class TrainExecutor:
                     # host metrics
                     self._trim_window(0, handle_nonfinite=False)
                     return self._finish_preempted(step)
-                if self._eval_every and step % self._eval_every == 0:
+                if self._eval_every and (step // self._eval_every
+                                         > (step - len(group))
+                                         // self._eval_every):
                     if self._trim_window(0):
                         restarted = True
                         break
                     self._evaluate(step)
+                if self._requested():
+                    if self._trim_window(0):
+                        restarted = True
+                        break
+                    self._maybe_restart()
+                    if self.state is None:
+                        return self._leave(step)
+                    restarted = True
+                    break
             if not restarted and self._trim_window(0):
                 restarted = True
             if restarted:
                 step = int(self.state.step)
                 continue
             return self._finish(step)
+
+    def _leave(self, step: int) -> Dict[str, Any]:
+        """This rank left the world in a live reshard: end without a
+        save (the survivors hold the state)."""
+        logger.info("left the world at step %d; ending", step)
+        self._trainer.finalize()
+        emit_event(EventKind.TRAIN_END, step=step, left_world=True)
+        for hook in self._hooks:
+            hook.end(self)
+        return {"step": step, "left_world": True}
 
     def _evaluate(self, step: int):
         if self._eval_fn is None or step == self._last_eval_step:

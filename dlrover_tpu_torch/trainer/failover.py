@@ -1,0 +1,262 @@
+"""Failover client: cluster-version handshake + change watcher (port of
+``dlrover_tpu/trainer/failover.py``; the master client it polls comes
+with ROADMAP A12, so any object with the reference client's methods
+serves, as a stub does in the tests).
+
+Role parity: ``dlrover/trainer/tensorflow/failover/failover_client.py:21``
+(local/global/restored cluster versions negotiated through the master's
+ElasticPsService) and ``tensorflow_failover.py:33-144``
+(``TensorflowFailover`` — a watcher thread that detects PS-cluster /
+world changes and triggers a training-session restart).
+
+Here the "session restart" is ``ElasticTrainer.on_world_change`` —
+rebuild the step for the new world and restore the state into it — so
+the watcher's job is only detection + callback.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Optional
+
+from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.telemetry.names import EventKind
+
+logger = get_logger("trainer.failover")
+
+# the readiness plane's rung names (the master's predicted-MTTR table)
+RUNG_LIVE_RESHARD = "live_reshard"
+RUNG_PEER_REBUILD = "peer_rebuild"
+RUNG_STORAGE_RESTORE = "storage_restore"
+
+
+class VersionType:
+    LOCAL = "local"
+    GLOBAL = "global"
+    RESTORED = "restored"
+
+
+class RecoveryDecision:
+    """The three rungs of the recovery ladder (docs/operations.md),
+    cheapest first. Each rung strictly contains the next's cost: a live
+    reshard is a drain + snapshot + (often cached) rebuild; a process
+    restart adds boot + warm compile + staged restore; a pod restart
+    adds scheduling + image pull + cold everything."""
+
+    LIVE_RESHARD = "live_reshard"
+    PROCESS_RESTART = "process_restart"
+    POD_RESTART = "pod_restart"
+
+
+# event kinds a *surviving* process can absorb by resharding in place:
+# the world changed around it, but its own step loop, devices, and
+# compiled programs are intact
+_SURVIVABLE_KINDS = frozenset({
+    EventKind.SCALE_PLAN_APPLIED,   # planned scale up/down
+    EventKind.WORKER_FAILED,        # a PEER's worker died
+    EventKind.PREEMPT_NOTICE,       # a PEER node is being preempted
+    EventKind.RDZV_JOIN,            # nodes waiting to (re)join
+})
+
+
+def classify_recovery(
+    event_kind: str,
+    self_affected: bool = False,
+    host_healthy: bool = True,
+    world_viable: bool = True,
+    mttr_table: Optional[Dict[str, float]] = None,
+) -> str:
+    """Pick the cheapest recovery rung that is actually safe.
+
+    ``event_kind``: the triggering EventKind. ``self_affected``: the
+    failure is on THIS node (own worker death, own preemption notice,
+    own devices wedged) — an in-process reshard cannot help a process
+    that is itself the casualty. ``host_healthy``: the node's
+    host/accelerator diagnosis; False escalates past process restart
+    (a restarted process on a sick host just fails again).
+    ``world_viable``: the post-event world still satisfies min_nodes /
+    node_unit (the master's rendezvous constraints) — without a viable
+    survivor world there is nothing to reshard onto.
+
+    ``mttr_table``: the master's predicted-MTTR-per-rung prices (the
+    readiness auditor's calibrated ladder, attached to recovery plans).
+    When present, the safety-admissible default of LIVE_RESHARD is
+    additionally PRICED: if a restart-class rung (peer_rebuild /
+    storage_restore) predicts strictly cheaper than the live reshard —
+    e.g. a huge mesh whose drain + recompile dwarfs a tiny peer fetch —
+    the decision takes the cheaper rung. Absent or unpriced tables keep
+    today's ladder order, so the pricing can only ever move a decision
+    on evidence.
+    """
+    if not host_healthy:
+        return RecoveryDecision.POD_RESTART
+    if self_affected:
+        return RecoveryDecision.PROCESS_RESTART
+    if event_kind in _SURVIVABLE_KINDS and world_viable:
+        if mttr_table:
+            live = mttr_table.get(RUNG_LIVE_RESHARD)
+            restart_prices = [
+                mttr_table[r]
+                for r in (RUNG_PEER_REBUILD, RUNG_STORAGE_RESTORE)
+                if mttr_table.get(r) is not None
+            ]
+            if (live is not None and restart_prices
+                    and min(restart_prices) < float(live)):
+                return RecoveryDecision.PROCESS_RESTART
+        return RecoveryDecision.LIVE_RESHARD
+    return RecoveryDecision.PROCESS_RESTART
+
+
+class FailoverClient:
+    """Version handshake (reference failover_client.py): each worker
+    keeps a LOCAL version; the master keeps GLOBAL (current cluster) and
+    RESTORED (checkpoint the cluster came back from) versions. A worker
+    whose LOCAL version trails GLOBAL must rebuild its session."""
+
+    def __init__(self, master_client, task_type: str = "worker",
+                 task_id: int = 0):
+        self._client = master_client
+        self._task_type = task_type
+        self._task_id = task_id
+
+    def init_version(self):
+        """On startup: local <- global (first worker bumps global 0->1
+        via a master-side compare-and-set, so two workers starting at
+        once cannot both apply their own read-modify-write)."""
+        global_version = self.get_version(VersionType.GLOBAL)
+        if global_version == 0:
+            self._client.update_cluster_version(
+                VersionType.GLOBAL, 1, self._task_type, self._task_id,
+                expected=0,
+            )
+            global_version = self.get_version(VersionType.GLOBAL)
+        self.set_version(VersionType.LOCAL, global_version)
+
+    def get_version(self, version_type: str) -> int:
+        return self._client.get_cluster_version(
+            version_type, self._task_type, self._task_id
+        )
+
+    def set_version(self, version_type: str, version: int):
+        self._client.update_cluster_version(
+            version_type, version, self._task_type, self._task_id
+        )
+
+    def ps_cluster_changed(self) -> bool:
+        local = self.get_version(VersionType.LOCAL)
+        global_v = self.get_version(VersionType.GLOBAL)
+        return local < global_v
+
+    def sync_to_global(self):
+        self.set_version(
+            VersionType.LOCAL, self.get_version(VersionType.GLOBAL)
+        )
+
+
+class TrainingFailover:
+    """Watches for membership / PS-cluster changes and fires a restart
+    callback (reference TensorflowFailover.start_failover_monitor)."""
+
+    def __init__(
+        self,
+        master_client,
+        on_change: Callable[[], None],
+        failover_client: Optional[FailoverClient] = None,
+        poll_interval: float = 5.0,
+        on_reshard: Optional[Callable[[], None]] = None,
+        mttr_table_fn: Optional[Callable[[], Dict[str, float]]] = None,
+    ):
+        self._client = master_client
+        self._on_change = on_change
+        # supplies the master's predicted-MTTR ladder at decision time
+        # (None = unpriced: classify by safety ladder order alone)
+        self._mttr_table_fn = mttr_table_fn
+        # the live fast path: survivable membership changes (nodes
+        # waiting at the rendezvous while this process is healthy) go
+        # here instead of on_change, so the executor reshards in place.
+        # PS-cluster changes always take on_change — a PS session
+        # rebuild is not an SPMD reshard.
+        self._on_reshard = on_reshard
+        self._failover = failover_client
+        self._interval = poll_interval
+        self._thread: Optional[threading.Thread] = None
+        self._stopped = threading.Event()
+        self._last_ps_addrs: Optional[List[str]] = None
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._run, name="failover-monitor", daemon=True
+        )
+        self._thread.start()
+
+    def _changed(self) -> str:
+        """What changed: "" = nothing; "ps" = PS cluster (session
+        rebuild); "rdzv" = SPMD membership (reshardable)."""
+        # PS strategy: version handshake
+        if self._failover is not None and self._failover.ps_cluster_changed():
+            return "ps"
+        # PS address list drift (reference: address_changed via TF_CONFIG)
+        try:
+            ps_nodes = self._client.query_ps_nodes()
+            addrs = sorted(
+                getattr(node, "service_addr", "") for node in ps_nodes.nodes
+            )
+            if self._last_ps_addrs is not None and addrs != self._last_ps_addrs:
+                self._last_ps_addrs = addrs
+                return "ps"
+            self._last_ps_addrs = addrs
+        except Exception as e:  # noqa: BLE001 — master briefly unreachable
+            # tolerated (the next poll retries) but never silent: a
+            # permanently failing query here means the watcher is blind
+            # to PS membership changes (DLR002)
+            logger.warning("query_ps_nodes failed, skipping PS-drift "
+                           "check this poll (%s: %s)", type(e).__name__, e)
+        # SPMD strategy: nodes waiting at the rendezvous
+        try:
+            if self._client.num_nodes_waiting() > 0:
+                return "rdzv"
+        except Exception as e:  # noqa: BLE001 — master briefly unreachable
+            logger.warning("num_nodes_waiting failed, skipping rendezvous "
+                           "check this poll (%s: %s)", type(e).__name__, e)
+        return ""
+
+    def _run(self):
+        while not self._stopped.wait(self._interval):
+            try:
+                what = self._changed()
+                if what:
+                    if self._failover is not None:
+                        self._failover.sync_to_global()
+                    table = None
+                    if what == "rdzv" and self._mttr_table_fn is not None:
+                        try:
+                            table = self._mttr_table_fn()
+                        except Exception:  # noqa: BLE001 — stay unpriced
+                            logger.warning(
+                                "mttr table lookup failed; classifying "
+                                "unpriced", exc_info=True)
+                            table = None
+                    decision = (
+                        classify_recovery(
+                            EventKind.RDZV_JOIN, mttr_table=table)
+                        if what == "rdzv"
+                        else RecoveryDecision.PROCESS_RESTART
+                    )
+                    if (
+                        decision == RecoveryDecision.LIVE_RESHARD
+                        and self._on_reshard is not None
+                    ):
+                        logger.info("membership change detected; firing "
+                                    "live reshard (survivable)")
+                        self._on_reshard()
+                    else:
+                        logger.info(
+                            "membership change detected; firing restart")
+                        self._on_change()
+            except Exception:  # noqa: BLE001
+                logger.exception("failover monitor iteration failed")
+
+    def stop(self):
+        self._stopped.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self._interval + 1)

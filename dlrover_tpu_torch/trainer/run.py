@@ -12,6 +12,9 @@ included.
     python -m dlrover_tpu_torch.trainer.run --nproc 4 -- \\
         -m dlrover_tpu_torch.examples.train_llama --moe_experts 8 ...
 
+``--steps_per_call`` and ``--train_window`` reach the workers as
+``DLROVER_TPU_STEPS_PER_CALL`` and ``DLROVER_TPU_TRAIN_WINDOW``.
+
 ``run_local(fn, nprocs, args)`` does the same for a function inside one
 program: each worker is a spawned process that runs ``fn(*args)`` with
 the contract set, and the caller gets every rank's return value (which
@@ -120,21 +123,40 @@ def run_local(fn: Callable, nprocs: int, args: Sequence[Any] = (),
     return [got[r] for r in range(nprocs)]
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dlrover_tpu_torch.trainer.run",
         description="start N training processes on this host")
     p.add_argument("--nproc", type=int, required=True)
+    p.add_argument("--train_window", type=int, default=None,
+                   help="steps in flight before the oldest call's metrics "
+                        "are read (0 = synchronous; workers see it as "
+                        "DLROVER_TPU_TRAIN_WINDOW)")
+    p.add_argument("--steps_per_call", type=int, default=None,
+                   help="optimizer steps fused per call (workers see it "
+                        "as DLROVER_TPU_STEPS_PER_CALL)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="[--] script.py args... | -m module args...")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd[:1] == ["--"] else args.cmd
     if not cmd:
         p.error("no command to run")
+    # the Context reads DLROVER_TPU_* at its creation, so every worker's
+    # trainer and executor see these knobs
+    knobs = {}
+    if args.train_window is not None:
+        knobs["DLROVER_TPU_TRAIN_WINDOW"] = str(args.train_window)
+    if args.steps_per_call is not None:
+        knobs["DLROVER_TPU_STEPS_PER_CALL"] = str(args.steps_per_call)
     addr = f"127.0.0.1:{free_port()}"
     procs = [subprocess.Popen(
         [sys.executable, *cmd],
-        env={**os.environ, **worker_env(rank, args.nproc, addr)})
+        env={**os.environ, **knobs, **worker_env(rank, args.nproc, addr)})
         for rank in range(args.nproc)]
     try:
         codes = [proc.wait() for proc in procs]

@@ -18,7 +18,9 @@ import sys
 import dlrover_tpu_torch.examples.train_llama
 import dlrover_tpu_torch.interop
 import dlrover_tpu_torch.ops.kernel_build
+import dlrover_tpu_torch.trainer.data
 import dlrover_tpu_torch.trainer.executor
+import dlrover_tpu_torch.trainer.failover
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(",".join(bad))

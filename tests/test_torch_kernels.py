@@ -830,3 +830,85 @@ def test_f32_kernels_with_live_rows_on_card(cuda_device, tiles, d, f, live):
     assert gm.launch_counts() == {"grouped_matmul_fwd": 6,
                                   "grouped_matmul_dw": 3,
                                   "grouped_matmul_fwd_quant": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe_grouped"])
+def test_multi_step_is_k_single_steps_bitwise_on_card(cuda_device, moe):
+    """The fused multi-step call on the card: two calls of K = 4 against
+    eight single steps from the same init and batches, through the
+    flash kernels (and with experts the grouped ones): every loss and
+    every parameter bit equal, and the same launches."""
+    from dlrover_tpu_torch.examples import train_llama as example
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.models.common import tree_leaves
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    kw = (dict(num_experts=4, moe_top_k=2, moe_dispatch="grouped")
+          if moe else {})
+    cfg = llama.llama_tiny(use_flash=True, **kw)
+    gen = example.synthetic_batches(cfg.vocab_size, 2, 128)()
+    batches = [next(gen) for _ in range(8)]
+    runs = []
+    for k in (1, 4):
+        trainer = ElasticTrainer(llama.make_init_fn(cfg),
+                                 llama.make_loss_fn(cfg), example.adamw(),
+                                 batches[0], device=cuda_device,
+                                 steps_per_call=k)
+        state, losses = trainer.prepare(), []
+        fa.reset_launch_counts()
+        gm.reset_launch_counts()
+        for i in range(0, 8, k):
+            if k == 1:
+                state, m = trainer.step(state, batches[i])
+            else:
+                state, m = trainer.step_multi(state, batches[i:i + k])
+            losses += torch.atleast_1d(m["loss"]).tolist()
+        torch.cuda.synchronize()
+        runs.append((losses, [p.detach().cpu()
+                              for p in tree_leaves(state.params)],
+                     {**fa.launch_counts(), **gm.launch_counts()}))
+    (l1, p1, c1), (l4, p4, c4) = runs
+    assert l1 == l4
+    assert all(torch.equal(a, b) for a, b in zip(p1, p4))
+    assert c1 == c4 and c1["flash_fwd"] > 0
+    if moe:
+        assert c1["grouped_matmul_fwd"] > 0 and c1["grouped_matmul_dw"] > 0
+
+
+@pytest.mark.cuda
+def test_moe_ep_live_reshard_over_nccl_on_four_cards():
+    """A planned change of world from four ranks to two with a card a
+    rank (NCCL: the regrouped snapshot's transfers go through the
+    cards): ranks 2 and 3 leave, the survivors hold their slices of the
+    pre-change experts bit for bit and train on bit for bit as a cold
+    trainer from the same snapshot. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (one rank a card, NCCL)")
+    import numpy as np
+
+    import torch_recovery_workers as workers
+    from dlrover_tpu_torch import interop
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.run import run_local
+
+    kw = dict(num_experts=8, moe_top_k=2, moe_dispatch="grouped_ep")
+    cfg = llama.llama_tiny(**kw)
+    tree = interop.params_to_numpy(
+        llama.init(torch.Generator().manual_seed(0), cfg))
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (6, 8, 17))
+    batches = [{"input_ids": b[:, :-1], "labels": b[:, 1:]} for b in ids]
+    got = run_local(workers.moe_reshard_ranks, 4,
+                    (tree, batches, kw, 1e-2, 3, "cuda"), timeout=300)
+    assert [r.get("left", False) for r in got] == [False, False, True, True]
+    for t, r in enumerate(got[:2]):
+        assert r["backend"] == "nccl" and r["world_after"] == 2
+        assert r["live"] == r["cold"]
+        for key in r["live_state"]:
+            assert r["live_state"][key].tobytes() == \
+                r["cold_state"][key].tobytes(), key
+        for key, after in r["after"].items():
+            if "/experts/" in key and not key.endswith("/step"):
+                full = np.concatenate([g["before"][key] for g in got], 1)
+                assert after.tobytes() == \
+                    full[:, 4 * t:4 * t + 4].tobytes(), (t, key)

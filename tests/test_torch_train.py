@@ -1,7 +1,9 @@
 """Training with the port against the JAX package: one AdamW step against
 optax, a 5-step loss trajectory of TrainExecutor + ElasticTrainer against
-the JAX example's path, and the control plane the slice copies (mesh
-plan, strategy, configuration). Everything runs on the CPU in f32.
+the JAX example's path, the fused multi-step call (``steps_per_call``)
+against the synchronous loop and against the JAX package's, and the
+control plane the slice copies (mesh plan, strategy, configuration,
+launcher flags). Everything runs on the CPU in f32.
 """
 
 import functools
@@ -17,6 +19,7 @@ import torch
 
 from dlrover_tpu.models import llama as jax_llama
 from dlrover_tpu.parallel import mesh as jax_mesh
+from dlrover_tpu.parallel.accelerate import accelerate as jax_accelerate
 from dlrover_tpu.parallel.strategy import Strategy as JaxStrategy
 from dlrover_tpu.trainer.conf import build_configuration as jax_conf
 from dlrover_tpu.trainer.elastic import ElasticTrainer as JaxTrainer
@@ -29,7 +32,10 @@ from dlrover_tpu_torch.models.common import tree_leaves
 from dlrover_tpu_torch.parallel import mesh
 from dlrover_tpu_torch.parallel.accelerate import accelerate
 from dlrover_tpu_torch.parallel.strategy import DtypePolicy, Strategy
+from dlrover_tpu_torch.telemetry.events import recent_events
+from dlrover_tpu_torch.trainer import run as launcher
 from dlrover_tpu_torch.trainer.conf import Configuration, build_configuration
+from dlrover_tpu_torch.trainer.data import stack_batches
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 from dlrover_tpu_torch.trainer.executor import (
     NonFiniteLossError,
@@ -345,6 +351,184 @@ class TestExecutor:
         for a, b in zip(tree_leaves(states[0].params),
                         tree_leaves(states[1].params)):
             assert torch.equal(a, b)
+
+
+class StepRecorder(TrainHook):
+    """Each step's loss by step number; a step seen twice fails."""
+
+    def __init__(self):
+        self.losses = {}
+
+    def after_step(self, step, metrics):
+        assert step not in self.losses, f"step {step} materialized twice"
+        self.losses[step] = float(metrics["loss"])
+
+
+class TestMultiStep:
+    """The fused multi-step call (``steps_per_call = K``): K optimizer
+    steps in one call, bit for bit K calls of the step."""
+
+    def _run(self, window, steps_per_call=1, train_steps=16):
+        cfg = llama.llama_tiny()
+        batches = example.synthetic_batches(cfg.vocab_size, 2, 8)
+        trainer = ElasticTrainer(
+            llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+            example.adamw(), next(batches()), device="cpu",
+            steps_per_call=steps_per_call)
+        rec = StepRecorder()
+        executor = TrainExecutor(trainer, batches, hooks=[rec],
+                                 conf=Configuration({
+                                     "train_steps": train_steps,
+                                     "log_every_steps": 0,
+                                     "train_window": window}))
+        return executor.train_and_evaluate(), executor, rec
+
+    def test_window_and_multi_step_bitwise_parity_with_sync(self):
+        """Windows 0 and 4, and K = 8 under window 4, over 16 steps:
+        every per-step loss and every parameter bit equal."""
+        out0, ex0, rec0 = self._run(window=0)
+        out1, ex1, rec1 = self._run(window=4)
+        out2, ex2, rec2 = self._run(window=4, steps_per_call=8)
+        assert out0["step"] == out1["step"] == out2["step"] == 16
+        assert sorted(rec2.losses) == list(range(1, 17))
+        assert rec0.losses == rec1.losses == rec2.losses
+        for ex in (ex1, ex2):
+            for a, b in zip(tree_leaves(ex.state.params),
+                            tree_leaves(ex0.state.params)):
+                assert torch.equal(a, b)
+        assert ex2.state.step == 16
+
+    def test_partial_tail_group_dispatches_single_steps(self):
+        """13 steps at K = 8: one fused call, then five single steps,
+        every step once."""
+        out, ex, rec = self._run(window=2, steps_per_call=8,
+                                 train_steps=13)
+        assert out["step"] == 13 and ex.state.step == 13
+        assert sorted(rec.losses) == list(range(1, 14))
+        start = [e for e in recent_events() if e["kind"] == "train_start"]
+        assert start[-1]["steps_per_call"] == 8
+
+    def test_multi_step_matches_the_jax_accelerate(self):
+        """The reference's ``accelerate(..., steps_per_call=4)`` and the
+        port's, two fused calls over the same tiny Llama, init and token
+        stream: the eight per-step losses within 1e-4 relative (f32, as
+        TestTrajectory)."""
+        batch, seq, k = 4, 32, 4
+        jcfg = jax_llama.llama_tiny()
+        jb = _jax_example().synthetic_batches(jcfg.vocab_size, batch, seq)()
+        groups = [[next(jb) for _ in range(k)] for _ in range(2)]
+        jres = jax_accelerate(
+            jax_llama.make_init_fn(jcfg), jax_llama.make_loss_fn(jcfg),
+            optax.adamw(3e-4, weight_decay=0.1), groups[0][0],
+            strategy=JaxStrategy(mesh=jax_mesh.single_device_plan(),
+                                 rule_set="llama", remat_policy=""),
+            devices=[jax.devices()[0]], steps_per_call=k)
+        jstate = jres.init_fn(jax.random.PRNGKey(0))
+        tree = jax.device_get(jstate.params)
+        want = []
+        for i, group in enumerate(groups):
+            stacked = jax.tree.map(lambda *xs: np.stack(xs), *group)
+            rngs = jax.random.split(jax.random.PRNGKey(i), k)
+            jstate, m = jres.train_step_multi(
+                jstate, jres.shard_batch(stacked, stacked=True), rngs)
+            want += [float(x) for x in np.asarray(m["loss"])]
+
+        cfg, _ = example.preset_config("tiny")
+        result = accelerate(
+            lambda gen: interop.params_from_numpy(tree, device="cpu"),
+            llama.make_loss_fn(cfg), example.adamw(), groups[0][0],
+            strategy=Strategy(mesh=mesh.single_device_plan(),
+                              rule_set="llama", remat_policy=""),
+            device="cpu", steps_per_call=k)
+        state, got = result.init_fn(0), []
+        for group in groups:
+            state, m = result.train_step_multi(
+                state, result.shard_batch(stack_batches(group),
+                                          stacked=True))
+            assert m["loss"].shape == m["finite"].shape == (k,)
+            got += m["loss"].tolist()
+        assert state.step == 2 * k
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+
+    def test_no_host_read_between_the_fused_steps(self, monkeypatch):
+        """Nothing in the fused call reads a computed tensor on the host:
+        with ``item``, ``tolist`` and ``bool`` made to raise on every
+        tensor but AdamW's step counters (which torch keeps on the host
+        by design), two fused calls run; off save steps the trainer
+        reads nothing either."""
+        cfg = llama.llama_tiny()
+        batches = example.synthetic_batches(cfg.vocab_size, 2, 8)()
+        trainer = ElasticTrainer(
+            llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+            example.adamw(), next(batches), device="cpu", steps_per_call=3)
+        state = trainer.prepare()
+        state, _ = trainer.step_multi(state, [next(batches)
+                                              for _ in range(3)])
+        counters = {id(slots["step"])
+                    for slots in state.opt_state.state.values()}
+        assert counters
+
+        def guarded(name):
+            real = getattr(torch.Tensor, name)
+
+            def read(self, *args, **kwargs):
+                if id(self) not in counters:
+                    raise AssertionError(f"{name} inside the fused call")
+                return real(self, *args, **kwargs)
+
+            return read
+
+        group = [next(batches) for _ in range(3)]
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "__bool__"):
+                m.setattr(torch.Tensor, name, guarded(name))
+            state, metrics = trainer.step_multi(state, group)
+        assert bool(metrics["finite"].all()) and state.step == 6
+
+    def test_step_multi_takes_k_batches_or_one_stacked(self):
+        cfg = llama.llama_tiny()
+        batches = example.synthetic_batches(cfg.vocab_size, 2, 8)()
+        group = [next(batches) for _ in range(2)]
+        losses = []
+        for given in (group, stack_batches(group)):
+            trainer = ElasticTrainer(
+                llama.make_init_fn(cfg), llama.make_loss_fn(cfg),
+                example.adamw(), group[0], device="cpu", steps_per_call=2)
+            state = trainer.prepare()
+            state, metrics = trainer.step_multi(state, given)
+            losses.append(metrics["loss"].tolist())
+        assert losses[0] == losses[1]
+        with pytest.raises(ValueError, match="exactly steps_per_call=2"):
+            trainer.step_multi(state, group + group[:1])
+        single = ElasticTrainer(llama.make_init_fn(cfg),
+                                llama.make_loss_fn(cfg), example.adamw(),
+                                group[0], device="cpu")
+        state = single.prepare()
+        with pytest.raises(RuntimeError, match="steps_per_call > 1"):
+            single.step_multi(state, group)
+
+    def test_launcher_flags_and_env_knobs(self, monkeypatch):
+        """``--steps_per_call`` / ``--train_window`` of the launcher, and
+        the Context's environment overrides they set."""
+        from dlrover_tpu_torch.common.config import Context
+
+        args = launcher.build_parser().parse_args(
+            ["--nproc", "2", "--train_window", "2", "--steps_per_call", "8",
+             "--", "t.py"])
+        assert (args.train_window, args.steps_per_call) == (2, 8)
+        monkeypatch.setenv("DLROVER_TPU_TRAIN_WINDOW", "7")
+        monkeypatch.setenv("DLROVER_TPU_STEPS_PER_CALL", "3")
+        monkeypatch.setenv("DLROVER_TPU_LIVE_RECOVERY", "0")
+        ctx = Context()
+        assert (ctx.train_window, ctx.steps_per_call) == (7, 3)
+        assert ctx.live_recovery is False
+
+    def test_example_takes_steps_per_call(self):
+        rec = StepRecorder()
+        out = example.main(["--preset", "tiny", "--steps", "6", "--batch",
+                            "2", "--seq", "16", "--device", "cpu",
+                            "--steps_per_call", "4"], hooks=[rec])
+        assert out["step"] == 6 and sorted(rec.losses) == list(range(1, 7))
 
 
 class TestDevice:
