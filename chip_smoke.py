@@ -32,9 +32,12 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      the main path's 32/8 heads and at the MoE cell's 32/32;
   5. train Llama-3-8B at full width (4 layers, batch 1, seq 4096) for a
      few steps through TrainExecutor + ElasticTrainer with the flash
-     kernels and the default dispatch window, counting their launches;
-     then profile a few more steps (each flash kernel's device time per
-     step among them);
+     kernels and the default dispatch window, counting their launches,
+     with the attribution record (FLOPs and bytes counted on the meta
+     device) and the live MFU gauge; then profile a few more steps: the
+     trace exported and read by telemetry.attribution (device-time
+     buckets, kernel groups, each flash kernel's device time per step,
+     the device's gaps), its busy time within 1 % of key_averages';
   6. one forward and backward of the same model with use_flash=True
      against the reference attention (use_flash=False): every gradient
      on one batch; then the loss of each path, and of forwards with
@@ -156,6 +159,16 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      through the executor's window and, from the same snapshot, 8 single
      steps, bit for bit; the step and the device's idle share at K = 1
      and K = 4 (readings).
+ 17. attribution on the dense cell (phase 5's) through TrainExecutor's
+     window: the record counted on the meta device beside
+     llama.flops_per_token x tokens, B1-B3's reported FLOPs equal to
+     their Bound column's, a capture leaving every state bit and the
+     rng stream as they were, the live MFU gauge within 1 % of
+     derived_mfu over the CUDA events' step time, the peak-memory and
+     headroom gauges beside torch.cuda's, a profile through the
+     package's trace parser, and the gauges' per-step cost (paired runs
+     with attribution on and off). Phases 8 and 14 print their records
+     too.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
@@ -810,6 +823,79 @@ def grouped_times(gm, x, w, dy, lay):
     return results
 
 
+def step_record():
+    """A TrainHook: a CUDA event before each step's dispatch and one at
+    the end (an event fires when the device has finished every step
+    before it, so two events bound one step on the device's clock however
+    far the dispatch window lets the host run ahead); each step's
+    metrics as the window hands them over, and the live MFU gauge as the
+    executor set it for that step."""
+    import torch
+
+    from dlrover_tpu_torch.telemetry import names as tm
+    from dlrover_tpu_torch.telemetry.metrics import process_registry
+    from dlrover_tpu_torch.trainer.executor import TrainHook
+
+    class Record(TrainHook):
+        def __init__(self):
+            self.events, self.metrics, self.mfu = [], {}, {}
+
+        def _mark(self):
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+
+        def before_step(self, step):
+            self._mark()
+
+        def after_step(self, step, metrics):
+            self.metrics[step] = metrics
+            gauge = process_registry().get(tm.ATTR_MFU)
+            if gauge is not None:
+                self.mfu[step] = gauge.value
+
+        def end(self, executor):
+            self._mark()
+
+    return Record()
+
+
+def gauge_mfu(record, first, last):
+    """The live MFU gauge over steps ``first``..``last`` as one figure:
+    the harmonic mean of its samples, which is ``derived_mfu`` over their
+    mean step time (None without samples)."""
+    samples = [record.mfu[s] for s in range(first, last + 1)
+               if record.mfu.get(s, 0.0) > 0]
+    return len(samples) / sum(1 / m for m in samples) if samples else None
+
+
+def attribution_report(result, batch, label, formula_flops, card, k=1):
+    """The attribution record of a built step (``telemetry.attribution``,
+    counted on the meta device) beside the formula's FLOPs, with each
+    hand-written kernel's calls, FLOPs and bytes a call."""
+    from dlrover_tpu_torch.telemetry import attribution
+
+    t0 = time.monotonic()
+    count = attribution.count_step(result, k, batch)
+    count_s = time.monotonic() - t0
+    record = attribution.capture_attribution(result, k, batch, emit=False)
+    flops = record.flops_per_step
+    log(f"  attribution ({label}): {flops:.6e} FLOPs a step counted on the "
+        f"meta device (aten matmuls {count.matmul_flops / k:.6e}), the "
+        f"formula's {formula_flops:.6e} (counted / formula "
+        f"{flops / formula_flops:.4f}); {record.bytes_accessed_per_step:.6e} "
+        f"bytes a step (intensity {record.arithmetic_intensity:.1f}); peak "
+        f"memory {record.peak_hbm_bytes / 2**30:.2f} GiB; exchanges "
+        f"{record.collective_bytes}; capture {record.capture_seconds:.3f} s "
+        f"(a count alone {count_s:.3f} s); {card}")
+    for name, v in sorted(count.kernels.items()):
+        log(f"    {name}: {v['calls'] / k:g} calls a step, "
+            f"{v['flops'] / v['calls'] / 1e9:.1f} GFLOP and "
+            f"{v['bytes'] / v['calls'] / 1e9:.4f} GB a call")
+    return {"record": record.to_dict(), "formula_flops": formula_flops,
+            "matmul_flops": count.matmul_flops / k,
+            "kernels": count.kernels, "count_s": count_s}
+
+
 def main_trainer(llama, config, rule_set, example_batch, loss_fn=None,
                  **kwargs):
     """The main path's ElasticTrainer on the card: ``config``'s init and
@@ -841,35 +927,12 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.examples.train_llama import synthetic_batches
     from dlrover_tpu_torch.trainer.conf import build_configuration
-    from dlrover_tpu_torch.trainer.executor import TrainExecutor, TrainHook
+    from dlrover_tpu_torch.trainer.executor import TrainExecutor
 
     if not config.use_flash:
         fail("the main path must run with use_flash=True")
 
-    class Record(TrainHook):
-        """A CUDA event before each step's dispatch and one at the end:
-        an event fires when the device has finished every step before
-        it, so two events bound one step on the device's clock however
-        far the dispatch window lets the host run ahead. The metrics
-        reach the host later, as the window hands them over."""
-
-        def __init__(self):
-            self.events, self.metrics = [], {}
-
-        def _mark(self):
-            self.events.append(torch.cuda.Event(enable_timing=True))
-            self.events[-1].record()
-
-        def before_step(self, step):
-            self._mark()
-
-        def after_step(self, step, metrics):
-            self.metrics[step] = metrics
-
-        def end(self, executor):
-            self._mark()
-
-    record = Record()
+    record = step_record()
     if batches is None:
         batches = synthetic_batches(config.vocab_size, 1, SEQ)
     trainer = main_trainer(llama, config, rule_set, next(batches()))
@@ -929,8 +992,17 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     if counts != expected:
         fail(f"kernel launches {counts} on the main path, expected "
              f"{expected}")
+    attr = attribution_report(trainer.accelerated, next(batches()), label,
+                              fpt * tokens, card)
+    # the last `window` steps are materialized in the final drain
+    attr["gauge_mfu"] = gauge_mfu(record, 2, STEPS - window)
+    log(f"  live MFU gauge (dlrover_attribution_mfu: counted FLOPs over the "
+        f"executor's step time) over steps 2..{STEPS - window}: "
+        f"{attr['gauge_mfu'] or 0.0:.4f}; by llama.flops_per_token over the "
+        f"device's steady step {mfu:.4f}; {card}")
     profile = profile_steps(trainer, executor.state, next(batches()))
     summary = {
+        "attribution": attr,
         "profile": profile, "config": label,
         "params": llama.param_count(config), "batch": 1, "seq": SEQ,
         "steps": STEPS, "train_window": window,
@@ -948,31 +1020,30 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     return summary
 
 
-KERNEL_GROUPS = (  # (group, substrings of a CUDA kernel's name)
-    ("flash attention (B1-B3)", ("flash_fwd", "flash_bwd")),
-    ("grouped matmul (B4-B6)", ("grouped_fwd", "grouped_dw")),
-    ("copies between host and device", ("memcpy",)),
-    ("matmul", ("gemm", "xmma", "cutlass", "matmul", "sm90_", "nvjet")),
-    ("optimizer", ("multi_tensor", "adam")),
-    ("softmax / loss", ("softmax", "nll", "log_softmax", "logsumexp")),
-)
-
-
 FLASH_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2",
                  "flash_bwd_dq": "B3"}  # a substring of each kernel's name
 # the segment-id kernels, which no unpacked path launches, and the
 # prefix-LM kernels, which only phase 14 launches
 NO_SEG = {f"{name}_seg": 0 for name in FLASH_KERNELS}
 NO_PFX = {f"{name}_pfx": 0 for name in FLASH_KERNELS}
+TRACE_AGREEMENT = 0.01  # the trace's busy time against key_averages'
 
 
 def profile_steps(trainer, state, batch, n=3):
     """``n`` more training steps dispatched back to back (as the
     dispatch window lets them run), once under torch.profiler and once
-    without: device time by kernel group, and the device's idle share
-    of the profiled steps' own span (CUDA events around all ``n``)."""
+    without. The trace is exported (``export_chrome_trace``) and read by
+    the package (``telemetry.attribution``): device-time buckets, time
+    by kernel group and by kernel, the device's gaps; its busy time is
+    held within TRACE_AGREEMENT of the device sum ``key_averages``
+    reads. The idle share is of the profiled steps' own span (CUDA
+    events around all ``n``)."""
+    import tempfile
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.telemetry import attribution
 
     def run():
         torch.cuda.synchronize()
@@ -989,51 +1060,71 @@ def profile_steps(trainer, state, batch, n=3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         span_ms = run()
-    groups, top, host = {}, [], []
-    flash = {name: [0.0, 0.0] for name in FLASH_KERNELS}  # ms, launches
+    host, summed_us = [], 0.0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CPU:
             host.append((evt.self_cpu_time_total / 1e3 / n, evt.count / n,
                          evt.key))
             continue
         # kernels only: a user annotation (e.g. the optimizer's
-        # record_function range) spans kernels already counted
+        # record_function range) spans kernels already counted. Kernel
+        # names may hold '#' ("{lambda()#3}"): the annotation flag, not
+        # the name, tells them apart
         if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)
-                or "#" in evt.key):
+                or getattr(evt, "is_user_annotation", False)):
             continue
-        us = getattr(evt, "device_time_total", 0) or 0
-        name = evt.key
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name.lower() for k in keys)),
-                     "other elementwise / copies")
-        groups[group] = groups.get(group, 0.0) + us / 1e3 / n
-        top.append((us / 1e3 / n, evt.count / n, name))
-        for kernel in FLASH_KERNELS:
-            if kernel in name:
-                flash[kernel][0] += us / 1e3 / n
-                flash[kernel][1] += evt.count / n
-    busy = sum(groups.values())
+        summed_us += getattr(evt, "device_time_total", 0) or 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "steps.pt.trace.json")
+        prof.export_chrome_trace(path)
+        buckets = attribution.parse_trace_path(path)
+        records = attribution.load_trace(path)
+    view = attribution.kernel_breakdown(records, n, top=12)
     step_ms, plain_step_ms = span_ms / n, plain_ms / n
+    summed = summed_us / 1e3 / n
+    busy = buckets["busy_s"] * 1e3 / n  # the busiest lane, per step
     if busy == 0.0:
         log("  profile: the profiler recorded no device time "
             "(not measured)")
         return {"device_ms": None, "step_ms": step_ms,
                 "unprofiled_step_ms": plain_step_ms}
     idle = 1 - busy / step_ms
+    agreement = busy / summed - 1 if summed else float("inf")
     log(f"  profile of {n} more steps: device busy {busy:.1f} ms per step "
         f"of {step_ms:.1f} ms under the profiler (idle share {idle:.4f}); "
         f"the same {n} steps without it: {plain_step_ms:.1f} ms per step "
         f"(idle share against it {1 - busy / plain_step_ms:.4f})")
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    log(f"    the trace by telemetry.attribution.parse_trace_path: "
+        f"{buckets['events']} device events, busy {buckets['busy_s']:.6f} s "
+        f"(all lanes {view['busy_ms'] * n / 1e3:.6f}), idle "
+        f"{buckets['idle_s']:.6f} s of a {buckets['wall_s']:.6f} s device "
+        f"span; compute {buckets['compute_s']:.6f}, collective "
+        f"{buckets['collective_s']:.6f}, infeed {buckets['infeed_s']:.6f}, "
+        f"other {buckets['other_s']:.6f} s; against key_averages' device "
+        f"sum {summed:.3f} ms per step: {agreement:+.5f}")
+    if abs(agreement) > TRACE_AGREEMENT:
+        fail(f"the parsed trace's busy time {busy:.3f} ms per step is not "
+             f"within {TRACE_AGREEMENT} of key_averages' {summed:.3f}")
+    for group, ms in sorted(view["groups_ms"].items(), key=lambda kv: -kv[1]):
         log(f"    {group}: {ms:.1f} ms ({ms / busy:.3f})")
+    flash = {name: [0.0, 0.0] for name in FLASH_KERNELS}  # ms, launches
+    for name, (ms, launches) in view["by_name"].items():
+        for kernel in FLASH_KERNELS:
+            if kernel in name:
+                flash[kernel][0] += ms
+                flash[kernel][1] += launches
     for kernel, (ms, launches) in flash.items():
         log(f"    {FLASH_KERNELS[kernel]} ({kernel}): {ms:.2f} ms per step "
             f"over {launches:g} launches ({ms / busy:.3f} of the busy time)")
-    top.sort(reverse=True)
-    for ms, count, name in top[:12]:
+    for ms, count, name in view["top"]:
         log(f"    top kernel {ms:.2f} ms x{count:g}: {name[:90]}")
-    gaps = device_gaps(prof, n)
+    gaps = attribution.device_gaps(records, n)
+    log(f"    device span of the profiled steps: "
+        f"{gaps['span_ms_per_step']:.1f} ms per step; gaps per step:")
+    for label, entry in gaps["per_step"].items():
+        log(f"      {label}: {entry['count']:g} gaps, {entry['ms']:.2f} ms")
+    for gap, before, after in gaps["largest"][:6]:
+        log(f"      gap {gap:.2f} ms after {before[:50]} before {after[:50]}")
     # the host's side: self time per step of each op and runtime call
     # (under the profiler, which adds its own cost to each)
     host.sort(reverse=True)
@@ -1043,55 +1134,15 @@ def profile_steps(trainer, state, batch, n=3):
         log(f"    top host op {ms:.2f} ms x{count:g}: {name[:90]}")
     return {"device_ms": busy, "step_ms": step_ms,
             "unprofiled_step_ms": plain_step_ms, "idle_share": idle,
-            "groups_ms": groups,
+            "key_averages_device_ms": summed, "trace_agreement": agreement,
+            "buckets": buckets, "groups_ms": view["groups_ms"],
             "flash_ms": {k: ms for k, (ms, _) in flash.items()},
             "flash_launches": {k: c for k, (_, c) in flash.items()},
-            "top": [(ms, count, name[:200]) for ms, count, name in top[:15]],
+            "top": [(ms, count, name[:200])
+                    for ms, count, name in view["top"]],
             "host_top": [(ms, count, name[:200])
                          for ms, count, name in host[:15]],
             "gaps": gaps}
-
-
-GAP_CLASSES = ((0.02, "under 20 us"), (1.0, "20 us to 1 ms"),
-               (float("inf"), "over 1 ms"))
-
-
-def device_gaps(prof, n):
-    """Where the device waits between its own operations in the profiled
-    steps: the gaps between one kernel's end and the next one's start,
-    summed per step by size, and the largest with their neighbours."""
-    import torch
-
-    spans = sorted(
-        (e.time_range.start / 1e3, e.time_range.end / 1e3, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False) and "#" not in e.name)
-    if not spans:
-        return {}
-    by_class = {label: [0, 0.0] for _, label in GAP_CLASSES}
-    largest = []
-    end, prev = spans[0][1], spans[0][2]
-    for start, stop, name in spans[1:]:
-        gap = start - end
-        if gap > 0:
-            label = next(lb for limit, lb in GAP_CLASSES if gap < limit)
-            by_class[label][0] += 1
-            by_class[label][1] += gap
-            largest.append((gap, prev, name))
-        if stop > end:
-            end, prev = stop, name
-    log(f"    device span of the profiled steps: "
-        f"{(end - spans[0][0]) / n:.1f} ms per step; gaps per step:")
-    for label, (count, ms) in by_class.items():
-        log(f"      {label}: {count / n:g} gaps, {ms / n:.2f} ms")
-    largest.sort(reverse=True)
-    for gap, before, after in largest[:6]:
-        log(f"      gap {gap:.2f} ms after {before[:50]} before {after[:50]}")
-    return {"span_ms_per_step": (end - spans[0][0]) / n,
-            "per_step": {lb: {"count": c / n, "ms": ms / n}
-                         for lb, (c, ms) in by_class.items()},
-            "largest": [(g, b[:120], a[:120]) for g, b, a in largest[:10]]}
 
 
 # Phase 6 holds the gradients of the flash path against the reference's
@@ -2039,6 +2090,7 @@ def ep_train_rank(argv, profile_last):
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import grouped_matmul as gm
     from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.telemetry import attribution
     from dlrover_tpu_torch.trainer.executor import TrainHook
 
     class Record(TrainHook):
@@ -2090,12 +2142,9 @@ def ep_train_rank(argv, profile_last):
     if record.prof is not None:
         for evt in record.prof.key_averages():
             if (evt.device_type != torch.autograd.DeviceType.CUDA
-                    or getattr(evt, "is_user_annotation", False)
-                    or "#" in evt.key):
+                    or getattr(evt, "is_user_annotation", False)):
                 continue
-            group = next((g for g, keys in KERNEL_GROUPS
-                          if any(k in evt.key.lower() for k in keys)),
-                         "other elementwise / copies")
+            group = attribution.kernel_group(evt.key)
             groups[group] = groups.get(group, 0.0) + (
                 getattr(evt, "device_time_total", 0) or 0) / 1e3
     return {"step": out["step"], "launches": counts, "step_ms": step_ms,
@@ -3255,6 +3304,7 @@ def glm_train(glm, fa, remat, config, label, card):
         f" against 989 TFLOP/s); peak memory {peak / 2**30:.2f} GiB; {card}")
     if counts != expected:
         fail(f"kernel launches {counts} on the GLM path, expected {expected}")
+    attr = attribution_report(result, host, label, flops, card)
     trainer = types.SimpleNamespace(
         step=lambda st, bt: result.train_step(st, bt))
     profile = profile_steps(trainer, state, batch)
@@ -3266,6 +3316,7 @@ def glm_train(glm, fa, remat, config, label, card):
         "tokens_per_s": tokens / steady * 1e3, "mfu": mfu,
         "step_flops": flops, "peak_memory_bytes": peak,
         "launches": counts, "expected_launches": expected,
+        "attribution": attr,
     }
     del state, result
     return summary
@@ -3364,7 +3415,9 @@ def state_digest(state):
 
 class PlantedNaN:
     """The main path's loss with one NaN planted: after ``arm(n)`` the
-    n-th call returns NaN, and the calls after it are clean again."""
+    n-th call on the card returns NaN, and the calls after it are clean
+    again (the attribution capture's calls on the meta device do not
+    count)."""
 
     def __init__(self, loss_fn):
         self.loss_fn, self.countdown = loss_fn, 0
@@ -3374,7 +3427,7 @@ class PlantedNaN:
 
     def __call__(self, params, batch, rng):
         loss, aux = self.loss_fn(params, batch, rng)
-        if self.countdown:
+        if self.countdown and batch["input_ids"].device.type != "meta":
             self.countdown -= 1
             if self.countdown == 0:
                 loss = loss * float("nan")
@@ -3942,7 +3995,9 @@ def device_busy(prof):
         (e.time_range.start / 1e3, e.time_range.end / 1e3)
         for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False) and "#" not in e.name)
+        # kernel names may hold '#' ("{lambda()#3}"): the annotation
+        # flag, not the name, tells a user annotation apart
+        and not getattr(e, "is_user_annotation", False))
     if not spans:
         return 0.0, 0.0
     busy, (lo, hi) = 0.0, spans[0]
@@ -4030,8 +4085,11 @@ def recovery_retune(llama, config, card):
             self.events.append(torch.cuda.Event(enable_timing=True))
             self.events[-1].record()
 
-        def begin(self, executor):
-            self._mark()
+        def before_step(self, step):
+            # from the first dispatch: the executor's start (a new
+            # step's attribution capture among it) is not a step's time
+            if not self.events:
+                self._mark()
 
         def after_step(self, step, metrics):
             self.losses[step] = metrics["loss"]
@@ -4664,6 +4722,183 @@ def against_stress(call, v, s, w, rl, calls, variant):
     return counts
 
 
+# -- phase 17: attribution ---------------------------------------------------
+
+ATTR_STEPS = 30  # phase 17's measured run (steps 4 to 30 - window read)
+PAIR_STEPS = 8  # each of the paired runs with attribution on and off
+MFU_AGREEMENT = 0.01  # the live gauge against the events' MFU
+
+
+def attribution_phase(llama, fa, remat, config, card):
+    """Phase 17: the attribution plane (``telemetry.attribution``,
+    ``utils.prof``) on the dense cell through TrainExecutor's window, as
+    phase 5: the record counted on the meta device beside
+    ``llama.flops_per_token``, B1-B3's reported FLOPs against the Bound
+    column's (``kernel_times``' formula), a capture leaving the state
+    bit for bit, the live MFU gauge within MFU_AGREEMENT of
+    ``derived_mfu`` over the CUDA events' step time, the peak and
+    headroom gauges, a profile through the package's trace parser, and
+    the executor's per-step cost of the gauges (paired runs, on and
+    off)."""
+    import torch
+
+    from dlrover_tpu_torch.common.config import get_context
+    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
+    from dlrover_tpu_torch.telemetry import attribution, names as tm
+    from dlrover_tpu_torch.telemetry.metrics import process_registry
+    from dlrover_tpu_torch.trainer.conf import build_configuration
+    from dlrover_tpu_torch.trainer.executor import TrainExecutor
+    from dlrover_tpu_torch.utils.prof import derived_mfu
+
+    reg = process_registry()
+    batches = synthetic_batches(config.vocab_size, 1, SEQ, seed=17)
+    host = next(batches())
+    trainer = main_trainer(llama, config, "llama", host)
+    observe_s = []
+    observe = TrainExecutor._observe_attribution
+
+    def timed(self, per_step):
+        t0 = time.perf_counter()
+        observe(self, per_step)
+        observe_s.append(time.perf_counter() - t0)
+
+    def run(steps, state=None, hooks=()):
+        executor = TrainExecutor(
+            trainer, train_iter_fn=batches, hooks=list(hooks),
+            conf=build_configuration({
+                "train_steps": steps + (state.step if state else 0),
+                "log_every_steps": 0}))
+        executor.state = state
+        executor.train_and_evaluate()
+        return executor
+
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    expected = {"flash_fwd": ATTR_STEPS * LAYERS * (1 + recompute),
+                "flash_bwd_dkv": ATTR_STEPS * LAYERS,
+                "flash_bwd_dq": ATTR_STEPS * LAYERS, **NO_SEG, **NO_PFX}
+    record = step_record()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    TrainExecutor._observe_attribution = timed
+    try:
+        executor = run(ATTR_STEPS, hooks=[record])
+    finally:
+        TrainExecutor._observe_attribution = observe
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {ATTR_STEPS} steps, launches {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"kernel launches {counts} in phase 17, expected {expected}")
+    rec = trainer.attribution()
+    if rec is None or rec.peak_flops_per_s != PEAK_BF16_FLOPS:
+        fail(f"the trainer's attribution record {rec} is missing or not "
+             f"priced at the card's {PEAK_BF16_FLOPS:.4g} FLOP/s")
+    tokens = SEQ
+    formula = llama.flops_per_token(config) * tokens
+    report = attribution_report(trainer.accelerated, host, "dense", formula,
+                                card)
+    if report["record"]["flops_per_step"] != rec.flops_per_step:
+        fail("a fresh count differs from the trainer's record")
+    # B1-B3 against the Bound column's operations (kernel_times' formula)
+    b, h, d = 1, config.num_heads, config.head_dim
+    pairs = SEQ * (SEQ + 1) // 2
+    bound = {"flash_fwd": 4 * b * h * d * pairs,
+             "flash_bwd_dkv": 8 * b * h * d * pairs,
+             "flash_bwd_dq": 6 * b * h * d * pairs}
+    per_step = {"flash_fwd": LAYERS * (1 + recompute),
+                "flash_bwd_dkv": LAYERS, "flash_bwd_dq": LAYERS}
+    for name, ops in bound.items():
+        got = report["kernels"][name]
+        per_call = got["flops"] / got["calls"]
+        log(f"  {FLASH_KERNELS[name]} ({name}): {got['calls']:g} calls a "
+            f"step, {per_call / 1e9:.4f} GFLOP a call reported; the Bound "
+            f"column's {ops / 1e9:.4f}")
+        if per_call != ops or got["calls"] != per_step[name]:
+            fail(f"{name} reports {per_call} FLOPs over {got['calls']} "
+                 f"calls, the bound's {ops} over {per_step[name]}")
+    # a capture leaves the live state and the rng stream bit for bit
+    before = state_digest(executor.state)
+    rng = trainer._rng.get_state().clone()
+    t0 = time.monotonic()
+    again = attribution.capture_attribution(trainer.accelerated, 1, host,
+                                            emit=False)
+    capture_s = time.monotonic() - t0
+    same = (state_digest(executor.state) == before
+            and torch.equal(rng, trainer._rng.get_state()))
+    log(f"  a capture ({capture_s:.3f} s) leaves the state bit for bit: "
+        f"{same} ({len(before)} digest values)")
+    if not same or again.flops_per_step != rec.flops_per_step:
+        fail("a capture changed the state or counted differently")
+    # the live gauge against the device's clock over steps 4..last: the
+    # last `window` steps are materialized in the final drain, where the
+    # executor's interval is the host's, not a step's
+    last = ATTR_STEPS - get_context().train_window
+    step_ms = [a.elapsed_time(z) for a, z in zip(record.events,
+                                                 record.events[1:])]
+    steady_s = statistics.mean(step_ms[3:last]) / 1e3
+    events_mfu = derived_mfu(rec.flops_per_step, steady_s, PEAK_BF16_FLOPS)
+    live = gauge_mfu(record, 4, last)
+    agreement = (live / events_mfu - 1) if live else float("inf")
+    log(f"  live MFU gauge over steps 4..{last}: {live or 0.0:.5f} "
+        f"(peak {rec.peak_flops_per_s:.4g} FLOP/s); derived_mfu over the "
+        f"CUDA events' mean step {steady_s * 1e3:.2f} ms: {events_mfu:.5f} "
+        f"({agreement:+.5f}); by llama.flops_per_token "
+        f"{derived_mfu(formula, steady_s, PEAK_BF16_FLOPS):.5f}; {card}")
+    if abs(agreement) > MFU_AGREEMENT:
+        fail(f"the live MFU gauge {live} is not within {MFU_AGREEMENT} of "
+             f"the events' {events_mfu}")
+    gauges = {name: reg.get(name).value if reg.get(name) else None
+              for name in (tm.ATTR_MFU, tm.ATTR_EXPOSED_COMM_FRAC,
+                           tm.ATTR_FLOPS_PER_STEP, tm.ATTR_ARITH_INTENSITY,
+                           tm.ATTR_PEAK_HBM_MB, tm.ATTR_COMM_PREDICTED_S,
+                           tm.ATTR_HBM_HEADROOM_MB)}
+    if None in (gauges[tm.ATTR_PEAK_HBM_MB], gauges[tm.ATTR_HBM_HEADROOM_MB]):
+        fail(f"a memory gauge is missing on the card: {gauges}")
+    free, total = torch.cuda.mem_get_info()
+    log(f"  gauges {gauges}; peak memory gauge "
+        f"{gauges[tm.ATTR_PEAK_HBM_MB]:.1f} MB against "
+        f"torch.cuda.max_memory_allocated {peak / 2**20:.1f} MB; headroom "
+        f"gauge {gauges[tm.ATTR_HBM_HEADROOM_MB]:.1f} MB, mem_get_info now "
+        f"{free / 2**20:.1f} of {total / 2**20:.1f} MB; {card}")
+    profile = profile_steps(trainer, executor.state, host)
+    # the gauges' own cost: paired runs with attribution on and off
+    ctx = get_context()
+    state = executor.state
+    del executor
+    pairs_ms = {True: [], False: []}
+    try:
+        for enabled in (True, False, False, True):
+            ctx.attribution_enabled = enabled
+            rec_pair = step_record()
+            state = run(PAIR_STEPS, state, hooks=[rec_pair]).state
+            ms = [a.elapsed_time(z) for a, z in zip(rec_pair.events,
+                                                    rec_pair.events[1:])]
+            pairs_ms[enabled].append(statistics.mean(ms[2:]))
+    finally:
+        ctx.attribution_enabled = True
+    on, off = statistics.mean(pairs_ms[True]), statistics.mean(pairs_ms[False])
+    log(f"  _observe_attribution: {statistics.mean(observe_s) * 1e6:.1f} us "
+        f"a call over {len(observe_s)} calls (the slowest "
+        f"{max(observe_s) * 1e3:.2f} ms); paired runs "
+        f"(on, off, off, on; {PAIR_STEPS} steps each, steps 3.. read): on "
+        f"{on:.2f} ms, off {off:.2f} ms a step, {on / off - 1:+.4f} "
+        f"(the reference's gate is 0.05); {card}")
+    del state, trainer
+    return {"record": rec.to_dict(), "report": report,
+            "capture_s": capture_s, "state_unchanged": same,
+            "gauges": gauges, "peak_allocated_bytes": peak,
+            "mem_free_bytes": free, "step_ms": step_ms,
+            "live_mfu": live, "events_mfu": events_mfu,
+            "mfu_agreement": agreement, "profile": profile,
+            "observe_us": statistics.mean(observe_s) * 1e6,
+            "paired_step_ms": pairs_ms, "overhead": on / off - 1,
+            "launches": counts}
+
+
+
 def main():
     import argparse
 
@@ -4978,6 +5213,12 @@ def main():
     log(f"phase 16, in-process recovery (live_reshard, retune; {card}):")
     report["recovery"] = recovery_phase(run_local, llama, config,
                                         moe_config, card)
+    free_memory()
+
+    log(f"phase 17, attribution (counted FLOPs, live MFU, the trace; "
+        f"{card}):")
+    report["attribution"] = attribution_phase(llama, fa, remat, config, card)
+    free_memory()
 
     kernels = []
     for name in FLASH_KERNELS:

@@ -49,6 +49,18 @@ class Context:
         # reference: quantize -> dequantize, full-precision wire); read
         # by ops.moe when a config leaves it empty
         self.moe_precision = "bf16"
+        # performance attribution (telemetry.attribution): a cost record
+        # per built step (counted FLOPs and bytes, peak memory) fused
+        # with measured step times into live MFU gauges. Requires
+        # telemetry_enabled; off = no capture, gauges absent
+        self.attribution_enabled = True
+        # peak FLOPs/s per device for the MFU denominator (0 = the
+        # DeviceSpec of the card's name; the CPU gets the H100 SXM's as
+        # a placeholder: set this for meaningful CPU numbers)
+        self.device_peak_flops = 0.0
+        # per-device memory budget in bytes (0 = the DeviceSpec's
+        # capacity: on the card, what torch.cuda reports)
+        self.device_hbm_budget_bytes = 0.0
         self._apply_env_overrides()
 
     def _apply_env_overrides(self):
@@ -63,6 +75,8 @@ class Context:
                     setattr(self, name, env.lower() in ("1", "true", "yes"))
                 elif isinstance(val, int):
                     setattr(self, name, int(env))
+                elif isinstance(val, float):
+                    setattr(self, name, float(env))
                 else:
                     setattr(self, name, env)
             except ValueError:

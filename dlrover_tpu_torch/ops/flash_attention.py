@@ -57,6 +57,13 @@ tiles with the scores transposed; so is the bf16 dQ kernel, over 128-row
 q tiles that step through 128-key K/V tiles; every f32 kernel (the
 parity path) runs scalar FMA over 32x32 tiles. The ``block_*``
 arguments are kept for API parity and do not change the result.
+
+Under a ``utils.prof.CostCounter`` each wrapper reports one call's
+FLOPs over the visible (q, k) pairs of its mode and its bytes
+(``flash_work``) and runs its plain version or its launch uncounted, so
+a step counts the same on the CPU, the card and the meta device; on the
+meta device it returns empty outputs of the right shapes and runs
+nothing.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import torch
 
 from dlrover_tpu_torch.ops import kernel_build
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
+from dlrover_tpu_torch.utils import prof
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -349,6 +357,79 @@ def _count(fn, mode: str) -> None:
     setattr(fn, counter, getattr(fn, counter) + 1)
 
 
+# -- what a call costs --------------------------------------------------------
+
+# FLOPs per visible (q, k) pair, head and head_dim element: B1 runs two
+# products (Q K^T, P V), B2 four (Q K^T and dO V^T again, P^T dO,
+# dS^T Q), B3 three (Q K^T, dO V^T, dS K); two FLOPs a multiply-add
+FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+
+
+def visible_pairs(q, k, causal: bool, seg_q=None, seg_k=None,
+                  prefix_len=None) -> int:
+    """The (q, k) pairs the mask lets through, summed over the batch's
+    rows (per head): causal ``s (s + 1) / 2`` a row, non-causal
+    ``s_q s_k``; prefix-LM ``p^2 + (s (s + 1) - p (p + 1)) / 2`` for a
+    row's prompt ``p``; segment ids the pairs of equal id (and causal),
+    read from the ids. On the meta device the ids hold no values: the
+    active count's hint for the mode (``CostCounter.pair_hints``, from
+    a host batch) stands in, else the causal (or full) count, an upper
+    bound."""
+    b, s_q, s_k = q.shape[0], q.shape[2], k.shape[2]
+    dense = s_q * (s_q + 1) // 2 if causal else s_q * s_k
+    mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if not mode:
+        return b * dense
+    if ids[0].device.type == "meta":
+        counter = prof.active_counter()
+        hint = (counter.pair_hints.get((mode, s_q, s_k))
+                if counter is not None else None)
+        return int(round(b * (dense if hint is None else hint)))
+    if mode == "_pfx":
+        p = prefix_len.long().clamp(0, s_q)
+        return int((p * p + (s_q * (s_q + 1) - p * (p + 1)) // 2).sum())
+    same = seg_q[:, :, None] == seg_k[:, None, :]
+    if causal:
+        same &= torch.ones((s_q, s_k), dtype=torch.bool,
+                           device=same.device).tril()
+    return int(same.sum())
+
+
+def flash_work(name: str, q, k, causal: bool, seg_q=None, seg_k=None,
+               prefix_len=None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call of kernel ``name`` on these operands:
+    FLOPs over the visible pairs (``visible_pairs``); bytes each input
+    read once and each output written once (q, k, v; B2/B3 also dO, lse
+    and delta; the ids and their tile table), the figures behind
+    ``PERF.md``'s Bound column."""
+    b, h, s_q, d = q.shape
+    io = q.element_size()
+    qb, kb = q.numel() * io, k.numel() * io
+    rows = b * h * s_q * 4  # one f32 a row: lse, delta
+    ids = sum(t.numel() * 4 for t in (seg_q, seg_k, prefix_len)
+              if t is not None)
+    if seg_q is not None:  # the ids' tile table
+        ids += b * (-(-s_q // SEG_TILE) - (-k.shape[2] // SEG_TILE)) * 2 * 4
+    nbytes = {
+        "flash_fwd": 2 * qb + 2 * kb + rows,
+        "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows,
+        "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rows,
+    }[name] + ids
+    pairs = visible_pairs(q, k, causal, seg_q, seg_k, prefix_len)
+    return float(FLOPS_PER_PAIR[name] * h * d * pairs), float(nbytes)
+
+
+def _report(name: str, q, k, causal, seg_q, seg_k, prefix_len) -> None:
+    """One call's cost to the active count, if any (``utils.prof``)."""
+    if prof.active_counter() is None:
+        return
+    with prof.uncounted():
+        flops, nbytes = flash_work(name, q, k, causal, seg_q, seg_k,
+                                   prefix_len)
+    prof.report_kernel(name + _mode(seg_q, seg_k, prefix_len)[0], flops,
+                       nbytes)
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float, *, seg_q=None,
               seg_k=None, prefix_len=None):
     """B1: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] f32); in segment-id
@@ -365,7 +446,17 @@ def _launch_fwd(q, k, v, causal, scale, seg_q, seg_k, prefix_len,
     for B1 and keeps it for B2 and B3."""
     _check_shapes("flash_fwd", q, k, v, causal, seg_q=seg_q, seg_k=seg_k,
                   prefix_len=prefix_len)
+    _report("flash_fwd", q, k, causal, seg_q, seg_k, prefix_len)
+    with prof.uncounted():
+        return _run_fwd(q, k, v, causal, scale, seg_q, seg_k, prefix_len,
+                        seg_tiles)
+
+
+def _run_fwd(q, k, v, causal, scale, seg_q, seg_k, prefix_len, seg_tiles):
     mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if kernel_build.on_meta(q, k, v, *ids):
+        return torch.empty_like(q), torch.empty(
+            q.shape[:3], dtype=torch.float32, device=q.device)
     if kernel_build.on_cpu("flash attention", q, k, v, *ids):
         return flash_fwd_plain(q, k, v, causal, scale, seg_q, seg_k,
                                prefix_len)
@@ -394,7 +485,17 @@ def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
     """B2 given the ids' tile table, as ``_launch_fwd``."""
     _check_shapes("flash_bwd_dkv", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
+    _report("flash_bwd_dkv", q, k, causal, seg_q, seg_k, prefix_len)
+    with prof.uncounted():
+        return _run_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                            seg_k, prefix_len, seg_tiles)
+
+
+def _run_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
+                 prefix_len, seg_tiles):
     mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if kernel_build.on_meta(q, k, v, dout, lse, delta, *ids):
+        return torch.empty_like(k), torch.empty_like(v)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale,
@@ -424,7 +525,17 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
     """B3 given the ids' tile table, as ``_launch_bwd_dkv``."""
     _check_shapes("flash_bwd_dq", q, k, v, causal, dout, (lse, delta),
                   seg_q, seg_k, prefix_len)
+    _report("flash_bwd_dq", q, k, causal, seg_q, seg_k, prefix_len)
+    with prof.uncounted():
+        return _run_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q,
+                           seg_k, prefix_len, seg_tiles)
+
+
+def _run_bwd_dq(q, k, v, dout, lse, delta, causal, scale, seg_q, seg_k,
+                prefix_len, seg_tiles):
     mode, ids = _mode(seg_q, seg_k, prefix_len)
+    if kernel_build.on_meta(q, k, v, dout, lse, delta, *ids):
+        return torch.empty_like(q)
     if kernel_build.on_cpu("flash attention", q, k, v, dout, lse, delta,
                            *ids):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, scale,

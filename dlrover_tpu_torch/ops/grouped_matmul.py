@@ -41,6 +41,11 @@ The TPU tiling rule (``_pick_block``) does not apply: the kernels mask
 ragged D and F edges. ``block_f`` is kept for API parity and does not
 change the result; ``block_t`` is the grouping contract and must be a
 multiple of the kernels' 128-row tile on the card.
+
+Under a ``utils.prof.CostCounter`` each wrapper reports its FLOPs and
+bytes (over the rows given) and runs its plain version or its launch
+uncounted; on the meta device it returns an empty output of the right
+shape and runs nothing.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from typing import Dict
 import torch
 
 from dlrover_tpu_torch.ops import kernel_build
+from dlrover_tpu_torch.utils import prof
 from dlrover_tpu_torch.ops.quantize import (
     WIRE_DTYPE,
     dequantize_block_scaled,
@@ -217,6 +223,17 @@ def _kernel_suffix(name: str, tile_expert, block_t: int, *inputs) -> str:
     return _SUFFIX[dtype]
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+# Each wrapper reports its call to the active count (``utils.prof``):
+# FLOPs over the rows given (the live rows depend on the data, which the
+# meta device cannot see), bytes each operand read once and each output
+# written once; then runs uncounted.
+
+
 def grouped_matmul_fwd(x, w, tile_expert, block_t: int = 128,
                        transpose_w: bool = False, live_rows=None):
     """B4: ``[Tp, F]`` (``[Tp, D]`` with ``transpose_w``) in x's dtype.
@@ -228,6 +245,18 @@ def grouped_matmul_fwd(x, w, tile_expert, block_t: int = 128,
     _check_shapes("grouped_matmul_fwd", x, w, tile_expert, block_t,
                   f if transpose_w else d)
     _check_live_rows("grouped_matmul_fwd", live_rows, x)
+    prof.report_kernel("grouped_matmul_fwd", 2.0 * x.shape[0] * d * f,
+                       _nbytes(x, w, tile_expert, live_rows)
+                       + x.shape[0] * (d if transpose_w else f)
+                       * x.element_size())
+    with prof.uncounted():
+        return _run_fwd(x, w, tile_expert, block_t, transpose_w, live_rows)
+
+
+def _run_fwd(x, w, tile_expert, block_t, transpose_w, live_rows):
+    e, d, f = w.shape
+    if kernel_build.on_meta(x, w, tile_expert):
+        return x.new_empty((x.shape[0], d if transpose_w else f))
     if kernel_build.on_cpu("grouped matmul", x, w, tile_expert):
         return grouped_matmul_fwd_plain(x, w, tile_expert, block_t,
                                         transpose_w, live_rows)
@@ -256,6 +285,18 @@ def grouped_matmul_dw(x, dy, tile_expert, num_experts: int,
         raise ValueError(f"grouped_matmul_dw: dy {tuple(dy.shape)} does not "
                          f"have x's {x.shape[0]} rows")
     _check_live_rows("grouped_matmul_dw", live_rows, x)
+    d, f = x.shape[1], dy.shape[1]
+    prof.report_kernel("grouped_matmul_dw", 2.0 * x.shape[0] * d * f,
+                       _nbytes(x, dy, tile_expert, live_rows)
+                       + num_experts * d * f * 4)
+    with prof.uncounted():
+        return _run_dw(x, dy, tile_expert, num_experts, block_t, live_rows)
+
+
+def _run_dw(x, dy, tile_expert, num_experts, block_t, live_rows):
+    if kernel_build.on_meta(x, dy, tile_expert):
+        return x.new_empty((num_experts, x.shape[1], dy.shape[1]),
+                           dtype=torch.float32)
     if kernel_build.on_cpu("grouped matmul", x, dy, tile_expert):
         return grouped_matmul_dw_plain(x, dy, tile_expert, num_experts,
                                        block_t, live_rows)
@@ -293,6 +334,20 @@ def grouped_matmul_fwd_quant(values, scales, w, tile_expert,
         raise ValueError(f"grouped_matmul_fwd_quant: scales "
                          f"{tuple(scales.shape)} are not whole blocks of "
                          f"values {tuple(values.shape)}")
+    prof.report_kernel("grouped_matmul_fwd_quant",
+                       2.0 * values.shape[0] * d * f,
+                       _nbytes(values, scales, w, tile_expert, live_rows)
+                       + values.shape[0] * f * 4)
+    with prof.uncounted():
+        return _run_fwd_quant(values, scales, w, tile_expert, block_t,
+                              live_rows)
+
+
+def _run_fwd_quant(values, scales, w, tile_expert, block_t, live_rows):
+    e, d, f = w.shape
+    nb = scales.shape[-1]
+    if kernel_build.on_meta(values, scales, w, tile_expert):
+        return values.new_empty((values.shape[0], f), dtype=torch.float32)
     if kernel_build.on_cpu("grouped matmul", values, scales, w,
                            tile_expert):
         return grouped_matmul_fwd_quant_plain(values, scales, w,

@@ -134,6 +134,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def on_meta(*tensors) -> bool:
+    """True when every tensor lies on the meta device: a wrapper then
+    returns empty outputs of the right shapes, launching nothing and
+    running no plain version (``utils.meta_init``, the attribution
+    count)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def on_cpu(op: str, *tensors) -> bool:
     """True when every tensor lies on the CPU (the plain path); False
     when every one lies on one CUDA device (the kernel). Anything else

@@ -38,6 +38,12 @@ grouped products yet.
 (``reset_stats``, ``stats``). On gloo the seconds are the whole
 exchange, waits for the slowest rank included; on NCCL they are the
 enqueue only.
+
+Under a ``utils.prof.CostCounter`` each helper reports the bytes it puts
+on the wire by the reference's HLO kind ("all-to-all",
+"collective-permute" for the ring, "all-reduce") and runs uncounted; on
+the meta device it only reports, and returns an output of the right
+shape without calling the backend.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+from dlrover_tpu_torch.utils import prof
 
 STATS: Dict[str, Dict[str, float]] = {}
 
@@ -87,6 +95,17 @@ def _exchange(x: torch.Tensor, group, ring: bool) -> torch.Tensor:
     if x.shape[0] != size:
         raise ValueError(f"exchange: leading dim {x.shape[0]} is not the "
                          f"group's {size} ranks")
+    nbytes = x.numel() * x.element_size()
+    prof.report_exchange("collective-permute" if ring else "all-to-all",
+                         nbytes - (nbytes // size if ring else 0))
+    if x.device.type == "meta":
+        return torch.empty_like(x)
+    with prof.uncounted():
+        return _run_exchange(x, group, ring, size)
+
+
+def _run_exchange(x: torch.Tensor, group, ring: bool,
+                  size: int) -> torch.Tensor:
     t0 = time.perf_counter()
     flat = _as_bytes(x)
     staged = _staged(flat, group)
@@ -146,14 +165,19 @@ def ring_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
 def all_reduce_(t: torch.Tensor, group=None,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce of a contiguous tensor; returns it."""
+    nbytes = t.numel() * t.element_size()
+    prof.report_exchange("all-reduce", nbytes)
+    if t.device.type == "meta":
+        return t
     t0 = time.perf_counter()
-    if _staged(t, group):
-        host = _to_host(t)
-        dist.all_reduce(host, op=op, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, op=op, group=group)
-    _count("all_reduce", t0, t.numel() * t.element_size())
+    with prof.uncounted():
+        if _staged(t, group):
+            host = _to_host(t)
+            dist.all_reduce(host, op=op, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, op=op, group=group)
+    _count("all_reduce", t0, nbytes)
     return t
 
 

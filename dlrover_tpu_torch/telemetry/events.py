@@ -2,7 +2,9 @@
 ``dlrover_tpu/telemetry/events.py`` the trainer calls): each record goes
 to a bounded in-memory ring and, when ``DLROVER_TPU_EVENTS_FILE`` (or
 the Context knob ``telemetry_events_file``) names a file, as one JSON
-line appended to it."""
+line appended to it. Inside ``trace_context.trace_scope`` (or with
+``DLROVER_TPU_TRACE_ID`` set) each record carries the ambient
+``trace_id``."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import os
 import threading
 import time
 from typing import Deque, Dict, List
+
+from dlrover_tpu_torch.telemetry.trace_context import current_trace_id
 
 EVENTS_FILE_ENV = "DLROVER_TPU_EVENTS_FILE"
 
@@ -30,7 +34,12 @@ def emit_event(kind: str, error_code: str = "", **fields) -> Dict:
     from dlrover_tpu_torch.common.config import get_context
 
     record = {"kind": kind, "ts": time.time(), "mono": time.monotonic(),
-              "pid": os.getpid(), "error_code": error_code, **fields}
+              "pid": os.getpid(), "error_code": error_code}
+    # the ambient incident id, as the reference stamps it
+    tid = current_trace_id()
+    if tid:
+        record["trace_id"] = tid
+    record.update(fields)
     if not get_context().telemetry_enabled:
         return record
     with _lock:
@@ -40,6 +49,11 @@ def emit_event(kind: str, error_code: str = "", **fields) -> Dict:
             with open(path, "a") as f:
                 f.write(json.dumps(record, default=str) + "\n")
     return record
+
+
+def clear_ring() -> None:
+    with _lock:
+        _ring.clear()
 
 
 def recent_events(n: int = 0) -> List[Dict]:

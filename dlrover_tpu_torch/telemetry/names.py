@@ -24,6 +24,25 @@ LIVE_RESHARD_TIME = "dlrover_live_reshard_seconds"
 PROGRAM_CACHE_HITS = "dlrover_program_cache_hits_total"
 PROGRAM_CACHE_MISSES = "dlrover_program_cache_misses_total"
 
+# performance attribution (telemetry.attribution): the per-step cost
+# record of the built step fused with measured step times. Gauges are
+# created only once a record was captured: absent means "not measured",
+# never 0.
+# live MFU: counted FLOPs/step over (measured step s x device peak)
+ATTR_MFU = "dlrover_attribution_mfu"
+# counted FLOPs / counted bytes: low values = bound by memory
+ATTR_ARITH_INTENSITY = "dlrover_attribution_arithmetic_intensity"
+# clamped (1 - ideal compute s / measured step s): an upper bound on
+# the step's un-overlapped communication share
+ATTR_EXPOSED_COMM_FRAC = "dlrover_attribution_exposed_comm_fraction"
+# the static record, exported for scrape-side math
+ATTR_FLOPS_PER_STEP = "dlrover_attribution_flops_per_step"
+ATTR_PEAK_HBM_MB = "dlrover_attribution_compiled_peak_hbm_mb"
+ATTR_COMM_PREDICTED_S = "dlrover_attribution_predicted_comm_seconds"
+# device memory headroom: free bytes as torch.cuda.mem_get_info reads
+# them (absent on the CPU, never a fake 0)
+ATTR_HBM_HEADROOM_MB = "dlrover_attribution_hbm_headroom_mb"
+
 
 class EventKind:
     NONFINITE_STEP = "nonfinite_step"
@@ -46,6 +65,9 @@ class EventKind:
     RDZV_JOIN = "rdzv_join"
     SCALE_PLAN_APPLIED = "scale_plan_applied"
     WORKER_FAILED = "worker_failed"
+    # performance attribution: one record per built step (counted FLOPs
+    # and bytes, exchange bytes, peak memory), keyed by the program cache
+    ATTRIBUTION_CAPTURED = "attribution_captured"
 
 
 class SpanName:

@@ -32,6 +32,11 @@ group. ``retune`` is the same on an unchanged world with new knobs,
 ``on_world_change`` is ``live_reshard`` without its timeline events. An
 unplanned loss (a rank dead) restores from storage (``prepare``); peer
 restore needs the RPC layer and the master's plan (ROADMAP A12).
+
+``attribution()`` (ROADMAP A11) is the active step's cost record
+(``telemetry.attribution``: FLOPs and bytes counted on the meta device),
+captured once per built step, kept under the same key as the step and
+dropped with it.
 """
 
 from __future__ import annotations
@@ -142,6 +147,9 @@ class ElasticTrainer:
         self._program_cache_cap = 4
         # builds of a step (cache misses)
         self.compile_count = 0
+        # attribution records by the same key as _programs (False: a
+        # capture that failed, probed once); dropped with the program
+        self._attr_records: Dict[str, Any] = {}
         # the world the base strategy's grad accumulation is for: a
         # smaller world accumulates more, keeping the global batch
         self._initial_world: Optional[int] = None
@@ -220,6 +228,7 @@ class ElasticTrainer:
         for key in [k for k, entry in self._programs.items()
                     if entry[1] != token]:
             del self._programs[key]
+            self._attr_records.pop(key, None)
         strategy = self._resolved_strategy(world)
         key = self._program_key(strategy)
         reg = get_registry()
@@ -242,13 +251,48 @@ class ElasticTrainer:
         self.compile_count += 1
         self._programs[key] = (result, token, self._group())
         while len(self._programs) > self._program_cache_cap:
-            self._programs.popitem(last=False)
+            evicted, _ = self._programs.popitem(last=False)
+            self._attr_records.pop(evicted, None)
         if self.is_chief:
             logger.info("built the train step for %s x %d ranks (K=%d, "
                         "c=%d, p=%s, accum=%d)", topology_key([self._device]),
                         world, self.steps_per_call, self.dispatch_chunks,
                         self.moe_precision, strategy.grad_accum_steps)
         return result
+
+    def _active_key(self) -> Optional[str]:
+        for key, (result, _, _) in self._programs.items():
+            if result is self._result:
+                return key
+        return None
+
+    def attribution(self):
+        """The attribution record of the ACTIVE step
+        (``telemetry.attribution.AttributionRecord``), captured lazily
+        on the meta device and cached by the program-cache key: a return
+        to a knob set already built reuses its record as it reuses the
+        step, and a record goes when its step leaves the cache. None
+        when attribution or telemetry is off, nothing is built, or the
+        capture failed (probed once)."""
+        from dlrover_tpu_torch.telemetry import attribution as attr_mod
+
+        if self._result is None or not attr_mod.attribution_enabled():
+            return None
+        key = self._active_key() or ""
+        cached = self._attr_records.get(key)
+        if cached is not None:
+            return cached or None  # False: a probed, failed capture
+        try:
+            record = attr_mod.capture_attribution(
+                self._result, steps_per_call=self.steps_per_call,
+                example_batch=self._example_batch)
+        except Exception:  # noqa: BLE001 — observation only: a step the
+            # meta device cannot run must not stop the job
+            logger.warning("attribution capture failed for this step",
+                           exc_info=True)
+            record = None
+        self._attr_records[key] = record if record is not None else False
+        return record
 
     def world_changed(self) -> bool:
         """Whether the process group differs from the one the active
@@ -452,6 +496,7 @@ class ElasticTrainer:
                     if new_rank is None:
                         self._release(state)
                         self._programs.clear()
+                        self._attr_records.clear()
                         self._result = None
                         logger.info("left the world at step %d (%s)",
                                     self._host_step, reason or "reshard")

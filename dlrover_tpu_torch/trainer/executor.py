@@ -20,6 +20,16 @@ membership changes and makes those requests. The window, the
 non-finite check, the drains and evaluation count steps, not calls.
 Over several ranks only rank 0 logs. The master's reports, plan ids
 and the peer replication hook come with ROADMAP A12.
+
+Performance attribution (ROADMAP A11): at train start, and again after
+a reshard, retune or restart, the executor fetches the
+trainer's attribution record (counted on the meta device, once per
+built step) and sets the static gauges; at each measured step it sets
+the live MFU and the exposed-comm bound, gauges that exist only from the
+first measured step on (absent, never 0). The capture's own stall is
+kept out of the next step's time. Recovery paths (the non-finite
+policy, a reshard, retune or restart) run under one incident trace id
+each (``telemetry.trace_context``).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import signal
 import time
 from dataclasses import dataclass
@@ -44,12 +55,17 @@ from dlrover_tpu_torch.telemetry import (
     names as tm,
     span,
 )
+from dlrover_tpu_torch.telemetry.trace_context import (
+    TRACE_ID_ENV,
+    trace_scope,
+)
 from dlrover_tpu_torch.trainer.conf import Configuration
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 from dlrover_tpu_torch.trainer.failover import (
     FailoverClient,
     TrainingFailover,
 )
+from dlrover_tpu_torch.utils import prof
 
 logger = get_logger("trainer.executor")
 
@@ -166,6 +182,16 @@ class TrainExecutor:
         self._c_preempt = reg.counter(
             tm.PREEMPT_NOTICES, help="preemption notices received")
         self._h_eval = reg.histogram(tm.EVAL_TIME, help="eval_fn wall time")
+        # performance attribution: the trainer's record of the active
+        # step, fetched at train start and after each rebuild
+        self._attr_enabled = bool(conf.get("attribution_enabled",
+                                           ctx.attribution_enabled))
+        self._attr_record: Optional[Any] = None
+        self._attr_pending = self._attr_enabled
+        self._g_attr_mfu: Optional[Any] = None
+        self._g_attr_exposed: Optional[Any] = None
+        self._attr_compute_s = 0.0
+        self._attr_mfu_scale = 0.0
         self._last_log = time.monotonic()
         self._last_materialize = time.monotonic()
         self._started: Optional[float] = None
@@ -315,7 +341,14 @@ class TrainExecutor:
 
     def _handle_nonfinite(self, step: int, metrics: Dict[str, Any]) -> bool:
         """Report the failure and apply the policy. Returns True when the
-        loop must re-enter (rollback restored an older state)."""
+        loop must re-enter (rollback restored an older state). The
+        failure and its recovery run under one fresh incident trace id,
+        so NONFINITE_STEP and ROLLBACK_RESTORED correlate."""
+        with trace_scope():
+            return self._handle_nonfinite_scoped(step, metrics)
+
+    def _handle_nonfinite_scoped(self, step: int,
+                                 metrics: Dict[str, Any]) -> bool:
         detail = self._report_nonfinite(step, metrics)
         if self._on_nonfinite == "rollback":
             latest = self._trainer.latest_checkpoint_step()
@@ -385,7 +418,14 @@ class TrainExecutor:
                 or self._retune_request is not None)
 
     def _maybe_restart(self):
-        """Apply the pending request (the window is drained)."""
+        """Apply the pending request (the window is drained), under one
+        incident trace id; the step it leaves may be another, so the
+        attribution record is fetched again."""
+        with trace_scope():
+            self._apply_request()
+        self._refresh_attribution()
+
+    def _apply_request(self):
         if self._reshard_requested:
             self._reshard_requested = False
             devices, self._reshard_devices = self._reshard_devices, None
@@ -437,6 +477,98 @@ class TrainExecutor:
         # the stall must not count as the next step's time
         self._last_materialize = time.monotonic()
 
+    # -- performance attribution ----------------------------------------------
+
+    def _refresh_attribution(self):
+        """The active step may have changed (a reshard, retune or
+        restart): drop the record and re-arm the lazy fetch."""
+        self._attr_record = None
+        self._attr_pending = self._attr_enabled
+
+    def _set_headroom(self):
+        """Free device memory as the driver reports it (the card only:
+        absent on the CPU, never a fake 0)."""
+        device = self._trainer.device
+        if device.type != "cuda":
+            return
+        free, _ = torch.cuda.mem_get_info(device)
+        get_registry().gauge(
+            tm.ATTR_HBM_HEADROOM_MB,
+            help="free device memory (MB), torch.cuda.mem_get_info",
+        ).set(free / (1024 * 1024))
+
+    def _fetch_attribution(self):
+        """Fetch the trainer's record of the active step (the trainer
+        caches it by program key) and export the static gauges. Gauges
+        are created here, not in __init__, so a job that never captured
+        a record never exports a misleading 0."""
+        attribution = getattr(self._trainer, "attribution", None)
+        if attribution is None:
+            return
+        try:
+            record = attribution()
+        except Exception:  # noqa: BLE001 — observation only: a capture
+            # failure must never take the step loop down
+            logger.warning("attribution fetch failed", exc_info=True)
+            record = None
+        if record is None:
+            return
+        self._attr_record = record
+        # mfu = flops / (step_s * peak) = (flops / peak) / step_s: the
+        # same derived_mfu formula, folded to one multiply per step
+        self._attr_mfu_scale = (
+            record.flops_per_step / record.peak_flops_per_s
+            if record.peak_flops_per_s > 0 else 0.0)
+        self._attr_compute_s = record.predicted_compute_s
+        reg = get_registry()
+        reg.gauge(tm.ATTR_FLOPS_PER_STEP,
+                  help="counted per-device FLOPs per optimizer step",
+                  ).set(record.flops_per_step)
+        reg.gauge(tm.ATTR_ARITH_INTENSITY,
+                  help="counted FLOPs / bytes (memory-bound when low)",
+                  ).set(record.arithmetic_intensity)
+        reg.gauge(tm.ATTR_PEAK_HBM_MB,
+                  help="per-device peak memory (MB), "
+                       "torch.cuda.max_memory_allocated",
+                  ).set(record.peak_hbm_bytes / (1024 * 1024))
+        reg.gauge(tm.ATTR_COMM_PREDICTED_S,
+                  help="predicted per-step exchange seconds (all kinds)",
+                  ).set(record.predicted_comm_total_s)
+        self._set_headroom()
+        # the capture is a one-off stall: it must not count as the next
+        # step's time
+        self._last_materialize = time.monotonic()
+
+    def _observe_attribution(self, per_step: float):
+        """Fuse one measured per-step time with the record into the
+        derived gauges: two divisions and two gauge stores a step."""
+        if self._attr_pending:
+            self._attr_pending = False
+            self._fetch_attribution()
+        if self._attr_record is None or per_step <= 0:
+            return
+        if self._g_attr_mfu is None:
+            reg = get_registry()
+            self._g_attr_mfu = reg.gauge(
+                tm.ATTR_MFU,
+                help="live model-FLOPs utilization (counted FLOPs/step "
+                     "over measured step time x device peak)")
+            self._g_attr_exposed = reg.gauge(
+                tm.ATTR_EXPOSED_COMM_FRAC,
+                help="upper bound on the un-overlapped comm share of "
+                     "the step (1 - ideal compute s / measured step s)")
+            # the first measured step has run: the peak covers a step
+            if self._trainer.device.type == "cuda":
+                peak = prof.compiled_peak_bytes(self._trainer.device)
+                self._attr_record.peak_hbm_bytes = peak
+                reg.gauge(tm.ATTR_PEAK_HBM_MB).set(peak / (1024 * 1024))
+                self._set_headroom()
+        inv = 1.0 / per_step
+        self._g_attr_mfu.set(self._attr_mfu_scale * inv)
+        frac = 1.0 - self._attr_compute_s * inv
+        self._g_attr_exposed.set(
+            0.0 if frac < 0.0 else (1.0 if frac > 1.0 else frac))
+
     # -- loop ---------------------------------------------------------------
 
     def _materialize_oldest(self, handle_nonfinite: bool = True) -> bool:
@@ -456,9 +588,14 @@ class TrainExecutor:
             emit_event(EventKind.COMPILE_FIRST_STEP, step=entry.last_step,
                        seconds=round(now - self._started, 3))
             self._started = None
+            # an incident id inherited through the environment covers
+            # the recovery (start-up to the first step), not the rest of
+            # the process's life
+            os.environ.pop(TRACE_ID_ENV, None)
         # a fused call's steps share its time evenly
         per_step = (now - self._last_materialize) / entry.count
         self._last_materialize = now
+        self._observe_attribution(per_step)
         for i in range(entry.count):
             s = entry.last_step - entry.count + 1 + i
             sub = (host if entry.count == 1 else
@@ -482,6 +619,8 @@ class TrainExecutor:
                 logger.info("step %d loss=%.4f (%.2f steps/s)", s,
                             float(sub.get("loss", float("nan"))),
                             self._log_every / max(dt, 1e-9))
+                if self._attr_record is not None:
+                    self._set_headroom()
         return False
 
     def _trim_window(self, limit: int, handle_nonfinite: bool = True) -> bool:
@@ -541,6 +680,9 @@ class TrainExecutor:
 
     def _train(self) -> Dict[str, Any]:
         self.state = self._trainer.prepare(self.state)
+        # prepare may have built another step; a second run re-reads
+        # the trainer's record
+        self._refresh_attribution()
         for hook in self._hooks:
             hook.begin(self)
         step = int(self.state.step)
@@ -550,6 +692,11 @@ class TrainExecutor:
         emit_event(EventKind.TRAIN_START, step=step,
                    train_window=self._train_window,
                    steps_per_call=self._trainer.steps_per_call)
+        # the record now, before the first dispatch: its capture lands
+        # in the first step's set-up window, not in a measured step
+        if self._attr_pending:
+            self._attr_pending = False
+            self._fetch_attribution()
         while True:
             # one pass over the data source; a rollback or an applied
             # request re-enters with the state, knobs and window as they

@@ -10,6 +10,8 @@ The kernels themselves are held to these plain versions on the card by
 ``tests/test_torch_kernels.py``.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from dlrover_tpu.ops.flash_attention import (
     flash_attention_lse as jax_flash_lse,
 )
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import kernel_build
 from dlrover_tpu_torch.ops.attention_ref import mha_reference
 
 FWD_TOL = 1e-5
@@ -201,9 +204,15 @@ class TestNoFallback:
                                       "flash_bwd_dq_pfx": 0}
 
     def test_other_devices_raise(self):
-        q = torch.zeros(1, 2, 8, 16, device="meta")
+        # a device with neither a kernel nor a plain version (the meta
+        # device has its own path: empty outputs, nothing launched)
+        other = types.SimpleNamespace(device=torch.device("xpu"))
         with pytest.raises(ValueError, match="no kernel"):
-            fa.flash_fwd(q, q, q, True, 0.25)
+            kernel_build.on_cpu("flash attention", other, other)
+        q = torch.zeros(1, 2, 8, 16, device="meta")
+        out, lse = fa.flash_fwd(q, q, q, True, 0.25)
+        assert out.device.type == "meta" and out.shape == q.shape
+        assert lse.shape == (1, 2, 8)
 
     def test_shapes_are_checked_before_any_kernel(self):
         q = torch.zeros(1, 4, 8, 16)

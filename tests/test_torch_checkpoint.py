@@ -555,7 +555,9 @@ def _planted_nan(at_calls):
 
     def loss_fn(params, batch, rng):
         loss, aux = _mlp_loss(params, batch, rng)
-        calls["n"] += 1
+        # the attribution capture runs the loss on the meta device too:
+        # only the real steps count
+        calls["n"] += batch["x"].device.type != "meta"
         return (loss * float("nan") if calls["n"] in at_calls
                 else loss), aux
 

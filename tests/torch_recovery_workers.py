@@ -165,3 +165,96 @@ def dense_executor_ranks(tree, batches, lr, at_step, window):
     out.update(cold=cold, cold_state=cold_state)
     dist.destroy_process_group()
     return out
+
+
+def attribution_reshard_ranks(batches, lr, at_step, window):
+    """The dense executor run of ``dense_executor_ranks`` with the
+    attribution plane on: four ranks, ``request_live_reshard([0, 1])``
+    before step ``at_step``. Returns each ``attribution_captured``
+    event's world and counts, the record the trainer holds at the end,
+    and the parameter bytes the gradient all-reduce moves."""
+    from dlrover_tpu_torch.telemetry.events import recent_events
+    from dlrover_tpu_torch.utils.prof import param_bytes
+
+    rank, ranks, _ = _join()
+    strategy = Strategy(mesh=MeshPlan(data=ranks, fsdp=1), rule_set="llama")
+    config = llama.llama_tiny()
+    trainer = ElasticTrainer(llama.make_init_fn(config),
+                             llama.make_loss_fn(config),
+                             functools.partial(torch.optim.Adam, lr=lr),
+                             batches[0], strategy=strategy, device="cpu")
+    box = []
+
+    class Hook(TrainHook):
+        def before_step(self, step):
+            if step == at_step:
+                box[0].request_live_reshard(SURVIVORS)
+
+    source = iter(batches)
+    executor = TrainExecutor(
+        trainer, train_iter_fn=lambda: source, hooks=[Hook()],
+        conf=Configuration({"train_steps": len(batches),
+                            "log_every_steps": 0, "train_window": window,
+                            "preemption_grace": False}))
+    box.append(executor)
+    result = executor.train_and_evaluate()
+    captured = [{k: e[k] for k in ("n_devices", "flops_per_step",
+                                   "bytes_accessed_per_step")}
+                for e in recent_events() if e["kind"] == "attribution_captured"]
+    out = {"rank": rank, "result": result, "captured": captured,
+           "param_bytes": param_bytes(executor.state.params)
+           if executor.state is not None else None}
+    if not result.get("left_world"):
+        record = trainer.attribution()
+        out.update(record=record.to_dict(),
+                   cached=len(trainer._attr_records))
+        dist.destroy_process_group()
+    return out
+
+
+def moe_ep_attribution_ranks(tree, batch, config_kw, lr):
+    """``moe_ep`` over two ranks: the meta-device count of one step
+    (``telemetry.attribution.count_step``) beside one real step on the
+    CPU counted by the same ``CostCounter``, with the rows each grouped
+    call was given (a spy on the wrapper) and the bytes ``ops.ring``'s
+    own statistics saw the real step move."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.telemetry.attribution import count_step
+    from dlrover_tpu_torch.utils.prof import CostCounter
+
+    rank, ranks, device = _join()
+    strategy = Strategy(mesh=MeshPlan(data=ranks, fsdp=1), rule_set="moe_ep")
+    trainer = _trainer(tree, config_kw, lr, batch, strategy, device)
+    state = trainer.prepare()
+    result = trainer.accelerated
+    meta = count_step(result, 1, batch)
+    gen = torch.Generator().manual_seed(0)
+    sharded = result.shard_batch(batch)
+    state, _ = result.train_step(state, sharded, gen)
+    rows = []
+    fwd, dw = gm.grouped_matmul_fwd, gm.grouped_matmul_dw
+
+    def spy_fwd(x, w, *args, **kwargs):
+        rows.append(("grouped_matmul_fwd", x.shape[0], w.shape[1],
+                     w.shape[2]))
+        return fwd(x, w, *args, **kwargs)
+
+    def spy_dw(x, dy, *args, **kwargs):
+        rows.append(("grouped_matmul_dw", x.shape[0], x.shape[1],
+                     dy.shape[1]))
+        return dw(x, dy, *args, **kwargs)
+
+    gm.grouped_matmul_fwd, gm.grouped_matmul_dw = spy_fwd, spy_dw
+    ring.reset_stats()
+    try:
+        with CostCounter() as real:
+            result.train_step(state, sharded, gen)
+    finally:
+        gm.grouped_matmul_fwd, gm.grouped_matmul_dw = fwd, dw
+    stats = ring.stats()
+    dist.destroy_process_group()
+    return {"rank": rank, "meta": meta.summary(), "real": real.summary(),
+            "meta_flops": meta.flops, "real_flops": real.flops,
+            "meta_bytes": meta.bytes, "real_bytes": real.bytes,
+            "rows": rows, "stats": stats}
