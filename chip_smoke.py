@@ -80,7 +80,7 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      dispatch;
  12. the expert-parallel main path: examples/train_llama.py on 4 ranks
      (llama2_7b+moe8 x 2 layers, grouped_ep, fp8 wire, global batch
-     4 x 1024), five steps (rank 0's last under torch.profiler), every
+     4 x 1024; the example's mesh, (data, fsdp) = (2, 2)), five steps (rank 0's last under torch.profiler), every
      rank's launches of all six kernels pinned;
  13. packed documents (segment ids): B1-B3 in their segment-id mode
      against their plain versions at the main shape, row by row and by
@@ -128,11 +128,12 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      the loss of each path against an exact attention's over 64 batches
      with the prefix ignored and one key too wide as controls.
   15. checkpoint and restore (``torch.distributed.checkpoint``) of the
-     dense and the MoE cell (phases 5 and 8's models, full width) through
-     ElasticTrainer and TrainExecutor with ``ckpt_dir`` in a temporary
-     directory: the free disk, /dev/shm and host RAM first (a dense cell
-     whose three host copies or two steps on disk do not fit runs 2
-     layers and says so), the host link's and the disk's rates; a
+     dense and the MoE cell (phases 5 and 8's models, full width, at 2
+     and 1 layers: ``CKPT_LAYERS``) through ElasticTrainer and
+     TrainExecutor with ``ckpt_dir`` in a temporary directory: the free
+     disk, /dev/shm and host RAM first (a cell whose three host copies
+     or two steps on disk do not fit runs 1 layer and says so), the host
+     link's and the disk's rates; a
      HostSnapshot after step 3 and step 4 run twice from it, bit for bit;
      a forced async save at step 3 and steps 4-6 run on; a fresh trainer
      restoring in ``prepare`` from the /dev/shm staging mirror and, the
@@ -169,9 +170,22 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      package's trace parser, and the gauges' per-step cost (paired runs
      with attribution on and off). Phases 8 and 14 print their records
      too.
+ 18. FSDP: (a) Llama-3-8B at its published widths (2 layers, global
+     batch 2 x 2048, AdamW, rule set "llama") on 2 ranks sharing the
+     card over gloo, 5 steps at (data, fsdp) = (1, 2) and again at
+     (2, 1) on the same batches: the losses within FSDP_LOSS_RTOL, each
+     rank's parameter and moment bytes on the leaves the rules shard
+     halved, the all-gather and reduce-scatter bytes equal to the
+     formula (each sharded leaf's global bytes once a step each), B1-B3
+     launches pinned, peak memory and the host step beside the
+     exchanges' seconds; (b) phase 12's run, which the example makes at
+     (2, 2) on its 4 ranks, against the same configuration at (4, 1)
+     through ElasticTrainer for 3 steps: losses within FSDP_MOE_RTOL,
+     every rank's B1-B6 launches pinned, peak memory.
 
 The line before the last is a JSON object listing each kernel; the last
-is {"ok": true, "device": {...}}. ``--json PATH`` also writes every
+is {"ok": true, "device": {...}}. The whole script's time is printed
+before them. ``--json PATH`` also writes every
 number the run measured to PATH.
 
 ``--against DIR`` runs none of the phases above: it holds this tree's
@@ -206,6 +220,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.monotonic()
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 STEPS = 10
@@ -3722,6 +3737,12 @@ def checkpoint_cell(llama, config, label, rule_set, root, rates, card):
     return cell
 
 
+# phase 15's depth: the dense cell at 2 of phase 5's 4 layers, the MoE
+# cell at 1 of phase 8's 2, so that the script with phase 18 stays
+# inside its time limit
+CKPT_LAYERS = {"dense": 2, "moe": 1}
+
+
 def checkpoint_phase(llama, config, moe_config, card):
     """Phase 15: checkpoint and restore of the dense and the MoE cell
     (``checkpoint_cell``) at full width."""
@@ -3746,13 +3767,16 @@ def checkpoint_phase(llama, config, moe_config, card):
               "disk_write_gbps": disk}
     cells = (("dense", config, "llama"), ("moe", moe_config, "moe"))
     for name, cfg, rule_set in cells:
+        # the depth that keeps the whole script inside its time limit
+        # since phase 18 (every check of the cell kept)
+        cfg = dataclasses.replace(cfg, num_layers=CKPT_LAYERS[name])
         # the snapshot, the save's host copy and the staging copy in RAM;
         # steps 3 and 6 on disk
         state_bytes = llama.param_count(cfg) * 3 * 4
         note = ""
         if 3 * state_bytes > avail or 2 * state_bytes > disk_free:
-            cfg = dataclasses.replace(cfg, num_layers=2)
-            note = (f" (cut to 2 layers: 3 x {state_bytes / 2**30:.1f} GiB "
+            cfg = dataclasses.replace(cfg, num_layers=1)
+            note = (f" (cut to 1 layer: 3 x {state_bytes / 2**30:.1f} GiB "
                     f"of host copies or 2 x of steps on disk do not fit)")
         label = (f"{name}: {'llama3_8b' if name == 'dense' else 'llama2_7b+moe8'}"
                  f" x{cfg.num_layers} layers, batch 1 x {SEQ}")
@@ -4899,6 +4923,294 @@ def attribution_phase(llama, fa, remat, config, card):
 
 
 
+# -- phase 18: FSDP ----------------------------------------------------------
+
+FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 5
+FSDP_MESHES = ((1, 2), (2, 1))  # (data, fsdp): the fsdp run, then data
+FSDP_MOE_STEPS = 3
+# the largest relative gap of a step's loss between the fsdp and the
+# data-parallel run: on the CPU tests/test_torch_fsdp.py holds (1, 4) and
+# (2, 2) against (4, 1) to 1e-6 (the sums group differently); over 2
+# ranks a reduce-scatter sums what the all-reduce sums
+FSDP_LOSS_RTOL = 1e-5
+# the MoE cell at (2, 2) against (4, 1): tests/test_torch_ep.py's
+# tolerance for the expert-parallel trajectory
+FSDP_MOE_RTOL = 1e-4
+
+
+def _leaf_bytes(state):
+    """This rank's bytes of each parameter and of its optimizer moments,
+    by path."""
+    from dlrover_tpu_torch.parallel.accelerate import _named_leaves
+
+    out = {}
+    for path, p in _named_leaves(state.params):
+        moments = sum(v.numel() * v.element_size() for key, v in
+                      state.opt_state.state.get(p, {}).items()
+                      if key != "step")
+        out[path] = (p.numel() * p.element_size(), moments)
+    return out
+
+
+def _split_bytes(leaf_bytes, sharded):
+    """{"params"|"moments": {"sharded"|"replicated": bytes}} over the
+    paths in ``sharded`` and the rest."""
+    out = {k: {"sharded": 0, "replicated": 0} for k in ("params",
+                                                        "moments")}
+    for path, (p, m) in leaf_bytes.items():
+        kind = "sharded" if path in sharded else "replicated"
+        out["params"][kind] += p
+        out["moments"][kind] += m
+    return out
+
+
+def fsdp_dense_rank(layers, seq, rows, steps):
+    """One rank of phase 18 (a): llama3_8b at its published widths,
+    ``layers`` layers, through ElasticTrainer (rule set "llama", the
+    example's AdamW) on 2 ranks sharing the card over gloo: ``steps``
+    steps at each of FSDP_MESHES on the same batches (the example's
+    token stream, ``rows`` x ``seq`` global). Launch counters, exchange
+    statistics and the peak are reset just before each run's first
+    step and read after its last."""
+    import gc
+
+    import torch
+
+    from dlrover_tpu_torch.examples.train_llama import (
+        adamw,
+        synthetic_batches,
+    )
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.parallel.mesh import MeshPlan
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    rank, ranks = _ep_join()
+    config = llama.llama3_8b(num_layers=layers, max_seq_len=seq)
+    gen = synthetic_batches(config.vocab_size, rows, seq)()
+    batches = [next(gen) for _ in range(steps)]
+    out = {"rank": rank, "runs": {}}
+    for data, fsdp in FSDP_MESHES:
+        trainer = ElasticTrainer(
+            llama.make_init_fn(config), llama.make_loss_fn(config), adamw(),
+            batches[0], strategy=Strategy(mesh=MeshPlan(data=data,
+                                                        fsdp=fsdp),
+                                          rule_set="llama"),
+            device="cuda:0")
+        state = trainer.prepare()
+        result = trainer.accelerated
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ring.reset_stats()
+        losses, host_s = [], []
+        for batch in batches:
+            t = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            host_s.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        gathered = {p: 4 * math.prod(result.layout.shapes[p])
+                    for p in result.layout.leaves}
+        out["runs"][(data, fsdp)] = {
+            "losses": losses, "host_step_s": host_s,
+            "launches": fa.launch_counts(), "exchange": ring.stats(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "leaf_bytes": _leaf_bytes(state),
+            "gathered_leaf_bytes": gathered,
+            "sharded": sorted(result.layout.leaves),
+            "specs": {p: result.specs[p] for p in sorted(result.specs)}}
+        del state, trainer, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return out
+
+
+def fsdp_moe_rank(argv, steps):
+    """One rank of phase 18 (b): phase 12's configuration (the example's
+    flags ``argv``, its init, loss, AdamW and token stream) through
+    ElasticTrainer at (data=4, fsdp=1), ``steps`` steps."""
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.examples import train_llama
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.parallel.mesh import MeshPlan
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    rank, ranks = _ep_join()
+    flags = dict(zip(argv[::2], argv[1::2]))
+    config, _ = train_llama.preset_config(
+        flags["--preset"], int(flags["--layers"]),
+        int(flags["--moe_experts"]), moe_top_k=int(flags["--moe_top_k"]),
+        moe_dispatch=flags["--moe_dispatch"])
+    batches = train_llama.synthetic_batches(
+        config.vocab_size, int(flags["--batch"]), int(flags["--seq"]))
+    trainer = ElasticTrainer(
+        llama.make_init_fn(config, (rank, ranks)),
+        llama.make_loss_fn(config), train_llama.adamw(), next(batches()),
+        strategy=Strategy(mesh=MeshPlan(data=ranks, fsdp=1),
+                          rule_set="moe_ep", remat_policy=""),
+        device="cuda:0", moe_precision=flags["--moe_precision"],
+        dispatch_chunks=int(flags["--dispatch_chunks"]))
+    state = trainer.prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    losses, stream = [], batches()  # the example's first batches
+    for _ in range(steps):
+        state, metrics = trainer.step(state, next(stream))
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    out = {"rank": rank, "losses": losses,
+           "launches": {**fa.launch_counts(), **gm.launch_counts()},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    dist.destroy_process_group()
+    return out
+
+
+def fsdp_phase(run_local, llama, ep_train, card):
+    """Phase 18: FSDP on the card. (a) the dense cell at (1, 2) against
+    (2, 1); (b) phase 12's MoE run (the example, which picks (2, 2) at
+    four ranks) against the same configuration at (4, 1)."""
+    from dlrover_tpu_torch.ops import remat
+
+    report = {}
+    t0 = time.monotonic()
+    config = llama.llama3_8b(num_layers=FSDP_LAYERS, max_seq_len=FSDP_SEQ)
+    log(f"  (a) llama3_8b x{FSDP_LAYERS} layers (hidden "
+        f"{config.hidden_size}, heads {config.num_heads}/"
+        f"{config.num_kv_heads}, ffn {config.intermediate_size}, vocab "
+        f"{config.vocab_size}), global batch {FSDP_ROWS} x {FSDP_SEQ}, "
+        f"AdamW, rule set llama, 2 ranks sharing the card (gloo: the "
+        f"all-gathers and reduce-scatters go through host memory; no "
+        f"multi-GPU rate is claimed), {FSDP_STEPS} steps at (data, fsdp) = "
+        f"{FSDP_MESHES[0]} and again at {FSDP_MESHES[1]}:")
+    ranks = run_local(fsdp_dense_rank, 2,
+                      (FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS),
+                      timeout=EP_TIMEOUT)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    expected = {"flash_fwd": FSDP_STEPS * FSDP_LAYERS * (1 + recompute),
+                "flash_bwd_dkv": FSDP_STEPS * FSDP_LAYERS,
+                "flash_bwd_dq": FSDP_STEPS * FSDP_LAYERS, **NO_SEG,
+                **NO_PFX}
+    fs, dp = FSDP_MESHES
+    for r in ranks:
+        a, b = r["runs"][fs], r["runs"][dp]
+        for mesh, run in ((fs, a), (dp, b)):
+            if run["launches"] != expected:
+                fail(f"rank {r['rank']} at {mesh}: launches "
+                     f"{run['launches']}, expected {expected}")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                fail(f"non-finite loss at {mesh}")
+        gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                      b["losses"]))
+        # both runs' bytes on the leaves the fsdp run shards
+        sb = _split_bytes(a["leaf_bytes"], a["sharded"])
+        db = _split_bytes(b["leaf_bytes"], a["sharded"])
+        nbytes = sum(a["gathered_leaf_bytes"].values())
+        want_x = FSDP_STEPS * nbytes
+        got_g = a["exchange"].get("all_gather", {})
+        got_s = a["exchange"].get("reduce_scatter", {})
+        half = {k: (sb[k]["sharded"], db[k]["sharded"]) for k in sb}
+        log(f"    rank {r['rank']}: losses at {fs} "
+            f"{[round(x, 6) for x in a['losses']]}, at {dp} "
+            f"{[round(x, 6) for x in b['losses']]}; largest relative gap "
+            f"{gap:.3e} (limit {FSDP_LOSS_RTOL:.0e}); {card}")
+        log(f"      state bytes a rank at {fs} / {dp}: parameters of the "
+            f"leaves {fs} shards {sb['params']['sharded']} / "
+            f"{db['params']['sharded']} B, of the rest "
+            f"{sb['params']['replicated']} / {db['params']['replicated']}; "
+            f"moments {sb['moments']['sharded']} / "
+            f"{db['moments']['sharded']}, of the rest "
+            f"{sb['moments']['replicated']} / "
+            f"{db['moments']['replicated']}; sharded leaves {a['sharded']}; "
+            f"{card}")
+        log(f"      peak memory (max_memory_allocated) "
+            f"{a['peak_bytes'] / 2**30:.2f} GiB at {fs}, "
+            f"{b['peak_bytes'] / 2**30:.2f} at {dp}; exchanges at {fs}: "
+            f"all-gather {got_g.get('calls', 0)} calls "
+            f"{got_g.get('bytes', 0)} B {got_g.get('seconds', 0.0):.2f} s, "
+            f"reduce-scatter {got_s.get('calls', 0)} calls "
+            f"{got_s.get('bytes', 0)} B {got_s.get('seconds', 0.0):.2f} s "
+            f"(formula: {FSDP_STEPS} steps x the sharded leaves' "
+            f"{nbytes} B = {want_x} B each), all-reduce "
+            f"{a['exchange'].get('all_reduce', {}).get('seconds', 0.0):.2f}"
+            f" s; at {dp} all-reduce "
+            f"{b['exchange'].get('all_reduce', {}).get('seconds', 0.0):.2f}"
+            f" s; launches {a['launches']}; host s a step at {fs} "
+            f"{[round(x, 3) for x in a['host_step_s']]}, at {dp} "
+            f"{[round(x, 3) for x in b['host_step_s']]}; {card}")
+        if gap > FSDP_LOSS_RTOL:
+            fail(f"fsdp losses {a['losses']} vs data parallel "
+                 f"{b['losses']}: gap {gap:.3e}")
+        for kind, (got, full) in half.items():
+            if 2 * got != full:
+                fail(f"rank {r['rank']}: {kind} of the sharded leaves "
+                     f"{got} B at {fs}, not half of {full} B at {dp}")
+        for name, x in (("all_gather", got_g), ("reduce_scatter", got_s)):
+            if x.get("bytes") != want_x or x.get("calls") != \
+                    FSDP_STEPS * len(a["sharded"]):
+                fail(f"{name}: {x} against the formula's {want_x} B")
+        r["loss_gap"] = gap
+        # JSON keys: "data x fsdp"
+        r["runs"] = {f"{d}x{f}": run for (d, f), run in r["runs"].items()}
+    report["dense"] = {"ranks": ranks, "expected_launches": expected,
+                       "tolerance": FSDP_LOSS_RTOL,
+                       "wall_s": time.monotonic() - t0}
+    log(f"    ({report['dense']['wall_s']:.1f} s with the ranks' start-up; "
+        f"{card})")
+
+    t0 = time.monotonic()
+    argv = ep_train["argv"]
+    log(f"  (b) phase 12's run (the example picks (data, fsdp) = (2, 2) at "
+        f"{EP_RANKS} ranks) against the same configuration at (4, 1) "
+        f"through ElasticTrainer, {FSDP_MOE_STEPS} steps on the same "
+        f"batches:")
+    ranks = run_local(fsdp_moe_rank, EP_RANKS, (argv, FSDP_MOE_STEPS),
+                      timeout=EP_TIMEOUT)
+    per = FSDP_MOE_STEPS * MOE_LAYERS
+    expected = {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
+                "flash_bwd_dq": per, **NO_SEG, **NO_PFX,
+                "grouped_matmul_fwd": 6 * per,
+                "grouped_matmul_dw": 2 * per,
+                "grouped_matmul_fwd_quant": 2 * per}
+    fsdp_losses = ep_train["losses"][:FSDP_MOE_STEPS]
+    for r in ranks:
+        gap = max(abs(x - y) / abs(y) for x, y in zip(fsdp_losses,
+                                                      r["losses"]))
+        p12 = ep_train["ranks"][r["rank"]]["peak_bytes"]
+        log(f"    rank {r['rank']}: losses at (2, 2) (phase 12) "
+            f"{[round(x, 6) for x in fsdp_losses]}, at (4, 1) "
+            f"{[round(x, 6) for x in r['losses']]}; largest relative gap "
+            f"{gap:.3e} (limit {FSDP_MOE_RTOL:.0e}); peak memory "
+            f"{p12 / 2**30:.2f} GiB at (2, 2), "
+            f"{r['peak_bytes'] / 2**30:.2f} at (4, 1); launches "
+            f"{r['launches']}; {card}")
+        if r["launches"] != expected:
+            fail(f"rank {r['rank']} launches {r['launches']}, expected "
+                 f"{expected}")
+        if gap > FSDP_MOE_RTOL:
+            fail(f"the MoE cell at (2, 2) against (4, 1): gap {gap:.3e}")
+        r["loss_gap"] = gap
+    report["moe"] = {"ranks": ranks, "fsdp_losses": fsdp_losses,
+                     "expected_launches": expected,
+                     "tolerance": FSDP_MOE_RTOL,
+                     "wall_s": time.monotonic() - t0}
+    log(f"    ({report['moe']['wall_s']:.1f} s with the ranks' start-up; "
+        f"{card})")
+    return report
+
+
 def main():
     import argparse
 
@@ -5220,6 +5532,11 @@ def main():
     report["attribution"] = attribution_phase(llama, fa, remat, config, card)
     free_memory()
 
+    log(f"phase 18, FSDP ((data x fsdp) meshes, all-gather and "
+        f"reduce-scatter; {card}):")
+    report["fsdp"] = fsdp_phase(run_local, llama, report["ep_train"], card)
+    free_memory()
+
     kernels = []
     for name in FLASH_KERNELS:
         meta, t = fa.KERNELS[name], times[name]
@@ -5336,7 +5653,9 @@ def main():
                     exist_ok=True)
         with open(args.json, "w") as out:
             json.dump(report, out, indent=1, default=str)
-    log(f"card: {card}")
+    report["wall_s"] = time.monotonic() - START
+    log(f"whole script: {report['wall_s']:.1f} s (the kernels' build "
+        f"included); card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,15 @@ optimizer keeps for it (AdamW: ``step``, ``exp_avg``, ``exp_avg_sq``).
 So a checkpoint survives a change of parameter order, and the JAX
 package's tree maps onto it path for path (``interop``).
 
-Over several ranks a leaf the strategy shards (the experts under
-``moe_ep``) is written as a DTensor sharded on its expert dim over the
-ranks, and every other leaf once (DCP keeps one copy of a replicated
-tensor). The checkpoint therefore holds global tensors, and loads at any
-rank count that splits the experts, as the reference's GSPMD arrays do.
+Over several ranks a leaf the rules shard (``AccelerateResult.layout``)
+is written as a DTensor on the ranks' 2-D ``(data, fsdp)`` mesh:
+``[Replicate(), Shard(dim)]`` for an fsdp leaf, ``[Shard(dim),
+Shard(dim)]`` for one split over both axes (the experts under
+``moe_ep``), its optimizer slots of its rank alike; DCP writes each
+block once, whatever its replicas, and every replicated leaf once. The
+checkpoint therefore holds global tensors, and loads at any (data, fsdp)
+whose rules split them, each rank reading its own block, as the
+reference's GSPMD arrays reshard on load.
 
 The step loop updates parameters and moments IN PLACE (``accelerate``),
 where the reference's XLA step donates its buffers. So every save first
@@ -53,6 +57,7 @@ import torch.distributed as dist
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.parallel.accelerate import _named_leaves
+from dlrover_tpu_torch.parallel.sharding_rules import ShardLayout
 from dlrover_tpu_torch.telemetry import (
     EventKind,
     SpanName,
@@ -71,9 +76,10 @@ WRITE_THREADS = 8
 _ALIGN = 256
 _PAGE = 4096
 
-# shard_dims: parameter path -> the dim its leaf is split on over the
-# checkpoint's ranks (the expert dim under moe_ep); absent = replicated
-ShardDims = Optional[Mapping[str, int]]
+# layout: where each leaf of the state lives on the (data x fsdp) mesh of
+# the checkpoint's ranks (``AccelerateResult.layout``); None = every leaf
+# whole on every rank
+Layout = Optional[ShardLayout]
 
 
 @dataclass
@@ -487,32 +493,37 @@ class ElasticCheckpointManager:
             self._arena = _HostArena(specs, pin)
         return self._arena
 
-    def _mesh(self):
-        """The checkpoint's ranks as a 1-D CPU DeviceMesh (DCP reads a
-        DTensor's place from it; it runs no collective)."""
+    def _mesh(self, sizes: Mapping[str, int]):
+        """The checkpoint's ranks as a 2-D CPU DeviceMesh over the
+        layout's axes (DCP reads a DTensor's place from it; it runs no
+        collective)."""
         from torch.distributed.device_mesh import DeviceMesh
 
-        if self._device_mesh is None:
-            self._device_mesh = DeviceMesh(
-                "cpu", torch.arange(dist.get_world_size()),
-                _init_backend=False)
-        return self._device_mesh
+        shape = tuple(sizes.values())
+        if self._device_mesh is None or self._device_mesh[0] != shape:
+            self._device_mesh = (shape, DeviceMesh(
+                "cpu", torch.arange(dist.get_world_size()).reshape(shape),
+                mesh_dim_names=tuple(sizes), _init_backend=False))
+        return self._device_mesh[1]
 
     def _distributed(self, host: Mapping[str, torch.Tensor],
-                     shard_dims: ShardDims) -> Dict[str, Any]:
+                     layout: Layout) -> Dict[str, Any]:
         """Host tensors as DCP takes them: a sharded leaf (and its
-        optimizer slots of the same rank) as a DTensor over the ranks."""
-        if self._group is None or not shard_dims:
+        optimizer slots of the same rank) as a DTensor on the mesh."""
+        if self._group is None or layout is None or not layout.leaves:
             return dict(host)
-        from torch.distributed.tensor import DTensor, Shard
+        from torch.distributed.tensor import DTensor, Replicate, Shard
 
-        mesh = self._mesh()
+        mesh = self._mesh(layout.sizes)
         out = {}
         for name, t in host.items():
-            dim = shard_dims.get(_param_path(name))
-            if dim is not None and t.dim() > dim:
-                t = DTensor.from_local(t, mesh, [Shard(dim)],
-                                       run_check=False)
+            path = _param_path(name)
+            shard = layout.leaves.get(path)
+            if shard is not None and t.dim() == len(layout.shapes[path]):
+                t = DTensor.from_local(
+                    t, mesh, [Shard(shard.dim) if axis in shard.axes
+                              else Replicate() for axis in layout.sizes],
+                    run_check=False)
             out[name] = t
         return out
 
@@ -523,7 +534,7 @@ class ElasticCheckpointManager:
         metadata: Optional[Dict] = None,
         shard_checkpoint: str = "",
         force: bool = False,
-        shard_dims: ShardDims = None,
+        layout: Layout = None,
     ) -> bool:
         """Queue a checkpoint; returns True if a save was started.
 
@@ -559,7 +570,7 @@ class ElasticCheckpointManager:
         emit_event(EventKind.CKPT_SAVE, step=step,
                    stage_seconds=round(stage_s, 3), forced=force)
         self.interval.mark_saved(step)
-        job = (step, self._distributed(host, shard_dims), meta, t0)
+        job = (step, self._distributed(host, layout), meta, t0)
         if self.async_save:
             self._pending = self._writer.submit(self._write, *job)
             self._pending_step = step
@@ -922,7 +933,7 @@ class ElasticCheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore_from_staging(self, state, shard_dims: ShardDims = None
+    def restore_from_staging(self, state, layout: Layout = None
                              ) -> Optional[Dict[str, Any]]:
         """Warm-restart fast path: restore the newest staged step from
         the host-DRAM mirror without reading the primary directory.
@@ -940,7 +951,7 @@ class ElasticCheckpointManager:
         try:
             with span(SpanName.CKPT_RESTORE, source="staging"):
                 out = self._restore_from(self._staging_root, step, state,
-                                         shard_dims)
+                                         layout)
         except Exception:  # noqa: BLE001 — callers fall back to restore()
             logger.exception(
                 "staging fast-path restore of step %d failed", step)
@@ -955,7 +966,7 @@ class ElasticCheckpointManager:
         return out
 
     def restore(self, state, step: Optional[int] = None,
-                shard_dims: ShardDims = None) -> Optional[Dict[str, Any]]:
+                layout: Layout = None) -> Optional[Dict[str, Any]]:
         """Restore into ``state`` (a built TrainState, filled in place).
 
         Prefers the host-DRAM staged copy when it holds the requested
@@ -965,7 +976,7 @@ class ElasticCheckpointManager:
         self._wait_pending()
         t0 = time.monotonic()
         with span(SpanName.CKPT_RESTORE):
-            out = self._restore_any(state, step, shard_dims)
+            out = self._restore_any(state, step, layout)
         if out is not None:
             restore_s = time.monotonic() - t0
             self._h_restore.observe(restore_s)
@@ -982,7 +993,7 @@ class ElasticCheckpointManager:
             and self._staged_digest_valid(step), self._group)
 
     def _restore_any(self, state, step: Optional[int],
-                     shard_dims: ShardDims) -> Optional[Dict[str, Any]]:
+                     layout: Layout) -> Optional[Dict[str, Any]]:
         staging_only = False
         explicit_step = step is not None
         if step is None:
@@ -1004,7 +1015,7 @@ class ElasticCheckpointManager:
         if self._staged_ok(step):
             try:
                 out = self._restore_from(self._staging_root, step, state,
-                                         shard_dims)
+                                         layout)
                 logger.info(
                     "restored checkpoint step=%d from host-DRAM staging",
                     step,
@@ -1027,7 +1038,7 @@ class ElasticCheckpointManager:
             return None
         try:
             out = self._restore_from(self.directory, step, state,
-                                     shard_dims)
+                                     layout)
         except Exception:  # noqa: BLE001 — torn/corrupt latest step
             if explicit_step:
                 raise
@@ -1041,7 +1052,7 @@ class ElasticCheckpointManager:
                     and self._staging_provenance_valid(), self._group):
                 try:
                     out = self._restore_from(self._staging_root, step,
-                                             state, shard_dims)
+                                             state, layout)
                     logger.warning(
                         "primary step %d unreadable; restored the SAME "
                         "step from host-DRAM staging", step,
@@ -1062,7 +1073,7 @@ class ElasticCheckpointManager:
             for s in older:
                 try:
                     out = self._restore_from(self.directory, s, state,
-                                             shard_dims)
+                                             layout)
                     logger.warning(
                         "restored OLDER checkpoint step=%d (latest %d "
                         "unreadable)", s, step,
@@ -1092,7 +1103,7 @@ class ElasticCheckpointManager:
             logger.exception("could not quarantine step %d", step)
 
     def _restore_from(self, root: str, step: int, state,
-                      shard_dims: ShardDims) -> Dict[str, Any]:
+                      layout: Layout) -> Dict[str, Any]:
         """Load ``root/step`` into host buffers, then into ``state``."""
         import torch.distributed.checkpoint as dcp
 
@@ -1112,12 +1123,8 @@ class ElasticCheckpointManager:
                 raise ValueError(f"checkpoint step {step} holds {name}, "
                                  "which the state has no parameter for")
             shape = tuple(md.size)
-            dim = (shard_dims or {}).get(path_key)
-            if self._group is not None and dim is not None and \
-                    len(shape) > dim:
-                shape = (shape[:dim]
-                         + (shape[dim] // dist.get_world_size(),)
-                         + shape[dim + 1:])
+            if self._group is not None and layout is not None:
+                shape = layout.local_shape(path_key, shape)
             specs[name] = (shape, md.properties.dtype)
         for path_key, p in params.items():
             got = specs.get(f"params/{path_key}")
@@ -1126,7 +1133,7 @@ class ElasticCheckpointManager:
                     f"checkpoint step {step} does not match the state at "
                     f"{path_key}: {got and got[0]} vs {tuple(p.shape)}")
         host = dict(self._host_buffers(specs, _pin_for(live)).tensors)
-        sd = self._distributed(host, shard_dims)
+        sd = self._distributed(host, layout)
         if self._group is None:
             _dcp(dcp.load, sd, storage_reader=reader, no_dist=True)
         else:

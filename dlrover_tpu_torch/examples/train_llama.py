@@ -17,8 +17,11 @@ Several ranks: under a launcher that sets the worker environment
 ``DLROVER_TPU_COORDINATOR_ADDR``), each process joins the process group
 (``trainer.bootstrap.init_worker``, ``--backend``: NCCL by default on
 the GPU, one GPU per rank; gloo for ranks that share a GPU, or on the
-CPU) and the job runs data parallel over the ranks, ``--batch`` being
-the global batch. With ``--moe_dispatch grouped_ep`` the experts are
+CPU) and the job runs over a ``(data x fsdp)`` mesh of the ranks,
+``--batch`` being the global batch: with four ranks or more ``fsdp = 2``
+(each pair of ranks holds half of every leaf the llama rules shard, and
+gathers it for the step), ``data`` the rest, as the reference's example
+picks its mesh; below four, data parallel. With ``--moe_dispatch grouped_ep`` the experts are
 sharded over the ranks (``rule_set="moe_ep"``); ``--moe_precision`` and
 ``--dispatch_chunks`` set its wire::
 
@@ -148,7 +151,10 @@ def main(argv=None, hooks=()):
     seq = args.seq or default_seq
     batches = synthetic_batches(config.vocab_size, args.batch, seq)
     if world > 1:
-        strategy = Strategy(mesh=MeshPlan(data=world, fsdp=1),
+        # fsdp once there are at least four ranks, data the rest, as the
+        # reference's example picks its mesh
+        strategy = Strategy(mesh=MeshPlan(data=-1,
+                                          fsdp=2 if world >= 4 else 1),
                             rule_set="moe_ep" if ep else "llama",
                             remat_policy="")
     else:

@@ -7,10 +7,11 @@ so this module imports neither JAX nor the JAX package. f32 leaves
 round-trip bitwise; bf16 leaves (numpy dtype ``bfloat16``) are moved as
 their bits, and come back as f32, which holds every bf16 value exactly.
 
-For the expert-parallel model (``rule_set="moe_ep"``) rank r of P takes
-the same tree with the expert leaves (``experts/{up,down}/kernel``: the
-expert dim is 1 of a stacked ``[L, E, ...]`` leaf, 0 of an ``[E, ...]``
-one) cut to its block of experts ``[r E/P, (r+1) E/P)``, as the
+A rank of a ``(data x fsdp)`` mesh takes the same tree cut to its
+blocks by a rule set's specs (``place``), as ``parallel.accelerate``
+holds them: for the expert-parallel model (``rule_set="moe_ep"``) on
+``MeshPlan(data=P)`` that is rank r's block of experts ``[r E/P, (r+1)
+E/P)`` of the expert leaves (``expert_shard=(r, P)``), as the
 reference's ``moe_ep`` rules shard them.
 
 ``train_state_from_numpy`` carries a whole training state over: the
@@ -37,32 +38,66 @@ def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _expert_block(a, expert_shard: Tuple[int, int]):
-    from dlrover_tpu_torch.parallel.strategy import shard_dim
+# a rank's place: (rank, {"data": d, "fsdp": f}, rule set)
+Placement = Tuple[int, Dict[str, int], str]
 
+
+def _placement(expert_shard, place) -> Optional[Placement]:
+    if place is not None:
+        if expert_shard is not None:
+            raise ValueError("pass expert_shard or place, not both")
+        return place
+    if expert_shard is None:
+        return None
     rank, ranks = expert_shard
-    axis = shard_dim(a.ndim)
-    per, rest = divmod(a.shape[axis], ranks)
-    if rest:
-        raise ValueError(f"{a.shape[axis]} experts do not split over "
-                         f"{ranks} ranks")
-    return np.take(a, range(rank * per, (rank + 1) * per), axis=axis)
+    return rank, {"data": ranks, "fsdp": 1}, "moe_ep"
+
+
+def _blocks(tree: Dict, place: Placement) -> Dict:
+    """The rank's blocks of a tree of global numpy leaves, by the rule
+    set's specs on the mesh."""
+    from dlrover_tpu_torch.parallel.accelerate import _named_leaves
+    from dlrover_tpu_torch.parallel.sharding_rules import ShardLayout
+    from dlrover_tpu_torch.parallel.strategy import Strategy
+
+    rank, sizes, rule_set = place
+    named = _named_leaves(tree)
+    layout = ShardLayout.build(Strategy(rule_set=rule_set).rules(),
+                               dict(sizes),
+                               {p: np.shape(a) for p, a in named})
+    out: Dict = {}
+    for path, a in named:
+        a = np.asarray(a)
+        shard = layout.leaves.get(path)
+        if shard is not None:
+            n = a.shape[shard.dim] // layout.blocks(path)
+            lo = layout.block_index(rank, path) * n
+            a = np.take(a, range(lo, lo + n), axis=shard.dim)
+        node = out
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = a
+    return out
 
 
 def params_from_numpy(tree: Dict, device: DeviceLike = None,
-                      expert_shard: Optional[Tuple[int, int]] = None
-                      ) -> Dict:
+                      expert_shard: Optional[Tuple[int, int]] = None,
+                      place: Optional[Placement] = None) -> Dict:
     """Reference parameter tree (numpy leaves) -> the port's tree of
-    tensors on ``device`` (default ``cuda``); with ``expert_shard=(rank,
-    P)`` the expert leaves hold that rank's block of experts."""
+    tensors on ``device`` (default ``cuda``). ``place=(rank, {"data": d,
+    "fsdp": f}, rule_set)``: every leaf cut to that rank's block by the
+    rule set's specs on the ``(data x fsdp)`` mesh. ``expert_shard=(rank,
+    P)`` is ``place=(rank, {"data": P, "fsdp": 1}, "moe_ep")``: the
+    expert leaves hold that rank's block of experts."""
     dev = resolve_device(device)
+    place = _placement(expert_shard, place)
+    if place is not None:
+        tree = _blocks(tree, place)
 
-    def walk(node, path=()):
+    def walk(node):
         if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
-        if expert_shard is not None and path[-3:-1] in (
-                ("experts", "up"), ("experts", "down")):
-            node = _expert_block(np.asarray(node), expert_shard)
+            return {k: walk(v) for k, v in node.items()}
         return _leaf_to_torch(node, dev)
 
     return walk(tree)
@@ -104,11 +139,13 @@ def _unflatten(pairs) -> Dict:
 
 
 def train_state_from_numpy(state, optimizer, device: DeviceLike = None,
-                           expert_shard: Optional[Tuple[int, int]] = None):
+                           expert_shard: Optional[Tuple[int, int]] = None,
+                           place: Optional[Placement] = None):
     """The reference's ``TrainState`` with numpy leaves
     (``jax.device_get(state)``; ``opt_state`` from ``optax.adamw``) ->
     the port's ``TrainState`` on ``device``: the parameters through
-    ``params_from_numpy`` (``expert_shard`` as there), and an optimizer
+    ``params_from_numpy`` (``expert_shard`` or ``place`` as there: the
+    moments are cut as their parameters), and an optimizer
     built by ``optimizer`` (a ``torch.optim.AdamW`` factory) whose
     per-parameter ``step``, ``exp_avg`` and ``exp_avg_sq`` are Adam's
     ``count``, ``mu`` and ``nu``, path for path."""
@@ -123,11 +160,12 @@ def train_state_from_numpy(state, optimizer, device: DeviceLike = None,
     if adam is None:
         raise ValueError("the reference state holds no Adam moments "
                          "(count, mu, nu)")
-    params = params_from_numpy(state.params, device, expert_shard)
+    place = _placement(expert_shard, place)
+    params = params_from_numpy(state.params, device, place=place)
     mu = dict(_named_leaves(params_from_numpy(adam.mu, device,
-                                              expert_shard)))
+                                              place=place)))
     nu = dict(_named_leaves(params_from_numpy(adam.nu, device,
-                                              expert_shard)))
+                                              place=place)))
     for _, p in _named_leaves(params):
         p.requires_grad_(p.is_floating_point())
     opt = optimizer(tree_leaves(params))

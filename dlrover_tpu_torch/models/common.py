@@ -4,9 +4,19 @@
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
+
+# (path, leaf) -> the leaf an init keeps: a model's init hands each leaf
+# to it as soon as it is drawn (``parallel.accelerate`` keeps a rank's
+# block of a sharded leaf, so the init holds one full leaf at a time)
+KeepLeaf = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def keep_all(path: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The default ``KeepLeaf``: every leaf whole."""
+    return leaf
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],

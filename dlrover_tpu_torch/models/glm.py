@@ -38,8 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch.models.common import (
+    KeepLeaf,
     cast_floats,
     dense_init,
+    keep_all,
     layer_norm,
     param_count as common_param_count,
     segment_positions,
@@ -133,11 +135,13 @@ def param_shapes(config: GLMConfig) -> Dict:
     }
 
 
-def init(generator: torch.Generator, config: GLMConfig) -> Dict:
+def init(generator: torch.Generator, config: GLMConfig,
+         keep: KeepLeaf = keep_all) -> Dict:
     """Random parameters on the generator's device, reference layout and
     initialisers (the numbers differ: torch and jax generators differ):
     norm scales at one, biases at zero, embedding tables N(0, 0.02),
-    kernels fan-in scaled."""
+    kernels fan-in scaled. Each leaf goes to ``keep(path, leaf)`` as
+    soon as it is drawn, and the tree holds what that returns."""
     dt, dev = config.param_dtype, generator.device
 
     def leaf(path, shape):
@@ -153,7 +157,7 @@ def init(generator: torch.Generator, config: GLMConfig) -> Dict:
     def walk(node, path=()):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return leaf(path, node)
+        return keep("/".join(path), leaf(path, node))
 
     return walk(param_shapes(config))
 

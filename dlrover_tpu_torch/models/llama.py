@@ -41,8 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch.models.common import (
+    KeepLeaf,
     cast_floats,
     dense_init,
+    keep_all,
     param_count as common_param_count,
     rms_norm,
     segment_positions,
@@ -211,7 +213,8 @@ def _expert_seed(base: int, leaf: str, layer: int, expert: int) -> int:
 
 
 def init(generator: torch.Generator, config: LlamaConfig,
-         expert_shard: ExpertShard = None) -> Dict:
+         expert_shard: ExpertShard = None,
+         keep: KeepLeaf = keep_all) -> Dict:
     """Random parameters on the generator's device, reference layout and
     initialisers (the numbers differ: torch and jax generators differ).
     Norm scales start at one.
@@ -220,7 +223,8 @@ def init(generator: torch.Generator, config: LlamaConfig,
     from the generator's initial seed and the block's (leaf, layer,
     expert): with ``expert_shard=(rank, P)`` a rank draws only its own
     E/P experts, and they equal those experts of the one-rank model
-    from the same seed."""
+    from the same seed. Each leaf goes to ``keep(path, leaf)`` as soon
+    as it is drawn, and the tree holds what that returns."""
     _check_supported(config)
     c, dt = config, config.param_dtype
     shapes = param_shapes(c, expert_shard)
@@ -249,19 +253,19 @@ def init(generator: torch.Generator, config: LlamaConfig,
     def walk(node, path=()):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return layer_leaf(path, node)
+        return keep("layers/" + "/".join(path), layer_leaf(path, node))
 
     layers = walk(shapes["layers"])
-    embed = torch.randn(shapes["embed_tokens"]["embedding"],
-                        generator=generator, dtype=dt,
-                        device=generator.device) * 0.02
+    embed = keep("embed_tokens/embedding", torch.randn(
+        shapes["embed_tokens"]["embedding"], generator=generator, dtype=dt,
+        device=generator.device) * 0.02)
     return {
         "embed_tokens": {"embedding": embed},
         "layers": layers,
-        "norm": {"scale": torch.ones(shapes["norm"]["scale"], dtype=dt,
-                                     device=generator.device)},
-        "lm_head": {"kernel": dense_init(
-            generator, shapes["lm_head"]["kernel"], dt)},
+        "norm": {"scale": keep("norm/scale", torch.ones(
+            shapes["norm"]["scale"], dtype=dt, device=generator.device))},
+        "lm_head": {"kernel": keep("lm_head/kernel", dense_init(
+            generator, shapes["lm_head"]["kernel"], dt))},
     }
 
 

@@ -19,6 +19,21 @@ exchange: the operator is its own inverse (block j goes to rank j, and
 the reply comes back from rank j into slot j). ``all_reduce_mean`` is
 differentiable the same way, and ``all_reduce_`` reduces in place.
 
+FSDP's two exchanges (``parallel.accelerate``) are adjoint to each
+other, each the other's backward:
+
+  ``all_gather_shard``  the group's blocks of a leaf, concatenated
+                        along ``dim`` in group-rank order;
+  ``reduce_scatter_``   the sum over the group of a full tensor, of
+                        which this rank keeps its block along ``dim``.
+
+On NCCL they are ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``. On gloo the all-gather is the list
+``all_gather``, and the reduce-scatter an ``all_reduce`` of the staged
+host tensor, of which the rank keeps its block (``narrow``): gloo's
+reduce-scatter differs between torch versions, so the port does not
+rely on it. Twice the wire bytes of a true reduce-scatter, on the host.
+
 Tensors cross the wire as bytes (``view(torch.uint8)``): gloo has no
 float8 type, and a byte permutation leaves every value as it was.
 
@@ -35,19 +50,24 @@ next starts, and the chunked dispatch's exchanges do not overlap its
 grouped products yet.
 
 ``STATS`` counts each helper's calls, host seconds and bytes per rank
-(``reset_stats``, ``stats``). On gloo the seconds are the whole
+(``reset_stats``, ``stats``): an exchange its input buffer, an
+all-reduce its tensor, an all-gather the gathered (full) tensor and a
+reduce-scatter its full input, so one gather and one scatter of a leaf
+count its global bytes each. On gloo the seconds are the whole
 exchange, waits for the slowest rank included; on NCCL they are the
 enqueue only.
 
 Under a ``utils.prof.CostCounter`` each helper reports the bytes it puts
 on the wire by the reference's HLO kind ("all-to-all",
-"collective-permute" for the ring, "all-reduce") and runs uncounted; on
+"collective-permute" for the ring, "all-reduce", "all-gather",
+"reduce-scatter") and runs uncounted; on
 the meta device it only reports, and returns an output of the right
 shape without calling the backend.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Optional
 
@@ -200,3 +220,100 @@ def all_reduce_mean(x: torch.Tensor, group: Optional[object] = None
                     ) -> torch.Tensor:
     """The mean of ``x`` over the group's ranks, differentiable."""
     return _AllReduceMean.apply(x, group)
+
+
+# -- FSDP's all-gather and reduce-scatter ----------------------------------
+
+
+def gather_shard(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The blocks ``x`` of the group's ranks concatenated along ``dim``
+    (group-rank order), outside autograd."""
+    size = dist.get_world_size(group)
+    shape = list(x.shape)
+    shape[dim] *= size
+    nbytes = math.prod(shape) * x.element_size()
+    prof.report_exchange("all-gather", nbytes)
+    if x.device.type == "meta":
+        return x.new_empty(shape)
+    t0 = time.perf_counter()
+    with prof.uncounted():
+        # blocks stacked on a new leading dim: [P, *x.shape]
+        src = x.detach().movedim(dim, 0).contiguous()
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty((size,) + tuple(src.shape), dtype=x.dtype,
+                              device=x.device)
+            dist.all_gather_into_tensor(out, src, group=group)
+        else:
+            host = _to_host(src) if _staged(src, group) else src
+            parts = [torch.empty_like(host) for _ in range(size)]
+            dist.all_gather(parts, host, group=group)
+            out = torch.stack(parts).to(x.device)
+        out = out.reshape((size * src.shape[0],) + tuple(src.shape[1:]))
+        out = out.movedim(0, dim).contiguous()
+    _count("all_gather", t0, nbytes)
+    return out
+
+
+def scatter_sum(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the
+    group, outside autograd; ``x`` is not changed."""
+    size = dist.get_world_size(group)
+    if x.shape[dim] % size:
+        raise ValueError(f"reduce-scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {size} ranks")
+    nbytes = x.numel() * x.element_size()
+    prof.report_exchange("reduce-scatter", nbytes)
+    n = x.shape[dim] // size
+    if x.device.type == "meta":
+        return x.narrow(dim, 0, n).clone()
+    t0 = time.perf_counter()
+    me = dist.get_rank(group)
+    with prof.uncounted():
+        src = x.detach().movedim(dim, 0).contiguous()
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty((n,) + tuple(src.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, src, group=group)
+        else:
+            host = _to_host(src) if _staged(src, group) else src.clone()
+            dist.all_reduce(host, group=group)
+            out = host.narrow(0, me * n, n).to(x.device)
+        out = out.movedim(0, dim).contiguous()
+    _count("reduce_scatter", t0, nbytes)
+    return out
+
+
+class _AllGatherShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_shard(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_sum(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_shard(g, ctx.dim, ctx.group), None, None
+
+
+def all_gather_shard(x: torch.Tensor, dim: int = 0,
+                     group=None) -> torch.Tensor:
+    """Differentiable all-gather of the group's blocks along ``dim``;
+    the backward reduce-scatters the cotangent back to the block."""
+    return _AllGatherShard.apply(x, dim, group)
+
+
+def reduce_scatter_(x: torch.Tensor, dim: int = 0,
+                    group=None) -> torch.Tensor:
+    """Differentiable reduce-scatter (sum) of ``x`` along ``dim``: this
+    rank's block; the backward all-gathers the cotangent."""
+    return _ReduceScatter.apply(x, dim, group)

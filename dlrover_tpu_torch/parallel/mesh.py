@@ -2,11 +2,16 @@
 
 ``MeshPlan`` keeps the reference's axis names and its refit arithmetic.
 ``MeshPlan.build`` turns a plan into a ``ProcessMesh``: the process
-group of each axis of size > 1 over the ranks of ``torch.distributed``,
-where the reference builds a ``jax.sharding.Mesh`` over devices. This
-slice builds data-parallel meshes (``data x fsdp = world`` with
-``fsdp == 1``); FSDP (``fsdp > 1``, ROADMAP A6/A7) and the model-parallel
-axes raise.
+groups of its axes over the ranks of ``torch.distributed``, where the
+reference builds a ``jax.sharding.Mesh`` over devices. The ranks are
+laid out as the reference lays out devices
+(``np.arange(world).reshape(shape)``, axes outer -> inner), so on a
+``(data x fsdp)`` mesh rank ``r`` sits at ``data = r // fsdp``, ``fsdp =
+r % fsdp``. The "fsdp" group of a rank holds the ranks of its data index
+(``fsdp`` consecutive ranks), its "data" group the ranks of its fsdp
+index (a stride of ``fsdp``), and the group over both axes is the world.
+Those groups are made once per world and reused by every later build.
+The pipe, seq and tensor axes raise (ROADMAP A15, A13).
 
 Axis convention (outer -> inner): "pipe", "data", "fsdp", "seq",
 "tensor".
@@ -84,62 +89,109 @@ class MeshPlan:
     def build(self, world: Optional[int] = None) -> "ProcessMesh":
         """The process mesh of this plan over the ``world`` ranks of the
         default process group (default: its size, 1 when there is none).
-        """
+        Every rank must call it (a group over part of the world is made
+        by all ranks). Without a process group the mesh holds the layout
+        and no group."""
         if world is None:
             world = dist.get_world_size() if dist.is_initialized() else 1
         plan = self.resolve(world)
-        if plan.fsdp > 1:
-            raise NotImplementedError(
-                f"fsdp={plan.fsdp}: sharded parameters (FSDP) are not "
-                f"ported yet (ROADMAP A6/A7); use MeshPlan(data={world}, "
-                f"fsdp=1)")
-        for axis in ("pipe", "seq", "tensor"):
+        for axis, item in (("pipe", "A15"), ("seq", "A13"),
+                           ("tensor", "A15")):
             if getattr(plan, axis) > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {getattr(plan, axis)} is "
-                    f"not ported yet (ROADMAP)")
-        groups = {}
-        if plan.data > 1:
-            # data x fsdp = world with fsdp == 1: the data axis spans
-            # every rank, in rank order
-            groups["data"] = dist.group.WORLD
+                    f"not ported yet (ROADMAP {item})")
         sizes = plan.axis_sizes()
+        groups = {}
+        rank = 0
+        if world > 1 and dist.is_initialized():
+            rank = dist.get_rank()
+            big = tuple(a for a in ("data", "fsdp") if sizes[a] > 1)
+            groups[big] = dist.group.WORLD
+            if len(big) == 2:
+                groups.update(_axis_groups(plan.data, plan.fsdp, rank))
         return ProcessMesh(axis_names=MESH_AXES,
                            axis_sizes=tuple(sizes[a] for a in MESH_AXES),
-                           groups=groups)
+                           groups=groups, rank=rank)
+
+
+# the "fsdp" and "data" groups of every (data x fsdp) mesh built over
+# the current world process group, by (data, fsdp); a new world (after
+# ``destroy_process_group``) drops them
+_GROUP_CACHE: Dict = {}
+
+
+def _axis_groups(d: int, f: int, rank: int) -> Dict[Tuple[str, ...], object]:
+    """This rank's "fsdp" and "data" groups of a (d x f) mesh. Every
+    rank makes every group, in the same order, once per world: later
+    builds (a retune, a rebuilt step) reuse them, since a NCCL group
+    holds a communicator and its device buffers."""
+    world = dist.group.WORLD
+    if _GROUP_CACHE.get("world") is not world:
+        _GROUP_CACHE.clear()
+        _GROUP_CACHE["world"] = world
+    if (d, f) not in _GROUP_CACHE:
+        mine = {}
+        for axis, members in (
+                [("fsdp", [i * f + j for j in range(f)]) for i in range(d)]
+                + [("data", [i * f + j for i in range(d)])
+                   for j in range(f)]):
+            group = dist.new_group(members)
+            if rank in members:
+                mine[(axis,)] = group
+        _GROUP_CACHE[(d, f)] = mine
+    return _GROUP_CACHE[(d, f)]
 
 
 @dataclass
 class ProcessMesh:
     """Axis names and sizes (``jax.sharding.Mesh``'s two attributes the
-    port reads), and the process group of each axis of size > 1."""
+    port reads), this process's rank, and the process group over each
+    set of axes of size > 1 that it is a member of, keyed by those axes
+    in mesh order."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
-    groups: Dict[str, object] = field(default_factory=dict)
+    groups: Dict[Tuple[str, ...], object] = field(default_factory=dict)
+    rank: int = 0
 
     @classmethod
     def over(cls, axis: str, group=None) -> "ProcessMesh":
         """A one-axis mesh over ``group`` (default: every rank)."""
         group = group or dist.group.WORLD
-        return cls((axis,), (dist.get_world_size(group),), {axis: group})
+        return cls((axis,), (dist.get_world_size(group),), {(axis,): group},
+                   dist.get_rank(group))
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     def group(self, axes: Sequence[str]):
         """The process group spanning ``axes`` (None when they all have
-        size 1). Only one of them may be larger than 1 in this slice."""
-        sizes = dict(zip(self.axis_names, self.axis_sizes))
-        big = [a for a in axes if sizes[a] > 1]
-        if len(big) > 1:
-            raise NotImplementedError(
-                f"a group over several axes of size > 1 {big} comes with "
-                f"FSDP (ROADMAP A6/A7)")
-        return self.groups[big[0]] if big else None
+        size 1)."""
+        sizes = self.sizes
+        big = tuple(a for a in self.axis_names
+                    if a in axes and sizes[a] > 1)
+        if not big:
+            return None
+        if big not in self.groups:
+            raise RuntimeError(
+                f"no process group over {big}: build the mesh with the "
+                f"process group initialized")
+        return self.groups[big]
 
 
 def topology_key(devices: Sequence[torch.device]) -> str:
     """Stable identity of a device set (the trainer's program key)."""
     return "|".join(f"{d.type}:{d.index if d.index is not None else 0}"
                     for d in devices)
+
+
+def mesh_axes_key(plan: MeshPlan) -> str:
+    """Stable identity of a mesh factorization ("pipe.data.fsdp.seq.
+    tensor"), as the reference keys its program cache."""
+    return (f"{plan.pipe}.{plan.data}.{plan.fsdp}"
+            f".{plan.seq}.{plan.tensor}")
 
 
 def single_device_plan() -> MeshPlan:

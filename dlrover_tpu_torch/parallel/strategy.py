@@ -3,12 +3,16 @@
 plus ``grad_accum_steps``, the lever that keeps the global batch fixed
 when the world shrinks.
 
-``rule_set`` names the sharding rules. On the data-parallel meshes of
-this slice (``fsdp == 1``) every rule set replicates every leaf, as the
-reference's rules do with no fsdp or tensor axis to shard over, except
-``"moe_ep"``: its expert leaves (``experts/{up,down}/kernel``, the
-reference's ``moe_ep_rules``) are sharded over the expert group, each
-rank holding its own E/P experts. The FSDP rules arrive with A6/A7.
+``rule_set`` names the sharding rules (``RULE_SETS``, the reference's
+names; ``parallel.sharding_rules`` holds the tables). ``Strategy.rules``
+returns them, and every placement in the port reads the spec they give
+a leaf: ``parallel.accelerate`` keeps a rank's block of each leaf whose
+spec names an axis of size > 1. One kind of leaf is consumed as a block
+by the model itself and never gathered (``block_consumed``): the
+experts under ``"moe_ep"``, which the expert-parallel dispatch runs on
+the rank that holds them; every other sharded leaf is gathered for the
+step. The reference's ``_pp``, BERT, CLIP and GPT-2 tables come with
+their models (ROADMAP A15, A17) and raise here.
 """
 
 from __future__ import annotations
@@ -20,21 +24,40 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from dlrover_tpu_torch.parallel.mesh import MeshPlan
+from dlrover_tpu_torch.parallel.sharding_rules import (
+    ShardingRules,
+    glm_rules,
+    llama_rules,
+    moe_ep_rules,
+    moe_rules,
+    neox_rules,
+)
 
-# the leaves "moe_ep" shards over the expert group
+RULE_SETS = {
+    "fsdp": lambda: ShardingRules(),
+    "llama": llama_rules,
+    "moe": moe_rules,
+    # dropless expert-parallel ("grouped_ep" dispatch): expert FFN dims
+    # unsharded so the grouped kernels run on each rank's own experts;
+    # experts over (data x fsdp) as in "moe"
+    "moe_ep": moe_ep_rules,
+    "neox": neox_rules,
+    "glm": glm_rules,
+}
+# the reference's rule sets whose models are not ported yet
+_LATER_RULE_SETS = {"llama_pp": "A15", "neox_pp": "A15", "glm_pp": "A15",
+                    "gpt2_pp": "A15", "bert_pp": "A15", "bert": "A17",
+                    "clip": "A17"}
+
+# the leaves "moe_ep"'s dispatch consumes as this rank's block
 _EXPERT_LEAF = re.compile(r"experts/(up|down)/kernel$")
 
 
-def is_sharded(rule_set: str, path: str) -> bool:
-    """Whether the leaf at ``path`` ("a/b/c") holds only this rank's
-    part under ``rule_set``; every other leaf is replicated."""
+def block_consumed(rule_set: str, path: str) -> bool:
+    """Whether the model runs on this rank's block of the leaf at
+    ``path`` ("a/b/c") as it is (the experts under ``"moe_ep"``: the
+    init draws only them, and the step never gathers them)."""
     return rule_set == "moe_ep" and bool(_EXPERT_LEAF.search(path))
-
-
-def shard_dim(ndim: int) -> int:
-    """The dim a sharded (expert) leaf is split on over the ranks: 1 of
-    a stacked [L, E, ...] leaf, 0 of an [E, ...] one."""
-    return 1 if ndim == 4 else 0
 
 
 @dataclass
@@ -55,6 +78,18 @@ class Strategy:
     stage_depths: Optional[Tuple[int, ...]] = None
     # global batch row count; 0 = derived from the example batch
     global_batch_size: int = 0
+
+    def rules(self) -> ShardingRules:
+        factory = RULE_SETS.get(self.rule_set)
+        if factory is None:
+            later = _LATER_RULE_SETS.get(self.rule_set)
+            if later:
+                raise NotImplementedError(
+                    f"rule set {self.rule_set!r} comes with its model "
+                    f"(ROADMAP {later})")
+            raise ValueError(f"unknown rule set {self.rule_set!r}; "
+                             f"have {sorted(RULE_SETS)}")
+        return factory()
 
     def adjust_to_world(self, num_devices: int,
                         prev_num_devices: Optional[int] = None) -> "Strategy":

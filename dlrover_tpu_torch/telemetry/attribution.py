@@ -126,14 +126,23 @@ class AttributionRecord:
         return derived_mfu(self.flops_per_step, step_time_s,
                            self.peak_flops_per_s)
 
-    def exposed_comm_fraction(self, step_time_s: float) -> float:
+    def exposed_comm_fraction(self, step_time_s: float,
+                              exchange_s: Optional[float] = None) -> float:
         """Clamped (measured - ideal compute) / measured: the share of
         the step NOT explained by compute at peak, an upper bound on
-        un-overlapped communication."""
+        un-overlapped communication. ``exchange_s``: the host seconds
+        the step's exchanges took (``ops.ring.STATS``: the all-gathers
+        and reduce-scatters of FSDP, the all-reduces), given where an
+        exchange holds the host until it is done (gloo; the trainer
+        executor's gauge): those seconds are exposed, and the fraction
+        is their share of the step, within the bound."""
         if step_time_s <= 0:
             return 0.0
-        frac = 1.0 - self.predicted_compute_s / step_time_s
-        return min(max(frac, 0.0), 1.0)
+        frac = min(max(1.0 - self.predicted_compute_s / step_time_s, 0.0),
+                   1.0)
+        if exchange_s is None:
+            return frac
+        return min(max(exchange_s / step_time_s, 0.0), frac)
 
     def hbm_headroom_bytes(self) -> Optional[float]:
         """Budget minus peak; None when no budget is known."""

@@ -27,7 +27,10 @@ rebuild, restore into a new ``TrainState``, resume. The port's
 names the ranks that stay, the snapshot takes each survivor's slice of
 the next world's sharded leaves over the old group
 (``checkpoint.regroup``), and ``bootstrap.reform_world`` re-forms the
-group. ``retune`` is the same on an unchanged world with new knobs,
+group. The sharded leaves are the step's ``AccelerateResult.layout``
+(fsdp blocks and ``moe_ep``'s experts, by the rule tables), and a new
+``(data x fsdp)`` factorization regroups them the same way. ``retune``
+is the same on an unchanged world with new knobs,
 ``prewarm`` builds a step into the cache without switching to it, and
 ``on_world_change`` is ``live_reshard`` without its timeline events. An
 unplanned loss (a rank dead) restores from storage (``prepare``); peer
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -64,15 +68,15 @@ from dlrover_tpu_torch.parallel.accelerate import (
     AccelerateResult,
     OptimizerFn,
     TrainState,
-    _named_leaves,
     accelerate,
 )
-from dlrover_tpu_torch.parallel.mesh import MeshPlan, topology_key
-from dlrover_tpu_torch.parallel.strategy import (
-    Strategy,
-    is_sharded,
-    shard_dim,
+from dlrover_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    mesh_axes_key,
+    topology_key,
 )
+from dlrover_tpu_torch.parallel.sharding_rules import BATCH_AXES, ShardLayout
+from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.telemetry import (
     EventKind,
     SpanName,
@@ -206,13 +210,17 @@ class ElasticTrainer:
 
     def _program_key(self, strategy: Strategy) -> str:
         """What a built step depends on: the device, the process group,
-        the resolved strategy (mesh, rules, grad accumulation) and the
+        the mesh's factorization (``mesh_axes_key``), the rest of the
+        resolved strategy (rules, grad accumulation, remat) and the
         knobs of the step."""
+        rest = dataclasses.asdict(strategy)
+        del rest["mesh"]
         return (topology_key([self._device])
                 + f"|world={self.world}|{self._group_token()}"
+                + f"|mesh={mesh_axes_key(strategy.mesh)}"
                 + f"|k={self.steps_per_call}|c={self.dispatch_chunks}"
                 + f"|p={self.moe_precision}|gp={self.grad_precision}"
-                + f"|strategy={strategy.to_json()}")
+                + f"|strategy={json.dumps(rest, sort_keys=True)}")
 
     def _build(self) -> AccelerateResult:
         """The step for the current world and knobs, from the cache or
@@ -320,18 +328,16 @@ class ElasticTrainer:
                 return restored
         return state
 
-    def _shard_dims(self, state: TrainState) -> Optional[Dict[str, int]]:
-        """The leaves this rank holds only its part of, with the dim
-        they are split on."""
-        if self.world == 1:
+    def _layout(self) -> Optional[ShardLayout]:
+        """Where the active step keeps each leaf, when some leaf is
+        sharded over several ranks (None: every leaf whole)."""
+        layout = self._result.layout if self._result else None
+        if self.world == 1 or layout is None or not layout.leaves:
             return None
-        rules = self._result.strategy.rule_set
-        return {path: shard_dim(p.dim())
-                for path, p in _named_leaves(state.params)
-                if is_sharded(rules, path)}
+        return layout
 
     def _try_restore(self, state: TrainState) -> Optional[TrainState]:
-        out = self._ckpt.restore(state, shard_dims=self._shard_dims(state))
+        out = self._ckpt.restore(state, layout=self._layout())
         if out is None:
             return None
         rng = out["meta"].get("rng")
@@ -370,19 +376,32 @@ class ElasticTrainer:
         self._host_step = int(snapshot.meta["host_step"])
         return state
 
-    def _tensor_shard_dims(self, state: TrainState) -> Dict[str, int]:
-        """``_shard_dims`` by ``state_tensors`` name: a sharded
-        parameter and its optimizer slots of its shape."""
-        dims = self._shard_dims(state) or {}
-        if not dims:
-            return {}
+    def _target_layout(self, world: int) -> Optional[ShardLayout]:
+        """The layout the step for ``world`` ranks and the current knobs
+        will keep (the active step's global shapes, placed by the rules
+        on its mesh)."""
+        layout = self._result.layout if self._result else None
+        if layout is None:
+            return None
+        strategy = self._resolved_strategy(world)
+        sizes = strategy.mesh.axis_sizes()
+        return ShardLayout.build(strategy.rules(),
+                                 {a: sizes[a] for a in BATCH_AXES},
+                                 layout.shapes)
+
+    @staticmethod
+    def _global_tensors(state: TrainState, layout: ShardLayout
+                        ) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+        """Each ``state_tensors`` name -> its parameter path and global
+        shape (a slot of its parameter's rank has the parameter's)."""
         tensors, _ = state_tensors(state)
         out = {}
         for name, t in tensors.items():
             kind, rest = name.split("/", 1)
             path = rest.rsplit("/", 1)[0] if kind == "opt" else rest
-            if path in dims and t.dim() == _leaf(state.params, path).dim():
-                out[name] = dims[path]
+            full = layout.shapes[path]
+            out[name] = (path, full if t.dim() == len(full)
+                         else tuple(t.shape))
         return out
 
     def snapshot(self, state: TrainState,
@@ -395,30 +414,35 @@ class ElasticTrainer:
         ``world_to``: for a planned change of world, the ranks of the
         current world that stay (every rank calls this: the sharded
         leaves move over the current group). The snapshot then holds
-        this rank's slices of the next world's sharded leaves, and a
-        rank that leaves holds none. ``reuse_arena``: copy into the host
+        this rank's blocks of the next world's sharded leaves, and a
+        rank that leaves holds none. A mesh of the current world that
+        the knobs changed (``retune``) regroups the same way. ``reuse_arena``: copy into the host
         buffers of the last snapshot taken with it, when the shapes
         match, instead of pinning new ones (that snapshot is
         overwritten)."""
         regroup, world = None, self.world
-        new_world = world
+        survivors = list(range(world))
         if world_to is not None:
             survivors = sorted({int(r) for r in world_to})
             if not survivors or survivors[0] < 0 or survivors[-1] >= world:
                 raise ValueError(f"ranks {list(world_to)} are not a subset "
                                  f"of the world of {world}")
-            new_world = len(survivors)
-            dims = self._tensor_shard_dims(state)
-            if dims:
-                regroup = Regroup(self._group(), dist.get_rank(), world,
-                                  survivors, dims)
+        old = self._result.layout if self._result else None
+        new = self._target_layout(len(survivors))
+        if (world > 1 and old is not None
+                and (old.leaves or new.leaves)
+                and (len(survivors) != world or old != new)):
+            regroup = Regroup(self._group(), dist.get_rank(), world,
+                              survivors, old, new,
+                              self._global_tensors(state, old))
         snap = HostSnapshot.take(
             state, arena=self._arena if reuse_arena else None,
             regroup=regroup,
             strategy=self._result.strategy.to_json() if self._result else "",
             rng=self._rng.get_state().tolist(),
-            host_step=int(self._host_step), world=new_world,
-            sharded=bool(self._shard_dims(state)),
+            host_step=int(self._host_step), world=len(survivors),
+            sharded=bool(new is not None and new.leaves),
+            mesh=dict(new.sizes) if new is not None else {},
         )
         if reuse_arena:
             self._arena = snap._arena
@@ -516,6 +540,13 @@ class ElasticTrainer:
                     f"changes (or restore from storage)")
             compiles_before = self.compile_count
             result = self._build()
+            if (snapshot.meta.get("sharded")
+                    and snapshot.meta.get("mesh") != result.layout.sizes):
+                raise ValueError(
+                    f"the snapshot holds blocks laid out for the mesh "
+                    f"{snapshot.meta.get('mesh')}, the step keeps "
+                    f"{result.layout.sizes}: take it after setting the "
+                    f"knobs")
             t_build = time.monotonic()
             self._release(state)
             state = self._state_from_snapshot(snapshot)
@@ -570,12 +601,11 @@ class ElasticTrainer:
             raise NotImplementedError(
                 "fsdp_precision: the FSDP wire's precision is not ported "
                 "(ROADMAP A14)")
-        if mesh is not None and max(mesh.fsdp, mesh.pipe, mesh.seq,
-                                    mesh.tensor) > 1:
+        if mesh is not None and max(mesh.pipe, mesh.seq, mesh.tensor) > 1:
             raise NotImplementedError(
-                f"mesh {mesh.axis_sizes()}: only the data-parallel "
-                f"factorization is ported; FSDP and the model-parallel axes "
-                f"are not (ROADMAP A6)")
+                f"mesh {mesh.axis_sizes()}: only (data x fsdp) "
+                f"factorizations are ported; the pipe, seq and tensor axes "
+                f"are not (ROADMAP A15, A13)")
         if steps_per_call is not None:
             self.steps_per_call = max(1, int(steps_per_call))
         if mesh is not None:
@@ -752,7 +782,7 @@ class ElasticTrainer:
                       "rng": self._rng.get_state().tolist(),
                       "host_step": int(self._host_step)},
             force=force,
-            shard_dims=self._shard_dims(state),
+            layout=self._layout(),
         )
 
     def finalize(self) -> bool:
@@ -766,8 +796,3 @@ class ElasticTrainer:
             self._ckpt.close()
         return timed_out
 
-
-def _leaf(tree: Dict, path: str) -> torch.Tensor:
-    for key in path.split("/"):
-        tree = tree[key]
-    return tree

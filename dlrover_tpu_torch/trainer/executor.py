@@ -25,8 +25,10 @@ Performance attribution (ROADMAP A11): at train start, and again after
 a reshard, retune or restart, the executor fetches the
 trainer's attribution record (counted on the meta device, once per
 built step) and sets the static gauges; at each measured step it sets
-the live MFU and the exposed-comm bound, gauges that exist only from the
-first measured step on (absent, never 0). The capture's own stall is
+the live MFU and the exposed-comm share (on a gloo world the exchanges'
+host seconds, ``ops.ring.STATS``, within the bound; the bound on NCCL),
+gauges that exist only from the first measured step on (absent, never
+0). The capture's own stall is
 kept out of the next step's time. Recovery paths (the non-finite
 policy, a reshard, retune or restart) run under one incident trace id
 each (``telemetry.trace_context``).
@@ -44,9 +46,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.ops import ring
 from dlrover_tpu_torch.telemetry import (
     EventKind,
     SpanName,
@@ -97,6 +101,11 @@ class TrainHook:
 
     def end(self, executor: "TrainExecutor"):
         pass
+
+
+def _ring_seconds() -> float:
+    """The host seconds of every ``ops.ring`` exchange so far."""
+    return sum(e["seconds"] for e in ring.STATS.values())
 
 
 def _to_host(value):
@@ -190,7 +199,11 @@ class TrainExecutor:
         self._attr_pending = self._attr_enabled
         self._g_attr_mfu: Optional[Any] = None
         self._g_attr_exposed: Optional[Any] = None
-        self._attr_compute_s = 0.0
+        # ops.ring's exchange seconds at the last measured step, and
+        # the measured step's own (None where they are not the whole
+        # exchange: ``_exchange_seconds``)
+        self._ring_s = 0.0
+        self._step_exchange_s: Optional[float] = None
         self._attr_mfu_scale = 0.0
         self._last_log = time.monotonic()
         self._last_materialize = time.monotonic()
@@ -476,6 +489,7 @@ class TrainExecutor:
             self._train_window = max(0, int(w))
         # the stall must not count as the next step's time
         self._last_materialize = time.monotonic()
+        self._ring_s = _ring_seconds()
 
     # -- performance attribution ----------------------------------------------
 
@@ -519,7 +533,6 @@ class TrainExecutor:
         self._attr_mfu_scale = (
             record.flops_per_step / record.peak_flops_per_s
             if record.peak_flops_per_s > 0 else 0.0)
-        self._attr_compute_s = record.predicted_compute_s
         reg = get_registry()
         reg.gauge(tm.ATTR_FLOPS_PER_STEP,
                   help="counted per-device FLOPs per optimizer step",
@@ -538,10 +551,27 @@ class TrainExecutor:
         # the capture is a one-off stall: it must not count as the next
         # step's time
         self._last_materialize = time.monotonic()
+        self._ring_s = _ring_seconds()
+
+    def _exchange_seconds(self, steps: int) -> Optional[float]:
+        """The host seconds a step spent in ``ops.ring``'s exchanges
+        since the last call (``ring.STATS``), where those seconds are
+        the whole exchange: a gloo world of several ranks, whose
+        collectives hold the host until they are done. None on NCCL,
+        whose host seconds are the enqueue only, and on one rank."""
+        total = _ring_seconds()
+        # a reset_stats since the last call restarts the count
+        spent = total - self._ring_s if total >= self._ring_s else total
+        self._ring_s = total
+        if not (dist.is_initialized() and dist.get_world_size() > 1
+                and dist.get_backend() == "gloo"):
+            return None
+        return spent / steps
 
     def _observe_attribution(self, per_step: float):
-        """Fuse one measured per-step time with the record into the
-        derived gauges: two divisions and two gauge stores a step."""
+        """Fuse one measured per-step time (and the step's exchange
+        seconds, ``_step_exchange_s``) with the record into the derived
+        gauges."""
         if self._attr_pending:
             self._attr_pending = False
             self._fetch_attribution()
@@ -555,8 +585,10 @@ class TrainExecutor:
                      "over measured step time x device peak)")
             self._g_attr_exposed = reg.gauge(
                 tm.ATTR_EXPOSED_COMM_FRAC,
-                help="upper bound on the un-overlapped comm share of "
-                     "the step (1 - ideal compute s / measured step s)")
+                help="un-overlapped comm share of the step: the "
+                     "exchanges' host seconds over the step's on gloo, "
+                     "within the bound 1 - ideal compute s / measured "
+                     "step s (the bound alone on NCCL)")
             # the first measured step has run: the peak covers a step
             if self._trainer.device.type == "cuda":
                 peak = prof.compiled_peak_bytes(self._trainer.device)
@@ -565,9 +597,8 @@ class TrainExecutor:
                 self._set_headroom()
         inv = 1.0 / per_step
         self._g_attr_mfu.set(self._attr_mfu_scale * inv)
-        frac = 1.0 - self._attr_compute_s * inv
-        self._g_attr_exposed.set(
-            0.0 if frac < 0.0 else (1.0 if frac > 1.0 else frac))
+        self._g_attr_exposed.set(self._attr_record.exposed_comm_fraction(
+            per_step, self._step_exchange_s))
 
     # -- loop ---------------------------------------------------------------
 
@@ -595,6 +626,7 @@ class TrainExecutor:
         # a fused call's steps share its time evenly
         per_step = (now - self._last_materialize) / entry.count
         self._last_materialize = now
+        self._step_exchange_s = self._exchange_seconds(entry.count)
         self._observe_attribution(per_step)
         for i in range(entry.count):
             s = entry.last_step - entry.count + 1 + i
@@ -688,6 +720,7 @@ class TrainExecutor:
         step = int(self.state.step)
         self._window.clear()
         self._last_log = self._last_materialize = time.monotonic()
+        self._ring_s = _ring_seconds()
         self._started = time.monotonic()
         emit_event(EventKind.TRAIN_START, step=step,
                    train_window=self._train_window,

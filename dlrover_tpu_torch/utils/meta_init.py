@@ -147,13 +147,16 @@ def materialize_leaf_by_leaf(
 def materialize_from_checkpoint(ckpt_manager, abstract: Any,
                                 optimizer: Callable,
                                 device: DeviceLike = None,
-                                shard_dims=None):
+                                layout=None):
     """The newest checkpoint of ``ckpt_manager``
     (``checkpoint.ElasticCheckpointManager``) loaded straight into
     empty tensors on ``device`` shaped as ``abstract`` (a meta params
     tree, e.g. ``abstract_init(init_fn)``), with ``optimizer`` (the
     ``OptimizerFn``) over them: a ``TrainState``, or None when no
-    checkpoint exists. No init runs before the load."""
+    checkpoint exists. No init runs before the load. Over several
+    ranks pass the step's ``layout`` (``AccelerateResult.layout``) and
+    this rank's blocks as ``abstract`` (``abstract_init(result.init_fn,
+    0)``)."""
     from dlrover_tpu_torch.parallel.accelerate import TrainState
 
     device = resolve_device(device)
@@ -165,7 +168,7 @@ def materialize_from_checkpoint(ckpt_manager, abstract: Any,
     params = tree_map(empty, getattr(abstract, "params", abstract))
     state = TrainState(step=0, params=params,
                        opt_state=optimizer(tree_leaves(params)))
-    out = ckpt_manager.restore(state, shard_dims=shard_dims)
+    out = ckpt_manager.restore(state, layout=layout)
     if out is None:
         return None
     logger.info("materialized step %d from the checkpoint", out["step"])

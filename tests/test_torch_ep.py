@@ -28,6 +28,7 @@ from dlrover_tpu.parallel.mesh import MeshPlan as JaxMeshPlan
 from dlrover_tpu.parallel.strategy import Strategy as JaxStrategy
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.parallel.mesh import MeshPlan
+from dlrover_tpu_torch.parallel.sharding_rules import rank_coords
 from dlrover_tpu_torch.trainer.run import run_local
 
 import torch_ep_workers as workers
@@ -269,9 +270,18 @@ def test_launcher_reports_a_failed_rank():
 
 
 def test_mesh_builds_data_parallel_and_refuses_fsdp():
+    """One rank has no group; a (data x fsdp) mesh lays its ranks out
+    as the reference does (its groups need the process group: the four
+    ranks are built in ``tests/test_torch_fsdp.py``); a tensor axis
+    still raises."""
     mesh = MeshPlan(data=1, fsdp=1).build(1)
     assert mesh.group(("data", "fsdp")) is None
-    with pytest.raises(NotImplementedError, match="A6/A7"):
-        MeshPlan(data=2, fsdp=2).build(4)
+    fsdp = MeshPlan(data=2, fsdp=2).build(4)
+    coords = [rank_coords(r, fsdp.sizes, fsdp.axis_names)
+              for r in range(4)]
+    assert [(c["data"], c["fsdp"]) for c in coords] \
+        == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    with pytest.raises(RuntimeError, match="no process group"):
+        fsdp.group(("fsdp",))
     with pytest.raises(NotImplementedError, match="tensor"):
         MeshPlan(data=2, tensor=2).build(4)

@@ -145,9 +145,13 @@ class TestInterop:
             == jax_shapes
 
     def test_glm_rules_replicate_every_leaf(self):
+        """On a data-parallel mesh (no fsdp axis to shard over) the glm
+        rules replicate every leaf."""
         tree = _flatten(_jax_params(jax_glm.glm_tiny()))
-        assert not any(strategy.is_sharded("glm", key.lstrip("/"))
-                       for key in tree)
+        rules = strategy.Strategy(rule_set="glm").rules()
+        sizes = {"data": 4, "fsdp": 1}
+        assert not any(any(rules.spec_for(key.lstrip("/"), leaf.shape, sizes))
+                       for key, leaf in tree.items())
 
 
 class TestGLMAgainstJax:

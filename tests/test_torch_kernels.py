@@ -912,3 +912,42 @@ def test_moe_ep_live_reshard_over_nccl_on_four_cards():
                 full = np.concatenate([g["before"][key] for g in got], 1)
                 assert after.tobytes() == \
                     full[:, 4 * t:4 * t + 4].tobytes(), (t, key)
+
+
+@pytest.mark.cuda
+def test_fsdp_over_nccl_on_four_cards():
+    """The tiny dense Llama at (data, fsdp) = (2, 2) and at (1, 4) over
+    NCCL, a card a rank (the all-gathers and reduce-scatters through the
+    cards), against (4, 1): three AdamW steps, losses within 1e-5
+    relative (tests/test_torch_fsdp.py's CPU tolerance between meshes
+    is 1e-6; the cards' kernels sum in their own order), every rank the
+    same global loss, each sharded leaf split as the rules say. Needs
+    four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (one rank a card, NCCL)")
+    import numpy as np
+
+    import torch_fsdp_workers as workers
+    from dlrover_tpu_torch import interop
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.run import run_local
+
+    cfg = llama.llama_tiny()
+    tree = interop.params_to_numpy(
+        llama.init(torch.Generator().manual_seed(0), cfg))
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (3, 8, 17))
+    batches = [{"input_ids": b[:, :-1], "labels": b[:, 1:]} for b in ids]
+    got = run_local(workers.dense_ranks, 4,
+                    (tree, {}, batches, 1e-2, None, None, None, "cuda"),
+                    timeout=300)
+    for r in got:
+        runs = r["runs"]
+        for mesh in ((2, 2), (1, 4)):
+            np.testing.assert_allclose(runs[mesh]["losses"],
+                                       runs[(4, 1)]["losses"], rtol=1e-5)
+            assert runs[mesh]["stats"]["all_gather"]["calls"] == \
+                3 * len(runs[mesh]["sharded"])
+        assert runs[(2, 2)]["blocks"]["params/layers/q_proj/kernel"] == \
+            (1, 64, 64)
+        assert runs[(4, 1)]["sharded"] == []
+        assert runs[(2, 2)]["losses"] == got[0]["runs"][(2, 2)]["losses"]

@@ -339,7 +339,7 @@ class TestMoeFfn:
 
     def test_expert_parallel_options_raise(self):
         """What still raises: an unknown dispatch or wire precision, and
-        an expert group built over FSDP (A6/A7). With no expert group
+        an expert group over a tensor axis (A15). With no expert group
         of size > 1, grouped_ep and its options run the one-rank
         grouped path, as the reference does."""
         params, x, _ = _moe_inputs()
@@ -351,8 +351,8 @@ class TestMoeFfn:
         with pytest.raises(ValueError, match="unknown MoE dispatch"):
             moe.moe_ffn(tparams, torch.from_numpy(x),
                         moe.MoEConfig(num_experts=4, dispatch="groupd"))
-        with pytest.raises(NotImplementedError, match="A6/A7"):
-            mesh.MeshPlan(data=2, fsdp=2).build(4)
+        with pytest.raises(NotImplementedError, match="A15"):
+            mesh.MeshPlan(data=2, tensor=2).build(4)
         want = moe.moe_ffn(tparams, torch.from_numpy(x),
                            moe.MoEConfig(num_experts=4, dispatch="grouped"))
         for kw in ({"dispatch": "grouped_ep"},

@@ -251,8 +251,8 @@ class TestProgramCache:
         batches = _batches(1)
         trainer = _trainer(batches[0])
         state = trainer.prepare()
-        with pytest.raises(NotImplementedError, match="A6"):
-            trainer.retune(state, mesh=MeshPlan(data=-1, fsdp=2))
+        with pytest.raises(NotImplementedError, match="A15"):
+            trainer.retune(state, mesh=MeshPlan(data=-1, tensor=2))
         with pytest.raises(NotImplementedError, match="A14"):
             trainer.prewarm(fsdp_precision="fp8")
         # a world that does not exist yet has no group to build over
