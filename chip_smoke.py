@@ -102,10 +102,20 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      within-document pairs, SDPA with the block-diagonal causal mask and
      a varlen flash call (yardsticks the port never calls), and on other
      layouts beside the share of tiles listed, with a line fitted
-     through them; Llama-3-8B x4 layers trained on
-     packed rows (log-uniform document lengths over 64-4096 tokens,
-     packed greedily as the reference's text reader packs them) with
-     the segmented launches pinned, then profiled; one batch's gradients
+     through them; the data path: a corpus written from PACK_SEED (line
+     i holds L_i - 1 printable bytes, L_i the log-uniform document
+     lengths over 64-4096 tokens) read by the port's LineIndexedFile and
+     packed by its ShardedTextBatches (batch 1, seq 4096, pack=True)
+     into rows whose segment ids must equal packed_segment_rows'; the
+     same corpus packed by one coworker process through the native shm
+     ring (ShmDataLoader) and DevicePrefetcher onto the card, its rows
+     bit for bit the in-process packer's; Llama-3-8B x4 layers trained
+     on the packer's rows, which reach the step through DevicePreloader
+     (pinned arena, copy stream, prefetch 2), every batch on the card
+     and the first and last bit for bit their host rows, with the
+     segmented launches pinned, the executor's input wait and the
+     preloader's queue depth, producer wait and H2D bytes a step
+     printed, then profiled; one batch's gradients
      against the reference path with the segment bias, and the loss of
      each path against an exact attention's over 64 packed batches;
  14. GLM prefix-LM (``glm_10b`` widths: 64 heads of 64, MHA): B1-B3 in
@@ -217,7 +227,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 START = time.monotonic()
@@ -929,18 +941,21 @@ def main_trainer(llama, config, rule_set, example_batch, loss_fn=None,
 
 
 def train_main_path(llama, config, label, rule_set, kernels, expected,
-                    card, active_fpt=None, batches=None):
+                    card, active_fpt=None, batches=None, feed=None):
     """Drive TrainExecutor + ElasticTrainer on ``config`` for STEPS
     steps. ``kernels``: the wrapper modules whose launch counters the
     run resets just before and reads just after; their counts must equal
     ``expected``. ``active_fpt``: the FLOPs per token the tokens really
     cost, where the reference's formula counts more (MoE). ``batches``:
     a callable returning an iterator of host batches (the example's
-    synthetic token stream by default)."""
+    synthetic token stream by default). ``feed``: trainer -> the
+    executor's ``train_iter_fn`` (``batches`` itself by default)."""
     import torch
 
     from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.examples.train_llama import synthetic_batches
+    from dlrover_tpu_torch.telemetry import names as tm
+    from dlrover_tpu_torch.telemetry.metrics import process_registry
     from dlrover_tpu_torch.trainer.conf import build_configuration
     from dlrover_tpu_torch.trainer.executor import TrainExecutor
 
@@ -953,7 +968,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     trainer = main_trainer(llama, config, rule_set, next(batches()))
     window = get_context().train_window  # the default, as users run it
     executor = TrainExecutor(
-        trainer, train_iter_fn=batches, hooks=[record],
+        trainer, train_iter_fn=feed(trainer) if feed else batches,
+        hooks=[record],
         conf=build_configuration({"train_steps": STEPS,
                                   "log_every_steps": 1}),
     )
@@ -967,6 +983,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     for module in kernels:
         counts.update(module.launch_counts())
     peak = torch.cuda.max_memory_allocated()
+    input_wait_s = executor.input_wait_seconds
+    wait_gauge = process_registry().get(tm.INPUT_WAIT_FRAC)
     if out["step"] != STEPS or sorted(record.metrics) != list(
             range(1, STEPS + 1)):
         fail(f"trained {out['step']} steps, expected {STEPS}")
@@ -1030,6 +1048,8 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
         "launches": counts, "expected_launches": expected,
         "expert_load": [record.metrics[s].get("moe_expert_load")
                         for s in range(1, STEPS + 1)],
+        "input_wait_ms_per_step": input_wait_s * 1e3 / STEPS,
+        "input_wait_frac": wait_gauge.value if wait_gauge else None,
     }
     del executor, trainer
     return summary
@@ -2332,21 +2352,6 @@ def packed_labels(labels, seg):
     return labels
 
 
-def packed_batches(vocab, seed=PACK_SEED):
-    """The example's token stream (batch 1, SEQ tokens), each row's
-    segment ids from ``packed_segment_rows``: a callable returning an
-    iterator of host batches, as ``train_main_path`` takes them."""
-    from dlrover_tpu_torch.examples.train_llama import synthetic_batches
-
-    def gen():
-        rows = packed_segment_rows(SEQ, seed)
-        for batch in synthetic_batches(vocab, 1, SEQ, seed)():
-            seg = next(rows)[None]
-            yield {"input_ids": batch["input_ids"], "segment_ids": seg,
-                   "labels": packed_labels(batch["labels"], seg)}
-    return gen
-
-
 def packed_batch(config, seed):
     """One packed batch on the card: ``token_batch``'s tokens and the
     first row of ``packed_segment_rows(SEQ, seed)``."""
@@ -2358,6 +2363,249 @@ def packed_batch(config, seed):
     return {"input_ids": batch["input_ids"],
             "segment_ids": torch.as_tensor(seg, device="cuda"),
             "labels": torch.as_tensor(labels, device="cuda")}
+
+
+def document_lengths(seq, seed, rows):
+    """The document lengths ``packed_segment_rows(seq, seed)`` draws for
+    its first ``rows`` rows: the same draws, until they fill the rows."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    lengths, total = [], 0
+    while total < rows * seq:
+        lengths.append(int(round(math.exp(rs.uniform(math.log(DOC_MIN),
+                                                     math.log(DOC_MAX))))))
+        total += lengths[-1]
+    return lengths
+
+
+def write_packed_corpus(path, seq=SEQ, seed=PACK_SEED, rows=STEPS):
+    """A text file whose packed rows are ``packed_segment_rows(seq,
+    seed)``'s first ``rows``: line i holds L_i - 1 printable bytes (the
+    byte tokenizer's BOS makes L_i tokens), L_i from
+    ``document_lengths``, the bytes from ``RandomState(seed + 1)``.
+    Returns the lengths."""
+    import numpy as np
+
+    lengths = document_lengths(seq, seed, rows)
+    rs = np.random.RandomState(seed + 1)
+    with open(path, "wb") as f:
+        for n in lengths:
+            f.write(rs.randint(32, 127, size=n - 1).astype(np.uint8)
+                    .tobytes() + b"\n")
+    return lengths
+
+
+class LineShards:
+    """A shard source over ``count`` lines in shards of ``per`` lines:
+    the calls the text reader makes of a sharding client, each recorded
+    in ``calls``."""
+
+    def __init__(self, count, per=8):
+        self.count, self.per = count, per
+        self.current_task_id = None
+        self.calls = []
+        self.tasks = 0  # shards handed out
+        self._next = 0
+
+    def fetch_shard(self):
+        if self._next >= self.count:
+            self.current_task_id = None
+            self.calls.append(("fetch", None))
+            return None
+        start, end = self._next, min(self.count, self._next + self.per)
+        self._next, self.current_task_id = end, self.tasks
+        self.tasks += 1
+        self.calls.append(("fetch", self.current_task_id))
+        return types.SimpleNamespace(start=start, end=end,
+                                     record_indices=None)
+
+    def report_batch_done(self):
+        self.calls.append(("batch_done",))
+
+    def report_task_done(self):
+        self.calls.append(("task_done", self.current_task_id))
+
+    def report_task_done_by_id(self, task_id):
+        self.calls.append(("task_done", task_id))
+
+
+def packed_reader(path):
+    """(the port's packer over ``path``: ShardedTextBatches, batch 1,
+    SEQ tokens, pack=True; its shard source)."""
+    from dlrover_tpu_torch.trainer.text_reader import (
+        LineIndexedFile,
+        ShardedTextBatches,
+    )
+
+    reader = LineIndexedFile(path)
+    shards = LineShards(reader.count())
+    return ShardedTextBatches(shards, reader, 1, seq_len=SEQ,
+                              pack=True), shards
+
+
+@dataclasses.dataclass
+class PackedRowsProducer:
+    """A coworker's ``produce_fn``: the first ``rows`` packed rows of
+    ``path``. Picklable, and its module (this script) imports no torch,
+    so a spawned coworker imports numpy and the text reader only."""
+
+    path: str
+    rows: int
+
+    def __call__(self, rank, num_workers):
+        source, _ = packed_reader(self.path)
+        for i, batch in enumerate(source):
+            if i == self.rows:
+                return
+            yield batch
+
+
+def import_torch():
+    import torch  # noqa: F401  (the cost timed is the import)
+
+
+def spawn_seconds(target):
+    """Wall seconds of one spawned process running ``target``."""
+    import multiprocessing as mp
+
+    t0 = time.monotonic()
+    proc = mp.get_context("spawn").Process(target=target)
+    proc.start()
+    proc.join(timeout=120)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+        fail(f"a spawned process running {target.__name__} did not end "
+             "within 120 s")
+    if proc.exitcode != 0:
+        fail(f"a spawned process running {target.__name__} exited with "
+             f"{proc.exitcode}")
+    return time.monotonic() - t0
+
+
+def same_rows(got, want) -> bool:
+    """Bit for bit: every key of ``want`` (host arrays) in ``got``
+    (tensors anywhere, or arrays)."""
+    import numpy as np
+
+    def host(v):
+        return v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+
+    return sorted(got) == sorted(want) and all(
+        host(got[k]).dtype == want[k].dtype
+        and host(got[k]).tobytes() == want[k].tobytes()
+        and host(got[k]).shape == want[k].shape for k in want)
+
+
+def data_path_checks(tmp, card):
+    """Phase 13's rows: the corpus written into ``tmp`` and packed in
+    this process, its segment ids against ``packed_segment_rows``, and
+    the same corpus packed by one coworker through the native shm ring
+    and DevicePrefetcher onto the card. Returns (host rows, report)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch import native
+    from dlrover_tpu_torch.trainer.shm_dataloader import (
+        DevicePrefetcher,
+        ShmDataLoader,
+    )
+
+    path = os.path.join(tmp, "corpus.txt")
+    t0 = time.monotonic()
+    lengths = write_packed_corpus(path)
+    source, shards = packed_reader(path)
+    rows = list(source)
+    pack_s = time.monotonic() - t0
+    want = packed_segment_rows(SEQ, PACK_SEED)
+    for i in range(STEPS):
+        if not np.array_equal(rows[i]["segment_ids"][0], next(want)):
+            fail(f"the packer's row {i} has other segment ids than "
+                 "packed_segment_rows")
+    ids = np.concatenate([r["input_ids"].ravel() for r in rows[:STEPS]])
+    done = sorted(c[1] for c in shards.calls if c[0] == "task_done")
+    if done != list(range(shards.tasks)):
+        fail(f"the packer reported tasks {done}, fetched {shards.tasks}")
+    log(f"  packer: {len(lengths)} documents ({sum(lengths)} tokens) in "
+        f"{os.path.getsize(path)} bytes packed into {len(rows)} rows in "
+        f"{pack_s * 1e3:.1f} ms of host time; the first {STEPS} rows' "
+        f"segment ids equal packed_segment_rows(SEQ, PACK_SEED)'s; token "
+        f"ids {int(ids.min())}-{int(ids.max())}; {shards.tasks} shards, "
+        f"each reported done once")
+
+    t0 = time.monotonic()
+    native.load_library()
+    build_s = time.monotonic() - t0
+    if not os.path.exists(native.LIB_PATH):
+        fail("the native library was not built")
+    torch_spawn_s = spawn_seconds(import_torch)
+    t0 = time.monotonic()
+    loader = ShmDataLoader(PackedRowsProducer(path, STEPS), num_workers=1,
+                           slot_bytes=1 << 20, n_slots=4, timeout=60.0)
+    first_s, got = None, []
+    try:
+        prefetch = DevicePrefetcher(iter(loader), depth=2, device="cuda")
+        for batch in prefetch:
+            if first_s is None:
+                first_s = time.monotonic() - t0
+            if any(t.device.type != "cuda" for t in batch.values()):
+                fail("a batch of the shm path is not on the card")
+            got.append({k: v.cpu().numpy() for k, v in batch.items()})
+        prefetch.close()
+    finally:
+        t1 = time.monotonic()
+        clean = loader.shutdown(timeout=10.0)
+        shutdown_s = time.monotonic() - t1
+    ring_s = time.monotonic() - t0
+    if len(got) != STEPS or not all(same_rows(g, w)
+                                    for g, w in zip(got, rows)):
+        fail(f"the shm ring's {len(got)} rows are not the in-process "
+             f"packer's first {STEPS}, bit for bit")
+    if not clean:
+        fail("the shm loader's coworker did not end cleanly within its "
+             "10 s timeout")
+    log(f"  native library built and loaded in {build_s:.2f} s "
+        f"({os.path.basename(native.LIB_PATH)}); shm ring: one coworker "
+        f"packed the corpus, {STEPS} rows through the ring and "
+        f"DevicePrefetcher onto the card bit for bit the in-process "
+        f"packer's, in {ring_s:.2f} s ({first_s:.2f} s to the first row, "
+        f"the spawn included; shutdown {shutdown_s:.3f} s of its 10 s); a "
+        f"spawned process importing torch: {torch_spawn_s:.2f} s; {card}")
+    return rows, {
+        "documents": len(lengths), "rows": len(rows),
+        "pack_host_ms": pack_s * 1e3, "native_build_s": build_s,
+        "shm_rows_s": ring_s, "shm_first_row_s": first_s,
+        "shm_shutdown_s": shutdown_s, "spawn_import_torch_s": torch_spawn_s,
+    }
+
+
+def preloaded_feed(rows, seen):
+    """trainer -> ``train_iter_fn``: the rows of ``rows()`` (an iterable
+    of host batches, made anew at each call) through DevicePreloader on
+    the card (pinned arena, copy stream, prefetch 2), placed by the
+    trainer's ``shard_batch``; ``seen`` records each batch the step
+    takes (its devices, copies of the first and the last) and every
+    preloader made."""
+    from dlrover_tpu_torch.trainer.data import DevicePreloader
+
+    def feed(trainer):
+        def train_iter():
+            pre = DevicePreloader(iter(rows()), sharding=trainer.accelerated,
+                                  prefetch=2)
+            seen["preloaders"].append(pre)
+            for batch in pre:
+                seen["devices"].update(t.device.type
+                                       for t in batch.values())
+                # copies on the card, read back after the run: reading
+                # the host copy here would wait for the steps in flight
+                copy = {k: v.clone() for k, v in batch.items()}
+                seen.setdefault("first", copy)
+                seen["last"] = copy
+                seen["taken"] += 1
+                yield batch
+        return train_iter
+    return feed
 
 
 def segment_lengths(row):
@@ -2843,6 +3091,10 @@ def packed_phases(llama, fa, remat, config, card):
     import numpy as np
     import torch
 
+    from dlrover_tpu_torch.telemetry import names as tm
+    from dlrover_tpu_torch.telemetry.metrics import process_registry
+
+    phase_t0 = time.monotonic()
     report = {}
     log("packed documents: B1-B3 in segment-id mode vs plain (bf16, B=1 "
         f"H=32/8 S={SEQ} D=128, causal, unless said):")
@@ -2875,22 +3127,71 @@ def packed_phases(llama, fa, remat, config, card):
         times, yard
     torch.cuda.empty_cache()
 
-    log(f"packed main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
-        f"{STEPS} steps of packed rows ({DOC_MIN}-{DOC_MAX} token documents, "
-        f"log-uniform; {np.mean(docs):.1f} segments a row, "
-        f"{np.mean(shares):.3f} of the causal pairs within a document):")
-    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
-    expected = {**{name: 0 for name in FLASH_KERNELS}, **NO_PFX,
-                "flash_fwd_seg": STEPS * LAYERS * (1 + recompute),
-                "flash_bwd_dkv_seg": STEPS * LAYERS,
-                "flash_bwd_dq_seg": STEPS * LAYERS}
-    report["train_packed"] = train_main_path(
-        llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ}) "
-        f"on packed rows", "llama", (fa,), expected, card,
-        batches=packed_batches(config.vocab_size))
+    log(f"the data path: the port's text reader and packer, the native shm "
+        f"ring, DevicePrefetcher ({card}):")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        rows, report["data_path"] = data_path_checks(tmp, card)
+        corpus = os.path.join(tmp, "corpus.txt")
+
+        log(f"packed main path: llama3_8b x{LAYERS} layers, batch 1, seq "
+            f"{SEQ}, {STEPS} steps of the packer's rows ({DOC_MIN}-{DOC_MAX} "
+            f"token documents, log-uniform; {np.mean(docs):.1f} segments a "
+            f"row, {np.mean(shares):.3f} of the causal pairs within a "
+            f"document) through DevicePreloader on the card:")
+        recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+        expected = {**{name: 0 for name in FLASH_KERNELS}, **NO_PFX,
+                    "flash_fwd_seg": STEPS * LAYERS * (1 + recompute),
+                    "flash_bwd_dkv_seg": STEPS * LAYERS,
+                    "flash_bwd_dq_seg": STEPS * LAYERS}
+        reg = process_registry()
+
+        def producer_wait():
+            h = reg.get(tm.DATA_PRODUCER_WAIT_TIME)
+            return (h.count, h.sum) if h is not None else (0, 0.0)
+
+        seen = {"devices": set(), "taken": 0, "preloaders": []}
+        wait0 = producer_wait()
+        report["train_packed"] = train_main_path(
+            llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len="
+            f"{SEQ}) on packed rows", "llama", (fa,), expected, card,
+            batches=lambda: iter(rows),
+            feed=preloaded_feed(lambda: packed_reader(corpus)[0], seen))
+        wait1 = producer_wait()
     log("  (MFU by llama.flops_per_token, which counts attention over the "
         "whole sequence: the tokens of a packed row attend within their "
         "documents only)")
+    slots = [pre.arena_slots() for pre in seen["preloaders"]]
+    for pre in seen["preloaders"]:
+        pre.close()
+    if seen["devices"] != {"cuda"} or seen["taken"] != STEPS:
+        fail(f"the step took {seen['taken']} batches on {seen['devices']}, "
+             f"expected {STEPS} on the card")
+    if not (same_rows(seen["first"], rows[0])
+            and same_rows(seen["last"], rows[STEPS - 1])):
+        fail("the first or last batch the step took differs from its host "
+             "row")
+    if slots != [3 * 3]:
+        fail(f"preloaders' pinned slots {slots}, expected one preloader "
+             "with 3 slots for each of its 3 keys")
+    h2d = sum(t.nbytes for t in seen["first"].values())
+    depth = reg.get(tm.DATA_PREFETCH_QUEUE_DEPTH)
+    waits = wait1[0] - wait0[0]
+    train = report["train_packed"]
+    report["data_path"].update({
+        "input_wait_ms_per_step": train["input_wait_ms_per_step"],
+        "input_wait_frac": train["input_wait_frac"],
+        "queue_depth": depth.value if depth is not None else None,
+        "producer_wait_ms": (wait1[1] - wait0[1]) * 1e3 / max(waits, 1),
+        "h2d_bytes_per_step": h2d})
+    d = report["data_path"]
+    log(f"  data path: {seen['taken']} batches on the card, the first and "
+        f"last bit for bit their host rows; the executor's input wait "
+        f"{d['input_wait_ms_per_step']:.3f} ms a step (INPUT_WAIT_FRAC "
+        f"{d['input_wait_frac']}); preloader queue depth {d['queue_depth']}, "
+        f"producer wait {d['producer_wait_ms']:.3f} ms a batch over "
+        f"{waits}; H2D {h2d} bytes a step from a pinned arena of "
+        f"{slots[0]} slots; steady step {train['steady_step_ms']:.1f} ms; "
+        f"{card}")
     torch.cuda.empty_cache()
 
     log("full-width cross-check on a packed batch (use_flash True vs "
@@ -2912,6 +3213,9 @@ def packed_phases(llama, fa, remat, config, card):
         llama, config, fa, controls, batch_fn=packed_batch,
         b1="flash_fwd_seg")
     torch.cuda.empty_cache()
+    report["phase_13_s"] = time.monotonic() - phase_t0
+    log(f"phase 13: {report['phase_13_s']:.1f} s wall; the script so far "
+        f"{time.monotonic() - START:.1f} s; {card}")
     return report, errs, times
 
 

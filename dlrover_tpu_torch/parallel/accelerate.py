@@ -85,6 +85,21 @@ class TrainState:
     opt_state: torch.optim.Optimizer  # holds the moments of ``params``
 
 
+class PlacedBatch(dict):
+    """This rank's rows on its device, as ``placed_by.shard_batch``
+    placed them (``stacked``: with the leading K axis), marked so by
+    whoever placed them ahead of the step (``trainer.data``'s
+    ``DevicePreloader``). The same result's ``shard_batch`` with the same
+    ``stacked`` hands its tensors on as they are, in a plain dict:
+    placing them twice would take a block of a block."""
+
+    def __init__(self, tensors: Dict, placed_by: "AccelerateResult",
+                 stacked: bool = False):
+        super().__init__(tensors)
+        self.placed_by = placed_by
+        self.stacked = stacked
+
+
 @dataclass
 class AccelerateResult:
     train_step: Callable  # (state, batch, rng) -> (state, metrics)
@@ -126,7 +141,11 @@ class AccelerateResult:
         so process-local rows are first all-gathered over the batch's
         group into the global batch (``ring.gather_shard``, one exchange
         of the rows). ``stacked``: the batch has a leading K axis
-        (``train_step_multi``'s input), and the rows are axis 1."""
+        (``train_step_multi``'s input), and the rows are axis 1. A
+        ``PlacedBatch`` this result placed passes through."""
+        if (isinstance(batch, PlacedBatch) and batch.placed_by is self
+                and batch.stacked == stacked):
+            return dict(batch)
         axis = 1 if stacked else 0
         rows = _rows(batch, axis)
         total = self.strategy.global_batch_size or rows

@@ -24,6 +24,21 @@ LIVE_RESHARD_TIME = "dlrover_live_reshard_seconds"
 PROGRAM_CACHE_HITS = "dlrover_program_cache_hits_total"
 PROGRAM_CACHE_MISSES = "dlrover_program_cache_misses_total"
 
+# data plane: the H2D prefetcher (trainer.data.DevicePreloader and the
+# shm path's DevicePrefetcher)
+DATA_PREFETCH_QUEUE_DEPTH = "dlrover_data_prefetch_queue_depth"
+# producer wait: the pump blocked handing a ready batch to a full
+# queue (consumer-slow: the healthy direction)
+DATA_PRODUCER_WAIT_TIME = "dlrover_data_producer_wait_seconds"
+# consumer wait: the train loop blocked on an empty prefetch queue
+# (producer-slow: the input-bound direction)
+DATA_CONSUMER_WAIT_TIME = "dlrover_data_consumer_wait_seconds"
+# executor host time blocked fetching the next batch
+INPUT_WAIT_TIME = "dlrover_input_wait_seconds"
+# fraction of the last materialization window spent waiting on input
+# (absent until the first measured window, never a fake 0)
+INPUT_WAIT_FRAC = "dlrover_input_wait_fraction"
+
 # performance attribution (telemetry.attribution): the per-step cost
 # record of the built step fused with measured step times. Gauges are
 # created only once a record was captured: absent means "not measured",

@@ -32,6 +32,13 @@ gauges that exist only from the first measured step on (absent, never
 kept out of the next step's time. Recovery paths (the non-finite
 policy, a reshard, retune or restart) run under one incident trace id
 each (``telemetry.trace_context``).
+
+Input wait (ROADMAP A7): each ``next(data_iter)`` is timed into the
+``INPUT_WAIT_TIME`` histogram; at each materialization the fetch
+seconds since the last one over the window's wall time set the
+``INPUT_WAIT_FRAC`` gauge, which exists only once a window held a fetch
+(absent, never 0); the run's total rides the train-end record
+(``input_wait_s``).
 """
 
 from __future__ import annotations
@@ -191,6 +198,18 @@ class TrainExecutor:
         self._c_preempt = reg.counter(
             tm.PREEMPT_NOTICES, help="preemption notices received")
         self._h_eval = reg.histogram(tm.EVAL_TIME, help="eval_fn wall time")
+        # data plane: host time blocked in next(data_iter) fetching the
+        # batch for a dispatch. The INPUT_WAIT_FRAC gauge is created at
+        # the first measured materialization window (absent, never 0)
+        self._h_input_wait = reg.histogram(
+            tm.INPUT_WAIT_TIME,
+            help="host time blocked waiting for the next host batch")
+        self._g_input_wait: Optional[Any] = None
+        self._input_wait_total = 0.0
+        self._input_wait_count = 0
+        self._input_wait_mark = 0.0
+        self._input_wait_count_mark = 0
+        self._input_wait_run_start = 0.0
         # performance attribution: the trainer's record of the active
         # step, fetched at train start and after each rebuild
         self._attr_enabled = bool(conf.get("attribution_enabled",
@@ -624,10 +643,12 @@ class TrainExecutor:
             # the process's life
             os.environ.pop(TRACE_ID_ENV, None)
         # a fused call's steps share its time evenly
-        per_step = (now - self._last_materialize) / entry.count
+        window_s = now - self._last_materialize
+        per_step = window_s / entry.count
         self._last_materialize = now
         self._step_exchange_s = self._exchange_seconds(entry.count)
         self._observe_attribution(per_step)
+        self._observe_input_wait(window_s)
         for i in range(entry.count):
             s = entry.last_step - entry.count + 1 + i
             sub = (host if entry.count == 1 else
@@ -663,15 +684,51 @@ class TrainExecutor:
                 return True
         return False
 
-    @staticmethod
-    def _take_batches(data_iter: Iterator, n: int) -> List[Any]:
+    def _take_batches(self, data_iter: Iterator, n: int) -> List[Any]:
         out: List[Any] = []
         for _ in range(n):
+            t0 = time.monotonic()
             try:
-                out.append(next(data_iter))
+                batch = next(data_iter)
             except StopIteration:
                 break
+            # with the dispatch window keeping the device busy, host time
+            # spent here is the data pipeline failing to stay ahead
+            waited = time.monotonic() - t0
+            self._input_wait_total += waited
+            self._input_wait_count += 1
+            self._h_input_wait.observe(waited)
+            out.append(batch)
         return out
+
+    def _observe_input_wait(self, window_s: float):
+        """The input-wait share of the materialization window just
+        closed: fetch seconds since the previous materialization over
+        the window's wall time. With a deep dispatch window the fetches
+        belong to newer steps than the one materializing, so the share
+        is a windowed average."""
+        waited = self._input_wait_total - self._input_wait_mark
+        fetches = self._input_wait_count - self._input_wait_count_mark
+        self._input_wait_mark = self._input_wait_total
+        self._input_wait_count_mark = self._input_wait_count
+        if window_s <= 0 or self._input_wait_count == 0:
+            return  # nothing measured yet: the gauge stays absent
+        if fetches == 0:
+            # a window with no fetch (the drain's tail) says nothing of
+            # the input pipeline: keep the last measured share
+            return
+        if self._g_input_wait is None:
+            self._g_input_wait = get_registry().gauge(
+                tm.INPUT_WAIT_FRAC,
+                help="fraction of the last materialization window the "
+                     "host spent blocked waiting for the next batch")
+        frac = waited / window_s
+        self._g_input_wait.set(min(1.0, max(0.0, frac)))
+
+    @property
+    def input_wait_seconds(self) -> float:
+        """Host seconds blocked fetching batches in this run."""
+        return self._input_wait_total - self._input_wait_run_start
 
     def train_and_evaluate(self) -> Dict[str, Any]:
         if self._preempt_grace:
@@ -720,6 +777,9 @@ class TrainExecutor:
         step = int(self.state.step)
         self._window.clear()
         self._last_log = self._last_materialize = time.monotonic()
+        self._input_wait_mark = self._input_wait_total
+        self._input_wait_count_mark = self._input_wait_count
+        self._input_wait_run_start = self._input_wait_total
         self._ring_s = _ring_seconds()
         self._started = time.monotonic()
         emit_event(EventKind.TRAIN_START, step=step,
@@ -825,7 +885,9 @@ class TrainExecutor:
             if self._on_nonfinite == "halt":
                 raise NonFiniteLossError(f"final step non-finite: {detail}")
         self._trainer.finalize()
-        emit_event(EventKind.TRAIN_END, step=step)
+        # the run's input-wait seconds ride the train-end record
+        emit_event(EventKind.TRAIN_END, step=step,
+                   input_wait_s=round(self.input_wait_seconds, 3))
         for hook in self._hooks:
             hook.end(self)
         return {"step": step, **self.eval_metrics}

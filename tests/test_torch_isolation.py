@@ -18,9 +18,13 @@ import sys
 import dlrover_tpu_torch.examples.train_llama
 import dlrover_tpu_torch.interop
 import dlrover_tpu_torch.ops.kernel_build
+import dlrover_tpu_torch.native.host_ops
+import dlrover_tpu_torch.native.shm_ring
 import dlrover_tpu_torch.trainer.data
 import dlrover_tpu_torch.trainer.executor
 import dlrover_tpu_torch.trainer.failover
+import dlrover_tpu_torch.trainer.shm_dataloader
+import dlrover_tpu_torch.trainer.text_reader
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(",".join(bad))
