@@ -182,7 +182,7 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      too.
  18. FSDP: (a) Llama-3-8B at its published widths (2 layers, global
      batch 2 x 2048, AdamW, rule set "llama") on 2 ranks sharing the
-     card over gloo, 5 steps at (data, fsdp) = (1, 2) and again at
+     card over gloo, 3 steps at (data, fsdp) = (1, 2) and again at
      (2, 1) on the same batches: the losses within FSDP_LOSS_RTOL, each
      rank's parameter and moment bytes on the leaves the rules shard
      halved, the all-gather and reduce-scatter bytes equal to the
@@ -192,6 +192,31 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      (2, 2) on its 4 ranks, against the same configuration at (4, 1)
      through ElasticTrainer for 3 steps: losses within FSDP_MOE_RTOL,
      every rank's B1-B6 launches pinned, peak memory.
+
+ 19. serving, right after phase 5 on its trained weights (a HostSnapshot
+     of the parameters promoted through ``ServeEngine.load_from_snapshot``,
+     the trainer freed first): (a) ``prefill_sequence`` of one 4096-token
+     prompt into a one-slot f32 pool 4096 deep, B1 launched once a layer
+     and nothing else, the last hidden row ``apply_hidden``'s and the K/V
+     rows ``_attention_block``'s ``return_kv`` bit for bit, the first
+     token ``apply``'s argmax, the one-row head beside ``apply``'s; (b) 12
+     requests (prompts log-uniform over 64-1536 tokens, 48 new each)
+     through ServeExecutor (8 slots, f32 pool 2048 deep, page 16, chunk
+     256, window 2), each request's decode logits within
+     SERVE_LOGIT_LIMIT of one teacher-forced ``llama.apply`` and its
+     tokens apply's argmax where the top-2 margin exceeds the limit, a
+     decode mask ``t < pos`` and RoPE at ``pos + 1`` planted beyond it;
+     (c) the prefix pool on (8 requests sharing a 512-token lead) token
+     for token and page for page the pool off, and speculative decode (K
+     = 4; n-gram, always right, always wrong, alternating and mixed
+     drafts) token for token plain greedy on the f32 and the int8 pool;
+     (d) the bf16 and int8 pools' logits against the f32 pool's on 4
+     requests (int8 within 0.25); (e) decode, verify and prefill chunk
+     with host syncs forbidden, every engine's program built once; the
+     decode step's time at 8 active slots beside its bound from the bytes
+     ``CostCounter`` counts on the meta device, a profile of 5 decode
+     steps, the prefill chunk's and the verify step's times, TTFT, TPOT,
+     tokens/s, the slot ledger's shares, pool bytes and peak memory.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. The whole script's time is printed
@@ -941,7 +966,8 @@ def main_trainer(llama, config, rule_set, example_batch, loss_fn=None,
 
 
 def train_main_path(llama, config, label, rule_set, kernels, expected,
-                    card, active_fpt=None, batches=None, feed=None):
+                    card, active_fpt=None, batches=None, feed=None,
+                    keep_params=False):
     """Drive TrainExecutor + ElasticTrainer on ``config`` for STEPS
     steps. ``kernels``: the wrapper modules whose launch counters the
     run resets just before and reads just after; their counts must equal
@@ -949,7 +975,10 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
     cost, where the reference's formula counts more (MoE). ``batches``:
     a callable returning an iterator of host batches (the example's
     synthetic token stream by default). ``feed``: trainer -> the
-    executor's ``train_iter_fn`` (``batches`` itself by default)."""
+    executor's ``train_iter_fn`` (``batches`` itself by default).
+    ``keep_params``: the summary's "params_snapshot" holds a
+    ``HostSnapshot`` of the trained parameters (``params_snapshot``), and
+    the trainer is freed as always."""
     import torch
 
     from dlrover_tpu_torch.common.config import get_context
@@ -1051,8 +1080,26 @@ def train_main_path(llama, config, label, rule_set, kernels, expected,
         "input_wait_ms_per_step": input_wait_s * 1e3 / STEPS,
         "input_wait_frac": wait_gauge.value if wait_gauge else None,
     }
+    if keep_params:
+        summary["params_snapshot"] = params_snapshot(executor.state)
     del executor, trainer
     return summary
+
+
+def params_snapshot(state):
+    """A ``HostSnapshot`` of a TrainState's parameters alone (an optimizer
+    that keeps no moments stands in for its AdamW, so the host copy is a
+    third of the state's): what a serving worker beside the trainer
+    promotes."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import HostSnapshot
+    from dlrover_tpu_torch.models.common import tree_leaves
+    from dlrover_tpu_torch.parallel.accelerate import TrainState
+
+    return HostSnapshot.take(TrainState(
+        step=state.step, params=state.params,
+        opt_state=torch.optim.SGD(tree_leaves(state.params), lr=0.0)))
 
 
 FLASH_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2",
@@ -5229,7 +5276,9 @@ def attribution_phase(llama, fa, remat, config, card):
 
 # -- phase 18: FSDP ----------------------------------------------------------
 
-FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 5
+# 3 steps a mesh (5 before phase 19 came): the script's time stays near
+# 1,050 s of its 1,200
+FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 3
 FSDP_MESHES = ((1, 2), (2, 1))  # (data, fsdp): the fsdp run, then data
 FSDP_MOE_STEPS = 3
 # the largest relative gap of a step's loss between the fsdp and the
@@ -5515,6 +5564,611 @@ def fsdp_phase(run_local, llama, ep_train, card):
     return report
 
 
+# -- phase 19: serving -------------------------------------------------------
+#
+# Runs right after phase 5, on its trained weights (promoted through a
+# HostSnapshot of the parameters), so that the trainer's state is freed
+# before phase 6 and never resident through phases 11-18.
+
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 8, 2048, 16
+SERVE_CHUNK, SERVE_WINDOW, SERVE_NEW = 256, 2, 48
+SERVE_REQUESTS, SERVE_SEED = 12, 19
+SERVE_PROMPTS = (64, 1536)  # log-uniform prompt lengths, tokens
+SERVE_LEAD = 512  # the prefix check's shared lead (two chunks)
+SPEC_K = 4
+# decode logits against one teacher-forced llama.apply with its attention
+# exact in f32 (bf16 compute everywhere else): the sound path within it,
+# the planted faults beyond. Set from probe runs of phases 5 and 19 on
+# phase 5's weights: sound 0.0312, the mask fault 0.0938, the RoPE fault
+# 0.330 (on random weights the faults read 1.64-1.68)
+SERVE_LOGIT_LIMIT = 0.055
+INT8_LOGIT_LIMIT = 0.25  # the reference's documented int8-pool bound
+
+
+def serve_jobs(vocab, n=SERVE_REQUESTS, seed=SERVE_SEED, lead=()):
+    """``n`` requests (id, prompt, max new tokens): prompt lengths
+    log-uniform over SERVE_PROMPTS from ``seed`` (after ``lead``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_PROMPTS
+    lengths = np.exp(rng.uniform(math.log(lo), math.log(hi), n)).astype(int)
+    return [(f"r{i}", list(lead) + rng.integers(0, vocab, int(p)).tolist(),
+             SERVE_NEW) for i, p in enumerate(lengths)]
+
+
+def serve_engine(config, params, **kw):
+    """A ServeEngine on the card at the phase's geometry, ``params`` (a
+    HostSnapshot or a tree) promoted into it."""
+    from dlrover_tpu_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(config, serve_slots=SERVE_SLOTS,
+                      prefill_chunk=SERVE_CHUNK, max_seq=SERVE_MAX_SEQ,
+                      page_size=SERVE_PAGE, **{"kv_precision": "f32", **kw})
+    eng.load_from_snapshot(params)
+    return eng
+
+
+def serve_capture(engine, jobs, proposer=None, capture=True):
+    """Serve ``jobs`` through ServeExecutor on a fresh pool; with
+    ``capture`` each request's logits too (its final prefill chunk's, then
+    its row of each decode step, read on the device by spies around the
+    program's calls). Returns (records by id, logits rows by id, the
+    executor, serve wall s)."""
+    from dlrover_tpu_torch.serving.engine import ServeExecutor
+
+    program = engine.program
+    engine.cache = engine.fresh_cache()
+    ex = ServeExecutor(engine, serve_window=SERVE_WINDOW,
+                       spec_proposer=proposer)
+    rows = {rid: [] for rid, _, _ in jobs}
+    decode, prefill = program.decode, program.prefill
+
+    def decode_spy(params, cache, tokens, active):
+        owners = {i: r.request_id for i, r in enumerate(ex._slots)
+                  if r is not None and ex._active_host[i]}
+        out = decode(params, cache, tokens, active)
+        for slot, rid in owners.items():
+            rows[rid].append(out[1][slot])
+        return out
+
+    def prefill_spy(params, cache, tokens, slot, start, n_valid):
+        out = prefill(params, cache, tokens, slot, start, n_valid)
+        state = ex._slots[slot]
+        if start + n_valid == len(state.prompt):
+            rows[state.request_id].append(out[1])
+        return out
+
+    spies = (swapped(program, "decode", decode_spy) if capture
+             else contextlib.nullcontext(),
+             swapped(program, "prefill", prefill_spy) if capture
+             else contextlib.nullcontext())
+    with spies[0], spies[1]:
+        for rid, prompt, new in jobs:
+            ex.submit(prompt, max_new_tokens=new, request_id=rid)
+        t0 = time.monotonic()
+        done = {r["request_id"]: r for r in ex.serve()}
+        wall = time.monotonic() - t0
+    for rid, _, new in jobs:
+        if done[rid]["error_code"] or len(done[rid]["tokens"]) != new:
+            fail(f"serving request {rid}: {done[rid]}")
+    return done, rows, ex, wall
+
+
+def apply_check(llama, params, config, jobs, done, rows):
+    """Each request's captured logits against one teacher-forced
+    ``llama.apply`` over its prompt and generated tokens, its attention
+    exact in f32 (``exact_attention``, as phase 6's loss check computes
+    its reference; the decode path's attention is f32 too), and beside
+    it against ``apply`` through B1 (whose P.V product rounds P to bf16).
+    Returns {"exact": max |logit difference|, "exact_rms", "b1",
+    "wrong": positions whose token is not the exact apply's argmax where
+    its top-2 margin exceeds SERVE_LOGIT_LIMIT, "positions"}."""
+    import torch
+
+    exact_cfg = dataclasses.replace(config, use_flash=False)
+    out = {"exact": 0.0, "b1": 0.0, "wrong": [], "positions": 0}
+    squares = 0.0
+    for rid, prompt, _ in jobs:
+        toks = done[rid]["tokens"]
+        n = len(toks)
+        got = torch.stack(rows[rid][:n]).float()
+        ids = torch.tensor([prompt + toks[:-1]], device="cuda")
+        with torch.inference_mode():
+            with swapped(llama, "mha_reference", exact_attention):
+                want = llama.apply(params, ids, exact_cfg)[0][
+                    0, len(prompt) - 1:]
+            b1 = llama.apply(params, ids, config)[0][0, len(prompt) - 1:]
+        diff = (got - want).abs()
+        out["exact"] = max(out["exact"], diff.max().item())
+        out["b1"] = max(out["b1"], (got - b1).abs().max().item())
+        squares += diff.square().sum().item()
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_LIMIT
+        bad = sure & (want.argmax(dim=-1).cpu() != torch.tensor(toks)).to(
+            sure.device)
+        out["wrong"] += [(rid, i) for i in bad.nonzero().flatten().tolist()]
+        out["positions"] += n
+    out["exact_rms"] = math.sqrt(squares / (out["positions"]
+                                            * config.vocab_size))
+    return out
+
+
+def prefill_sequence_check(llama, fa, engine, config, card):
+    """(a) ``prefill_sequence`` of one SEQ-token prompt into a one-slot
+    f32 pool SEQ deep: B1 launched once a layer and nothing else, the last
+    hidden row ``apply_hidden``'s bit for bit, the first token ``apply``'s
+    argmax, the slot's K/V rows ``_attention_block``'s ``return_kv`` bit
+    for bit."""
+    import torch
+
+    from dlrover_tpu_torch.serving.kv_cache import (
+        KVCacheSpec,
+        init_kv_cache,
+    )
+
+    spec = KVCacheSpec.from_model(config, num_slots=1, max_seq=SEQ,
+                                  page_size=SERVE_PAGE, precision="f32")
+    cache = init_kv_cache(spec, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    toks = torch.randint(0, config.vocab_size, (SEQ,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    cache, last, hidden = llama.prefill_sequence(
+        engine.params, cache, toks, 0, config, spec, return_hidden=True)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = fa.launch_counts()
+    expected = {**{name: 0 for name in counts}, "flash_fwd": LAYERS}
+    if counts != expected:
+        fail(f"prefill_sequence launched {counts}, expected {expected}")
+    captured = []
+    block = llama._attention_block
+
+    def spy(x, layer, cfg, positions, segment_ids=None, return_kv=False):
+        out, kv = block(x, layer, cfg, positions, segment_ids,
+                        return_kv=True)
+        captured.append(kv)
+        return (out, kv) if return_kv else out
+
+    with torch.inference_mode():
+        with swapped(llama, "_attention_block", spy):
+            h, _ = llama.apply_hidden(engine.params, toks[None].long(),
+                                      config)
+        want = llama.apply(engine.params, toks[None].long(), config)[0][0, -1]
+    if not torch.equal(hidden, h[0, -1]):
+        fail("prefill_sequence's last hidden row differs from "
+             "apply_hidden's")
+    first, first_apply = int(last.argmax()), int(want.argmax())
+    if first != first_apply:
+        fail(f"prefill_sequence's first token {first}, apply's {first_apply}")
+    head_err = (last - want).abs().max().item()
+    kv_equal = len(captured) == LAYERS and all(
+        torch.equal(cache[name][i, 0], kv[j][0].float())
+        for i, kv in enumerate(captured) for j, name in enumerate("kv"))
+    if not kv_equal or int(cache["length"][0]) != SEQ:
+        fail("prefill_sequence's K/V rows differ from _attention_block's "
+             "return_kv")
+    log(f"  (a) prefill_sequence, {SEQ} tokens into a one-slot f32 pool "
+        f"{SEQ} deep ({spec.total_bytes() / 1e6:.1f} MB): launches {counts}; "
+        f"last hidden row bit for bit apply_hidden's, first token {first} = "
+        f"apply's argmax, K/V rows bit for bit return_kv's; the one-row head "
+        f"{'bit for bit' if head_err == 0 else f'max |logit diff| {head_err:.3e}'}"
+        f" against apply's [{SEQ}, D] head; {seconds * 1e3:.1f} ms host "
+        f"wall; {card}")
+    return {"launches": counts, "b1_launches": counts["flash_fwd"],
+            "head_max_abs_diff": head_err, "seconds": seconds,
+            "first_token": first}
+
+
+def planted_serve_faults(llama, engine, config, jobs):
+    """(b)'s planted faults, each served through the executor and held
+    against apply the same way: the decode mask ``t < pos`` and RoPE at
+    ``pos + 1`` in the decode step."""
+    out = {}
+    paged, rope = llama._paged_attention, llama._rope
+    program = engine.program
+    decode = program.decode
+
+    def mask_lt(q, k_l, ks_l, v_l, vs_l, pos, spec, cfg):
+        return paged(q, k_l, ks_l, v_l, vs_l, pos - 1, spec, cfg)
+
+    def rope_decode(params, cache, tokens, active):
+        with swapped(llama, "_rope",
+                     lambda x, positions, theta: rope(x, positions + 1,
+                                                      theta)):
+            return decode(params, cache, tokens, active)
+
+    for name, ctx in (("mask t < pos", swapped(llama, "_paged_attention",
+                                               mask_lt)),
+                      ("RoPE at pos + 1", swapped(program, "decode",
+                                                  rope_decode))):
+        with ctx:
+            done, rows, _, _ = serve_capture(engine, jobs)
+        out[name] = apply_check(llama, engine.params, config, jobs, done,
+                                rows)
+        if out[name]["exact"] <= SERVE_LOGIT_LIMIT:
+            fail(f"the planted serving fault '{name}' stays within the "
+                 f"logit limit: {out[name]} <= {SERVE_LOGIT_LIMIT}")
+    return out
+
+
+class ServeOracle:
+    """Drafts a request's true greedy continuation (from a plain serve):
+    every draft accepted. ``wrong``: each token plus one (none accepted);
+    ``alternate``: right and wrong by turns; ``half``: prompts named get
+    half-length drafts, ``none``: prompts named get none (mixed draft
+    lengths in one verify step)."""
+
+    def __init__(self, refs, vocab, mode="right", half=(), none=()):
+        self.refs, self.vocab, self.mode = refs, vocab, mode
+        self.half, self.none, self.calls = set(half), set(none), 0
+
+    def propose(self, history, k):
+        for prompt, stream in self.refs.items():
+            if tuple(history[:len(prompt)]) != prompt:
+                continue
+            if prompt in self.none:
+                return []
+            done = len(history) - len(prompt)
+            draft = list(stream[done:done + (max(1, k // 2)
+                                              if prompt in self.half
+                                              else k)])
+            self.calls += 1
+            wrong = (self.mode == "wrong"
+                     or (self.mode == "alternate" and self.calls % 2 == 0))
+            return [(t + 1) % self.vocab for t in draft] if wrong else draft
+        return []
+
+
+def spec_legs(engine, jobs, expect, vocab, label):
+    """(c) speculative decode (K = SPEC_K) against the plain greedy
+    stream ``expect``, with the n-gram proposer and forced ones."""
+    refs = {tuple(p): expect[rid] for rid, p, _ in jobs}
+    prompts = [tuple(p) for _, p, _ in jobs]
+    legs = {
+        "ngram": None,
+        "right": lambda: ServeOracle(refs, vocab),
+        "wrong": lambda: ServeOracle(refs, vocab, "wrong"),
+        "alternating": lambda: ServeOracle(refs, vocab, "alternate"),
+        "mixed": lambda: ServeOracle(refs, vocab, half=prompts[1:2],
+                                     none=prompts[2:]),
+    }
+    out = {}
+    for name, factory in legs.items():
+        done, _, ex, wall = serve_capture(engine, jobs, proposer=factory,
+                                          capture=False)
+        drafted = sum(r["spec_drafted_tokens"] for r in done.values())
+        accepted = sum(r["spec_accepted_tokens"] for r in done.values())
+        for rid, _, _ in jobs:
+            if done[rid]["tokens"] != expect[rid]:
+                fail(f"{label} spec decode ({name} drafts) differs from "
+                     f"plain greedy on {rid}")
+        if (name == "right" and accepted != drafted) or (
+                name == "wrong" and accepted) or (
+                name != "ngram" and not drafted):
+            fail(f"{label} spec decode ({name}): drafted {drafted}, "
+                 f"accepted {accepted}")
+        out[name] = {"drafted": drafted, "accepted": accepted,
+                     "verify_steps": ex.decode_steps, "wall_s": wall}
+    log(f"  (c) {label} pool, K = {SPEC_K}: token for token plain greedy "
+        "with drafts " + ", ".join(
+            f"{n} {v['accepted']}/{v['drafted']} in {v['verify_steps']} "
+            f"steps" for n, v in out.items()))
+    return out
+
+
+def no_host_sync(name, fn):
+    """(e) ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as exc:
+        fail(f"{name} waits for the device: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def decode_profile(decode, n=5):
+    """``n`` decode steps back to back under torch.profiler, the trace
+    read by ``telemetry.attribution``: device busy ms a step, the idle
+    share of the steps' span, time by kernel group and the top kernels."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.telemetry import attribution
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            decode()
+        end.record()
+        end.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decode.pt.trace.json")
+        prof.export_chrome_trace(path)
+        buckets = attribution.parse_trace_path(path)
+        view = attribution.kernel_breakdown(attribution.load_trace(path), n,
+                                            top=6)
+    busy = buckets["busy_s"] * 1e3 / n
+    if busy == 0.0:
+        log("    decode profile: no device time recorded (not measured)")
+        return {"device_ms": None, "step_ms": step_ms}
+    log(f"    decode step profiled ({n} steps): device busy {busy:.3f} ms "
+        f"of {step_ms:.3f} ms a step (idle share {1 - busy / step_ms:.3f}); "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+            view["groups_ms"].items(), key=lambda kv: -kv[1])))
+    for ms, count, name in view["top"]:
+        log(f"      top kernel {ms:.3f} ms x{count:g}: {name[:80]}")
+    return {"device_ms": busy, "step_ms": step_ms,
+            "idle_share": 1 - busy / step_ms,
+            "groups_ms": view["groups_ms"],
+            "top": [(ms, count, name[:200])
+                    for ms, count, name in view["top"]]}
+
+
+def serve_step_times(llama, engine, spec_engine, config, card):
+    """The decode step at SERVE_SLOTS active slots (CUDA events around
+    calls queued back to back, and the device's busy time by the
+    profiler) beside its bound from the bytes and FLOPs ``CostCounter``
+    counts for one step on the meta device, the prefill chunk and the
+    verify step; each step also once with host syncs forbidden."""
+    import torch
+
+    from dlrover_tpu_torch.models.common import tree_leaves, tree_map
+    from dlrover_tpu_torch.utils.prof import CostCounter
+
+    program = engine.program
+    s = SERVE_SLOTS
+    scratch = engine.fresh_cache()
+    scratch["length"].fill_(SERVE_MAX_SEQ // 2)
+    tokens = torch.zeros((s,), dtype=torch.int32, device="cuda")
+    active = torch.ones((s,), dtype=torch.bool, device="cuda")
+    chunk = torch.zeros((SERVE_CHUNK,), dtype=torch.int32, device="cuda")
+
+    def decode():
+        program.decode(engine.params, scratch, tokens, active)
+
+    def prefill():
+        program.prefill(engine.params, scratch, chunk, 0, 0, SERVE_CHUNK)
+
+    spec_scratch = spec_engine.fresh_cache()
+    spec_scratch["length"].fill_(SERVE_MAX_SEQ // 2)
+    draft = torch.zeros((s, SPEC_K + 1), dtype=torch.int32, device="cuda")
+    n_draft = torch.full((s,), SPEC_K, dtype=torch.int32, device="cuda")
+
+    def verify():
+        spec_engine.program.verify(spec_engine.params, spec_scratch, draft,
+                                   active, n_draft)
+
+    for name, fn in (("decode_step", decode), ("prefill_chunk", prefill),
+                     ("verify_step", verify)):
+        fn()
+        no_host_sync(name, fn)
+    out = {"decode_ms": time_ms(decode, 20),
+           "prefill_ms": time_ms(prefill, 10),
+           "verify_ms": time_ms(verify, 10),
+           "profile": decode_profile(decode)}
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    with CostCounter() as cc:
+        llama.decode_step(tree_map(meta, engine.params),
+                          {k: meta(v) for k, v in scratch.items()},
+                          meta(tokens), meta(active), config, program.spec)
+    emb = engine.params["embed_tokens"]["embedding"]
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(engine.params)) - emb.numel() * \
+        emb.element_size() + s * emb.shape[1] * emb.element_size()
+    pool = program.spec.total_bytes()
+    out.update({
+        "counted_bytes": cc.bytes, "counted_flops": cc.flops,
+        "bound_ms": max(cc.bytes / PEAK_BYTES,
+                        cc.flops / PEAK_BF16_FLOPS) * 1e3,
+        "once_bytes": weights + pool,
+        "once_bound_ms": (weights + pool) / PEAK_BYTES * 1e3,
+        "pool_bytes": pool,
+    })
+    out["decode_tokens_per_s"] = s / out["decode_ms"] * 1e3
+    busy = out["profile"]["device_ms"]
+    log(f"  decode step at {s} active slots: {out['decode_ms']:.3f} ms a "
+        f"step queued back to back ({out['decode_tokens_per_s']:.0f} "
+        f"tokens/s), the device busy "
+        + (f"{busy:.3f} ms of it (profiler)" if busy else "not measured")
+        + f"; bound "
+        f"{out['bound_ms']:.3f} ms from CostCounter's "
+        f"{cc.bytes / 1e9:.3f} GB and {cc.flops / 1e9:.1f} GFLOP a step "
+        f"(each op's inputs and outputs), {out['once_bound_ms']:.3f} ms "
+        f"reading the weights and the pool once "
+        f"({(weights + pool) / 1e9:.3f} GB); prefill chunk of "
+        f"{SERVE_CHUNK}: {out['prefill_ms']:.3f} ms; verify step, K = "
+        f"{SPEC_K}: {out['verify_ms']:.3f} ms "
+        f"({out['verify_ms'] / out['decode_ms']:.2f}x the decode step: "
+        f"each position at a decode step's shapes); KV pool "
+        f"{pool / 1e6:.1f} MB; no host sync in any of the three; {card}")
+    return out
+
+
+def serving_phase(llama, fa, config, snapshot, card):
+    """Phase 19: serving on the card, phase 5's trained weights promoted
+    through ``ServeEngine.load_from_snapshot``."""
+    import statistics as stats
+
+    import torch
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    main_engine = serve_engine(config, snapshot)
+    report["prefill_sequence"] = prefill_sequence_check(
+        llama, fa, main_engine, config, card)
+    torch.cuda.empty_cache()
+
+    jobs = serve_jobs(config.vocab_size)
+    done, rows, ex, wall = serve_capture(main_engine, jobs)
+    check = apply_check(llama, main_engine.params, config, jobs, done, rows)
+    worst, positions = check["exact"], check["positions"]
+    if worst > SERVE_LOGIT_LIMIT or check["wrong"]:
+        fail(f"continuous batching against apply: {check} (limit "
+             f"{SERVE_LOGIT_LIMIT})")
+    records = list(done.values())
+    ttft = [r["ttft_s"] * 1e3 for r in records]
+    tpot = [(r["e2e_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1) * 1e3
+            for r in records]
+    ledger = ex.slot_ledger()
+    shares = {k: ledger[k] / ledger["slot_seconds"]
+              for k in ("decode", "prefill", "admitted_idle", "vacant",
+                        "resize_frozen")}
+    generated = sum(len(r["tokens"]) for r in records)
+    log(f"  (b) against apply: exact {check['exact']:.4f} (rms "
+        f"{check['exact_rms']:.2e}), through B1 {check['b1']:.4f}")
+    faults = planted_serve_faults(llama, main_engine, config, jobs[:4])
+    report["batching"] = {
+        "prompt_lengths": [len(p) for _, p, _ in jobs],
+        "apply_check": check, "positions": positions,
+        "faults": faults, "limit": SERVE_LOGIT_LIMIT,
+        "decode_steps": ex.decode_steps, "wall_s": wall,
+        "tokens": generated, "tokens_per_s": generated / wall,
+        "ttft_ms_median": stats.median(ttft),
+        "tpot_ms_median": stats.median(tpot), "ledger": ledger,
+        "ledger_shares": shares}
+    log(f"  (b) {SERVE_REQUESTS} requests (prompts "
+        f"{sorted(len(p) for _, p, _ in jobs)} tokens, {SERVE_NEW} new "
+        f"each; {SERVE_SLOTS} slots, f32 pool {SERVE_MAX_SEQ} deep, page "
+        f"{SERVE_PAGE}, chunk {SERVE_CHUNK}, window {SERVE_WINDOW}): decode "
+        f"logits at {positions} positions within {worst:.4f} of one "
+        f"teacher-forced apply's with exact f32 attention (rms "
+        f"{check['exact_rms']:.2e}; limit {SERVE_LOGIT_LIMIT}; against "
+        f"apply through B1 {check['b1']:.4f}), every token the exact "
+        f"apply's argmax where its top-2 margin exceeds the limit; planted "
+        + ", ".join(f"'{k}' {v['exact']:.4f} (rms {v['exact_rms']:.2e}, "
+                    f"through B1 {v['b1']:.4f})" for k, v in faults.items())
+        + f" (beyond it); {ex.decode_steps} decode steps, {generated} tokens "
+        f"in {wall:.3f} s ({generated / wall:.0f} tokens/s, prefill "
+        f"included); TTFT median {stats.median(ttft):.1f} ms, TPOT median "
+        f"{stats.median(tpot):.2f} ms; slot ledger shares "
+        + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+        + f"; {card}")
+
+    # (c) prefix reuse: 8 requests sharing a SERVE_LEAD-token lead, the
+    # pool seeded by one request first
+    import numpy as np
+
+    lead = np.random.default_rng(SERVE_SEED + 1).integers(
+        0, config.vocab_size, SERVE_LEAD).tolist()
+    pjobs = [(rid, p[:SERVE_LEAD + 256], n) for rid, p, n in serve_jobs(
+        config.vocab_size, 8, SERVE_SEED + 2, lead)]
+    pooled = serve_engine(config, main_engine.params,
+                          prefix_pool_pages=128)
+    serve_capture(pooled, [("seed", lead + [1] * 64, 1)], capture=False)
+    want, _, _, _ = serve_capture(main_engine, pjobs, capture=False)
+    plain_cache = main_engine.cache
+    got, _, _, _ = serve_capture(pooled, pjobs, capture=False)
+    hits = [got[rid]["prefix_hit_tokens"] for rid, _, _ in pjobs]
+    for slot, (rid, prompt, _) in enumerate(pjobs):
+        rows_n = int(plain_cache["length"][slot])
+        if got[rid]["tokens"] != want[rid]["tokens"] or not all(
+                torch.equal(pooled.cache[name][:, slot, :rows_n],
+                            plain_cache[name][:, slot, :rows_n])
+                for name in ("k", "v")):
+            fail(f"prefix reuse differs from the pool off on {rid}")
+    if hits != [SERVE_LEAD] * len(pjobs):
+        fail(f"prefix hits {hits}, expected {SERVE_LEAD} each")
+    log(f"  (c) prefix pool on ({pooled.program.spec.prefix_pool_pages} "
+        f"pages), {len(pjobs)} requests sharing a {SERVE_LEAD}-token lead: "
+        f"hits {hits}, tokens and the admitted slots' pages bit for bit the "
+        f"pool off's; pool {pooled.prefix_stats()}")
+    report["prefix"] = {"hits": hits, "stats": pooled.prefix_stats()}
+    compiles = {"f32": main_engine.compile_count,
+                "prefix": pooled.compile_count}
+    del pooled, plain_cache
+    torch.cuda.empty_cache()
+
+    # (c) speculative decode, f32 and int8 pools; (d) the pools' logits
+    sjobs = jobs[:4]
+    spec_report, precision = {}, {}
+    plain_rows = {}
+    for kvp in ("f32", "int8"):
+        plain = (main_engine if kvp == "f32"
+                 else serve_engine(config, main_engine.params,
+                                   kv_precision=kvp))
+        ref, plain_rows[kvp], _, _ = serve_capture(plain, sjobs)
+        expect = {rid: ref[rid]["tokens"] for rid, _, _ in sjobs}
+        if kvp == "f32":
+            f32_tokens = expect
+        spec_engine = serve_engine(config, main_engine.params,
+                                   kv_precision=kvp, spec_draft_len=SPEC_K)
+        spec_report[kvp] = spec_legs(spec_engine, sjobs, expect,
+                                     config.vocab_size, kvp)
+        compiles[f"{kvp} spec"] = spec_engine.compile_count
+        if kvp == "f32":
+            report["steps"] = serve_step_times(llama, main_engine,
+                                               spec_engine, config, card)
+        else:
+            compiles[kvp] = plain.compile_count
+            precision[kvp] = expect
+            del plain
+        del spec_engine
+        torch.cuda.empty_cache()
+    report["spec"] = spec_report
+    bf16 = serve_engine(config, main_engine.params, kv_precision="bf16")
+    done16, plain_rows["bf16"], _, _ = serve_capture(bf16, sjobs)
+    precision["bf16"] = {rid: done16[rid]["tokens"] for rid, _, _ in sjobs}
+    compiles["bf16"] = bf16.compile_count
+    del bf16
+    pools = {}
+    for kvp in ("bf16", "int8"):
+        worst_p, agree = 0.0, 0
+        for rid, _, _ in sjobs:
+            a, b = precision[kvp][rid], f32_tokens[rid]
+            same = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        len(a))
+            # position i's logits share their context while the tokens
+            # before it agree
+            for i in range(min(same + 1, len(a))):
+                worst_p = max(worst_p, (plain_rows[kvp][rid][i].float()
+                                        - plain_rows["f32"][rid][i].float()
+                                        ).abs().max().item())
+                agree += 1
+        pools[kvp] = {"max_abs_logit_diff": worst_p, "positions": agree}
+    if pools["int8"]["max_abs_logit_diff"] >= INT8_LOGIT_LIMIT:
+        fail(f"the int8 pool's logits stray {pools['int8']} from the f32 "
+             f"pool's (limit {INT8_LOGIT_LIMIT})")
+    log(f"  (d) pools on {len(sjobs)} requests, logits against the f32 "
+        f"pool's where the context agrees: bf16 "
+        f"{pools['bf16']['max_abs_logit_diff']:.4f} over "
+        f"{pools['bf16']['positions']} positions, int8 "
+        f"{pools['int8']['max_abs_logit_diff']:.4f} over "
+        f"{pools['int8']['positions']} (limit {INT8_LOGIT_LIMIT})")
+    report["pools"] = pools
+    if set(compiles.values()) != {1}:
+        fail(f"serve programs built more than once: {compiles}")
+    report["compile_count"] = compiles
+    report["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    report["wall_s"] = time.monotonic() - t_phase
+    log(f"  (e) no host sync in decode_step, verify_step, prefill_chunk; "
+        f"compile_count 1 on every engine {compiles}; peak memory "
+        f"{report['peak_memory_bytes'] / 2**30:.2f} GiB; B1 serving launches "
+        f"{report['prefill_sequence']['b1_launches']}; phase 19 "
+        f"{report['wall_s']:.1f} s wall; {card}")
+    del main_engine
+    return report
+
+
 def main():
     import argparse
 
@@ -5649,8 +6303,14 @@ def main():
                       "flash_bwd_dq": STEPS * LAYERS, **NO_SEG, **NO_PFX}
     report["train"] = train_main_path(
         llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
-        "llama", (fa,), flash_expected, card)
+        "llama", (fa,), flash_expected, card, keep_params=True)
     torch.cuda.empty_cache()
+
+    log(f"phase 19, serving (phase 5's trained weights promoted through "
+        f"ServeEngine.load_from_snapshot; {card}):")
+    report["serving"] = serving_phase(
+        llama, fa, config, report["train"].pop("params_snapshot"), card)
+    free_memory()
 
     log("full-width cross-check (use_flash True vs False):")
     report["cross_check"] = cross_check(
@@ -5855,6 +6515,10 @@ def main():
             "library_device_ms": t["library_device_ms"],
             "verdict": "ok",
         })
+        if name == "flash_fwd":
+            # phase 19's prefill_sequence (one launch a layer)
+            kernels[-1]["serving_launches"] = (
+                report["serving"]["prefill_sequence"]["b1_launches"])
         kernels[-1]["design"] = {"flash_fwd": B1_DESIGN,
                                  "flash_bwd_dkv": B2_DESIGN,
                                  "flash_bwd_dq": B3_DESIGN}[name]

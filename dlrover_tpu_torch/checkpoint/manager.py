@@ -986,6 +986,27 @@ class ElasticCheckpointManager:
                        source=out["source"])
         return out
 
+    def restore_params(self, step: Optional[int] = None
+                       ) -> Optional[Tuple[int, Dict[str, torch.Tensor]]]:
+        """The parameters alone of ``step`` (default: the newest) from
+        the primary directory, whole, as host tensors by path: what a
+        serving worker promotes (no optimizer moments are read). Returns
+        ``(step, {path: tensor})``, or None when no checkpoint exists.
+        Runs on one rank, whatever world wrote the step."""
+        import torch.distributed.checkpoint as dcp
+
+        self._wait_pending()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        reader = dcp.FileSystemReader(self._step_dir(self.directory, step))
+        saved = reader.read_metadata().state_dict_metadata
+        sd = {name: torch.empty(tuple(md.size), dtype=md.properties.dtype)
+              for name, md in saved.items() if name.startswith("params/")}
+        _dcp(dcp.load, sd, storage_reader=reader, no_dist=True)
+        return step, {name[len("params/"):]: t for name, t in sd.items()}
+
     def _staged_ok(self, step: int) -> bool:
         return _agree(
             self._staging_root is not None

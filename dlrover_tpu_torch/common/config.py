@@ -61,6 +61,25 @@ class Context:
         # per-device memory budget in bytes (0 = the DeviceSpec's
         # capacity: on the card, what torch.cuda reports)
         self.device_hbm_budget_bytes = 0.0
+        # -- serving (serving.engine) --------------------------------
+        # slot-batch width of the continuous-batching decode loop
+        self.serve_slots = 8
+        # prompt tokens prefilled per chunk, interleaved into the decode
+        # stream (fitted to a divisor of the pool depth)
+        self.serve_prefill_chunk = 32
+        # KV-page storage: "f32" | "bf16" | "int8" (values + f32
+        # per-block scales)
+        self.serve_kv_precision = "f32"
+        # decode calls in flight before the oldest one's tokens are read
+        # on the host (0 = read right after each call)
+        self.serve_window = 2
+        # shared prefix pool, in pages (0 = off): KV pages beside the
+        # slot pool, indexed on the host, copied into a slot on a hit
+        self.serve_prefix_pool_pages = 0
+        # speculative decode's master switch, and the draft tokens
+        # verified a slot a step (K; 0 = off)
+        self.serve_spec_enabled = True
+        self.serve_spec_draft_len = 0
         self._apply_env_overrides()
 
     def _apply_env_overrides(self):

@@ -14,6 +14,12 @@ holds them: for the expert-parallel model (``rule_set="moe_ep"``) on
 E/P)`` of the expert leaves (``expert_shard=(r, P)``), as the
 reference's ``moe_ep`` rules shard them.
 
+``kv_cache_from_numpy`` / ``kv_cache_to_numpy`` (and the same pair for
+the prefix pool) carry a serving KV pool over leaf for leaf (the
+reference's ``serving.kv_cache`` layout: ``k``/``v`` [L, S, T, KV, HD],
+int8 ``k_scale``/``v_scale``, ``length`` [S] int32), so a cache state the
+reference produced feeds the port's step functions.
+
 ``train_state_from_numpy`` carries a whole training state over: the
 parameters as above and ``optax.adamw``'s moments into the per-parameter
 slots of ``torch.optim.AdamW``, so a checkpoint of the JAX package
@@ -111,6 +117,30 @@ def params_to_numpy(params: Dict) -> Dict:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy().copy()
+
+
+def kv_cache_from_numpy(cache: Dict, device: DeviceLike = None) -> Dict:
+    """A reference KV pool (numpy leaves, ``jax.device_get(cache)``) ->
+    the port's pool on ``device``; bf16 pages move as their bits."""
+    dev = resolve_device(device)
+    return {name: _leaf_to_torch(a, dev) for name, a in cache.items()}
+
+
+def kv_cache_to_numpy(cache: Dict) -> Dict:
+    """The port's KV pool -> numpy leaves (bf16 pages as f32, which holds
+    every bf16 value exactly)."""
+    out = {}
+    for name, t in cache.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out
+
+
+# the prefix pool has the slot pool's leaves but ``length``
+prefix_pool_from_numpy = kv_cache_from_numpy
+prefix_pool_to_numpy = kv_cache_to_numpy
 
 
 def _adam_state(opt_state):

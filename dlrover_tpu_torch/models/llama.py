@@ -23,9 +23,12 @@ f32 angles on rotated halves, GQA, SwiGLU, untied head; params stored in
 ``param_dtype`` and cast to ``compute_dtype`` per layer; logits computed
 in the compute dtype and cast to f32.
 
+Serving (``decode_step``, ``verify_step``, ``prefill_chunk``,
+``prefill_sequence``) runs the same weights over the paged KV cache of
+``serving.kv_cache``; see the section's comment below.
+
 Not in this slice (they raise): sequence parallelism (A13), the
-low-precision FSDP wire (A14), pipelining (A15) and the serving
-functions (A16).
+low-precision FSDP wire (A14) and pipelining (A15).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from dlrover_tpu_torch.ops.flash_attention import (
     segmented_attention,
 )
 from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.serving.kv_cache import decode_kv, encode_kv
 
 
 @dataclass(frozen=True)
@@ -292,7 +296,10 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def _attention_block(x, layer, config: LlamaConfig, positions,
-                     segment_ids=None):
+                     segment_ids=None, return_kv: bool = False):
+    """Returns the projected attention output, and with ``return_kv``
+    also the post-RoPE ``(k, v)`` [B, S, KV, Dh]: what serving's prefill
+    writes into the KV pages."""
     c = config
     b, s, _ = x.shape
     h, kv, hd = c.num_heads, c.num_kv_heads, c.head_dim
@@ -301,6 +308,7 @@ def _attention_block(x, layer, config: LlamaConfig, positions,
     v = (x @ layer["v_proj"]["kernel"]).view(b, s, kv, hd)
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
+    kv_out = (k, v) if return_kv else None
     # [B, H, S, Dh]; kv heads are not repeated, the kernels read the
     # shared head of each query group
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
@@ -320,7 +328,10 @@ def _attention_block(x, layer, config: LlamaConfig, positions,
     else:
         out = mha_reference(q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ layer["o_proj"]["kernel"]
+    out = out @ layer["o_proj"]["kernel"]
+    if return_kv:
+        return out, kv_out
+    return out
 
 
 def _ffn_block(x, layer, config: LlamaConfig, rng=None):
@@ -416,10 +427,311 @@ def _not_ported(name: str, item: str):
 
 
 apply_pipelined = _not_ported("apply_pipelined", "A15")
-decode_step = _not_ported("decode_step", "A16")
-prefill_chunk = _not_ported("prefill_chunk", "A16")
-prefill_sequence = _not_ported("prefill_sequence", "A16")
-verify_step = _not_ported("verify_step", "A16")
+
+
+# -- serving ----------------------------------------------------------------
+#
+# The decode-time forward of the serving tier (``dlrover_tpu_torch.
+# serving``): the same stacked-layer weights, with the sequence dimension
+# replaced by a read of the KV pages. Attention for slot ``s`` is a plain
+# slice of its own rows (``serving.kv_cache``'s slot-major pool). The
+# numerics follow the reference attention: f32 logits, the ``finfo.min``
+# mask, f32 softmax, and a grouped GQA product that never repeats KV
+# heads. ``prefill_sequence`` routes a whole prompt through
+# ``_attention_block`` itself (the flash kernels included), so its hidden
+# states are bit for bit the training forward's.
+#
+# Every step updates the cache IN PLACE (the reference donates it) and
+# writes ``length`` last: a step that raises midway leaves only rows past
+# the committed length, which no mask reads. Slot, start and chunk length
+# are host ints; no step reads a device value back on the host.
+#
+# Row independence: a verify step runs each of its K+1 positions through
+# the very function a decode step runs, at a decode step's shapes
+# (``_decode_layer`` on [S, D]), so every product a verified row takes is
+# the one a plain decode step takes, whatever algorithm the GEMM library
+# picks for a shape. That is what makes speculative decode emit, token
+# for token, what plain greedy decode emits; its price is that a verify
+# step reads the weights K+1 times.
+
+
+def _serving_dense_only(name: str, config: LlamaConfig) -> None:
+    if config.num_experts > 0:
+        raise NotImplementedError(
+            f"{name} serves dense llama configs; MoE decode dispatch is "
+            "not built yet (prefill_sequence serves MoE prompts)")
+
+
+def _layer_params(params: Dict, i: int, config: LlamaConfig) -> Dict:
+    return cast_floats(tree_map(lambda t: t[i], params["layers"]),
+                       config.compute_dtype)
+
+
+def _layer_kv(cache: Dict, i: int):
+    """(k, k_scale or None, v, v_scale or None) of layer ``i``: views
+    into the pool, written in place."""
+    def leaf(name):
+        t = cache.get(name)
+        return None if t is None else t[i]
+
+    return leaf("k"), leaf("k_scale"), leaf("v"), leaf("v_scale")
+
+
+def _kv_write_token(k_l, scale_l, new_kv, pos, write, spec) -> None:
+    """Write one token's K (or V) of every slot into row ``pos[s]`` of its
+    pages, in place, where ``write[s]``; other slots keep their row. The
+    reference's out-of-bounds ``mode="drop"`` scatter becomes a masked
+    ``where`` over the gathered rows: each slot writes exactly one row,
+    either its new value or the value it held, and reading that row back
+    first needs no host sync (a boolean index would, through
+    ``nonzero``). ``pos`` is clamped into the pool, as the reference
+    clamps it."""
+    s, t = k_l.shape[0], k_l.shape[1]
+    idx = torch.arange(s, device=k_l.device)
+    row = pos.clamp(0, t - 1).long()
+    vals, scales = encode_kv(new_kv, spec)
+    keep = write[:, None, None]
+    k_l[idx, row] = torch.where(keep, vals, k_l[idx, row])
+    if scales is not None and scale_l is not None:
+        scale_l[idx, row] = torch.where(keep, scales, scale_l[idx, row])
+
+
+def _grouped_attention(qg, k, v, mask, eqn_logits, eqn_out):
+    """f32 logits scaled by 1/sqrt(Dh), the ``finfo.min`` mask, f32
+    softmax, then the probabilities times V (the reference attention's
+    conventions)."""
+    hd = qg.shape[-1]
+    logits = torch.einsum(eqn_logits, qg.float(), k) * (1.0 / (hd ** 0.5))
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum(eqn_out, probs.to(v.dtype), v)
+
+
+def _paged_attention(q, k_l, ks_l, v_l, vs_l, pos, spec, config):
+    """Decode attention: ``q [S, H, HD]`` against each slot's own pages
+    ``[S, T, KV, HD]`` under the causal mask ``t <= pos[s]``; GQA by a
+    grouped product (KV heads never repeated)."""
+    s, h, hd = q.shape
+    t, kvh = k_l.shape[1], k_l.shape[2]
+    k = decode_kv(k_l, ks_l, spec)       # [S, T, KV, HD] f32
+    v = decode_kv(v_l, vs_l, spec)
+    qg = q.reshape(s, kvh, h // kvh, hd)
+    mask = torch.arange(t, device=q.device)[None, :] <= pos[:, None]
+    out = _grouped_attention(qg, k, v, mask[:, None, None, :],
+                             "skgd,stkd->skgt", "skgt,stkd->skgd")
+    return out.reshape(s, h * hd).to(config.compute_dtype)
+
+
+def _chunk_attention(q, k_slot, ks_slot, v_slot, vs_slot, start: int, spec,
+                     config):
+    """Prefill-chunk attention: chunk queries ``[C, H, HD]`` against ONE
+    slot's pages (which already hold the chunk's own K/V at ``start ..
+    start+C``), causal mask ``t <= start + i``."""
+    cq, h, hd = q.shape
+    t, kvh = k_slot.shape[0], k_slot.shape[1]
+    k = decode_kv(k_slot, ks_slot, spec)    # [T, KV, HD] f32
+    v = decode_kv(v_slot, vs_slot, spec)
+    qg = q.reshape(cq, kvh, h // kvh, hd)
+    rows = start + torch.arange(cq, device=q.device)
+    mask = torch.arange(t, device=q.device)[None, :] <= rows[:, None]
+    out = _grouped_attention(qg, k, v, mask[:, None, None, :],
+                             "ckgd,tkd->ckgt", "ckgt,tkd->ckgd")
+    return out.reshape(cq, h * hd).to(config.compute_dtype)
+
+
+def _decode_layer(x_in, layer, kv, pos, write, config: LlamaConfig, spec):
+    """One layer at one position for every slot (``x_in [S, D]``): the
+    token's K/V go into row ``pos`` where ``write``, then the slot
+    attends to its rows ``t <= pos``."""
+    c = config
+    s = x_in.shape[0]
+    h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    k_l, ks_l, v_l, vs_l = kv
+    attn_in = rms_norm(x_in, layer["input_norm"]["scale"], c.rms_eps)
+    q = (attn_in @ layer["q_proj"]["kernel"]).view(s, h, hd)
+    k_new = (attn_in @ layer["k_proj"]["kernel"]).view(s, kvh, hd)
+    v_new = (attn_in @ layer["v_proj"]["kernel"]).view(s, kvh, hd)
+    # RoPE at each slot's own position (a batch of length-1 sequences)
+    q = _rope(q[:, None], pos[:, None], c.rope_theta)[:, 0]
+    k_new = _rope(k_new[:, None], pos[:, None], c.rope_theta)[:, 0]
+    _kv_write_token(k_l, ks_l, k_new, pos, write, spec)
+    _kv_write_token(v_l, vs_l, v_new, pos, write, spec)
+    attn = _paged_attention(q, k_l, ks_l, v_l, vs_l, pos, spec, c)
+    x_mid = x_in + attn @ layer["o_proj"]["kernel"]
+    ffn_in = rms_norm(x_mid, layer["post_norm"]["scale"], c.rms_eps)
+    return x_mid + _ffn_block(ffn_in, layer, c)[0]
+
+
+def _head_logits(params: Dict, x, config: LlamaConfig):
+    """Final norm and head of rows ``x [.., D]`` -> f32 logits."""
+    c = config
+    x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
+    return (x @ params["lm_head"]["kernel"].to(c.compute_dtype)).float()
+
+
+@torch.inference_mode()
+def decode_step(params, cache, tokens, active, config: LlamaConfig, spec):
+    """One continuous-batching decode step for every slot at once.
+
+    ``tokens [S] int32``: each slot's current token (the one whose
+    successor is predicted). ``active [S] bool``: slots admitted and
+    decoding; the others compute harmlessly but neither write pages nor
+    advance ``length``. Returns ``(next_tokens [S] int32, logits [S, V]
+    f32, cache)``, greedy selection on the device, so the executor's
+    window never waits on the host to feed step k+1. Dense FFN only."""
+    c = config
+    _serving_dense_only("decode_step", c)
+    pos = cache["length"]  # the row this step writes
+    x = params["embed_tokens"]["embedding"][tokens].to(c.compute_dtype)
+    for i in range(c.num_layers):
+        x = _decode_layer(x, _layer_params(params, i, c), _layer_kv(cache, i),
+                          pos, active, c, spec)
+    logits = _head_logits(params, x, c)
+    next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    cache["length"].copy_(torch.where(active, pos + 1, pos))
+    return next_tokens, logits, cache
+
+
+@torch.inference_mode()
+def verify_step(params, cache, tokens, active, n_draft,
+                config: LlamaConfig, spec):
+    """One speculative-decode verify step for every slot at once: the
+    model over each slot's current token plus up to K drafted
+    continuations, the longest matching draft prefix accepted on the
+    device, and exactly the accepted tokens' rows committed.
+
+    ``tokens [S, K+1] int32``: column 0 is the slot's current token,
+    columns 1..K its drafts. ``n_draft [S] int32``: how many draft
+    columns are real for each slot (mixed K in one program).
+    ``active [S] bool``: as in ``decode_step``.
+
+    With ``g[i]`` the argmax at position ``pos+i``, the accepted length
+    ``a`` is the longest prefix with ``tokens[i+1] == g[i]`` for ``i <
+    a``; the slot emits ``g[0..a]`` and its next current token is
+    ``g[a]``. Position ``i`` runs ``_decode_layer`` at ``pos + i``, the
+    function and shapes of a decode step, so ``g`` is bit for bit what
+    plain greedy decode computes at every acceptance pattern. Rejected
+    rows stay written past the committed length, where no mask reads
+    them and later writes land first.
+
+    Returns ``(greedy [S, K+1], accepted [S], next_tokens [S], cache)``.
+    """
+    c = config
+    _serving_dense_only("verify_step", c)
+    s, k1 = tokens.shape
+    t = cache["k"].shape[2]
+    pos = cache["length"]
+    offs = torch.arange(k1, device=tokens.device)
+    write = (active[:, None] & (offs[None, :] <= n_draft[:, None])
+             & (pos[:, None] + offs[None, :] < t))
+    emb = params["embed_tokens"]["embedding"]
+    xs = [emb[tokens[:, i]].to(c.compute_dtype) for i in range(k1)]
+    for layer_i in range(c.num_layers):
+        layer = _layer_params(params, layer_i, c)
+        kv = _layer_kv(cache, layer_i)
+        xs = [_decode_layer(x, layer, kv, pos + i, write[:, i], c, spec)
+              for i, x in enumerate(xs)]
+    greedy = torch.stack([torch.argmax(_head_logits(params, x, c), dim=-1)
+                          for x in xs], dim=1).to(torch.int32)
+    if k1 > 1:
+        match = ((tokens[:, 1:] == greedy[:, :-1])
+                 & (offs[None, 1:] <= n_draft[:, None]))
+        accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    else:
+        accepted = torch.zeros_like(pos)
+    accepted = torch.where(active, accepted, 0).to(torch.int32)
+    next_tokens = torch.gather(greedy, 1, accepted[:, None].long())[:, 0]
+    cache["length"].copy_(torch.where(active, pos + accepted + 1, pos))
+    return greedy, accepted, next_tokens, cache
+
+
+def _write_rows(cache: Dict, i: int, slot: int, start: int, k_new, v_new,
+                spec) -> None:
+    """Token K/V ``[n, KV, HD]`` into slot ``slot``'s rows ``start ..
+    start+n`` of layer ``i``, in place."""
+    n = k_new.shape[0]
+    for name, new in (("k", k_new), ("v", v_new)):
+        vals, scales = encode_kv(new, spec)
+        cache[name][i, slot, start:start + n] = vals
+        if scales is not None:
+            cache[f"{name}_scale"][i, slot, start:start + n] = scales
+
+
+@torch.inference_mode()
+def prefill_chunk(params, cache, tokens, slot: int, start: int,
+                  n_valid: int, config: LlamaConfig, spec):
+    """Prefill ONE chunk of one slot's prompt: write the chunk's K/V rows
+    and return ``(cache, last_logits [V] f32)``, the logits of token
+    ``n_valid - 1`` (the first generated token's, on the final chunk).
+
+    ``tokens [C] int32`` (the chunk size is fixed; trailing padding is
+    written but never read); ``slot``, ``start``, ``n_valid`` are host
+    ints, and the engine keeps ``start + C`` inside the pool (the chunk
+    divides the pool depth). Later chunks attend to the slot's earlier
+    rows through the cache, as decode does."""
+    c = config
+    _serving_dense_only("prefill_chunk", c)
+    cq = tokens.shape[0]
+    h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    positions = (start + torch.arange(cq, device=tokens.device))[None]
+    x = params["embed_tokens"]["embedding"][tokens].to(c.compute_dtype)
+    for i in range(c.num_layers):
+        layer = _layer_params(params, i, c)
+        attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
+        q = (attn_in @ layer["q_proj"]["kernel"]).view(cq, h, hd)
+        k_new = (attn_in @ layer["k_proj"]["kernel"]).view(cq, kvh, hd)
+        v_new = (attn_in @ layer["v_proj"]["kernel"]).view(cq, kvh, hd)
+        q = _rope(q[None], positions, c.rope_theta)[0]
+        k_new = _rope(k_new[None], positions, c.rope_theta)[0]
+        _write_rows(cache, i, slot, start, k_new, v_new, spec)
+        k_l, ks_l, v_l, vs_l = _layer_kv(cache, i)
+        attn = _chunk_attention(
+            q, k_l[slot], None if ks_l is None else ks_l[slot], v_l[slot],
+            None if vs_l is None else vs_l[slot], start, spec, c)
+        x_mid = x + attn @ layer["o_proj"]["kernel"]
+        ffn_in = rms_norm(x_mid, layer["post_norm"]["scale"], c.rms_eps)
+        x = x_mid + _ffn_block(ffn_in, layer, c)[0]
+    last = rms_norm(x, params["norm"]["scale"], c.rms_eps)[
+        min(max(n_valid - 1, 0), cq - 1)]
+    logits = (last @ params["lm_head"]["kernel"].to(c.compute_dtype)).float()
+    # fill_ with a host int: an item assignment would copy a host
+    # scalar to the device and wait for it
+    cache["length"][slot].fill_(start + n_valid)
+    return cache, logits
+
+
+@torch.inference_mode()
+def prefill_sequence(params, cache, tokens, slot: int, config: LlamaConfig,
+                     spec, return_hidden: bool = False):
+    """One-shot prefill of a whole prompt into slot ``slot`` (a freshly
+    admitted slot: rows from 0), returning ``(cache, last_logits [V])``,
+    with ``return_hidden`` also the last token's final hidden row [D].
+
+    The prompt runs through the training forward's own blocks
+    (``_attention_block(..., return_kv=True)``, so the flash kernels
+    apply, and ``_ffn_block``, so MoE configs serve here), so the hidden
+    states, and the first generated token, are bit for bit ``apply``'s.
+    The head runs on the last row alone."""
+    c = config
+    p = tokens.shape[0]
+    x = params["embed_tokens"]["embedding"][tokens][None].to(c.compute_dtype)
+    positions = torch.arange(p, device=tokens.device).expand(1, p)
+    for i in range(c.num_layers):
+        layer = _layer_params(params, i, c)
+        attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
+        attn, (k_new, v_new) = _attention_block(attn_in, layer, c, positions,
+                                                return_kv=True)
+        x = x + attn
+        _write_rows(cache, i, slot, 0, k_new[0], v_new[0], spec)
+        ffn_in = rms_norm(x, layer["post_norm"]["scale"], c.rms_eps)
+        x = x + _ffn_block(ffn_in, layer, c)[0]
+    hidden = rms_norm(x, params["norm"]["scale"], c.rms_eps)[0, -1]
+    logits = (hidden @ params["lm_head"]["kernel"].to(c.compute_dtype)
+              ).float()
+    cache["length"][slot].fill_(p)
+    if return_hidden:
+        return cache, logits, hidden
+    return cache, logits
 
 
 # -- training glue ----------------------------------------------------------

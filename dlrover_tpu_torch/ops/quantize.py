@@ -15,8 +15,10 @@ up-scales into range (scale = amax / FP8_MAX < 1); a deep-denormal
 block's scale floors at the smallest normal f32, so the division
 never mints inf.
 
-The int8 KV-cache storage and the error-feedback gradient wire of the
-reference come with serving (A16) and the gradient wire (A14).
+The int8 half below is the serving tier's KV-page storage
+(``serving.kv_cache``): the same block geometry, int8 values rounded
+half to even (``torch.round``, as ``jnp.round``) and clamped to +-127.
+The error-feedback gradient wire of the reference comes with A14.
 """
 
 from __future__ import annotations
@@ -84,3 +86,45 @@ def dequantize_block_scaled(values: torch.Tensor, scales: torch.Tensor,
 def qdq(x: torch.Tensor, block: int = 0) -> torch.Tensor:
     """quantize -> dequantize (f32 out): the "fp8_qdq" transform."""
     return dequantize_block_scaled(*quantize_block_scaled(x, block))
+
+
+# -- int8 storage (the serving tier's KV-cache format) -----------------------
+
+# KV-cache storage precisions (``serving.kv_cache`` resolves the knob):
+# "f32"/"bf16" = pages stored in that dtype; "int8" = int8 values + f32
+# per-block scales (~1/4 of an f32 page)
+KV_PRECISIONS = ("f32", "bf16", "int8")
+
+INT8_MAX = 127.0
+
+
+def quantize_block_scaled_int8(x: torch.Tensor, block: int = 0):
+    """``x [..., D]`` -> ``(values [..., D] int8, scales [..., D/block]
+    f32)``: per block ``scale = max|x| / 127`` (floored at the smallest
+    normal f32), 1.0 for an all-zero block; values rounded half to even
+    and clamped to +-127, so an outlier at the block max lands on
+    +-127."""
+    d = x.shape[-1]
+    b = block or resolve_quant_block(d)
+    if d % b:
+        raise ValueError(
+            f"quantize_block_scaled_int8: block {b} does not divide the "
+            f"channel dim {d} (use resolve_quant_block)"
+        )
+    xb = x.float().reshape(x.shape[:-1] + (d // b, b))
+    amax = xb.abs().amax(dim=-1)
+    scales = torch.where(amax > 0, torch.clamp(amax / INT8_MAX, min=_TINY),
+                         torch.ones_like(amax))
+    values = torch.clamp(torch.round(xb / scales[..., None]), -INT8_MAX,
+                         INT8_MAX).to(torch.int8)
+    return values.reshape(x.shape), scales
+
+
+def dequantize_block_scaled_int8(values: torch.Tensor, scales: torch.Tensor,
+                                 dtype: torch.dtype = torch.float32):
+    """``values * scales`` per block in f32 (int8 -> f32 is exact), cast
+    to ``dtype`` last."""
+    d = values.shape[-1]
+    nb = scales.shape[-1]
+    vb = values.float().reshape(values.shape[:-1] + (nb, d // nb))
+    return (vb * scales[..., None]).reshape(values.shape).to(dtype)

@@ -1,7 +1,9 @@
 """Per-card capability for the port (the ``DeviceSpec`` of
 ``dlrover_tpu/parallel/planner.py:29-45``, with NVIDIA cards in place of
-the TPU generations). The planner's search over meshes comes with
-ROADMAP A15.
+the TPU generations), and ``kv_bytes_per_elem``, the one price of a
+stored KV element that ``serving.kv_cache.KVCacheSpec`` charges. The
+planner's search over meshes comes with ROADMAP A15, its serving decode
+term with A16b.
 """
 
 from __future__ import annotations
@@ -55,3 +57,22 @@ def device_spec(device=None) -> DeviceSpec:
     return dataclasses.replace(
         spec, hbm_bytes=float(
             torch.cuda.get_device_properties(device).total_memory))
+
+
+def kv_bytes_per_elem(kv_precision: str, channels: int = 0) -> float:
+    """Stored bytes per KV element: int8 = the value plus its share of
+    the f32 per-block scale (the ``ops.quantize`` block geometry,
+    resolved against the head dim when known); the one formula the KV
+    pool's byte counts share."""
+    if kv_precision == "int8":
+        from dlrover_tpu_torch.ops.quantize import (
+            QUANT_BLOCK,
+            resolve_quant_block,
+        )
+
+        block = (resolve_quant_block(channels) if channels
+                 else QUANT_BLOCK)
+        return 1.0 + 4.0 / block
+    if kv_precision == "bf16":
+        return 2.0
+    return 4.0

@@ -1,0 +1,33 @@
+"""The serving tier on one card (port of ``dlrover_tpu/serving``, its
+single-worker core): continuous-batching decode with the same weights
+and runtime that train.
+
+Modules:
+  kv_cache      paged, preallocated KV pool and its sharding rules (int8
+                pages through ``ops.quantize``)
+  engine        ServeEngine (serve programs, program cache, promotion of
+                a trainer's snapshot or checkpoint) and ServeExecutor
+                (continuous batching over fixed slots, prefix reuse,
+                speculative decode)
+  prefix_index  the host radix index of the shared prefix pool
+  spec_decode   the host n-gram draft proposer
+
+The router, the SLO hook, the CLI and live resizing are ROADMAP A16b.
+"""
+
+from dlrover_tpu_torch.serving.kv_cache import (  # noqa: F401
+    KVCacheSpec,
+    init_kv_cache,
+    kv_cache_rules,
+    resolve_kv_precision,
+)
+
+
+def __getattr__(name):
+    # the engine imports the model; keep ``import
+    # dlrover_tpu_torch.serving`` light
+    if name in ("ServeEngine", "ServeExecutor", "ServeRequestState"):
+        from dlrover_tpu_torch.serving import engine
+
+        return getattr(engine, name)
+    raise AttributeError(name)

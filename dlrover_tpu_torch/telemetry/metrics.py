@@ -19,6 +19,12 @@ DURATION_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
+# seconds, 50 us .. 30 s: the serving loop's per-step and per-request
+# latencies, below DURATION_BUCKETS' first bucket
+LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+    0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
 
 
 class Counter:

@@ -1,5 +1,5 @@
-"""Metric, event and span names the trainer and the checkpoint emit (the
-subset of ``dlrover_tpu/telemetry/names.py`` the port emits, with the
+"""Metric, event and span names the trainer, the checkpoint and the
+serving worker emit (the subset of ``dlrover_tpu/telemetry/names.py`` the port emits, with the
 same values, so one dashboard reads both packages)."""
 
 STEP_TIME = "dlrover_step_time_seconds"
@@ -58,6 +58,31 @@ ATTR_COMM_PREDICTED_S = "dlrover_attribution_predicted_comm_seconds"
 # them (absent on the CPU, never a fake 0)
 ATTR_HBM_HEADROOM_MB = "dlrover_attribution_hbm_headroom_mb"
 
+# serving worker (serving.engine): the continuous-batching decode loop
+SERVE_DECODE_STEPS = "dlrover_serve_decode_steps_total"
+SERVE_TOKENS = "dlrover_serve_tokens_total"
+SERVE_PREFILL_CHUNKS = "dlrover_serve_prefill_chunks_total"
+SERVE_ADMISSIONS = "dlrover_serve_admissions_total"
+SERVE_SLOT_OCCUPANCY = "dlrover_serve_slot_occupancy"
+SERVE_STEP_TIME = "dlrover_serve_decode_step_seconds"
+# admit -> first token host-visible
+SERVE_PREFILL_TIME = "dlrover_serve_prefill_seconds"
+# the shared prefix pool: admissions with and without a hit, pages
+# evicted for a publish, prefill tokens a hit skipped, and occupancy
+SERVE_PREFIX_HITS = "dlrover_serve_prefix_hits_total"
+SERVE_PREFIX_MISSES = "dlrover_serve_prefix_misses_total"
+SERVE_PREFIX_EVICTIONS = "dlrover_serve_prefix_evictions_total"
+SERVE_PREFIX_SAVED_TOKENS = "dlrover_serve_prefix_saved_prefill_tokens_total"
+SERVE_PREFIX_POOL_USED_PAGES = "dlrover_serve_prefix_pool_used_pages"
+SERVE_PREFIX_POOL_BYTES = "dlrover_serve_prefix_pool_bytes"
+# speculative decode: drafted = accepted + wasted; the rate gauge is -1
+# until the first draft
+SERVE_SPEC_VERIFY_STEPS = "dlrover_serve_spec_verify_steps_total"
+SERVE_SPEC_DRAFTED = "dlrover_serve_spec_drafted_tokens_total"
+SERVE_SPEC_ACCEPTED = "dlrover_serve_spec_accepted_tokens_total"
+SERVE_SPEC_WASTED = "dlrover_serve_spec_wasted_tokens_total"
+SERVE_SPEC_ACCEPT_RATE = "dlrover_serve_spec_accept_rate"
+
 
 class EventKind:
     NONFINITE_STEP = "nonfinite_step"
@@ -83,6 +108,18 @@ class EventKind:
     # performance attribution: one record per built step (counted FLOPs
     # and bytes, exchange bytes, peak memory), keyed by the program cache
     ATTRIBUTION_CAPTURED = "attribution_captured"
+    # serving worker: the loop's start and end, a request that cannot
+    # fit the pool (failure-class, carries an error code), each request's
+    # prefill chunks, first token and completion, and the prefix pool's
+    # hits and evictions
+    SERVE_START = "serve_start"
+    SERVE_END = "serve_end"
+    SERVE_REQUEST_EVICTED = "serve_request_evicted"
+    SERVE_PREFILL_CHUNK = "serve_prefill_chunk"
+    SERVE_FIRST_TOKEN = "serve_first_token"
+    SERVE_REQUEST_DONE = "serve_request_done"
+    SERVE_PREFIX_HIT = "serve_prefix_hit"
+    SERVE_PREFIX_EVICTED = "serve_prefix_evicted"
 
 
 class SpanName:
@@ -94,3 +131,6 @@ class SpanName:
     CKPT_MIRROR = "ckpt_mirror"
     CKPT_RESTORE = "ckpt_restore"
     LIVE_RESHARD = "live_reshard"
+    # serving: one decode (or verify) call, one prefill chunk
+    SERVE_DECODE = "serve_decode_step"
+    SERVE_PREFILL = "serve_prefill_chunk"

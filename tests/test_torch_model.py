@@ -274,10 +274,23 @@ class TestLaterSlicesRaise:
             llama.apply({}, torch.zeros((1, 4), dtype=torch.long), cfg)
 
     def test_serving_raises(self):
-        cfg = llama.llama_tiny()
+        """The serving steps run (tests/test_torch_serving.py); what they
+        still refuse: decode for experts (as the reference does) and the
+        pipelined forward (A15)."""
+        from dlrover_tpu_torch.serving.kv_cache import (
+            KVCacheSpec,
+            init_kv_cache,
+        )
+
+        cfg = llama.llama_tiny(num_experts=4)
         params = llama.init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="A16"):
-            llama.decode_step(params)
+        spec = KVCacheSpec.from_model(cfg, num_slots=1)
+        with pytest.raises(NotImplementedError, match="MoE"):
+            llama.decode_step(params, init_kv_cache(spec),
+                              torch.zeros((1,), dtype=torch.int32),
+                              torch.ones((1,), dtype=torch.bool), cfg, spec)
+        with pytest.raises(NotImplementedError, match="A15"):
+            llama.apply_pipelined(params)
 
 
 def _packed(b=2, s=32, vocab=256, seed=0):
