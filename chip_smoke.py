@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--json PATH]   # from the root of a checkout
+    python3 chip_smoke.py --only-serving [--json PATH]
     python3 chip_smoke.py --against DIR [--may-differ PART ...]
                           [--variant] [--stress N]
 
@@ -217,11 +218,27 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      ``CostCounter`` counts on the meta device, a profile of 5 decode
      steps, the prefill chunk's and the verify step's times, TTFT, TPOT,
      tokens/s, the slot ledger's shares, pool bytes and peak memory.
+     Then elastic serving on the same engine: (d) the 12 requests again
+     under a stub master's plans (16 slots prewarmed after the first
+     decode steps, chunk 128 while prompts are mid-prefill, chunk 300
+     negative-acked, 8 slots once at most 8 are live): the acks, no
+     build in a prewarmed retune, the pool's 1,073,741,824 B at 16 slots,
+     every request through the same logit check, the tokens that differ
+     from the unretuned run; (e) a live resize onto the same card after
+     12 decode steps, every continuation token for token the resize-free
+     run's, ``serve_resize_done`` with recompiled 0, the snapshot's
+     bytes and its take and restore seconds; (f) ``planner.
+     estimate_decode`` for the phase's geometry beside the measured step,
+     and the host's ms a layer to queue one step beside the planner's.
 
 The line before the last is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}. The whole script's time is printed
 before them. ``--json PATH`` also writes every
 number the run measured to PATH.
+
+``--only-serving`` builds the kernels and runs phases 5 and 19 alone
+(phase 19 on phase 5's trained weights, its elastic legs included); its
+last line is {"ok": true, "only": "serving"}.
 
 ``--against DIR`` runs none of the phases above: it holds this tree's
 flash and grouped kernels against the tree under DIR (``against``: SASS
@@ -399,6 +416,24 @@ def time_samples(fn, iters=10, warmup=2, spin=False):
 
 
 SPIN_CYCLES = 50_000_000  # ~25 ms of the device's clock: the host queues
+
+
+def host_ms(fn, iters=10, warmup=2):
+    """Median host milliseconds ``fn`` takes to return, each call made
+    from an empty queue (the device synchronized first): the time to
+    queue its work, where ``fn`` waits for nothing on the device."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    samples = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -5609,19 +5644,10 @@ def serve_engine(config, params, **kw):
     return eng
 
 
-def serve_capture(engine, jobs, proposer=None, capture=True):
-    """Serve ``jobs`` through ServeExecutor on a fresh pool; with
-    ``capture`` each request's logits too (its final prefill chunk's, then
-    its row of each decode step, read on the device by spies around the
-    program's calls). Returns (records by id, logits rows by id, the
-    executor, serve wall s)."""
-    from dlrover_tpu_torch.serving.engine import ServeExecutor
-
-    program = engine.program
-    engine.cache = engine.fresh_cache()
-    ex = ServeExecutor(engine, serve_window=SERVE_WINDOW,
-                       spec_proposer=proposer)
-    rows = {rid: [] for rid, _, _ in jobs}
+def spy_rows(program, ex, rows, stack):
+    """Record each request's logits (its final prefill chunk's, then its
+    row of each decode step) from ``program``'s calls, as
+    ``serve_capture``'s spies do, until ``stack`` closes."""
     decode, prefill = program.decode, program.prefill
 
     def decode_spy(params, cache, tokens, active):
@@ -5639,11 +5665,25 @@ def serve_capture(engine, jobs, proposer=None, capture=True):
             rows[state.request_id].append(out[1])
         return out
 
-    spies = (swapped(program, "decode", decode_spy) if capture
-             else contextlib.nullcontext(),
-             swapped(program, "prefill", prefill_spy) if capture
-             else contextlib.nullcontext())
-    with spies[0], spies[1]:
+    stack.enter_context(swapped(program, "decode", decode_spy))
+    stack.enter_context(swapped(program, "prefill", prefill_spy))
+
+
+def serve_capture(engine, jobs, proposer=None, capture=True):
+    """Serve ``jobs`` through ServeExecutor on a fresh pool; with
+    ``capture`` each request's logits too (its final prefill chunk's, then
+    its row of each decode step, read on the device by spies around the
+    program's calls). Returns (records by id, logits rows by id, the
+    executor, serve wall s)."""
+    from dlrover_tpu_torch.serving.engine import ServeExecutor
+
+    engine.cache = engine.fresh_cache()
+    ex = ServeExecutor(engine, serve_window=SERVE_WINDOW,
+                       spec_proposer=proposer)
+    rows = {rid: [] for rid, _, _ in jobs}
+    with contextlib.ExitStack() as stack:
+        if capture:
+            spy_rows(engine.program, ex, rows, stack)
         for rid, prompt, new in jobs:
             ex.submit(prompt, max_new_tokens=new, request_id=rid)
         t0 = time.monotonic()
@@ -5959,6 +5999,7 @@ def serve_step_times(llama, engine, spec_engine, config, card):
         fn()
         no_host_sync(name, fn)
     out = {"decode_ms": time_ms(decode, 20),
+           "decode_host_ms": host_ms(decode, 20),
            "prefill_ms": time_ms(prefill, 10),
            "verify_ms": time_ms(verify, 10),
            "profile": decode_profile(decode)}
@@ -5966,10 +6007,23 @@ def serve_step_times(llama, engine, spec_engine, config, card):
     def meta(t):
         return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
-    with CostCounter() as cc:
-        llama.decode_step(tree_map(meta, engine.params),
-                          {k: meta(v) for k, v in scratch.items()},
-                          meta(tokens), meta(active), config, program.spec)
+    def counted(c):
+        """The CostCounter of one decode step of ``c`` on the meta
+        device (``c.num_layers`` of the engine's layers)."""
+        with CostCounter() as cc:
+            llama.decode_step(tree_map(meta, engine.params),
+                              {k: meta(v) for k, v in scratch.items()},
+                              meta(tokens), meta(active), c, program.spec)
+        return cc
+
+    cc = counted(config)
+    # the ops a step dispatches, and how many of them a layer adds
+    ops = int(sum(v[2] for v in cc.by_op.values()))
+    one = counted(dataclasses.replace(config, num_layers=1))
+    ops_1 = int(sum(v[2] for v in one.by_op.values()))
+    per_layer = (ops - ops_1) / max(1, config.num_layers - 1)
+    out.update({"ops": ops, "ops_per_layer": per_layer,
+                "ops_outside_layers": ops_1 - per_layer})
     emb = engine.params["embed_tokens"]["embedding"]
     weights = sum(t.numel() * t.element_size()
                   for t in tree_leaves(engine.params)) - emb.numel() * \
@@ -5987,7 +6041,9 @@ def serve_step_times(llama, engine, spec_engine, config, card):
     busy = out["profile"]["device_ms"]
     log(f"  decode step at {s} active slots: {out['decode_ms']:.3f} ms a "
         f"step queued back to back ({out['decode_tokens_per_s']:.0f} "
-        f"tokens/s), the device busy "
+        f"tokens/s), the host {out['decode_host_ms']:.3f} ms to queue one "
+        f"step from an empty queue ({ops} ops, {per_layer:g} a layer, "
+        f"{out['ops_outside_layers']:g} outside the layers), the device busy "
         + (f"{busy:.3f} ms of it (profiler)" if busy else "not measured")
         + f"; bound "
         f"{out['bound_ms']:.3f} ms from CostCounter's "
@@ -6003,11 +6059,315 @@ def serve_step_times(llama, engine, spec_engine, config, card):
     return out
 
 
+# phase 19's elastic legs: the plans a stub master serves during one replay
+# of the 12 requests, each issued once the previous one is acked and its
+# condition holds (``PlanStub``)
+RETUNE_SLOTS = 16
+RETUNE_CHUNK, UNFIT_CHUNK = 128, 300  # 300 does not divide 2048: nacked
+RETUNE_POOL_BYTES = 1_073_741_824  # the f32 pool at 16 slots
+RESIZE_AT = 12  # decode steps before the live resize
+
+
+class PlanStub:
+    """A master for one executor: serves the plans of ``schedule``
+    ([(plan id, knobs, condition(executor))]) through
+    ``get_parallel_config`` and records the executor's config reports
+    (its acks) and the decode step at which each plan went out."""
+
+    def __init__(self, schedule):
+        self.schedule = list(schedule)
+        self.reports, self.issued = [], {}
+        self.executor = None
+
+    def serve_lease(self, max_requests):
+        return []
+
+    def serve_complete(self, **record):
+        pass
+
+    def report_serve_config(self, **fields):
+        self.reports.append(fields)
+
+    def acked(self, plan_id):
+        return any(r["plan_id"] == plan_id for r in self.reports)
+
+    def get_parallel_config(self):
+        ex = self.executor
+        for i, (plan_id, knobs, ready) in enumerate(self.schedule):
+            if self.acked(plan_id):
+                continue
+            if plan_id not in self.issued:
+                if i and not self.acked(self.schedule[i - 1][0]):
+                    break
+                if not ready(ex):
+                    break
+                self.issued[plan_id] = {
+                    "decode_steps": ex.decode_steps,
+                    "live": live_requests(ex),
+                    "mid_prefill": mid_prefill(ex)}
+            return types.SimpleNamespace(
+                plan_id=plan_id, serve_prefix_pool_pages=-1,
+                serve_spec_draft_len=-1, prewarm=True,
+                **{"serve_slots": 0, "serve_prefill_chunk": 0, **knobs})
+        return types.SimpleNamespace(plan_id="")
+
+
+def live_requests(ex):
+    return sum(r is not None for r in ex._slots)
+
+
+def mid_prefill(ex):
+    return sum(r is not None and not ex._active_host[i]
+               and 0 < r.cursor < len(r.prompt)
+               for i, r in enumerate(ex._slots))
+
+
+def timing_stats(records):
+    ttft = [r["ttft_s"] * 1e3 for r in records]
+    tpot = [(r["e2e_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1) * 1e3
+            for r in records]
+    return statistics.median(ttft), statistics.median(tpot)
+
+
+def tokens_differing(done, base):
+    """(positions, requests) whose tokens differ from ``base``'s."""
+    positions = requests = 0
+    for rid, rec in done.items():
+        diff = sum(a != b for a, b in zip(rec["tokens"], base[rid]["tokens"]))
+        positions += diff
+        requests += bool(diff)
+    return positions, requests
+
+
+def retune_leg(llama, engine, config, jobs, base, card):
+    """(d) The 12 requests replayed under a stub master's plans: 16 slots
+    (prewarmed) after the first decode steps, chunk 128 while prompts are
+    mid-prefill, chunk 300 (negative-acked), back to 8 slots once at most
+    8 requests are live. Every plan acked as the reference acks it, no
+    build in a prewarmed retune, the pool's bytes at 16 slots, every
+    request's logits through apply_check."""
+    import torch
+
+    from dlrover_tpu_torch.serving.engine import ServeExecutor
+
+    schedule = [
+        ("wide", {"serve_slots": RETUNE_SLOTS},
+         lambda ex: ex.decode_steps >= 1),
+        ("chunk", {"serve_prefill_chunk": RETUNE_CHUNK},
+         lambda ex: ex.decode_steps >= 4 and mid_prefill(ex) > 0),
+        ("unfit", {"serve_prefill_chunk": UNFIT_CHUNK}, lambda ex: True),
+        ("narrow", {"serve_slots": SERVE_SLOTS},
+         lambda ex: live_requests(ex) <= SERVE_SLOTS),
+    ]
+    stub = PlanStub(schedule)
+    engine.cache = engine.fresh_cache()
+    ex = ServeExecutor(engine, router_client=stub, serve_window=SERVE_WINDOW,
+                       plan_poll_secs=1e-9)
+    stub.executor = ex
+    rows = {rid: [] for rid, _, _ in jobs}
+    calls = []
+    prewarm, retune = engine.prewarm, engine.retune
+
+    def timed_prewarm(**knobs):
+        # prompts at cursor 0 but not decoding were restarted by a chunk
+        # change just before (admission prefills a chunk at once)
+        restarted = sum(r is not None and not ex._active_host[i]
+                        and r.cursor == 0 for i, r in enumerate(ex._slots))
+        t0 = time.monotonic()
+        built = prewarm(**knobs)
+        torch.cuda.synchronize()
+        knobs = {k: v for k, v in knobs.items() if v is not None}
+        calls.append({"call": "prewarm", "knobs": knobs, "built": built,
+                      "s": time.monotonic() - t0, "restarted": restarted})
+        return built
+
+    with contextlib.ExitStack() as stack:
+        spied = set()
+
+        def spy_active():
+            if id(engine.program) not in spied:
+                spied.add(id(engine.program))
+                spy_rows(engine.program, ex, rows, stack)
+
+        def timed_retune(**knobs):
+            before = engine.compile_count
+            t0 = time.monotonic()
+            built = retune(**knobs)
+            calls.append({
+                "call": "retune", "knobs": {
+                    k: v for k, v in knobs.items()
+                    if k != "slot_map" and v is not None},
+                "built": built, "builds": engine.compile_count - before,
+                "s": time.monotonic() - t0,
+                "slots": engine.program.spec.num_slots,
+                "pool_bytes": sum(t.numel() * t.element_size()
+                                  for t in engine.cache.values()
+                                  if t.dim() > 1)})
+            spy_active()
+            return built
+
+        stack.enter_context(swapped(engine, "prewarm", timed_prewarm))
+        stack.enter_context(swapped(engine, "retune", timed_retune))
+        spy_active()
+        for rid, prompt, new in jobs:
+            ex.submit(prompt, max_new_tokens=new, request_id=rid)
+        t0 = time.monotonic()
+        done = {r["request_id"]: r for r in ex.serve()}
+        wall = time.monotonic() - t0
+    for rid, _, new in jobs:
+        if done[rid]["error_code"] or len(done[rid]["tokens"]) != new:
+            fail(f"retuned serving request {rid}: {done[rid]}")
+    acks = [(r["plan_id"], r["apply_failed"]) for r in stub.reports
+            if r["plan_id"]]
+    want = [("wide", False), ("chunk", False), ("unfit", True),
+            ("narrow", False)]
+    if acks != want:
+        fail(f"serve plans acked {acks}, the reference acks {want}")
+    retunes = [c for c in calls if c["call"] == "retune"]
+    prewarms = [c for c in calls if c["call"] == "prewarm"]
+    if len(retunes) != 3 or any(c["builds"] for c in retunes):
+        fail(f"a prewarmed retune built a program: {calls}")
+    if retunes[0]["slots"] != RETUNE_SLOTS or \
+            retunes[0]["pool_bytes"] != RETUNE_POOL_BYTES:
+        fail(f"the pool at {RETUNE_SLOTS} slots: {retunes[0]} (expected "
+             f"{RETUNE_POOL_BYTES} B)")
+    if not stub.issued["chunk"]["mid_prefill"] or not prewarms[1][
+            "restarted"]:
+        fail(f"the chunk plan restarted no prompt mid-prefill: "
+             f"{stub.issued}, {prewarms}")
+    check = apply_check(llama, engine.params, config, jobs, done, rows)
+    if check["exact"] > SERVE_LOGIT_LIMIT or check["wrong"]:
+        fail(f"retuned batching against apply: {check} (limit "
+             f"{SERVE_LOGIT_LIMIT})")
+    differ = tokens_differing(done, base)
+    ttft, tpot = timing_stats(list(done.values()))
+    out = {"acks": acks, "issued": stub.issued, "calls": calls,
+           "apply_check": check, "tokens_differing": differ,
+           "wall_s": wall, "ttft_ms_median": ttft, "tpot_ms_median": tpot,
+           "decode_steps": ex.decode_steps, "ledger": ex.slot_ledger()}
+    log(f"  elastic (d) retune under traffic, the {SERVE_REQUESTS} requests "
+        f"again under a stub master's plans: acks {acks} (issued at "
+        + ", ".join(f"{k} step {v['decode_steps']}, {v['live']} live, "
+                    f"{v['mid_prefill']} mid-prefill"
+                    for k, v in stub.issued.items())
+        + "); "
+        + "; ".join(f"{c['call']} {c['knobs']} built {c['built']} in "
+                    f"{c['s']:.3f} s" for c in calls)
+        + f"; {prewarms[1]['restarted']} prompts restarted by the chunk "
+        f"change"
+        + f"; pool {retunes[0]['pool_bytes']} B at {RETUNE_SLOTS} slots; "
+        f"logits within {check['exact']:.4f} of the exact apply (limit "
+        f"{SERVE_LOGIT_LIMIT}; through B1 {check['b1']:.4f}), no wrong token; "
+        f"{differ[0]} tokens in {differ[1]} requests differ from the "
+        f"unretuned run; TTFT median {ttft:.1f} ms, TPOT median {tpot:.2f} "
+        f"ms; {ex.decode_steps} decode steps in {wall:.3f} s; slot ledger "
+        f"resize_frozen {out['ledger']['resize_frozen']:.3f} of "
+        f"{out['ledger']['slot_seconds']:.3f} slot-s; {card}")
+    return out
+
+
+def resize_leg(engine, jobs, base, card):
+    """(e) The 12 requests again, resized live onto the same card after
+    RESIZE_AT decode steps (the engine prewarmed first): the tokens equal
+    the resize-free run's, SERVE_RESIZE_DONE reads recompiled 0; the
+    snapshot's bytes, its take and restore seconds, the resize's."""
+    import torch
+
+    from dlrover_tpu_torch.serving.engine import ServeExecutor
+    from dlrover_tpu_torch.telemetry import EventKind, recent_events
+
+    target = torch.device("cuda", torch.cuda.current_device())
+    prewarmed = engine.prewarm(devices=[target])
+    builds = engine.compile_count
+    parts = {}
+    take = engine.snapshot
+
+    def timed_snapshot():
+        t0 = time.monotonic()
+        snap = take()
+        parts["take_s"] = time.monotonic() - t0
+        parts["bytes"] = snap.nbytes()
+        restore = snap.restore_tree
+
+        def timed_restore(device):
+            t1 = time.monotonic()
+            tree = restore(device)
+            parts["restore_s"] = time.monotonic() - t1
+            return tree
+
+        snap.restore_tree = timed_restore
+        return snap
+
+    engine.cache = engine.fresh_cache()
+    ex = ServeExecutor(engine, serve_window=SERVE_WINDOW)
+    for rid, prompt, new in jobs:
+        ex.submit(prompt, max_new_tokens=new, request_id=rid)
+    since = len(recent_events())
+    with swapped(engine, "snapshot", timed_snapshot):
+        ex.serve(max_steps=RESIZE_AT, until_idle=False)
+        live = sum(ex._active_host)
+        if not live:
+            fail("no request mid-decode at the live resize")
+        ex.request_resize([target])
+        t0 = time.monotonic()
+        done = {r["request_id"]: r for r in ex.serve()}
+        wall = time.monotonic() - t0
+    event = last_event(EventKind.SERVE_RESIZE_DONE, since)
+    differ = tokens_differing(done, base)
+    if differ[0] or set(done) != set(base):
+        fail(f"continuations across the live resize differ from the "
+             f"resize-free run: {differ[0]} tokens in {differ[1]} requests")
+    if event["recompiled"] or engine.compile_count != builds:
+        fail(f"the live resize built a program: {event}")
+    out = {"prewarm_built": prewarmed, "live_decoding": live,
+           "event": {k: event[k] for k in ("world_from", "world_to",
+                                           "reshard_seconds", "recompiled")},
+           "snapshot_bytes": parts["bytes"], "take_s": parts["take_s"],
+           "restore_s": parts["restore_s"], "serve_wall_s": wall}
+    log(f"  elastic (e) live resize onto {target} after {RESIZE_AT} decode "
+        f"steps ({live} slots decoding; prewarm built {prewarmed}): every "
+        f"request's tokens the resize-free run's; SERVE_RESIZE_DONE "
+        f"{out['event']}; snapshot {parts['bytes']} B, take "
+        f"{parts['take_s']:.3f} s, restore {parts['restore_s']:.3f} s, the "
+        f"resize {event['reshard_seconds']:.3f} s; {card}")
+    return out
+
+
+def decode_estimate_line(config, steps, card):
+    """(f) ``planner.estimate_decode`` for phase 19's geometry on the
+    card's DeviceSpec, beside the measured decode step, and the host ms a
+    layer this run measured beside the planner's constant. No gate."""
+    from dlrover_tpu_torch.parallel import planner
+
+    m = planner.model_spec_from_llama(config)
+    est = planner.estimate_decode(m, 1, SERVE_SLOTS, SERVE_CHUNK,
+                                  SERVE_MAX_SEQ, "f32",
+                                  page_size=SERVE_PAGE)
+    host_layer_ms = steps["decode_host_ms"] / config.num_layers
+    out = {"step_ms": est["step_s"] * 1e3,
+           "tokens_per_s": est["tokens_per_s"],
+           "breakdown_ms": {k: v * 1e3 for k, v in est["breakdown"].items()
+                            if k.endswith("_s")},
+           "measured_decode_ms": steps["decode_ms"],
+           "measured_host_ms_per_layer": host_layer_ms,
+           "planner_host_ms_per_layer":
+               planner.HOST_DISPATCH_PER_LAYER_S * 1e3,
+           "outside_layers_op_share":
+               steps["ops_outside_layers"] / steps["ops"]}
+    log(f"  elastic (f) estimate_decode at {SERVE_SLOTS} slots, chunk "
+        f"{SERVE_CHUNK}, f32 pool {SERVE_MAX_SEQ} deep: step "
+        f"{out['step_ms']:.3f} ms ({out['tokens_per_s']:.0f} tokens/s; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["breakdown_ms"].items())
+        + f" ms) beside the measured {steps['decode_ms']:.3f} ms; the host "
+        f"{host_layer_ms:.3f} ms a layer in this run against the planner's "
+        f"{out['planner_host_ms_per_layer']:.3f} (the ops outside the "
+        f"layers {out['outside_layers_op_share']:.3f} of a step's); {card}")
+    return out
+
+
 def serving_phase(llama, fa, config, snapshot, card):
     """Phase 19: serving on the card, phase 5's trained weights promoted
     through ``ServeEngine.load_from_snapshot``."""
-    import statistics as stats
-
     import torch
 
     t_phase = time.monotonic()
@@ -6026,9 +6386,7 @@ def serving_phase(llama, fa, config, snapshot, card):
         fail(f"continuous batching against apply: {check} (limit "
              f"{SERVE_LOGIT_LIMIT})")
     records = list(done.values())
-    ttft = [r["ttft_s"] * 1e3 for r in records]
-    tpot = [(r["e2e_s"] - r["ttft_s"]) / (len(r["tokens"]) - 1) * 1e3
-            for r in records]
+    ttft, tpot = timing_stats(records)
     ledger = ex.slot_ledger()
     shares = {k: ledger[k] / ledger["slot_seconds"]
               for k in ("decode", "prefill", "admitted_idle", "vacant",
@@ -6043,8 +6401,7 @@ def serving_phase(llama, fa, config, snapshot, card):
         "faults": faults, "limit": SERVE_LOGIT_LIMIT,
         "decode_steps": ex.decode_steps, "wall_s": wall,
         "tokens": generated, "tokens_per_s": generated / wall,
-        "ttft_ms_median": stats.median(ttft),
-        "tpot_ms_median": stats.median(tpot), "ledger": ledger,
+        "ttft_ms_median": ttft, "tpot_ms_median": tpot, "ledger": ledger,
         "ledger_shares": shares}
     log(f"  (b) {SERVE_REQUESTS} requests (prompts "
         f"{sorted(len(p) for _, p, _ in jobs)} tokens, {SERVE_NEW} new "
@@ -6059,8 +6416,8 @@ def serving_phase(llama, fa, config, snapshot, card):
                     f"through B1 {v['b1']:.4f})" for k, v in faults.items())
         + f" (beyond it); {ex.decode_steps} decode steps, {generated} tokens "
         f"in {wall:.3f} s ({generated / wall:.0f} tokens/s, prefill "
-        f"included); TTFT median {stats.median(ttft):.1f} ms, TPOT median "
-        f"{stats.median(tpot):.2f} ms; slot ledger shares "
+        f"included); TTFT median {ttft:.1f} ms, TPOT median "
+        f"{tpot:.2f} ms; slot ledger shares "
         + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
         + f"; {card}")
 
@@ -6165,8 +6522,42 @@ def serving_phase(llama, fa, config, snapshot, card):
         f"{report['peak_memory_bytes'] / 2**30:.2f} GiB; B1 serving launches "
         f"{report['prefill_sequence']['b1_launches']}; phase 19 "
         f"{report['wall_s']:.1f} s wall; {card}")
+
+    # elastic serving on the same engine, after the checks above
+    report["retune"] = retune_leg(llama, main_engine, config, jobs, done,
+                                  card)
+    main_engine.retune(prefill_chunk=SERVE_CHUNK, slot_map={})
+    report["resize"] = resize_leg(main_engine, jobs, done, card)
+    report["estimate"] = decode_estimate_line(config, report["steps"], card)
+    report["wall_s"] = time.monotonic() - t_phase
+    log(f"  phase 19 with the elastic legs {report['wall_s']:.1f} s wall")
     del main_engine
     return report
+
+
+def train_and_serve(llama, fa, remat, card, report):
+    """Phase 5, the dense main path, then phase 19 on its trained
+    weights; returns phase 5's config."""
+    import torch
+
+    log(f"main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
+        f"{STEPS} steps:")
+    config = llama.llama3_8b(num_layers=LAYERS, max_seq_len=SEQ)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    flash_expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
+                      "flash_bwd_dkv": STEPS * LAYERS,
+                      "flash_bwd_dq": STEPS * LAYERS, **NO_SEG, **NO_PFX}
+    report["train"] = train_main_path(
+        llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
+        "llama", (fa,), flash_expected, card, keep_params=True)
+    torch.cuda.empty_cache()
+
+    log(f"phase 19, serving (phase 5's trained weights promoted through "
+        f"ServeEngine.load_from_snapshot; {card}):")
+    report["serving"] = serving_phase(
+        llama, fa, config, report["train"].pop("params_snapshot"), card)
+    free_memory()
+    return config
 
 
 def main():
@@ -6191,6 +6582,10 @@ def main():
                         help="with --against: also N calls of both trees' "
                              "B6 and B4-f32 on each of phase 10's layouts, "
                              "each held bit for bit (against_stress)")
+    parser.add_argument("--only-serving", action="store_true",
+                        help="only build the kernels and run phase 5, "
+                             "then phase 19 (serving and its elastic "
+                             "legs) on its trained weights")
     args = parser.parse_args()
     try:
         import torch
@@ -6239,6 +6634,15 @@ def main():
             if any(key in line for key in ("registers", "spill", "C75")):
                 log(f"  ptxas {name}: {line.strip()}")
     report["build_s"] = build_s
+    if args.only_serving:
+        train_and_serve(llama, fa, remat, card, report)
+        if args.json:
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                        exist_ok=True)
+            with open(args.json, "w") as out:
+                json.dump(report, out, indent=1, default=str)
+        print(json.dumps({"ok": True, "only": "serving"}), flush=True)
+        return
 
     log("kernel vs plain:")
     errs, inputs, right = check_kernels(fa, 1, 32, 8, SEQ, 128,
@@ -6294,23 +6698,7 @@ def main():
         kernel_times(fa, 1, 32, 32, SEQ, 128)
     torch.cuda.empty_cache()
 
-    log(f"main path: llama3_8b x{LAYERS} layers, batch 1, seq {SEQ}, "
-        f"{STEPS} steps:")
-    config = llama.llama3_8b(num_layers=LAYERS, max_seq_len=SEQ)
-    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
-    flash_expected = {"flash_fwd": STEPS * LAYERS * (1 + recompute),
-                      "flash_bwd_dkv": STEPS * LAYERS,
-                      "flash_bwd_dq": STEPS * LAYERS, **NO_SEG, **NO_PFX}
-    report["train"] = train_main_path(
-        llama, config, f"llama3_8b(num_layers={LAYERS}, max_seq_len={SEQ})",
-        "llama", (fa,), flash_expected, card, keep_params=True)
-    torch.cuda.empty_cache()
-
-    log(f"phase 19, serving (phase 5's trained weights promoted through "
-        f"ServeEngine.load_from_snapshot; {card}):")
-    report["serving"] = serving_phase(
-        llama, fa, config, report["train"].pop("params_snapshot"), card)
-    free_memory()
+    config = train_and_serve(llama, fa, remat, card, report)
 
     log("full-width cross-check (use_flash True vs False):")
     report["cross_check"] = cross_check(

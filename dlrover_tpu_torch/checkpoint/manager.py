@@ -130,9 +130,16 @@ def _dcp(fn, *args, **kwargs):
 
 def state_tensors(state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """(name -> live tensor, name -> non-tensor optimizer value) of a
-    ``TrainState``: ``params/<path>`` and ``opt/<path>/<slot>``."""
+    ``TrainState``: ``params/<path>`` and ``opt/<path>/<slot>``. A plain
+    mapping of parts (a serving engine's ``{"params", "cache"[,
+    "prefix"]}``) gives ``<part>/<path>`` for each of its tensors."""
     tensors: Dict[str, torch.Tensor] = {}
     values: Dict[str, Any] = {}
+    if isinstance(state, Mapping):
+        for part, sub in state.items():
+            for path, t in _named_leaves(sub):
+                tensors[f"{part}/{path}"] = t
+        return tensors, values
     slots = state.opt_state.state
     for path, p in _named_leaves(state.params):
         tensors[f"params/{path}"] = p
@@ -324,6 +331,8 @@ class HostSnapshot:
     def take(cls, state, arena=None, regroup=None, **meta) -> "HostSnapshot":
         """One device-to-host copy of every leaf, then one sync. Callers
         drain in-flight steps first so this waits only on the last.
+        ``state``: a ``TrainState`` or a plain mapping of parts (a
+        serving engine's, ``meta`` then ``kind="serving"``).
 
         ``arena``: the host buffers of an earlier snapshot (its
         ``_arena``), copied into when the shapes match instead of
@@ -346,7 +355,7 @@ class HostSnapshot:
             tm.SNAPSHOT_TIME,
             help="host-DRAM TrainState snapshot seconds",
         ).observe(snap_s)
-        step = int(state.step)
+        step = int(getattr(state, "step", 0))
         emit_event(EventKind.STATE_SNAPSHOT, step=step,
                    snapshot_seconds=round(snap_s, 3))
         return cls(step=step, tree=tree, meta=dict(meta), _arena=arena)
@@ -360,6 +369,24 @@ class HostSnapshot:
                   if not isinstance(v, torch.Tensor)}
         _fill_state(state, host, values, self.step)
         return state
+
+    def restore_tree(self, device) -> Dict[str, Any]:
+        """The snapshot of a plain mapping (see ``state_tensors``) as
+        new tensors on ``device``, nested as it was taken: one copy a
+        leaf, then one sync."""
+        tree: Dict[str, Any] = {}
+        with torch.no_grad():
+            for name, v in self.tree.items():
+                node = tree
+                *parents, last = name.split("/")
+                for key in parents:
+                    node = node.setdefault(key, {})
+                out = v.to(device, non_blocking=True)
+                node[last] = out.clone() if out.data_ptr() == v.data_ptr() \
+                    else out
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        return tree
 
     def nbytes(self) -> int:
         """Host bytes this snapshot holds."""

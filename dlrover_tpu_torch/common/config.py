@@ -80,6 +80,13 @@ class Context:
         # verified a slot a step (K; 0 = off)
         self.serve_spec_enabled = True
         self.serve_spec_draft_len = 0
+        # seconds between the serving worker's polls of the master for a
+        # serve plan (0 = never poll)
+        self.plan_poll_secs = 30.0
+        # node runtime reports: every this many decode steps, and no
+        # more often than every seconds_interval_to_report seconds
+        self.runtime_report_steps = 32
+        self.seconds_interval_to_report = 15
         self._apply_env_overrides()
 
     def _apply_env_overrides(self):

@@ -1,16 +1,18 @@
 """Per-card capability for the port (the ``DeviceSpec`` of
 ``dlrover_tpu/parallel/planner.py:29-45``, with NVIDIA cards in place of
-the TPU generations), and ``kv_bytes_per_elem``, the one price of a
-stored KV element that ``serving.kv_cache.KVCacheSpec`` charges. The
-planner's search over meshes comes with ROADMAP A15, its serving decode
-term with A16b.
+the TPU generations), ``kv_bytes_per_elem``, the one price of a stored
+KV element that ``serving.kv_cache.KVCacheSpec`` charges, and the
+serving decode term: ``ModelSpec``, the pool's byte counts and
+``estimate_decode``, a serving config's predicted decode step and
+tokens/s. The planner's search over meshes comes with ROADMAP A15.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -76,3 +78,181 @@ def kv_bytes_per_elem(kv_precision: str, channels: int = 0) -> float:
     if kv_precision == "bf16":
         return 2.0
     return 4.0
+
+
+# -- the serving decode term --------------------------------------------------
+
+# The host's floor a decode step, a layer: the host seconds one call of
+# the serve loop's decode at 8 active slots takes to return from an empty
+# queue (phase 19 of chip_smoke.py, `host_ms`: Llama-3-8B x 4 layers, f32
+# pool 2048 deep; NVIDIA H100 80GB HBM3, 700.00 W: 10.508 ms), over its 4
+# layers. The port dispatches op by op (284 ops a step, 68 a layer), so
+# the floor grows with the depth; the 12 ops outside the layers
+# (embedding, final norm, head, sampling) are folded into the figure, so
+# it overstates a deeper model's floor by up to their share, 0.042. It
+# enters the step as a floor (max), not a term.
+HOST_DISPATCH_PER_LAYER_S = 2.627e-3
+# The fraction of the datasheet peak the FLOPs term may claim: no cap was
+# measured on the card, so the FLOPs term is priced at the peak.
+MAX_EFFICIENCY = 1.0
+
+
+@dataclass
+class ModelSpec:
+    """What the decode term reads of the workload (the reference's
+    ``ModelSpec`` holds the training planner's fields too)."""
+
+    param_count: int
+    num_layers: int
+    hidden_size: int
+    # GQA shape (0 = MHA)
+    num_heads: int = 0
+    kv_heads: int = 0
+
+
+def model_spec_from_llama(config) -> ModelSpec:
+    """A ModelSpec of a LlamaConfig."""
+    from dlrover_tpu_torch.models import llama
+
+    return ModelSpec(
+        param_count=llama.param_count(config),
+        num_layers=config.num_layers,
+        hidden_size=config.hidden_size,
+        num_heads=config.num_heads,
+        kv_heads=config.num_kv_heads,
+    )
+
+
+def _kv_geometry(m: ModelSpec):
+    """(kv heads, head dim) of a ModelSpec."""
+    kv_heads = m.kv_heads or m.num_heads or 1
+    heads = max(1, m.num_heads or 1)
+    return max(1, kv_heads), m.hidden_size // heads
+
+
+def serve_cache_bytes(m: ModelSpec, serve_slots: int, max_seq: int,
+                      kv_precision: str = "f32") -> float:
+    """The whole pool's K and V, every slot at full depth (preallocated:
+    what must fit, not an average)."""
+    kv_heads, head_dim = _kv_geometry(m)
+    elems = m.num_layers * serve_slots * max_seq * kv_heads * head_dim
+    return 2.0 * elems * kv_bytes_per_elem(kv_precision, head_dim)
+
+
+def serve_prefix_pool_bytes(m: ModelSpec, pool_pages: int, page_size: int,
+                            kv_precision: str = "f32") -> float:
+    """The shared prefix pool's K and V (``pool_pages`` pages of
+    ``page_size`` tokens, every layer), the same byte formula; the pool
+    is replicated, so a device holds all of it."""
+    kv_heads, head_dim = _kv_geometry(m)
+    elems = (m.num_layers * max(0, int(pool_pages))
+             * max(1, int(page_size)) * kv_heads * head_dim)
+    return 2.0 * elems * kv_bytes_per_elem(kv_precision, head_dim)
+
+
+def decode_kv_read_bytes(m: ModelSpec, serve_slots: int, seq_fill: int,
+                         kv_precision: str = "f32") -> float:
+    """The KV bytes one decode step reads: every filled row's K and V,
+    every layer and slot (``seq_fill``: the filled depth)."""
+    kv_heads, head_dim = _kv_geometry(m)
+    elems = m.num_layers * serve_slots * seq_fill * kv_heads * head_dim
+    return 2.0 * elems * kv_bytes_per_elem(kv_precision, head_dim)
+
+
+def estimate_decode(m: ModelSpec, num_devices: int, serve_slots: int,
+                    prefill_chunk: int, max_seq: int,
+                    kv_precision: str = "f32",
+                    prefix_pool_pages: int = 0,
+                    page_size: int = 16,
+                    prefix_hit_rate: float = 0.0,
+                    spec_draft_len: int = 0,
+                    spec_accept_rate: float = -1.0,
+                    device: Optional[DeviceSpec] = None,
+                    dispatch_s: Optional[float] = None,
+                    max_efficiency: Optional[float] = None) -> Dict:
+    """A serving config's predicted decode step and tokens/s, with the
+    breakdown (the reference's model, term for term):
+
+      kv_read_s      the pool at half fill over the memory rate
+      weight_read_s  2 bytes a parameter a step over the memory rate
+      flops_s        2 x params x slots over the peak x ``max_efficiency``
+      dispatch_s     the host's floor a step (``dispatch_s``)
+      prefill_amort  a prompt's chunks (each a dispatch, a weight read
+                     and its rows) spread over its generated tokens; a
+                     prefix pool discounts it by the expected hit rate
+                     (a hit's pages are copies, one dispatch a page)
+      speculation    K > 0 with an observed acceptance rate: 1 + rate x
+                     K tokens a step, the FLOPs term x (K + 1); with no
+                     observed rate, exactly the K = 0 estimate
+
+    Defaults are the card's: ``device`` the H100 SXM's ``DeviceSpec``,
+    ``dispatch_s`` HOST_DISPATCH_PER_LAYER_S x the model's layers,
+    ``max_efficiency`` MAX_EFFICIENCY. Returns {"step_s", "tokens_per_s", "cache_bytes",
+    "cache_bytes_per_device", "breakdown"}; whether the pool fits is
+    the caller's check."""
+    dev = device or DeviceSpec()
+    dispatch_s = (HOST_DISPATCH_PER_LAYER_S * m.num_layers
+                  if dispatch_s is None else float(dispatch_s))
+    eff = MAX_EFFICIENCY if max_efficiency is None else float(max_efficiency)
+    n = max(1, int(num_devices))
+    slots = max(1, int(serve_slots))
+    chunk = max(1, int(prefill_chunk))
+    pool_pages = max(0, int(prefix_pool_pages))
+    hit_rate = (min(1.0, max(0.0, float(prefix_hit_rate)))
+                if pool_pages else 0.0)
+    cache_bytes = serve_cache_bytes(m, slots, max_seq, kv_precision)
+    pool_bytes = serve_prefix_pool_bytes(m, pool_pages, page_size,
+                                         kv_precision)
+    kv_read = decode_kv_read_bytes(
+        m, slots, max(1, max_seq // 2), kv_precision) / n
+    kv_read_s = kv_read / dev.hbm_bw
+    weight_read_s = (m.param_count * 2.0 / n) / dev.hbm_bw
+    flops_s = (2.0 * m.param_count * slots / n) / (dev.flops_per_s * eff)
+    # a prompt of L tokens takes ceil(L / chunk) interleaved chunks
+    avg_prompt = max(1.0, max_seq / 4.0)
+    prefill_calls = math.ceil(avg_prompt / chunk)
+    prefill_s_per_req = prefill_calls * (
+        dispatch_s + weight_read_s
+        + chunk * kv_read_s / max(1, max_seq // 2) / slots)
+    if pool_pages:
+        pool_tokens = pool_pages * max(1, int(page_size))
+        coverage = min(1.0, pool_tokens / avg_prompt)
+        discount = hit_rate * coverage
+        copy_pages = avg_prompt / max(1, int(page_size))
+        copy_s_per_req = discount * copy_pages * dispatch_s
+        prefill_s_per_req = ((1.0 - discount) * prefill_s_per_req
+                             + copy_s_per_req)
+    avg_new = max(1.0, max_seq / 4.0)
+    prefill_amort_s = prefill_s_per_req / avg_new / slots
+    k = max(0, int(spec_draft_len))
+    rate = float(spec_accept_rate)
+    if k > 0 and 0.0 <= rate <= 1.0:
+        expected_tokens = 1.0 + rate * k
+        step_s = max(kv_read_s + weight_read_s + prefill_amort_s,
+                     flops_s * (k + 1), dispatch_s)
+        tokens_per_s = slots * expected_tokens / step_s
+    else:
+        expected_tokens = 1.0
+        step_s = max(kv_read_s + weight_read_s + prefill_amort_s,
+                     flops_s, dispatch_s)
+        tokens_per_s = slots / step_s
+    return {
+        "step_s": step_s,
+        "tokens_per_s": tokens_per_s,
+        "cache_bytes": cache_bytes,
+        "cache_bytes_per_device": cache_bytes / n + pool_bytes,
+        "breakdown": {
+            "kv_read_s": kv_read_s,
+            "weight_read_s": weight_read_s,
+            "flops_s": flops_s,
+            "dispatch_s": dispatch_s,
+            "prefill_amort_s": prefill_amort_s,
+            "prefix_pool_bytes": pool_bytes,
+            "prefix_hit_rate": hit_rate,
+            "spec_draft_len": k,
+            "spec_accept_rate": rate if 0.0 <= rate <= 1.0 else -1.0,
+            "spec_expected_tokens_per_step": expected_tokens,
+            "kv_bytes_per_elem": kv_bytes_per_elem(
+                kv_precision, m.hidden_size // max(1, m.num_heads or 1)),
+        },
+    }

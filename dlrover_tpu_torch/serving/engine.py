@@ -22,13 +22,25 @@ host copy. With ``spec_draft_len`` K > 0 each step is a verify step over
 the drafts of a host n-gram proposer, which emits token for token what
 plain greedy decode emits (``models.llama.verify_step``).
 
+Elasticity on one device: ``prewarm`` builds the program of a
+candidate knob set (or device) beside the active one and runs one dummy
+step of each kind; ``retune`` swaps knobs through the program cache,
+repacking live slots on the host when the slot count changes
+(``kv_cache.migrate_slots_host``); ``live_resize`` takes a host
+snapshot of ``{"params", "cache"[, "prefix"]}`` and restores it onto
+the new device, live requests' pages included. The executor applies
+``request_resize`` / ``request_retune`` at a drained boundary, polls
+the master for serve plans and acks them (``report_serve_config``),
+and pushes runtime reports through ``serving.slo``.
+
 The engine serves on one device: ``devices`` defaults to the card and
 raises without one; the tests pass ``devices=[torch.device("cpu")]``.
-Serving over several ranks, ``prewarm``, ``snapshot``, ``live_resize``,
-``retune`` and the executor's plan loop (``request_resize``,
-``request_retune``) are ROADMAP A16b and raise. ``router_client`` is
-any object with ``serve_lease(max_requests=)``, ``serve_complete(
-**record)`` and ``serve_touch()``.
+Several devices or ranks raise (ROADMAP A16c). ``router_client`` is any
+object with ``serve_lease(max_requests=)``, ``serve_complete(**record)``
+and ``serve_touch()``; with ``get_parallel_config()``,
+``report_serve_config(**fields)`` and ``report_node_runtime(**fields)``
+it also carries the plan loop and the runtime reports (the reference's
+``MasterClient`` has all six).
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from dlrover_tpu_torch.serving.kv_cache import (
     copy_page_to_slot,
     init_kv_cache,
     init_prefix_pool,
+    migrate_slots_host,
     resolve_kv_precision,
     serve_shardings,
 )
@@ -73,8 +86,14 @@ from dlrover_tpu_torch.telemetry.trace_context import new_trace_id
 logger = get_logger("serving.engine")
 
 
-def _later(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A16b)")
+def _one_device(devices):
+    """The one device of ``devices`` (None: the card); several raise."""
+    devices = list(devices) if devices is not None else [None]
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"serving over {len(devices)} devices is not ported yet "
+            "(ROADMAP A16c)")
+    return resolve_device(devices[0])
 
 
 @dataclass
@@ -155,10 +174,7 @@ class ServeEngine:
                  devices=None):
         from dlrover_tpu_torch.parallel.strategy import Strategy
 
-        devices = list(devices) if devices is not None else [None]
-        if len(devices) != 1:
-            raise _later(f"serving over {len(devices)} devices")
-        self._device = resolve_device(devices[0])
+        self._device = _one_device(devices)
         self._config = config
         self._base_strategy = strategy or Strategy(rule_set="llama")
         self.serve_slots = max(1, int(_resolve_knob(
@@ -205,8 +221,8 @@ class ServeEngine:
             prefix_pool_pages=self.prefix_pool_pages,
         )
 
-    def _program_key(self, strategy) -> str:
-        return (topology_key([self._device])
+    def _program_key(self, strategy, device: torch.device) -> str:
+        return (topology_key([device])
                 + f"|slots={self.serve_slots}"
                 + f"|pc={self.prefill_chunk}"
                 + f"|mesh={mesh_axes_key(strategy.mesh)}"
@@ -214,9 +230,10 @@ class ServeEngine:
                 + f"|ppp={self.prefix_pool_pages}"
                 + f"|spec={self.spec_draft_len}")
 
-    def _build(self) -> ServeProgram:
+    def _build(self, device: Optional[torch.device] = None) -> ServeProgram:
+        device = self._device if device is None else device
         strategy = self._base_strategy.adjust_to_world(1)
-        key = self._program_key(strategy)
+        key = self._program_key(strategy, device)
         reg = get_registry()
         cached = self._programs.get(key)
         if cached is not None:
@@ -226,14 +243,14 @@ class ServeEngine:
             return cached
         reg.counter(tm.PROGRAM_CACHE_MISSES,
                     help="rebuilds that had to build").inc()
-        program = self._compile(strategy)
+        program = self._compile(strategy, device)
         self.compile_count += 1
         self._programs[key] = program
         while len(self._programs) > self._program_cache_cap:
             self._programs.popitem(last=False)
         return program
 
-    def _compile(self, strategy) -> ServeProgram:
+    def _compile(self, strategy, device: torch.device) -> ServeProgram:
         from dlrover_tpu_torch.models import llama
 
         config = self._config
@@ -280,10 +297,10 @@ class ServeEngine:
                                          dst_page, spec)
 
         logger.info("serve program built on %s: slots=%d chunk=%d kv=%s "
-                    "spec_k=%d", self._device, spec.num_slots,
+                    "spec_k=%d", device, spec.num_slots,
                     self.prefill_chunk, spec.precision, spec_k)
         return ServeProgram(
-            decode=decode, prefill=prefill, device=self._device,
+            decode=decode, prefill=prefill, device=device,
             shardings=shardings, spec=spec,
             prefill_chunk=self.prefill_chunk,
             admit_copy=admit_copy, publish_copy=publish_copy,
@@ -381,19 +398,210 @@ class ServeEngine:
                     "serving tier", step)
         return step
 
-    # -- elasticity (ROADMAP A16b) -------------------------------------------
+    # -- elasticity ----------------------------------------------------------
 
-    def prewarm(self, *args, **kwargs):
-        raise _later("ServeEngine.prewarm")
+    def _set_knobs(self, serve_slots=None, prefill_chunk=None,
+                   prefix_pool_pages=None, spec_draft_len=None) -> None:
+        if serve_slots is not None:
+            self.serve_slots = max(1, int(serve_slots))
+        if prefill_chunk is not None:
+            self.prefill_chunk = _fit_prefill_chunk(
+                int(prefill_chunk), self._pool_depth)
+        if prefix_pool_pages is not None:
+            self.prefix_pool_pages = max(0, int(prefix_pool_pages))
+        if spec_draft_len is not None:
+            # a K-only change lives in the program (the verify step's
+            # token shape), not in the pool's spec
+            self.spec_draft_len = (max(0, int(spec_draft_len))
+                                   if self.spec_enabled else 0)
+
+    def _knobs(self):
+        return (self.serve_slots, self.prefill_chunk,
+                self.prefix_pool_pages, self.spec_draft_len)
+
+    def _restore_knobs(self, knobs) -> None:
+        (self.serve_slots, self.prefill_chunk, self.prefix_pool_pages,
+         self.spec_draft_len) = knobs
+
+    def prewarm(self, devices=None, serve_slots: Optional[int] = None,
+                prefill_chunk: Optional[int] = None,
+                prefix_pool_pages: Optional[int] = None,
+                spec_draft_len: Optional[int] = None) -> bool:
+        """Build the program for a device or knob set the engine may
+        switch to, without switching the active one. When a build
+        happened, run one dummy decode step and one dummy prefill chunk
+        (and one verify step and one admit/publish page copy with those
+        knobs on) on a fresh pool: nothing is compiled in eager
+        PyTorch, but the run allocates the new shapes' buffers and
+        loads every kernel module the path reaches, so the switch that
+        follows builds and loads nothing. Returns whether a build
+        happened."""
+        device = (self._device if devices is None
+                  else _one_device(devices))
+        prev = self._knobs()
+        self._set_knobs(serve_slots, prefill_chunk, prefix_pool_pages,
+                        spec_draft_len)
+        try:
+            before = self.compile_count
+            program = self._build(device)
+            built = self.compile_count > before
+            if built and self.params is not None:
+                self._dummy_steps(program)
+                logger.info("prewarmed standby serve program on %s "
+                            "(slots=%d)", device, program.spec.num_slots)
+        finally:
+            self._restore_knobs(prev)
+        return built
+
+    def _dummy_steps(self, program: ServeProgram) -> None:
+        dev = program.device
+        params = (self.params if dev == self._device
+                  else tree_map(lambda t: t.to(dev), self.params))
+        cache = init_kv_cache(program.spec, dev)
+        s = program.spec.num_slots
+        tokens = torch.zeros((s,), dtype=torch.int32, device=dev)
+        active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        with torch.inference_mode():
+            program.decode(params, cache, tokens, active)
+            chunk = torch.zeros((program.prefill_chunk,), dtype=torch.int32,
+                                device=dev)
+            program.prefill(params, cache, chunk, 0, 0, 1)
+            if program.verify is not None:
+                draft = torch.zeros((s, program.spec_k + 1),
+                                    dtype=torch.int32, device=dev)
+                n_draft = torch.zeros((s,), dtype=torch.int32, device=dev)
+                program.verify(params, cache, draft, active, n_draft)
+            if program.admit_copy is not None:
+                pool = init_prefix_pool(program.spec, dev)
+                program.admit_copy(cache, pool, 0, 0, 0)
+                program.publish_copy(pool, cache, 0, 0, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def snapshot(self):
-        raise _later("ServeEngine.snapshot")
+        """A host copy of ``{"params", "cache"[, "prefix"]}``, the
+        resize's source: live slots' pages ride it, so leased requests
+        continue instead of restarting from their prompts. The prefix
+        pool rides it too (the host index names pool page ids, which
+        survive the copy)."""
+        from dlrover_tpu_torch.checkpoint import HostSnapshot
 
-    def live_resize(self, *args, **kwargs):
-        raise _later("ServeEngine.live_resize")
+        tree = {"params": self.params, "cache": self.cache}
+        if self.pool is not None:
+            tree["prefix"] = self.pool
+        return HostSnapshot.take(tree, kind="serving")
 
-    def retune(self, *args, **kwargs):
-        raise _later("ServeEngine.retune")
+    def live_resize(self, devices=None, snapshot=None,
+                    reason: str = "") -> int:
+        """Drain (the caller's) -> snapshot -> rebuild (the program
+        cache: nothing built when prewarmed) -> restore the parameters
+        and the live pages onto the new device -> synchronize.
+        ``devices``: a list of one device (None: the card); several
+        raise. Returns the number of programs built."""
+        device = _one_device(devices)
+        old_n = 1 if self.program is not None else 0
+        t0 = time.monotonic()
+        emit_event(EventKind.SERVE_RESIZE_BEGIN, world_from=old_n,
+                   reason=reason)
+        with span(SpanName.LIVE_RESHARD, world_from=old_n):
+            if snapshot is None:
+                snapshot = self.snapshot()
+            # the old copies go before the restore allocates the new
+            self.params = self.cache = self.pool = None
+            self._device = device
+            builds_before = self.compile_count
+            self.program = self._build()
+            tree = snapshot.restore_tree(device)
+            self.params, self.cache = tree["params"], tree["cache"]
+            if "prefix" in tree and self.program.spec.prefix_pool_pages > 0:
+                self.pool = tree["prefix"]
+            elif self.program.spec.prefix_pool_pages > 0:
+                # a snapshot without pool pages cannot carry the index:
+                # rebuild it clean
+                self.reset_prefix()
+            else:
+                self.pool = None
+                self.prefix_index = None
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        recompiled = self.compile_count - builds_before
+        seconds = time.monotonic() - t0
+        reg = get_registry()
+        reg.counter(
+            tm.SERVE_RESIZES,
+            help="serving worlds resized live (no dropped requests)").inc()
+        reg.histogram(
+            tm.SERVE_RESIZE_TIME,
+            help="drain -> snapshot -> restore wall seconds (serving)",
+        ).observe(seconds)
+        emit_event(EventKind.SERVE_RESIZE_DONE, world_from=old_n,
+                   world_to=1, reshard_seconds=round(seconds, 3),
+                   recompiled=recompiled)
+        logger.info("serve resize onto %s in %.2fs (%s)", device, seconds,
+                    "program cache hit" if not recompiled else "built")
+        return recompiled
+
+    def retune(self, serve_slots: Optional[int] = None,
+               prefill_chunk: Optional[int] = None,
+               prefix_pool_pages: Optional[int] = None,
+               spec_draft_len: Optional[int] = None,
+               slot_map: Optional[Dict[int, int]] = None) -> int:
+        """Apply serve knobs on the current device through the program
+        cache (the caller drains first). A slot-count change repacks the
+        live slots on the host through ``slot_map`` (old -> new); a
+        change of the chunk or K alone swaps the program and moves no
+        state. The parameters stay where they are (the reference sends
+        them through the host; the values are the same).
+
+        The prefix pool: a pool-size change rebuilds it empty (page ids
+        mean nothing across capacities); a chunk change flushes the
+        index (published pages depend on the chunk windows that computed
+        them); a slot-only change carries both (the pool has no slot
+        dimension). On failure every knob and the active program are
+        restored, then the error is raised. Returns the number of
+        programs built."""
+        prev = self._knobs()
+        prev_state = (self.program, self.cache, self.pool, self.prefix_index)
+        prev_program = self.program
+        old_spec = prev_program.spec if prev_program is not None else None
+        try:
+            self._set_knobs(serve_slots, prefill_chunk, prefix_pool_pages,
+                            spec_draft_len)
+            builds_before = self.compile_count
+            new_program = self._build()
+            chunk_changed = (prev_program is not None
+                             and new_program.prefill_chunk
+                             != prev_program.prefill_chunk)
+            if old_spec is not None and new_program.spec == old_spec:
+                # a pure program swap: the pool is already laid out for it
+                self.program = new_program
+                if chunk_changed and self.prefix_index is not None:
+                    self.prefix_index.flush()
+                return self.compile_count - builds_before
+            self.program = new_program
+            if old_spec is not None and self.cache is not None and \
+                    old_spec.num_slots != new_program.spec.num_slots:
+                host = {k: v.cpu() for k, v in self.cache.items()}
+                moved = migrate_slots_host(host, old_spec, new_program.spec,
+                                           slot_map or {})
+                self.cache = {k: _h2d(v, self._device)
+                              for k, v in moved.items()}
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+            if self.prefix_pool_pages != prev[2]:
+                self.reset_prefix()
+            elif chunk_changed and self.prefix_index is not None:
+                self.prefix_index.flush()
+            return self.compile_count - builds_before
+        except Exception:
+            self._restore_knobs(prev)
+            # the active program and the state it was laid out for: the
+            # failure may come after the program, the slots' pool or the
+            # prefix pool was swapped, and a program over a pool of
+            # another spec would fail every later call
+            (self.program, self.cache, self.pool,
+             self.prefix_index) = prev_state
+            raise
 
     # -- shared prefix pool (radix-indexed KV reuse, copy-on-admit) ----------
 
@@ -529,10 +737,12 @@ class ServeExecutor:
                  admission: str = "continuous",
                  serve_window: Optional[int] = None,
                  eos_id: int = -1, max_new_default: int = 16,
-                 registry=None,
+                 plan_poll_secs: Optional[float] = None,
+                 registry=None, report_hook=None,
                  spec_proposer: Optional[Callable] = None):
         from dlrover_tpu_torch.common.config import get_context
 
+        ctx = get_context()
         self._engine = engine
         self._client = router_client
         self._admission = admission
@@ -540,6 +750,11 @@ class ServeExecutor:
             serve_window, "serve_window", 2)))
         self._eos_default = int(eos_id)
         self._max_new_default = int(max_new_default)
+        self._plan_poll = float(
+            plan_poll_secs if plan_poll_secs is not None
+            else getattr(ctx, "plan_poll_secs", 30.0))
+        self._last_plan_poll = 0.0
+        self._seen_plan = ""
         self._last_touch = 0.0
         self._local_queue: "collections.deque" = collections.deque()
         self._window: "collections.deque[_InflightDecode]" = (
@@ -548,6 +763,10 @@ class ServeExecutor:
         self._active_host: List[bool] = []
         self._tokens: Optional[torch.Tensor] = None
         self._active: Optional[torch.Tensor] = None
+        self._resize_devices = None
+        self._resize_requested = False
+        self._resize_trace_id = ""
+        self._retune_request: Optional[Dict[str, Any]] = None
         self.completed: List[Dict[str, Any]] = []
         self.decode_steps = 0
         self._local_id_seq = 0
@@ -566,7 +785,7 @@ class ServeExecutor:
         self._slot_seconds = 0.0
         self._serve_wall = 0.0
         self._ledger_enabled = bool(
-            getattr(get_context(), "telemetry_enabled", True))
+            getattr(ctx, "telemetry_enabled", True))
         reg = registry if registry is not None else get_registry()
         self._c_tokens = reg.counter(
             tm.SERVE_TOKENS, help="tokens generated by this worker")
@@ -620,6 +839,14 @@ class ServeExecutor:
             help="accepted/drafted over this worker's lifetime "
                  "(-1 until the first draft)")
         self._g_spec_rate.set(-1.0)
+        # node runtime reports ride the client when it carries them
+        # (pass a hook to set the cadence)
+        if report_hook is None and router_client is not None and \
+                hasattr(router_client, "report_node_runtime"):
+            from dlrover_tpu_torch.serving.slo import ServeRuntimeReportHook
+
+            report_hook = ServeRuntimeReportHook(router_client, registry=reg)
+        self._report_hook = report_hook or None
 
     # -- local submission (router-less mode) ---------------------------------
 
@@ -641,27 +868,30 @@ class ServeExecutor:
         })
         return rid
 
-    # -- elasticity hooks (ROADMAP A16b) -------------------------------------
+    # -- elasticity hooks ----------------------------------------------------
 
-    def request_resize(self, *args, **kwargs):
-        raise _later("ServeExecutor.request_resize")
+    def request_resize(self, devices=None, trace_id: str = ""):
+        """Resize at the next boundary. ``trace_id`` threads the incident
+        that asked for it onto the SERVE_RESIZE_* events."""
+        self._resize_devices = (list(devices)
+                                if devices is not None else None)
+        self._resize_trace_id = str(trace_id or "")
+        self._resize_requested = True
 
-    def request_retune(self, *args, **kwargs):
-        raise _later("ServeExecutor.request_retune")
-
-    def _poll_plan(self):
-        """The master's serve plans: nothing without a client that serves
-        them (the plan loop is ROADMAP A16b)."""
-        if self._client is not None and hasattr(self._client,
-                                                "get_parallel_config"):
-            raise _later("the serve plan loop")
-
-    def _report_config(self):
-        """The serve config report: nothing without a client that takes
-        it (ROADMAP A16b)."""
-        if self._client is not None and hasattr(self._client,
-                                                "report_serve_config"):
-            raise _later("the serve config report")
+    def request_retune(self, serve_slots: Optional[int] = None,
+                       prefill_chunk: Optional[int] = None,
+                       prefix_pool_pages: Optional[int] = None,
+                       spec_draft_len: Optional[int] = None,
+                       plan_id: str = "", prewarm: bool = False):
+        """Retune at the next boundary (acked under ``plan_id``)."""
+        self._retune_request = {
+            "serve_slots": serve_slots,
+            "prefill_chunk": prefill_chunk,
+            "prefix_pool_pages": prefix_pool_pages,
+            "spec_draft_len": spec_draft_len,
+            "plan_id": plan_id,
+            "prewarm": bool(prewarm),
+        }
 
     # -- loop ----------------------------------------------------------------
 
@@ -671,14 +901,190 @@ class ServeExecutor:
         s = self._engine.program.spec.num_slots
         if len(self._slots) != s:
             if any(r is not None for r in self._slots):
+                # a direct engine.retune between serve() calls: the
+                # supported path is request_retune, which repacks them
                 raise RuntimeError(
-                    "engine slot width changed with live requests")
+                    "engine slot width changed with live requests; use "
+                    "ServeExecutor.request_retune")
             self._slots = [None] * s
             self._active_host = [False] * s
         if self._tokens is None or int(self._tokens.shape[0]) != s:
             dev = self._engine.device
             self._tokens = torch.zeros((s,), dtype=torch.int32, device=dev)
             self._active = _h2d(self._active_host, dev)
+
+    def _apply_resize(self):
+        self._resize_requested = False
+        devices, self._resize_devices = self._resize_devices, None
+        trace_id, self._resize_trace_id = self._resize_trace_id, ""
+        tokens_host = self._tokens.cpu()
+        active_host = list(self._active_host)
+        if trace_id:
+            # the SERVE_RESIZE_* events join the incident that asked
+            with trace_scope(trace_id):
+                self._engine.live_resize(devices, reason="executor")
+        else:
+            self._engine.live_resize(devices, reason="executor")
+        dev = self._engine.device
+        self._tokens = _h2d(tokens_host, dev)
+        self._active_host = active_host
+        self._active = _h2d(active_host, dev)
+
+    def _apply_retune(self):
+        req, self._retune_request = self._retune_request, None
+        new_slots = req.get("serve_slots")
+        new_chunk = req.get("prefill_chunk")
+        new_ppp = req.get("prefix_pool_pages")
+        new_spec_k = req.get("spec_draft_len")
+        plan_id = req.get("plan_id", "")
+        if new_chunk is not None:
+            fitted = _fit_prefill_chunk(int(new_chunk),
+                                        self._engine._pool_depth)
+            if fitted != int(new_chunk):
+                # the plan's chunk does not divide the pool depth:
+                # applying the fitted chunk while acking the plan would
+                # have the master choose it again every window
+                logger.warning(
+                    "serve plan %s wants prefill_chunk=%s but the pool "
+                    "depth %d fits %d; negative-acking", plan_id,
+                    new_chunk, self._engine._pool_depth, fitted)
+                self._ack_plan(plan_id, apply_failed=True)
+                return
+            if int(new_chunk) != self._engine.prefill_chunk:
+                # prompts mid-prefill started their chunks at multiples
+                # of the old chunk: they restart from 0 (prefill rewrites
+                # its rows)
+                for slot, state in enumerate(self._slots):
+                    if (state is not None and not self._active_host[slot]
+                            and state.cursor > 0):
+                        state.cursor = 0
+        live = [i for i, r in enumerate(self._slots) if r is not None]
+        cur_slots = self._engine.program.spec.num_slots
+        # the bookkeeping moves only when the width does, as the pages do
+        slots_changing = (new_slots is not None
+                          and int(new_slots) != cur_slots)
+        if slots_changing and len(live) > int(new_slots):
+            logger.warning("serve retune to %s slots declined: %d live "
+                           "requests", new_slots, len(live))
+            self._ack_plan(plan_id, apply_failed=True)
+            return
+        slot_map = ({old: new for new, old in enumerate(live)}
+                    if slots_changing else {i: i for i in live})
+        tokens_host = (self._tokens.cpu() if self._tokens is not None
+                       else None)  # None: no serve() yet, no live slot
+        if req.get("prewarm"):
+            # build the candidate before the swap, so the drained pause
+            # builds nothing
+            try:
+                self._engine.prewarm(serve_slots=new_slots,
+                                     prefill_chunk=new_chunk,
+                                     prefix_pool_pages=new_ppp,
+                                     spec_draft_len=new_spec_k)
+            except Exception:  # noqa: BLE001 — prewarm is an
+                # optimization; the retune decides the outcome
+                logger.warning("serve prewarm failed", exc_info=True)
+        try:
+            self._engine.retune(
+                serve_slots=new_slots, prefill_chunk=new_chunk,
+                prefix_pool_pages=new_ppp, spec_draft_len=new_spec_k,
+                slot_map=slot_map)
+        except Exception:  # noqa: BLE001 — a bad plan must not kill
+            # serving; the engine restored its knobs and program
+            logger.exception("serve retune failed; continuing with the "
+                             "previous config")
+            self._ack_plan(plan_id, apply_failed=True)
+            return
+        if slots_changing:
+            s = self._engine.program.spec.num_slots
+            slots: List[Optional[ServeRequestState]] = [None] * s
+            active = [False] * s
+            tokens = torch.zeros((s,), dtype=torch.int32)
+            for old, new in slot_map.items():
+                slots[new] = self._slots[old]
+                active[new] = self._active_host[old]
+                tokens[new] = tokens_host[old]
+            self._slots, self._active_host = slots, active
+            dev = self._engine.device
+            self._tokens = _h2d(tokens, dev)
+            self._active = _h2d(active, dev)
+        self._ack_plan(plan_id)
+
+    def _ack_plan(self, plan_id: str, apply_failed: bool = False):
+        if not plan_id or self._client is None or not hasattr(
+                self._client, "report_serve_config"):
+            return
+        self._report_config(plan_id=plan_id, apply_failed=apply_failed)
+
+    def _report_config(self, plan_id: str = "",
+                       apply_failed: bool = False):
+        """The config this worker runs, for the master's optimizer (a
+        non-empty ``plan_id`` acks that plan)."""
+        if self._client is None or not hasattr(self._client,
+                                               "report_serve_config"):
+            return
+        program = self._engine.program
+        stats = self._engine.prefix_stats()
+        looked = stats.get("hits", 0) + stats.get("misses", 0)
+        # -1 = no observation yet (the optimizer then uses its prior)
+        hit_rate = stats["hits"] / looked if stats and looked else -1.0
+        try:
+            self._client.report_serve_config(
+                world=1,
+                serve_slots=int(program.spec.num_slots),
+                prefill_chunk=int(program.prefill_chunk),
+                kv_precision=str(program.spec.precision),
+                max_seq=int(program.spec.max_seq),
+                num_layers=int(program.spec.num_layers),
+                kv_heads=int(program.spec.num_kv_heads),
+                head_dim=int(program.spec.head_dim),
+                prefix_pool_pages=int(program.spec.prefix_pool_pages),
+                page_size=int(program.spec.page_size),
+                prefix_hit_rate=float(hit_rate),
+                spec_draft_len=int(program.spec_k),
+                # -1 = no draft observed yet: K > 0 is priced only from
+                # evidence
+                spec_accept_rate=float(
+                    self._spec_accepted_total / self._spec_drafted_total
+                    if self._spec_drafted_total else -1.0),
+                plan_id=plan_id, apply_failed=bool(apply_failed),
+            )
+        except Exception:  # noqa: BLE001 — a dead master must not
+            # block serving
+            logger.debug("serve config report failed", exc_info=True)
+
+    def _poll_plan(self):
+        """Take a new serve plan from the master (at most every
+        ``plan_poll_secs``) as a retune request."""
+        if self._client is None or self._plan_poll <= 0 or not hasattr(
+                self._client, "get_parallel_config"):
+            return
+        now = time.monotonic()
+        if now - self._last_plan_poll < self._plan_poll:
+            return
+        self._last_plan_poll = now
+        try:
+            cfg = self._client.get_parallel_config()
+        except Exception:  # noqa: BLE001 — master briefly away: the
+            # next poll retries
+            logger.debug("serve plan poll failed", exc_info=True)
+            return
+        plan_id = getattr(cfg, "plan_id", "") or ""
+        slots = int(getattr(cfg, "serve_slots", 0) or 0)
+        chunk = int(getattr(cfg, "serve_prefill_chunk", 0) or 0)
+        # the pool and draft-length knobs leave a value unchanged at -1
+        # (0 is a real value: off), their siblings at 0
+        ppp = int(getattr(cfg, "serve_prefix_pool_pages", -1))
+        sk = int(getattr(cfg, "serve_spec_draft_len", -1))
+        if not plan_id or plan_id == self._seen_plan \
+                or not (slots or chunk or ppp >= 0 or sk >= 0):
+            return
+        self._seen_plan = plan_id
+        self.request_retune(serve_slots=slots or None,
+                            prefill_chunk=chunk or None,
+                            prefix_pool_pages=ppp if ppp >= 0 else None,
+                            spec_draft_len=sk if sk >= 0 else None,
+                            plan_id=plan_id,
+                            prewarm=bool(getattr(cfg, "prewarm", True)))
 
     def _set_active(self, slot: int, value: bool) -> None:
         self._active_host[slot] = value
@@ -882,11 +1288,12 @@ class ServeExecutor:
                 out.append("admitted_idle")
         return out
 
-    def _charge_slots(self, now: float,
+    def _charge_slots(self, now: float, override: Optional[str] = None,
                       classes: Optional[List[str]] = None):
         """Charge the wall time since the previous mark: ``dt`` a slot,
-        each slot to one class (``classes``: a classification captured
-        before the interval, for the prefill interval)."""
+        each slot to one class (``override``: every slot to that class,
+        the resize or retune freeze; ``classes``: a classification
+        captured before the interval, for the prefill interval)."""
         if not self._ledger_enabled:
             return
         mark = self._ledger_mark
@@ -897,6 +1304,9 @@ class ServeExecutor:
         if dt <= 0 or not self._slots:
             return
         self._slot_seconds += dt * len(self._slots)
+        if override is not None:
+            self._ledger[override] += dt * len(self._slots)
+            return
         if classes is None or len(classes) != len(self._slots):
             classes = self._classify()
         for cls in classes:
@@ -1066,6 +1476,16 @@ class ServeExecutor:
             # the interval since the last mark, under the slot states the
             # previous iteration left
             self._charge_slots(time.monotonic())
+            if self._resize_requested or self._retune_request is not None:
+                self._drain_window()
+                if self._resize_requested:
+                    self._apply_resize()
+                    self._report_config()
+                if self._retune_request is not None:
+                    self._apply_retune()
+                # the drain and the change froze every slot
+                self._charge_slots(time.monotonic(),
+                                   override="resize_frozen")
             self._poll_plan()
             self._admit()
             # the admission + prefill interval, under the states that
@@ -1093,6 +1513,7 @@ class ServeExecutor:
                 continue
             idle_polls = 0
             t0 = time.monotonic()
+            program = self._engine.program  # a boundary may swap it
             if program.verify is not None:
                 # spec mode is serial: the proposer needs the current
                 # host history, so the window (firsts only) drains first
@@ -1117,6 +1538,16 @@ class ServeExecutor:
             self.decode_steps += 1
             steps += 1
             self._h_step.observe(time.monotonic() - t0)
+            if self._report_hook is not None:
+                try:
+                    self._report_hook.after_step(
+                        self.decode_steps,
+                        queue_len=len(self._local_queue),
+                        slots=len(self._slots))
+                except Exception:  # noqa: BLE001 — reporting must never
+                    # take the decode loop down
+                    logger.debug("serve runtime report hook failed",
+                                 exc_info=True)
             if max_steps and steps >= max_steps:
                 self._drain_window()
                 break
@@ -1137,4 +1568,11 @@ class ServeExecutor:
                           "wasted": (self._spec_drafted_total
                                      - self._spec_accepted_total)}
                          if self._spec_drafted_total else None))
+        if self._report_hook is not None:
+            try:
+                self._report_hook.flush(queue_len=len(self._local_queue),
+                                        slots=len(self._slots))
+            except Exception:  # noqa: BLE001 — a best-effort last push
+                logger.debug("serve runtime report flush failed",
+                             exc_info=True)
         return list(self.completed)

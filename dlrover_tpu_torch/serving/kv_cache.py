@@ -17,7 +17,9 @@ The pool's leaves carry the reference's sharding rules
 (``kv_cache_rules``, composed with the training rules over
 ``parallel.sharding_rules``); this slice serves on one device, where
 every rule places its leaf whole. Serving over several ranks is ROADMAP
-A16b, and ``serve_shardings`` raises for a mesh of more than one rank.
+A16c, and ``serve_shardings`` raises for a mesh of more than one rank.
+``migrate_slots_host`` repacks a host copy of the pool to a new slot
+count (a retune's slot-count change).
 """
 
 from __future__ import annotations
@@ -312,13 +314,13 @@ def serve_shardings(mesh: Mapping[str, int], spec: KVCacheSpec,
     """The specs of the joint ``{"params", "cache"[, "prefix"]}`` tree a
     serve program runs over, by path within each part. ``mesh``: the axis
     sizes (or a ``ProcessMesh``). On one rank every spec places its leaf
-    whole; a mesh of more than one rank raises (ROADMAP A16b)."""
+    whole; a mesh of more than one rank raises (ROADMAP A16c)."""
     sizes = (dict(mesh) if isinstance(mesh, Mapping)
              else dict(zip(mesh.axis_names, mesh.axis_sizes)))
     if math.prod(max(1, v) for v in sizes.values()) > 1:
         raise NotImplementedError(
             f"serving over a mesh of several ranks {sizes} is not ported "
-            "yet (ROADMAP A16b)")
+            "yet (ROADMAP A16c)")
     tree = {"params": param_shapes, "cache": cache_shapes(spec)}
     if spec.prefix_pool_pages > 0:
         tree["prefix"] = cache_shapes(spec, spec.prefix_pool_pages)
@@ -327,4 +329,36 @@ def serve_shardings(mesh: Mapping[str, int], spec: KVCacheSpec,
     for path, leaf_spec in specs.items():
         part, rest = path.split("/", 1)
         out[part][rest] = leaf_spec
+    return out
+
+
+# -- host-side slot surgery (retune across a slot-count change) --------------
+
+
+def migrate_slots_host(host_cache: Mapping[str, torch.Tensor],
+                       old_spec: KVCacheSpec, new_spec: KVCacheSpec,
+                       slot_map: Mapping[int, int]) -> Dict[str, torch.Tensor]:
+    """Repack a host copy of the pool (CPU tensors, a leaf a name) into
+    a new slot count: ``slot_map`` maps old slot -> new slot for every
+    live request; the rest of the new pool is zeros (scales 1.0). The
+    page geometry (depth, precision) must match: a retune changes the
+    slot dimension only. Returns new CPU tensors."""
+    if (old_spec.max_seq, old_spec.precision) != (
+            new_spec.max_seq, new_spec.precision):
+        raise ValueError("migrate_slots_host only remaps the slot dim")
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in host_cache.items():
+        leaf = torch.as_tensor(leaf, device="cpu")
+        if name == "length":
+            fresh = torch.zeros((new_spec.num_slots,), dtype=leaf.dtype)
+            for old, new in slot_map.items():
+                fresh[new] = leaf[old]
+        else:
+            fill = 1.0 if name.endswith("_scale") else 0.0
+            fresh = torch.full(
+                (leaf.shape[0], new_spec.num_slots) + tuple(leaf.shape[2:]),
+                fill, dtype=leaf.dtype)
+            for old, new in slot_map.items():
+                fresh[:, new] = leaf[:, old]
+        out[name] = fresh
     return out

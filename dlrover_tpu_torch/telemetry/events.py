@@ -4,7 +4,7 @@ to a bounded in-memory ring and, when ``DLROVER_TPU_EVENTS_FILE`` (or
 the Context knob ``telemetry_events_file``) names a file, as one JSON
 line appended to it. Inside ``trace_context.trace_scope`` (or with
 ``DLROVER_TPU_TRACE_ID`` set) each record carries the ambient
-``trace_id``."""
+``trace_id``. ``read_events`` parses such a file back."""
 
 from __future__ import annotations
 
@@ -60,3 +60,31 @@ def recent_events(n: int = 0) -> List[Dict]:
     with _lock:
         events = list(_ring)
     return events[-n:] if n else events
+
+
+def _read_one(path: str) -> List[Dict]:
+    out: List[Dict] = []
+    try:
+        with open(path, encoding="utf-8", errors="replace") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(rec, dict) and "kind" in rec:
+                    out.append(rec)
+    except OSError:
+        return []
+    return out
+
+
+def read_events(path: str) -> List[Dict]:
+    """Parse a timeline file (a rotated ``<path>.1`` predecessor, as the
+    reference's sink leaves one, included), sorted by wall time; torn
+    lines from a killed process are skipped."""
+    out = _read_one(path + ".1") + _read_one(path)
+    out.sort(key=lambda r: r.get("ts", 0.0))
+    return out

@@ -75,6 +75,10 @@ class Histogram:
                 return
         self.counts[-1] += 1
 
+    def snapshot_counts(self) -> Tuple[int, ...]:
+        """A copy of the per-bucket counts (diff two for a window)."""
+        return tuple(self.counts)
+
 
 class _NullMetric:
     kind = "null"
@@ -94,6 +98,9 @@ class _NullMetric:
 
     def observe(self, v: float) -> None:
         pass
+
+    def snapshot_counts(self) -> None:
+        return None
 
 
 class MetricsRegistry:

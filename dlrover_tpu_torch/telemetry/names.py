@@ -1,6 +1,7 @@
 """Metric, event and span names the trainer, the checkpoint and the
-serving worker emit (the subset of ``dlrover_tpu/telemetry/names.py`` the port emits, with the
-same values, so one dashboard reads both packages)."""
+serving worker emit or read (the subset of
+``dlrover_tpu/telemetry/names.py`` the port uses, with the same values,
+so one dashboard reads both packages)."""
 
 STEP_TIME = "dlrover_step_time_seconds"
 STEP_DISPATCH_TIME = "dlrover_step_dispatch_seconds"
@@ -82,6 +83,13 @@ SERVE_SPEC_DRAFTED = "dlrover_serve_spec_drafted_tokens_total"
 SERVE_SPEC_ACCEPTED = "dlrover_serve_spec_accepted_tokens_total"
 SERVE_SPEC_WASTED = "dlrover_serve_spec_wasted_tokens_total"
 SERVE_SPEC_ACCEPT_RATE = "dlrover_serve_spec_accept_rate"
+# live serving resizes (ServeEngine.live_resize): count and wall seconds
+SERVE_RESIZES = "dlrover_serve_resizes_total"
+SERVE_RESIZE_TIME = "dlrover_serve_resize_seconds"
+# node runtime snapshots a worker pushed to the master, and those lost
+# (serving.slo.ServeRuntimeReportHook)
+NODE_RUNTIME_REPORTS = "dlrover_node_runtime_reports_total"
+NODE_RUNTIME_REPORT_FAILURES = "dlrover_node_runtime_report_failures_total"
 
 
 class EventKind:
@@ -120,6 +128,15 @@ class EventKind:
     SERVE_REQUEST_DONE = "serve_request_done"
     SERVE_PREFIX_HIT = "serve_prefix_hit"
     SERVE_PREFIX_EVICTED = "serve_prefix_evicted"
+    # a live resize of the serving worker: its start, and its end with
+    # world_from / world_to / reshard_seconds / recompiled
+    SERVE_RESIZE_BEGIN = "serve_resize_begin"
+    SERVE_RESIZE_DONE = "serve_resize_done"
+    # the router's edges (written by the master, read by the forensic
+    # ``requests --events`` view)
+    SERVE_REQUEST_SUBMITTED = "serve_request_submitted"
+    SERVE_REQUEST_COMPLETED = "serve_request_completed"
+    SERVE_LEASE_EXPIRED = "serve_lease_expired"
 
 
 class SpanName:

@@ -20,8 +20,11 @@ import dlrover_tpu_torch.interop
 import dlrover_tpu_torch.ops.kernel_build
 import dlrover_tpu_torch.native.host_ops
 import dlrover_tpu_torch.native.shm_ring
+import dlrover_tpu_torch.parallel.planner
+import dlrover_tpu_torch.serving.cli
 import dlrover_tpu_torch.serving.engine
 import dlrover_tpu_torch.serving.kv_cache
+import dlrover_tpu_torch.serving.slo
 import dlrover_tpu_torch.trainer.data
 import dlrover_tpu_torch.trainer.executor
 import dlrover_tpu_torch.trainer.failover

@@ -233,7 +233,7 @@ class TestKVCache:
         assert one["cache"]["k"] == (None,) * 5
         assert all(s == (None,) * len(s) for part in one.values()
                    for s in part.values())
-        with pytest.raises(NotImplementedError, match="A16b"):
+        with pytest.raises(NotImplementedError, match="A16c"):
             kv_cache.serve_shardings({"data": 2}, spec,
                                      llama.param_shapes(TINY))
 
@@ -523,19 +523,26 @@ class TestExecutorAgainstReference:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 engine.ServeEngine(TINY)
-        with pytest.raises(NotImplementedError, match="A16b"):
+        with pytest.raises(NotImplementedError, match="A16c"):
             engine.ServeEngine(TINY, devices=[CPU, CPU])
         eng = engine.ServeEngine(TINY, serve_slots=2, devices=[CPU])
-        for call in (eng.prewarm, eng.snapshot, eng.live_resize,
-                     eng.retune):
-            with pytest.raises(NotImplementedError, match="A16b"):
-                call()
         eng.prepare(params)
+        # the elastic calls run on one device; several raise
+        assert eng.prewarm(serve_slots=4) is True
+        assert eng.retune(serve_slots=4) == 0
+        assert eng.program.spec.num_slots == 4
+        assert set(eng.snapshot().tree) >= {"cache/k", "cache/length"}
+        assert eng.live_resize([CPU]) == 0
+        with pytest.raises(NotImplementedError, match="A16c"):
+            eng.live_resize([CPU, CPU])
         ex = engine.ServeExecutor(eng)
-        with pytest.raises(NotImplementedError, match="A16b"):
-            ex.request_retune(serve_slots=4)
-        with pytest.raises(NotImplementedError, match="A16b"):
-            ex.request_resize()
+        ex.request_retune(serve_slots=2)
+        ex.request_resize([CPU])
+        ex.serve()
+        assert eng.program.spec.num_slots == 2
+        ex.request_resize([CPU, CPU])
+        with pytest.raises(NotImplementedError, match="A16c"):
+            ex.serve()
         # the serving copy holds its own memory in the compute dtype
         leaf = params["layers"]["q_proj"]["kernel"]
         served = eng.params["layers"]["q_proj"]["kernel"]
@@ -634,7 +641,7 @@ def test_serve_names_knobs_and_kv_price_equal_the_reference():
             if name.startswith("SERVE_"):
                 assert getattr(ours, name) == getattr(theirs, name), name
                 count += 1
-    assert count == 18 + 8 + 2
+    assert count == 20 + 13 + 2
     knobs = {k: v for k, v in vars(Context()).items()
              if k.startswith("serve_")}
     assert len(knobs) == 7
