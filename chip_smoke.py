@@ -41,9 +41,16 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      the device's gaps), its busy time within 1 % of key_averages';
   6. one forward and backward of the same model with use_flash=True
      against the reference attention (use_flash=False): every gradient
-     on one batch; then the loss of each path, and of forwards with
-     planted faults, against an exact (f32) attention's over 64 batches:
-     the sound paths within the limits, the faulty ones beyond them;
+     on one batch; then the FSDP wire variants (fsdp_precision fp8,
+     fp8_qdq and bf16 on the same weights and batch): the fp8 probe
+     passing on the card and each run's effective precision the one
+     asked for, fp8 and fp8_qdq bit for bit (loss and every gradient),
+     bf16 against fp8 within WIRE_DRIFT, gradients finite, B1-B3
+     launches pinned in each, and the wires' device time (the stack's
+     quantize, each layer's decode, the gradient wire's error feedback);
+     then the loss of each path, and of forwards with planted faults,
+     against an exact (f32) attention's over 64 batches: the sound paths
+     within the limits, the faulty ones beyond them;
   7. the grouped-matmul kernels (B4 forward and dX, B5 dW) against their
      plain versions at the MoE path's shape (llama2_7b+moe8: 4096 tokens
      routed top-2 over 8 experts, D=4096, F=11008), on a skewed routing
@@ -176,20 +183,29 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      llama.flops_per_token x tokens, B1-B3's reported FLOPs equal to
      their Bound column's, a capture leaving every state bit and the
      rng stream as they were, the live MFU gauge within 1 % of
-     derived_mfu over the CUDA events' step time, the peak-memory and
+     derived_mfu over the CUDA events' time of the steps its samples
+     time (a sample at step s is the device's step s + train_window:
+     the host materializes s after its dispatch of s + window, which
+     waits for room in the launch queue), each sample printed beside
+     the events' step, the peak-memory and
      headroom gauges beside torch.cuda's, a profile through the
      package's trace parser, and the gauges' per-step cost (paired runs
      with attribution on and off). Phases 8 and 14 print their records
      too.
  18. FSDP: (a) Llama-3-8B at its published widths (2 layers, global
      batch 2 x 2048, AdamW, rule set "llama") on 2 ranks sharing the
-     card over gloo, 3 steps at (data, fsdp) = (1, 2) and again at
+     card over gloo, 2 steps at (data, fsdp) = (1, 2) and again at
      (2, 1) on the same batches: the losses within FSDP_LOSS_RTOL, each
      rank's parameter and moment bytes on the leaves the rules shard
      halved, the all-gather and reduce-scatter bytes equal to the
      formula (each sharded leaf's global bytes once a step each), B1-B3
      launches pinned, peak memory and the host step beside the
-     exchanges' seconds; (b) phase 12's run, which the example makes at
+     exchanges' seconds; then one step at each mesh under the fp8 FSDP
+     and gradient wires: the losses within FSDP_LOSS_RTOL, the trainer's
+     effective precisions the ones asked for, the all-gather bytes at
+     (1, 2) equal to the planner's formula (1 + 4/32 B a wired element,
+     4 B every other gathered one), the residual nonzero and in the
+     parameters' layout; (b) phase 12's run, which the example makes at
      (2, 2) on its 4 ranks, against the same configuration at (4, 1)
      through ElasticTrainer for 3 steps: losses within FSDP_MOE_RTOL,
      every rank's B1-B6 launches pinned, peak memory.
@@ -926,15 +942,19 @@ def step_record():
     class Record(TrainHook):
         def __init__(self):
             self.events, self.metrics, self.mfu = [], {}, {}
+            # host clock at each step's dispatch and materialization
+            self.dispatched, self.materialized = {}, {}
 
         def _mark(self):
             self.events.append(torch.cuda.Event(enable_timing=True))
             self.events[-1].record()
 
         def before_step(self, step):
+            self.dispatched[step] = time.perf_counter()
             self._mark()
 
         def after_step(self, step, metrics):
+            self.materialized[step] = time.perf_counter()
             self.metrics[step] = metrics
             gauge = process_registry().get(tm.ATTR_MFU)
             if gauge is not None:
@@ -1362,6 +1382,127 @@ def cross_check(llama, config, variants, kernels, loss_limit, grad_limit,
     return {"test": test, "ref": ref, "launches": launched, "test_loss": lf,
             "test_grad_norm": nf, "ref_loss": lr, "ref_grad_norm": nr,
             "loss_gap": abs(lf - lr), "grad_gap": gap, "leaf_gap": leaf_gap}
+
+
+# Phase 6's FSDP wire variants (ROADMAP A14): the reference's bound on
+# the fp8 wire's loss against bf16's (tests/test_fsdp_wire.py)
+WIRE_DRIFT = 5e-3
+WIRE_PRECISIONS = ("fp8", "fp8_qdq", "bf16")
+
+
+def wire_variants(llama, config, fa, remat, card):
+    """One forward and backward of ``config`` (phase 5's model, same
+    weights and batch) under each FSDP wire precision: the fp8 probe
+    must pass on the card and each run's effective precision be the one
+    asked for (a degraded wire never passes for an fp8 run); fp8 and
+    fp8_qdq bit for bit, loss and every gradient; bf16 against fp8 within
+    WIRE_DRIFT, every gradient finite; B1-B3 launches pinned in each.
+    Then the wires' own device time: the layer stack's quantize, the
+    decode of every layer's slice, the gradient wire's error-feedback
+    step over the gradient tree, and the bytes they move."""
+    import torch
+
+    from dlrover_tpu_torch.ops.quantize import (
+        dequantize_block_scaled,
+        error_feedback_qdq,
+    )
+    from dlrover_tpu_torch.ops.shard_compat import fp8_wire_supported
+
+    cuda = torch.device("cuda")
+    probe = fp8_wire_supported(cuda)
+    log(f"  the fp8 probe on {torch.cuda.get_device_name(0)}: {probe}")
+    if not probe:
+        fail("the fp8 wire probe fails on the card: an fp8 run would run "
+             "the bf16 wire")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = llama.init(gen, config)
+    named = list(_named_leaves(params))
+    for _, t in named:
+        t.requires_grad_()
+    batch = token_batch(config, 1)
+    recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
+    expected = {"flash_fwd": LAYERS * (1 + recompute),
+                "flash_bwd_dkv": LAYERS, "flash_bwd_dq": LAYERS,
+                **NO_SEG, **NO_PFX}
+    runs, kept = {}, {}
+    for precision in WIRE_PRECISIONS:
+        cfg = dataclasses.replace(config, fsdp_precision=precision)
+        effective = llama.resolve_fsdp_precision(cfg, cuda)
+        fa.reset_launch_counts()
+        loss, _ = llama.make_loss_fn(cfg)(params, batch, None)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        runs[precision] = {"loss": loss.item(), "effective": effective,
+                           "launches": counts, "finite": finite}
+        log(f"  fsdp_precision={precision}: effective {effective}, loss "
+            f"{loss.item():.6f}, gradients finite {finite}, launches "
+            f"{counts}")
+        if effective != precision:
+            fail(f"fsdp_precision {precision} runs as {effective}")
+        if counts != expected:
+            fail(f"launches {counts} under fsdp_precision={precision}, "
+                 f"expected {expected}")
+        if not finite:
+            fail(f"a non-finite gradient under fsdp_precision={precision}")
+        if precision == "fp8":
+            kept = {"loss": loss.detach().clone(), "grads": grads}
+        elif precision == "fp8_qdq":
+            same = (torch.equal(loss, kept["loss"]) and all(
+                torch.equal(a, b) for a, b in zip(grads, kept["grads"])))
+            runs["fp8_equals_fp8_qdq"] = same
+            log(f"  fp8 against fp8_qdq: loss and all {len(grads)} "
+                f"gradients bit for bit: {same}")
+            if not same:
+                fail("the fp8 wire differs from its fp8_qdq reference")
+            kept = {"loss": kept["loss"], "grads": grads}
+        del loss, grads
+        torch.cuda.empty_cache()
+    drift = abs(runs["bf16"]["loss"] - runs["fp8"]["loss"]) / abs(
+        runs["bf16"]["loss"])
+    runs["drift"] = drift
+    log(f"  bf16 against fp8: loss {runs['bf16']['loss']:.6f} vs "
+        f"{runs['fp8']['loss']:.6f}, relative {drift:.3e} (limit "
+        f"{WIRE_DRIFT:.0e})")
+    if drift >= WIRE_DRIFT:
+        fail(f"the fp8 wire's loss is {drift:.3e} from bf16's")
+
+    # the wires' own cost at this width (device time, CUDA events)
+    grads = kept["grads"]
+    del kept
+    layers = params["layers"]
+    wired = {p: t for p, t in llama._flatten_layers(layers)
+             if llama._wire_leaf(t)}
+    elems = sum(t.numel() for t in wired.values())
+    with torch.no_grad():
+        stack = llama._quantize_layer_stack(layers, "fp8")
+        quant_ms = device_ms(
+            lambda: llama._quantize_layer_stack(layers, "fp8"), 5, 1)
+        dequant_ms = device_ms(lambda: [
+            dequantize_block_scaled(f["v"][i], f["s"][i], torch.float32)
+            for f in stack.values() for i in range(config.num_layers)], 5, 1)
+        residual = [torch.zeros_like(g) for g in grads]
+        ef_ms = device_ms(lambda: [error_feedback_qdq(g, r)
+                                   for g, r in zip(grads, residual)], 5, 1)
+    param_bytes = sum(t.numel() * t.element_size() for _, t in named)
+    wire = {"wired_elements": elems,
+            "fp8_wire_bytes": elems * (1 + 4 / 32),
+            "full_wire_bytes": elems * 4,
+            "quantize_ms": quant_ms, "dequantize_ms": dequant_ms,
+            "error_feedback_ms": ef_ms, "residual_bytes": param_bytes}
+    runs["wire"] = wire
+    log(f"  the wires' device time a step at this width ({elems} wired "
+        f"elements in {len(wired)} layer stacks): quantize the stack "
+        f"{quant_ms:.3f} ms, decode every layer's slice {dequant_ms:.3f} "
+        f"ms, the gradient wire's error feedback over all "
+        f"{len(grads)} gradients {ef_ms:.3f} ms; a gather of the wired "
+        f"stacks moves {wire['fp8_wire_bytes'] / 1e9:.4f} GB under fp8 "
+        f"against {wire['full_wire_bytes'] / 1e9:.4f} GB at f32; the "
+        f"residual holds {param_bytes / 1e9:.4f} GB; {card}")
+    del params, named, grads, residual, stack
+    torch.cuda.empty_cache()
+    return runs
 
 
 # The dense loss check. Each path's loss is held, batch by batch, against
@@ -5164,13 +5305,14 @@ def attribution_phase(llama, fa, remat, config, card):
     batches = synthetic_batches(config.vocab_size, 1, SEQ, seed=17)
     host = next(batches())
     trainer = main_trainer(llama, config, "llama", host)
-    observe_s = []
+    observe_s, sampled = [], []
     observe = TrainExecutor._observe_attribution
 
     def timed(self, per_step):
         t0 = time.perf_counter()
         observe(self, per_step)
         observe_s.append(time.perf_counter() - t0)
+        sampled.append(per_step)
 
     def run(steps, state=None, hooks=()):
         executor = TrainExecutor(
@@ -5242,20 +5384,47 @@ def attribution_phase(llama, fa, remat, config, card):
         f"{same} ({len(before)} digest values)")
     if not same or again.flops_per_step != rec.flops_per_step:
         fail("a capture changed the state or counted differently")
-    # the live gauge against the device's clock over steps 4..last: the
-    # last `window` steps are materialized in the final drain, where the
-    # executor's interval is the host's, not a step's
-    last = ATTR_STEPS - get_context().train_window
+    # the live gauge against the device's clock. The executor
+    # materializes step s right after it dispatched step s + window, and
+    # that dispatch returns only when the device's launch queue has room
+    # (the host runs ahead of the device), so the gauge's sample of step
+    # s is the device's time for step s + window. Its samples of steps
+    # 4..last (the last `window` steps are materialized in the final
+    # drain, where the interval is the host's) are held against the
+    # events of steps 4 + window..ATTR_STEPS; the events of steps
+    # 4..last are printed beside them
+    window = get_context().train_window
+    last = ATTR_STEPS - window
     step_ms = [a.elapsed_time(z) for a, z in zip(record.events,
                                                  record.events[1:])]
-    steady_s = statistics.mean(step_ms[3:last]) / 1e3
+    timed_ms = step_ms[3 + window:last + window]
+    steady_s = statistics.mean(timed_ms) / 1e3
+    same_s = statistics.mean(step_ms[3:last]) / 1e3
     events_mfu = derived_mfu(rec.flops_per_step, steady_s, PEAK_BF16_FLOPS)
+    same_mfu = derived_mfu(rec.flops_per_step, same_s, PEAK_BF16_FLOPS)
     live = gauge_mfu(record, 4, last)
     agreement = (live / events_mfu - 1) if live else float("inf")
+    per_step_rows = [
+        (s, round(sampled[s - 1] * 1e3, 3), round(step_ms[s - 1], 3),
+         round((record.materialized[s] - record.dispatched[s]) * 1e3, 3))
+        for s in range(1, ATTR_STEPS + 1)]
+    log(f"  per step (step, the gauge's sample ms, the CUDA events' ms, "
+        f"host ms from dispatch to materialization; window {window}): "
+        f"{per_step_rows}")
+    log(f"  the gauge's samples of steps 4..{last} sum to "
+        f"{sum(sampled[3:last]) * 1e3:.3f} ms (the host clock between the "
+        f"materializations of steps 3 and {last}: "
+        f"{(record.materialized[last] - record.materialized[3]) * 1e3:.3f}"
+        f" ms); the events of steps {4 + window}..{last + window} to "
+        f"{sum(timed_ms):.3f} ms, of steps 4..{last} to "
+        f"{sum(step_ms[3:last]):.3f} ms; {card}")
     log(f"  live MFU gauge over steps 4..{last}: {live or 0.0:.5f} "
         f"(peak {rec.peak_flops_per_s:.4g} FLOP/s); derived_mfu over the "
-        f"CUDA events' mean step {steady_s * 1e3:.2f} ms: {events_mfu:.5f} "
-        f"({agreement:+.5f}); by llama.flops_per_token "
+        f"CUDA events' mean step of steps {4 + window}..{last + window} "
+        f"{steady_s * 1e3:.2f} ms: {events_mfu:.5f} ({agreement:+.5f}; "
+        f"limit {MFU_AGREEMENT}); over steps 4..{last} {same_s * 1e3:.2f} "
+        f"ms: {same_mfu:.5f} ({(live or 0.0) / same_mfu - 1:+.5f}, not "
+        f"held); by llama.flops_per_token "
         f"{derived_mfu(formula, steady_s, PEAK_BF16_FLOPS):.5f}; {card}")
     if abs(agreement) > MFU_AGREEMENT:
         fail(f"the live MFU gauge {live} is not within {MFU_AGREEMENT} of "
@@ -5302,7 +5471,9 @@ def attribution_phase(llama, fa, remat, config, card):
             "gauges": gauges, "peak_allocated_bytes": peak,
             "mem_free_bytes": free, "step_ms": step_ms,
             "live_mfu": live, "events_mfu": events_mfu,
-            "mfu_agreement": agreement, "profile": profile,
+            "mfu_agreement": agreement, "events_mfu_same_steps": same_mfu,
+            "gauge_samples_ms": [x * 1e3 for x in sampled],
+            "profile": profile,
             "observe_us": statistics.mean(observe_s) * 1e6,
             "paired_step_ms": pairs_ms, "overhead": on / off - 1,
             "launches": counts}
@@ -5311,10 +5482,15 @@ def attribution_phase(llama, fa, remat, config, card):
 
 # -- phase 18: FSDP ----------------------------------------------------------
 
-# 3 steps a mesh (5 before phase 19 came): the script's time stays near
-# 1,050 s of its 1,200
-FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 3
+# 2 steps a mesh on the exact wires (5 before phase 19 came, 3 before
+# the fp8 legs), then FSDP_WIRE_STEPS under the fp8 FSDP and gradient
+# wires: the script's time stays near 1,050 s of its 1,200
+FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 2
+FSDP_WIRE_STEPS = 1
 FSDP_MESHES = ((1, 2), (2, 1))  # (data, fsdp): the fsdp run, then data
+# each run: (mesh, the FSDP and gradient wires' precision, steps)
+FSDP_RUNS = tuple((m, "bf16", FSDP_STEPS) for m in FSDP_MESHES) + tuple(
+    (m, "fp8", FSDP_WIRE_STEPS) for m in FSDP_MESHES)
 FSDP_MOE_STEPS = 3
 # the largest relative gap of a step's loss between the fsdp and the
 # data-parallel run: on the CPU tests/test_torch_fsdp.py holds (1, 4) and
@@ -5357,9 +5533,11 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     ``layers`` layers, through ElasticTrainer (rule set "llama", the
     example's AdamW) on 2 ranks sharing the card over gloo: ``steps``
     steps at each of FSDP_MESHES on the same batches (the example's
-    token stream, ``rows`` x ``seq`` global). Launch counters, exchange
-    statistics and the peak are reset just before each run's first
-    step and read after its last."""
+    token stream, ``rows`` x ``seq`` global), then FSDP_WIRE_STEPS at
+    each under the fp8 FSDP and gradient wires (FSDP_RUNS). Launch
+    counters, exchange statistics and the peak are reset just before
+    each run's first step and read after its last."""
+    import functools
     import gc
 
     import torch
@@ -5371,6 +5549,7 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.parallel.accelerate import _named_leaves
     from dlrover_tpu_torch.parallel.mesh import MeshPlan
     from dlrover_tpu_torch.parallel.strategy import Strategy
     from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
@@ -5380,13 +5559,20 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     gen = synthetic_batches(config.vocab_size, rows, seq)()
     batches = [next(gen) for _ in range(steps)]
     out = {"rank": rank, "runs": {}}
-    for data, fsdp in FSDP_MESHES:
+    for (data, fsdp), precision, n in FSDP_RUNS:
+        # the fp8 legs step SGD: their checks read the first loss, the
+        # gathers and the residual, none of which the optimizer moves,
+        # and AdamW's moments beside the residual do not fit two ranks
+        # at (2, 1) on one card
+        optimizer = (adamw() if precision == "bf16" else
+                     functools.partial(torch.optim.SGD, lr=3e-4))
         trainer = ElasticTrainer(
-            llama.make_init_fn(config), llama.make_loss_fn(config), adamw(),
-            batches[0], strategy=Strategy(mesh=MeshPlan(data=data,
-                                                        fsdp=fsdp),
-                                          rule_set="llama"),
-            device="cuda:0")
+            llama.make_init_fn(config), llama.make_loss_fn(config),
+            optimizer, batches[0],
+            strategy=Strategy(mesh=MeshPlan(data=data, fsdp=fsdp),
+                              rule_set="llama"),
+            device="cuda:0", fsdp_precision=precision,
+            grad_precision=precision)
         state = trainer.prepare()
         result = trainer.accelerated
         torch.cuda.synchronize()
@@ -5394,21 +5580,45 @@ def fsdp_dense_rank(layers, seq, rows, steps):
         fa.reset_launch_counts()
         ring.reset_stats()
         losses, host_s = [], []
-        for batch in batches:
+        for batch in batches[:n]:
             t = time.perf_counter()
             state, metrics = trainer.step(state, batch)
             losses.append(float(metrics["loss"]))  # waits for the step
             host_s.append(time.perf_counter() - t)
         torch.cuda.synchronize()
-        gathered = {p: 4 * math.prod(result.layout.shapes[p])
-                    for p in result.layout.leaves}
-        out["runs"][(data, fsdp)] = {
+        layout = result.layout
+        # the leaves the FSDP wire quantizes: the gathered rank-3 layer
+        # stacks, never split along their last dim
+        wired = sorted(p for p in layout.leaves
+                       if precision == "fp8" and p.startswith("layers/")
+                       and len(layout.shapes[p]) == 3)
+        gathered = {p: 4 * math.prod(layout.shapes[p])
+                    for p in layout.leaves}
+        residual = None
+        if state.wire_residual is not None:
+            blocks = dict(_named_leaves(state.params))
+            residual = {
+                "layout_matches": all(
+                    tuple(r.shape) == tuple(blocks[p].shape)
+                    and r.dtype == blocks[p].dtype
+                    for p, r in _named_leaves(state.wire_residual))
+                and len(_named_leaves(state.wire_residual)) == len(blocks),
+                "abs_sum": sum(float(r.abs().sum()) for _, r in
+                               _named_leaves(state.wire_residual)),
+                "bytes": sum(r.numel() * r.element_size() for _, r in
+                             _named_leaves(state.wire_residual))}
+        out["runs"][(data, fsdp, precision)] = {
             "losses": losses, "host_step_s": host_s,
             "launches": fa.launch_counts(), "exchange": ring.stats(),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "leaf_bytes": _leaf_bytes(state),
             "gathered_leaf_bytes": gathered,
-            "sharded": sorted(result.layout.leaves),
+            "wired_elements": {p: math.prod(layout.shapes[p])
+                               for p in wired},
+            "split_dims": {p: layout.leaves[p].dim for p in wired},
+            "effective": (trainer.fsdp_precision, trainer.grad_precision),
+            "residual": residual, "steps": n,
+            "sharded": sorted(layout.leaves),
             "specs": {p: result.specs[p] for p in sorted(result.specs)}}
         del state, trainer, result
         gc.collect()
@@ -5466,10 +5676,72 @@ def fsdp_moe_rank(argv, steps):
     return out
 
 
+def fsdp_wire_checks(r, config, card):
+    """Phase 18 (a)'s fp8 runs on one rank's record: the two meshes'
+    losses within FSDP_LOSS_RTOL; at (1, 2) the all-gather bytes equal
+    to the planner's formula (``fsdp_wire_bytes_per_elem`` a wired
+    element, 4 bytes every other gathered element) and no wired leaf
+    split along its last dim; the gradient wire's residual nonzero and
+    in the parameters' layout at both meshes."""
+    from dlrover_tpu_torch.parallel.planner import ModelSpec
+
+    fs, dp = FSDP_MESHES
+    qa, qb = r["runs"][fs + ("fp8",)], r["runs"][dp + ("fp8",)]
+    ba = r["runs"][fs + ("bf16",)]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(qa["losses"],
+                                                  qb["losses"]))
+    per = ModelSpec(param_count=0, num_layers=config.num_layers,
+                    hidden_size=config.hidden_size, param_bytes=4,
+                    fsdp_precision="fp8").fsdp_wire_bytes_per_elem()
+    wired = qa["wired_elements"]
+    other = {p: n for p, n in qa["gathered_leaf_bytes"].items()
+             if p not in wired}
+    want = FSDP_WIRE_STEPS * (sum(wired.values()) * per
+                              + sum(other.values()))
+    calls = FSDP_WIRE_STEPS * (2 * len(wired) + len(other))
+    got = qa["exchange"].get("all_gather", {})
+    full = ba["exchange"].get("all_gather", {})
+    log(f"      fp8 wires (fsdp_precision and grad_precision): losses at "
+        f"{fs} {qa['losses']}, at {dp} {qb['losses']}, relative gap "
+        f"{gap:.3e} (limit {FSDP_LOSS_RTOL:.0e}); all-gather at {fs} "
+        f"{got.get('calls', 0)} calls {got.get('bytes', 0)} B "
+        f"{got.get('seconds', 0.0):.2f} s a step (formula: "
+        f"{len(wired)} wired leaves x {per} B an element + the other "
+        f"{len(other)} gathered leaves' {sum(other.values())} B = "
+        f"{want:.0f} B in {calls} calls), against the bf16 run's "
+        f"{full.get('bytes', 0) / FSDP_STEPS:.0f} B "
+        f"{full.get('seconds', 0.0) / FSDP_STEPS:.2f} s a step; residual "
+        f"{qa['residual']} at {fs}, {qb['residual']} at {dp}; host s "
+        f"{qa['host_step_s']}, {qb['host_step_s']}; {card}")
+    if gap > FSDP_LOSS_RTOL:
+        fail(f"fp8 wires: losses {qa['losses']} at {fs} vs {qb['losses']} "
+             f"at {dp}: gap {gap:.3e}")
+    if not wired or any(d == 2 for d in qa["split_dims"].values()):
+        fail(f"the wired leaves {qa['split_dims']} at {fs}")
+    if got.get("bytes") != want or got.get("calls") != calls:
+        fail(f"fp8 all-gather {got} against the formula's {want} B in "
+             f"{calls} calls")
+    for mesh, run in ((fs, qa), (dp, qb)):
+        res = run["residual"]
+        if not (res and res["layout_matches"] and res["abs_sum"] > 0):
+            fail(f"the gradient wire's residual at {mesh}: {res}")
+    return {"loss_gap": gap, "bytes_per_elem": per, "want_bytes": want,
+            "want_calls": calls, "bf16_gather_bytes_a_step":
+            full.get("bytes", 0) / FSDP_STEPS}
+
+
 def fsdp_phase(run_local, llama, ep_train, card):
     """Phase 18: FSDP on the card. (a) the dense cell at (1, 2) against
-    (2, 1); (b) phase 12's MoE run (the example, which picks (2, 2) at
-    four ranks) against the same configuration at (4, 1)."""
+    (2, 1), and under the fp8 wires; (b) phase 12's MoE run (the
+    example, which picks (2, 2) at four ranks) against the same
+    configuration at (4, 1)."""
+    report = {"dense": fsdp_dense_part(run_local, llama, card)}
+    report["moe"] = fsdp_moe_part(run_local, ep_train, card)
+    return report
+
+
+def fsdp_dense_part(run_local, llama, card):
+    """Phase 18 (a)."""
     from dlrover_tpu_torch.ops import remat
 
     report = {}
@@ -5482,24 +5754,33 @@ def fsdp_phase(run_local, llama, ep_train, card):
         f"AdamW, rule set llama, 2 ranks sharing the card (gloo: the "
         f"all-gathers and reduce-scatters go through host memory; no "
         f"multi-GPU rate is claimed), {FSDP_STEPS} steps at (data, fsdp) = "
-        f"{FSDP_MESHES[0]} and again at {FSDP_MESHES[1]}:")
+        f"{FSDP_MESHES[0]} and again at {FSDP_MESHES[1]}, then "
+        f"{FSDP_WIRE_STEPS} at each under the fp8 FSDP and gradient "
+        f"wires:")
     ranks = run_local(fsdp_dense_rank, 2,
                       (FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS),
                       timeout=EP_TIMEOUT)
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
-    expected = {"flash_fwd": FSDP_STEPS * FSDP_LAYERS * (1 + recompute),
-                "flash_bwd_dkv": FSDP_STEPS * FSDP_LAYERS,
-                "flash_bwd_dq": FSDP_STEPS * FSDP_LAYERS, **NO_SEG,
-                **NO_PFX}
+
+    def expected_for(steps):
+        return {"flash_fwd": steps * FSDP_LAYERS * (1 + recompute),
+                "flash_bwd_dkv": steps * FSDP_LAYERS,
+                "flash_bwd_dq": steps * FSDP_LAYERS, **NO_SEG, **NO_PFX}
+
+    expected = expected_for(FSDP_STEPS)
     fs, dp = FSDP_MESHES
     for r in ranks:
-        a, b = r["runs"][fs], r["runs"][dp]
-        for mesh, run in ((fs, a), (dp, b)):
-            if run["launches"] != expected:
-                fail(f"rank {r['rank']} at {mesh}: launches "
-                     f"{run['launches']}, expected {expected}")
+        for (mesh, precision, steps), run in zip(
+                FSDP_RUNS, (r["runs"][m + (p,)] for m, p, _ in FSDP_RUNS)):
+            if run["launches"] != expected_for(steps):
+                fail(f"rank {r['rank']} at {mesh} ({precision}): launches "
+                     f"{run['launches']}, expected {expected_for(steps)}")
             if not all(math.isfinite(x) for x in run["losses"]):
-                fail(f"non-finite loss at {mesh}")
+                fail(f"non-finite loss at {mesh} ({precision})")
+            if run["effective"] != (precision, precision):
+                fail(f"rank {r['rank']} at {mesh}: the wires run as "
+                     f"{run['effective']}, asked {precision}")
+        a, b = r["runs"][fs + ("bf16",)], r["runs"][dp + ("bf16",)]
         gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
                                                       b["losses"]))
         # both runs' bytes on the leaves the fsdp run shards
@@ -5550,14 +5831,21 @@ def fsdp_phase(run_local, llama, ep_train, card):
                     FSDP_STEPS * len(a["sharded"]):
                 fail(f"{name}: {x} against the formula's {want_x} B")
         r["loss_gap"] = gap
-        # JSON keys: "data x fsdp"
-        r["runs"] = {f"{d}x{f}": run for (d, f), run in r["runs"].items()}
+        r["wire"] = fsdp_wire_checks(r, config, card)
+        # JSON keys: "data x fsdp precision"
+        r["runs"] = {f"{d}x{f} {p}": run
+                     for (d, f, p), run in r["runs"].items()}
     report["dense"] = {"ranks": ranks, "expected_launches": expected,
                        "tolerance": FSDP_LOSS_RTOL,
                        "wall_s": time.monotonic() - t0}
     log(f"    ({report['dense']['wall_s']:.1f} s with the ranks' start-up; "
         f"{card})")
+    return report["dense"]
 
+
+def fsdp_moe_part(run_local, ep_train, card):
+    """Phase 18 (b)."""
+    report = {}
     t0 = time.monotonic()
     argv = ep_train["argv"]
     log(f"  (b) phase 12's run (the example picks (data, fsdp) = (2, 2) at "
@@ -5596,7 +5884,7 @@ def fsdp_phase(run_local, llama, ep_train, card):
                      "wall_s": time.monotonic() - t0}
     log(f"    ({report['moe']['wall_s']:.1f} s with the ranks' start-up; "
         f"{card})")
-    return report
+    return report["moe"]
 
 
 # -- phase 19: serving -------------------------------------------------------
@@ -6706,6 +6994,9 @@ def main():
                         ("reference", {"use_flash": False})), (fa,),
         None, GRAD_GAP_LIMIT)
     torch.cuda.empty_cache()
+    log(f"FSDP wire variants at full width (fsdp_precision fp8, "
+        f"fp8_qdq, bf16; {card}):")
+    report["wire_variants"] = wire_variants(llama, config, fa, remat, card)
     log(f"full-width loss check against an exact attention ({card}):")
     report["loss_check"] = loss_check(llama, config, fa, loss_controls(fa))
     torch.cuda.empty_cache()

@@ -3,8 +3,10 @@
 
 A checkpoint holds the training state keyed by parameter path, not by
 the optimizer's integer parameter ids: ``params/<path>`` for each leaf of
-``TrainState.params`` and ``opt/<path>/<slot>`` for each tensor the
-optimizer keeps for it (AdamW: ``step``, ``exp_avg``, ``exp_avg_sq``).
+``TrainState.params``, ``opt/<path>/<slot>`` for each tensor the
+optimizer keeps for it (AdamW: ``step``, ``exp_avg``, ``exp_avg_sq``)
+and, under the gradient wire, ``wire_residual/<path>`` for each leaf of
+the error-feedback residual, laid out as its parameter.
 So a checkpoint survives a change of parameter order, and the JAX
 package's tree maps onto it path for path (``interop``).
 
@@ -130,9 +132,10 @@ def _dcp(fn, *args, **kwargs):
 
 def state_tensors(state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """(name -> live tensor, name -> non-tensor optimizer value) of a
-    ``TrainState``: ``params/<path>`` and ``opt/<path>/<slot>``. A plain
-    mapping of parts (a serving engine's ``{"params", "cache"[,
-    "prefix"]}``) gives ``<part>/<path>`` for each of its tensors."""
+    ``TrainState``: ``params/<path>``, ``opt/<path>/<slot>`` and
+    ``wire_residual/<path>``. A plain mapping of parts (a serving
+    engine's ``{"params", "cache"[, "prefix"]}``) gives ``<part>/<path>``
+    for each of its tensors."""
     tensors: Dict[str, torch.Tensor] = {}
     values: Dict[str, Any] = {}
     if isinstance(state, Mapping):
@@ -149,11 +152,16 @@ def state_tensors(state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
                 tensors[name] = v
             else:
                 values[name] = v
+    residual = getattr(state, "wire_residual", None)
+    if residual is not None:
+        for path, r in _named_leaves(residual):
+            tensors[f"wire_residual/{path}"] = r
     return tensors, values
 
 
 def _param_path(name: str) -> str:
-    """The parameter path of ``params/<path>`` or ``opt/<path>/<slot>``."""
+    """The parameter path of ``params/<path>``, ``opt/<path>/<slot>`` or
+    ``wire_residual/<path>``."""
     kind, rest = name.split("/", 1)
     return rest.rsplit("/", 1)[0] if kind == "opt" else rest
 
@@ -212,6 +220,12 @@ def _fill_state(state, host: Mapping[str, torch.Tensor],
                 opt.state[p] = new
             else:
                 opt.state.pop(p, None)
+        residual = getattr(state, "wire_residual", None)
+        for path, r in (_named_leaves(residual) if residual is not None
+                        else ()):
+            r.copy_(host[f"wire_residual/{path}"], non_blocking=True)
+            if r.is_cuda:
+                live_cuda = r.device
     if live_cuda is not None:
         torch.cuda.synchronize(live_cuda)
     state.step = int(step)
@@ -1164,12 +1178,17 @@ class ElasticCheckpointManager:
         params = dict(_named_leaves(state.params))
         specs = {}
         for name, md in saved.items():
-            if not name.startswith(("params/", "opt/")):
+            if not name.startswith(("params/", "opt/", "wire_residual/")):
                 continue
             path_key = _param_path(name)
             if path_key not in params:
                 raise ValueError(f"checkpoint step {step} holds {name}, "
                                  "which the state has no parameter for")
+            if name.startswith("wire_residual/") and name not in live:
+                raise ValueError(
+                    f"checkpoint step {step} holds the gradient wire's "
+                    f"residual, which the state has none for (build it "
+                    f"with the checkpoint's grad_precision)")
             shape = tuple(md.size)
             if self._group is not None and layout is not None:
                 shape = layout.local_shape(path_key, shape)
@@ -1180,6 +1199,12 @@ class ElasticCheckpointManager:
                 raise ValueError(
                     f"checkpoint step {step} does not match the state at "
                     f"{path_key}: {got and got[0]} vs {tuple(p.shape)}")
+        missing = [name for name in live if name.startswith(
+            "wire_residual/") and name not in specs]
+        if missing:
+            raise ValueError(f"checkpoint step {step} holds no gradient "
+                             f"wire residual ({missing[0]}, ...), which "
+                             f"the state carries")
         host = dict(self._host_buffers(specs, _pin_for(live)).tensors)
         sd = self._distributed(host, layout)
         if self._group is None:

@@ -49,6 +49,23 @@ class Context:
         # reference: quantize -> dequantize, full-precision wire); read
         # by ops.moe when a config leaves it empty
         self.moe_precision = "bf16"
+        # the dense FSDP wire: what the parameter all-gathers ship,
+        # "bf16" (the parameter dtype), "fp8" (each wired leaf's block
+        # quantized on its rank, e4m3 values + f32 scales gathered,
+        # decoded at consumption; gradients straight through) or
+        # "fp8_qdq" (the bitwise reference: quantize -> dequantize, the
+        # wire at full precision); read by models.llama when a config
+        # leaves it empty, so ElasticTrainer.retune swaps it
+        self.fsdp_precision = "bf16"
+        # the gradient wire: "bf16" (exact) or "fp8" (each gradient
+        # block quantized with an error-feedback residual carried in
+        # TrainState); "fp8_nofb" drops the error (a control, never
+        # train with it). A build-time knob: the residual is state
+        self.grad_precision = "bf16"
+        # FSDP layer prefetch (the reference gathers layer l+1 while
+        # layer l computes); the port gathers the whole tree once a
+        # step, so True raises (ROADMAP A6b)
+        self.fsdp_prefetch = False
         # performance attribution (telemetry.attribution): a cost record
         # per built step (counted FLOPs and bytes, peak memory) fused
         # with measured step times into live MFU gauges. Requires

@@ -21,9 +21,11 @@ int8 ``k_scale``/``v_scale``, ``length`` [S] int32), so a cache state the
 reference produced feeds the port's step functions.
 
 ``train_state_from_numpy`` carries a whole training state over: the
-parameters as above and ``optax.adamw``'s moments into the per-parameter
-slots of ``torch.optim.AdamW``, so a checkpoint of the JAX package
-resumes in the port (``train_state_to_numpy`` is its inverse).
+parameters as above, ``optax.adamw``'s moments into the per-parameter
+slots of ``torch.optim.AdamW`` and the gradient wire's error-feedback
+residual (``wire_residual``, laid out as the parameters), so a
+checkpoint of the JAX package resumes in the port
+(``train_state_to_numpy`` is its inverse).
 """
 
 from __future__ import annotations
@@ -207,15 +209,18 @@ def train_state_from_numpy(state, optimizer, device: DeviceLike = None,
             "exp_avg": mu[path].to(p.dtype),
             "exp_avg_sq": nu[path].to(p.dtype),
         }
+    residual = getattr(state, "wire_residual", None)
+    if residual is not None:
+        residual = params_from_numpy(residual, device, place=place)
     return TrainState(step=int(np.asarray(state.step)), params=params,
-                      opt_state=opt)
+                      opt_state=opt, wire_residual=residual)
 
 
 def train_state_to_numpy(state) -> Dict:
     """The port's ``TrainState`` -> {"step", "params", "count", "mu",
     "nu"} as numpy (the reference's names for AdamW's ``step``,
     ``exp_avg`` and ``exp_avg_sq``; zeros and count 0 before the first
-    step)."""
+    step), and "wire_residual" when the state carries one."""
     from dlrover_tpu_torch.parallel.accelerate import _named_leaves
 
     named = _named_leaves(state.params)
@@ -229,7 +234,10 @@ def train_state_to_numpy(state) -> Dict:
             (path, slots[p][key] if p in slots else torch.zeros_like(p))
             for path, p in named))
 
-    return {"step": int(state.step), "params": params_to_numpy(
-                state.params),
-            "count": int(counts.pop()) if counts else 0,
-            "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+    out = {"step": int(state.step),
+           "params": params_to_numpy(state.params),
+           "count": int(counts.pop()) if counts else 0,
+           "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+    if getattr(state, "wire_residual", None) is not None:
+        out["wire_residual"] = params_to_numpy(state.wire_residual)
+    return out

@@ -27,8 +27,19 @@ Serving (``decode_step``, ``verify_step``, ``prefill_chunk``,
 ``prefill_sequence``) runs the same weights over the paged KV cache of
 ``serving.kv_cache``; see the section's comment below.
 
-Not in this slice (they raise): sequence parallelism (A13), the
-low-precision FSDP wire (A14) and pipelining (A15).
+The dense FSDP wire (``fsdp_precision``, "" = the Context's): under
+"fp8" every rank-3 float layer stack is quantized to block-scaled e4m3
+plus f32 scales before the layer loop, and each layer decodes its
+slice at consumption, inside the remat'd block; under "fp8_qdq" the
+stack is decoded before the loop (the bitwise reference of "fp8").
+Both consumers pass the gradient straight through to the full-precision
+leaf. Over several ranks ``parallel.accelerate`` quantizes each wired
+leaf's block on its rank and gathers the wire form, which it hands the
+model under ``WIRE_KEY``; the model quantizes only the leaves it was not
+handed.
+
+Not in this slice (they raise): sequence parallelism (A13), the FSDP
+layer prefetch (A6b) and pipelining (A15).
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dlrover_tpu_torch.common.config import get_context
+from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.models.common import (
     KeepLeaf,
     cast_floats,
@@ -63,8 +76,16 @@ from dlrover_tpu_torch.ops.flash_attention import (
     flash_attention_auto,
     segmented_attention,
 )
+from dlrover_tpu_torch.ops.quantize import (
+    PRECISIONS,
+    dequantize_block_scaled,
+    quantize_block_scaled,
+)
 from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.ops.shard_compat import fp8_wire_supported
 from dlrover_tpu_torch.serving.kv_cache import decode_kv, encode_kv
+
+logger = get_logger("models.llama")
 
 
 @dataclass(frozen=True)
@@ -100,9 +121,12 @@ class LlamaConfig:
     moe_ep_axes: Tuple[str, ...] = ("data", "fsdp")
     moe_dispatch_chunks: int = 0
     moe_precision: str = ""
-    # later slices: a non-default value raises in apply
-    seq_axis: Optional[str] = None
+    # the dense FSDP wire: "bf16" | "fp8" | "fp8_qdq"; "" = the
+    # Context's (read at each call, so a retune swaps it)
     fsdp_precision: str = ""
+    # later slices: a true value raises in apply (None = the Context's)
+    seq_axis: Optional[str] = None
+    fsdp_prefetch: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -151,9 +175,13 @@ def _check_supported(c: LlamaConfig) -> None:
     if c.seq_axis:
         raise NotImplementedError("sequence parallelism (ring attention) "
                                   "is not ported yet (ROADMAP A13)")
-    if c.fsdp_precision not in ("", "bf16"):
-        raise NotImplementedError("the low-precision FSDP wire is not "
-                                  "ported yet (ROADMAP A14)")
+    prefetch = (c.fsdp_prefetch if c.fsdp_prefetch is not None
+                else get_context().fsdp_prefetch)
+    if prefetch:
+        raise NotImplementedError(
+            "fsdp_prefetch: per-layer FSDP gathers with the layer prefetch "
+            "are not ported yet (ROADMAP A6b); the step gathers the whole "
+            "tree once")
 
 
 # -- init -------------------------------------------------------------------
@@ -347,11 +375,148 @@ def _ffn_block(x, layer, config: LlamaConfig, rng=None):
     return (gate * up) @ layer["down_proj"]["kernel"], None, None, None
 
 
+# -- the dense FSDP wire -----------------------------------------------------
+
+# where parallel.accelerate hands the model the gathered wire forms of the
+# leaves it quantized on their ranks: {layer path: {"v", "s"} | {"dq"}}
+WIRE_KEY = "fsdp_wire"
+
+
+def resolve_fsdp_precision(config: LlamaConfig,
+                           device: Optional[torch.device] = None) -> str:
+    """The dense wire's precision: the config's when set, else the
+    Context's (``fsdp_precision``). A quantized choice degrades to
+    "bf16", with a warning, when ``device`` fails the fp8 probe."""
+    p = (config.fsdp_precision or "").strip()
+    if not p:
+        p = str(get_context().fsdp_precision or "bf16").strip() or "bf16"
+    if p not in PRECISIONS:
+        raise ValueError(f"unknown FSDP wire precision {p!r}; choose one "
+                         f"of {PRECISIONS}")
+    if p != "bf16" and not fp8_wire_supported(device):
+        logger.warning("fsdp precision %r requested but %s fails the fp8 "
+                       "probe; falling back to the bf16 wire", p,
+                       torch.device(device or "cpu").type)
+        return "bf16"
+    return p
+
+
+def _wire_leaf(t: torch.Tensor) -> bool:
+    """Which stacked layer leaves ride the wire: the rank-3 float weight
+    matrices ([L, in, out]). Norm scales ([L, D]) stay exact, and rank-4
+    expert tensors (consumed on their own rank) are left out."""
+    return t.dim() == 3 and t.is_floating_point()
+
+
+@dataclass(frozen=True)
+class FsdpWire:
+    """What ``parallel.accelerate`` reads from a loss function that
+    runs the wire (``make_loss_fn``): the precision at a call and which
+    parameter paths are wired."""
+
+    config: LlamaConfig
+    # where the model takes the gathered wire forms
+    key: str = WIRE_KEY
+
+    def mode(self, device: Optional[torch.device] = None) -> str:
+        return resolve_fsdp_precision(self.config, device)
+
+    @staticmethod
+    def wired(path: str, t: torch.Tensor) -> bool:
+        return path.startswith("layers/") and _wire_leaf(t)
+
+
+def _flatten_layers(layers: Dict, prefix: str = ""):
+    """(path, leaf) pairs of a nested layer tree, "/"-joined, sorted."""
+    out = []
+    for k in sorted(layers):
+        if isinstance(layers[k], dict):
+            out.extend(_flatten_layers(layers[k], f"{prefix}{k}/"))
+        else:
+            out.append((f"{prefix}{k}", layers[k]))
+    return out
+
+
+def _wire_form(leaf: torch.Tensor, mode: str, block: int = 0) -> Dict:
+    """One leaf's wire form: its e4m3 values and f32 scales under
+    "fp8", or under "fp8_qdq" their decode at the leaf's dtype (the same
+    numbers, shipped at full precision). The quantize runs per 32-channel
+    block of the last dim, so it commutes with any slice along the
+    others (a layer, a rank's block)."""
+    v, s = quantize_block_scaled(leaf.detach(), block)
+    if mode == "fp8":
+        return {"v": v, "s": s}
+    return {"dq": dequantize_block_scaled(v, s, leaf.dtype)}
+
+
+def _quantize_layer_stack(layers: Dict, mode: str,
+                          skip=()) -> Dict[str, Dict]:
+    """path -> wire form of every wired leaf of the stacked layer tree
+    but those in ``skip`` (handed over already gathered)."""
+    return {path: _wire_form(leaf, mode)
+            for path, leaf in _flatten_layers(layers)
+            if _wire_leaf(leaf) and path not in skip}
+
+
+class _ConsumeFp8(torch.autograd.Function):
+    """Decode a wired leaf at consumption. ``w`` (the full-precision
+    leaf) gives no forward value: it is the straight-through route of
+    the gradient, which e4m3 values cannot carry."""
+
+    @staticmethod
+    def forward(ctx, v, s, w):
+        return dequantize_block_scaled(v, s, w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g
+
+
+class _ConsumeQdq(torch.autograd.Function):
+    """The "fp8_qdq" consumption: the decoded value, with
+    ``_ConsumeFp8``'s backward, so the two are bitwise equal forward and
+    backward."""
+
+    @staticmethod
+    def forward(ctx, dq, w):
+        return dq.view_as(dq)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def _get_path(tree: Dict, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _consume_wire(wire: Dict[str, Dict], layer: Dict) -> Dict:
+    """``layer`` (one layer's tree) with each wired leaf replaced by its
+    decoded wire form."""
+    out = tree_map(lambda t: t, layer)
+    for path, form in wire.items():
+        *parents, last = path.split("/")
+        node = out
+        for k in parents:
+            node = node[k]
+        w = _get_path(layer, path)
+        node[last] = (_ConsumeQdq.apply(form["dq"], w) if "dq" in form
+                      else _ConsumeFp8.apply(form["v"], form["s"], w))
+    return out
+
+
 def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None,
-                   segment_ids=None):
+                   segment_ids=None, wire=None):
     """One layer: params may be stored f32; compute in the configured
-    dtype. Returns (x, aux_loss, dropped_frac, expert_load)."""
+    dtype. ``wire``: the layer's slice of the wire forms, decoded here
+    (inside the remat'd block, so a recompute decodes again from the
+    quantized values). Returns (x, aux_loss, dropped_frac,
+    expert_load)."""
     c = config
+    if wire:
+        layer = _consume_wire(wire, layer)
     layer = cast_floats(layer, c.compute_dtype)
     attn_in = rms_norm(x, layer["input_norm"]["scale"], c.rms_eps)
     x = x + _attention_block(attn_in, layer, c, positions, segment_ids)
@@ -378,9 +543,24 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     b, s = input_ids.shape
     positions = (segment_positions(segment_ids) if segment_ids is not None
                  else torch.arange(s, device=x.device).expand(b, s))
+    layers = params["layers"]
+    # the fp8 probe of the device the model runs on (the CPU's for the
+    # meta device, where attribution counts the step)
+    mode = resolve_fsdp_precision(
+        c, None if x.device.type == "meta" else x.device)
+    gathered = params.get(WIRE_KEY) or {}
+    if gathered and mode == "bf16":
+        raise ValueError("the model was handed gathered wire forms, but "
+                         "its FSDP wire resolves to bf16")
+    wire = {}
+    if mode != "bf16":
+        wire = {**_quantize_layer_stack(layers, mode, skip=gathered),
+                **gathered}
     # one unbind per stacked leaf: its backward stacks the per-layer
     # gradients once, instead of one full-size scatter per layer
-    per_layer = tree_map(lambda t: t.unbind(0), params["layers"])
+    per_layer = tree_map(lambda t: t.unbind(0), layers)
+    per_wire = {path: {k: t.unbind(0) for k, t in form.items()}
+                for path, form in wire.items()}
     block = apply_remat(
         functools.partial(_decoder_block, config=c, positions=positions,
                           rng=rng, segment_ids=segment_ids),
@@ -388,7 +568,10 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     )
     stats = []
     for i in range(c.num_layers):
-        x, *layer_stats = block(x, tree_map(lambda ts: ts[i], per_layer))
+        layer_wire = {path: {k: ts[i] for k, ts in form.items()}
+                      for path, form in per_wire.items()}
+        x, *layer_stats = block(x, tree_map(lambda ts: ts[i], per_layer),
+                                wire=layer_wire)
         stats.append(layer_stats)
     x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
     zero = torch.zeros((), device=x.device)
@@ -766,6 +949,9 @@ def make_loss_fn(config: LlamaConfig, z_loss_weight: float = 0.0,
             1, config.num_layers)
         return loss, dict(out[2])
 
+    # parallel.accelerate quantizes the wired leaves' blocks before its
+    # gathers when the wire is on
+    loss_fn.fsdp_wire = FsdpWire(config)
     return loss_fn
 
 

@@ -18,7 +18,11 @@ never mints inf.
 The int8 half below is the serving tier's KV-page storage
 (``serving.kv_cache``): the same block geometry, int8 values rounded
 half to even (``torch.round``, as ``jnp.round``) and clamped to +-127.
-The error-feedback gradient wire of the reference comes with A14.
+
+The last part is the gradient wire (``parallel.accelerate``):
+``error_feedback_qdq`` quantizes a gradient leaf with the last step's
+decompression error added back, so the errors telescope instead of
+accumulating.
 """
 
 from __future__ import annotations
@@ -128,3 +132,29 @@ def dequantize_block_scaled_int8(values: torch.Tensor, scales: torch.Tensor,
     nb = scales.shape[-1]
     vb = values.float().reshape(values.shape[:-1] + (nb, d // nb))
     return (vb * scales[..., None]).reshape(values.shape).to(dtype)
+
+
+# -- the gradient wire ---------------------------------------------------------
+
+# gradient-path precisions (``parallel.accelerate``): a quantized
+# gradient is not dequant-exact training, so its error is carried
+# forward ("fp8", error feedback) or dropped ("fp8_nofb", the control the
+# telescoping tests compare against; never train with it)
+GRAD_PRECISIONS = ("bf16", "fp8", "fp8_nofb")
+
+
+def error_feedback_qdq(g: torch.Tensor, residual: torch.Tensor,
+                       feedback: bool = True, block: int = 0):
+    """One error-feedback step on one gradient leaf: ``(g_quantized,
+    new_residual)``. The residual (the last step's decompression error,
+    zeros at first) is added back into ``g`` before the quantize, and
+    the new residual is this quantize's error, so over steps the sum of
+    the applied gradients is the sum of the raw ones minus the last
+    residual. ``feedback=False`` quantizes the raw ``g`` and drops the
+    error. ``block``: the scale block (default: from ``g``'s last dim;
+    a rank's block of a leaf passes its global leaf's)."""
+    eff = g + residual.to(g.dtype) if feedback else g
+    gq = dequantize_block_scaled(*quantize_block_scaled(eff, block),
+                                 g.dtype)
+    new_residual = eff - gq if feedback else torch.zeros_like(residual)
+    return gq, new_residual.to(residual.dtype)

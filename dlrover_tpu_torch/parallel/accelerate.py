@@ -38,8 +38,31 @@ and the gradient norm and finite check are global.
 steps in one call over K stacked batches, each the single step's own
 arithmetic with the same rng stream, so it is bit for bit K calls of
 ``train_step``; its metrics come back stacked along a leading [K] axis,
-and nothing between the K steps waits on the device. A low-precision
-gradient wire comes with a later slice (ROADMAP A14) and raises here.
+and nothing between the K steps waits on the device.
+
+The precision wires (ROADMAP A14). The dense FSDP wire: when the loss
+function carries ``fsdp_wire`` (``models.llama.make_loss_fn``) and it
+resolves to "fp8", each gathered leaf it wires has its block quantized
+on its rank (blocks of 32 along the last dim, which no wired leaf is
+split on, so the blocks are the global leaf's) and only the e4m3 values
+and f32 scales are all-gathered; under "fp8_qdq" the block is decoded
+first and gathered at full precision (the bitwise reference). The model
+gets the gathered forms under ``fsdp_wire.key`` and, in the
+wired leaf's place, a full-shape gradient route that holds no values;
+the gradient that reaches it is reduce-scattered to the block as any
+gathered leaf's. The gradient wire (``grad_precision`` "fp8"): once the
+gradients are reduced and divided, each float leaf's block is quantized
+with the error-feedback residual ``TrainState.wire_residual`` (zeros in
+the parameters' layout at first, None under "bf16") added back, and the
+norm, the finite check and the optimizer see the decoded gradients.
+
+A two-gradient optimizer (one with ``update_with_grad_fn``,
+``optimizers.wsam``) is handed a function that runs the whole forward
+and backward again at the parameters' current values on the same batch
+and returns the reduced gradients. An optimizer factory that takes
+``norm_groups`` is handed, for each parameter, the process group its
+block is split over (None: whole on every rank), so a global norm sums
+each block's squares over its axes.
 """
 
 from __future__ import annotations
@@ -55,10 +78,22 @@ import torch.distributed as dist
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import get_logger
-from dlrover_tpu_torch.models.common import tree_leaves
+from dlrover_tpu_torch.models.common import tree_leaves, tree_map
+from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.ops import ring
+from dlrover_tpu_torch.ops.quantize import (
+    GRAD_PRECISIONS,
+    WIRE_DTYPE,
+    dequantize_block_scaled,
+    error_feedback_qdq,
+    quantize_block_scaled,
+    resolve_quant_block,
+)
 from dlrover_tpu_torch.ops.remat import apply_remat
-from dlrover_tpu_torch.ops.shard_compat import ambient_mesh
+from dlrover_tpu_torch.ops.shard_compat import (
+    ambient_mesh,
+    fp8_wire_supported,
+)
 from dlrover_tpu_torch.parallel.mesh import ProcessMesh
 from dlrover_tpu_torch.parallel.sharding_rules import (
     BATCH_AXES,
@@ -83,6 +118,11 @@ class TrainState:
     step: int
     params: Dict  # nested dict of leaf tensors with requires_grad
     opt_state: torch.optim.Optimizer  # holds the moments of ``params``
+    # the gradient wire's error-feedback residual: the parameters' tree
+    # of zeros-at-first, each rank holding its block (None under the
+    # exact "bf16" gradient path); saved, snapshotted and regrouped with
+    # the parameters
+    wire_residual: Optional[Dict] = None
 
 
 class PlacedBatch(dict):
@@ -117,6 +157,9 @@ class AccelerateResult:
 
     # where every leaf lives: axis sizes, global shapes, sharded leaves
     layout: Optional[ShardLayout] = None
+    # parameter tree -> the optimizer over its leaves (the factory,
+    # handed the norm groups where it takes them)
+    make_optimizer: Optional[Callable[[Dict], torch.optim.Optimizer]] = None
 
     @property
     def specs(self) -> Dict[str, tuple]:
@@ -187,6 +230,45 @@ def _named_leaves(tree, prefix=""):
     return [(prefix.rstrip("/"), tree)]
 
 
+def resolve_grad_precision(requested: Optional[str] = None,
+                           device: DeviceLike = None) -> str:
+    """The gradient wire's precision at build time: ``requested`` when
+    given, else the Context's (``grad_precision``). A quantized choice
+    degrades to "bf16", with a warning, when ``device`` fails the fp8
+    probe. A build-time knob: the residual changes the state."""
+    p = (requested or "").strip()
+    if not p:
+        p = str(get_context().grad_precision or "bf16").strip() or "bf16"
+    if p not in GRAD_PRECISIONS:
+        raise ValueError(f"unknown grad precision {p!r}; choose one of "
+                         f"{GRAD_PRECISIONS}")
+    if p != "bf16" and not fp8_wire_supported(device):
+        logger.warning("grad precision %r requested but the device fails "
+                       "the fp8 probe; gradients stay exact (bf16 path)", p)
+        return "bf16"
+    return p
+
+
+def _apply_grad_wire(named, residual: Dict, grad_precision: str,
+                     block_of: Callable[[str, torch.Tensor], int]) -> None:
+    """The error-feedback quantized gradient path, in place: each float
+    non-scalar leaf's gradient becomes its decoded quantization, and
+    its residual the error (zeros under "fp8_nofb"). ``block_of(path,
+    grad)``: the scale block, from the global leaf's last dim."""
+    feedback = grad_precision != "fp8_nofb"
+    res = dict(_named_leaves(residual))
+    with torch.no_grad():
+        for path, p in named:
+            g, r = p.grad, res.get(path)
+            if r is None or g is None or g.dim() == 0 \
+                    or not g.is_floating_point():
+                continue
+            gq, nr = error_feedback_qdq(g, r, feedback=feedback,
+                                        block=block_of(path, g))
+            g.copy_(gq)
+            r.copy_(nr)
+
+
 def accelerate(
     init_fn: Callable[[torch.Generator], Dict],
     loss_fn: LossFn,
@@ -213,14 +295,13 @@ def accelerate(
       rng: seed of the init generator.
       device: default ``cuda`` (raises without one); tests pass "cpu".
       steps_per_call: K > 1 builds ``train_step_multi`` beside the step.
+      grad_precision: "bf16" (exact) | "fp8" (error feedback, the
+        residual in ``TrainState.wire_residual``) | "fp8_nofb" (the
+        control); None: the Context's (``resolve_grad_precision``).
     """
     device = resolve_device(device)
     steps_per_call = max(1, int(steps_per_call))
-    if (grad_precision or "bf16") != "bf16":
-        raise NotImplementedError(
-            f"grad_precision {grad_precision!r}: only the exact gradient "
-            "path (bf16) is ported"
-        )
+    grad_precision = resolve_grad_precision(grad_precision, device)
     strategy = strategy or Strategy()
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -242,6 +323,7 @@ def accelerate(
             f"{batch_rows // world} rows of each of {world} ranks"
         )
     strategy = dataclasses.replace(strategy, global_batch_size=batch_rows)
+    fsdp_wire = getattr(loss_fn, "fsdp_wire", None)
     loss_fn = apply_remat(loss_fn, strategy.remat_policy or "none")
     rule_set = strategy.rule_set
     layout = _layout(init_fn, strategy.rules(), rule_set, mesh)
@@ -253,6 +335,54 @@ def accelerate(
     rest = {path: mesh.group(tuple(a for a in BATCH_AXES
                                    if a not in shard.axes))
             for path, shard in layout.leaves.items()}
+    # the gathered leaves the model's FSDP wire may quantize, and the
+    # scale block of each (the global leaf's last dim: no wired leaf is
+    # split along it, so a block's quantize is the global leaf's)
+    wired: Dict[str, int] = {}
+    if fsdp_wire is not None:
+        for path in gather:
+            shape = layout.shapes[path]
+            if not fsdp_wire.wired(path, torch.empty(
+                    shape, device="meta")):
+                continue
+            if layout.leaves[path].dim == len(shape) - 1:
+                raise ValueError(
+                    f"the FSDP wire quantizes {path} in blocks along its "
+                    f"last dim, which the rules split: a rank's blocks "
+                    f"would not be the global leaf's")
+            wired[path] = resolve_quant_block(shape[-1])
+    # the gradient wire's scale block of each leaf, from its global
+    # leaf's last dim; a rank's block of a leaf split along that dim
+    # must hold whole blocks
+    grad_blocks: Dict[str, int] = {}
+
+    def grad_block(path: str, t: torch.Tensor) -> int:
+        if path not in grad_blocks:
+            full = layout.shapes.get(path, tuple(t.shape))
+            block = resolve_quant_block(full[-1])
+            if t.shape[-1] % block:
+                raise ValueError(
+                    f"the gradient wire's {block}-channel blocks of {path} "
+                    f"straddle the ranks' blocks ({t.shape[-1]} of "
+                    f"{full[-1]} channels a rank)")
+            grad_blocks[path] = block
+        return grad_blocks[path]
+
+    takes_groups = "norm_groups" in inspect.signature(
+        optimizer).parameters
+
+    def make_optimizer(params: Dict) -> torch.optim.Optimizer:
+        """The optimizer over the leaves of ``params`` (in
+        ``tree_leaves`` order), handed each leaf's norm group where the
+        factory takes them."""
+        leaves = tree_leaves(params)
+        if not takes_groups:
+            return optimizer(leaves)
+        groups = []
+        for path, _ in _named_leaves(params):
+            shard = layout.leaves.get(path) if world > 1 else None
+            groups.append(None if shard is None else mesh.group(shard.axes))
+        return optimizer(leaves, norm_groups=groups)
 
     def block_of(path: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of a full leaf the init drew (a copy, so
@@ -286,12 +416,34 @@ def accelerate(
         # init's full leaves are cut by ``walk``
         tree = init_fn(gen, keep=block_of) if takes_keep else init_fn(gen)
         params = walk(tree)
+        residual = None
+        if grad_precision != "bf16":
+            residual = tree_map(lambda t: torch.zeros_like(
+                t, requires_grad=False), params)
         return TrainState(step=0, params=params,
-                          opt_state=optimizer(tree_leaves(params)))
+                          opt_state=make_optimizer(params),
+                          wire_residual=residual)
+
+    def wire_gather(node, path: str, mode: str) -> Dict:
+        """The gathered wire form of a wired leaf's block: its e4m3
+        values (as bytes on the wire) and f32 scales under "fp8", its
+        decode at full precision under "fp8_qdq"."""
+        dim, group = layout.leaves[path].dim, gather[path]
+        v, s = quantize_block_scaled(node.detach(), wired[path])
+        if mode == "fp8":
+            v = ring.gather_shard(v.view(torch.uint8), dim, group)
+            return {"v": v.view(WIRE_DTYPE),
+                    "s": ring.gather_shard(s, dim, group)}
+        dq = dequantize_block_scaled(v, s, node.dtype)
+        return {"dq": ring.gather_shard(dq, dim, group)}
 
     def gathered(params, fulls, grad: bool):
         """``params`` with each gathered leaf full; ``fulls`` collects
-        (the gather's output, the leaf the model sees) by path."""
+        (the gather's output, or None for a wired leaf, and the leaf the
+        model sees) by path."""
+        mode = fsdp_wire.mode(device) if wired else "bf16"
+        forms: Dict[str, Dict] = {}
+
         def walk(node, prefix=""):
             if isinstance(node, dict):
                 return {k: walk(node[k], f"{prefix}{k}/")
@@ -300,6 +452,16 @@ def accelerate(
             if path not in gather:
                 return node
             dim = layout.leaves[path].dim
+            if mode != "bf16" and path in wired:
+                forms[path[len("layers/"):]] = wire_gather(node, path, mode)
+                # the gradient's route: the full shape, no values
+                seen = torch.zeros((), dtype=node.dtype,
+                                   device=node.device).expand(
+                                       layout.shapes[path])
+                if grad and node.requires_grad:
+                    seen.requires_grad_()
+                    fulls[path] = (None, seen)
+                return seen
             if not (grad and node.requires_grad):
                 return ring.gather_shard(node, dim, gather[path])
             full = ring.all_gather_shard(node, dim, gather[path])
@@ -307,26 +469,43 @@ def accelerate(
             fulls[path] = (full, seen)
             return seen
 
-        return walk(params) if gather else params
+        if not gather:
+            return params
+        out = walk(params)
+        if forms:
+            out[fsdp_wire.key] = forms
+        return out
 
-    def reduce_grads(named):
-        """The global gradient on every rank, and its norm."""
-        rep_sq = torch.zeros((), device=device)
+    def reduce_grads(named) -> None:
+        """The global gradient on every rank: a replicated leaf's summed
+        over every rank, a block's over the axes it is not split on,
+        each divided by the rank count."""
+        for path, p in named:
+            shard = layout.leaves.get(path)
+            if shard is None:
+                ring.all_reduce_(p.grad, group)
+            elif rest[path] is not None:
+                ring.all_reduce_(p.grad, rest[path])
+            p.grad.div_(world)
+
+    def grad_norm_of(named) -> torch.Tensor:
+        """The global gradient norm: a block's squares summed over the
+        group of its axes."""
+        if world == 1:
+            return torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(p.grad.float())
+                 for _, p in named]))
+        total = torch.zeros((), device=device)
         # the squares of the sharded blocks, summed over their axes' group
         shard_sq = {BATCH_AXES: torch.zeros((), device=device)}
         for path, p in named:
             shard = layout.leaves.get(path)
+            sq = p.grad.float().square().sum()
             if shard is None:
-                ring.all_reduce_(p.grad, group).div_(world)
-                rep_sq = rep_sq + p.grad.float().square().sum()
-                continue
-            if rest[path] is not None:
-                ring.all_reduce_(p.grad, rest[path])
-            p.grad.div_(world)
-            shard_sq[shard.axes] = (
-                shard_sq.get(shard.axes, torch.zeros((), device=device))
-                + p.grad.float().square().sum())
-        total = rep_sq
+                total = total + sq
+            else:
+                shard_sq[shard.axes] = shard_sq.get(
+                    shard.axes, torch.zeros((), device=device)) + sq
         for axes in sorted(shard_sq):
             total = total + ring.all_reduce_(shard_sq[axes],
                                              mesh.group(axes))
@@ -339,11 +518,47 @@ def accelerate(
     def _train_step(state: TrainState, batch: Dict, step_rng=None):
         named = [(path, p) for path, p in _named_leaves(state.params)
                  if p.requires_grad]
+        loss, aux = compute_grads(state.params, named, batch, step_rng)
+        if state.wire_residual is not None:
+            _apply_grad_wire(named, state.wire_residual, grad_precision,
+                             grad_block)
+        grad_norm = grad_norm_of(named)
+        metrics = {
+            **aux,
+            "loss": loss,
+            "grad_norm": grad_norm,
+            # any non-finite gradient reaches the global norm
+            "finite": torch.isfinite(loss) & torch.isfinite(grad_norm),
+            "step": state.step + 1,
+        }
+        opt = state.opt_state
+        if hasattr(opt, "update_with_grad_fn"):
+            # a two-gradient optimizer: a whole forward and backward at
+            # the parameters it sets, on this batch
+            def grad_fn() -> list:
+                saved = [p.grad for _, p in named]
+                compute_grads(state.params, named, batch, step_rng)
+                out = {id(p): p.grad for _, p in named}
+                for (_, p), g in zip(named, saved):
+                    p.grad = g
+                return [out.get(id(p)) for p in tree_leaves(state.params)]
+
+            opt.update_with_grad_fn(grad_fn)
+        else:
+            opt.step()
+        state.step += 1
+        return state, metrics
+
+    def compute_grads(params_tree, named, batch: Dict, step_rng):
+        """The forward and backward on ``batch`` at the parameters'
+        values: each parameter's ``grad`` the global gradient (reduced
+        and divided over the ranks). Returns the loss (the ranks' mean)
+        and the loss function's aux."""
         for _, p in named:
             p.grad = None
         # gathered once a step, before the forward
-        fulls: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        params = gathered(state.params, fulls, grad=True)
+        fulls: Dict[str, Tuple[Optional[torch.Tensor], torch.Tensor]] = {}
+        params = gathered(params_tree, fulls, grad=True)
         seen = [fulls[path][1] if path in fulls else p for path, p in named]
         if accum == 1:
             loss, aux = loss_fn(params, batch, step_rng)
@@ -364,29 +579,23 @@ def accelerate(
             aux = {k: torch.stack([torch.as_tensor(a[k]) for a in auxes]
                                   ).mean(dim=0) for k in auxes[0]}
         # each full gradient back to its block (the gather's backward),
-        # in path order on every rank; the gathered copies go with it
+        # in path order on every rank; the gathered copies go with it. A
+        # wired leaf's gradient route is reduce-scattered the same way
+        blocks_of = dict(named)
         for path in sorted(fulls):
             full, leaf = fulls.pop(path)
-            full.backward(leaf.grad)
+            if full is not None:
+                full.backward(leaf.grad)
+                continue
+            block = ring.scatter_sum(leaf.grad, layout.leaves[path].dim,
+                                     gather[path])
+            p = blocks_of[path]
+            p.grad = block if p.grad is None else p.grad.add_(block)
         del params, seen
         if world > 1:
-            grad_norm = reduce_grads(named)
+            reduce_grads(named)
             loss = ring.all_reduce_(loss.clone(), group) / world
-        else:
-            grad_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad.float())
-                 for _, p in named]))
-        metrics = {
-            **aux,
-            "loss": loss,
-            "grad_norm": grad_norm,
-            # any non-finite gradient reaches the global norm
-            "finite": torch.isfinite(loss) & torch.isfinite(grad_norm),
-            "step": state.step + 1,
-        }
-        state.opt_state.step()
-        state.step += 1
-        return state, metrics
+        return loss, aux
 
     def train_step_multi(state: TrainState, batches: Dict, step_rng=None):
         """K = ``steps_per_call`` steps over ``batches`` (this rank's
@@ -418,16 +627,18 @@ def accelerate(
 
     if rank == 0:
         logger.info("accelerate: device=%s ranks=%d mesh=%s rules=%s "
-                    "sharded=%d gathered=%d accum=%d remat=%s "
-                    "steps_per_call=%d", device, world, layout.sizes,
-                    strategy.rule_set, len(layout.leaves), len(gather),
-                    accum,
-                    strategy.remat_policy or "none", steps_per_call)
+                    "sharded=%d gathered=%d wired=%d accum=%d remat=%s "
+                    "steps_per_call=%d grad_precision=%s", device, world,
+                    layout.sizes, strategy.rule_set, len(layout.leaves),
+                    len(gather), len(wired), accum,
+                    strategy.remat_policy or "none", steps_per_call,
+                    grad_precision)
     return AccelerateResult(
         train_step=train_step, eval_step=eval_step, init_fn=make_state,
         device=device, strategy=strategy, mesh=mesh, rank=rank, world=world,
         train_step_multi=train_step_multi if steps_per_call > 1 else None,
         steps_per_call=steps_per_call, layout=layout,
+        make_optimizer=make_optimizer,
     )
 
 

@@ -4,7 +4,11 @@ the TPU generations), ``kv_bytes_per_elem``, the one price of a stored
 KV element that ``serving.kv_cache.KVCacheSpec`` charges, and the
 serving decode term: ``ModelSpec``, the pool's byte counts and
 ``estimate_decode``, a serving config's predicted decode step and
-tokens/s. The planner's search over meshes comes with ROADMAP A15.
+tokens/s; and the dense FSDP wire's bytes a gathered parameter element
+(``ModelSpec.fsdp_wire_bytes_per_elem``), the one formula the wire's
+gathers are held to. The planner's search over meshes, and the wire's
+byte split and collective pricing (``fsdp_byte_split``), come with
+ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -99,8 +103,9 @@ MAX_EFFICIENCY = 1.0
 
 @dataclass
 class ModelSpec:
-    """What the decode term reads of the workload (the reference's
-    ``ModelSpec`` holds the training planner's fields too)."""
+    """What the decode term and the FSDP wire read of the workload (the
+    reference's ``ModelSpec`` holds the training planner's fields
+    too)."""
 
     param_count: int
     num_layers: int
@@ -108,10 +113,29 @@ class ModelSpec:
     # GQA shape (0 = MHA)
     num_heads: int = 0
     kv_heads: int = 0
+    param_bytes: int = 2  # bf16 storage
+    # the dense FSDP wire ("bf16" | "fp8" | "fp8_qdq"): "fp8" gathers
+    # e4m3 values and one f32 scale a block; "fp8_qdq" decodes before
+    # the wire, so it ships the parameter bytes
+    fsdp_precision: str = "bf16"
+
+    def fsdp_wire_bytes_per_elem(self) -> float:
+        """Wire bytes a gathered parameter element on the dense FSDP
+        gathers, the scales included: ``1 + 4 / block`` under "fp8"
+        (blocks along each kernel's last dim; ``hidden_size`` stands for
+        the channel count), the parameter bytes otherwise."""
+        if self.fsdp_precision == "fp8":
+            from dlrover_tpu_torch.ops.quantize import resolve_quant_block
+
+            block = resolve_quant_block(max(1, int(self.hidden_size)))
+            return 1.0 + 4.0 / block
+        return float(self.param_bytes)
 
 
 def model_spec_from_llama(config) -> ModelSpec:
-    """A ModelSpec of a LlamaConfig."""
+    """A ModelSpec of a LlamaConfig. ``fsdp_precision`` "" resolves the
+    Context's, as the model does at each call."""
+    from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.models import llama
 
     return ModelSpec(
@@ -120,6 +144,9 @@ def model_spec_from_llama(config) -> ModelSpec:
         hidden_size=config.hidden_size,
         num_heads=config.num_heads,
         kv_heads=config.num_kv_heads,
+        param_bytes=torch.empty((), dtype=config.param_dtype).element_size(),
+        fsdp_precision=(config.fsdp_precision
+                        or str(get_context().fsdp_precision or "bf16")),
     )
 
 

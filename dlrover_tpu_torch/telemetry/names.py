@@ -113,6 +113,8 @@ class EventKind:
     RDZV_JOIN = "rdzv_join"
     SCALE_PLAN_APPLIED = "scale_plan_applied"
     WORKER_FAILED = "worker_failed"
+    # a runtime-optimizer plan applied live (trainer/executor.py)
+    OPTIMIZER_APPLY_DONE = "optimizer_apply_done"
     # performance attribution: one record per built step (counted FLOPs
     # and bytes, exchange bytes, peak memory), keyed by the program cache
     ATTRIBUTION_CAPTURED = "attribution_captured"

@@ -7,15 +7,19 @@ optimizer steps in one call) with their save cadence,
 ``restore_state``, ``snapshot``, ``save``, ``latest_checkpoint_step``
 and ``finalize``, on one device or over the ranks of
 ``torch.distributed`` (the world ``trainer.bootstrap.init_worker``
-joined). The MoE's ``dispatch_chunks`` and ``moe_precision`` are pinned
-on the Context before the step is built, as the reference pins them
-before it traces. The rng stream (the ``torch.Generator`` handed to the
+joined). The MoE's ``dispatch_chunks`` and ``moe_precision`` and the
+dense FSDP wire's ``fsdp_precision`` are pinned on the Context before
+the step is built, as the reference pins them before it traces; a wire
+precision the device's fp8 probe fails runs, and is reported, as
+"bf16" (``_effective_precision``). ``grad_precision`` is fixed at
+construction: its error-feedback residual is part of the state. The rng stream (the ``torch.Generator`` handed to the
 loss each step) rides in each checkpoint's metadata, so a resumed run
 draws what the uninterrupted one would have.
 
 In-process recovery (ROADMAP A8b): built steps are kept under a key of
 (device, process group, strategy, ``steps_per_call``,
-``dispatch_chunks``, ``moe_precision``), at most four, so a return to a
+``dispatch_chunks``, ``moe_precision``, ``fsdp_precision``,
+``grad_precision``), at most four, so a return to a
 knob set already built builds nothing. A build here is ``accelerate``
 (the step's closures over the mesh) and the first launch of each kernel
 module; ``ops.kernel_build`` keeps the modules per process, so no
@@ -69,7 +73,9 @@ from dlrover_tpu_torch.parallel.accelerate import (
     OptimizerFn,
     TrainState,
     accelerate,
+    resolve_grad_precision,
 )
+from dlrover_tpu_torch.ops.shard_compat import fp8_wire_supported
 from dlrover_tpu_torch.parallel.mesh import (
     MeshPlan,
     mesh_axes_key,
@@ -115,6 +121,7 @@ class ElasticTrainer:
         grad_precision: Optional[str] = None,
         dispatch_chunks: Optional[int] = None,
         moe_precision: Optional[str] = None,
+        fsdp_precision: Optional[str] = None,
     ):
         self._init_fn = init_fn
         self._loss_fn = loss_fn
@@ -128,7 +135,10 @@ class ElasticTrainer:
         if steps_per_call is None:
             steps_per_call = ctx.steps_per_call
         self.steps_per_call = max(1, int(steps_per_call))
-        self.grad_precision = grad_precision
+        # the gradient wire: fixed here, its residual is part of the
+        # state (a plan asking another is not a retune)
+        self.grad_precision = resolve_grad_precision(grad_precision,
+                                                     self._device)
         # the grouped_ep row exchange's chunks and wire precision: the
         # model reads them from the Context at each call
         # (ops.moe.resolve_dispatch_chunks / resolve_moe_precision), so
@@ -138,7 +148,12 @@ class ElasticTrainer:
         self.dispatch_chunks = max(1, int(dispatch_chunks))
         if moe_precision is None:
             moe_precision = ctx.moe_precision or "bf16"
-        self.moe_precision = str(moe_precision)
+        self.moe_precision = self._effective_precision(moe_precision)
+        # the dense FSDP wire: the same contract (models.llama reads it
+        # from the Context at each call)
+        if fsdp_precision is None:
+            fsdp_precision = ctx.fsdp_precision or "bf16"
+        self.fsdp_precision = self._effective_precision(fsdp_precision)
         # a mesh for the current world chosen by retune (None: the base
         # strategy's adjust_to_world)
         self._mesh_override: Optional[MeshPlan] = None
@@ -171,6 +186,18 @@ class ElasticTrainer:
             self._ckpt = ElasticCheckpointManager(
                 ckpt_dir, save_interval=ckpt_interval or CheckpointInterval()
             )
+
+    def _effective_precision(self, precision: Optional[str]) -> str:
+        """The wire precision the step will run: "bf16" where the
+        device fails the fp8 probe (with a warning), so the program key,
+        the Context and what the executor reports agree with the step."""
+        p = str(precision or "bf16").strip() or "bf16"
+        if p != "bf16" and not fp8_wire_supported(self._device):
+            logger.warning("wire precision %r requested but %s fails the "
+                           "fp8 probe; the trainer runs (and reports) the "
+                           "bf16 wire", p, self._device.type)
+            return "bf16"
+        return p
 
     @property
     def world(self) -> int:
@@ -219,7 +246,8 @@ class ElasticTrainer:
                 + f"|world={self.world}|{self._group_token()}"
                 + f"|mesh={mesh_axes_key(strategy.mesh)}"
                 + f"|k={self.steps_per_call}|c={self.dispatch_chunks}"
-                + f"|p={self.moe_precision}|gp={self.grad_precision}"
+                + f"|p={self.moe_precision}|fp={self.fsdp_precision}"
+                + f"|gp={self.grad_precision}"
                 + f"|strategy={json.dumps(rest, sort_keys=True)}")
 
     def _build(self) -> AccelerateResult:
@@ -228,6 +256,7 @@ class ElasticTrainer:
         ctx = get_context()
         ctx.dispatch_chunks = self.dispatch_chunks
         ctx.moe_precision = self.moe_precision
+        ctx.fsdp_precision = self.fsdp_precision
         world = self.world
         if self._initial_world is None:
             self._initial_world = world
@@ -263,9 +292,11 @@ class ElasticTrainer:
             self._attr_records.pop(evicted, None)
         if self.is_chief:
             logger.info("built the train step for %s x %d ranks (K=%d, "
-                        "c=%d, p=%s, accum=%d)", topology_key([self._device]),
-                        world, self.steps_per_call, self.dispatch_chunks,
-                        self.moe_precision, strategy.grad_accum_steps)
+                        "c=%d, p=%s, fp=%s, gp=%s, accum=%d)",
+                        topology_key([self._device]), world,
+                        self.steps_per_call, self.dispatch_chunks,
+                        self.moe_precision, self.fsdp_precision,
+                        self.grad_precision, strategy.grad_accum_steps)
         return result
 
     def _active_key(self) -> Optional[str]:
@@ -450,32 +481,39 @@ class ElasticTrainer:
 
     def _state_from_snapshot(self, snapshot: HostSnapshot) -> TrainState:
         """A new TrainState on the device from ``snapshot``: its
-        parameters (of the snapshot's shapes), a new optimizer over them
-        holding the snapshot's moments, its step, rng and host step."""
-        params: Dict = {}
+        parameters and gradient-wire residual (of the snapshot's shapes),
+        a new optimizer over them (the active step's) holding the
+        snapshot's moments, its step, rng and host step."""
+        trees: Dict[str, Dict] = {"params": {}, "wire_residual": {}}
         for name, t in snapshot.tree.items():
-            if not name.startswith("params/"):
+            kind, _, rest = name.partition("/")
+            if kind not in trees:
                 continue
-            *outer, key = name[len("params/"):].split("/")
-            node = params
+            *outer, key = rest.split("/")
+            node = trees[kind]
             for part in outer:
                 node = node.setdefault(part, {})
             leaf = torch.empty(t.shape, dtype=t.dtype, device=self._device)
-            node[key] = leaf.requires_grad_(leaf.is_floating_point())
+            node[key] = (leaf.requires_grad_(leaf.is_floating_point())
+                         if kind == "params" else leaf)
+        params = trees["params"]
         state = TrainState(step=0, params=params,
-                           opt_state=self._optimizer(tree_leaves(params)))
+                           opt_state=self._result.make_optimizer(params),
+                           wire_residual=trees["wire_residual"] or None)
         return self.restore_snapshot(state, snapshot)
 
     @staticmethod
     def _release(state: TrainState) -> None:
         """Drop the device tensors ``state`` holds (parameters, their
-        gradients, the optimizer's slots); ``state`` is empty after."""
+        gradients, the optimizer's slots, the gradient wire's residual);
+        ``state`` is empty after."""
         for p in tree_leaves(state.params):
             p.grad = None
         if state.opt_state is not None:
             state.opt_state.state.clear()
             state.opt_state.param_groups.clear()
         state.params, state.opt_state = {}, None
+        state.wire_residual = None
 
     # -- in-process recovery ------------------------------------------------
 
@@ -549,8 +587,9 @@ class ElasticTrainer:
                     f"knobs")
             t_build = time.monotonic()
             self._release(state)
-            state = self._state_from_snapshot(snapshot)
+            # the new step's optimizer (its norm groups) holds the state
             self._result = result
+            state = self._state_from_snapshot(snapshot)
         done = time.monotonic()
         seconds = done - t0
         recompiled = self.compile_count - compiles_before
@@ -593,14 +632,11 @@ class ElasticTrainer:
 
     def _knobs(self) -> Tuple:
         return (self.steps_per_call, self._mesh_override,
-                self.dispatch_chunks, self.moe_precision)
+                self.dispatch_chunks, self.moe_precision,
+                self.fsdp_precision)
 
     def _set_knobs(self, steps_per_call, mesh, dispatch_chunks,
                    moe_precision, fsdp_precision) -> None:
-        if fsdp_precision is not None:
-            raise NotImplementedError(
-                "fsdp_precision: the FSDP wire's precision is not ported "
-                "(ROADMAP A14)")
         if mesh is not None and max(mesh.pipe, mesh.seq, mesh.tensor) > 1:
             raise NotImplementedError(
                 f"mesh {mesh.axis_sizes()}: only (data x fsdp) "
@@ -613,14 +649,17 @@ class ElasticTrainer:
         if dispatch_chunks is not None:
             self.dispatch_chunks = max(1, int(dispatch_chunks))
         if moe_precision is not None:
-            self.moe_precision = str(moe_precision)
+            self.moe_precision = self._effective_precision(moe_precision)
+        if fsdp_precision is not None:
+            self.fsdp_precision = self._effective_precision(fsdp_precision)
 
     def _restore_knobs(self, saved: Tuple) -> None:
         (self.steps_per_call, self._mesh_override, self.dispatch_chunks,
-         self.moe_precision) = saved
+         self.moe_precision, self.fsdp_precision) = saved
         ctx = get_context()
         ctx.dispatch_chunks = self.dispatch_chunks
         ctx.moe_precision = self.moe_precision
+        ctx.fsdp_precision = self.fsdp_precision
 
     def prewarm(self, devices=None, execute: bool = True,
                 steps_per_call: Optional[int] = None,
@@ -687,7 +726,11 @@ class ElasticTrainer:
                reason: str = "optimizer") -> TrainState:
         """New knobs of the step on the unchanged world, without a
         restart: ``live_reshard`` through the cache (a prewarmed knob
-        set builds nothing). Callers drain their in-flight steps first.
+        set builds nothing). The knobs: ``steps_per_call``, a ``mesh``
+        of the same ranks, the MoE's ``dispatch_chunks`` and
+        ``moe_precision``, and the dense wire's ``fsdp_precision``; not
+        ``grad_precision``, whose residual is part of the state. Callers
+        drain their in-flight steps first.
         On failure the old knobs and the old step come back, ``state``
         holds the state again, and the error propagates."""
         saved = self._knobs()
@@ -705,6 +748,7 @@ class ElasticTrainer:
                 back = self._state_from_snapshot(snapshot)
                 state.params, state.opt_state, state.step = (
                     back.params, back.opt_state, back.step)
+                state.wire_residual = back.wire_residual
             raise
 
     # -- hot loop -----------------------------------------------------------

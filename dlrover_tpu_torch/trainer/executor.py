@@ -18,8 +18,20 @@ and ``request_restart`` (the rebuild of ``on_world_change``). With a
 master client, ``trainer.failover.TrainingFailover`` watches for
 membership changes and makes those requests. The window, the
 non-finite check, the drains and evaluation count steps, not calls.
-Over several ranks only rank 0 logs. The master's reports, plan ids
-and the peer replication hook come with ROADMAP A12.
+Over several ranks only rank 0 logs.
+
+Runtime-optimizer plans: ``OptimizerPlanHook`` polls the master's
+broadcast config and hands an unseen plan to ``request_retune`` (its
+``steps_per_call``, ``train_window``, mesh, ``dispatch_chunks``,
+``moe_precision`` and ``fsdp_precision``, with the plan id). The plan is
+applied at a drained boundary (``_apply_plan_scoped``): prewarm, then
+retune through the trainer's cache. A plan that asks for a wire
+precision the device's fp8 probe would degrade to bf16, or that fails
+to apply, is acked negatively (``_report_trainer_config(...,
+apply_failed=True)``), so the master does not choose it again; an
+applied one is acked with the config the trainer runs. The realized
+speed-up measurement and the peer replication hook come with ROADMAP
+A12.
 
 Performance attribution (ROADMAP A11): at train start, and again after
 a reshard, retune or restart, the executor fetches the
@@ -48,6 +60,7 @@ import json
 import math
 import os
 import signal
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
@@ -108,6 +121,103 @@ class TrainHook:
 
     def end(self, executor: "TrainExecutor"):
         pass
+
+
+class OptimizerPlanHook(TrainHook):
+    """Poll the master for a runtime-optimizer plan and apply it live
+    (the reference's hook). A daemon thread polls
+    ``get_parallel_config`` every ``poll_secs`` (0: only ``poll_once``);
+    a plan id not seen before goes to ``executor.request_retune``, or to
+    ``request_restart`` when the plan asks for one. A plan whose knobs
+    are all serving ones is left to the serving worker, and over several
+    ranks a plan that changes the step is acked negatively (each rank
+    polls on its own clock, so an in-place swap is not synchronized)."""
+
+    def __init__(self, master_client, poll_secs: Optional[float] = None):
+        self._client = master_client
+        self._poll = float(poll_secs if poll_secs is not None
+                           else get_context().plan_poll_secs)
+        self._executor: Optional["TrainExecutor"] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._seen_plan = ""
+
+    def begin(self, executor: "TrainExecutor"):
+        self._executor = executor
+        if self._poll <= 0:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._poll_loop,
+                                        name="optimizer-plan-poll",
+                                        daemon=True)
+        self._thread.start()
+
+    def end(self, executor: "TrainExecutor"):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def _poll_loop(self):
+        while not self._stop.wait(self._poll):
+            try:
+                self.poll_once()
+            except Exception as e:  # noqa: BLE001 — the master briefly
+                # away: poll again at the next cadence
+                logger.warning("optimizer plan poll failed (%s: %s)",
+                               type(e).__name__, e)
+
+    def poll_once(self):
+        """Fetch the broadcast config and hand an unseen plan on."""
+        if self._executor is None:
+            return
+        cfg = self._client.get_parallel_config()
+        plan_id = getattr(cfg, "plan_id", "") or ""
+        if not plan_id or plan_id == self._seen_plan:
+            return
+        self._seen_plan = plan_id
+        k = int(getattr(cfg, "steps_per_call", 0) or 0)
+        w = int(getattr(cfg, "train_window", -1))
+        mesh = getattr(cfg, "mesh_shape", None) or None
+        ch = int(getattr(cfg, "dispatch_chunks", 0) or 0)
+        mp = getattr(cfg, "moe_precision", "") or ""
+        fp = getattr(cfg, "fsdp_precision", "") or ""
+        restart = bool(getattr(cfg, "restart", False))
+        serving = (getattr(cfg, "serve_slots", 0)
+                   or getattr(cfg, "serve_prefill_chunk", 0)
+                   or getattr(cfg, "serve_prefix_pool_pages", -1) >= 0)
+        if serving and not (k or mesh or w >= 0 or ch or mp or fp
+                            or restart):
+            return  # a serving worker's plan
+        if restart:
+            logger.info("optimizer plan %s requests a restart", plan_id)
+            self._executor.request_restart()
+            return
+        trace_id = getattr(cfg, "trace_id", "") or ""
+        if (k or mesh or ch or mp or fp) and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            logger.warning("optimizer plan %s changes the step; in-place "
+                           "swaps are not synchronized across ranks yet, "
+                           "applying only train_window", plan_id)
+            if w >= 0:
+                self._executor.request_retune(train_window=w,
+                                              trace_id=trace_id)
+            self._executor._report_trainer_config(plan_id=plan_id,
+                                                  apply_failed=True)
+            return
+        if getattr(cfg, "moe_dispatch", ""):
+            logger.warning("optimizer plan %s carries moe_dispatch=%s, "
+                           "which cannot be applied live; ignoring that "
+                           "knob", plan_id, cfg.moe_dispatch)
+        self._executor.request_retune(
+            steps_per_call=k or None,
+            train_window=w if w >= 0 else None,
+            mesh_shape=dict(mesh) if mesh else None,
+            dispatch_chunks=ch or None, moe_precision=mp or None,
+            fsdp_precision=fp or None, plan_id=plan_id, trace_id=trace_id,
+            predicted_speedup=float(getattr(cfg, "predicted_speedup", 0.0)
+                                    or 0.0),
+            prewarm=bool(getattr(cfg, "prewarm", True)))
 
 
 def _ring_seconds() -> float:
@@ -238,6 +348,7 @@ class TrainExecutor:
         self._retune_request: Optional[Dict[str, Any]] = None
         self._reshard_world_fn = reshard_world_fn
         self._failover: Optional[TrainingFailover] = None
+        self._master_client = master_client
         if master_client is not None:
             if failover_client is not None:
                 failover_client.init_version()
@@ -432,17 +543,29 @@ class TrainExecutor:
 
     def request_retune(self, steps_per_call: Optional[int] = None,
                        train_window: Optional[int] = None,
+                       mesh_shape: Optional[Dict[str, int]] = None,
                        dispatch_chunks: Optional[int] = None,
                        moe_precision: Optional[str] = None,
+                       fsdp_precision: Optional[str] = None,
+                       plan_id: str = "", trace_id: str = "",
+                       predicted_speedup: float = 0.0,
                        prewarm: bool = True):
-        """New knobs at the next loop boundary: ``train_window`` is set
-        in place, and the step's knobs swap through the trainer's cache
-        (``prewarm`` first builds the step there, ``retune`` switches to
-        it). No restart."""
+        """New knobs at the next loop boundary (a runtime-optimizer plan,
+        ``OptimizerPlanHook``): ``train_window`` is set in place, and
+        the step's knobs (``steps_per_call``, a mesh of the same ranks,
+        ``dispatch_chunks``, ``moe_precision``, ``fsdp_precision``) swap
+        through the trainer's cache (``prewarm`` first builds the step
+        there, ``retune`` switches to it). No restart. ``plan_id``: the
+        plan acked to the master once applied (or negatively)."""
         self._retune_request = {
             "steps_per_call": steps_per_call, "train_window": train_window,
+            "mesh_shape": dict(mesh_shape) if mesh_shape else None,
             "dispatch_chunks": dispatch_chunks,
-            "moe_precision": moe_precision, "prewarm": bool(prewarm),
+            "moe_precision": moe_precision,
+            "fsdp_precision": fsdp_precision, "plan_id": plan_id,
+            "trace_id": trace_id,
+            "predicted_speedup": float(predicted_speedup or 0.0),
+            "prewarm": bool(prewarm),
         }
 
     def _requested(self) -> bool:
@@ -451,9 +574,11 @@ class TrainExecutor:
 
     def _maybe_restart(self):
         """Apply the pending request (the window is drained), under one
-        incident trace id; the step it leaves may be another, so the
-        attribution record is fetched again."""
-        with trace_scope():
+        incident trace id (a plan's own when it brings one); the step it
+        leaves may be another, so the attribution record is fetched
+        again."""
+        trace_id = (self._retune_request or {}).get("trace_id") or None
+        with trace_scope(trace_id):
             self._apply_request()
         self._refresh_attribution()
 
@@ -474,7 +599,7 @@ class TrainExecutor:
             return
         if self._retune_request is not None:
             req, self._retune_request = self._retune_request, None
-            self._apply_retune(req)
+            self._apply_plan_scoped(req, req.get("plan_id", ""))
             return
         if not self._restart_requested:
             return
@@ -482,33 +607,127 @@ class TrainExecutor:
         logger.info("rebuilding the training session (membership change)")
         self.state = self._trainer.on_world_change(self.state)
 
-    def _apply_retune(self, req: Dict[str, Any]):
+    def _mesh_override_from(self, mesh_shape) -> Optional[Any]:
+        """The MeshPlan a plan's ``mesh_shape`` asks for; None when it is
+        the mesh the trainer runs (an identical override would only
+        churn the cache key)."""
+        if not mesh_shape:
+            return None
+        from dlrover_tpu_torch.parallel.mesh import MESH_AXES, MeshPlan
+
+        wanted = {a: int(mesh_shape.get(a, 1)) for a in MESH_AXES}
+        try:
+            current = self._trainer.accelerated.strategy.mesh.axis_sizes()
+        except RuntimeError:
+            current = None
+        if current is not None and {a: int(v) for a, v in
+                                    current.items()} == wanted:
+            return None
+        return MeshPlan(**wanted)
+
+    def _wire_degraded(self, plan_id: str, knob: str,
+                       precision: Optional[str]) -> bool:
+        """Whether the trainer would run ``precision`` as another (the
+        device fails the fp8 probe); such a plan is acked negatively, so
+        the master does not mark a wire applied that never runs."""
+        if precision is None:
+            return False
+        effective = self._trainer._effective_precision(precision)
+        if effective == precision:
+            return False
+        logger.warning("optimizer plan %s wants %s=%s but the device runs "
+                       "%s (fp8 probe failed); acking it negatively",
+                       plan_id, knob, precision, effective)
+        self._report_trainer_config(plan_id=plan_id, apply_failed=True)
+        return True
+
+    def _apply_plan_scoped(self, req: Dict[str, Any], plan_id: str):
+        """Apply one request at a drained boundary: ``train_window`` in
+        place, the step's knobs through the trainer's cache (prewarmed
+        first, so the swap builds nothing). A failure keeps the previous
+        step running and acks the plan negatively."""
         trainer = self._trainer
-        k, w = req["steps_per_call"], req["train_window"]
-        ch, mp = req["dispatch_chunks"], req["moe_precision"]
+        k, w = req.get("steps_per_call"), req.get("train_window")
+        ch, mp = req.get("dispatch_chunks"), req.get("moe_precision")
+        fp = req.get("fsdp_precision")
+        mesh = self._mesh_override_from(req.get("mesh_shape"))
         if k is not None and int(k) == trainer.steps_per_call:
             k = None
         if ch is not None and int(ch) == trainer.dispatch_chunks:
             ch = None
+        if (self._wire_degraded(plan_id, "moe_precision", mp)
+                or self._wire_degraded(plan_id, "fsdp_precision", fp)):
+            return
         if mp is not None and str(mp) == trainer.moe_precision:
             mp = None
+        if fp is not None and str(fp) == trainer.fsdp_precision:
+            fp = None
         t0 = time.monotonic()
-        if k is not None or ch is not None or mp is not None:
-            compiles = trainer.compile_count
-            if req["prewarm"]:
-                trainer.prewarm(steps_per_call=k, dispatch_chunks=ch,
-                                moe_precision=mp)
-            self.state = trainer.retune(self.state, steps_per_call=k,
-                                        dispatch_chunks=ch, moe_precision=mp)
-            logger.info("retuned in %.2fs (K=%d, c=%d, p=%s; %d built)",
-                        time.monotonic() - t0, trainer.steps_per_call,
-                        trainer.dispatch_chunks, trainer.moe_precision,
-                        trainer.compile_count - compiles)
-        if w is not None:
-            self._train_window = max(0, int(w))
-        # the stall must not count as the next step's time
-        self._last_materialize = time.monotonic()
-        self._ring_s = _ring_seconds()
+        knobs = dict(steps_per_call=k, mesh=mesh, dispatch_chunks=ch,
+                     moe_precision=mp, fsdp_precision=fp)
+        try:
+            if any(v is not None for v in knobs.values()):
+                compiles = trainer.compile_count
+                if req.get("prewarm", True):
+                    trainer.prewarm(**knobs)
+                self.state = trainer.retune(self.state, **knobs)
+                logger.info("retuned in %.2fs (K=%d, c=%d, p=%s, fp=%s; %d "
+                            "built)", time.monotonic() - t0,
+                            trainer.steps_per_call, trainer.dispatch_chunks,
+                            trainer.moe_precision, trainer.fsdp_precision,
+                            trainer.compile_count - compiles)
+            if w is not None:
+                self._train_window = max(0, int(w))
+        except Exception:  # noqa: BLE001 — a bad plan must not end the
+            # run: the previous step keeps running
+            logger.exception("optimizer plan %s failed to apply; going on "
+                             "with the previous config", plan_id or "-")
+            self._report_trainer_config(plan_id=plan_id, apply_failed=True)
+            return
+        finally:
+            # the stall must not count as the next step's time
+            self._last_materialize = time.monotonic()
+            self._ring_s = _ring_seconds()
+        emit_event(EventKind.OPTIMIZER_APPLY_DONE, plan_id=plan_id,
+                   seconds=round(time.monotonic() - t0, 3),
+                   train_window=self._train_window,
+                   steps_per_call=trainer.steps_per_call,
+                   dispatch_chunks=trainer.dispatch_chunks,
+                   moe_precision=trainer.moe_precision,
+                   fsdp_precision=trainer.fsdp_precision)
+        self._report_trainer_config(
+            plan_id=plan_id,
+            predicted_speedup=req.get("predicted_speedup", 0.0))
+
+    def _report_trainer_config(self, plan_id: str = "",
+                               predicted_speedup: float = 0.0,
+                               apply_failed: bool = False):
+        """Tell the master what this worker runs (the runtime
+        optimizer's view and a plan's ack), when the master client has
+        the call; a failed report is logged, never raised."""
+        client = self._master_client
+        if client is None or not hasattr(client, "report_trainer_config"):
+            return
+        trainer = self._trainer
+        try:
+            result = trainer.accelerated
+            client.report_trainer_config(
+                world=int(result.world),
+                mesh_shape={a: int(v) for a, v in
+                            result.strategy.mesh.axis_sizes().items()},
+                train_window=int(self._train_window),
+                steps_per_call=int(trainer.steps_per_call),
+                dispatch_chunks=int(trainer.dispatch_chunks),
+                moe_precision=str(trainer.moe_precision),
+                fsdp_precision=str(trainer.fsdp_precision),
+                grad_precision=str(trainer.grad_precision),
+                global_batch=int(result.strategy.global_batch_size or 0),
+                plan_id=plan_id,
+                predicted_speedup=float(predicted_speedup or 0.0),
+                apply_failed=bool(apply_failed))
+        except Exception:  # noqa: BLE001 — a dead master must not stop
+            # the run
+            logger.debug("trainer config report failed", exc_info=True)
 
     # -- performance attribution ----------------------------------------------
 

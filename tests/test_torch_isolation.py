@@ -17,6 +17,7 @@ ENTRY_POINTS = """
 import sys
 import dlrover_tpu_torch.examples.train_llama
 import dlrover_tpu_torch.interop
+import dlrover_tpu_torch.optimizers
 import dlrover_tpu_torch.ops.kernel_build
 import dlrover_tpu_torch.native.host_ops
 import dlrover_tpu_torch.native.shm_ring

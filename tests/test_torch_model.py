@@ -261,12 +261,13 @@ class TestRemat:
 
 class TestLaterSlicesRaise:
     @pytest.mark.parametrize("override,item", [
-        # grouped_ep runs (tests/test_torch_ep.py); its pairing with the
-        # fp8 FSDP wire does not yet
+        # grouped_ep and the fp8 FSDP wire run (tests/test_torch_ep.py,
+        # tests/test_torch_fsdp_wire.py); the per-layer gathers with the
+        # layer prefetch do not yet
         ({"num_experts": 4, "moe_dispatch": "grouped_ep",
-          "fsdp_precision": "fp8"}, "A14"),
+          "fsdp_prefetch": True}, "A6b"),
         ({"seq_axis": "seq"}, "A13"),
-        ({"fsdp_precision": "fp8"}, "A14"),
+        ({"fsdp_prefetch": True}, "A6b"),
     ])
     def test_config_options(self, override, item):
         cfg = dataclasses.replace(llama.llama_tiny(), **override)

@@ -253,8 +253,8 @@ class TestProgramCache:
         state = trainer.prepare()
         with pytest.raises(NotImplementedError, match="A15"):
             trainer.retune(state, mesh=MeshPlan(data=-1, tensor=2))
-        with pytest.raises(NotImplementedError, match="A14"):
-            trainer.prewarm(fsdp_precision="fp8")
+        with pytest.raises(NotImplementedError, match="A13"):
+            trainer.prewarm(mesh=MeshPlan(data=-1, seq=2))
         # a world that does not exist yet has no group to build over
         with pytest.raises(ValueError, match="re-form the world first"):
             trainer.prewarm(devices=[0, 1])

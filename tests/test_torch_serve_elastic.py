@@ -707,8 +707,26 @@ class TestRuntimeReportHook:
         assert sum(payload["step_time_counts"]) == payload["steps_total"]
         assert payload["rss_mb"] > 0
 
-    def test_cadence_and_floor_equal_the_reference(self):
-        """Every ``every_steps`` steps, floored by ``min_interval_s``."""
+    def test_cadence_and_floor_equal_the_reference(self, monkeypatch):
+        """Every ``every_steps`` steps, floored by ``min_interval_s``.
+        Both hooks start from ``_last_send = 0.0`` on ``time.monotonic``,
+        which counts from boot: on a machine up for less than the floor
+        they drop the first report too (the reference's behaviour, which
+        the port copies). So both modules read one clock that starts far
+        from zero here, and the cadence and the floor are checked on any
+        machine."""
+        class OffsetClock:
+            """The ``time`` module with ``monotonic`` a day ahead."""
+
+            def __getattr__(self, name):
+                return getattr(time, name)
+
+            @staticmethod
+            def monotonic():
+                return time.monotonic() + 86400.0
+
+        for module in (jax_slo, slo):
+            monkeypatch.setattr(module, "time", OffsetClock())
         steps_sent = []
         for hook_cls, reg_cls in (
                 (jax_slo.ServeRuntimeReportHook,
