@@ -5482,21 +5482,35 @@ def attribution_phase(llama, fa, remat, config, card):
 
 # -- phase 18: FSDP ----------------------------------------------------------
 
-# 2 steps a mesh on the exact wires (5 before phase 19 came, 3 before
-# the fp8 legs), then FSDP_WIRE_STEPS under the fp8 FSDP and gradient
-# wires: the script's time stays near 1,050 s of its 1,200
-FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 2
-FSDP_WIRE_STEPS = 1
+# one step a run (5 a mesh before phase 19 came, 3 before the fp8 legs,
+# 2 before the prefetch leg): the exact wires at (1, 2), the layer
+# prefetch at (1, 2), the exact wires at (2, 1), then each mesh under the
+# fp8 FSDP and gradient wires, each run from the seeded init on the same
+# batch. The exact (1, 2) run's blocks after the AdamW step are held
+# against the prefetch run's bit for bit and against the matching
+# slices of the (2, 1) run's parameters (FSDP_PARAM_ATOL), which holds
+# the sharded update against data parallel: the script's time stays
+# under 1,140 s of its 1,200
+FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS = 2, 2048, 2, 1
 FSDP_MESHES = ((1, 2), (2, 1))  # (data, fsdp): the fsdp run, then data
-# each run: (mesh, the FSDP and gradient wires' precision, steps)
-FSDP_RUNS = tuple((m, "bf16", FSDP_STEPS) for m in FSDP_MESHES) + tuple(
-    (m, "fp8", FSDP_WIRE_STEPS) for m in FSDP_MESHES)
+# each run: (mesh, the FSDP and gradient wires' precision, the layer
+# prefetch)
+FSDP_RUNS = (
+    (FSDP_MESHES[0], "bf16", False),
+    (FSDP_MESHES[0], "bf16", True),
+    (FSDP_MESHES[1], "bf16", False),
+    *((m, "fp8", False) for m in FSDP_MESHES))
 FSDP_MOE_STEPS = 3
 # the largest relative gap of a step's loss between the fsdp and the
 # data-parallel run: on the CPU tests/test_torch_fsdp.py holds (1, 4) and
 # (2, 2) against (4, 1) to 1e-6 (the sums group differently); over 2
 # ranks a reduce-scatter sums what the all-reduce sums
 FSDP_LOSS_RTOL = 1e-5
+# the largest gap of a parameter after the AdamW step between the fsdp
+# and the data-parallel run: 1 % of the step's lr (the first AdamW step
+# moves each element by about the lr), so one element moved wrong shows;
+# a rank's gradients are the same sums of two values at both meshes
+FSDP_PARAM_ATOL = 3e-6
 # the MoE cell at (2, 2) against (4, 1): tests/test_torch_ep.py's
 # tolerance for the expert-parallel trajectory
 FSDP_MOE_RTOL = 1e-4
@@ -5528,19 +5542,29 @@ def _split_bytes(leaf_bytes, sharded):
     return out
 
 
+def fsdp_run_key(data, fsdp, precision, prefetch):
+    """A phase 18 (a) run's key: (data, fsdp, precision), the prefetch
+    leg's precision named "prefetch"."""
+    return (data, fsdp, "prefetch" if prefetch else precision)
+
+
 def fsdp_dense_rank(layers, seq, rows, steps):
     """One rank of phase 18 (a): llama3_8b at its published widths,
     ``layers`` layers, through ElasticTrainer (rule set "llama", the
-    example's AdamW) on 2 ranks sharing the card over gloo: ``steps``
-    steps at each of FSDP_MESHES on the same batches (the example's
-    token stream, ``rows`` x ``seq`` global), then FSDP_WIRE_STEPS at
-    each under the fp8 FSDP and gradient wires (FSDP_RUNS). Launch
-    counters, exchange statistics and the peak are reset just before
-    each run's first step and read after its last."""
+    example's AdamW) on 2 ranks sharing the card over gloo, on the same
+    batches (the example's token stream, ``rows`` x ``seq`` global): the
+    runs of FSDP_RUNS, each from the seeded init. After the exact (1, 2)
+    run's step its blocks are copied to the host; after the prefetch
+    leg's step (the same state, the same batch) every block is held
+    against them bit for bit, and after the (2, 1) run's step its
+    parameters' matching slices (``after_update``). Launch counters,
+    exchange and held-layer statistics and the peak are reset just
+    before each run's first step and read after its last."""
     import functools
     import gc
 
     import torch
+    import torch.distributed as dist
 
     from dlrover_tpu_torch.examples.train_llama import (
         adamw,
@@ -5549,6 +5573,7 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.parallel import layer_prefetch
     from dlrover_tpu_torch.parallel.accelerate import _named_leaves
     from dlrover_tpu_torch.parallel.mesh import MeshPlan
     from dlrover_tpu_torch.parallel.strategy import Strategy
@@ -5559,7 +5584,10 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     gen = synthetic_batches(config.vocab_size, rows, seq)()
     batches = [next(gen) for _ in range(steps)]
     out = {"rank": rank, "runs": {}}
-    for (data, fsdp), precision, n in FSDP_RUNS:
+    # the exact (1, 2) step's blocks on the host, and where each lies in
+    # its leaf: {path: (dim, index)} of the sharded ones
+    exact, cuts = {}, {}
+    for (data, fsdp), precision, prefetch in FSDP_RUNS:
         # the fp8 legs step SGD: their checks read the first loss, the
         # gathers and the residual, none of which the optimizer moves,
         # and AdamW's moments beside the residual do not fit two ranks
@@ -5567,7 +5595,8 @@ def fsdp_dense_rank(layers, seq, rows, steps):
         optimizer = (adamw() if precision == "bf16" else
                      functools.partial(torch.optim.SGD, lr=3e-4))
         trainer = ElasticTrainer(
-            llama.make_init_fn(config), llama.make_loss_fn(config),
+            llama.make_init_fn(config), llama.make_loss_fn(
+                dataclasses.replace(config, fsdp_prefetch=prefetch)),
             optimizer, batches[0],
             strategy=Strategy(mesh=MeshPlan(data=data, fsdp=fsdp),
                               rule_set="llama"),
@@ -5576,16 +5605,20 @@ def fsdp_dense_rank(layers, seq, rows, steps):
         state = trainer.prepare()
         result = trainer.accelerated
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
         ring.reset_stats()
+        layer_prefetch.reset_stats()
         losses, host_s = [], []
-        for batch in batches[:n]:
+        for batch in batches:
             t = time.perf_counter()
             state, metrics = trainer.step(state, batch)
             losses.append(float(metrics["loss"]))  # waits for the step
             host_s.append(time.perf_counter() - t)
         torch.cuda.synchronize()
+        # the steps' own peak, before the checks below copy blocks out
+        peak = torch.cuda.max_memory_allocated()
         layout = result.layout
         # the leaves the FSDP wire quantizes: the gathered rank-3 layer
         # stacks, never split along their last dim
@@ -5607,26 +5640,67 @@ def fsdp_dense_rank(layers, seq, rows, steps):
                                _named_leaves(state.wire_residual)),
                 "bytes": sum(r.numel() * r.element_size() for _, r in
                              _named_leaves(state.wire_residual))}
-        out["runs"][(data, fsdp, precision)] = {
+        blocks_differ = after_update = None
+        named = _named_leaves(state.params)
+        if precision == "bf16" and (data, fsdp) == FSDP_MESHES[0]:
+            if not prefetch:
+                exact = {p: t.detach().cpu() for p, t in named}
+                cuts = {p: (s.dim, dist.get_rank(result.mesh.group(s.axes)))
+                        for p, s in layout.leaves.items()}
+            else:  # no reference to a block outlives the check
+                blocks_differ = sorted(
+                    {p for p, t in named if p not in exact or not
+                     torch.equal(exact[p], t.detach().cpu())}
+                    | (set(exact) - {p for p, _ in named}))
+        elif precision == "bf16":  # (2, 1): each leaf whole on every rank
+            after_update = _after_update(exact, cuts, named)
+            exact = {}
+        del named
+        out["runs"][fsdp_run_key(data, fsdp, precision, prefetch)] = {
             "losses": losses, "host_step_s": host_s,
             "launches": fa.launch_counts(), "exchange": ring.stats(),
-            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "held": layer_prefetch.stats(), "blocks_differ": blocks_differ,
+            "after_update": after_update, "peak_bytes": peak,
             "leaf_bytes": _leaf_bytes(state),
             "gathered_leaf_bytes": gathered,
             "wired_elements": {p: math.prod(layout.shapes[p])
                                for p in wired},
             "split_dims": {p: layout.leaves[p].dim for p in wired},
             "effective": (trainer.fsdp_precision, trainer.grad_precision),
-            "residual": residual, "steps": n,
+            "residual": residual, "steps": len(batches),
             "sharded": sorted(layout.leaves),
             "specs": {p: result.specs[p] for p in sorted(result.specs)}}
         del state, trainer, result
         gc.collect()
         torch.cuda.empty_cache()
-    import torch.distributed as dist
-
     dist.destroy_process_group()
     return out
+
+
+def _after_update(exact, cuts, named):
+    """The exact (1, 2) run's blocks after its step (``exact``, on the
+    host; ``cuts``: {path: (dim, index)} of the sharded ones) against the
+    matching slices of a data-parallel run's whole leaves after its step
+    (``named``): the largest absolute gap, the elements that differ at
+    all, and the paths either side lacks."""
+    gap, differ = 0.0, 0
+    for path, t in named:
+        if path not in exact:
+            continue
+        want = exact[path]
+        if path in cuts:
+            dim, index = cuts[path]
+            n = want.shape[dim]
+            t = t.detach().narrow(dim, index * n, n)
+        got = t.detach().cpu()
+        if got.shape != want.shape:
+            return {"max_abs": math.inf, "differ": -1,
+                    "missing": [path]}
+        d = (got - want).abs()
+        gap = max(gap, float(d.max()))
+        differ += int((d > 0).sum())
+    return {"max_abs": gap, "differ": differ,
+            "missing": sorted(set(exact) ^ {p for p, _ in named})}
 
 
 def fsdp_moe_rank(argv, steps):
@@ -5696,9 +5770,8 @@ def fsdp_wire_checks(r, config, card):
     wired = qa["wired_elements"]
     other = {p: n for p, n in qa["gathered_leaf_bytes"].items()
              if p not in wired}
-    want = FSDP_WIRE_STEPS * (sum(wired.values()) * per
-                              + sum(other.values()))
-    calls = FSDP_WIRE_STEPS * (2 * len(wired) + len(other))
+    want = qa["steps"] * (sum(wired.values()) * per + sum(other.values()))
+    calls = qa["steps"] * (2 * len(wired) + len(other))
     got = qa["exchange"].get("all_gather", {})
     full = ba["exchange"].get("all_gather", {})
     log(f"      fp8 wires (fsdp_precision and grad_precision): losses at "
@@ -5709,8 +5782,8 @@ def fsdp_wire_checks(r, config, card):
         f"{len(wired)} wired leaves x {per} B an element + the other "
         f"{len(other)} gathered leaves' {sum(other.values())} B = "
         f"{want:.0f} B in {calls} calls), against the bf16 run's "
-        f"{full.get('bytes', 0) / FSDP_STEPS:.0f} B "
-        f"{full.get('seconds', 0.0) / FSDP_STEPS:.2f} s a step; residual "
+        f"{full.get('bytes', 0) / ba['steps']:.0f} B "
+        f"{full.get('seconds', 0.0) / ba['steps']:.2f} s a step; residual "
         f"{qa['residual']} at {fs}, {qb['residual']} at {dp}; host s "
         f"{qa['host_step_s']}, {qb['host_step_s']}; {card}")
     if gap > FSDP_LOSS_RTOL:
@@ -5727,7 +5800,77 @@ def fsdp_wire_checks(r, config, card):
             fail(f"the gradient wire's residual at {mesh}: {res}")
     return {"loss_gap": gap, "bytes_per_elem": per, "want_bytes": want,
             "want_calls": calls, "bf16_gather_bytes_a_step":
-            full.get("bytes", 0) / FSDP_STEPS}
+            full.get("bytes", 0) / ba["steps"]}
+
+
+def fsdp_prefetch_checks(r, expected, card):
+    """Phase 18 (a)'s prefetch leg on one rank's record, against the
+    exact (1, 2) step from the same state on the same batch: the loss
+    and every block after the optimizer step bit for bit; B1-B3's
+    launches as that step's; at most two layers' gathered parameters
+    held, each layer fetched twice (the forward, the recompute); the
+    exchange bytes and calls by the formula (the sharded
+    leaves outside the layers gathered once and the layer stacks twice,
+    a layer at a time, by a broadcast from the rank holding the layer;
+    every sharded leaf's gradient reduced once). Prints, with no gate,
+    both legs' peak memory and host step and each exchange's exposed
+    wait (the host seconds its ``wait()`` blocked)."""
+    fs = FSDP_MESHES[0]
+    off, on = r["runs"][fs + ("bf16",)], r["runs"][fs + ("prefetch",)]
+    layers = {p: b for p, b in on["gathered_leaf_bytes"].items()
+              if p.startswith("layers/")}
+    other = {p: b for p, b in on["gathered_leaf_bytes"].items()
+             if p not in layers}
+    steps = on["steps"]
+    want = {"gather": (steps * (sum(other.values())
+                                + 2 * sum(layers.values())),
+                       steps * (len(other) + 2 * FSDP_LAYERS * len(layers))),
+            "reduce": (steps * (sum(other.values()) + sum(layers.values())),
+                       steps * (len(other) + FSDP_LAYERS * len(layers)))}
+    x = on["exchange"]
+
+    def side(kinds):
+        return (sum(x.get(k, {}).get("bytes", 0) for k in kinds),
+                sum(x.get(k, {}).get("calls", 0) for k in kinds))
+
+    got = {"gather": side(("all_gather", "broadcast")),
+           "reduce": side(("reduce_scatter", "reduce"))}
+    waits = {k: (round(v.get("wait_seconds", 0.0), 3),
+                 round(v["seconds"], 3)) for k, v in sorted(x.items())}
+    log(f"      prefetch leg (fsdp_prefetch on, from the exact {fs} run's "
+        f"seeded state, its batch): loss {on['losses']} against "
+        f"{off['losses']}; blocks differing after the optimizer step "
+        f"{on['blocks_differ']}; held layers at most "
+        f"{on['held']['held_high_water']} ({on['held']['fetches']} "
+        f"fetches), against {off['held']['held_high_water']} for the "
+        f"whole-tree step; exchanges (bytes, calls) {got} against the "
+        f"formula's {want}; launches {on['launches']}; {card}")
+    log(f"      prefetch leg, not gated: peak memory "
+        f"{on['peak_bytes'] / 2**30:.2f} GiB against the exact step's "
+        f"{off['peak_bytes'] / 2**30:.2f}; host s a step "
+        f"{[round(t, 3) for t in on['host_step_s']]} against "
+        f"{[round(t, 3) for t in off['host_step_s']]}; exposed wait and "
+        f"host seconds by exchange {waits}; {card}")
+    if on["losses"] != off["losses"]:
+        fail(f"prefetch loss {on['losses']} against {off['losses']}")
+    if on["blocks_differ"]:
+        fail(f"prefetch: blocks differ after the step: "
+             f"{on['blocks_differ']}")
+    if on["launches"] != expected:
+        fail(f"prefetch launches {on['launches']}, expected {expected}")
+    # at FSDP_LAYERS = 2 the whole-tree step holds 2 layers too: the
+    # fetches (a layer at a time, forward and recompute) and the
+    # per-layer exchanges tell the schedules apart
+    fetches = 2 * FSDP_LAYERS * steps
+    if not 0 < on["held"]["held_high_water"] <= 2 or \
+            on["held"]["fetches"] != fetches or off["held"]["fetches"]:
+        fail(f"prefetch held {on['held']} layers, {fetches} fetches "
+             f"expected; the whole-tree step {off['held']}")
+    if got != want:
+        fail(f"prefetch exchanges {got} against the formula's {want}")
+    return {"want": want, "got": got, "exposed_wait_and_seconds": waits,
+            "peak_bytes": (on["peak_bytes"], off["peak_bytes"]),
+            "host_step_s": (on["host_step_s"], off["host_step_s"])}
 
 
 def fsdp_phase(run_local, llama, ep_train, card):
@@ -5753,28 +5896,25 @@ def fsdp_dense_part(run_local, llama, card):
         f"{config.vocab_size}), global batch {FSDP_ROWS} x {FSDP_SEQ}, "
         f"AdamW, rule set llama, 2 ranks sharing the card (gloo: the "
         f"all-gathers and reduce-scatters go through host memory; no "
-        f"multi-GPU rate is claimed), {FSDP_STEPS} steps at (data, fsdp) = "
-        f"{FSDP_MESHES[0]} and again at {FSDP_MESHES[1]}, then "
-        f"{FSDP_WIRE_STEPS} at each under the fp8 FSDP and gradient "
-        f"wires:")
+        f"multi-GPU rate is claimed), {FSDP_STEPS} step a run from the "
+        f"same state: at (data, fsdp) = {FSDP_MESHES[0]} with the layer "
+        f"prefetch off and on, at {FSDP_MESHES[1]}, then at each under the "
+        f"fp8 FSDP and gradient wires:")
     ranks = run_local(fsdp_dense_rank, 2,
                       (FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS),
                       timeout=EP_TIMEOUT)
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
 
-    def expected_for(steps):
-        return {"flash_fwd": steps * FSDP_LAYERS * (1 + recompute),
-                "flash_bwd_dkv": steps * FSDP_LAYERS,
-                "flash_bwd_dq": steps * FSDP_LAYERS, **NO_SEG, **NO_PFX}
-
-    expected = expected_for(FSDP_STEPS)
+    expected = {"flash_fwd": FSDP_STEPS * FSDP_LAYERS * (1 + recompute),
+                "flash_bwd_dkv": FSDP_STEPS * FSDP_LAYERS,
+                "flash_bwd_dq": FSDP_STEPS * FSDP_LAYERS, **NO_SEG, **NO_PFX}
     fs, dp = FSDP_MESHES
     for r in ranks:
-        for (mesh, precision, steps), run in zip(
-                FSDP_RUNS, (r["runs"][m + (p,)] for m, p, _ in FSDP_RUNS)):
-            if run["launches"] != expected_for(steps):
+        for mesh, precision, prefetch in FSDP_RUNS:
+            run = r["runs"][fsdp_run_key(*mesh, precision, prefetch)]
+            if run["launches"] != expected:
                 fail(f"rank {r['rank']} at {mesh} ({precision}): launches "
-                     f"{run['launches']}, expected {expected_for(steps)}")
+                     f"{run['launches']}, expected {expected}")
             if not all(math.isfinite(x) for x in run["losses"]):
                 fail(f"non-finite loss at {mesh} ({precision})")
             if run["effective"] != (precision, precision):
@@ -5787,14 +5927,19 @@ def fsdp_dense_part(run_local, llama, card):
         sb = _split_bytes(a["leaf_bytes"], a["sharded"])
         db = _split_bytes(b["leaf_bytes"], a["sharded"])
         nbytes = sum(a["gathered_leaf_bytes"].values())
-        want_x = FSDP_STEPS * nbytes
+        want_x = a["steps"] * nbytes
         got_g = a["exchange"].get("all_gather", {})
         got_s = a["exchange"].get("reduce_scatter", {})
         half = {k: (sb[k]["sharded"], db[k]["sharded"]) for k in sb}
+        upd = b["after_update"]
         log(f"    rank {r['rank']}: losses at {fs} "
             f"{[round(x, 6) for x in a['losses']]}, at {dp} "
             f"{[round(x, 6) for x in b['losses']]}; largest relative gap "
-            f"{gap:.3e} (limit {FSDP_LOSS_RTOL:.0e}); {card}")
+            f"{gap:.3e} (limit {FSDP_LOSS_RTOL:.0e}); the blocks at {fs} "
+            f"after the AdamW step against the matching slices at {dp}: "
+            f"largest gap {upd['max_abs']:.3e} (limit "
+            f"{FSDP_PARAM_ATOL:.0e}), {upd['differ']} elements differ, "
+            f"missing {upd['missing']}; {card}")
         log(f"      state bytes a rank at {fs} / {dp}: parameters of the "
             f"leaves {fs} shards {sb['params']['sharded']} / "
             f"{db['params']['sharded']} B, of the rest "
@@ -5811,7 +5956,7 @@ def fsdp_dense_part(run_local, llama, card):
             f"{got_g.get('bytes', 0)} B {got_g.get('seconds', 0.0):.2f} s, "
             f"reduce-scatter {got_s.get('calls', 0)} calls "
             f"{got_s.get('bytes', 0)} B {got_s.get('seconds', 0.0):.2f} s "
-            f"(formula: {FSDP_STEPS} steps x the sharded leaves' "
+            f"(formula: {a['steps']} steps x the sharded leaves' "
             f"{nbytes} B = {want_x} B each), all-reduce "
             f"{a['exchange'].get('all_reduce', {}).get('seconds', 0.0):.2f}"
             f" s; at {dp} all-reduce "
@@ -5822,16 +5967,20 @@ def fsdp_dense_part(run_local, llama, card):
         if gap > FSDP_LOSS_RTOL:
             fail(f"fsdp losses {a['losses']} vs data parallel "
                  f"{b['losses']}: gap {gap:.3e}")
+        if not upd["max_abs"] <= FSDP_PARAM_ATOL or upd["missing"]:
+            fail(f"rank {r['rank']}: the blocks after the step at {fs} "
+                 f"against {dp}: {upd}")
         for kind, (got, full) in half.items():
             if 2 * got != full:
                 fail(f"rank {r['rank']}: {kind} of the sharded leaves "
                      f"{got} B at {fs}, not half of {full} B at {dp}")
         for name, x in (("all_gather", got_g), ("reduce_scatter", got_s)):
             if x.get("bytes") != want_x or x.get("calls") != \
-                    FSDP_STEPS * len(a["sharded"]):
+                    a["steps"] * len(a["sharded"]):
                 fail(f"{name}: {x} against the formula's {want_x} B")
         r["loss_gap"] = gap
         r["wire"] = fsdp_wire_checks(r, config, card)
+        r["prefetch"] = fsdp_prefetch_checks(r, expected, card)
         # JSON keys: "data x fsdp precision"
         r["runs"] = {f"{d}x{f} {p}": run
                      for (d, f, p), run in r["runs"].items()}

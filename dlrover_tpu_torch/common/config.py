@@ -62,9 +62,11 @@ class Context:
         # TrainState); "fp8_nofb" drops the error (a control, never
         # train with it). A build-time knob: the residual is state
         self.grad_precision = "bf16"
-        # FSDP layer prefetch (the reference gathers layer l+1 while
-        # layer l computes); the port gathers the whole tree once a
-        # step, so True raises (ROADMAP A6b)
+        # the FSDP layer prefetch: each layer's parameters gathered while
+        # the previous layer computes, and again in the backward, its
+        # gradient reduced as soon as it is complete (at most two layers
+        # gathered at once); off, the step gathers the whole tree once.
+        # Read by models.llama when a config leaves it None, at each call
         self.fsdp_prefetch = False
         # performance attribution (telemetry.attribution): a cost record
         # per built step (counted FLOPs and bytes, peak memory) fused

@@ -38,8 +38,18 @@ leaf's block on its rank and gathers the wire form, which it hands the
 model under ``WIRE_KEY``; the model quantizes only the leaves it was not
 handed.
 
-Not in this slice (they raise): sequence parallelism (A13), the FSDP
-layer prefetch (A6b) and pipelining (A15).
+The FSDP layer prefetch (``fsdp_prefetch``, None = the Context's, read
+at each call): over several ranks ``parallel.accelerate`` hands the
+model a layer source under ``LAYER_KEY`` (``parallel.layer_prefetch``),
+and each layer's remat'd block fetches that layer's full parameters
+from it, the next layer's gather already in flight, instead of slicing
+a stack gathered whole. Without a source (one device, no mesh) the
+prefetch is the plain loop: the reference's gather is the identity
+without an ambient mesh, and since the port's compute order does not
+change, the loop is bit for bit the loop with the prefetch off.
+
+Not in this slice (they raise): sequence parallelism (A13) and
+pipelining (A15).
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, ClassVar, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -124,8 +134,9 @@ class LlamaConfig:
     # the dense FSDP wire: "bf16" | "fp8" | "fp8_qdq"; "" = the
     # Context's (read at each call, so a retune swaps it)
     fsdp_precision: str = ""
-    # later slices: a true value raises in apply (None = the Context's)
+    # a later slice: a true value raises in apply
     seq_axis: Optional[str] = None
+    # the FSDP layer prefetch: None = the Context's (read at each call)
     fsdp_prefetch: Any = None
 
     @property
@@ -175,13 +186,6 @@ def _check_supported(c: LlamaConfig) -> None:
     if c.seq_axis:
         raise NotImplementedError("sequence parallelism (ring attention) "
                                   "is not ported yet (ROADMAP A13)")
-    prefetch = (c.fsdp_prefetch if c.fsdp_prefetch is not None
-                else get_context().fsdp_prefetch)
-    if prefetch:
-        raise NotImplementedError(
-            "fsdp_prefetch: per-layer FSDP gathers with the layer prefetch "
-            "are not ported yet (ROADMAP A6b); the step gathers the whole "
-            "tree once")
 
 
 # -- init -------------------------------------------------------------------
@@ -380,6 +384,25 @@ def _ffn_block(x, layer, config: LlamaConfig, rng=None):
 # where parallel.accelerate hands the model the gathered wire forms of the
 # leaves it quantized on their ranks: {layer path: {"v", "s"} | {"dq"}}
 WIRE_KEY = "fsdp_wire"
+# where it hands the model its layer source under the layer prefetch
+# (``parallel.layer_prefetch.LayerSource``)
+LAYER_KEY = "fsdp_layers"
+
+
+def resolve_fsdp_prefetch(config: LlamaConfig) -> bool:
+    """The FSDP layer prefetch (the reference's ``_prefetch_enabled``):
+    the config's when set, else the Context's (``fsdp_prefetch``), read
+    at each call so that a changed knob takes effect at the next
+    step."""
+    if config.fsdp_prefetch is not None:
+        return bool(config.fsdp_prefetch)
+    return bool(get_context().fsdp_prefetch)
+
+
+def _runs_prefetch(config: LlamaConfig) -> bool:
+    """The layer prefetch at this call: resolved on, two layers or
+    more."""
+    return resolve_fsdp_prefetch(config) and config.num_layers >= 2
 
 
 def resolve_fsdp_precision(config: LlamaConfig,
@@ -411,12 +434,15 @@ def _wire_leaf(t: torch.Tensor) -> bool:
 @dataclass(frozen=True)
 class FsdpWire:
     """What ``parallel.accelerate`` reads from a loss function that
-    runs the wire (``make_loss_fn``): the precision at a call and which
-    parameter paths are wired."""
+    runs the wire (``make_loss_fn``): the precision at a call, which
+    parameter paths are wired, and whether the call runs the layer
+    prefetch."""
 
     config: LlamaConfig
     # where the model takes the gathered wire forms
     key: str = WIRE_KEY
+    # where the model takes its layer source
+    layer_key: ClassVar[str] = LAYER_KEY
 
     def mode(self, device: Optional[torch.device] = None) -> str:
         return resolve_fsdp_precision(self.config, device)
@@ -424,6 +450,9 @@ class FsdpWire:
     @staticmethod
     def wired(path: str, t: torch.Tensor) -> bool:
         return path.startswith("layers/") and _wire_leaf(t)
+
+    def prefetch(self) -> bool:
+        return _runs_prefetch(self.config)
 
 
 def _flatten_layers(layers: Dict, prefix: str = ""):
@@ -507,14 +536,34 @@ def _consume_wire(wire: Dict[str, Dict], layer: Dict) -> Dict:
     return out
 
 
+def _with_leaves(tree: Dict, leaves: Dict[str, torch.Tensor]) -> Dict:
+    """``tree`` (a layer's tree) with ``leaves`` set at their "/"-joined
+    paths."""
+    out = tree_map(lambda t: t, tree)
+    for path, t in leaves.items():
+        *parents, last = path.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = t
+    return out
+
+
 def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None,
-                   segment_ids=None, wire=None):
+                   segment_ids=None, wire=None, fetch=None):
     """One layer: params may be stored f32; compute in the configured
     dtype. ``wire``: the layer's slice of the wire forms, decoded here
     (inside the remat'd block, so a recompute decodes again from the
-    quantized values). Returns (x, aux_loss, dropped_frac,
-    expert_load)."""
+    quantized values). ``fetch``: (layer source, layer index) under the
+    layer prefetch; the block takes the layer's full parameters (and
+    wire forms) from the source here, so a recompute fetches them
+    again. Returns (x, aux_loss, dropped_frac, expert_load)."""
     c = config
+    if fetch is not None:
+        source, index = fetch
+        full, forms = source.fetch(index)
+        layer = _with_leaves(layer, full)
+        wire = {**(wire or {}), **forms}
     if wire:
         layer = _consume_wire(wire, layer)
     layer = cast_floats(layer, c.compute_dtype)
@@ -536,9 +585,20 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     ``rng`` (a ``torch.Generator``) reaches the router, which draws from
     it only under router jitter; the model sets none.
     ``segment_ids`` [B, S]: packed documents, with per-document attention
-    and RoPE positions restarting at each document."""
+    and RoPE positions restarting at each document.
+
+    Under the FSDP layer prefetch (``resolve_fsdp_prefetch``) with a
+    layer source under ``LAYER_KEY`` (``parallel.accelerate``'s, over
+    several ranks), ``params["layers"]`` holds only the layer leaves
+    the source does not make full, and each layer's block fetches the
+    rest from the source. With no source the prefetch is the plain loop
+    (see the module's docstring)."""
     c = config
     _check_supported(c)
+    source = params.get(LAYER_KEY)
+    if source is not None and not _runs_prefetch(c):
+        raise ValueError("the model was handed a layer source, but its "
+                         "layer prefetch resolves off")
     x = params["embed_tokens"]["embedding"][input_ids].to(c.compute_dtype)
     b, s = input_ids.shape
     positions = (segment_positions(segment_ids) if segment_ids is not None
@@ -571,7 +631,8 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
         layer_wire = {path: {k: ts[i] for k, ts in form.items()}
                       for path, form in per_wire.items()}
         x, *layer_stats = block(x, tree_map(lambda ts: ts[i], per_layer),
-                                wire=layer_wire)
+                                wire=layer_wire,
+                                fetch=None if source is None else (source, i))
         stats.append(layer_stats)
     x = rms_norm(x, params["norm"]["scale"], c.rms_eps)
     zero = torch.zeros((), device=x.device)

@@ -51,25 +51,45 @@ grouped products yet.
 
 ``STATS`` counts each helper's calls, host seconds and bytes per rank
 (``reset_stats``, ``stats``): an exchange its input buffer, an
-all-reduce its tensor, an all-gather the gathered (full) tensor and a
-reduce-scatter its full input, so one gather and one scatter of a leaf
-count its global bytes each. On gloo the seconds are the whole
-exchange, waits for the slowest rank included; on NCCL they are the
-enqueue only.
+all-reduce, a broadcast and a reduce their tensor, an all-gather the
+gathered (full) tensor and a reduce-scatter its full input, so one
+gather and one scatter of a leaf count its global bytes each. On gloo
+the seconds are the whole exchange, waits for the slowest rank
+included; on NCCL they are the enqueue only.
 
 Under a ``utils.prof.CostCounter`` each helper reports the bytes it puts
 on the wire by the reference's HLO kind ("all-to-all",
 "collective-permute" for the ring, "all-reduce", "all-gather",
-"reduce-scatter") and runs uncounted; on
+"reduce-scatter"; "collective-broadcast" and "reduce" for the layer
+prefetch's owner exchanges) and runs uncounted; on
 the meta device it only reports, and returns an output of the right
 shape without calling the backend.
+
+Asynchronous forms (the FSDP layer prefetch, ``parallel.layer_prefetch``):
+``broadcast_async``, ``reduce_async``, ``gather_shard_async`` and
+``scatter_sum_async`` issue their exchange and return a ``Pending``
+whose ``wait()`` gives the result on the caller's stream. Every rank
+issues them in the same order (the collectives pair by that order), and
+a failed exchange raises in ``wait()``; nothing retries it on a
+synchronous path. On NCCL the exchange runs on the process group's
+stream, after the work the caller's stream had queued, and ``wait()``
+makes the caller's stream wait for it, with no host block. On gloo a
+CUDA tensor is staged through pinned host memory on a copy stream of
+its own (``copy_stream``): the host waits for the copy out (after the
+caller's stream's work so far; a caller that makes the tensor on the
+copy stream runs the call there), then issues the exchange;
+``wait()`` waits for the exchange on the host and copies the result in
+on the copy stream, which the caller's stream then waits for. So the
+caller's stream never waits on the host, and an exchange's
+``wait_seconds`` in ``STATS`` are the host seconds ``wait()`` blocked:
+its exposed wait (the seconds of its copy out are its issue's).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -95,15 +115,70 @@ def _count(name: str, t0: float, nbytes: int) -> None:
     entry["bytes"] += nbytes
 
 
-def _staged(t: torch.Tensor, group) -> bool:
+def through_host(t: torch.Tensor, group) -> bool:
     """A CUDA tensor on a gloo group goes through host memory."""
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
+def _host_buffer(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A staging buffer, pinned where a card is present (PyTorch's
+    caching host allocator reuses freed pinned blocks once the copies
+    recorded on them have ended)."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.cuda.is_available())
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host = _host_buffer(t.shape, t.dtype)
     host.copy_(t)
     return host
+
+
+_COPY_STREAMS: Dict[torch.device, object] = {}
+
+
+def copy_stream(device: torch.device):
+    """The stream the staged exchanges copy on, one a device."""
+    if device not in _COPY_STREAMS:
+        _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    return _COPY_STREAMS[device]
+
+
+def _stage_out(t: torch.Tensor) -> torch.Tensor:
+    """``t`` into a staging buffer, copied on the copy stream once the
+    current stream's work so far has run; the host waits for the
+    copy."""
+    if t.device.type != "cuda":
+        return _to_host(t)
+    host = _host_buffer(t.shape, t.dtype)
+    stream = copy_stream(t.device)
+    stream.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(stream):
+        host.copy_(t, non_blocking=True)
+        done = stream.record_event()
+    done.synchronize()
+    return host
+
+
+def _stage_in(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A new tensor on ``device`` holding ``host`` (a staging buffer),
+    copied on the copy stream, which the current stream waits for."""
+    if device.type != "cuda":
+        return host.clone()
+    stream = copy_stream(device)
+    current = torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        out = torch.empty(host.shape, dtype=host.dtype, device=device)
+        out.copy_(host, non_blocking=True)
+        done = stream.record_event()
+    current.wait_event(done)
+    out.record_stream(current)
+    return out
+
+
+def _global_rank(group, group_rank: int) -> int:
+    return (group_rank if group is None
+            else dist.get_global_rank(group, group_rank))
 
 
 def _as_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +203,7 @@ def _run_exchange(x: torch.Tensor, group, ring: bool,
                   size: int) -> torch.Tensor:
     t0 = time.perf_counter()
     flat = _as_bytes(x)
-    staged = _staged(flat, group)
+    staged = through_host(flat, group)
     src = _to_host(flat) if staged else flat
     out = torch.empty_like(src)
     if not ring:
@@ -191,7 +266,7 @@ def all_reduce_(t: torch.Tensor, group=None,
         return t
     t0 = time.perf_counter()
     with prof.uncounted():
-        if _staged(t, group):
+        if through_host(t, group):
             host = _to_host(t)
             dist.all_reduce(host, op=op, group=group)
             t.copy_(host)
@@ -244,7 +319,7 @@ def gather_shard(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
                               device=x.device)
             dist.all_gather_into_tensor(out, src, group=group)
         else:
-            host = _to_host(src) if _staged(src, group) else src
+            host = _to_host(src) if through_host(src, group) else src
             parts = [torch.empty_like(host) for _ in range(size)]
             dist.all_gather(parts, host, group=group)
             out = torch.stack(parts).to(x.device)
@@ -275,7 +350,8 @@ def scatter_sum(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
                               device=x.device)
             dist.reduce_scatter_tensor(out, src, group=group)
         else:
-            host = _to_host(src) if _staged(src, group) else src.clone()
+            host = (_to_host(src) if through_host(src, group)
+                    else src.clone())
             dist.all_reduce(host, group=group)
             out = host.narrow(0, me * n, n).to(x.device)
         out = out.movedim(0, dim).contiguous()
@@ -317,3 +393,180 @@ def reduce_scatter_(x: torch.Tensor, dim: int = 0,
     """Differentiable reduce-scatter (sum) of ``x`` along ``dim``: this
     rank's block; the backward all-gathers the cotangent."""
     return _ReduceScatter.apply(x, dim, group)
+
+
+# -- asynchronous forms (the FSDP layer prefetch) ----------------------------
+
+
+class Pending:
+    """An exchange in flight. ``wait()`` completes it on the caller's
+    stream and returns its result (then holds no reference to it); the
+    host seconds it blocks are added to the exchange's ``seconds`` and
+    ``wait_seconds`` in ``STATS``."""
+
+    def __init__(self, name: str, finish: Optional[Callable] = None,
+                 result=None):
+        self._name, self._finish, self._result = name, finish, result
+
+    def wait(self):
+        if self._finish is None:
+            out, self._result = self._result, None
+            return out
+        t0 = time.perf_counter()
+        finish, self._finish = self._finish, None
+        with prof.uncounted():
+            out = finish()
+        waited = time.perf_counter() - t0
+        entry = STATS.setdefault(self._name, {"calls": 0, "seconds": 0.0,
+                                             "bytes": 0})
+        entry["seconds"] += waited
+        entry["wait_seconds"] = entry.get("wait_seconds", 0.0) + waited
+        return out
+
+
+def _done(name: str, nbytes: int, result) -> Pending:
+    """The meta device's exchange: counted, no backend call."""
+    _count(name, time.perf_counter(), nbytes)
+    STATS[name].setdefault("wait_seconds", 0.0)
+    return Pending(name, result=result)
+
+
+def broadcast_async(x: torch.Tensor, src: int, group=None) -> Pending:
+    """Group rank ``src``'s ``x`` on every rank of ``group``: on ``src``
+    ``x`` is sent (and ``wait()`` returns it), elsewhere only its shape
+    and dtype are read and ``wait()`` returns a new tensor. Counts
+    ``x``'s bytes."""
+    nbytes = x.numel() * x.element_size()
+    prof.report_exchange("collective-broadcast", nbytes)
+    me = dist.get_rank(group)
+    if x.device.type == "meta":
+        return _done("broadcast", nbytes,
+                     x if me == src else torch.empty_like(x))
+    t0 = time.perf_counter()
+    with prof.uncounted():
+        staged = through_host(x, group)
+        if me == src:
+            flat = _as_bytes(x).reshape(-1)
+            buf = _stage_out(flat) if staged else flat
+        else:
+            buf = (_host_buffer((nbytes,), torch.uint8) if staged else
+                   torch.empty(nbytes, dtype=torch.uint8, device=x.device))
+        work = dist.broadcast(buf, _global_rank(group, src), group=group,
+                              async_op=True)
+
+    def finish():
+        work.wait()
+        if me == src:
+            return x
+        out = _stage_in(buf, x.device) if staged else buf
+        return out.view(x.dtype).view(x.shape)
+
+    _count("broadcast", t0, nbytes)
+    return Pending("broadcast", finish)
+
+
+def reduce_async(x: torch.Tensor, dst: int, group=None) -> Pending:
+    """The sum of ``x`` over ``group`` on group rank ``dst``: ``wait()``
+    returns it there (a new tensor) and None elsewhere; ``x`` is not
+    changed. Counts ``x``'s bytes."""
+    nbytes = x.numel() * x.element_size()
+    prof.report_exchange("reduce", nbytes)
+    me = dist.get_rank(group)
+    if x.device.type == "meta":
+        return _done("reduce", nbytes, x.clone() if me == dst else None)
+    t0 = time.perf_counter()
+    with prof.uncounted():
+        src = x.detach().contiguous()
+        staged = through_host(src, group)
+        buf = _stage_out(src) if staged else src.clone()
+        work = dist.reduce(buf, _global_rank(group, dst), group=group,
+                           async_op=True)
+
+    def finish():
+        work.wait()
+        if me != dst:
+            return None
+        return _stage_in(buf, x.device) if staged else buf
+
+    _count("reduce", t0, nbytes)
+    return Pending("reduce", finish)
+
+
+def gather_shard_async(x: torch.Tensor, dim: int, group=None) -> Pending:
+    """``gather_shard``'s result, issued now: ``wait()`` returns the
+    group's blocks concatenated along ``dim``. Counts the gathered
+    tensor's bytes under "all_gather"."""
+    size = dist.get_world_size(group)
+    shape = list(x.shape)
+    shape[dim] *= size
+    nbytes = math.prod(shape) * x.element_size()
+    prof.report_exchange("all-gather", nbytes)
+    if x.device.type == "meta":
+        return _done("all_gather", nbytes, x.new_empty(shape))
+    t0 = time.perf_counter()
+    with prof.uncounted():
+        src = x.detach().movedim(dim, 0).contiguous()
+        whole = (size,) + tuple(src.shape)
+        staged = False
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty(whole, dtype=x.dtype, device=x.device)
+            work = dist.all_gather_into_tensor(out, src, group=group,
+                                               async_op=True)
+        else:
+            staged = through_host(src, group)
+            host = _stage_out(src) if staged else src
+            out = (_host_buffer(whole, x.dtype) if staged
+                   else torch.empty(whole, dtype=x.dtype))
+            work = dist.all_gather(list(out.unbind(0)), host, group=group,
+                                   async_op=True)
+
+    def finish():
+        work.wait()
+        full = out
+        if staged:
+            full = _stage_in(out, x.device)
+        full = full.reshape((size * src.shape[0],) + tuple(src.shape[1:]))
+        return full.movedim(0, dim).contiguous()
+
+    _count("all_gather", t0, nbytes)
+    return Pending("all_gather", finish)
+
+
+def scatter_sum_async(x: torch.Tensor, dim: int, group=None) -> Pending:
+    """``scatter_sum``'s result, issued now: ``wait()`` returns this
+    rank's block along ``dim`` of the sum of ``x`` over the group; ``x``
+    is not changed. Counts ``x``'s bytes under "reduce_scatter"."""
+    size = dist.get_world_size(group)
+    if x.shape[dim] % size:
+        raise ValueError(f"reduce-scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {size} ranks")
+    nbytes = x.numel() * x.element_size()
+    prof.report_exchange("reduce-scatter", nbytes)
+    n = x.shape[dim] // size
+    if x.device.type == "meta":
+        return _done("reduce_scatter", nbytes, x.narrow(dim, 0, n).clone())
+    t0 = time.perf_counter()
+    me = dist.get_rank(group)
+    with prof.uncounted():
+        src = x.detach().movedim(dim, 0).contiguous()
+        staged = False
+        if dist.get_backend(group) == "nccl":
+            buf = torch.empty((n,) + tuple(src.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            work = dist.reduce_scatter_tensor(buf, src, group=group,
+                                              async_op=True)
+        else:
+            staged = through_host(src, group)
+            buf = _stage_out(src) if staged else src.clone()
+            work = dist.all_reduce(buf, group=group, async_op=True)
+
+    def finish():
+        work.wait()
+        out = buf
+        if dist.get_backend(group) != "nccl":
+            part = buf.narrow(0, me * n, n)
+            out = _stage_in(part, x.device) if staged else part.clone()
+        return out.movedim(0, dim).contiguous()
+
+    _count("reduce_scatter", t0, nbytes)
+    return Pending("reduce_scatter", finish)

@@ -56,6 +56,19 @@ with the error-feedback residual ``TrainState.wire_residual`` (zeros in
 the parameters' layout at first, None under "bf16") added back, and the
 norm, the finite check and the optimizer see the decoded gradients.
 
+The FSDP layer prefetch (ROADMAP A6b): when the loss function's
+``fsdp_wire`` says the call runs it (``fsdp_prefetch`` resolved on at
+that call, two layers or more) and a stacked layer leaf is gathered,
+those leaves are not gathered whole. The step hands the model a
+``parallel.layer_prefetch.LayerSource`` under ``fsdp_wire.layer_key``
+instead, from which each layer's block takes its layer's full
+parameters (a broadcast from the rank holding the layer, or an
+all-gather of its slice), the next layer's already in flight, and which
+reduces each layer's gradient into the blocks as soon as the layer's
+backward is done; under the fp8 wire the owner quantizes the layer and
+only the wire forms travel. The other leaves are gathered once a step
+as above. With the prefetch off the step is the whole-tree step.
+
 A two-gradient optimizer (one with ``update_with_grad_fn``,
 ``optimizers.wsam``) is handed a function that runs the whole forward
 and backward again at the parameters' current values on the same batch
@@ -89,11 +102,12 @@ from dlrover_tpu_torch.ops.quantize import (
     quantize_block_scaled,
     resolve_quant_block,
 )
-from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.ops.remat import apply_remat, remat_enabled
 from dlrover_tpu_torch.ops.shard_compat import (
     ambient_mesh,
     fp8_wire_supported,
 )
+from dlrover_tpu_torch.parallel import layer_prefetch
 from dlrover_tpu_torch.parallel.mesh import ProcessMesh
 from dlrover_tpu_torch.parallel.sharding_rules import (
     BATCH_AXES,
@@ -351,6 +365,9 @@ def accelerate(
                     f"last dim, which the rules split: a rank's blocks "
                     f"would not be the global leaf's")
             wired[path] = resolve_quant_block(shape[-1])
+    # the gathered layer stacks, which the layer prefetch makes full a
+    # layer at a time
+    layer_paths = sorted(p for p in gather if p.startswith("layers/"))
     # the gradient wire's scale block of each leaf, from its global
     # leaf's last dim; a rank's block of a leaf split along that dim
     # must hold whole blocks
@@ -437,23 +454,56 @@ def accelerate(
         dq = dequantize_block_scaled(v, s, node.dtype)
         return {"dq": ring.gather_shard(dq, dim, group)}
 
-    def gathered(params, fulls, grad: bool):
+    def layer_source(params, microbatches: int, grad: bool):
+        """The layer prefetch's source for one forward (and backward) of
+        ``microbatches`` microbatches, when this call runs the prefetch
+        and a layer stack is gathered; None otherwise."""
+        if fsdp_wire is None or not layer_paths or not fsdp_wire.prefetch():
+            return None
+        if remat_enabled(strategy.remat_policy):
+            raise ValueError(
+                f"the FSDP layer prefetch takes the model's remat policy; "
+                f"the strategy's remat_policy="
+                f"{strategy.remat_policy!r} would run every layer's "
+                f"gather again in the backward")
+        mode = fsdp_wire.mode(device) if wired else "bf16"
+        blocks = dict(_named_leaves(params))
+        leaves = [layer_prefetch.LayerLeaf(
+            path[len("layers/"):], blocks[path], layout.leaves[path].dim,
+            gather[path], wired.get(path, 0) if mode != "bf16" else 0)
+            for path in layer_paths]
+        # the backward fetches each layer again where the model's remat
+        # policy runs its block again
+        plan = layer_prefetch.layer_plan(
+            fsdp_wire.config.num_layers, microbatches,
+            recompute=grad and remat_enabled(fsdp_wire.config.remat_policy))
+        return layer_prefetch.LayerSource(leaves, plan, mode, device)
+
+    def gathered(params, fulls, grad: bool, source=None):
         """``params`` with each gathered leaf full; ``fulls`` collects
         (the gather's output, or None for a wired leaf, and the leaf the
-        model sees) by path."""
+        model sees) by path. The leaves of ``source`` (a layer source)
+        are left out, and it is handed over in their place. The gathered
+        layer stacks count as every layer held while they live."""
         mode = fsdp_wire.mode(device) if wired else "bf16"
         forms: Dict[str, Dict] = {}
+        stacks = []
+        skip = {f"layers/{p}" for p in source.paths} if source else ()
 
         def walk(node, prefix=""):
             if isinstance(node, dict):
-                return {k: walk(node[k], f"{prefix}{k}/")
-                        for k in sorted(node)}
+                out = {k: walk(node[k], f"{prefix}{k}/")
+                       for k in sorted(node)}
+                return {k: v for k, v in out.items() if v is not None}
             path = prefix.rstrip("/")
+            if path in skip:
+                return None
             if path not in gather:
                 return node
             dim = layout.leaves[path].dim
             if mode != "bf16" and path in wired:
                 forms[path[len("layers/"):]] = wire_gather(node, path, mode)
+                stacks.extend(forms[path[len("layers/"):]].values())
                 # the gradient's route: the full shape, no values
                 seen = torch.zeros((), dtype=node.dtype,
                                    device=node.device).expand(
@@ -463,17 +513,23 @@ def accelerate(
                     fulls[path] = (None, seen)
                 return seen
             if not (grad and node.requires_grad):
-                return ring.gather_shard(node, dim, gather[path])
-            full = ring.all_gather_shard(node, dim, gather[path])
-            seen = full.detach().requires_grad_()
-            fulls[path] = (full, seen)
-            return seen
+                full = ring.gather_shard(node, dim, gather[path])
+            else:
+                full = ring.all_gather_shard(node, dim, gather[path])
+                fulls[path] = (full, full.detach().requires_grad_())
+            if path in layer_paths:
+                stacks.append(full)
+            return fulls[path][1] if path in fulls else full
 
         if not gather:
             return params
         out = walk(params)
         if forms:
             out[fsdp_wire.key] = forms
+        if source is not None:
+            out[fsdp_wire.layer_key] = source
+        if stacks:
+            layer_prefetch.hold(layout.shapes[layer_paths[0]][0], stacks)
         return out
 
     def reduce_grads(named) -> None:
@@ -556,14 +612,19 @@ def accelerate(
         and the loss function's aux."""
         for _, p in named:
             p.grad = None
-        # gathered once a step, before the forward
+        # gathered once a step, before the forward (the layer stacks a
+        # layer at a time under the layer prefetch, from ``source``,
+        # which reduces their gradients into the blocks)
+        source = layer_source(params_tree, accum, grad=True)
         fulls: Dict[str, Tuple[Optional[torch.Tensor], torch.Tensor]] = {}
-        params = gathered(params_tree, fulls, grad=True)
+        params = gathered(params_tree, fulls, grad=True, source=source)
         seen = [fulls[path][1] if path in fulls else p for path, p in named]
         if accum == 1:
             loss, aux = loss_fn(params, batch, step_rng)
             loss.backward()
             loss = loss.detach()
+            if source is not None:
+                source.finish()
         else:
             mbs = [{k: v.chunk(accum, dim=0)[i] for k, v in batch.items()}
                    for i in range(accum)]
@@ -573,6 +634,8 @@ def accelerate(
                 mb_loss.backward()
                 loss = loss + mb_loss.detach()
                 auxes.append(mb_aux)
+            if source is not None:
+                source.finish()
             for t in seen:
                 t.grad.div_(accum)
             loss = loss / accum
@@ -619,8 +682,11 @@ def accelerate(
 
     def eval_step(state: TrainState, batch: Dict):
         with torch.no_grad(), ambient_mesh(mesh):
-            loss, aux = loss_fn(gathered(state.params, {}, grad=False),
-                                batch, None)
+            source = layer_source(state.params, 1, grad=False)
+            loss, aux = loss_fn(gathered(state.params, {}, grad=False,
+                                         source=source), batch, None)
+            if source is not None:
+                source.finish()
             if world > 1:
                 loss = ring.all_reduce_(loss.clone(), group) / world
         return {"loss": loss, **aux}

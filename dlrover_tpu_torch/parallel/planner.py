@@ -6,9 +6,12 @@ serving decode term: ``ModelSpec``, the pool's byte counts and
 ``estimate_decode``, a serving config's predicted decode step and
 tokens/s; and the dense FSDP wire's bytes a gathered parameter element
 (``ModelSpec.fsdp_wire_bytes_per_elem``), the one formula the wire's
-gathers are held to. The planner's search over meshes, and the wire's
-byte split and collective pricing (``fsdp_byte_split``), come with
-ROADMAP A15.
+gathers are held to; and whether the FSDP layer prefetch runs
+(``ModelSpec.fsdp_prefetch``). The planner's search over meshes, the
+wire's byte split and collective pricing (``fsdp_byte_split``), and the
+pricing of the prefetch's hidden gather legs (the reference's forward
+gather, backward re-gather and two gathered layers live) come with the
+collective model, ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -118,6 +121,11 @@ class ModelSpec:
     # e4m3 values and one f32 scale a block; "fp8_qdq" decodes before
     # the wire, so it ships the parameter bytes
     fsdp_precision: str = "bf16"
+    # the FSDP layer prefetch (``models.llama.resolve_fsdp_prefetch``):
+    # each layer gathered under the previous layer's compute, again in
+    # the backward, at most two layers gathered at once. Priced with the
+    # collective model (ROADMAP A15)
+    fsdp_prefetch: bool = False
 
     def fsdp_wire_bytes_per_elem(self) -> float:
         """Wire bytes a gathered parameter element on the dense FSDP
@@ -133,8 +141,9 @@ class ModelSpec:
 
 
 def model_spec_from_llama(config) -> ModelSpec:
-    """A ModelSpec of a LlamaConfig. ``fsdp_precision`` "" resolves the
-    Context's, as the model does at each call."""
+    """A ModelSpec of a LlamaConfig. ``fsdp_precision`` "" and
+    ``fsdp_prefetch`` None resolve the Context's, as the model does at
+    each call."""
     from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.models import llama
 
@@ -147,6 +156,7 @@ def model_spec_from_llama(config) -> ModelSpec:
         param_bytes=torch.empty((), dtype=config.param_dtype).element_size(),
         fsdp_precision=(config.fsdp_precision
                         or str(get_context().fsdp_precision or "bf16")),
+        fsdp_prefetch=llama.resolve_fsdp_prefetch(config),
     )
 
 

@@ -8,7 +8,7 @@ package's (``tests/test_fsdp_wire.py``), on the CPU.
     within the reference's 5e-3 relative; the wired leaves are the
     reference's, key for key;
   * the knobs resolve as the reference's (config, Context, the probe);
-    ``fsdp_prefetch`` raises, naming ROADMAP A6b;
+    ``fsdp_prefetch`` the config's, else the Context's, at each call;
   * ``error_feedback_qdq`` equals the reference's bit for bit, and the
     errors telescope;
   * eight SGD steps of ``accelerate`` under ``grad_precision="fp8"``
@@ -277,17 +277,31 @@ class TestFsdpKnobResolution:
                             lambda d=None: False)
         assert resolve_grad_precision("fp8") == "bf16"
 
-    def test_prefetch_raises_naming_its_item(self, ctx):
-        _, cfg = _cfgs(fsdp_prefetch=True)
-        with pytest.raises(NotImplementedError, match="A6b"):
-            llama.apply({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-        ctx.fsdp_prefetch = True
+    def test_prefetch_resolves_config_then_context(self, ctx, monkeypatch):
+        """``resolve_fsdp_prefetch``: the config's value wins, else the
+        Context's, both read at the call (as the reference's
+        ``_prefetch_enabled``); the loss function's ``FsdpWire`` reads
+        it at each call too, so a changed knob takes the next step."""
+        from dlrover_tpu.common.config import get_context as jax_context
+
+        theirs = jax_context()
+        monkeypatch.setattr(theirs, "fsdp_prefetch", theirs.fsdp_prefetch)
         _, cfg = _cfgs()
-        with pytest.raises(NotImplementedError, match="A6b"):
-            llama.apply({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-        # the config wins over the Context
-        assert llama._check_supported(
-            dataclasses.replace(cfg, fsdp_prefetch=False)) is None
+        wire = llama.make_loss_fn(cfg).fsdp_wire
+        for knob in (False, True):
+            ctx.fsdp_prefetch = theirs.fsdp_prefetch = knob
+            assert llama.resolve_fsdp_prefetch(cfg) is knob
+            assert wire.prefetch() is knob
+            jcfg, _ = _cfgs()
+            assert jax_llama._prefetch_enabled(jcfg) is knob
+            for over in (False, True):
+                assert llama.resolve_fsdp_prefetch(dataclasses.replace(
+                    cfg, fsdp_prefetch=over)) is over
+                assert jax_llama._prefetch_enabled(dataclasses.replace(
+                    jcfg, fsdp_prefetch=over)) is over
+        # one layer has nothing to prefetch
+        assert not llama.make_loss_fn(dataclasses.replace(
+            cfg, num_layers=1)).fsdp_wire.prefetch()
 
 
 # -- error feedback: the telescoping contract ----------------------------------

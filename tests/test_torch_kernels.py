@@ -921,8 +921,10 @@ def test_fsdp_over_nccl_on_four_cards():
     cards), against (4, 1): three AdamW steps, losses within 1e-5
     relative (tests/test_torch_fsdp.py's CPU tolerance between meshes
     is 1e-6; the cards' kernels sum in their own order), every rank the
-    same global loss, each sharded leaf split as the rules say. Needs
-    four cards."""
+    same global loss, each sharded leaf split as the rules say. Then the
+    layer prefetch at 4 layers, (1, 4) and (2, 2), three SGD steps on
+    and off: losses within 1e-5 relative, at most two layers held, each
+    layer broadcast twice a step. Needs four cards."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices (one rank a card, NCCL)")
     import numpy as np
@@ -932,6 +934,8 @@ def test_fsdp_over_nccl_on_four_cards():
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.trainer.run import run_local
 
+    import torch_prefetch_workers as prefetch_workers
+
     cfg = llama.llama_tiny()
     tree = interop.params_to_numpy(
         llama.init(torch.Generator().manual_seed(0), cfg))
@@ -940,6 +944,23 @@ def test_fsdp_over_nccl_on_four_cards():
     got = run_local(workers.dense_ranks, 4,
                     (tree, {}, batches, 1e-2, None, None, None, "cuda"),
                     timeout=300)
+    # the layer prefetch over NCCL, 4 layers: a layer's owner broadcasts
+    # it on the process group's stream, overlapped with the previous
+    # layer; its gradient reduced to the owner
+    deep = {"num_layers": 4}
+    tree4 = interop.params_to_numpy(llama.init(
+        torch.Generator().manual_seed(0), llama.llama_tiny(**deep)))
+    prefetched = run_local(prefetch_workers.quad_ranks, 4,
+                           (tree4, None, deep, None, batches, None, "cuda"),
+                           timeout=300)
+    for r in prefetched:
+        for mesh in ((1, 4), (2, 2)):
+            off, on = r["runs"][mesh][False], r["runs"][mesh][True]
+            np.testing.assert_allclose(on["losses"], off["losses"],
+                                       rtol=1e-5)
+            assert on["held"]["held_high_water"] <= 2
+            assert on["stats"]["broadcast"]["calls"] == 3 * 2 * 7 * 4
+            assert "broadcast" not in off["stats"]
     for r in got:
         runs = r["runs"]
         for mesh in ((2, 2), (1, 4)):
@@ -951,3 +972,45 @@ def test_fsdp_over_nccl_on_four_cards():
             (1, 64, 64)
         assert runs[(4, 1)]["sharded"] == []
         assert runs[(2, 2)]["losses"] == got[0]["runs"][(2, 2)]["losses"]
+
+
+@pytest.mark.cuda
+def test_staged_fp8_prefetch_on_one_card():
+    """Two ranks sharing one card over gloo (the layer exchanges staged
+    through host memory on a copy stream, as phase 18 of chip_smoke.py
+    runs them), the tiny dense Llama at 4 layers and (data, fsdp) =
+    (1, 2), the fp8 and fp8_qdq FSDP wires with the layer prefetch off
+    and on, three SGD steps: the losses, each step's block gradients and
+    the final blocks bit for bit, while each quantize the prefetch sends
+    is held back on its stream by ~50 ms of spinning and an e4m3 NaN
+    fill (a copy out racing it sends wrong bytes). Needs a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (two gloo ranks sharing it)")
+    import numpy as np
+
+    from dlrover_tpu_torch import interop
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.run import run_local
+
+    import torch_prefetch_workers as workers
+
+    kw, steps = {"num_layers": 4}, 3
+    tree = interop.params_to_numpy(llama.init(
+        torch.Generator().manual_seed(0), llama.llama_tiny(**kw)))
+    ids = np.random.RandomState(3).randint(0, 256, (steps, 8, 17))
+    batches = [{"input_ids": b[:, :-1], "labels": b[:, 1:]} for b in ids]
+    got = run_local(workers.one_card_ranks, 2,
+                    (tree, kw, batches, 100_000_000), timeout=300)
+    for r in got:
+        for case, run in r["runs"].items():
+            off, on = run[False], run[True]
+            assert run["resolved"] == case[1]
+            assert on["losses"] == off["losses"], case
+            for a, b in zip(off["grads"], on["grads"]):
+                for path in a:
+                    assert a[path].tobytes() == b[path].tobytes(), \
+                        (case, path)
+            for path, a in off["params"].items():
+                assert on["params"][path].tobytes() == a.tobytes(), \
+                    (case, path)
+            assert on["held"]["fetches"] == steps * 2 * 4

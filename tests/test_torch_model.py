@@ -261,18 +261,40 @@ class TestRemat:
 
 class TestLaterSlicesRaise:
     @pytest.mark.parametrize("override,item", [
-        # grouped_ep and the fp8 FSDP wire run (tests/test_torch_ep.py,
-        # tests/test_torch_fsdp_wire.py); the per-layer gathers with the
-        # layer prefetch do not yet
-        ({"num_experts": 4, "moe_dispatch": "grouped_ep",
-          "fsdp_prefetch": True}, "A6b"),
+        # grouped_ep, the fp8 FSDP wire and the layer prefetch run
+        # (tests/test_torch_ep.py, tests/test_torch_fsdp_wire.py,
+        # tests/test_torch_fsdp_prefetch.py)
         ({"seq_axis": "seq"}, "A13"),
-        ({"fsdp_prefetch": True}, "A6b"),
     ])
     def test_config_options(self, override, item):
         cfg = dataclasses.replace(llama.llama_tiny(), **override)
         with pytest.raises(NotImplementedError, match=item):
             llama.apply({}, torch.zeros((1, 4), dtype=torch.long), cfg)
+
+    @pytest.mark.parametrize("override", [
+        {},
+        {"num_experts": 4, "moe_dispatch": "grouped"},
+        {"remat_policy": "none"},
+    ], ids=["dense", "moe", "no-remat"])
+    def test_prefetch_runs_and_equals_prefetch_off(self, override):
+        """``fsdp_prefetch=True`` on one device runs the plain loop: the
+        logits and every gradient bit for bit those with it off."""
+        ids, labels = _batch(b=2, s=16)
+        batch = {"input_ids": torch.from_numpy(ids),
+                 "labels": torch.from_numpy(labels)}
+        out = {}
+        for prefetch in (False, True):
+            cfg = llama.llama_tiny(num_layers=3, fsdp_prefetch=prefetch,
+                                   **override)
+            params = llama.init(torch.Generator().manual_seed(0), cfg)
+            for t in tree_leaves(params):
+                t.requires_grad_()
+            loss, _ = llama.make_loss_fn(cfg)(params, batch, None)
+            out[prefetch] = (loss, torch.autograd.grad(
+                loss, tree_leaves(params)))
+        assert out[True][0].item() == out[False][0].item()
+        for a, b in zip(out[False][1], out[True][1]):
+            assert torch.equal(a, b)
 
     def test_serving_raises(self):
         """The serving steps run (tests/test_torch_serving.py); what they
