@@ -88,7 +88,7 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      dispatch;
  12. the expert-parallel main path: examples/train_llama.py on 4 ranks
      (llama2_7b+moe8 x 2 layers, grouped_ep, fp8 wire, global batch
-     4 x 1024; the example's mesh, (data, fsdp) = (2, 2)), five steps (rank 0's last under torch.profiler), every
+     4 x 1024; the example's mesh, (data, fsdp) = (2, 2)), four steps (rank 0's last under torch.profiler), every
      rank's launches of all six kernels pinned;
  13. packed documents (segment ids): B1-B3 in their segment-id mode
      against their plain versions at the main shape, row by row and by
@@ -163,10 +163,10 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      of the snapshot, its restore, the save's stage and commit and each
      restore, beside the link's bound, on one line a cell.
  16. in-process recovery: (a) the expert-parallel cell (phase 12's) through
-     ElasticTrainer on 4 ranks sharing the card: 3 steps, a snapshot
+     ElasticTrainer on 4 ranks sharing the card: 2 steps, a snapshot
      laid out for the world of ranks 0 and 1 (into fresh host buffers,
      then into the same ones again), ``live_reshard`` onto it (ranks 2
-     and 3 leave, the group re-formed in the processes), 3 steps at 2
+     and 3 leave, the group re-formed in the processes), 2 steps at 2
      ranks with grad accumulation doubled; the survivors' expert leaves
      held against their slices of the pre-change leaves, and the live
      path against a cold trainer built for 2 ranks and restored from the
@@ -205,10 +205,24 @@ Phases, each of which fails the run (exit code 1) when it goes wrong:
      effective precisions the ones asked for, the all-gather bytes at
      (1, 2) equal to the planner's formula (1 + 4/32 B a wired element,
      4 B every other gathered one), the residual nonzero and in the
-     parameters' layout; (b) phase 12's run, which the example makes at
-     (2, 2) on its 4 ranks, against the same configuration at (4, 1)
-     through ElasticTrainer for 3 steps: losses within FSDP_MOE_RTOL,
-     every rank's B1-B6 launches pinned, peak memory.
+     parameters' layout. Before the train runs, the ring leg (long
+     context, ring attention over the seq axis): the ring body at seq =
+     2 (Llama's attention at 4096 tokens a rank, causal and on phase
+     13's packed layout; GLM's [4, 64, 1024, 64] a rank on phase 14's
+     prompts and on prompts straddling and on the bound), forward and
+     backward with host syncs forbidden, each rank's out, dq, dk, dv
+     against the plain versions over the whole sequence by the row and
+     bias rules, B1-B3's launches by mode pinned to the schedule, the
+     shifts' bytes equal to the formula, and planted controls (a future
+     shard attended, a past shard merged twice) the row rule rejects;
+     and one step at (data, fsdp, seq) = (1, 1, 2) on the same batch,
+     its loss within FSDP_LOSS_RTOL of the (2, 1) step's and its
+     gradients within GRAD_GAP_LIMIT of them (phase 6's cross-check
+     gap); (b) phase 12's run, which the
+     example makes at (2, 2) on its 4 ranks, against the same
+     configuration at (4, 1) through ElasticTrainer for 2 steps: losses
+     within FSDP_MOE_RTOL, every rank's B1-B6 launches pinned, peak
+     memory.
 
  19. serving, right after phase 5 on its trained weights (a HostSnapshot
      of the parameters promoted through ``ServeEngine.load_from_snapshot``,
@@ -302,7 +316,9 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (B4 f32, B6)
 PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor cores, data sheet
 # expert parallel: 4 ranks sharing the one card over gloo, 1024 tokens
 # each (the 4096 tokens per step of the one-card MoE cell), 2 experts each
-EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 5  # the last step profiled
+# 4 steps (5 before the ring leg of phase 18 (a) needed the room): the
+# last step profiled, steps 2-3 the steady ones
+EP_RANKS, EP_TOKENS, EP_STEPS = 4, 1024, 4
 EP_TIMEOUT = 600  # seconds a 4-rank phase may take
 # packed documents: lengths log-uniform over [DOC_MIN, DOC_MAX] tokens
 DOC_MIN, DOC_MAX, PACK_SEED = 64, 4096, 0
@@ -4319,7 +4335,9 @@ def checkpoint_phase(llama, config, moe_config, card):
 
 # -- phase 16: in-process recovery ------------------------------------------
 
-RECOVERY_STEPS = 3  # 16 (a): steps at 4 ranks, at 2, and on the cold path
+# 16 (a): steps at 4 ranks, at 2, and on the cold path (3 before the ring
+# leg of phase 18 (a) needed the room)
+RECOVERY_STEPS = 2
 RECOVERY_SURVIVORS = [0, 1]
 RETUNE_K, RETUNE_WINDOW = 4, 4  # 16 (b): K, and the steps in flight
 
@@ -5499,8 +5517,12 @@ FSDP_RUNS = (
     (FSDP_MESHES[0], "bf16", False),
     (FSDP_MESHES[0], "bf16", True),
     (FSDP_MESHES[1], "bf16", False),
+    # (data, fsdp, seq): each rank 1,024 of each row's 2,048 tokens, ring
+    # attention over the two; held against the (2, 1) run's step
+    ((1, 1, 2), "bf16", False),
     *((m, "fp8", False) for m in FSDP_MESHES))
-FSDP_MOE_STEPS = 3
+# phase 18 (b)'s steps (3 before the ring leg of (a) needed the room)
+FSDP_MOE_STEPS = 2
 # the largest relative gap of a step's loss between the fsdp and the
 # data-parallel run: on the CPU tests/test_torch_fsdp.py holds (1, 4) and
 # (2, 2) against (4, 1) to 1e-6 (the sums group differently); over 2
@@ -5514,6 +5536,277 @@ FSDP_PARAM_ATOL = 3e-6
 # the MoE cell at (2, 2) against (4, 1): tests/test_torch_ep.py's
 # tolerance for the expert-parallel trajectory
 FSDP_MOE_RTOL = 1e-4
+
+
+# -- phase 18 (a)'s ring leg: long context (ROADMAP A13) ----------------------
+
+# The ring body at seq = 2 on phase 18 (a)'s two ranks, before the train
+# runs: (name, rows, heads, kv heads, global tokens, head dim, mode).
+# Llama-3-8B's attention at 4096 tokens a rank (causal, and on phase
+# 13's packed layout over 8192 tokens, whose document 5 spans the bound);
+# GLM's [4, 64, 1024, 64] a rank on phase 14's training prompts (all in
+# the first shard: rank 0 skips its future shard) and on two of them
+# with a prompt straddling the bound (1500) and one on it (1024)
+RING_CASES = (
+    ("llama", 1, 32, 8, 8192, 128, "causal"),
+    ("llama_packed", 1, 32, 8, 8192, 128, "packed"),
+    ("glm", 4, 64, 64, 2048, 64, "prefix"),
+    ("glm_bound", 4, 64, 64, 2048, 64, "prefix_bound"),
+)
+RING_SEED = 26
+# query heads a chunk of the plain f32 reference (a multiple of the GQA
+# group): its S x S scores, probabilities and their gradients stay a few
+# GiB a rank
+RING_REF_HEADS = 4
+# the (1, 1, 2) train run: the same batch and global function as (2, 1)
+FSDP_RING_MESH = (1, 1, 2)
+
+
+def ring_prompts(vocab):
+    """(phase 14's training prompts, two of them with 1500 and 1024)."""
+    from dlrover_tpu_torch.examples.train_glm_prefix import (
+        synth_instruction_batch,
+    )
+
+    p = [int(x) for x in synth_instruction_batch(
+        vocab, GLM_BATCH, GLM_SEQ, 0)["prefix_len"]]
+    return p, p[:2] + [1500, 1024]
+
+
+def ring_reference(q, k, v, dout, scale, seg=None, prefix=None):
+    """The plain attention over the whole sequence (causal, with the
+    ids' or the prompt's mask) and its gradients given ``dout``: (out,
+    dq, dk, dv) in q's dtype, by B1-B3's plain versions (f32 arithmetic,
+    P and dS rounded to bf16 where the kernels round them, the rule's
+    reference in every kernel check), RING_REF_HEADS query heads at a
+    time with their KV heads."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    h, hkv = q.shape[1], k.shape[1]
+    g = h // hkv
+    step = max(g, RING_REF_HEADS)
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(k)
+    for h0 in range(0, h, step):
+        k0, k1 = h0 // g, (h0 + step) // g
+        qs, do = q[:, h0:h0 + step], dout[:, h0:h0 + step]
+        ks, vs = k[:, k0:k1], v[:, k0:k1]
+        o, lse = fa.flash_fwd_plain(qs, ks, vs, True, scale, seg, seg,
+                                    prefix)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        args = (qs, ks, vs, do, lse, delta, True, scale, seg, seg, prefix)
+        dk[:, k0:k1], dv[:, k0:k1] = fa.flash_bwd_dkv_plain(*args)
+        dq[:, h0:h0 + step] = fa.flash_bwd_dq_plain(*args)
+        out[:, h0:h0 + step] = o
+        del o, lse, delta, args
+    return out, dq, dk, dv
+
+
+def ring_expected(mode, rank):
+    """The launches of B1-B3 by mode that the ring's schedule gives seq
+    rank ``rank`` of 2 in one forward and backward: the diagonal, and on
+    rank 1 the past shard; rank 0's future shard only where a prompt
+    reaches it (the column bound, through the pair-segmented kernels)."""
+    counts = {f"{name}{m}": 0 for name in FLASH_KERNELS
+              for m in ("", "_seg", "_pfx")}
+
+    def add(suffix, n=1):
+        for name in FLASH_KERNELS:
+            counts[name + suffix] += n
+
+    if mode == "causal":
+        add("", 1 + rank)
+    elif mode == "packed":
+        add("_seg", 1 + rank)
+    else:
+        add("_pfx")
+        if rank == 1:
+            add("")
+        elif mode == "prefix_bound":
+            add("_seg")
+    return counts
+
+
+def ring_bytes(b, hkv, s_local, d, packed, n=2):
+    """A rank's bytes in one forward and backward of the ring over n
+    ranks (bf16 K/V): the forward's n - 1 K/V hops (with the int32 ids
+    when packed), the backward's n - 1 again and its n hops of the f32
+    dK/dV accumulators."""
+    kv = 2 * b * hkv * s_local * d * 2 + (b * s_local * 4 if packed else 0)
+    acc = 2 * b * hkv * s_local * d * 4
+    return 2 * (n - 1) * kv + n * acc
+
+
+def ring_body_leg(rank, ranks):
+    """One rank of the ring leg (RING_CASES): the ring's forward and
+    backward with host syncs forbidden, its out, dq, dk, dv against the
+    matching slices of ``ring_reference`` by ``ops/flash_check.py``'s
+    row and bias rules, B1-B3's launches by mode, the shifts' bytes and
+    statistics; on the causal case the planted controls (a future shard
+    attended, a past shard merged twice), which the row rule must
+    reject on the rank they change."""
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import glm
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import flash_check as fc
+    from dlrover_tpu_torch.ops import ring
+    from dlrover_tpu_torch.ops import ring_attention as ra
+
+    prompts = ring_prompts(glm.glm_10b().vocab_size)
+    out = {}
+    for name, b, h, hkv, s, d, mode in RING_CASES:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(RING_SEED)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+
+        q, k, v, dout = (draw(b, h, s, d), draw(b, hkv, s, d),
+                         draw(b, hkv, s, d), draw(b, h, s, d))
+        scale = 1.0 / math.sqrt(d)
+        seg = prefix = host = None
+        if mode == "packed":
+            row = next(packed_segment_rows(s, PACK_SEED))
+            seg = torch.as_tensor(row, device="cuda")[None].to(torch.int32)
+        elif mode.startswith("prefix"):
+            host = prompts[mode == "prefix_bound"]
+            prefix = torch.tensor(host, dtype=torch.int32, device="cuda")
+        ref = ring_reference(q, k, v, dout, scale, seg, prefix)
+        sl = s // ranks
+        lo = rank * sl
+
+        def local(t):
+            return t[:, :, lo:lo + sl].contiguous()
+
+        ql, kl, vl = (local(t).requires_grad_() for t in (q, k, v))
+        seg_l = None if seg is None else seg[:, lo:lo + sl].contiguous()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        ring.reset_stats()
+        sync_error = ""
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            o = ra.ring_attention_local(
+                ql, kl, vl, None, causal=True, impl="flash",
+                segment_ids=seg_l, prefix_len=prefix, prefix_host=host)
+            o.backward(local(dout))
+        except RuntimeError as exc:
+            sync_error = str(exc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t1
+        launches = fa.launch_counts()
+        stats = ring.stats().get("ring_shift", {})
+        rec = {"launches": launches, "expected": ring_expected(mode, rank),
+               "stats": stats, "sync_error": sync_error,
+               "bytes_want": ring_bytes(b, hkv, sl, d, seg is not None),
+               "ring_s": ring_s, "checks": {}}
+        if not sync_error:
+            for key, got, want in (
+                    ("out", o, local(ref[0])), ("dq", ql.grad,
+                                                local(ref[1])),
+                    ("dk", kl.grad, local(ref[2])),
+                    ("dv", vl.grad, local(ref[3]))):
+                rec["checks"][key] = {
+                    **fc.row_errors(got, want), "bias": fc.bias(got, want),
+                    "ok": fc.rows_close(got, want)
+                    and fc.bias_close(got, want)}
+        if mode == "causal":
+            plan = ra.ring_plan(ql, None, True, scale)
+            want = local(ref[0])
+            qd, kd, vd = ql.detach(), kl.detach(), vl.detach()
+            bad, _ = ra._ring_forward(qd, kd, vd, _future_attended(plan))
+            merge = ra._merge_lse
+
+            def twice(o_, l_, oi, li):
+                o_, l_ = merge(o_, l_, oi, li)
+                return merge(o_, l_, oi, li)
+
+            ra._merge_lse = twice
+            try:
+                bad2, _ = ra._ring_forward(qd, kd, vd, plan)
+            finally:
+                ra._merge_lse = merge
+            rec["controls"] = {
+                "future_attended": {"changes": rank == 0,
+                                    "rejected": not fc.rows_close(bad,
+                                                                  want),
+                                    **fc.row_errors(bad, want)},
+                "past_twice": {"changes": rank == 1,
+                               "rejected": not fc.rows_close(bad2, want),
+                               **fc.row_errors(bad2, want)}}
+            del bad, bad2
+        rec["wall_s"] = time.perf_counter() - t0
+        out[name] = rec
+        del q, k, v, dout, ref, ql, kl, vl, o
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _future_attended(plan):
+    """A planted control: ``plan`` (a ``RingPlan``) attending each
+    future shard of the causal ring (no mask) instead of skipping it."""
+    import dataclasses as dc
+
+    from dlrover_tpu_torch.ops import ring_attention as ra
+
+    class FutureAttended(ra.RingPlan):
+        def step(self, owner, seg_k=None):
+            if self.causal and owner > self.my:
+                return ra.Step("full", False)
+            return super().step(owner, seg_k)
+
+    return FutureAttended(**{f.name: getattr(plan, f.name)
+                             for f in dc.fields(plan)})
+
+
+def ring_body_checks(ranks, card):
+    """Phase 18 (a)'s ring leg on both ranks' records (``ring_body_leg``):
+    logs each case and fails on a sync, a rule, a launch count, the
+    bytes or a control the rule let through."""
+    for r in ranks:
+        for name, b, h, hkv, s, d, mode in RING_CASES:
+            rec = r["ring"][name]
+            checks = " ".join(
+                f"{k} worst row {c['worst_row']:.3f} bias {c['bias']:.2e}"
+                for k, c in rec["checks"].items())
+            st = rec["stats"]
+            log(f"    rank {r['rank']} ring {name} ([{b}, {h}/{hkv}, "
+                f"{s // 2} of {s}, {d}], {mode}): {checks}; launches "
+                f"{ {k: v for k, v in rec['launches'].items() if v} }; "
+                f"shifts {st.get('calls', 0)} calls {st.get('bytes', 0)} B "
+                f"(formula {rec['bytes_want']}), exposed wait "
+                f"{st.get('wait_seconds', 0.0):.3f} s; forward and "
+                f"backward {rec['ring_s']:.3f} s host, the case "
+                f"{rec['wall_s']:.1f} s with its reference; {card}")
+            if rec["sync_error"]:
+                fail(f"ring {name} waits for the device: "
+                     f"{rec['sync_error']}")
+            bad = [k for k, c in rec["checks"].items() if not c["ok"]]
+            if bad or len(rec["checks"]) != 4:
+                fail(f"rank {r['rank']} ring {name}: {bad} outside the row "
+                     f"or bias rule: {rec['checks']}")
+            if rec["launches"] != rec["expected"]:
+                fail(f"rank {r['rank']} ring {name}: launches "
+                     f"{rec['launches']}, the schedule gives "
+                     f"{rec['expected']}")
+            if st.get("bytes") != rec["bytes_want"]:
+                fail(f"rank {r['rank']} ring {name}: shift bytes "
+                     f"{st.get('bytes')}, formula {rec['bytes_want']}")
+            for control, c in rec.get("controls", {}).items():
+                log(f"      control {control}: worst row "
+                    f"{c['worst_row']:.3f}, rejected {c['rejected']}")
+                if c["changes"] and not c["rejected"]:
+                    fail(f"rank {r['rank']}: the planted control {control} "
+                         f"passed the row rule")
 
 
 def _leaf_bytes(state):
@@ -5542,10 +5835,11 @@ def _split_bytes(leaf_bytes, sharded):
     return out
 
 
-def fsdp_run_key(data, fsdp, precision, prefetch):
+def fsdp_run_key(data, fsdp, precision, prefetch, seq=1):
     """A phase 18 (a) run's key: (data, fsdp, precision), the prefetch
-    leg's precision named "prefetch"."""
-    return (data, fsdp, "prefetch" if prefetch else precision)
+    leg's precision named "prefetch", the ring leg's "seq2"."""
+    label = "prefetch" if prefetch else precision
+    return (data, fsdp, f"seq{seq}" if seq > 1 else label)
 
 
 def fsdp_dense_rank(layers, seq, rows, steps):
@@ -5584,21 +5878,28 @@ def fsdp_dense_rank(layers, seq, rows, steps):
     gen = synthetic_batches(config.vocab_size, rows, seq)()
     batches = [next(gen) for _ in range(steps)]
     out = {"rank": rank, "runs": {}}
+    # the ring leg's body first, on a card that holds no model yet
+    out["ring"] = ring_body_leg(rank, ranks)
     # the exact (1, 2) step's blocks on the host, and where each lies in
-    # its leaf: {path: (dim, index)} of the sharded ones
-    exact, cuts = {}, {}
-    for (data, fsdp), precision, prefetch in FSDP_RUNS:
+    # its leaf: {path: (dim, index)} of the sharded ones; the (2, 1)
+    # step's leaves, for the ring run
+    exact, cuts, data_parallel = {}, {}, {}
+    for mesh, precision, prefetch in FSDP_RUNS:
+        data, fsdp, ring_n = (*mesh, 1)[:3]
         # the fp8 legs step SGD: their checks read the first loss, the
         # gathers and the residual, none of which the optimizer moves,
         # and AdamW's moments beside the residual do not fit two ranks
         # at (2, 1) on one card
+        run_t0 = time.perf_counter()
         optimizer = (adamw() if precision == "bf16" else
                      functools.partial(torch.optim.SGD, lr=3e-4))
         trainer = ElasticTrainer(
             llama.make_init_fn(config), llama.make_loss_fn(
-                dataclasses.replace(config, fsdp_prefetch=prefetch)),
+                dataclasses.replace(config, fsdp_prefetch=prefetch,
+                                    seq_axis="seq" if ring_n > 1 else None)),
             optimizer, batches[0],
-            strategy=Strategy(mesh=MeshPlan(data=data, fsdp=fsdp),
+            strategy=Strategy(mesh=MeshPlan(data=data, fsdp=fsdp,
+                                            seq=ring_n),
                               rule_set="llama"),
             device="cuda:0", fsdp_precision=precision,
             grad_precision=precision)
@@ -5652,11 +5953,20 @@ def fsdp_dense_rank(layers, seq, rows, steps):
                     {p for p, t in named if p not in exact or not
                      torch.equal(exact[p], t.detach().cpu())}
                     | (set(exact) - {p for p, _ in named}))
-        elif precision == "bf16":  # (2, 1): each leaf whole on every rank
+        elif precision == "bf16" and ring_n == 1:
+            # (2, 1): each leaf whole on every rank
             after_update = _after_update(exact, cuts, named)
             exact = {}
+            data_parallel = {p: t.grad.cpu() for p, t in named}
+        elif precision == "bf16":  # the ring's gradients against (2, 1)'s
+            after_update = {
+                "grads": _grad_gap(data_parallel, named),
+                "missing": sorted(set(data_parallel)
+                                  ^ {p for p, _ in named})}
+            data_parallel = {}
         del named
-        out["runs"][fsdp_run_key(data, fsdp, precision, prefetch)] = {
+        out["runs"][fsdp_run_key(data, fsdp, precision, prefetch,
+                                 ring_n)] = {
             "losses": losses, "host_step_s": host_s,
             "launches": fa.launch_counts(), "exchange": ring.stats(),
             "held": layer_prefetch.stats(), "blocks_differ": blocks_differ,
@@ -5673,6 +5983,10 @@ def fsdp_dense_rank(layers, seq, rows, steps):
         del state, trainer, result
         gc.collect()
         torch.cuda.empty_cache()
+        # the run's seconds: build, step, checks and release
+        out["runs"][fsdp_run_key(data, fsdp, precision, prefetch,
+                                 ring_n)]["wall_s"] = (time.perf_counter()
+                                                       - run_t0)
     dist.destroy_process_group()
     return out
 
@@ -5701,6 +6015,33 @@ def _after_update(exact, cuts, named):
         differ += int((d > 0).sum())
     return {"max_abs": gap, "differ": differ,
             "missing": sorted(set(exact) ^ {p for p, _ in named})}
+
+
+def _grad_gap(want, named, chunk=1 << 25):
+    """Each leaf's gradient after a step (``named``, on the card) against
+    another run's (``want``, on the host) as phase 6's cross-check holds
+    a model's gradients: ||g - g_want|| / ||g_want|| over every leaf
+    (``gap``) and per leaf (``leaf_gap``), accumulated in f64 about
+    ``chunk`` elements at a time (a whole leaf's f64 copies do not fit
+    beside two ranks' states)."""
+    import torch
+
+    diff2 = ref2 = 0.0
+    leaf_gap = {}
+    for path, t in named:
+        if path not in want:
+            continue
+        got, ref = t.grad.reshape(-1), want[path].reshape(-1)
+        d2 = r2 = 0.0
+        for lo in range(0, got.numel(), chunk):
+            g = got[lo:lo + chunk].double()
+            r = ref[lo:lo + chunk].to(got.device).double()
+            d2 += float(torch.sum((g - r) ** 2))
+            r2 += float(torch.sum(r * r))
+            del g, r
+        leaf_gap[path] = math.sqrt(d2 / r2) if r2 else math.sqrt(d2)
+        diff2, ref2 = diff2 + d2, ref2 + r2
+    return {"gap": math.sqrt(diff2 / ref2), "leaf_gap": leaf_gap}
 
 
 def fsdp_moe_rank(argv, steps):
@@ -5898,23 +6239,34 @@ def fsdp_dense_part(run_local, llama, card):
         f"all-gathers and reduce-scatters go through host memory; no "
         f"multi-GPU rate is claimed), {FSDP_STEPS} step a run from the "
         f"same state: at (data, fsdp) = {FSDP_MESHES[0]} with the layer "
-        f"prefetch off and on, at {FSDP_MESHES[1]}, then at each under the "
-        f"fp8 FSDP and gradient wires:")
+        f"prefetch off and on, at {FSDP_MESHES[1]}, at (data, fsdp, seq) = "
+        f"{FSDP_RING_MESH} (ring attention, 1,024 tokens of each row a "
+        f"rank), then at {FSDP_MESHES} under the fp8 FSDP and gradient "
+        f"wires; before them the ring body at seq = 2 (RING_CASES):")
     ranks = run_local(fsdp_dense_rank, 2,
                       (FSDP_LAYERS, FSDP_SEQ, FSDP_ROWS, FSDP_STEPS),
                       timeout=EP_TIMEOUT)
+    ring_body_checks(ranks, card)
     recompute = 1 if remat.remat_enabled(config.remat_policy) else 0
 
-    expected = {"flash_fwd": FSDP_STEPS * FSDP_LAYERS * (1 + recompute),
-                "flash_bwd_dkv": FSDP_STEPS * FSDP_LAYERS,
-                "flash_bwd_dq": FSDP_STEPS * FSDP_LAYERS, **NO_SEG, **NO_PFX}
+    def expected_for(rank, seq):
+        """One run's launches: a layer's B1 (twice under the remat), B2
+        and B3; under the ring each once more on seq rank 1 (its past
+        shard)."""
+        n = FSDP_STEPS * FSDP_LAYERS * (1 + (rank if seq > 1 else 0))
+        return {"flash_fwd": n * (1 + recompute), "flash_bwd_dkv": n,
+                "flash_bwd_dq": n, **NO_SEG, **NO_PFX}
+
+    expected = expected_for(0, 1)
     fs, dp = FSDP_MESHES
     for r in ranks:
         for mesh, precision, prefetch in FSDP_RUNS:
-            run = r["runs"][fsdp_run_key(*mesh, precision, prefetch)]
-            if run["launches"] != expected:
+            run = r["runs"][fsdp_run_key(mesh[0], mesh[1], precision,
+                                         prefetch, *mesh[2:])]
+            want = expected_for(r["rank"], (*mesh, 1)[2])
+            if run["launches"] != want:
                 fail(f"rank {r['rank']} at {mesh} ({precision}): launches "
-                     f"{run['launches']}, expected {expected}")
+                     f"{run['launches']}, expected {want}")
             if not all(math.isfinite(x) for x in run["losses"]):
                 fail(f"non-finite loss at {mesh} ({precision})")
             if run["effective"] != (precision, precision):
@@ -5979,6 +6331,7 @@ def fsdp_dense_part(run_local, llama, card):
                     a["steps"] * len(a["sharded"]):
                 fail(f"{name}: {x} against the formula's {want_x} B")
         r["loss_gap"] = gap
+        r["ring_run"] = fsdp_ring_checks(r, b, card)
         r["wire"] = fsdp_wire_checks(r, config, card)
         r["prefetch"] = fsdp_prefetch_checks(r, expected, card)
         # JSON keys: "data x fsdp precision"
@@ -5990,6 +6343,53 @@ def fsdp_dense_part(run_local, llama, card):
     log(f"    ({report['dense']['wall_s']:.1f} s with the ranks' start-up; "
         f"{card})")
     return report["dense"]
+
+
+def fsdp_ring_checks(r, dp_run, card):
+    """Phase 18 (a)'s (1, 1, 2) run on one rank's record, against the
+    (2, 1) run ``dp_run`` on the same batch (the same global function):
+    the loss within FSDP_LOSS_RTOL, and the gradients as phase 6's
+    cross-check holds two attention paths' (||g - g_(2,1)|| over
+    ||g_(2,1)|| within GRAD_GAP_LIMIT, ``_grad_gap``); its launches
+    (checked with the others), peak memory, host step and the ring's
+    shifts logged. The parameters after the AdamW step are not held to
+    FSDP_PARAM_ATOL: the ring sums a gradient in another order than the
+    one-device attention (not bit for bit, as (1, 2) is with (2, 1)),
+    and AdamW's first step moves an element by lr sign(g) for any |g|
+    above eps, so an element whose gradient is of rounding size moves 2
+    lr the other way (5.996e-4 = 2 x 3e-4, 639,437,558 elements
+    differing, on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    run = r["runs"][FSDP_RING_MESH[:2] + ("seq2",)]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(run["losses"],
+                                                  dp_run["losses"]))
+    upd = run["after_update"]
+    grads = upd["grads"]
+    worst = max(grads["leaf_gap"], key=grads["leaf_gap"].get)
+    st = run["exchange"].get("ring_shift", {})
+    log(f"    rank {r['rank']} at (data, fsdp, seq) = {FSDP_RING_MESH}: "
+        f"losses {[round(x, 6) for x in run['losses']]} against (2, 1)'s "
+        f"{[round(x, 6) for x in dp_run['losses']]}, relative gap "
+        f"{gap:.3e} (limit {FSDP_LOSS_RTOL:.0e}); gradient gap "
+        f"||g - g_(2,1)|| / ||g_(2,1)|| {grads['gap']:.3e} (limit "
+        f"{GRAD_GAP_LIMIT:.0e}), worst leaf {worst} "
+        f"{grads['leaf_gap'][worst]:.3e}, missing {upd['missing']}; "
+        f"launches { {k: v for k, v in run['launches'].items() if v} }; "
+        f"peak memory {run['peak_bytes'] / 2**30:.2f} GiB (at (2, 1) "
+        f"{dp_run['peak_bytes'] / 2**30:.2f}); host s a step "
+        f"{[round(x, 3) for x in run['host_step_s']]} (at (2, 1) "
+        f"{[round(x, 3) for x in dp_run['host_step_s']]}); ring shifts "
+        f"{st.get('calls', 0)} calls {st.get('bytes', 0)} B "
+        f"{st.get('seconds', 0.0):.2f} s, exposed wait "
+        f"{st.get('wait_seconds', 0.0):.2f} s; the run {run['wall_s']:.1f} "
+        f"s with its build and checks; {card}")
+    if gap > FSDP_LOSS_RTOL:
+        fail(f"rank {r['rank']}: the ring run's losses {run['losses']} vs "
+             f"(2, 1)'s {dp_run['losses']}: gap {gap:.3e}")
+    if not grads["gap"] <= GRAD_GAP_LIMIT or upd["missing"]:
+        fail(f"rank {r['rank']}: the ring run's gradients against (2, 1)'s: "
+             f"gap {grads['gap']:.3e}, per leaf {grads['leaf_gap']}, "
+             f"missing {upd['missing']}")
+    return {"loss_gap": gap, "after_update": upd, "ring_shift": st}
 
 
 def fsdp_moe_part(run_local, ep_train, card):
@@ -7325,7 +7725,7 @@ def main():
     free_memory()
 
     log(f"phase 18, FSDP ((data x fsdp) meshes, all-gather and "
-        f"reduce-scatter; {card}):")
+        f"reduce-scatter) and the ring over (1, 1, 2); {card}):")
     report["fsdp"] = fsdp_phase(run_local, llama, report["ep_train"], card)
     free_memory()
 

@@ -535,8 +535,9 @@ class ElasticCheckpointManager:
         return self._arena
 
     def _mesh(self, sizes: Mapping[str, int]):
-        """The checkpoint's ranks as a 2-D CPU DeviceMesh over the
-        layout's axes (DCP reads a DTensor's place from it; it runs no
+        """The checkpoint's ranks as a CPU DeviceMesh over the layout's
+        axes, (data, fsdp) or (data, fsdp, seq) (DCP reads a DTensor's
+        place from it, a replica on every axis but its own; it runs no
         collective)."""
         from torch.distributed.device_mesh import DeviceMesh
 

@@ -10,9 +10,9 @@ sharded tensor, a box of the global index space; survivor ``t`` (the
 ``t``-th of the old ranks that stay) needs the box of its new block.
 Every piece where an old block meets a survivor's new box is moved
 once: from the survivor itself when it held that block (a copy, no
-wire), else from one of the block's holders (with ``data > 1`` an fsdp
-block has ``data`` replicas; the survivor's index picks among them, so
-the sends spread over the replicas). Each piece goes point-to-point
+wire), else from one of the block's holders (an fsdp block has ``data
+x seq`` replicas, every rank of its fsdp index; the survivor's index
+picks among them, so the sends spread over the replicas). Each piece goes point-to-point
 over the old group, so no rank ever holds a global leaf it does not
 keep, a leaving rank's snapshot holds nothing, and a change that keeps
 a survivor's blocks (``(2, 2) -> (1, 2)``) moves nothing. Replicated

@@ -31,14 +31,26 @@ sharded over the ranks (``rule_set="moe_ep"``); ``--moe_precision`` and
         --moe_experts 8 --moe_top_k 2 --moe_dispatch grouped_ep \
         --moe_precision fp8
 
+``--ring N`` runs long context: each row's tokens split over N seq
+ranks, ring attention over the "seq" axis (``MeshPlan(data=-1,
+fsdp=..., seq=N)``, fsdp 2 only when four ranks remain per ring
+position, as the reference's example picks it; the config names only
+``seq_axis``, so a change of world keeps it)::
+
+    # two ranks sharing one GPU, one ring of two
+    python -m dlrover_tpu_torch.trainer.run --nproc 2 -- \
+        -m dlrover_tpu_torch.examples.train_llama --preset tiny \
+        --ring 2 --device cuda:0 --backend gloo
+
 ``--ckpt_dir DIR`` checkpoints the run there (a forced save at the end)
-and resumes from the newest step DIR holds. ``--ring`` and ``--pipe``
-belong to later slices and are refused.
+and resumes from the newest step DIR holds. ``--pipe`` belongs to a
+later slice and is refused (ROADMAP A15).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import os
 
@@ -132,9 +144,10 @@ def main(argv=None, hooks=()):
                    help="process-group backend over several ranks "
                         "(default: nccl on the GPU, gloo on the CPU)")
     args = p.parse_args(argv)
-    for flag in ("ring", "pipe", "pipe_depths"):
+    for flag in ("pipe", "pipe_depths"):
         if getattr(args, flag):
-            p.error(f"--{flag} is not ported yet (see ROADMAP.md)")
+            p.error(f"--{flag} is not ported yet (ROADMAP A15)")
+    ring = max(1, args.ring)
 
     world, rank, joined, device = 1, 0, False, args.device
     if int(os.environ.get(NodeEnv.NUM_PROCESSES, "1")) > 1:
@@ -148,15 +161,20 @@ def main(argv=None, hooks=()):
     config, default_seq = preset_config(
         args.preset, args.layers, args.moe_experts,
         moe_top_k=args.moe_top_k, moe_dispatch=args.moe_dispatch)
+    if ring > 1:
+        # long context: only the axis name goes on the config; the mesh
+        # is the one each accelerate sets around its step
+        config = dataclasses.replace(config, seq_axis="seq")
     seq = args.seq or default_seq
     batches = synthetic_batches(config.vocab_size, args.batch, seq)
     if world > 1:
-        # fsdp once there are at least four ranks, data the rest, as the
-        # reference's example picks its mesh
-        strategy = Strategy(mesh=MeshPlan(data=-1,
-                                          fsdp=2 if world >= 4 else 1),
-                            rule_set="moe_ep" if ep else "llama",
-                            remat_policy="")
+        # fsdp once four ranks remain per ring position, data the rest,
+        # as the reference's example picks its mesh
+        strategy = Strategy(mesh=MeshPlan(
+            data=-1, fsdp=2 if world >= 4 * ring else 1, seq=ring),
+            rule_set="moe_ep" if ep else "llama", remat_policy="")
+    elif ring > 1:
+        p.error(f"--ring {ring} needs {ring} ranks or more")
     else:
         strategy = Strategy(mesh=single_device_plan(),
                             rule_set="moe" if args.moe_experts else "llama",

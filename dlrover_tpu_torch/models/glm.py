@@ -24,8 +24,17 @@ default of ``jax.nn.gelu``), untied head; params stored in
 ``param_dtype`` and cast to ``compute_dtype`` per layer; logits in the
 compute dtype, cast to f32.
 
-Not in this slice (they raise): sequence parallelism (A13) and
-pipelining (A15).
+Sequence parallelism (``seq_axis="seq"``, ROADMAP A13), in all three
+modes (causal, packed, prefix-LM): under an ambient mesh whose seq axis
+has size > 1 each rank holds a contiguous block of every row's tokens
+and attention goes round the seq group (``ops.ring_attention``); the 2D
+positions are taken over the global length and sliced, packed rows take
+the batch's global ``positions``, and the prefix ring's skips read the
+batch's host copy of ``prefix_len`` (``ops.ring_attention.PREFIX_HOST``,
+which ``parallel.accelerate``'s ``shard_batch`` keeps). With no such mesh
+``seq_axis`` changes nothing.
+
+Not in this slice (it raises): pipelining (A15).
 """
 
 from __future__ import annotations
@@ -44,7 +53,6 @@ from dlrover_tpu_torch.models.common import (
     keep_all,
     layer_norm,
     param_count as common_param_count,
-    segment_positions,
     tree_map,
 )
 from dlrover_tpu_torch.models.losses import masked_lm_loss
@@ -56,6 +64,16 @@ from dlrover_tpu_torch.ops.flash_attention import (
     segmented_attention,
 )
 from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.ops.ring_attention import (
+    PREFIX_HOST,
+    ambient_ring_mesh,
+    check_seq_split,
+    impl_from_flags,
+    ring_attention,
+    seq_group,
+    seq_positions,
+    seq_shard,
+)
 
 
 @dataclass(frozen=True)
@@ -75,7 +93,8 @@ class GLMConfig:
     # at fixed sizes (see ops.flash_attention)
     flash_block_q: int = 512
     flash_block_k: int = 1024
-    # a later slice: a non-default value raises in apply
+    # sequence parallelism: "seq" runs ring attention over the ambient
+    # mesh's seq axis (see the module docstring)
     seq_axis: Optional[str] = None
 
     @property
@@ -198,17 +217,21 @@ def prefix_lm_bias(seq_len: int, prefix_len: torch.Tensor,
 
 
 def _attention(x, layer, c: GLMConfig, bias, prefix_len=None,
-               segment_ids=None):
+               segment_ids=None, prefix_host=None):
     b, s, _ = x.shape
     h, hd = c.num_heads, c.head_dim
     q, k, v = ((x @ layer[n]["kernel"] + layer[n]["bias"]).view(b, s, h, hd)
                .transpose(1, 2) for n in ("q_proj", "k_proj", "v_proj"))
-    if c.seq_axis is not None:
-        raise NotImplementedError("sequence parallelism (ring attention) "
-                                  "is not ported yet (ROADMAP A13)")
+    ring_mesh = ambient_ring_mesh(c.seq_axis) if c.seq_axis else None
+    if ring_mesh is not None:
+        # long context: every mode decomposes over the ring; no bias
+        out = ring_attention(q, k, v, ring_mesh, axis_name=c.seq_axis,
+                             causal=True, impl=impl_from_flags(c.use_flash),
+                             segment_ids=segment_ids, prefix_len=prefix_len,
+                             prefix_host=prefix_host)
     # the reference's order: the segment mode first (the plain flash
     # branch below would match too, and drop the per-document mask)
-    if segment_ids is not None:
+    elif segment_ids is not None:
         out = segmented_attention(q, k, v, segment_ids, c.use_flash,
                                   block_q=c.flash_block_q,
                                   block_k=c.flash_block_k)
@@ -227,11 +250,13 @@ def _attention(x, layer, c: GLMConfig, bias, prefix_len=None,
     return out @ layer["o_proj"]["kernel"] + layer["o_proj"]["bias"]
 
 
-def _block(x, layer, c: GLMConfig, bias, prefix_len=None, segment_ids=None):
+def _block(x, layer, c: GLMConfig, bias, prefix_len=None, segment_ids=None,
+           prefix_host=None):
     layer = cast_floats(layer, c.compute_dtype)
     attn_in = layer_norm(x, layer["input_norm"]["scale"],
                          layer["input_norm"]["bias"], c.ln_eps)
-    x = x + _attention(attn_in, layer, c, bias, prefix_len, segment_ids)
+    x = x + _attention(attn_in, layer, c, bias, prefix_len, segment_ids,
+                       prefix_host)
     mlp_in = layer_norm(x, layer["post_norm"]["scale"],
                         layer["post_norm"]["bias"], c.ln_eps)
     up = mlp_in @ layer["up_proj"]["kernel"] + layer["up_proj"]["bias"]
@@ -243,29 +268,36 @@ def _block(x, layer, c: GLMConfig, bias, prefix_len=None, segment_ids=None):
 
 def apply(params: Dict, input_ids: torch.Tensor, config: GLMConfig,
           rng: Any = None, prefix_len: Optional[torch.Tensor] = None,
-          segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+          segment_ids: Optional[torch.Tensor] = None,
+          positions: Optional[torch.Tensor] = None,
+          prefix_host: Optional[Any] = None) -> torch.Tensor:
     """Logits [B, S, V] in f32. ``prefix_len`` [B]: prefix-LM mode (None
     is a causal LM); ``segment_ids`` [B, S]: packed documents, causal
     within each and positions restarting at each; the two exclude each
-    other. ``rng`` is accepted for the loss contract and unused."""
+    other. ``rng`` is accepted for the loss contract and unused. Under
+    the ring: ``positions``, the batch's global positions of packed
+    rows; ``prefix_host``, ``prefix_len`` on the host (the skips)."""
     del rng
     c = config
+    check_seq_split(c.seq_axis)
     b, s = input_ids.shape
     if prefix_len is not None and segment_ids is not None:
         raise ValueError("prefix_len and segment_ids are mutually "
                          "exclusive GLM modes")
     x = params["embed_tokens"]["embedding"][input_ids]
     bias = None
+    my, n = seq_shard(c.seq_axis) if c.seq_axis else (0, 1)
     if prefix_len is not None:
-        pos_ids, block_ids = glm_positions(s, prefix_len)
+        # over the global length, this rank's block of it
+        pos_ids, block_ids = (t[:, my * s:(my + 1) * s]
+                              for t in glm_positions(n * s, prefix_len))
         # the S x S bias only on the reference path: the flash path
-        # masks inside the kernels
-        if not c.use_flash:
+        # masks inside the kernels, the ring in its steps
+        if not c.use_flash and n == 1:
             bias = prefix_lm_bias(s, prefix_len, c.compute_dtype)
     else:
-        pos_ids = (segment_positions(segment_ids)
-                   if segment_ids is not None else
-                   torch.arange(s, device=x.device).expand(b, s))
+        pos_ids = seq_positions(b, s, c.seq_axis, x.device, segment_ids,
+                                positions)
         block_ids = torch.zeros((b, s), dtype=torch.long, device=x.device)
     x = (x + params["pos_embed"]["embedding"][pos_ids]
          + params["block_pos_embed"]["embedding"][block_ids])
@@ -275,7 +307,7 @@ def apply(params: Dict, input_ids: torch.Tensor, config: GLMConfig,
     per_layer = tree_map(lambda t: t.unbind(0), params["layers"])
     block = apply_remat(
         functools.partial(_block, c=c, bias=bias, prefix_len=prefix_len,
-                          segment_ids=segment_ids),
+                          segment_ids=segment_ids, prefix_host=prefix_host),
         c.remat_policy,
     )
     for i in range(c.num_layers):
@@ -303,8 +335,12 @@ def make_loss_fn(config: GLMConfig, z_loss_weight: float = 0.0):
     def loss_fn(params, batch, rng):
         logits = apply(params, batch["input_ids"], config, rng,
                        prefix_len=batch.get("prefix_len"),
-                       segment_ids=batch.get("segment_ids"))
-        return masked_lm_loss(logits, batch["labels"], z_loss_weight), {}
+                       segment_ids=batch.get("segment_ids"),
+                       positions=batch.get("positions"),
+                       prefix_host=batch.get(PREFIX_HOST))
+        # the whole rows' labelled tokens under the ring
+        return masked_lm_loss(logits, batch["labels"], z_loss_weight,
+                              seq_group(config.seq_axis)), {}
 
     return loss_fn
 

@@ -48,8 +48,22 @@ prefetch is the plain loop: the reference's gather is the identity
 without an ambient mesh, and since the port's compute order does not
 change, the loop is bit for bit the loop with the prefetch off.
 
-Not in this slice (they raise): sequence parallelism (A13) and
-pipelining (A15).
+Sequence parallelism (``seq_axis="seq"``, ROADMAP A13): under an
+ambient mesh whose seq axis has size > 1 (``parallel.accelerate``'s
+over several ranks) each rank holds a contiguous block of every row's
+tokens, runs every layer on it, and attention goes round the seq group
+(``ops.ring_attention``), packed rows with their ids riding the ring.
+RoPE positions are global: the block's start is added, and packed rows
+take the batch's ``positions`` (``shard_batch`` computes them over the
+whole rows, so a document that began on an earlier shard continues).
+The loss's denominator is the whole rows' (``models.losses``). With no
+such mesh ``seq_axis`` changes nothing. A mesh that splits the sequence
+under a config without ``seq_axis`` raises, as do MoE under
+``seq_axis`` (ROADMAP A13b: the load-balance loss's token means would
+have to be reduced over the seq group first) and ``prefill_sequence``
+under it (A16c: serving stays on one device).
+
+Not in this slice (it raises): pipelining (A15).
 """
 
 from __future__ import annotations
@@ -73,7 +87,6 @@ from dlrover_tpu_torch.models.common import (
     keep_all,
     param_count as common_param_count,
     rms_norm,
-    segment_positions,
     tree_map,
 )
 from dlrover_tpu_torch.models.losses import (
@@ -92,6 +105,14 @@ from dlrover_tpu_torch.ops.quantize import (
     quantize_block_scaled,
 )
 from dlrover_tpu_torch.ops.remat import apply_remat
+from dlrover_tpu_torch.ops.ring_attention import (
+    ambient_ring_mesh,
+    check_seq_split,
+    impl_from_flags,
+    ring_attention,
+    seq_group,
+    seq_positions,
+)
 from dlrover_tpu_torch.ops.shard_compat import fp8_wire_supported
 from dlrover_tpu_torch.serving.kv_cache import decode_kv, encode_kv
 
@@ -134,7 +155,8 @@ class LlamaConfig:
     # the dense FSDP wire: "bf16" | "fp8" | "fp8_qdq"; "" = the
     # Context's (read at each call, so a retune swaps it)
     fsdp_precision: str = ""
-    # a later slice: a true value raises in apply
+    # sequence parallelism: "seq" runs ring attention over the ambient
+    # mesh's seq axis (see the module docstring)
     seq_axis: Optional[str] = None
     # the FSDP layer prefetch: None = the Context's (read at each call)
     fsdp_prefetch: Any = None
@@ -183,9 +205,12 @@ def _moe_config(c: LlamaConfig) -> moe_ops.MoEConfig:
 def _check_supported(c: LlamaConfig) -> None:
     if c.num_experts > 0:
         moe_ops.check_dispatch(_moe_config(c))
-    if c.seq_axis:
-        raise NotImplementedError("sequence parallelism (ring attention) "
-                                  "is not ported yet (ROADMAP A13)")
+        if c.seq_axis:
+            raise NotImplementedError(
+                "MoE under sequence parallelism is not ported yet (ROADMAP "
+                "A13b): the load-balance loss would need its token means "
+                "reduced over the seq group")
+    check_seq_split(c.seq_axis)
 
 
 # -- init -------------------------------------------------------------------
@@ -344,7 +369,13 @@ def _attention_block(x, layer, config: LlamaConfig, positions,
     # [B, H, S, Dh]; kv heads are not repeated, the kernels read the
     # shared head of each query group
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    if segment_ids is not None:
+    ring_mesh = ambient_ring_mesh(c.seq_axis) if c.seq_axis else None
+    if ring_mesh is not None:
+        # long context: K/V round the seq group, the ids with them
+        out = ring_attention(q, k, v, ring_mesh, axis_name=c.seq_axis,
+                             causal=True, impl=impl_from_flags(c.use_flash),
+                             segment_ids=segment_ids)
+    elif segment_ids is not None:
         # packed documents: the per-document mask inside the kernels
         out = segmented_attention(
             q, k, v, segment_ids, c.use_flash, block_q=c.flash_block_q,
@@ -577,7 +608,8 @@ def _decoder_block(x, layer, config: LlamaConfig, positions, rng=None,
 def apply_hidden(params: Dict, input_ids: torch.Tensor,
                  config: LlamaConfig, rng: Any = None,
                  segment_ids: Optional[torch.Tensor] = None,
-                 with_moe_metrics: bool = False):
+                 with_moe_metrics: bool = False,
+                 positions: Optional[torch.Tensor] = None):
     """Returns (final hidden states [B, S, D] in the compute dtype,
     moe_aux_loss scalar summed over layers, zero for dense) — everything
     but the head. With ``with_moe_metrics`` a third element is returned:
@@ -585,7 +617,8 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
     ``rng`` (a ``torch.Generator``) reaches the router, which draws from
     it only under router jitter; the model sets none.
     ``segment_ids`` [B, S]: packed documents, with per-document attention
-    and RoPE positions restarting at each document.
+    and RoPE positions restarting at each document. ``positions`` [B,
+    S]: the RoPE positions, when the batch gives them (``seq_positions``).
 
     Under the FSDP layer prefetch (``resolve_fsdp_prefetch``) with a
     layer source under ``LAYER_KEY`` (``parallel.accelerate``'s, over
@@ -601,8 +634,8 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
                          "layer prefetch resolves off")
     x = params["embed_tokens"]["embedding"][input_ids].to(c.compute_dtype)
     b, s = input_ids.shape
-    positions = (segment_positions(segment_ids) if segment_ids is not None
-                 else torch.arange(s, device=x.device).expand(b, s))
+    positions = seq_positions(b, s, c.seq_axis, x.device, segment_ids,
+                              positions)
     layers = params["layers"]
     # the fp8 probe of the device the model runs on (the CPU's for the
     # meta device, where attribution counts the step)
@@ -651,12 +684,13 @@ def apply_hidden(params: Dict, input_ids: torch.Tensor,
 
 def apply(params: Dict, input_ids: torch.Tensor, config: LlamaConfig,
           rng: Any = None, segment_ids: Optional[torch.Tensor] = None,
-          with_moe_metrics: bool = False):
+          with_moe_metrics: bool = False,
+          positions: Optional[torch.Tensor] = None):
     """Returns (logits [B, S, V] in f32, moe_aux_loss scalar), plus the
     load-balance metrics dict when ``with_moe_metrics``."""
     c = config
     out = apply_hidden(params, input_ids, config, rng, segment_ids,
-                       with_moe_metrics)
+                       with_moe_metrics, positions)
     logits = out[0] @ params["lm_head"]["kernel"].to(c.compute_dtype)
     return (logits.float(),) + tuple(out[1:])
 
@@ -957,6 +991,10 @@ def prefill_sequence(params, cache, tokens, slot: int, config: LlamaConfig,
     states, and the first generated token, are bit for bit ``apply``'s.
     The head runs on the last row alone."""
     c = config
+    if c.seq_axis:
+        raise NotImplementedError("prefill_sequence under sequence "
+                                  "parallelism is not ported (ROADMAP A16c: "
+                                  "serving stays on one device)")
     p = tokens.shape[0]
     x = params["embed_tokens"]["embedding"][tokens][None].to(c.compute_dtype)
     positions = torch.arange(p, device=tokens.device).expand(1, p)
@@ -991,18 +1029,24 @@ def make_loss_fn(config: LlamaConfig, z_loss_weight: float = 0.0,
 
     def loss_fn(params, batch, rng):
         segment_ids = batch.get("segment_ids")
+        positions = batch.get("positions")
+        # the whole rows' labelled tokens under the ring
+        count_group = seq_group(config.seq_axis)
         if head_chunk > 0:
             out = apply_hidden(params, batch["input_ids"], config, rng,
                                segment_ids=segment_ids,
-                               with_moe_metrics=moe)
+                               with_moe_metrics=moe, positions=positions)
             loss = chunked_lm_head_loss(
                 out[0], params["lm_head"]["kernel"], batch["labels"],
                 chunk_size=head_chunk, z_loss_weight=z_loss_weight,
+                count_group=count_group,
             )
         else:
             out = apply(params, batch["input_ids"], config, rng,
-                        segment_ids=segment_ids, with_moe_metrics=moe)
-            loss = masked_lm_loss(out[0], batch["labels"], z_loss_weight)
+                        segment_ids=segment_ids, with_moe_metrics=moe,
+                        positions=positions)
+            loss = masked_lm_loss(out[0], batch["labels"], z_loss_weight,
+                                  count_group)
         if not moe:
             return loss, {}
         # the load-balance signals ride the step metrics

@@ -65,6 +65,16 @@ prefetch's owner exchanges) and runs uncounted; on
 the meta device it only reports, and returns an output of the right
 shape without calling the backend.
 
+The one-hop shift of ring attention (``ops.ring_attention``):
+``ring_shift`` rotates a tensor, or a tuple of tensors sent as one
+buffer, one rank forward around a group (rank i sends to i+1 and
+receives from i-1, over ``batch_isend_irecv``; ``neighbor_perm`` and
+``shifted_perm`` are the reference's permutation tables); it is
+differentiable, its backward the reverse shift. ``shift_async`` issues
+the same exchange and returns a ``Pending``, so the next shard's
+exchange is in flight while the current one is attended. Both count
+under "ring_shift" in ``STATS`` and report "collective-permute" bytes.
+
 Asynchronous forms (the FSDP layer prefetch, ``parallel.layer_prefetch``):
 ``broadcast_async``, ``reduce_async``, ``gather_shard_async`` and
 ``scatter_sum_async`` issue their exchange and return a ``Pending``
@@ -89,7 +99,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -570,3 +580,104 @@ def scatter_sum_async(x: torch.Tensor, dim: int, group=None) -> Pending:
 
     _count("reduce_scatter", t0, nbytes)
     return Pending("reduce_scatter", finish)
+
+
+# -- the one-hop shift (ring attention) ----------------------------------------
+
+
+def neighbor_perm(n: int) -> List[Tuple[int, int]]:
+    """The single-hop ring permutation (rank i -> i+1): what the K/V
+    rotation uses every step."""
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def shifted_perm(n: int, shift: int) -> List[Tuple[int, int]]:
+    """The distance-``shift`` permutation (rank i -> i+shift)."""
+    return [(i, (i + shift) % n) for i in range(n)]
+
+
+def _pack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes in one flat buffer, made on the current
+    stream."""
+    flat = [_as_bytes(x).reshape(-1) for x in xs]
+    return flat[0] if len(flat) == 1 else torch.cat(flat)
+
+
+def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]):
+    out, at = [], 0
+    for x in like:
+        n = x.numel() * x.element_size()
+        out.append(buf[at:at + n].view(x.dtype).view(x.shape))
+        at += n
+    return out
+
+
+def shift_async(xs, group=None, step: int = 1) -> Pending:
+    """Issue the rotation of ``xs`` (a tensor or a tuple of tensors,
+    sent as one buffer) ``step`` ranks forward around ``group``: rank i
+    sends to i+step and receives from i-step. ``wait()`` returns what
+    rank i-step sent, in ``xs``'s structure, on the caller's stream.
+    Every rank of the group issues its shifts in the same order. Counts
+    the bytes sent under "ring_shift"."""
+    single = isinstance(xs, torch.Tensor)
+    xs = (xs,) if single else tuple(xs)
+    nbytes = sum(x.numel() * x.element_size() for x in xs)
+    prof.report_exchange("collective-permute", nbytes)
+
+    def result(parts):
+        return parts[0] if single else tuple(parts)
+
+    if any(x.device.type == "meta" for x in xs):
+        return _done("ring_shift", nbytes,
+                     result([torch.empty_like(x) for x in xs]))
+    t0 = time.perf_counter()
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    with prof.uncounted():
+        flat = _pack(xs)
+        staged = through_host(flat, group)
+        # on gloo the copy out waits for the current stream's work, so
+        # the packed buffer (made there) is whole when it leaves
+        src = _stage_out(flat) if staged else flat
+        out = (_host_buffer(src.shape, torch.uint8) if staged
+               else torch.empty_like(src))
+        perm = shifted_perm(size, step)
+        to = perm[me][1]
+        frm = next(src for src, dst in perm if dst == me)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, _global_rank(group, to), group),
+            dist.P2POp(dist.irecv, out, _global_rank(group, frm), group)])
+
+    def finish(sent=src):
+        # ``sent``: the send buffer lives until its exchange is done
+        for work in works:
+            work.wait()
+        buf = _stage_in(out, xs[0].device) if staged else out
+        return result(_unpack(buf, xs))
+
+    _count("ring_shift", t0, nbytes)
+    STATS["ring_shift"].setdefault("wait_seconds", 0.0)
+    return Pending("ring_shift", finish)
+
+
+def shift(xs, group=None, step: int = 1):
+    """``shift_async(xs, group, step).wait()``, outside autograd."""
+    return shift_async(xs, group, step).wait()
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step: int):
+        ctx.group, ctx.step = group, step
+        return shift(x, group, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the cotangent goes back where the value came from
+        return shift(g.contiguous(), ctx.group, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, group=None, step: int = 1) -> torch.Tensor:
+    """Differentiable rotation of ``x`` one rank forward (``step``
+    ranks) around ``group``; the backward is the reverse shift."""
+    return _Shift.apply(x, group, step)

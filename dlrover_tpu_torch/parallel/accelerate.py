@@ -11,7 +11,7 @@ then divides by their count, as the reference's scan does.
 
 Several ranks (``torch.distributed`` initialised, e.g. by
 ``trainer.bootstrap.init_worker``): the strategy's mesh is built over
-them (``MeshPlan.build``, a ``(data x fsdp)`` mesh) and set as the
+them (``MeshPlan.build``, a ``(data x fsdp x seq)`` mesh) and set as the
 ambient mesh around every step, where the MoE finds its expert group.
 Every leaf is placed by the strategy's rule table
 (``parallel.sharding_rules``): a leaf whose spec names an axis of size
@@ -33,6 +33,19 @@ is divided by the rank count. Each rank takes its block over ("data",
 is the mean over its own rows; the reported loss is the mean of the
 ranks' (the global mean when every rank has as many labelled tokens),
 and the gradient norm and finite check are global.
+
+Sequence parallelism (a mesh with seq > 1, ROADMAP A13; the model runs
+ring attention, ``seq_axis="seq"``): the seq ranks of a row block hold
+the same rows and split each row's tokens, seq rank i the contiguous
+block ``[i S/n, (i+1) S/n)`` of every ``[B, S]`` key (the labels are
+the next tokens already, so a block's last label is the next block's
+first token). No leaf is split on seq, so a leaf's gradient is summed
+over the seq ranks as well as over its other axes, and divided by the
+number of row blocks (data x fsdp), not by the world. A rank's loss is
+its tokens' sum over the whole rows' labelled tokens (``models.
+losses``), so the seq ranks' losses sum to the rows' loss: the reported
+loss is the sum over (data, fsdp, seq) over the row blocks. With seq =
+1 every figure is the (data x fsdp) step's.
 
 ``steps_per_call = K > 1`` also builds ``train_step_multi``: K optimizer
 steps in one call over K stacked batches, each the single step's own
@@ -91,7 +104,11 @@ import torch.distributed as dist
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import get_logger
-from dlrover_tpu_torch.models.common import tree_leaves, tree_map
+from dlrover_tpu_torch.models.common import (
+    segment_positions,
+    tree_leaves,
+    tree_map,
+)
 from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.ops import ring
 from dlrover_tpu_torch.ops.quantize import (
@@ -103,6 +120,7 @@ from dlrover_tpu_torch.ops.quantize import (
     resolve_quant_block,
 )
 from dlrover_tpu_torch.ops.remat import apply_remat, remat_enabled
+from dlrover_tpu_torch.ops.ring_attention import PREFIX_HOST
 from dlrover_tpu_torch.ops.shard_compat import (
     ambient_mesh,
     fp8_wire_supported,
@@ -111,9 +129,11 @@ from dlrover_tpu_torch.parallel import layer_prefetch
 from dlrover_tpu_torch.parallel.mesh import ProcessMesh
 from dlrover_tpu_torch.parallel.sharding_rules import (
     BATCH_AXES,
+    STEP_AXES,
     ShardingRules,
     ShardLayout,
     batch_sharding,
+    step_sizes,
     tree_specs,
 )
 from dlrover_tpu_torch.parallel.strategy import Strategy, block_consumed
@@ -182,54 +202,98 @@ class AccelerateResult:
         return tree_specs(self.strategy.rules(), self.mesh,
                           self.layout.shapes)
 
+    @property
+    def seq(self) -> int:
+        """The seq ranks each row's tokens are split over."""
+        return self.mesh.sizes.get("seq", 1)
+
     def shard_batch(self, batch: Dict, stacked: bool = False) -> Dict:
         """A host batch (numpy arrays or tensors) -> this rank's rows,
         as tensors on the device. The batch holds either the global
-        rows or this process's own rows (``global_batch_size // world``:
-        the reference's ``put_global_batch``, where process p's rows are
-        global rows [p R/P, (p+1) R/P)); any other row count raises. Of
-        the global rows the rank takes its block over ("data", "fsdp")
-        (``batch_sharding``) of each microbatch: the reference cuts the
-        GLOBAL batch into ``grad_accum_steps`` microbatches, each split
-        over the devices, so rank r's microbatch i is its block of
-        global rows [i R/A, (i+1) R/A) (with one microbatch, its
-        contiguous block of the batch: its process's rows). With
-        several microbatches those blocks lie in other processes' rows,
-        so process-local rows are first all-gathered over the batch's
-        group into the global batch (``ring.gather_shard``, one exchange
-        of the rows). ``stacked``: the batch has a leading K axis
-        (``train_step_multi``'s input), and the rows are axis 1. A
-        ``PlacedBatch`` this result placed passes through."""
+        rows or this process's own rows (``global_batch_size`` over the
+        row blocks, data x fsdp: the reference's ``put_global_batch``,
+        where process p's rows are global rows [p R/P, (p+1) R/P)); any
+        other row count raises. Of the global rows the rank takes its
+        block over ("data", "fsdp") (``batch_sharding``) of each
+        microbatch: the reference cuts the GLOBAL batch into
+        ``grad_accum_steps`` microbatches, each split over the devices,
+        so rank r's microbatch i is its block of global rows [i R/A,
+        (i+1) R/A) (with one microbatch, its contiguous block of the
+        batch: its process's rows). With several microbatches those
+        blocks lie in other processes' rows, so process-local rows are
+        first all-gathered over the batch's group into the global batch
+        (``ring.gather_shard``, one exchange of the rows). ``stacked``:
+        the batch has a leading K axis (``train_step_multi``'s input),
+        and the rows are axis 1. A ``PlacedBatch`` this result placed
+        passes through. Over seq ranks, see ``_seq_block``."""
         if (isinstance(batch, PlacedBatch) and batch.placed_by is self
                 and batch.stacked == stacked):
             return dict(batch)
         axis = 1 if stacked else 0
         rows = _rows(batch, axis)
         total = self.strategy.global_batch_size or rows
-        per = total // self.world
+        row_ranks = self.world // self.seq
+        per = total // row_ranks
         accum = max(1, self.strategy.grad_accum_steps)
         if rows not in (total, per):
             raise ValueError(
                 f"shard_batch takes the global batch ({total} rows) or "
-                f"this process's rows ({per} = {total} over {self.world} "
-                f"ranks), got {rows}")
+                f"this process's rows ({per} = {total} over {row_ranks} "
+                f"row blocks), got {rows}")
         tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
         if rows != total:
             if accum == 1:
-                return {k: t.to(self.device, non_blocking=True)
-                        for k, t in tensors.items()}
+                return self._placed(self._seq_block(tensors, axis))
             group = self.mesh.group(batch_sharding()[0])
             tensors = {k: ring.gather_shard(t.to(self.device), axis, group)
                        for k, t in tensors.items()}
         mb, part = total // accum, per // accum
-        starts = [i * mb + self.rank * part for i in range(accum)]
+        block = self.rank // self.seq
+        starts = [i * mb + block * part for i in range(accum)]
 
         def take(t):
             pieces = [t.narrow(axis, lo, part) for lo in starts]
-            t = pieces[0] if len(pieces) == 1 else torch.cat(pieces, axis)
-            return t.to(self.device, non_blocking=True)
+            return pieces[0] if len(pieces) == 1 else torch.cat(pieces, axis)
 
-        return {k: take(t) for k, t in tensors.items()}
+        return self._placed(self._seq_block(
+            {k: take(t) for k, t in tensors.items()}, axis))
+
+    def _placed(self, tensors: Dict) -> Dict:
+        """Each tensor on the device but the host copy of the prompt
+        lengths."""
+        return {k: t if k == PREFIX_HOST else
+                t.to(self.device, non_blocking=True)
+                for k, t in tensors.items()}
+
+    def _seq_block(self, tensors: Dict, axis: int) -> Dict:
+        """This rank's block of each row's tokens (none without seq
+        ranks): seq rank i takes ``[i S/n, (i+1) S/n)`` of every key
+        whose dim after the rows has ``input_ids``' length S. Packed
+        rows (``segment_ids``) gain ``positions``, each token's position
+        in its document over the whole row (a document may begin on an
+        earlier rank); ``prefix_len`` stays per row, with a host copy
+        under ``PREFIX_HOST`` (the prefix ring's skips)."""
+        n = self.seq
+        if n == 1:
+            return tensors
+        s = tensors["input_ids"].shape[axis + 1]
+        if s % n:
+            raise ValueError(f"{n} seq ranks do not split rows of {s} "
+                             f"tokens")
+        local = s // n
+        lo = (self.rank % n) * local
+        if "segment_ids" in tensors and "positions" not in tensors:
+            ids = tensors["segment_ids"]
+            tensors = {**tensors, "positions": segment_positions(
+                ids.reshape(-1, s)).reshape(ids.shape)}
+        out = {k: (t.narrow(axis + 1, lo, local)
+                   if t.dim() > axis + 1 and t.shape[axis + 1] == s else t)
+               for k, t in tensors.items()}
+        if "prefix_len" in tensors:
+            lens = tensors["prefix_len"]
+            # the meta device's count has no values to copy
+            out[PREFIX_HOST] = lens if lens.is_meta else lens.cpu()
+        return out
 
 
 def _rows(batch: Dict, axis: int = 0) -> int:
@@ -320,21 +384,25 @@ def accelerate(
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     mesh = strategy.mesh.build(world)
-    group = mesh.group(("data", "fsdp"))
+    # every rank: the losses and the replicated leaves' gradients
+    group = mesh.group(STEP_AXES)
+    # the row blocks (data x fsdp): what a gradient and a loss divide by
+    row_ranks = world // mesh.sizes.get("seq", 1)
     batch_rows = _rows(example_batch)
     if strategy.global_batch_size and strategy.global_batch_size != batch_rows:
         raise ValueError(
             f"strategy.global_batch_size={strategy.global_batch_size} but "
             f"the example batch has {batch_rows} rows"
         )
-    if batch_rows % world:
-        raise ValueError(f"{world} ranks do not split the global batch of "
-                         f"{batch_rows} rows")
+    if batch_rows % row_ranks:
+        raise ValueError(f"{row_ranks} row blocks do not split the global "
+                         f"batch of {batch_rows} rows")
     accum = max(1, strategy.grad_accum_steps)
-    if (batch_rows // world) % accum:
+    if (batch_rows // row_ranks) % accum:
         raise ValueError(
             f"grad_accum_steps={accum} does not divide the "
-            f"{batch_rows // world} rows of each of {world} ranks"
+            f"{batch_rows // row_ranks} rows of each of {row_ranks} row "
+            f"blocks"
         )
     strategy = dataclasses.replace(strategy, global_batch_size=batch_rows)
     fsdp_wire = getattr(loss_fn, "fsdp_wire", None)
@@ -346,7 +414,7 @@ def accelerate(
     gather = {path: mesh.group(shard.axes)
               for path, shard in layout.leaves.items()
               if not block_consumed(rule_set, path)}
-    rest = {path: mesh.group(tuple(a for a in BATCH_AXES
+    rest = {path: mesh.group(tuple(a for a in STEP_AXES
                                    if a not in shard.axes))
             for path, shard in layout.leaves.items()}
     # the gathered leaves the model's FSDP wire may quantize, and the
@@ -534,15 +602,15 @@ def accelerate(
 
     def reduce_grads(named) -> None:
         """The global gradient on every rank: a replicated leaf's summed
-        over every rank, a block's over the axes it is not split on,
-        each divided by the rank count."""
+        over every rank, a block's over the axes it is not split on
+        (seq included), each divided by the row blocks' count."""
         for path, p in named:
             shard = layout.leaves.get(path)
             if shard is None:
                 ring.all_reduce_(p.grad, group)
             elif rest[path] is not None:
                 ring.all_reduce_(p.grad, rest[path])
-            p.grad.div_(world)
+            p.grad.div_(row_ranks)
 
     def grad_norm_of(named) -> torch.Tensor:
         """The global gradient norm: a block's squares summed over the
@@ -563,8 +631,9 @@ def accelerate(
                 shard_sq[shard.axes] = shard_sq.get(
                     shard.axes, torch.zeros((), device=device)) + sq
         for axes in sorted(shard_sq):
-            total = total + ring.all_reduce_(shard_sq[axes],
-                                             mesh.group(axes))
+            axes_group = mesh.group(axes)
+            total = total + (shard_sq[axes] if axes_group is None else
+                             ring.all_reduce_(shard_sq[axes], axes_group))
         return torch.sqrt(total)
 
     def train_step(state: TrainState, batch: Dict, step_rng=None):
@@ -657,7 +726,7 @@ def accelerate(
         del params, seen
         if world > 1:
             reduce_grads(named)
-            loss = ring.all_reduce_(loss.clone(), group) / world
+            loss = ring.all_reduce_(loss.clone(), group) / row_ranks
         return loss, aux
 
     def train_step_multi(state: TrainState, batches: Dict, step_rng=None):
@@ -688,7 +757,7 @@ def accelerate(
             if source is not None:
                 source.finish()
             if world > 1:
-                loss = ring.all_reduce_(loss.clone(), group) / world
+                loss = ring.all_reduce_(loss.clone(), group) / row_ranks
         return {"loss": loss, **aux}
 
     if rank == 0:
@@ -711,13 +780,14 @@ def accelerate(
 def _layout(init_fn: Callable, rules: ShardingRules, rule_set: str,
             mesh: ProcessMesh) -> ShardLayout:
     """Where every leaf of ``init_fn``'s tree lives on ``mesh``'s
-    ``(data x fsdp)`` axes: the tree's shapes from an init on the meta
-    device (nothing drawn), made global where the init draws this
-    rank's block (``block_consumed``), placed by ``rules``. On one rank
-    every leaf is whole, and no shape is read."""
+    ``(data x fsdp)`` axes, and "seq" (``step_sizes``): the tree's
+    shapes from an init on the meta device (nothing drawn), made global
+    where the init draws this rank's block (``block_consumed``), placed
+    by ``rules``. On one rank every leaf is whole, and no shape is
+    read."""
     from dlrover_tpu_torch.utils.meta_init import abstract_init
 
-    sizes = {a: mesh.sizes.get(a, 1) for a in BATCH_AXES}
+    sizes = step_sizes(mesh.sizes)
     if math.prod(sizes.values()) == 1:
         return ShardLayout(sizes)
     shapes = {}

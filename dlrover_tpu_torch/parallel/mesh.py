@@ -6,12 +6,15 @@ groups of its axes over the ranks of ``torch.distributed``, where the
 reference builds a ``jax.sharding.Mesh`` over devices. The ranks are
 laid out as the reference lays out devices
 (``np.arange(world).reshape(shape)``, axes outer -> inner), so on a
-``(data x fsdp)`` mesh rank ``r`` sits at ``data = r // fsdp``, ``fsdp =
-r % fsdp``. The "fsdp" group of a rank holds the ranks of its data index
-(``fsdp`` consecutive ranks), its "data" group the ranks of its fsdp
-index (a stride of ``fsdp``), and the group over both axes is the world.
-Those groups are made once per world and reused by every later build.
-The pipe, seq and tensor axes raise (ROADMAP A15, A13).
+``(data x fsdp x seq)`` mesh rank ``r`` sits at ``seq = r % seq``,
+``fsdp = (r // seq) % fsdp``, ``data = r // (fsdp seq)``: the seq group
+of a rank holds ``seq`` consecutive ranks. For every set of the axes of
+size > 1 a rank is in one group over it: the ranks that share its
+indices on the other axes (on a ``(data x fsdp)`` mesh the "fsdp" group
+holds the ranks of its data index, the "data" group those of its fsdp
+index, and the group over both is the world). Those groups are made
+once per world and factorization and reused by every later build. The
+pipe and tensor axes raise (ROADMAP A15).
 
 Axis convention (outer -> inner): "pipe", "data", "fsdp", "seq",
 "tensor".
@@ -19,6 +22,7 @@ Axis convention (outer -> inner): "pipe", "data", "fsdp", "seq",
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -95,52 +99,74 @@ class MeshPlan:
         if world is None:
             world = dist.get_world_size() if dist.is_initialized() else 1
         plan = self.resolve(world)
-        for axis, item in (("pipe", "A15"), ("seq", "A13"),
-                           ("tensor", "A15")):
+        for axis in ("pipe", "tensor"):
             if getattr(plan, axis) > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {getattr(plan, axis)} is "
-                    f"not ported yet (ROADMAP {item})")
+                    f"not ported yet (ROADMAP A15)")
         sizes = plan.axis_sizes()
         groups = {}
         rank = 0
         if world > 1 and dist.is_initialized():
             rank = dist.get_rank()
-            big = tuple(a for a in ("data", "fsdp") if sizes[a] > 1)
+            big = tuple(a for a in GROUP_AXES if sizes[a] > 1)
             groups[big] = dist.group.WORLD
-            if len(big) == 2:
-                groups.update(_axis_groups(plan.data, plan.fsdp, rank))
+            if len(big) > 1:
+                groups.update(_axis_groups(
+                    tuple((a, sizes[a]) for a in big), rank))
         return ProcessMesh(axis_names=MESH_AXES,
                            axis_sizes=tuple(sizes[a] for a in MESH_AXES),
                            groups=groups, rank=rank)
 
 
-# the "fsdp" and "data" groups of every (data x fsdp) mesh built over
-# the current world process group, by (data, fsdp); a new world (after
-# ``destroy_process_group``) drops them
+# the axes a step's process groups span (pipe and tensor are A15)
+GROUP_AXES = ("data", "fsdp", "seq")
+
+# each rank's groups of every mesh built over the current world process
+# group, by the factorization (its axes of size > 1 and their sizes); a
+# new world (after ``destroy_process_group``) drops them
 _GROUP_CACHE: Dict = {}
 
 
-def _axis_groups(d: int, f: int, rank: int) -> Dict[Tuple[str, ...], object]:
-    """This rank's "fsdp" and "data" groups of a (d x f) mesh. Every
-    rank makes every group, in the same order, once per world: later
-    builds (a retune, a rebuilt step) reuse them, since a NCCL group
-    holds a communicator and its device buffers."""
+def _axis_groups(big: Tuple[Tuple[str, int], ...], rank: int
+                 ) -> Dict[Tuple[str, ...], object]:
+    """This rank's group over each proper subset of the axes ``big``
+    ((axis, size) pairs of size > 1, outer -> inner): the ranks that
+    share its indices on the other axes. Every rank makes every group,
+    in the same order, once per world and factorization: later builds
+    (a retune, a rebuilt step) reuse them, since a NCCL group holds a
+    communicator and its device buffers."""
     world = dist.group.WORLD
     if _GROUP_CACHE.get("world") is not world:
         _GROUP_CACHE.clear()
         _GROUP_CACHE["world"] = world
-    if (d, f) not in _GROUP_CACHE:
+    if big not in _GROUP_CACHE:
+        names = [a for a, _ in big]
+        shape = [n for _, n in big]
+        coords = list(itertools.product(*(range(n) for n in shape)))
+
+        def flat(c):
+            r = 0
+            for i, n in zip(c, shape):
+                r = r * n + i
+            return r
+
         mine = {}
-        for axis, members in (
-                [("fsdp", [i * f + j for j in range(f)]) for i in range(d)]
-                + [("data", [i * f + j for i in range(d)])
-                   for j in range(f)]):
-            group = dist.new_group(members)
-            if rank in members:
-                mine[(axis,)] = group
-        _GROUP_CACHE[(d, f)] = mine
-    return _GROUP_CACHE[(d, f)]
+        for k in range(1, len(big)):
+            for axes in itertools.combinations(range(len(big)), k):
+                others = [i for i in range(len(big)) if i not in axes]
+                # one group for each index on the other axes, its
+                # members in rank order
+                parts: Dict[Tuple[int, ...], List[int]] = {}
+                for c in coords:
+                    parts.setdefault(tuple(c[i] for i in others),
+                                     []).append(flat(c))
+                for members in parts.values():
+                    group = dist.new_group(members)
+                    if rank in members:
+                        mine[tuple(names[i] for i in axes)] = group
+        _GROUP_CACHE[big] = mine
+    return _GROUP_CACHE[big]
 
 
 @dataclass

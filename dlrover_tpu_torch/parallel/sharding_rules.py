@@ -17,9 +17,11 @@ does not divide the dim, replicates that dim.
 
 Where the reference hands the specs to XLA, the port places each leaf by
 them itself (``ShardLayout``, ``parallel.accelerate``): a rank holds its
-block of every leaf whose spec names an axis of size > 1. With the pipe,
-seq and tensor axes refused (``parallel.mesh``), at most one dim of a
-leaf is sharded, over "fsdp" or over ("data", "fsdp").
+block of every leaf whose spec names an axis of size > 1. With the pipe
+and tensor axes refused (``parallel.mesh``), at most one dim of a leaf
+is sharded, over "fsdp" or over ("data", "fsdp"); no rule names "seq",
+so every leaf is replicated over the seq ranks, which split each row's
+tokens instead (``STEP_AXES``).
 
 The ``_pp`` tables and those of BERT, CLIP and GPT-2 come with their
 models (ROADMAP A15, A17).
@@ -36,6 +38,9 @@ FSDP_AUTO = "FSDP_AUTO"
 REPLICATED = "REPLICATED"
 # the data-parallel axes a batch's rows are split over, outer first
 BATCH_AXES = ("data", "fsdp")
+# the axes of a step: the rows' and the sequence's (each row's tokens
+# split over "seq", innermost); gradients and losses reduce over them
+STEP_AXES = BATCH_AXES + ("seq",)
 
 SpecLike = Union[str, Tuple, None]
 Rule = Tuple[str, SpecLike]
@@ -140,6 +145,16 @@ def tree_specs(rules: ShardingRules, mesh, tree) -> Dict[str, Tuple]:
             for path, shape in _named_shapes(tree)}
 
 
+def step_sizes(sizes: Mapping[str, int]) -> Dict[str, int]:
+    """The axis sizes a step's layout spans, outer -> inner: "data" and
+    "fsdp", and "seq" where it splits the rows' tokens (size > 1; a
+    (data x fsdp) layout is as it was)."""
+    out = {a: max(1, sizes.get(a, 1)) for a in BATCH_AXES}
+    if sizes.get("seq", 1) > 1:
+        out["seq"] = sizes["seq"]
+    return out
+
+
 def batch_sharding(mesh=None) -> Tuple:
     """The spec of an input batch: its leading (row) dim split over the
     data-parallel axes (``PartitionSpec(("data", "fsdp"))``)."""
@@ -184,8 +199,9 @@ def leaf_shard(spec: Tuple) -> Optional[LeafShard]:
 
 @dataclass
 class ShardLayout:
-    """Where every leaf of a state lives on a ``(data x fsdp)`` mesh:
-    the axis sizes (outer -> inner), the global shape of each parameter
+    """Where every leaf of a state lives on a ``(data x fsdp)`` mesh,
+    or ``(data x fsdp x seq)`` (``step_sizes``): the axis sizes (outer
+    -> inner), the global shape of each parameter
     path and the ``LeafShard`` of each sharded one (absent: replicated).
     An optimizer slot of a parameter's rank is placed as the parameter;
     a scalar slot (AdamW's ``step``) is replicated."""

@@ -81,7 +81,7 @@ from dlrover_tpu_torch.parallel.mesh import (
     mesh_axes_key,
     topology_key,
 )
-from dlrover_tpu_torch.parallel.sharding_rules import BATCH_AXES, ShardLayout
+from dlrover_tpu_torch.parallel.sharding_rules import ShardLayout, step_sizes
 from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.telemetry import (
     EventKind,
@@ -415,9 +415,8 @@ class ElasticTrainer:
         if layout is None:
             return None
         strategy = self._resolved_strategy(world)
-        sizes = strategy.mesh.axis_sizes()
         return ShardLayout.build(strategy.rules(),
-                                 {a: sizes[a] for a in BATCH_AXES},
+                                 step_sizes(strategy.mesh.axis_sizes()),
                                  layout.shapes)
 
     @staticmethod
@@ -637,11 +636,11 @@ class ElasticTrainer:
 
     def _set_knobs(self, steps_per_call, mesh, dispatch_chunks,
                    moe_precision, fsdp_precision) -> None:
-        if mesh is not None and max(mesh.pipe, mesh.seq, mesh.tensor) > 1:
+        if mesh is not None and max(mesh.pipe, mesh.tensor) > 1:
             raise NotImplementedError(
-                f"mesh {mesh.axis_sizes()}: only (data x fsdp) "
-                f"factorizations are ported; the pipe, seq and tensor axes "
-                f"are not (ROADMAP A15, A13)")
+                f"mesh {mesh.axis_sizes()}: only (data x fsdp x seq) "
+                f"factorizations are ported; the pipe and tensor axes are "
+                f"not (ROADMAP A15)")
         if steps_per_call is not None:
             self.steps_per_call = max(1, int(steps_per_call))
         if mesh is not None:

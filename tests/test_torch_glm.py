@@ -287,10 +287,25 @@ class TestTrajectory:
 
 class TestRefusals:
     def test_sequence_parallelism_raises(self):
-        cfg = glm.glm_tiny(seq_axis="seq")
+        """Ring attention is ported (A13, tests/test_torch_seq.py): with
+        no seq mesh around, ``seq_axis`` is the plain model bit for bit
+        (the flash path, prefix-LM and causal); a mesh that splits the
+        rows' tokens under a config without ``seq_axis`` raises."""
+        from dlrover_tpu_torch.ops.shard_compat import ambient_mesh
+        from dlrover_tpu_torch.parallel.mesh import ProcessMesh
+
+        cfg = glm.glm_tiny(use_flash=True)
         params = glm.init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="A13"):
-            glm.apply(params, torch.zeros(1, 8, dtype=torch.long), cfg)
+        ids = torch.randint(0, 256, (2, 8),
+                            generator=torch.Generator().manual_seed(1))
+        for prefix in (torch.tensor([3, 0], dtype=torch.int32), None):
+            a = glm.apply(params, ids, cfg, prefix_len=prefix)
+            b = glm.apply(params, ids, dataclasses.replace(
+                cfg, seq_axis="seq"), prefix_len=prefix)
+            assert torch.equal(a, b)
+        with ambient_mesh(ProcessMesh(("data", "seq"), (1, 2))), \
+                pytest.raises(ValueError, match="seq_axis"):
+            glm.apply(params, ids, cfg)
 
     def test_pipelining_raises(self):
         with pytest.raises(NotImplementedError, match="A15"):

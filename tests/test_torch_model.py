@@ -261,10 +261,13 @@ class TestRemat:
 
 class TestLaterSlicesRaise:
     @pytest.mark.parametrize("override,item", [
-        # grouped_ep, the fp8 FSDP wire and the layer prefetch run
-        # (tests/test_torch_ep.py, tests/test_torch_fsdp_wire.py,
-        # tests/test_torch_fsdp_prefetch.py)
-        ({"seq_axis": "seq"}, "A13"),
+        # grouped_ep, the fp8 FSDP wire, the layer prefetch and ring
+        # attention run (tests/test_torch_ep.py,
+        # tests/test_torch_fsdp_wire.py, tests/test_torch_fsdp_prefetch.py,
+        # tests/test_torch_seq.py); MoE under sequence parallelism does
+        # not
+        ({"seq_axis": "seq", "num_experts": 4, "moe_dispatch": "grouped"},
+         "A13b"),
     ])
     def test_config_options(self, override, item):
         cfg = dataclasses.replace(llama.llama_tiny(), **override)

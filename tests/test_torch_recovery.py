@@ -253,8 +253,11 @@ class TestProgramCache:
         state = trainer.prepare()
         with pytest.raises(NotImplementedError, match="A15"):
             trainer.retune(state, mesh=MeshPlan(data=-1, tensor=2))
-        with pytest.raises(NotImplementedError, match="A13"):
+        # the seq axis is ported (A13): one rank cannot hold two seq
+        # ranks, which the mesh's own arithmetic says, and the knobs stay
+        with pytest.raises(ValueError, match="not divisible by fixed axes"):
             trainer.prewarm(mesh=MeshPlan(data=-1, seq=2))
+        assert trainer._mesh_override is None
         # a world that does not exist yet has no group to build over
         with pytest.raises(ValueError, match="re-form the world first"):
             trainer.prewarm(devices=[0, 1])

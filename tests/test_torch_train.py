@@ -568,8 +568,11 @@ class TestExample:
         assert out["step"] == 3
 
     def test_refuses_later_slices(self):
-        with pytest.raises(SystemExit):
-            example.main(["--ring", "2", "--device", "cpu"])
+        # pipelining (A15); a ring needs as many ranks as its size (the
+        # ring itself runs in tests/test_torch_seq.py)
+        for argv in (["--pipe", "2"], ["--ring", "2"]):
+            with pytest.raises(SystemExit):
+                example.main(argv + ["--device", "cpu"])
 
     def test_same_tokens_as_the_jax_example(self):
         ours = example.synthetic_batches(256, 2, 8, seed=3)()
